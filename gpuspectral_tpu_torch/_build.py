@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+nvcc compiles every source under csrc/ into one shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers: a build takes seconds,
+not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -Xptxas -v -shared -Xcompiler -fPIC -o libgst_kernels.so csrc/*.cu
+
+--fmad=false keeps every multiply and add separately rounded, as PyTorch's
+elementwise kernels are, so the kernels can be held to their plain torch
+versions bit for bit where the arithmetic is the same; no --use_fast_math.
+
+The build runs at first use, into build/kernels/<hash of the sources and
+flags>/ beside the package (GST_KERNEL_BUILD_DIR overrides the parent), so
+an unchanged tree reuses it.  `build_info()` reports the build seconds and
+ptxas's register and spill lines per kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib = None
+_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_SIGNATURES = {
+    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
+    "gst_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
+    "gst_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
+    "gst_mega": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _U, _F, _F, _F, _F, _P, _P, _P, _P, _P],
+}
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels need the CUDA toolkit")
+
+
+def _build_dir() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    root = os.environ.get("GST_KERNEL_BUILD_DIR") or str(_PKG.parent / "build" / "kernels")
+    return pathlib.Path(root) / h.hexdigest()[:16]
+
+
+def _ptxas_summary(log: str) -> dict:
+    """{kernel: "N registers, M bytes spill stores, K bytes spill loads"}."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "'" in line else line
+        elif current and "bytes spill stores" in line:
+            out[current] = line.split(":", 1)[-1].strip()
+        elif current and "Used" in line and "registers" in line:
+            out[current] = (out.get(current, "") + "; " + line.split(":", 1)[-1].strip()).strip("; ")
+    return out
+
+
+def load():
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    out_dir = _build_dir()
+    so = out_dir / "libgst_kernels.so"
+    log_path = out_dir / "ptxas.log"
+    built_now = False
+    t0 = time.time()
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libgst_kernels.{os.getpid()}.so"
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sorted(_CSRC.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(_CSRC))
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        log_path.write_text(proc.stderr)
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+        built_now = True
+    lib = ctypes.CDLL(str(so))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    log = log_path.read_text() if log_path.exists() else ""
+    _info.update(
+        path=str(so),
+        built_now=built_now,
+        seconds=time.time() - t0,
+        ptxas=_ptxas_summary(log),
+    )
+    _lib = lib
+    return lib
+
+
+def build_info() -> dict:
+    """Build seconds, library path and ptxas register/spill lines (after
+    `load()`)."""
+    return dict(_info)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")

@@ -1,0 +1,200 @@
+"""Command-line entry points (port of gpuspectral_tpu/cli/main.py: the
+`render` and `benchmark` commands, with the reference's flags).
+
+  python -m gpuspectral_tpu_torch.cli.main render <scene.xml> [-o out.png] [--size WxH] ...
+  python -m gpuspectral_tpu_torch.cli.main benchmark <scene.xml> [...]
+
+Scene XML film/sampler/integrator settings are honored by default.
+`--device` picks where the scene lives (default: cuda); the benchmark
+measures only a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def _add_render_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("scene", help="Mitsuba XML scene file")
+    p.add_argument("-o", "--output", default="out.png", help="output image (.png/.pfm/.exr)")
+    p.add_argument("--spp", type=int, default=None, help="samples per pixel (default: scene XML)")
+    p.add_argument("--size", default=None, help="WxH (default: scene XML film)")
+    p.add_argument("--depth", type=int, default=None, help="max path depth (default: 50)")
+    p.add_argument("--no-nee", action="store_true", help="disable next-event estimation")
+    p.add_argument("--jitter", action="store_true", help="subpixel jitter antialiasing")
+    p.add_argument("--tonemap", action="store_true", help="ACES filmic tonemap for PNG")
+    p.add_argument("--seed", type=int, default=0, help="base timestamp / frame seed")
+    p.add_argument("--ray-batch", type=int, default=65536)
+    p.add_argument(
+        "--bvh", action=argparse.BooleanOptionalAction, default=None,
+        help="BVH traversal (default: auto — on above 2048 triangles; BVH "
+             "scenes are not in the port yet)",
+    )
+    p.add_argument("--bvh-kernel", default="ftb", choices=["ftb", "binned", "cluster", "dfs"],
+                   help="BVH kernel (not in the port yet)")
+    p.add_argument("--light-block", type=int, default=None,
+                   help="share one NEE light pick per N-lane block of the wavefront "
+                        "(0 disables; default 0 for brute-force scenes)")
+    p.add_argument("--packet-size", type=int, default=1024)
+    p.add_argument("--metrics", default=None, help="append JSONL metrics to this file")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler chrome trace into this directory")
+    p.add_argument(
+        "--intersector", default="auto", choices=["auto", "mega", "mega_bvh", "pallas", "woop", "mt"],
+        help="auto: the megakernel for CUDA scenes when eligible, else the wavefront; "
+             "woop forces the plain torch scans",
+    )
+    p.add_argument("--light-sampling", default="uniform", choices=["uniform", "power"],
+                   help="NEE light pick: uniform (reference) or power-proportional")
+    p.add_argument("--mis", default="reference", choices=["reference", "exact"],
+                   help="emitter-hit MIS weight: the reference's directWeight "
+                        "approximation or the exact light pdf")
+    p.add_argument("--device", default="cuda", help="torch device of the scene (cuda or cpu)")
+
+
+class CliError(RuntimeError):
+    pass
+
+
+def _build(args):
+    import os
+
+    from ..integrator.mega import MEGA_MAX_TRIS
+    from ..scene import load_mitsuba_scene
+    from ..utils import RenderConfig
+
+    if not os.path.exists(args.scene):
+        raise CliError(f"scene file not found: {args.scene}")
+    device = getattr(args, "device", "cuda")
+    if str(device).startswith("cuda"):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise CliError("no CUDA device: pass --device cpu to render with the plain versions")
+    scene, builder = load_mitsuba_scene(args.scene, device=device)
+    width, height = builder.film_width, builder.film_height
+    if args.size:
+        try:
+            width, height = (int(x) for x in args.size.lower().split("x"))
+        except ValueError:
+            raise CliError(f"--size expects WxH (e.g. 512x512), got: {args.size}")
+    use_bvh = getattr(args, "bvh", None)
+    if use_bvh is None:
+        use_bvh = scene.num_tris > MEGA_MAX_TRIS
+    light_block = getattr(args, "light_block", None)
+    if light_block is None:
+        light_block = 256 if use_bvh else 0
+    cfg = RenderConfig(
+        width=width,
+        height=height,
+        spp=args.spp if args.spp is not None else builder.film_spp,
+        max_depth=args.depth if args.depth is not None else 50,
+        nee=not args.no_nee,
+        jitter=args.jitter,
+        ray_batch=args.ray_batch,
+        use_bvh=use_bvh,
+        bvh_kernel=getattr(args, "bvh_kernel", "ftb"),
+        packet_size=getattr(args, "packet_size", 1024),
+        intersector=getattr(args, "intersector", "auto"),
+        sort_rays=use_bvh,
+        light_block=light_block,
+        light_sampling=getattr(args, "light_sampling", "uniform"),
+        mis_mode=getattr(args, "mis", "reference"),
+    )
+    return scene, cfg
+
+
+def _write(path: str, img, tonemap: bool) -> None:
+    from gpuspectral_tpu.io.image import write_exr, write_pfm, write_png
+
+    if path.endswith(".pfm"):
+        write_pfm(path, img)
+    elif path.endswith(".exr"):
+        write_exr(path, img)
+    else:
+        write_png(path, img, tonemap=tonemap)
+
+
+def _log_metrics(path, **fields) -> None:
+    if path:
+        fields.setdefault("time", time.time())
+        with open(path, "a") as fh:
+            fh.write(json.dumps(fields) + "\n")
+
+
+def cmd_render(args) -> int:
+    import contextlib
+
+    from ..integrator import render_image_auto
+
+    scene, cfg = _build(args)
+    print(
+        f"rendering {args.scene}: {cfg.width}x{cfg.height} @ {cfg.spp} spp, "
+        f"depth {cfg.max_depth}, nee={cfg.nee}, tris={scene.num_tris}, "
+        f"lights={scene.num_lights}, device={scene.device}",
+        file=sys.stderr,
+    )
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if scene.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+    t0 = time.time()
+    with prof as p:
+        img = render_image_auto(scene, cfg, timestamp0=args.seed)
+        img = img.cpu().numpy()
+    dt = time.time() - t0
+    if args.profile:
+        import os
+
+        os.makedirs(args.profile, exist_ok=True)
+        p.export_chrome_trace(os.path.join(args.profile, "render_trace.json"))
+    _log_metrics(args.metrics, event="render", scene=args.scene, width=cfg.width,
+                 height=cfg.height, spp=cfg.spp, seconds=dt, device=str(scene.device))
+    print(f"done in {dt:.2f}s on {scene.device} (incl. kernel build)", file=sys.stderr)
+    _write(args.output, img, args.tonemap)
+    print(args.output)
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    from ..utils.bench import run_benchmark
+
+    try:
+        result = run_benchmark(args)
+    except RuntimeError as e:
+        raise CliError(str(e))
+    print(json.dumps(result))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="gpuspectral_tpu_torch", description=__doc__)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_render = sub.add_parser("render", help="render a scene to an image")
+    _add_render_args(p_render)
+    p_render.set_defaults(fn=cmd_render)
+
+    p_bench = sub.add_parser("benchmark", help="measure Mrays/s on a scene (CUDA only)")
+    _add_render_args(p_bench)
+    p_bench.add_argument("--warmup", type=int, default=1)
+    p_bench.add_argument("--iters", type=int, default=3)
+    p_bench.set_defaults(fn=cmd_benchmark)
+
+    args = parser.parse_args(argv)
+    try:
+        return args.fn(args)
+    except CliError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,110 @@
+// Shared device code of the hand-written kernels: the counter-based RNG of
+// ops/rng.py, float3 helpers in the reference's operand order, and the Woop
+// unit-triangle test of ops/woop.py.
+//
+// Built with nvcc --fmad=false and without --use_fast_math: every multiply
+// and add rounds on its own unless written as fmaf, and sqrtf / division are
+// IEEE, as in PyTorch's own elementwise kernels.  The fmaf calls sit where
+// the plain torch versions call m3.fma (the Woop test, the hit point, the
+// next ray's origin).  The brute-force kernels then agree with the plain
+// torch scans bit for bit (up to m3.fma's rare double rounding), and the
+// megakernel with the torch wavefront up to op order and libm.
+#pragma once
+
+#include <cstdint>
+
+namespace gst {
+
+constexpr float kBig = 1e30f;
+constexpr float kPi = 3.14159265358979323846f;
+
+// ---------------------------------------------------------------- RNG ----
+// gpuspectral_tpu/ops/rng.py: PCG-RXS-M-XS hash, TEA seed mix, counter draw.
+
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t v) {
+  uint32_t state = v * 747796405u + 2891336453u;
+  uint32_t word = ((state >> ((state >> 28) + 4u)) ^ state) * 277803737u;
+  return (word >> 22) ^ word;
+}
+
+__device__ __forceinline__ uint32_t tea(uint32_t v0, uint32_t v1) {
+  uint32_t s0 = 0;
+  for (int i = 0; i < 4; ++i) {
+    s0 += 0x9E3779B9u;
+    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  return v0;
+}
+
+__device__ __forceinline__ uint32_t pixel_seed(uint32_t pixel, uint32_t ts) {
+  return pcg_hash(tea(pixel, ts));
+}
+
+__device__ __forceinline__ uint32_t random_bits(uint32_t seed, uint32_t bounce,
+                                                uint32_t channel) {
+  return pcg_hash(seed ^ pcg_hash(bounce * 0x9E3779B9u + channel + 1u));
+}
+
+// bits * float32(1/0xffffffff), the conversion rounding to nearest as
+// numpy's astype(float32) does
+__device__ __forceinline__ float uniform(uint32_t seed, uint32_t bounce,
+                                         uint32_t channel) {
+  return __uint2float_rn(random_bits(seed, bounce, channel)) *
+         (float)(1.0 / 4294967295.0);
+}
+
+// ------------------------------------------------------------ vectors ----
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
+__device__ __forceinline__ bool finite3(V3 a) {
+  return isfinite(a.x) && isfinite(a.y) && isfinite(a.z);
+}
+// ops/math3d.py length / normalize guards
+__device__ __forceinline__ float length(V3 a) { return sqrtf(fmaxf(dot(a, a), 1e-24f)); }
+__device__ __forceinline__ V3 normalize(V3 a) {
+  float inv = 1.0f / fmaxf(length(a), 1e-12f);
+  return scale(a, inv);
+}
+__device__ __forceinline__ float safe_inv(float x) { return 1.0f / fmaxf(x, 1e-12f); }
+
+// ---------------------------------------------------------------- Woop ---
+// One unit-triangle test (ops/woop.py, pallas_isect.py:39-58, op for op),
+// its multiply-adds fused where XLA fuses them and where ops/woop.py calls
+// m3.fma.  w points at the triangle's 12 rows, `stride` floats apart.
+__device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d,
+                                          float t_lo, float t_hi, float& t_out,
+                                          float& u_out, float& v_out) {
+  const float ax0 = w[0 * stride], ax1 = w[1 * stride], ax2 = w[2 * stride];
+  const float ay0 = w[3 * stride], ay1 = w[4 * stride], ay2 = w[5 * stride];
+  const float az0 = w[6 * stride], az1 = w[7 * stride], az2 = w[8 * stride];
+  const float bx = w[9 * stride], by = w[10 * stride], bz = w[11 * stride];
+  const float opz = fmaf(o.z, az2, fmaf(o.x, az0, o.y * az1)) + bz;
+  const float dpz = fmaf(d.z, az2, fmaf(d.x, az0, d.y * az1));
+  const bool live = fabsf(dpz) > 1e-12f;
+  const float t = -opz / (live ? dpz : 1.0f);
+  const float px = fmaf(t, d.x, o.x);
+  const float py = fmaf(t, d.y, o.y);
+  const float pz = fmaf(t, d.z, o.z);
+  const float u = fmaf(pz, ax2, fmaf(px, ax0, py * ax1)) + bx;
+  const float v = fmaf(pz, ay2, fmaf(px, ay0, py * ay1)) + by;
+  t_out = t;
+  u_out = u;
+  v_out = v;
+  return live && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > t_lo) && (t < t_hi);
+}
+
+}  // namespace gst

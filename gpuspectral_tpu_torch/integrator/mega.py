@@ -1,0 +1,149 @@
+"""K1: the persistent path-tracing megakernel (csrc/mega.cu).
+
+The counterpart of gpuspectral_tpu/integrator/mega.py: the whole forward
+path tracer for one pixel lane in one CUDA thread — camera ray, brute-force
+closest hit, the 8-BSDF sample and eval, NEE with MIS, firefly clamp,
+Russian roulette and per-lane sample regeneration — with the same
+estimator and the same counter-based RNG draws as the wavefront
+(integrator/path_tracer.py), so the two agree up to float rounding.
+
+`render_mega_rows` launches the kernel for CUDA tensors (counting launches
+in `render_mega_rows.launches`) and runs the plain version,
+`render_mega_rows_ref` — the torch wavefront over the same pixel rows — for
+CPU tensors.  Pixel and output planes are (rows, LANES).
+
+Not covered yet: environment emitters (the kernel's environment path is the
+head of slice B of the port).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import math3d as m3
+from ..scene.data import MEGA_MAX_TRIS, SceneData
+from ..utils.config import RenderConfig
+from . import path_tracer
+
+LANES = 128  # lanes per pixel row (one CUDA block)
+
+
+def mega_eligible(scene: SceneData, cfg: RenderConfig) -> bool:
+    """Whether the megakernel covers this (scene, config) (mega.py:1409,
+    minus the environment cases: the port's scenes have no environment)."""
+    return (
+        not cfg.use_bvh
+        and cfg.light_sampling == "uniform"
+        and scene.num_tris > 0
+        and scene.num_tris <= MEGA_MAX_TRIS
+        and scene.num_lights < (1 << 16)
+    )
+
+
+def _pack_tables(scene: SceneData):
+    """Kernel tables (mega.py:_pack_tables, row-major per triangle).
+
+    attr (T, 32): 0-8 corner normals, 9-11 emission, 12 twofaced, 13 light
+    idx, 14 bsdf kind, 15-26 bsdf params, 27-29 geometric normal, 30 area,
+    31 pad.  light (L, 12): vertices, emission.  cam (13,): to_world
+    rotation (row-major), origin, fov."""
+    t = scene.tri_pos.shape[0]
+    f32 = torch.float32
+    e1 = scene.tri_pos[:, 1] - scene.tri_pos[:, 0]
+    e2 = scene.tri_pos[:, 2] - scene.tri_pos[:, 0]
+    cr = m3.cross(e1, e2)
+    crl = m3.sqrt(torch.clamp(m3.dot(cr, cr), min=1e-24))
+    gn = cr / torch.clamp(crl, min=1e-12)[:, None]
+    area = 0.5 * crl
+    bsdf = scene.tri_bsdf.long()
+    attr = torch.cat(
+        [
+            scene.tri_nrm.reshape(t, 9),
+            scene.tri_emission,
+            scene.tri_twofaced[:, None].to(f32),
+            scene.tri_light_idx[:, None].to(f32),
+            scene.bsdf_kind[bsdf][:, None].to(f32),
+            scene.bsdf_params[bsdf],
+            gn,
+            area[:, None],
+            torch.zeros((t, 1), dtype=f32, device=scene.device),
+        ],
+        dim=1,
+    ).contiguous()
+    light = torch.cat(
+        [scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1
+    ).contiguous()
+    cam = scene.camera
+    camv = torch.cat(
+        [cam.to_world[:3, :3].reshape(9), cam.to_world[:3, 3], cam.fov.reshape(1)]
+    ).to(f32).contiguous()
+    return scene.tri_woop_t.contiguous(), attr, light, camv
+
+
+def render_mega_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
+    """Plain torch version of render_mega_rows: the torch wavefront (with its
+    plain Woop scans) over the same pixel rows.  Returns the same
+    (rad_r, rad_g, rad_b, rays) planes: per-lane radiance sums over cfg.spp
+    and ray counts."""
+    rows = pix.shape[0]
+    rad, rays, _ = path_tracer.trace_wavefront(
+        scene, cfg.replace(intersector="woop"), pix.reshape(-1), timestamp0)
+    shape = (rows, LANES)
+    return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape),
+            rad[:, 2].reshape(shape), rays.reshape(shape))
+
+
+def render_mega_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
+    """Run the megakernel over explicit pixel rows.  pix: (rows, LANES)
+    int32 pixel ids.  Returns per-lane radiance sums over cfg.spp and ray
+    counts, each (rows, LANES)."""
+    if not mega_eligible(scene, cfg):
+        raise ValueError("render_mega_rows: (scene, cfg) is not megakernel-eligible")
+    if pix.dim() != 2 or pix.shape[1] != LANES or pix.dtype != torch.int32:
+        raise ValueError(f"pix: want int32 (rows, {LANES}), got {pix.dtype} {tuple(pix.shape)}")
+    if pix.device != scene.device:
+        raise ValueError(f"pix on {pix.device}, scene on {scene.device}")
+    if pix.device.type == "cpu":
+        return render_mega_rows_ref(scene, cfg, pix, timestamp0)
+    if pix.device.type != "cuda":
+        raise ValueError(f"render_mega_rows: unsupported device {pix.device}")
+    from .. import _build
+
+    lib = _build.load()
+    woop_t, attr, light, camv = _pack_tables(scene)
+    pix = pix.contiguous()
+    rows = pix.shape[0]
+    out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device) for _ in range(3)]
+    rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
+    with torch.cuda.device(pix.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_mega(
+            pix.data_ptr(), pix.numel(), woop_t.data_ptr(), woop_t.shape[1],
+            attr.data_ptr(), light.data_ptr(), camv.data_ptr(),
+            cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.rr_start_depth,
+            scene.num_tris, scene.num_lights, int(cfg.nee), int(cfg.jitter),
+            int(cfg.mis_mode == "exact"), int(timestamp0) & 0xFFFFFFFF,
+            cfg.rr_clamp_min, cfg.firefly_clamp, cfg.shadow_epsilon, cfg.origin_epsilon,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,
+        )
+    _build.check(rc, "render_mega_rows")
+    render_mega_rows.launches += 1
+    return out[0], out[1], out[2], rays
+
+
+render_mega_rows.launches = 0
+
+
+def render_mega(scene: SceneData, cfg: RenderConfig, timestamp0=0):
+    """Render (H, W, 3) radiance (mean over cfg.spp) plus the total rays
+    traced (a float).  Lanes past the last pixel point at pixel 0 and are
+    left out of the image and the ray total (mega.py:1471-1482)."""
+    n_pixels = cfg.width * cfg.height
+    rows = -(-n_pixels // LANES)
+    pix = torch.arange(rows * LANES, dtype=torch.int32, device=scene.device)
+    pix = torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
+    rad_r, rad_g, rad_b, rays = render_mega_rows(scene, cfg, pix, timestamp0)
+    rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
+    nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())
+    img = (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
+    return img, nrays

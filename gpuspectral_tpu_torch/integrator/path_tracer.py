@@ -1,0 +1,446 @@
+"""Wavefront path tracer (port of gpuspectral_tpu/integrator/path_tracer.py,
+the forward brute-force path).
+
+One vectorized bounce step (`_bounce`) over a batch of lanes, iterated until
+every lane is done; `trace_wavefront` keeps each lane busy with its own
+pixel's samples, regenerating a fresh camera path the moment the previous
+one ends.  Reference semantics (raygen.rgen / rayhit.rchit): firefly clamp,
+Russian roulette after depth 10, NEE with power-heuristic MIS and the
+countEmitted / wasDelta / directWeight bookkeeping, two-faced flip for
+non-emitters, invalid-hemisphere / self-intersection / non-finite
+terminations, shadow epsilon 0.01, origin offset 1e-4.
+
+RNG channel layout per bounce (as the JAX package):
+  ch 0..2 bsdf (select, u1, u2), ch 3 light index bits, ch 4..5 light
+  triangle (u1, u2), ch 6 russian roulette, ch 7..8 subpixel jitter.
+
+Intersection: for CUDA tensors with intersector "auto" or "pallas", the
+brute-force kernels of ops/cuda_isect.py (K2); for CPU tensors, or with
+"woop", the plain torch Woop scans.  This module is also the plain version
+of the megakernel (integrator/mega.py: render_mega_rows_ref).
+
+Not covered yet: BVH traversal and ray sorting (slice B of the port), the
+differentiable path (slice C).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bsdf.dispatch import eval_bsdf, is_transmission, sample_bsdf
+from ..ops import cuda_isect
+from ..ops import math3d as m3
+from ..ops import rng
+from ..ops import sampling as smp
+from ..ops import woop as woop_mod
+from ..scene.camera import generate_rays
+from ..scene.data import SceneData
+from ..utils.config import RenderConfig
+
+CH_BSDF_SELECT = 0
+CH_BSDF_U1 = 1
+CH_BSDF_U2 = 2
+CH_LIGHT_INDEX = 3
+CH_LIGHT_U1 = 4
+CH_LIGHT_U2 = 5
+CH_RR = 6
+CH_JITTER_X = 7
+CH_JITTER_Y = 8
+
+_BIG = 1e30
+
+
+def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
+    """"pallas" (the CUDA brute-force kernels, or their plain versions for
+    CPU tensors) or "woop" (always the plain torch scan)."""
+    if cfg.use_bvh:
+        raise NotImplementedError("BVH traversal: slice B of the port")
+    if cfg.sort_rays:
+        raise NotImplementedError("ray sorting (a BVH coherence aid): slice B of the port")
+    isector = cfg.intersector
+    if isector in ("auto", "mega"):
+        return "pallas" if scene.device.type == "cuda" else "woop"
+    if isector in ("pallas", "woop"):
+        return isector
+    raise NotImplementedError(f"intersector {isector!r} is not in the port yet")
+
+
+def _tri_table(scene: SceneData):
+    """(T, 36) packed per-triangle attributes (path_tracer.py:_tri_table)."""
+    t = scene.tri_pos.shape[0]
+    f32 = torch.float32
+    return torch.cat(
+        [
+            scene.tri_pos.reshape(t, 9),  # 0:9
+            scene.tri_nrm.reshape(t, 9),  # 9:18
+            scene.tri_emission,  # 18:21
+            scene.tri_twofaced[:, None].to(f32),  # 21
+            scene.tri_light_idx[:, None].to(f32),  # 22
+            scene.bsdf_kind[scene.tri_bsdf.long()][:, None].to(f32),  # 23
+            scene.bsdf_params[scene.tri_bsdf.long()],  # 24:36
+        ],
+        dim=1,
+    )
+
+
+def _gather_tri(tri_table, prim):
+    """Shading data of (possibly miss = -1) prim ids."""
+    rows = tri_table[torch.clamp(prim, min=0).long()]
+    r = rows.shape[0]
+    return (
+        rows[:, 0:9].reshape(r, 3, 3),  # pos
+        rows[:, 9:18].reshape(r, 3, 3),  # nrm
+        rows[:, 24:36],  # bsdf params
+        torch.round(rows[:, 23]).to(torch.int32),  # kind
+        rows[:, 18:21],  # emission
+        rows[:, 21] > 0.5,  # twofaced
+        torch.round(rows[:, 22]).to(torch.int32),  # light idx
+    )
+
+
+def _safe_inv(x, eps=1e-12):
+    return 1.0 / torch.clamp(x, min=eps)
+
+
+def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
+    """One wavefront bounce (path_tracer.py:_bounce, brute-force branch).
+    `bounce` is the per-lane depth (int64 tensor); `state` a dict of
+    per-lane tensors."""
+    origin, direction = state["origin"], state["direction"]
+    seed = state["seed"]
+    alive = ~state["done"]
+    r = origin.shape[0]
+    dev = origin.device
+    isector = _resolve_intersector(scene, cfg)
+
+    t_max0 = torch.where(alive, _BIG, -_BIG)
+    zeros = torch.zeros((r,), dtype=torch.float32, device=dev)
+    if isector == "pallas":
+        t, prim = cuda_isect.closest_cuda(origin.contiguous(), direction.contiguous(),
+                                          scene.tri_woop_t, zeros, t_max0)
+        bu, bv = woop_mod._recover_uv(origin, direction, scene.tri_woop, prim,
+                                      torch.where(prim >= 0, t, 0.0))
+        bu = torch.where(prim >= 0, bu, 0.0)
+        bv = torch.where(prim >= 0, bv, 0.0)
+    else:
+        chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
+        t, prim, bu, bv = woop_mod.closest_scan(origin, direction, scene.tri_woop,
+                                                zeros, t_max0, chunk)
+    hit = (prim >= 0) & alive
+    miss = (~(prim >= 0)) & alive
+
+    pos_c, nrm_c, bparams, bkind, emission, twofaced, _tri_lidx = _gather_tri(tri_table, prim)
+
+    # hit position (fused, as XLA and the megakernel compute it); miss lanes
+    # carry t = 1e30, clamped to keep math finite
+    t_safe = torch.where(hit, t, 1.0)
+    position = m3.fma(direction, t_safe[..., None], origin)
+
+    bw = 1.0 - bu - bv
+    sn = m3.normalize(
+        bw[..., None] * nrm_c[:, 0] + bu[..., None] * nrm_c[:, 1] + bv[..., None] * nrm_c[:, 2]
+    )
+    gn = m3.normalize(m3.cross(pos_c[:, 1] - pos_c[:, 0], pos_c[:, 2] - pos_c[:, 0]))
+    # orient the interpolated shading normal into the geometric hemisphere
+    sn = torch.where(m3.dot(sn, gn)[..., None] < 0.0, -sn, sn)
+
+    # two-faced flip for non-emitters viewed from behind (rayhit.rchit:698-707)
+    backface = m3.dot(gn, -direction) < 0.0
+    emissive = torch.any(emission != 0.0, dim=-1)
+    flip = backface & twofaced & (~emissive)
+    gn = torch.where(flip[..., None], -gn, gn)
+    sn = torch.where(flip[..., None], -sn, sn)
+
+    tg, bn, nn = m3.onb_create(sn)
+    wo = m3.normalize(m3.onb_world_to_local(tg, bn, nn, -direction))
+
+    u_sel = rng.uniform(seed, bounce, CH_BSDF_SELECT)
+    u1 = rng.uniform(seed, bounce, CH_BSDF_U1)
+    u2 = rng.uniform(seed, bounce, CH_BSDF_U2)
+    wi_local, f, pdf, delta = sample_bsdf(
+        bparams, bkind, wo, u_sel, u1, u2, present=scene.kinds_present
+    )
+    now = torch.abs(wi_local[..., 2])
+    wi_world = m3.onb_local_to_world(tg, bn, nn, wi_local)
+
+    transmission = is_transmission(bkind)
+
+    # light sampling (rayhit.rchit:147-153,720-729); cfg.light_block > 0
+    # shares lane 0's pick draw across aligned lane groups
+    pick_seed = seed
+    if cfg.light_block > 0:
+        nb = r // cfg.light_block
+        if nb * cfg.light_block == r:
+            pick_seed = seed.reshape(nb, cfg.light_block)[:, 0:1].expand(
+                nb, cfg.light_block).reshape(r)
+    if cfg.light_sampling == "power":
+        u_l = rng.uniform(pick_seed, bounce, CH_LIGHT_INDEX)
+        lidx = torch.clamp(
+            torch.searchsorted(scene.light_cdf, u_l), 0, scene.num_lights - 1
+        )
+        select_pdf = scene.light_prob[lidx]
+    else:  # uniform, the reference's scheme
+        lbits = rng.random_bits(pick_seed, bounce, CH_LIGHT_INDEX)
+        lidx = lbits % scene.num_lights
+        select_pdf = 1.0 / scene.num_lights
+    light_table = torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1)
+    lrows = light_table[lidx]
+    lv = lrows[:, 0:9].reshape(-1, 3, 3)
+    lemit = lrows[:, 9:12]
+    lu1 = rng.uniform(seed, bounce, CH_LIGHT_U1)
+    lu2 = rng.uniform(seed, bounce, CH_LIGHT_U2)
+    light_pos, light_emitted, light_pdf = smp.sample_triangle_light(
+        lv[:, 0], lv[:, 1], lv[:, 2], lemit, position, lu1, lu2
+    )
+    light_pdf = light_pdf * select_pdf
+
+    ldelta = light_pos - position
+    ldist = m3.length(ldelta)
+    ldir = ldelta / torch.clamp(ldist, min=1e-12)[..., None]
+
+    w_light_local = m3.onb_world_to_local(tg, bn, nn, ldir)
+    nol = torch.abs(m3.dot(sn, ldir))
+    f_light, _light_eval_pdf, _ = eval_bsdf(
+        bparams, bkind, wo, w_light_local, present=scene.kinds_present
+    )
+
+    # NEE eligibility (rayhit.rchit:734-736)
+    front_ok = (m3.dot(gn, -direction) > 0.0) & (m3.dot(gn, ldir) > 0.0)
+    nee_candidate = hit & (~delta) & (front_ok | transmission)
+    if not cfg.nee:
+        nee_candidate = torch.zeros_like(nee_candidate)
+
+    sh_tmin = torch.full((r,), cfg.shadow_epsilon, dtype=torch.float32, device=dev)
+    if isector == "pallas":
+        sh_tmax = torch.where(nee_candidate, ldist - cfg.shadow_epsilon, -1.0)
+        shadowed = cuda_isect.any_cuda(position, ldir.contiguous(), scene.tri_woop_t,
+                                       sh_tmin, sh_tmax)
+    else:
+        sh_tmax = torch.where(nee_candidate, ldist - cfg.shadow_epsilon, -1.0)
+        chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
+        shadowed = woop_mod.any_scan(position, ldir, scene.tri_woop, sh_tmin, sh_tmax, chunk)
+    nee_done = nee_candidate & (~shadowed) & (light_pdf != 0.0)
+
+    # MIS complement pdf: the reference reuses the *sampled* BSDF pdf
+    # (rayhit.rchit:750-754 quirk)
+    w_mis = smp.power_heuristic(light_pdf, pdf)
+    nee_contrib = (
+        w_mis[..., None]
+        * nol[..., None]
+        * f_light
+        * state["weight"]
+        * light_emitted
+        / torch.clamp(light_pdf, min=1e-12)[..., None]
+    )
+    emitted = torch.where(nee_done[..., None], nee_contrib, 0.0)
+
+    # emitter accumulation with MIS bookkeeping (rayhit.rchit:760-768)
+    light_flag = (m3.dot(gn, -direction) > 0.0).to(torch.float32)
+    ce = state["count_emitted"]
+    wd = state["was_delta"]
+    self_emit = emission * light_flag[..., None] * state["weight"]
+    if cfg.nee and cfg.mis_mode == "exact":
+        # true MIS complement: light pdf of the point the BSDF ray hit
+        e1h = pos_c[:, 1] - pos_c[:, 0]
+        e2h = pos_c[:, 2] - pos_c[:, 0]
+        area_hit = 0.5 * m3.length(m3.cross(e1h, e2h))
+        cos_hit = torch.abs(m3.dot(gn, -direction))
+        if cfg.light_sampling == "power":
+            sel_hit = scene.light_prob[torch.clamp(_tri_lidx, min=0).long()]
+        else:
+            sel_hit = 1.0 / scene.num_lights
+        pdf_hit = t_safe * t_safe / torch.clamp(cos_hit * area_hit, min=1e-12) * sel_hit
+        w_emit = torch.where(
+            state["prev_nee"], smp.power_heuristic(state["prev_pdf"], pdf_hit), 1.0
+        )
+        emitted = emitted + torch.where(
+            ((~ce) & (~wd))[..., None], w_emit[..., None] * self_emit, 0.0
+        )
+        emitted = emitted + torch.where((ce | wd)[..., None], self_emit, 0.0)
+    elif cfg.nee:
+        emitted = emitted + torch.where(
+            ((~ce) & (~wd))[..., None], state["direct_weight"][..., None] * self_emit, 0.0
+        )
+        emitted = emitted + torch.where((ce | wd)[..., None], self_emit, 0.0)
+    else:
+        emitted = emitted + self_emit
+    emitted = torch.where(hit[..., None], emitted, 0.0)
+
+    # path termination tests (rayhit.rchit:770-784)
+    invalid_hemi = (m3.dot(wi_world, gn) <= 0.0) & (~transmission)
+    self_isect = (m3.dot(gn, -direction) <= 0.0) & (~transmission)
+    bad_pdf = (~torch.isfinite(pdf)) | (~m3.is_finite3(f)) | (pdf == 0.0)
+    terminate = hit & (invalid_hemi | self_isect | bad_pdf)
+
+    new_direct_weight = torch.where(nee_done, smp.power_heuristic(pdf, light_pdf), 1.0)
+
+    # next ray state (rayhit.rchit:792-796)
+    offset_n = m3.faceforward(gn, -wi_world, gn)
+    new_origin = m3.fma(offset_n, torch.full_like(offset_n, cfg.origin_epsilon), position)
+    new_weight = state["weight"] * f * (now * _safe_inv(pdf))[..., None]
+
+    cont = hit & (~terminate)
+    out = dict(state)
+    out["rays_traced"] = (
+        state["rays_traced"] + alive.to(torch.int32) + nee_candidate.to(torch.int32)
+    )
+    out["origin"] = torch.where(cont[..., None], new_origin, origin)
+    out["direction"] = torch.where(cont[..., None], wi_world, direction)
+    out["weight"] = torch.where(cont[..., None], new_weight, state["weight"])
+    out["direct_weight"] = torch.where(cont, new_direct_weight, state["direct_weight"])
+    out["prev_pdf"] = torch.where(cont, pdf, state["prev_pdf"])
+    out["prev_nee"] = torch.where(cont, nee_done, state["prev_nee"])
+    out["was_delta"] = torch.where(cont, delta, wd)
+    out["count_emitted"] = torch.where(cont, False, ce)
+    out["done"] = state["done"] | miss | terminate
+
+    # raygen side: firefly clamp + accumulate (raygen.rgen:60-63)
+    keep = torch.all(emitted < cfg.firefly_clamp, dim=-1)
+    out["radiance"] = state["radiance"] + torch.where((alive & keep)[..., None], emitted, 0.0)
+
+    # Russian roulette (raygen.rgen:66-71)
+    if_rr = bounce > cfg.rr_start_depth
+    q = torch.clamp(torch.amax(out["weight"], dim=-1), cfg.rr_clamp_min, 1.0)
+    u_rr = rng.uniform(seed, bounce, CH_RR)
+    rr_kill = if_rr & (u_rr > q)
+    out["weight"] = torch.where(
+        (if_rr & ~rr_kill)[..., None], out["weight"] / q[..., None], out["weight"]
+    )
+    out["done"] = out["done"] | rr_kill
+    return out
+
+
+def _fresh_state(origin, direction, seed):
+    r = origin.shape[0]
+    dev = origin.device
+    f32 = torch.float32
+    return dict(
+        origin=origin,
+        direction=direction,
+        weight=torch.ones((r, 3), dtype=f32, device=dev),
+        direct_weight=torch.ones((r,), dtype=f32, device=dev),
+        prev_pdf=torch.ones((r,), dtype=f32, device=dev),
+        prev_nee=torch.zeros((r,), dtype=torch.bool, device=dev),
+        was_delta=torch.zeros((r,), dtype=torch.bool, device=dev),
+        count_emitted=torch.ones((r,), dtype=torch.bool, device=dev),  # raygen.rgen:43
+        done=torch.zeros((r,), dtype=torch.bool, device=dev),
+        radiance=torch.zeros((r, 3), dtype=f32, device=dev),
+        rays_traced=torch.zeros((r,), dtype=torch.int32, device=dev),
+        seed=seed,
+    )
+
+
+def _camera_rays(scene: SceneData, cfg: RenderConfig, pixel, seed):
+    jitter = None
+    if cfg.jitter:
+        jitter = (
+            rng.uniform(seed, 0xFFFF, CH_JITTER_X),
+            rng.uniform(seed, 0xFFFF, CH_JITTER_Y),
+        )
+    return generate_rays(scene.camera, cfg.width, cfg.height, pixel, jitter)
+
+
+def trace_rays(scene: SceneData, cfg: RenderConfig, origin, direction, seed):
+    """Trace a batch of rays to completion: depth = 0 .. max_depth, stopping
+    early once every lane is done.  Returns (radiance (R,3), rays_traced
+    (R,) int32: closest-hit plus shadow rays issued per lane)."""
+    tri_table = _tri_table(scene)
+    state = _fresh_state(origin, direction, rng.as_u32(seed))
+    bounce = 0
+    while bounce < cfg.max_depth + 1 and not bool(torch.all(state["done"])):
+        depth = torch.full_like(state["seed"], bounce)
+        state = _bounce(scene, cfg, depth, state, tri_table)
+        bounce += 1
+    return state["radiance"], state["rays_traced"]
+
+
+def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0):
+    """Persistent-lane wavefront: each lane owns one pixel and runs its
+    cfg.spp samples back to back, regenerating a fresh camera path the
+    moment the previous one ends (path_tracer.py:770).
+
+    Returns (radiance_sum (R,3), rays_traced (R,), pixel (R,)); divide the
+    radiance by spp."""
+    pixel_index = rng.as_u32(pixel_index)
+    dev = pixel_index.device
+    r = pixel_index.shape[0]
+    t0 = int(timestamp0) & 0xFFFFFFFF
+    tri_table = _tri_table(scene)
+
+    def fresh_ray(pixel, sample_idx):
+        seed = rng.pixel_seed(pixel, (sample_idx + t0) & 0xFFFFFFFF)
+        o, d = _camera_rays(scene, cfg, pixel, seed)
+        return o, d, seed
+
+    zeros = torch.zeros((r,), dtype=torch.int64, device=dev)
+    o0, d0, seed0 = fresh_ray(pixel_index, zeros)
+    state = _fresh_state(o0, d0, seed0)
+    state["depth"] = zeros
+    state["sample"] = zeros
+    state["pixel"] = pixel_index
+
+    max_iters = cfg.spp * (cfg.max_depth + 1)
+    it = 0
+    while it < max_iters:
+        if bool(torch.all(state["done"] & (state["sample"] + 1 >= cfg.spp))):
+            break
+        depth = state["depth"]
+        st = _bounce(scene, cfg, depth, state, tri_table)
+        st["depth"] = depth + 1
+        st["done"] = st["done"] | (st["depth"] >= cfg.max_depth + 1)
+
+        # regenerate finished lanes that still have samples left
+        regen = st["done"] & (st["sample"] + 1 < cfg.spp)
+        new_sample = torch.where(regen, st["sample"] + 1, st["sample"])
+        o_n, d_n, seed_n = fresh_ray(st["pixel"], new_sample)
+        rsel = regen[..., None]
+        st["origin"] = torch.where(rsel, o_n, st["origin"])
+        st["direction"] = torch.where(rsel, d_n, st["direction"])
+        st["seed"] = torch.where(regen, seed_n, st["seed"])
+        st["weight"] = torch.where(rsel, 1.0, st["weight"])
+        st["direct_weight"] = torch.where(regen, 1.0, st["direct_weight"])
+        st["prev_pdf"] = torch.where(regen, 1.0, st["prev_pdf"])
+        st["prev_nee"] = torch.where(regen, False, st["prev_nee"])
+        st["was_delta"] = torch.where(regen, False, st["was_delta"])
+        st["count_emitted"] = torch.where(regen, True, st["count_emitted"])
+        st["depth"] = torch.where(regen, 0, st["depth"])
+        st["sample"] = new_sample
+        st["done"] = st["done"] & (~regen)
+        state = st
+        it += 1
+    return state["radiance"], state["rays_traced"], state["pixel"]
+
+
+def render_sample(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp):
+    """Radiance of one sample per pixel index: (radiance (R,3),
+    rays_traced (R,))."""
+    pixel_index = rng.as_u32(pixel_index)
+    seed = rng.pixel_seed(pixel_index, int(timestamp) & 0xFFFFFFFF)
+    origin, direction = _camera_rays(scene, cfg, pixel_index, seed)
+    return trace_rays(scene, cfg, origin, direction, seed)
+
+
+def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):
+    """Render (H, W, 3) plus the total rays traced (a float).
+
+    Mean of cfg.spp samples, batched over cfg.ray_batch lanes; every batch
+    is full, so pixels past the last real one are traced (and their rays
+    counted) as in the JAX package (path_tracer.py:948-965)."""
+    n_pixels = cfg.width * cfg.height
+    batch = min(cfg.ray_batch, n_pixels)
+    n_batches = -(-n_pixels // batch)
+    dev = scene.device
+    parts = []
+    nrays = 0.0
+    for b in range(n_batches):
+        pix = torch.arange(b * batch, (b + 1) * batch, dtype=torch.int64, device=dev)
+        rad, rays, _ = trace_wavefront(scene, cfg, pix, timestamp0)
+        parts.append(rad / cfg.spp)
+        nrays += float(rays.to(torch.float64).sum())
+    radiance = torch.cat(parts, dim=0)[:n_pixels]
+    return radiance.reshape(cfg.height, cfg.width, 3), nrays
+
+
+def render_image(scene: SceneData, cfg: RenderConfig, timestamp0=0):
+    """Render (H, W, 3); see render_image_stats."""
+    return render_image_stats(scene, cfg, timestamp0)[0]

@@ -1,0 +1,95 @@
+"""K2: the brute-force closest-hit / any-hit kernels (csrc/isect.cu).
+
+The counterpart of gpuspectral_tpu/ops/pallas_isect.py: the same arguments
+as `closest_pallas` / `any_pallas` and the same results.  For CPU tensors
+the wrappers run the plain torch versions, `closest_ref` / `any_ref`
+(ops/woop.py scans); for CUDA tensors they launch the kernel or raise.
+Each wrapper counts its kernel launches in `.launches`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import woop
+
+LANE = 128  # the Woop table's triangle count is a multiple of this
+
+
+def closest_ref(origin, direction, woop_t, t_min, t_max):
+    """Plain torch version of closest_cuda: (t, prim)."""
+    t, prim, _, _ = woop.closest_scan(origin, direction, woop_t.t(), t_min, t_max)
+    return t, prim
+
+
+def any_ref(origin, direction, woop_t, t_min, t_max):
+    """Plain torch version of any_cuda: occluded flags."""
+    return woop.any_scan(origin, direction, woop_t.t(), t_min, t_max)
+
+
+def _check(origin, direction, woop_t, t_min, t_max):
+    r = origin.shape[0]
+    dev = origin.device
+    for name, x, shape in (
+        ("origin", origin, (r, 3)), ("direction", direction, (r, 3)),
+        ("t_min", t_min, (r,)), ("t_max", t_max, (r,)),
+    ):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: want float32 {shape} on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (woop_t.device != dev or woop_t.dtype != torch.float32 or woop_t.dim() != 2
+            or woop_t.shape[0] != 12 or woop_t.shape[1] % LANE or not woop_t.is_contiguous()):
+        raise ValueError("woop_t: want a contiguous float32 (12, T) table, T % 128 == 0, "
+                         f"on {dev}; got {woop_t.dtype} {tuple(woop_t.shape)} on {woop_t.device}")
+
+
+def closest_cuda(origin, direction, woop_t, t_min, t_max):
+    """Closest hit over all triangles of the transposed (12, T) Woop table.
+    Returns (t (R,) float32, 1e30 on a miss; prim (R,) int32, -1 on a miss)."""
+    _check(origin, direction, woop_t, t_min, t_max)
+    if origin.device.type == "cpu":
+        return closest_ref(origin, direction, woop_t, t_min, t_max)
+    if origin.device.type != "cuda":
+        raise ValueError(f"closest_cuda: unsupported device {origin.device}")
+    from .. import _build
+
+    lib = _build.load()
+    r = origin.shape[0]
+    t = torch.empty((r,), dtype=torch.float32, device=origin.device)
+    prim = torch.empty((r,), dtype=torch.int32, device=origin.device)
+    with torch.cuda.device(origin.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_closest(origin.data_ptr(), direction.data_ptr(), woop_t.data_ptr(),
+                             woop_t.shape[1], t_min.data_ptr(), t_max.data_ptr(), r,
+                             t.data_ptr(), prim.data_ptr(), stream)
+    _build.check(rc, "closest_cuda")
+    closest_cuda.launches += 1
+    return t, prim
+
+
+def any_cuda(origin, direction, woop_t, t_min, t_max):
+    """Any-hit: True where a triangle lies strictly inside (t_min, t_max)."""
+    _check(origin, direction, woop_t, t_min, t_max)
+    if origin.device.type == "cpu":
+        return any_ref(origin, direction, woop_t, t_min, t_max)
+    if origin.device.type != "cuda":
+        raise ValueError(f"any_cuda: unsupported device {origin.device}")
+    from .. import _build
+
+    lib = _build.load()
+    r = origin.shape[0]
+    occ = torch.empty((r,), dtype=torch.bool, device=origin.device)
+    with torch.cuda.device(origin.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_any(origin.data_ptr(), direction.data_ptr(), woop_t.data_ptr(),
+                         woop_t.shape[1], t_min.data_ptr(), t_max.data_ptr(), r,
+                         occ.data_ptr(), stream)
+    _build.check(rc, "any_cuda")
+    any_cuda.launches += 1
+    return occ
+
+
+closest_cuda.launches = 0
+any_cuda.launches = 0

@@ -1,0 +1,125 @@
+"""PyTorch port on an NVIDIA GPU: each hand-written CUDA kernel against its
+plain PyTorch version on the same CUDA tensors.  Every test here needs the
+card (a CUDA kernel has no interpret mode) and skips without one.
+
+This file imports neither JAX nor the JAX package, so it also runs where
+JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpuspectral_tpu_torch.integrator import mega
+from gpuspectral_tpu_torch.integrator import path_tracer as pt
+from gpuspectral_tpu_torch.integrator import render_image_stats_auto
+from gpuspectral_tpu_torch.ops import cuda_isect as ci
+from gpuspectral_tpu_torch.ops.woop import woop_transform
+from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+from gpuspectral_tpu_torch.scene.zoo import build_zoo
+from gpuspectral_tpu_torch.utils import RenderConfig
+
+from torch_common import CORNELL_XML, assert_mega_gates, cuda_device  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+def _scene(name, dev):
+    if name == "zoo":
+        return build_zoo(dev)
+    return load_mitsuba_scene(str(CORNELL_XML), device=dev)[0]
+
+
+def _table(name, dev):
+    if name == "soup2048":
+        rng = np.random.default_rng(1)
+        tris = (rng.uniform(-2, 2, size=(2048, 1, 3))
+                + rng.normal(scale=0.15, size=(2048, 3, 3))).astype(np.float32)
+        return torch.as_tensor(woop_transform(tris).T.copy(), device=dev)
+    return _scene(name, dev).tri_woop_t
+
+
+def _rays(seed, r, dev):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.5, 2.5, size=(r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.where(rng.uniform(size=r) < 0.5, 0.0, rng.uniform(0, 0.5, size=r)).astype(np.float32)
+    t_max = np.where(rng.uniform(size=r) < 0.5, 1e30, rng.uniform(0.5, 6.0, size=r)).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (o, d, t_min, t_max)]
+
+
+@pytest.mark.parametrize("name", ["cornell", "zoo", "soup2048"])
+def test_k2_matches_plain_version(cuda_device, name):  # noqa: F811
+    w = _table(name, cuda_device)
+    o, d, lo, hi = _rays(7, 1 << 16, cuda_device)
+    n0, m0 = ci.closest_cuda.launches, ci.any_cuda.launches
+    t, prim = ci.closest_cuda(o, d, w, lo, hi)
+    occ = ci.any_cuda(o, d, w, lo, hi)
+    assert (ci.closest_cuda.launches, ci.any_cuda.launches) == (n0 + 1, m0 + 1)
+    t_r, prim_r = ci.closest_ref(o, d, w, lo, hi)
+    assert (prim_r >= 0).sum() > 1000
+    # the same fused operations in the same order: equal up to the plain
+    # version's rare double rounding in m3.fma (about one op in 2^29)
+    assert int((prim != prim_r).sum()) <= 2
+    assert bool(((t - t_r).abs() <= 1e-6 * t_r.abs()).all())
+    assert int((occ != ci.any_ref(o, d, w, lo, hi)).sum()) <= 2
+
+
+def test_k2_rejects_bad_inputs(cuda_device):  # noqa: F811
+    w = _table("cornell", cuda_device)
+    o, d, lo, hi = _rays(1, 64, cuda_device)
+    with pytest.raises(ValueError):
+        ci.closest_cuda(o.cpu(), d, w, lo, hi)
+    with pytest.raises(ValueError):
+        ci.any_cuda(o, d, w.t(), lo, hi)
+
+
+@pytest.mark.parametrize("name", ["cornell", "zoo"])
+def test_k1_matches_plain_version(cuda_device, name):  # noqa: F811
+    ts = _scene(name, cuda_device)
+    for kw, emission_only in ((dict(max_depth=0, nee=False, spp=1), True),
+                              (dict(max_depth=4, nee=True, spp=2), False)):
+        cfg = RenderConfig(width=64, height=64, **kw)
+        n0 = mega.render_mega_rows.launches
+        got, rays_got = render_image_stats_auto(ts, cfg, 0)
+        assert mega.render_mega_rows.launches == n0 + 1
+        pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda_device).reshape(-1, mega.LANES)
+        r, g, b, rays = mega.render_mega_rows_ref(ts, cfg, pix, 0)
+        ref = (torch.stack([r, g, b], -1).reshape(64, 64, 3) / cfg.spp).cpu().numpy()
+        got = got.cpu().numpy()
+        if emission_only:
+            # at most 0.1% of pixels: a 1-ulp tanf / rsqrtf difference may move
+            # a ray across the emitter's silhouette
+            assert np.mean(np.abs(got - ref).max(-1) > 0) <= 0.001
+        assert_mega_gates(ref, got, float(rays.double().sum()), rays_got)
+
+
+def test_wavefront_on_k2_matches_plain_scans(cuda_device):  # noqa: F811
+    ts = _scene("cornell", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096)
+    n0 = ci.closest_cuda.launches
+    got, rays_got = pt.render_image_stats(ts, cfg, 0)
+    assert ci.closest_cuda.launches > n0
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
+    assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got,
+                      max_frac=0.001)
+
+
+def test_run_benchmark_reports_the_card(cuda_device):  # noqa: F811
+    import argparse
+
+    from gpuspectral_tpu_torch.utils.bench import run_benchmark
+
+    args = argparse.Namespace(
+        scene=str(CORNELL_XML), size="64x64", spp=2, depth=5, no_nee=False, jitter=False,
+        ray_batch=4096, bvh=None, bvh_kernel="ftb", light_block=None, packet_size=1024,
+        intersector="auto", light_sampling="uniform", mis="reference", device="cuda",
+        warmup=1, iters=2)
+    n0 = mega.render_mega_rows.launches
+    out = run_benchmark(args)
+    assert mega.render_mega_rows.launches >= n0 + 3
+    assert out["backend"] == "cuda" and out["device"] == torch.cuda.get_device_name()
+    assert out["rays_traced"] > 64 * 64 * 2 and out["mrays_per_s"] > 0
