@@ -2,10 +2,11 @@
 
 nvcc compiles every source under csrc/ into one shared library with a plain
 C interface, loaded with ctypes (no PyTorch headers: a build takes seconds,
-not minutes):
+not minutes).  One nvcc per source, all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -Xptxas -v -shared -Xcompiler -fPIC -o libgst_kernels.so csrc/*.cu
+         -Xptxas -v -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -shared -o libgst_kernels.so *.o
 
 --fmad=false keeps every multiply and add separately rounded, as PyTorch's
 elementwise kernels are, so the kernels can be held to their plain torch
@@ -31,7 +32,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -39,14 +40,15 @@ _info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_U = ctypes.c_uint
-_F = ctypes.c_float
 _SIGNATURES = {
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     "gst_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
     "gst_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
-    "gst_mega": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _U, _F, _F, _F, _F, _P, _P, _P, _P, _P],
+    "gst_mega": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "gst_bvh_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                     _P, _P, _P, _P, _P],
 }
 
 
@@ -99,12 +101,31 @@ def load():
     t0 = time.time()
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libgst_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sorted(_CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(_CSRC))
+        nvcc = _nvcc()
+        tag = os.getpid()
+        objs, procs = [], []
+        for src in sorted(_CSRC.glob("*.cu")):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", str(src), "-o", str(obj)], cwd=str(_CSRC),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, proc in procs:
+            out = proc.communicate()[0]
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out[-6000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out_dir / f"libgst_kernels.{tag}.so"
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, cwd=str(_CSRC))
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-        log_path.write_text(proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+        for obj in objs:
+            obj.unlink()
+        log_path.write_text("\n".join(logs))
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
         built_now = True
     lib = ctypes.CDLL(str(so))

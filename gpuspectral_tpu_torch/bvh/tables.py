@@ -1,0 +1,111 @@
+"""Host-side BVH tables of the scene (numpy copies of the JAX package's
+builders, so the port builds the same tables without importing JAX).
+
+  sah               gpuspectral_tpu/bvh/build.py, the SAH build itself:
+                    numpy only, so it is used as it is
+  build_bins        gpuspectral_tpu/bvh/binned.py:75   sweep-bin AABBs
+  build_dfs_tables  gpuspectral_tpu/bvh/dfs_sweep.py:66 preorder walk with
+                    skip pointers (what K3 and K4 traverse)
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from gpuspectral_tpu.bvh import build as sah  # noqa: F401  (numpy only)
+
+LANE = 128  # triangle slots per sweep chunk
+SWEEP = 128  # slots per preorder leaf
+WORD_BITS = 24  # bin-table padding multiple of the JAX vote words
+MAX_BINS = 512  # gpuspectral_tpu/bvh/binned.py:MAX_BINS
+
+
+def build_bins(node_min, node_max, n_clusters: int, n_clusters_real: int,
+               leaf_size: int, max_bins: int = MAX_BINS,
+               slots_per_bin: int = 0):
+    """Group consecutive SAH leaves into sweep bins.
+
+    Returns (bounds (6, ceil(bins/24)*24) float32, n_bins, slots_per_bin):
+    bin b covers triangle slots [b*slots, (b+1)*slots).  Padding bins are
+    distant point boxes (lo == hi == (1e17, 2e17, 3e17)) that no finite
+    slab test enters."""
+    assert LANE % leaf_size == 0, (LANE, leaf_size)
+    node_min = np.asarray(node_min, np.float32)
+    node_max = np.asarray(node_max, np.float32)
+    first_leaf = n_clusters - 1
+    lo = node_min[first_leaf: first_leaf + n_clusters_real]
+    hi = node_max[first_leaf: first_leaf + n_clusters_real]
+
+    g = (slots_per_bin or LANE) // leaf_size
+    while -(-n_clusters_real // g) > max_bins:
+        g *= 2
+    n_bins = -(-n_clusters_real // g)
+    slots = g * leaf_size
+
+    far = np.array([1e17, 2e17, 3e17], np.float32)
+    blo = np.tile(far, (n_bins, 1))
+    bhi = np.tile(far, (n_bins, 1))
+    for b in range(n_bins):
+        chunk_lo = lo[b * g: (b + 1) * g]
+        chunk_hi = hi[b * g: (b + 1) * g]
+        # empty (padding) leaves carry +/-inf bounds: keep them out
+        ok = np.isfinite(chunk_lo).all(1) & np.isfinite(chunk_hi).all(1)
+        if ok.any():
+            blo[b] = chunk_lo[ok].min(0)
+            bhi[b] = chunk_hi[ok].max(0)
+    padded = -(-n_bins // WORD_BITS) * WORD_BITS
+    bounds = np.tile(far, (2, padded, 1)).transpose(0, 2, 1).reshape(6, padded)
+    bounds[0:3, :n_bins] = blo.T
+    bounds[3:6, :n_bins] = bhi.T
+    return np.ascontiguousarray(bounds), int(n_bins), int(slots)
+
+
+def build_dfs_tables(node_min, node_max, n_clusters: int, real_clusters: int,
+                     leaf_size: int):
+    """Flatten the implicit complete binary tree of bvh/build.py into
+    preorder arrays with skip pointers, pruning padding subtrees.
+
+    Returns (bounds (6, N) f32: rows 0-2 lo, 3-5 hi; meta (2, N) i32:
+    meta[0] = preorder index after the node's subtree, meta[1] = first
+    triangle slot of a leaf, -1 for an inner node).  A leaf covers
+    max(2, SWEEP // leaf_size) clusters, SWEEP slots at the build's
+    leaf_size of 16."""
+    node_min = np.asarray(node_min, np.float32)
+    node_max = np.asarray(node_max, np.float32)
+    real_clusters = max(1, real_clusters)
+    leaf_span = max(2, SWEEP // leaf_size)
+    out_lo, out_hi, out_skip, out_leaf = [], [], [], []
+
+    if n_clusters == 1:
+        out_lo.append(node_min[0])
+        out_hi.append(node_max[0])
+        out_skip.append(1)
+        out_leaf.append(0)
+    else:
+        def walk(heap: int, lo: int, hi: int) -> int:
+            if lo >= real_clusters:
+                return 0
+            k = len(out_lo)
+            out_lo.append(node_min[heap])
+            out_hi.append(node_max[heap])
+            out_skip.append(0)  # patched below
+            if hi - lo <= leaf_span:
+                out_leaf.append(lo * leaf_size)
+                size = 1
+            else:
+                out_leaf.append(-1)
+                mid = (lo + hi) // 2
+                size = 1 + walk(2 * heap + 1, lo, mid) + walk(2 * heap + 2, mid, hi)
+            out_skip[k] = k + size
+            return size
+
+        old = sys.getrecursionlimit()
+        sys.setrecursionlimit(max(old, 4 * int(np.log2(n_clusters) + 2) + 64))
+        walk(0, 0, n_clusters)
+        sys.setrecursionlimit(old)
+
+    bounds = np.stack([np.stack(out_lo, 1), np.stack(out_hi, 1)]).reshape(6, -1)
+    meta = np.stack([np.asarray(out_skip, np.int32), np.asarray(out_leaf, np.int32)])
+    return bounds.astype(np.float32), meta

@@ -4,9 +4,10 @@
   python -m gpuspectral_tpu_torch.cli.main render <scene.xml> [-o out.png] [--size WxH] ...
   python -m gpuspectral_tpu_torch.cli.main benchmark <scene.xml> [...]
 
-Scene XML film/sampler/integrator settings are honored by default.
-`--device` picks where the scene lives (default: cuda); the benchmark
-measures only a CUDA device.
+Scene XML film/sampler/integrator settings are honored by default.  A scene
+argument of the form builtin:<name> renders a scene built in code
+(scene/zoo.py:BUILTIN: "sphere_field").  `--device` picks where the
+scene lives (default: cuda); the benchmark measures only a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import time
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("scene", help="Mitsuba XML scene file")
+    p.add_argument("scene", help="Mitsuba XML scene file, or builtin:sphere_field")
     p.add_argument("-o", "--output", default="out.png", help="output image (.png/.pfm/.exr)")
     p.add_argument("--spp", type=int, default=None, help="samples per pixel (default: scene XML)")
     p.add_argument("--size", default=None, help="WxH (default: scene XML film)")
@@ -30,11 +31,10 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ray-batch", type=int, default=65536)
     p.add_argument(
         "--bvh", action=argparse.BooleanOptionalAction, default=None,
-        help="BVH traversal (default: auto — on above 2048 triangles; BVH "
-             "scenes are not in the port yet)",
+        help="BVH traversal (default: auto — on above 2048 triangles)",
     )
     p.add_argument("--bvh-kernel", default="ftb", choices=["ftb", "binned", "cluster", "dfs"],
-                   help="BVH kernel (not in the port yet)")
+                   help="BVH kernel of the wavefront (the port has ftb)")
     p.add_argument("--light-block", type=int, default=None,
                    help="share one NEE light pick per N-lane block of the wavefront "
                         "(0 disables; default 0 for brute-force scenes)")
@@ -44,8 +44,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    help="write a torch.profiler chrome trace into this directory")
     p.add_argument(
         "--intersector", default="auto", choices=["auto", "mega", "mega_bvh", "pallas", "woop", "mt"],
-        help="auto: the megakernel for CUDA scenes when eligible, else the wavefront; "
-             "woop forces the plain torch scans",
+        help="auto: a megakernel for CUDA scenes when eligible (mega: brute force, "
+             "mega_bvh: BVH), else the wavefront; woop forces the plain torch scans",
     )
     p.add_argument("--light-sampling", default="uniform", choices=["uniform", "power"],
                    help="NEE light pick: uniform (reference) or power-proportional")
@@ -63,10 +63,14 @@ def _build(args):
     import os
 
     from ..integrator.mega import MEGA_MAX_TRIS
-    from ..scene import load_mitsuba_scene
+    from ..scene import SceneBuilder, load_mitsuba_scene
+    from ..scene.zoo import BUILTIN
     from ..utils import RenderConfig
 
-    if not os.path.exists(args.scene):
+    builtin = args.scene[len("builtin:"):] if args.scene.startswith("builtin:") else None
+    if builtin is not None and builtin not in BUILTIN:
+        raise CliError(f"unknown builtin scene {builtin!r} (have: {', '.join(BUILTIN)})")
+    if builtin is None and not os.path.exists(args.scene):
         raise CliError(f"scene file not found: {args.scene}")
     device = getattr(args, "device", "cuda")
     if str(device).startswith("cuda"):
@@ -74,7 +78,11 @@ def _build(args):
 
         if not torch.cuda.is_available():
             raise CliError("no CUDA device: pass --device cpu to render with the plain versions")
-    scene, builder = load_mitsuba_scene(args.scene, device=device)
+    if builtin is not None:
+        builder = BUILTIN[builtin](SceneBuilder())
+        scene = builder.build(device)
+    else:
+        scene, builder = load_mitsuba_scene(args.scene, device=device)
     width, height = builder.film_width, builder.film_height
     if args.size:
         try:

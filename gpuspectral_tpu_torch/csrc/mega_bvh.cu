@@ -1,0 +1,75 @@
+// K4: the persistent path-tracing megakernel with BVH traversal, for sm_90a.
+//
+// Replaces gpuspectral_tpu/integrator/mega_bvh.py: render_mega_bvh_blocks
+// (the fused front-to-back BVH megakernel).  Wrapper:
+// gpuspectral_tpu_torch/integrator/mega_bvh.py (render_mega_bvh_rows).
+// The per-lane tracer is bounce.cuh:render_lane, shared with K1, here with
+// the preorder BVH walk of bvh.cuh (K3's traversal) as its intersector; on
+// top of K1 it runs the power light pick, the per-corner texture blend and
+// block-synchronous regeneration (cfg.mega_sync_regen).
+//
+// What bounds it on the H100: the same scattered table reads as K3, twice
+// per bounce (closest and shadow ray), inside a kernel that also holds the
+// whole shading state.  The design keeps every table in L2 (Woop rows,
+// node and cluster boxes, the attribute rows gathered once per hit) and
+// keeps one pixel's path on one thread from its first ray to its last
+// sample, so nothing goes back to device memory between bounces.  The TPU
+// schedule is not carried over: no VMEM residency or streaming DMA, no
+// 1024-ray blocks or traversal subgroups, no per-round bin picks or one-hot
+// gathers.  The RNG is keyed by (pixel, sample), so the launch layout does
+// not change the image.
+#include <cuda_runtime.h>
+
+#include "bounce.cuh"
+#include "bvh.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+struct BvhIsect {
+  gst::BvhTables B;
+
+  __device__ void closest(gst::V3 o, gst::V3 d, float& t, int& prim, float& u, float& v) const {
+    gst::bvh_closest(B, o, d, gst::kBig, t, prim, u, v);
+  }
+
+  __device__ bool any(gst::V3 o, gst::V3 d, float t_lo, float t_hi) const {
+    return gst::bvh_any(B, o, d, t_lo, t_hi);
+  }
+};
+
+template <bool kSync>
+__global__ void __launch_bounds__(kThreads)
+mega_bvh_kernel(const int* __restrict__ pix, int n_lanes, gst::BvhTables B, gst::Tables T,
+                gst::Params P, float* __restrict__ rad_r, float* __restrict__ rad_g,
+                float* __restrict__ rad_b, int* __restrict__ rays_out) {
+  const BvhIsect isect{B};
+  gst::render_lane<BvhIsect, kSync>(isect, T, P, blockIdx.x * blockDim.x + threadIdx.x, n_lanes,
+                                    pix, rad_r, rad_g, rad_b, rays_out);
+}
+
+}  // namespace
+
+// bvh_ip: n_nodes, n_clusters, n_slots, leaf_size, leaf_span; ip / fp: host
+// arrays in bounce.cuh's IParam / FParam order; env as for gst_mega.
+extern "C" int gst_mega_bvh(const int* pix, int n_lanes, const float* nodes, const int* meta,
+                            const float* clusters, const float* woop_t, const int* bvh_ip,
+                            const float* attr, const float* light, const float* light_cdf,
+                            const float* light_prob, const float* cam, const float* env,
+                            const int* ip, const float* fp, int sync_regen, float* rad_r,
+                            float* rad_g, float* rad_b, int* rays, void* stream) {
+  if (n_lanes == 0) return 0;
+  const gst::BvhTables B = gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip);
+  const gst::Params P = gst::make_params(ip, fp);
+  const gst::Tables T{attr, light, light_cdf, light_prob, cam, gst::make_env(env, ip)};
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  if (sync_regen) {
+    mega_bvh_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pix, n_lanes, B, T, P, rad_r, rad_g, rad_b, rays);
+  } else {
+    mega_bvh_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pix, n_lanes, B, T, P, rad_r, rad_g, rad_b, rays);
+  }
+  return (int)cudaGetLastError();
+}

@@ -12,12 +12,14 @@ in `render_mega_rows.launches`) and runs the plain version,
 `render_mega_rows_ref` — the torch wavefront over the same pixel rows — for
 CPU tensors.  Pixel and output planes are (rows, LANES).
 
-Not covered yet: environment emitters (the kernel's environment path is the
-head of slice B of the port).
+Environment emitters: constant maps and lat-long maps of at most
+MEGA_ENV_MAX_TEXELS texels run in the kernel (the JAX package's fused-kernel
+cap, kept so that dispatch matches it); bigger maps go to the wavefront.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import math3d as m3
@@ -26,13 +28,24 @@ from ..utils.config import RenderConfig
 from . import path_tracer
 
 LANES = 128  # lanes per pixel row (one CUDA block)
+MEGA_ENV_MAX_TEXELS = 2048  # gpuspectral_tpu/integrator/mega.py:598
+
+
+def env_fused_ok(scene: SceneData) -> bool:
+    """No environment, a constant (1x1) map, or a lat-long map of at most
+    MEGA_ENV_MAX_TEXELS texels (mega.py:1396)."""
+    if not scene.has_envmap:
+        return True
+    h, w = scene.envmap.shape[:2]
+    return (h, w) == (1, 1) or h * w <= MEGA_ENV_MAX_TEXELS
 
 
 def mega_eligible(scene: SceneData, cfg: RenderConfig) -> bool:
-    """Whether the megakernel covers this (scene, config) (mega.py:1409,
-    minus the environment cases: the port's scenes have no environment)."""
+    """Whether the megakernel covers this (scene, config) (mega.py:1409)."""
     return (
         not cfg.use_bvh
+        and not scene.has_textures
+        and env_fused_ok(scene)
         and cfg.light_sampling == "uniform"
         and scene.num_tris > 0
         and scene.num_tris <= MEGA_MAX_TRIS
@@ -80,6 +93,29 @@ def _pack_tables(scene: SceneData):
     return scene.tri_woop_t.contiguous(), attr, light, camv
 
 
+def pack_env(scene: SceneData) -> torch.Tensor:
+    """The kernels' environment table: [world->env rotation (9, row-major) |
+    texel radiance (h*w*3) | texel CDF (h*w) | texel pdf (h*w)]."""
+    return torch.cat([scene.envmap_rot.reshape(-1), scene.envmap.reshape(-1),
+                      scene.envmap_cdf.reshape(-1), scene.envmap_pdf.reshape(-1)]
+                     ).to(torch.float32).contiguous()
+
+
+def kernel_params(scene: SceneData, cfg: RenderConfig, timestamp0, *, power_pick=False,
+                  textured=False, attr_stride=32):
+    """(int32, float32) numpy parameter arrays in csrc/bounce.cuh's IParam /
+    FParam order."""
+    h, w = scene.envmap.shape[:2]
+    ints = [cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.rr_start_depth,
+            scene.num_lights, int(cfg.nee), int(cfg.jitter), int(cfg.mis_mode == "exact"),
+            int(power_pick), int(scene.has_envmap), int(scene.has_area_lights), h, w,
+            int(textured), attr_stride, int(timestamp0) & 0xFFFFFFFF]
+    ip = np.asarray(ints, np.int64).astype(np.uint32).view(np.int32)
+    fp = np.asarray([cfg.rr_clamp_min, cfg.firefly_clamp, cfg.shadow_epsilon,
+                     cfg.origin_epsilon], np.float32)
+    return ip, fp
+
+
 def render_mega_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
     """Plain torch version of render_mega_rows: the torch wavefront (with its
     plain Woop scans) over the same pixel rows.  Returns the same
@@ -87,7 +123,7 @@ def render_mega_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
     and ray counts."""
     rows = pix.shape[0]
     rad, rays, _ = path_tracer.trace_wavefront(
-        scene, cfg.replace(intersector="woop"), pix.reshape(-1), timestamp0)
+        scene, cfg.replace(intersector="woop", light_block=0), pix.reshape(-1), timestamp0)
     shape = (rows, LANES)
     return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape),
             rad[:, 2].reshape(shape), rays.reshape(shape))
@@ -111,6 +147,8 @@ def render_mega_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
 
     lib = _build.load()
     woop_t, attr, light, camv = _pack_tables(scene)
+    env = pack_env(scene)
+    ip, fp = kernel_params(scene, cfg, timestamp0)
     pix = pix.contiguous()
     rows = pix.shape[0]
     out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device) for _ in range(3)]
@@ -118,12 +156,9 @@ def render_mega_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega(
-            pix.data_ptr(), pix.numel(), woop_t.data_ptr(), woop_t.shape[1],
-            attr.data_ptr(), light.data_ptr(), camv.data_ptr(),
-            cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.rr_start_depth,
-            scene.num_tris, scene.num_lights, int(cfg.nee), int(cfg.jitter),
-            int(cfg.mis_mode == "exact"), int(timestamp0) & 0xFFFFFFFF,
-            cfg.rr_clamp_min, cfg.firefly_clamp, cfg.shadow_epsilon, cfg.origin_epsilon,
+            pix.data_ptr(), pix.numel(), woop_t.data_ptr(), woop_t.shape[1], scene.num_tris,
+            attr.data_ptr(), light.data_ptr(), camv.data_ptr(), env.data_ptr(),
+            ip.ctypes.data, fp.ctypes.data,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,
         )
     _build.check(rc, "render_mega_rows")

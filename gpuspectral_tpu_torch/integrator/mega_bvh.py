@@ -1,0 +1,143 @@
+"""K4: the persistent path-tracing megakernel with BVH traversal
+(csrc/mega_bvh.cu).
+
+The counterpart of gpuspectral_tpu/integrator/mega_bvh.py: the whole forward
+path tracer for one pixel lane in one CUDA thread, K1's per-lane tracer
+(csrc/bounce.cuh) with K3's BVH walk (csrc/bvh.cuh) as its intersector, plus
+the power light pick, the per-corner texture blend and block-synchronous
+regeneration (cfg.mega_sync_regen, per-pixel results unchanged).
+
+`render_mega_bvh_rows` launches the kernel for CUDA tensors (counting
+launches in `render_mega_bvh_rows.launches`) and runs the plain version,
+`render_mega_bvh_rows_ref` — the torch wavefront over the same pixel rows,
+on the plain K3 (the brute-force Woop scan), shading textures with the same
+per-corner blend — for CPU tensors.  Pixel and output planes are
+(rows, LANES).
+
+Not carried over from the TPU kernel: its schedule (VMEM residency and
+streaming, 1024-ray blocks, traversal subgroups, per-round bin picks, the
+tiled pixel layout) and `debug_rounds_cap`, a TPU probing knob that biases
+the image; a nonzero cap raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bvh import ftb
+from ..scene.data import SceneData
+from ..utils.config import RenderConfig
+from . import path_tracer
+from .mega import LANES, _pack_tables, env_fused_ok, kernel_params, pack_env
+
+
+def mega_bvh_eligible(scene: SceneData, cfg: RenderConfig) -> bool:
+    """Whether the fused-BVH megakernel covers this (scene, config): the
+    semantic gates of mega_bvh.py:891-902 (the TPU residency and streaming
+    limits do not apply)."""
+    return (
+        cfg.use_bvh
+        and env_fused_ok(scene)
+        and cfg.light_sampling in ("uniform", "power")
+        and scene.num_tris > 0
+        and scene.num_lights < (1 << 16)
+    )
+
+
+def pack_attr(scene: SceneData, light_mode: str) -> torch.Tensor:
+    """(T, 32 | 41) attribute rows (mega_bvh.py:_pack_tables_bvh): K1's rows
+    0-30, row 31 the light-selection pdf of the triangle's emitter (0 when
+    not emissive), and for textured scenes rows 32-40 the per-corner texture
+    colours (rgb x 3 corners)."""
+    _, attr, _, _ = _pack_tables(scene)
+    lidx = scene.tri_light_idx.long()
+    if light_mode == "power":
+        sel = scene.light_prob[torch.clamp(lidx, min=0)]
+    else:
+        sel = torch.full_like(attr[:, 0], 1.0 / scene.num_lights)
+    attr = torch.cat([attr[:, :31], torch.where(lidx >= 0, sel, 0.0)[:, None]], dim=1)
+    if scene.has_textures:
+        attr = torch.cat([attr, path_tracer.corner_texture_rows(scene)], dim=1)
+    return attr.contiguous()
+
+
+def _check(scene, cfg, pix):
+    if not mega_bvh_eligible(scene, cfg):
+        raise ValueError("render_mega_bvh_rows: (scene, cfg) is not eligible")
+    if cfg.debug_rounds_cap:
+        raise NotImplementedError("debug_rounds_cap is a TPU probing knob; not in the port")
+    if pix.dim() != 2 or pix.shape[1] != LANES or pix.dtype != torch.int32:
+        raise ValueError(f"pix: want int32 (rows, {LANES}), got {pix.dtype} {tuple(pix.shape)}")
+    if pix.device != scene.device:
+        raise ValueError(f"pix on {pix.device}, scene on {scene.device}")
+
+
+def render_mega_bvh_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
+    """Plain torch version of render_mega_bvh_rows: the torch wavefront on
+    the plain K3 over the same pixel rows (no light-pick sharing or ray
+    sorting, which the kernel does not do), textures by the per-corner
+    blend.  Returns (rad_r, rad_g, rad_b, rays) planes."""
+    rows = pix.shape[0]
+    plain = cfg.replace(intersector="woop", light_block=0, sort_rays=False, shadow_sort=False)
+    rad, rays, _ = path_tracer.trace_wavefront(scene, plain, pix.reshape(-1), timestamp0,
+                                               tex_mode="corners")
+    shape = (rows, LANES)
+    return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape),
+            rad[:, 2].reshape(shape), rays.reshape(shape))
+
+
+def render_mega_bvh_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
+    """Run the fused-BVH megakernel over explicit pixel rows.  pix: (rows,
+    LANES) int32 pixel ids.  Returns per-lane radiance sums over cfg.spp and
+    ray counts, each (rows, LANES)."""
+    _check(scene, cfg, pix)
+    if pix.device.type == "cpu":
+        return render_mega_bvh_rows_ref(scene, cfg, pix, timestamp0)
+    if pix.device.type != "cuda":
+        raise ValueError(f"render_mega_bvh_rows: unsupported device {pix.device}")
+    from .. import _build
+
+    lib = _build.load()
+    power = cfg.light_sampling == "power"
+    nodes, meta, clusters, woop_t, bvh_ip = ftb.kernel_tables(scene)
+    attr = pack_attr(scene, cfg.light_sampling)
+    _, _, light, camv = _pack_tables(scene)
+    env = pack_env(scene)
+    ip, fp = kernel_params(scene, cfg, timestamp0, power_pick=power,
+                           textured=scene.has_textures, attr_stride=attr.shape[1])
+    light_cdf = scene.light_cdf.contiguous()
+    light_prob = scene.light_prob.contiguous()
+    pix = pix.contiguous()
+    rows = pix.shape[0]
+    out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device) for _ in range(3)]
+    rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
+    with torch.cuda.device(pix.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_mega_bvh(
+            pix.data_ptr(), pix.numel(), nodes.data_ptr(), meta.data_ptr(),
+            clusters.data_ptr(), woop_t.data_ptr(), bvh_ip.data_ptr(), attr.data_ptr(),
+            light.data_ptr(), light_cdf.data_ptr(), light_prob.data_ptr(), camv.data_ptr(),
+            env.data_ptr(), ip.ctypes.data, fp.ctypes.data, int(cfg.mega_sync_regen),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,
+        )
+    _build.check(rc, "render_mega_bvh_rows")
+    render_mega_bvh_rows.launches += 1
+    return out[0], out[1], out[2], rays
+
+
+render_mega_bvh_rows.launches = 0
+
+
+def render_mega_bvh(scene: SceneData, cfg: RenderConfig, timestamp0=0):
+    """Render (H, W, 3) radiance (mean over cfg.spp) plus the total rays
+    traced (a float), pixels in raster order.  Lanes past the last pixel
+    point at pixel 0 and are left out of the image and the ray total."""
+    n_pixels = cfg.width * cfg.height
+    rows = -(-n_pixels // LANES)
+    pix = torch.arange(rows * LANES, dtype=torch.int32, device=scene.device)
+    pix = torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
+    rad_r, rad_g, rad_b, rays = render_mega_bvh_rows(scene, cfg, pix, timestamp0)
+    rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
+    nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())
+    img = (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
+    return img, nrays

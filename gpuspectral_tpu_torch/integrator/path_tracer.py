@@ -1,5 +1,5 @@
 """Wavefront path tracer (port of gpuspectral_tpu/integrator/path_tracer.py,
-the forward brute-force path).
+the forward path).
 
 One vectorized bounce step (`_bounce`) over a batch of lanes, iterated until
 every lane is done; `trace_wavefront` keeps each lane busy with its own
@@ -8,19 +8,26 @@ one ends.  Reference semantics (raygen.rgen / rayhit.rchit): firefly clamp,
 Russian roulette after depth 10, NEE with power-heuristic MIS and the
 countEmitted / wasDelta / directWeight bookkeeping, two-faced flip for
 non-emitters, invalid-hemisphere / self-intersection / non-finite
-terminations, shadow epsilon 0.01, origin offset 1e-4.
+terminations, shadow epsilon 0.01, origin offset 1e-4.  Beyond the
+reference, as the JAX package: environment emitters (miss shading and an
+environment NEE strategy mixed with the area lights) and textures.
 
 RNG channel layout per bounce (as the JAX package):
   ch 0..2 bsdf (select, u1, u2), ch 3 light index bits, ch 4..5 light
-  triangle (u1, u2), ch 6 russian roulette, ch 7..8 subpixel jitter.
+  triangle (u1, u2), ch 6 russian roulette, ch 7..8 subpixel jitter,
+  ch 9..11 environment NEE (u1, u2, strategy select).
 
-Intersection: for CUDA tensors with intersector "auto" or "pallas", the
-brute-force kernels of ops/cuda_isect.py (K2); for CPU tensors, or with
-"woop", the plain torch Woop scans.  This module is also the plain version
-of the megakernel (integrator/mega.py: render_mega_rows_ref).
+Intersection.  Brute force (cfg.use_bvh False): for CUDA tensors with
+intersector "auto" or "pallas" the kernels of ops/cuda_isect.py (K2).  BVH
+(cfg.use_bvh, bvh_kernel "ftb"): for CUDA tensors the kernels of bvh/ftb.py
+(K3), with optional ray sorting (cfg.sort_rays) and shadow-ray sorting
+(cfg.shadow_sort).  For CPU tensors, or with intersector "woop", the plain
+torch Woop scans.  This module is also the plain version of both
+megakernels (integrator/mega.py, integrator/mega_bvh.py).
 
-Not covered yet: BVH traversal and ray sorting (slice B of the port), the
-differentiable path (slice C).
+Not covered yet: intersector "mt" (the Moller-Trumbore XLA twin of
+bvh/traverse.py), the other BVH kernels (bvh_kernel != "ftb"), the
+differentiable path.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..bsdf.dispatch import eval_bsdf, is_transmission, sample_bsdf
+from ..bvh import ftb
 from ..ops import cuda_isect
 from ..ops import math3d as m3
 from ..ops import rng
@@ -36,6 +44,7 @@ from ..ops import woop as woop_mod
 from ..scene.camera import generate_rays
 from ..scene.data import SceneData
 from ..utils.config import RenderConfig
+from . import envmap as env_mod
 
 CH_BSDF_SELECT = 0
 CH_BSDF_U1 = 1
@@ -46,19 +55,24 @@ CH_LIGHT_U2 = 5
 CH_RR = 6
 CH_JITTER_X = 7
 CH_JITTER_Y = 8
+CH_ENV_U1 = 9
+CH_ENV_U2 = 10
+CH_ENV_SELECT = 11
 
 _BIG = 1e30
 
 
 def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
-    """"pallas" (the CUDA brute-force kernels, or their plain versions for
-    CPU tensors) or "woop" (always the plain torch scan)."""
-    if cfg.use_bvh:
-        raise NotImplementedError("BVH traversal: slice B of the port")
-    if cfg.sort_rays:
-        raise NotImplementedError("ray sorting (a BVH coherence aid): slice B of the port")
+    """"pallas" (the CUDA kernels, or their plain versions for CPU tensors)
+    or "woop" (always the plain torch scans)."""
     isector = cfg.intersector
-    if isector in ("auto", "mega"):
+    if isector == "mt":
+        raise NotImplementedError(
+            "intersector 'mt' (the XLA twin of bvh/traverse.py) is a later slice of the port")
+    if cfg.use_bvh and cfg.bvh_kernel != "ftb":
+        raise NotImplementedError(
+            f"bvh_kernel {cfg.bvh_kernel!r}: queue 2 of the port (K7); only 'ftb' is ported")
+    if isector in ("auto", "mega", "mega_bvh"):
         return "pallas" if scene.device.type == "cuda" else "woop"
     if isector in ("pallas", "woop"):
         return isector
@@ -66,21 +80,24 @@ def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
 
 
 def _tri_table(scene: SceneData):
-    """(T, 36) packed per-triangle attributes (path_tracer.py:_tri_table)."""
+    """(T, 36 | 43) packed per-triangle attributes (path_tracer.py:_tri_table);
+    textured scenes append corner uvs (36:42) and the texture id (42)."""
     t = scene.tri_pos.shape[0]
     f32 = torch.float32
-    return torch.cat(
-        [
-            scene.tri_pos.reshape(t, 9),  # 0:9
-            scene.tri_nrm.reshape(t, 9),  # 9:18
-            scene.tri_emission,  # 18:21
-            scene.tri_twofaced[:, None].to(f32),  # 21
-            scene.tri_light_idx[:, None].to(f32),  # 22
-            scene.bsdf_kind[scene.tri_bsdf.long()][:, None].to(f32),  # 23
-            scene.bsdf_params[scene.tri_bsdf.long()],  # 24:36
-        ],
-        dim=1,
-    )
+    bsdf = scene.tri_bsdf.long()
+    cols = [
+        scene.tri_pos.reshape(t, 9),  # 0:9
+        scene.tri_nrm.reshape(t, 9),  # 9:18
+        scene.tri_emission,  # 18:21
+        scene.tri_twofaced[:, None].to(f32),  # 21
+        scene.tri_light_idx[:, None].to(f32),  # 22
+        scene.bsdf_kind[bsdf][:, None].to(f32),  # 23
+        scene.bsdf_params[bsdf],  # 24:36
+    ]
+    if scene.has_textures:
+        cols.append(scene.tri_uv.reshape(t, 6))  # 36:42
+        cols.append(scene.bsdf_tex[bsdf][:, None].to(f32))  # 42
+    return torch.cat(cols, dim=1)
 
 
 def _gather_tri(tri_table, prim):
@@ -95,6 +112,7 @@ def _gather_tri(tri_table, prim):
         rows[:, 18:21],  # emission
         rows[:, 21] > 0.5,  # twofaced
         torch.round(rows[:, 22]).to(torch.int32),  # light idx
+        rows,  # full rows (uv / texture columns when textured)
     )
 
 
@@ -102,10 +120,50 @@ def _safe_inv(x, eps=1e-12):
     return 1.0 / torch.clamp(x, min=eps)
 
 
-def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
-    """One wavefront bounce (path_tracer.py:_bounce, brute-force branch).
-    `bounce` is the per-lane depth (int64 tensor); `state` a dict of
-    per-lane tensors."""
+def _texture_lookup(scene: SceneData, uv_c, tex_id, bu, bv):
+    """Nearest-texel lookup in the atlas with wrap addressing
+    (path_tracer.py:136-149).  uv_c (R,3,2) corner uvs, tex_id (R,) (-1 =
+    untextured: 1.0)."""
+    bw = 1.0 - bu - bv
+    uv = bw[:, None] * uv_c[:, 0] + bu[:, None] * uv_c[:, 1] + bv[:, None] * uv_c[:, 2]
+    res = scene.textures.shape[1]
+    u = uv[:, 0] - torch.floor(uv[:, 0])
+    v = uv[:, 1] - torch.floor(uv[:, 1])
+    px = torch.clamp((u * res).to(torch.int64), 0, res - 1)
+    py = torch.clamp(((1.0 - v) * res).to(torch.int64), 0, res - 1)
+    flat = scene.textures.reshape(-1, 3)
+    idx = torch.clamp(tex_id.long(), min=0) * res * res + py * res + px
+    return torch.where((tex_id >= 0)[:, None], flat[idx], 1.0)
+
+
+def corner_texture_rows(scene: SceneData):
+    """(T, 9) per-corner texture colours: the nearest texel at each corner's
+    uv (mega_bvh.py:787-801).  The fused-BVH megakernel shades a textured hit
+    with their barycentric blend instead of a per-hit lookup."""
+    t = scene.tri_uv.shape[0]
+    tex_id = scene.bsdf_tex[scene.tri_bsdf.long()]
+    zeros = torch.zeros((t,), dtype=torch.float32, device=scene.device)
+    return torch.cat([_texture_lookup(scene, scene.tri_uv, tex_id, zeros + bu, zeros + bv)
+                      for bu, bv in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0))], dim=1)
+
+
+def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str):
+    """Per-render lookup tables: the brute-force triangle rows or the BVH
+    attribute rows, the light rows, and the corner texture colours."""
+    out = dict(light=torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1))
+    if cfg.use_bvh:
+        out["attr"] = ftb.attr_table(scene)
+    else:
+        out["tri"] = _tri_table(scene)
+    if scene.has_textures and tex_mode == "corners":
+        out["corner_tex"] = corner_texture_rows(scene)
+    return out
+
+
+def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
+    """One wavefront bounce (path_tracer.py:_bounce).  `bounce` is the
+    per-lane depth (int64 tensor); `state` a dict of per-lane tensors;
+    `tables` from _tables."""
     origin, direction = state["origin"], state["direction"]
     seed = state["seed"]
     alive = ~state["done"]
@@ -115,24 +173,53 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
 
     t_max0 = torch.where(alive, _BIG, -_BIG)
     zeros = torch.zeros((r,), dtype=torch.float32, device=dev)
-    if isector == "pallas":
-        t, prim = cuda_isect.closest_cuda(origin.contiguous(), direction.contiguous(),
-                                          scene.tri_woop_t, zeros, t_max0)
-        bu, bv = woop_mod._recover_uv(origin, direction, scene.tri_woop, prim,
-                                      torch.where(prim >= 0, t, 0.0))
-        bu = torch.where(prim >= 0, bu, 0.0)
-        bv = torch.where(prim >= 0, bv, 0.0)
+    pos_c = area_hit = None
+    if cfg.use_bvh:
+        closest = ftb.ftb_closest if isector == "pallas" else ftb.ftb_closest_ref
+        t, prim, bu, bv, attrs = closest(scene, origin.contiguous(), direction.contiguous(),
+                                         active=alive, attr=tables["attr"])
+        nrm_c = attrs[:, 0:9].reshape(r, 3, 3)
+        gn = attrs[:, 9:12]
+        area_hit = attrs[:, 12]
+        bsdf_idx, tri_lidx, twofaced = ftb.unpack_meta(attrs[:, 13])
+        bparams = scene.bsdf_params[bsdf_idx]
+        bkind = scene.bsdf_kind[bsdf_idx]
+        emission = torch.where((tri_lidx >= 0)[:, None],
+                               scene.light_emission[torch.clamp(tri_lidx, min=0)], 0.0)
+        uv_c = attrs[:, 14:20].reshape(r, 3, 2) if scene.has_textures else None
+        tex_id = scene.bsdf_tex[bsdf_idx] if scene.has_textures else None
     else:
-        chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
-        t, prim, bu, bv = woop_mod.closest_scan(origin, direction, scene.tri_woop,
-                                                zeros, t_max0, chunk)
+        if isector == "pallas":
+            t, prim = cuda_isect.closest_cuda(origin.contiguous(), direction.contiguous(),
+                                              scene.tri_woop_t, zeros, t_max0)
+            bu, bv = woop_mod._recover_uv(origin, direction, scene.tri_woop, prim,
+                                          torch.where(prim >= 0, t, 0.0))
+            bu = torch.where(prim >= 0, bu, 0.0)
+            bv = torch.where(prim >= 0, bv, 0.0)
+        else:
+            chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
+            t, prim, bu, bv = woop_mod.closest_scan(origin, direction, scene.tri_woop,
+                                                    zeros, t_max0, chunk)
+        pos_c, nrm_c, bparams, bkind, emission, twofaced, tri_lidx, rows = _gather_tri(
+            tables["tri"], prim)
+        gn = m3.normalize(m3.cross(pos_c[:, 1] - pos_c[:, 0], pos_c[:, 2] - pos_c[:, 0]))
+        uv_c = rows[:, 36:42].reshape(r, 3, 2) if scene.has_textures else None
+        tex_id = torch.round(rows[:, 42]).to(torch.int64) if scene.has_textures else None
     hit = (prim >= 0) & alive
     miss = (~(prim >= 0)) & alive
 
-    pos_c, nrm_c, bparams, bkind, emission, twofaced, _tri_lidx = _gather_tri(tri_table, prim)
+    if scene.has_textures:
+        # modulate the diffuse / reflectance colour by the bound texture
+        if "corner_tex" in tables:
+            c = tables["corner_tex"][torch.clamp(prim, min=0).long()]
+            bw_ = 1.0 - bu - bv
+            mod = bw_[:, None] * c[:, 0:3] + bu[:, None] * c[:, 3:6] + bv[:, None] * c[:, 6:9]
+        else:
+            mod = _texture_lookup(scene, uv_c, tex_id, bu, bv)
+        bparams = torch.cat([bparams[:, 0:3] * mod, bparams[:, 3:]], dim=1)
 
-    # hit position (fused, as XLA and the megakernel compute it); miss lanes
-    # carry t = 1e30, clamped to keep math finite
+    # hit position (fused, as XLA and the megakernels compute it); miss
+    # lanes carry t = 1e30, clamped to keep math finite
     t_safe = torch.where(hit, t, 1.0)
     position = m3.fma(direction, t_safe[..., None], origin)
 
@@ -140,7 +227,6 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
     sn = m3.normalize(
         bw[..., None] * nrm_c[:, 0] + bu[..., None] * nrm_c[:, 1] + bv[..., None] * nrm_c[:, 2]
     )
-    gn = m3.normalize(m3.cross(pos_c[:, 1] - pos_c[:, 0], pos_c[:, 2] - pos_c[:, 0]))
     # orient the interpolated shading normal into the geometric hemisphere
     sn = torch.where(m3.dot(sn, gn)[..., None] < 0.0, -sn, sn)
 
@@ -183,8 +269,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
         lbits = rng.random_bits(pick_seed, bounce, CH_LIGHT_INDEX)
         lidx = lbits % scene.num_lights
         select_pdf = 1.0 / scene.num_lights
-    light_table = torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1)
-    lrows = light_table[lidx]
+    lrows = tables["light"][lidx]
     lv = lrows[:, 0:9].reshape(-1, 3, 3)
     lemit = lrows[:, 9:12]
     lu1 = rng.uniform(seed, bounce, CH_LIGHT_U1)
@@ -198,9 +283,30 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
     ldist = m3.length(ldelta)
     ldir = ldelta / torch.clamp(ldist, min=1e-12)[..., None]
 
+    # NEE over the environment emitter (path_tracer.py:404-433): with
+    # probability p_env the NEE strategy samples the map instead of an area
+    # light; pdfs carry the selection probability so the mixture MIS is exact
+    p_env = 0.0
+    env_nee = scene.has_envmap and cfg.nee
+    if env_nee:
+        p_env = 0.5 if scene.has_area_lights else 1.0
+        eu1 = rng.uniform(seed, bounce, CH_ENV_U1)
+        eu2 = rng.uniform(seed, bounce, CH_ENV_U2)
+        if scene.has_area_lights:
+            env_pick = rng.uniform(seed, bounce, CH_ENV_SELECT) < p_env
+        else:
+            env_pick = torch.ones_like(hit)
+        env_dir, env_pdf = env_mod.sample_envmap(
+            scene.envmap, scene.envmap_rot, scene.envmap_cdf, scene.envmap_pdf, eu1, eu2)
+        env_l = env_mod.eval_envmap(scene.envmap, scene.envmap_rot, env_dir)
+        ldir = torch.where(env_pick[..., None], env_dir, ldir)
+        ldist = torch.where(env_pick, _BIG, ldist)
+        light_emitted = torch.where(env_pick[..., None], env_l, light_emitted)
+        light_pdf = torch.where(env_pick, env_pdf * p_env, light_pdf * (1.0 - p_env))
+
     w_light_local = m3.onb_world_to_local(tg, bn, nn, ldir)
     nol = torch.abs(m3.dot(sn, ldir))
-    f_light, _light_eval_pdf, _ = eval_bsdf(
+    f_light, light_eval_pdf, _ = eval_bsdf(
         bparams, bkind, wo, w_light_local, present=scene.kinds_present
     )
 
@@ -211,19 +317,39 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
         nee_candidate = torch.zeros_like(nee_candidate)
 
     sh_tmin = torch.full((r,), cfg.shadow_epsilon, dtype=torch.float32, device=dev)
-    if isector == "pallas":
-        sh_tmax = torch.where(nee_candidate, ldist - cfg.shadow_epsilon, -1.0)
-        shadowed = cuda_isect.any_cuda(position, ldir.contiguous(), scene.tri_woop_t,
-                                       sh_tmin, sh_tmax)
+    sh_tmax = ldist - cfg.shadow_epsilon
+    if cfg.use_bvh:
+        any_hit = ftb.ftb_any if isector == "pallas" else ftb.ftb_any_ref
+        if cfg.shadow_sort:
+            # sort shadow segments by endpoint + origin so that a warp's rays
+            # head for one light region (path_tracer.py:456-473); occlusion
+            # is per ray, so the order changes only the cost
+            endpoint = light_pos
+            if env_nee:
+                diag = m3.length(scene.bvh_node_max[0] - scene.bvh_node_min[0])
+                endpoint = torch.where(env_pick[..., None], position + ldir * diag, light_pos)
+            order = torch.argsort(_segment_sort_key(scene, position, endpoint, nee_candidate),
+                                  stable=True)
+            occ_s = any_hit(scene, position[order].contiguous(), ldir[order].contiguous(),
+                            sh_tmin, sh_tmax[order], active=nee_candidate[order])
+            shadowed = torch.zeros_like(occ_s).index_copy(0, order, occ_s)
+        else:
+            shadowed = any_hit(scene, position.contiguous(), ldir.contiguous(), sh_tmin,
+                               sh_tmax, active=nee_candidate)
+    elif isector == "pallas":
+        shadowed = cuda_isect.any_cuda(position, ldir.contiguous(), scene.tri_woop_t, sh_tmin,
+                                       torch.where(nee_candidate, sh_tmax, -1.0))
     else:
-        sh_tmax = torch.where(nee_candidate, ldist - cfg.shadow_epsilon, -1.0)
         chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
-        shadowed = woop_mod.any_scan(position, ldir, scene.tri_woop, sh_tmin, sh_tmax, chunk)
+        shadowed = woop_mod.any_scan(position, ldir, scene.tri_woop, sh_tmin,
+                                     torch.where(nee_candidate, sh_tmax, -1.0), chunk)
     nee_done = nee_candidate & (~shadowed) & (light_pdf != 0.0)
 
     # MIS complement pdf: the reference reuses the *sampled* BSDF pdf
-    # (rayhit.rchit:750-754 quirk)
-    w_mis = smp.power_heuristic(light_pdf, pdf)
+    # (rayhit.rchit:750-754 quirk); the environment strategy weighs against
+    # the exact eval pdf (path_tracer.py:569-577)
+    mis_bsdf_pdf = torch.where(env_pick, light_eval_pdf, pdf) if env_nee else pdf
+    w_mis = smp.power_heuristic(light_pdf, mis_bsdf_pdf)
     nee_contrib = (
         w_mis[..., None]
         * nol[..., None]
@@ -241,14 +367,16 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
     self_emit = emission * light_flag[..., None] * state["weight"]
     if cfg.nee and cfg.mis_mode == "exact":
         # true MIS complement: light pdf of the point the BSDF ray hit
-        e1h = pos_c[:, 1] - pos_c[:, 0]
-        e2h = pos_c[:, 2] - pos_c[:, 0]
-        area_hit = 0.5 * m3.length(m3.cross(e1h, e2h))
+        if area_hit is None:
+            e1h = pos_c[:, 1] - pos_c[:, 0]
+            e2h = pos_c[:, 2] - pos_c[:, 0]
+            area_hit = 0.5 * m3.length(m3.cross(e1h, e2h))
         cos_hit = torch.abs(m3.dot(gn, -direction))
         if cfg.light_sampling == "power":
-            sel_hit = scene.light_prob[torch.clamp(_tri_lidx, min=0).long()]
+            sel_hit = scene.light_prob[torch.clamp(tri_lidx, min=0).long()]
         else:
             sel_hit = 1.0 / scene.num_lights
+        sel_hit = sel_hit * (1.0 - p_env)  # env / area mixture selection
         pdf_hit = t_safe * t_safe / torch.clamp(cos_hit * area_hit, min=1e-12) * sel_hit
         w_emit = torch.where(
             state["prev_nee"], smp.power_heuristic(state["prev_pdf"], pdf_hit), 1.0
@@ -265,6 +393,20 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
     else:
         emitted = emitted + self_emit
     emitted = torch.where(hit[..., None], emitted, 0.0)
+
+    if scene.has_envmap:
+        # environment radiance on miss, MIS-discounted against the
+        # environment NEE strategy (path_tracer.py:628-649)
+        env_miss = env_mod.eval_envmap(scene.envmap, scene.envmap_rot, direction)
+        if cfg.nee:
+            pdf_e = env_mod.envmap_pdf(scene.envmap_pdf, scene.envmap_rot, direction) * p_env
+            w_env = torch.where(state["prev_nee_any"] & (~wd),
+                                smp.power_heuristic(state["prev_pdf"], pdf_e), 1.0)
+            scale_env = torch.where(ce, 1.0, w_env)
+        else:
+            scale_env = torch.ones_like(state["prev_pdf"])
+        emitted = emitted + torch.where(
+            miss[..., None], scale_env[..., None] * state["weight"] * env_miss, 0.0)
 
     # path termination tests (rayhit.rchit:770-784)
     invalid_hemi = (m3.dot(wi_world, gn) <= 0.0) & (~transmission)
@@ -290,6 +432,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tri_table):
     out["direct_weight"] = torch.where(cont, new_direct_weight, state["direct_weight"])
     out["prev_pdf"] = torch.where(cont, pdf, state["prev_pdf"])
     out["prev_nee"] = torch.where(cont, nee_done, state["prev_nee"])
+    out["prev_nee_any"] = torch.where(cont, nee_candidate, state["prev_nee_any"])
     out["was_delta"] = torch.where(cont, delta, wd)
     out["count_emitted"] = torch.where(cont, False, ce)
     out["done"] = state["done"] | miss | terminate
@@ -321,6 +464,7 @@ def _fresh_state(origin, direction, seed):
         direct_weight=torch.ones((r,), dtype=f32, device=dev),
         prev_pdf=torch.ones((r,), dtype=f32, device=dev),
         prev_nee=torch.zeros((r,), dtype=torch.bool, device=dev),
+        prev_nee_any=torch.zeros((r,), dtype=torch.bool, device=dev),
         was_delta=torch.zeros((r,), dtype=torch.bool, device=dev),
         count_emitted=torch.ones((r,), dtype=torch.bool, device=dev),  # raygen.rgen:43
         done=torch.zeros((r,), dtype=torch.bool, device=dev),
@@ -344,28 +488,77 @@ def trace_rays(scene: SceneData, cfg: RenderConfig, origin, direction, seed):
     """Trace a batch of rays to completion: depth = 0 .. max_depth, stopping
     early once every lane is done.  Returns (radiance (R,3), rays_traced
     (R,) int32: closest-hit plus shadow rays issued per lane)."""
-    tri_table = _tri_table(scene)
+    tables = _tables(scene, cfg, "nearest")
     state = _fresh_state(origin, direction, rng.as_u32(seed))
     bounce = 0
     while bounce < cfg.max_depth + 1 and not bool(torch.all(state["done"])):
         depth = torch.full_like(state["seed"], bounce)
-        state = _bounce(scene, cfg, depth, state, tri_table)
+        state = _bounce(scene, cfg, depth, state, tables)
         bounce += 1
     return state["radiance"], state["rays_traced"]
 
 
-def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0):
+def _bbox(scene: SceneData):
+    lo = scene.bvh_node_min[0]
+    return lo, torch.clamp(scene.bvh_node_max[0] - lo, min=1e-6)
+
+
+def _expand_bits(v, masks):
+    for shift, mask in masks:
+        v = (v | (v << shift)) & mask
+    return v
+
+
+_EXPAND9 = ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3), (2, 0x09249249))
+_EXPAND5 = _EXPAND9[1:]
+
+
+def _ray_sort_key(scene: SceneData, origin, direction, done):
+    """Coherence key (path_tracer.py:897-920): direction octant (3 bits) |
+    origin Morton code (27 bits); done lanes sort to the end."""
+    lo, extent = _bbox(scene)
+    q = (torch.clamp((origin - lo) / extent, 0.0, 1.0) * 511.0).to(torch.int64)
+    morton = ((_expand_bits(q[:, 0], _EXPAND9) << 2) | (_expand_bits(q[:, 1], _EXPAND9) << 1)
+              | _expand_bits(q[:, 2], _EXPAND9))
+    octant = (((direction[:, 0] < 0).long() << 2) | ((direction[:, 1] < 0).long() << 1)
+              | (direction[:, 2] < 0).long())
+    key = (octant << 27) | (morton & ((1 << 27) - 1))
+    return torch.where(done, 1 << 30, key)
+
+
+def _segment_sort_key(scene: SceneData, origin, endpoint, candidate):
+    """Shadow-segment key (path_tracer.py:874-894): 15-bit Morton code of
+    the endpoint (major) and of the origin; non-candidates sort last."""
+    lo, extent = _bbox(scene)
+
+    def m15(p):
+        q = (torch.clamp((p - lo) / extent, 0.0, 1.0) * 31.0).to(torch.int64)
+        return ((_expand_bits(q[:, 0], _EXPAND5) << 2) | (_expand_bits(q[:, 1], _EXPAND5) << 1)
+                | _expand_bits(q[:, 2], _EXPAND5))
+
+    key = (m15(endpoint) << 15) | m15(origin)
+    return torch.where(candidate, key, 1 << 30)
+
+
+def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0,
+                    tex_mode: str = "nearest"):
     """Persistent-lane wavefront: each lane owns one pixel and runs its
     cfg.spp samples back to back, regenerating a fresh camera path the
-    moment the previous one ends (path_tracer.py:770).
+    moment the previous one ends (path_tracer.py:770).  With cfg.sort_rays
+    the lanes are re-ordered every cfg.sort_interval iterations by
+    _ray_sort_key; each lane's pixel travels with it.
+
+    tex_mode: "nearest" shades a textured hit with the texel at its uv (the
+    wavefront's rule); "corners" with the barycentric blend of per-corner
+    texels (the fused-BVH megakernel's rule, for its plain version).
 
     Returns (radiance_sum (R,3), rays_traced (R,), pixel (R,)); divide the
-    radiance by spp."""
+    radiance by spp and scatter it by pixel."""
     pixel_index = rng.as_u32(pixel_index)
     dev = pixel_index.device
     r = pixel_index.shape[0]
     t0 = int(timestamp0) & 0xFFFFFFFF
-    tri_table = _tri_table(scene)
+    tables = _tables(scene, cfg, tex_mode)
 
     def fresh_ray(pixel, sample_idx):
         seed = rng.pixel_seed(pixel, (sample_idx + t0) & 0xFFFFFFFF)
@@ -385,7 +578,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
         if bool(torch.all(state["done"] & (state["sample"] + 1 >= cfg.spp))):
             break
         depth = state["depth"]
-        st = _bounce(scene, cfg, depth, state, tri_table)
+        st = _bounce(scene, cfg, depth, state, tables)
         st["depth"] = depth + 1
         st["done"] = st["done"] | (st["depth"] >= cfg.max_depth + 1)
 
@@ -401,11 +594,16 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
         st["direct_weight"] = torch.where(regen, 1.0, st["direct_weight"])
         st["prev_pdf"] = torch.where(regen, 1.0, st["prev_pdf"])
         st["prev_nee"] = torch.where(regen, False, st["prev_nee"])
+        st["prev_nee_any"] = torch.where(regen, False, st["prev_nee_any"])
         st["was_delta"] = torch.where(regen, False, st["was_delta"])
         st["count_emitted"] = torch.where(regen, True, st["count_emitted"])
         st["depth"] = torch.where(regen, 0, st["depth"])
         st["sample"] = new_sample
         st["done"] = st["done"] & (~regen)
+        if cfg.sort_rays and (it + 1) % cfg.sort_interval == 0:
+            order = torch.argsort(
+                _ray_sort_key(scene, st["origin"], st["direction"], st["done"]), stable=True)
+            st = {k: v[order] for k, v in st.items()}
         state = st
         it += 1
     return state["radiance"], state["rays_traced"], state["pixel"]
@@ -434,7 +632,9 @@ def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     nrays = 0.0
     for b in range(n_batches):
         pix = torch.arange(b * batch, (b + 1) * batch, dtype=torch.int64, device=dev)
-        rad, rays, _ = trace_wavefront(scene, cfg, pix, timestamp0)
+        rad, rays, pixel = trace_wavefront(scene, cfg, pix, timestamp0)
+        if cfg.sort_rays:  # lanes permuted: scatter back to pixel order
+            rad = torch.zeros_like(rad).index_copy(0, pixel - b * batch, rad)
         parts.append(rad / cfg.spp)
         nrays += float(rays.to(torch.float64).sum())
     radiance = torch.cat(parts, dim=0)[:n_pixels]

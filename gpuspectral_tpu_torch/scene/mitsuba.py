@@ -8,8 +8,11 @@ TinyParser-Mitsuba (engine/Loader.cpp:145-234,253-349):
   bsdfs      twosided | diffuse | roughplastic | dielectric | conductor |
              plastic | roughconductor             (Loader.cpp:147-227)
   emitters   area (per-shape)                     (Loader.cpp:301-307)
-             envmap | constant raise NotImplementedError: environment
-             emitters are slice B of the port (the JAX package shades them)
+             envmap | constant (scene level; the reference parses and
+             drops them, here they shade)
+  textures   bitmap | checkerboard bound to a diffuse reflectance or a
+             roughplastic diffuse_reflectance (the reference leaves them
+             unbound, Loader.cpp:122-143)
   sensor     perspective (fov, to_world)          (Loader.cpp:331-337)
   film       width/height; sampler sample_count; integrator max_depth
              (parsed — the reference parses but ignores these; we honor them)
@@ -19,7 +22,7 @@ TinyParser-Mitsuba does ("intIOR" -> "int_ior"), and `<ref id=.../>`
 resolution + nested-bsdf recursion match the reference loader.
 
 A port of gpuspectral_tpu/scene/mitsuba.py that builds this package's
-SceneData; texture bindings raise NotImplementedError (slice B).
+SceneData.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..bsdf import table as bt
-from .data import SceneBuilder, check_slice
+from .data import SceneBuilder
 from .obj import load_obj, make_cube, make_disk, make_rectangle
 
 _CAMEL_RE = re.compile(r"(?<=[a-z0-9])(?=[A-Z])")
@@ -166,16 +169,19 @@ class _MaterialSpec:
         self.face_normals = False
 
 
-def _no_texture(elem: ET.Element, prop_name: str) -> None:
-    """A <texture> child bound to `prop_name` is not covered yet: textured
-    BSDFs are slice B of the port."""
+def _texture_for(elem: ET.Element, prop_name: str, parent_dir: str):
+    """Load the <texture> child bound to `prop_name`, if any
+    (mitsuba.py:167-175)."""
+    from .texture import load_texture_element
+
     for child in elem:
         if child.tag == "texture" and _snake(child.get("name", "")) == prop_name:
-            check_slice(0, has_textures=True)
+            return load_texture_element(child, parent_dir)
+    return None
 
 
 def _load_bsdf_into(
-    builder: SceneBuilder, mat: _MaterialSpec, elem: ET.Element
+    builder: SceneBuilder, mat: _MaterialSpec, elem: ET.Element, parent_dir: str = "."
 ) -> None:
     """Recursive translation of <bsdf> elements (Loader.cpp:145-234)."""
     btype = elem.get("type", "")
@@ -183,14 +189,14 @@ def _load_bsdf_into(
     if btype == "twosided":
         mat.twofaced = True
     elif btype == "diffuse":
-        _no_texture(elem, "reflectance")
         mat.bsdf_index = builder.add_bsdf(
-            bt.diffuse(props.color("reflectance", (0.5, 0.5, 0.5))))
+            bt.diffuse(props.color("reflectance", (0.5, 0.5, 0.5))),
+            texture=_texture_for(elem, "reflectance", parent_dir),
+        )
     elif btype == "roughplastic":
         ior = props.number("int_ior", 1.3)
         r0 = ((ior - 1.0) / (ior + 1.0)) ** 2
         alpha = props.number("alpha", 0.1)
-        _no_texture(elem, "diffuse_reflectance")
         mat.bsdf_index = builder.add_bsdf(
             bt.rough_plastic(
                 props.color("diffuse_reflectance", (0.5, 0.5, 0.5)),
@@ -200,6 +206,7 @@ def _load_bsdf_into(
                 # the reference widens alpha by sqrt(2) (Loader.cpp:179)
                 alpha=float(np.sqrt(2.0)) * alpha,
             ),
+            texture=_texture_for(elem, "diffuse_reflectance", parent_dir),
         )
     elif btype == "dielectric":
         mat.bsdf_index = builder.add_bsdf(
@@ -236,7 +243,7 @@ def _load_bsdf_into(
     # recurse into nested bsdfs (e.g. twosided wrappers), Loader.cpp:229-233
     for child in elem:
         if child.tag == "bsdf":
-            _load_bsdf_into(builder, mat, child)
+            _load_bsdf_into(builder, mat, child, parent_dir)
 
 
 def load_mitsuba_scene(
@@ -298,9 +305,9 @@ def load_mitsuba_scene(
                 if child.tag == "ref":
                     ref = named_bsdfs.get(child.get("id"))
                     if ref is not None:
-                        _load_bsdf_into(b, mat, ref)
+                        _load_bsdf_into(b, mat, ref, parent)
                 elif child.tag == "bsdf":
-                    _load_bsdf_into(b, mat, child)
+                    _load_bsdf_into(b, mat, child, parent)
                 elif child.tag == "emitter" and child.get("type") == "area":
                     mat.emission = _Props(child).color("radiance")
 
@@ -331,8 +338,34 @@ def load_mitsuba_scene(
         elif elem.tag == "integrator":
             props = _Props(elem)
             b.max_depth = props.ints.get("max_depth", b.max_depth)
-        elif elem.tag == "emitter" and elem.get("type", "") in ("constant", "envmap"):
-            check_slice(0, has_envmap=True)
+        elif elem.tag == "emitter":
+            # scene-level environment emitters (mitsuba.py:334-363)
+            props = _Props(elem)
+            etype = elem.get("type", "")
+            if etype == "constant":
+                rad = props.rgbs.get("radiance", np.asarray([1, 1, 1], np.float32))
+                b.set_envmap(np.broadcast_to(rad, (1, 1, 3)))
+            elif etype == "envmap":
+                fname = os.path.join(parent, props.strings.get("filename", ""))
+                img = None
+                if fname.endswith(".exr"):
+                    from gpuspectral_tpu.io.exr import read_exr
+
+                    img = read_exr(fname)
+                elif fname.endswith(".pfm"):
+                    from gpuspectral_tpu.io.image import read_pfm
+
+                    img = read_pfm(fname)
+                elif os.path.exists(fname):
+                    from .texture import load_bitmap
+
+                    img = load_bitmap(fname, gamma=1.0)
+                if img is not None:
+                    b.set_envmap(
+                        img[..., :3],
+                        to_world=props.transforms.get("to_world"),
+                        scale=props.number("scale", 1.0),
+                    )
 
     if build:
         return b.build(device), b

@@ -12,16 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from gpuspectral_tpu_torch.integrator import mega
+from gpuspectral_tpu.bvh import build as bvh_build
+from gpuspectral_tpu_torch.bvh import ftb
+from gpuspectral_tpu_torch.integrator import mega, mega_bvh
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
 from gpuspectral_tpu_torch.integrator import render_image_stats_auto
 from gpuspectral_tpu_torch.ops import cuda_isect as ci
 from gpuspectral_tpu_torch.ops.woop import woop_transform
+from gpuspectral_tpu_torch.scene import data as tdata
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene
-from gpuspectral_tpu_torch.scene.zoo import build_zoo
+from gpuspectral_tpu_torch.scene.zoo import build_sphere_field, build_zoo
 from gpuspectral_tpu_torch.utils import RenderConfig
 
-from torch_common import CORNELL_XML, assert_mega_gates, cuda_device  # noqa: F401
+from torch_common import (CORNELL_XML, assert_mega_gates, cuda_device,  # noqa: F401
+                          env_box, sky, textured_floor)
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +33,16 @@ pytestmark = pytest.mark.cuda
 def _scene(name, dev):
     if name == "zoo":
         return build_zoo(dev)
+    if name == "sphere_field":
+        return build_sphere_field(dev, n_side=2, segs=16, rings=8)
+    if name == "env_const":
+        return env_box(tdata.SceneBuilder(), True).build(dev)
+    if name == "env_image":
+        return env_box(tdata.SceneBuilder(), True, sky(32, 64)).build(dev)
+    if name == "textured":
+        u = (np.arange(tdata.TEX_RES, dtype=np.float32) + 0.5) / tdata.TEX_RES
+        grad = np.broadcast_to(u[None, :, None], (tdata.TEX_RES, tdata.TEX_RES, 3)).copy()
+        return textured_floor(tdata.SceneBuilder(), grad).build(dev)
     return load_mitsuba_scene(str(CORNELL_XML), device=dev)[0]
 
 
@@ -103,6 +117,70 @@ def test_wavefront_on_k2_matches_plain_scans(cuda_device):  # noqa: F811
     n0 = ci.closest_cuda.launches
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
     assert ci.closest_cuda.launches > n0
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
+    assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got,
+                      max_frac=0.001)
+
+
+@pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode"])
+def test_k3_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
+    if name == "slot_mode":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+    ts = _scene("cornell" if name == "slot_mode" else name, cuda_device)
+    o, d, lo, hi = _rays(11, 1 << 16, cuda_device)
+    n0, m0 = ftb.ftb_closest.launches, ftb.ftb_any.launches
+    t, prim, u, v, attrs = ftb.ftb_closest(ts, o, d, t_max=hi)
+    occ = ftb.ftb_any(ts, o, d, lo, hi)
+    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches) == (n0 + 1, m0 + 1)
+    t_r, prim_r, u_r, v_r, attrs_r = ftb.ftb_closest_ref(ts, o, d, t_max=hi)
+    assert (prim_r >= 0).sum() > 1000
+    # the brute scan's fused arithmetic: equal up to m3.fma's rare double
+    # rounding (about one op in 2^29), ties included
+    assert int((prim != prim_r).sum()) <= 2
+    same = prim == prim_r
+    assert torch.equal(t[same], t_r[same]) and torch.equal(u[same], u_r[same])
+    assert torch.equal(v[same], v_r[same]) and torch.equal(attrs[same], attrs_r[same])
+    assert int((occ != ftb.ftb_any_ref(ts, o, d, lo, hi)).sum()) <= 2
+
+
+@pytest.mark.parametrize("name", ["env_const", "env_image"])
+def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
+    ts = _scene(name, cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4)
+    assert mega.mega_eligible(ts, cfg)
+    n0 = mega.render_mega_rows.launches
+    got, rays_got = render_image_stats_auto(ts, cfg, 0)
+    assert mega.render_mega_rows.launches == n0 + 1
+    pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda_device).reshape(-1, mega.LANES)
+    r, g, b, rays = mega.render_mega_rows_ref(ts, cfg, pix, 0)
+    ref = (torch.stack([r, g, b], -1).reshape(64, 64, 3) / cfg.spp).cpu().numpy()
+    assert_mega_gates(ref, got.cpu().numpy(), float(rays.double().sum()), rays_got)
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("cornell", {}), ("sphere_field", {}), ("textured", {}), ("env_image", {}),
+    ("cornell", dict(light_sampling="power", mis_mode="exact")),
+    ("sphere_field", dict(mega_sync_regen=True)),
+], ids=["cornell", "sphere_field", "textured", "env_image", "power_exact", "sync_regen"])
+def test_k4_matches_plain_version(cuda_device, name, opts):  # noqa: F811
+    ts = _scene(name, cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True, **opts)
+    n0 = mega_bvh.render_mega_bvh_rows.launches
+    got, rays_got = render_image_stats_auto(ts, cfg, 0)
+    assert mega_bvh.render_mega_bvh_rows.launches == n0 + 1
+    pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda_device).reshape(-1, mega.LANES)
+    r, g, b, rays = mega_bvh.render_mega_bvh_rows_ref(ts, cfg, pix, 0)
+    ref = (torch.stack([r, g, b], -1).reshape(64, 64, 3) / cfg.spp).cpu().numpy()
+    assert_mega_gates(ref, got.cpu().numpy(), float(rays.double().sum()), rays_got)
+
+
+def test_wavefront_on_k3_matches_plain_scans(cuda_device):  # noqa: F811
+    ts = _scene("sphere_field", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
+                       sort_rays=True)
+    n0 = ftb.ftb_closest.launches
+    got, rays_got = pt.render_image_stats(ts, cfg, 0)
+    assert ftb.ftb_closest.launches > n0
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got,
                       max_frac=0.001)

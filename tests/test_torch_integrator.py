@@ -123,7 +123,13 @@ def test_render_sample_matches_jax(pair):
 
 
 def test_later_slices_raise(pair):
+    # BVH traversal and ray sorting are in the port; the Moller-Trumbore
+    # twin and the other BVH kernels are later slices
     ts = pair["cornell"][1]
-    for kw in (dict(use_bvh=True), dict(sort_rays=True), dict(intersector="mt")):
+    for kw in (dict(intersector="mt"), dict(use_bvh=True, bvh_kernel="binned"),
+               dict(use_bvh=True, bvh_kernel="dfs")):
         with pytest.raises(NotImplementedError):
             pt.render_image_stats(ts, RenderConfig(width=8, height=8, spp=1, max_depth=1, **kw))
+    img, rays = pt.render_image_stats(ts, RenderConfig(width=8, height=8, spp=1, max_depth=1,
+                                                       use_bvh=True, sort_rays=True))
+    assert bool(torch.isfinite(img).all()) and rays > 0
