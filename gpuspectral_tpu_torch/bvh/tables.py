@@ -1,8 +1,8 @@
 """Host-side BVH tables of the scene (numpy copies of the JAX package's
 builders, so the port builds the same tables without importing JAX).
 
-  sah               gpuspectral_tpu/bvh/build.py, the SAH build itself:
-                    numpy only, so it is used as it is
+  sah               bvh/build.py, the SAH build itself (the port's copy
+                    of gpuspectral_tpu/bvh/build.py)
   build_bins        gpuspectral_tpu/bvh/binned.py:75   sweep-bin AABBs
   build_dfs_tables  gpuspectral_tpu/bvh/dfs_sweep.py:66 preorder walk with
                     skip pointers (what K3 and K4 traverse)
@@ -14,7 +14,7 @@ import sys
 
 import numpy as np
 
-from gpuspectral_tpu.bvh import build as sah  # noqa: F401  (numpy only)
+from . import build as sah  # noqa: F401
 
 LANE = 128  # triangle slots per sweep chunk
 SWEEP = 128  # slots per preorder leaf

@@ -116,7 +116,7 @@ def _build(args):
 
 
 def _write(path: str, img, tonemap: bool) -> None:
-    from gpuspectral_tpu.io.image import write_exr, write_pfm, write_png
+    from ..io.image import write_exr, write_pfm, write_png
 
     if path.endswith(".pfm"):
         write_pfm(path, img)

@@ -4,8 +4,8 @@ A frozen dataclass of tensors on one device.  The build is the reference's,
 in numpy: every triangle pre-transformed to world space, per-triangle
 material attributes gathered into dense arrays, every emitting triangle a
 light, arrays padded to multiples of 128 with degenerate triangles, and the
-triangles stored in the slot order of the SAH build (gpuspectral_tpu.bvh.build,
-numpy only), so prim ids equal the JAX package's bit for bit.  The build
+triangles stored in the slot order of the SAH build (bvh/build.py, the
+port's copy of the JAX package's numpy build), so prim ids equal the JAX package's bit for bit.  The build
 carries the same BVH tables (implicit-tree node boxes, sweep bins, the
 preorder walk that the traversal kernels follow), the texture atlas and the
 environment map with its sampling tables.

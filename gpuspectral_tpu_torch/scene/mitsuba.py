@@ -349,11 +349,11 @@ def load_mitsuba_scene(
                 fname = os.path.join(parent, props.strings.get("filename", ""))
                 img = None
                 if fname.endswith(".exr"):
-                    from gpuspectral_tpu.io.exr import read_exr
+                    from ..io.exr import read_exr
 
                     img = read_exr(fname)
                 elif fname.endswith(".pfm"):
-                    from gpuspectral_tpu.io.image import read_pfm
+                    from ..io.image import read_pfm
 
                     img = read_pfm(fname)
                 elif os.path.exists(fname):

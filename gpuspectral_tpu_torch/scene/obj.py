@@ -1,7 +1,7 @@
 """Wavefront OBJ loading -> flat triangle soup (numpy).
 
 A copy of gpuspectral_tpu/scene/obj.py (that package's scene/ imports JAX);
-the native parser binding it uses, gpuspectral_tpu._native, is ctypes only.
+the native parser comes through the port's own loader, _native.py.
 
 Matches the reference's import semantics (engine/Loader.cpp:19-64): every
 face-vertex becomes its own vertex (unindexed soup), positions/normals/uvs
@@ -125,7 +125,7 @@ def load_obj(path: str, cache: bool = True):
 def _load_obj_native(path: str):
     import ctypes
 
-    from gpuspectral_tpu._native import get_lib
+    from .._native import get_lib
 
     lib = get_lib()
     if lib is None:

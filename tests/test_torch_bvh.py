@@ -20,6 +20,7 @@ from gpuspectral_tpu.bvh.ftb import ftb_closest as jax_ftb_closest
 from gpuspectral_tpu.ops.intersect import intersect_any, intersect_closest
 from gpuspectral_tpu.scene import load_mitsuba_scene as jax_load
 from gpuspectral_tpu.scene.data import SceneBuilder as JaxBuilder
+from gpuspectral_tpu_torch.bvh import build as port_bvh_build
 from gpuspectral_tpu_torch.bvh import ftb
 from gpuspectral_tpu_torch.scene import data as tdata
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene
@@ -56,7 +57,9 @@ def _pair(name, monkeypatch=None):
         # imported (the JAX loader imports it): import it before lowering it
         import gpuspectral_tpu.integrator.mega  # noqa: F401
 
+        # the port builds with its own copy of the module: lower both
         monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        monkeypatch.setattr(port_bvh_build, "SLOT_DENSE_THRESHOLD", 8)
         return jax_load(str(CORNELL_XML))[0], load_mitsuba_scene(str(CORNELL_XML))[0]
     if name == "sphere_field":
         return (populate_sphere_field(JaxBuilder(), **SMALL_FIELD).build(),

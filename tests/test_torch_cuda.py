@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpuspectral_tpu.bvh import build as bvh_build
+from gpuspectral_tpu_torch.bvh import build as bvh_build
 from gpuspectral_tpu_torch.bvh import ftb
 from gpuspectral_tpu_torch.integrator import mega, mega_bvh
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
