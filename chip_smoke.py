@@ -11,7 +11,14 @@ integrator.render_image_stats_auto:
     brute-force kernels (K2);
   * the sphere field (scene/zoo.py, 147,460 triangles, a textured floor and
     a 32x64 sky) at 512x512, 64 spp, depth 50 -> the fused-BVH megakernel
-    (K4), then the wavefront dispatch on the BVH kernels (K3).
+    (K4), then the wavefront dispatch on the BVH kernels (K3);
+and the training path through utils.bench.run_grad_benchmark and
+diff.invert:
+  * a gradient step on Cornell at 512x512, 64 spp, depth 5 (and one at
+    1024x1024, 256 spp) -> the fused forward-gradient kernel K5;
+  * a gradient step on the sphere field without its sky at 512x512, 64
+    spp, depth 5 -> the fused-BVH forward-gradient kernel K6;
+  * the differentiable wavefront on K2a / K3a, and 10 Adam steps of invert.
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
@@ -49,6 +56,42 @@ Phases:
         spp at the same timestamp); those rows of the image equal K4's
   bvh_wavefront  the same scene with intersector "pallas" at 512x512,
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
+  k5    K5 vs its plain version (the wavefront with the gradient hook) at
+        64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
+        radiance under the tests/test_mega.py gates, rays within 1%, K5's
+        image equal to K1's, the partials contracted with a fixed numpy
+        cotangent within 2e-3 of the plain version's
+  grad_main  run_grad_benchmark on Cornell 512x512, 64 spp, d5, 3 steps:
+        K5 launched 4 times and nothing else; K5 vs its plain version on 16
+        pixel rows at the last step's timestamp (the gates of main and the
+        gradient gate of k5); K5 and K1 over the whole frame; one step at
+        1024x1024, 256 spp, d5
+  k6    K6 vs its plain version at 64x64 on Cornell in slot mode, the
+        mixed-BSDF and textured scenes of tests/test_mega_grad.py and a
+        small sphere field without sky, under the gates of k5
+  grad_bvh  run_grad_benchmark on builtin:sphere_field_noenv 512x512, 64
+        spp, d5, 2 steps: K6 launched 3 times, K4 / K3 never; K6 vs its
+        plain version on 8 rows (the spp rule of bvh_main)
+  grad_wavefront  the differentiable wavefront at 32x32, 4 spp, d3 on the
+        card (K2a through closest_diff on Cornell, K3a through
+        ftb_closest_diff on a small sphere field) against the same on the
+        CPU: albedo and emission gradients within 2e-3
+  invert  10 Adam steps of the self-target demo on Cornell 128x128, 8
+        spp, d5 through K5, on the target's sample set (common random
+        numbers): K5 launched 10 times, the last loss below the first
+
+Bounds (bound_ms in the kernels line): the larger of the operations over
+67 TFLOP/s (float32, no tensor cores) and the bytes over 3.35 TB/s, for
+the work of the timed call, counted from that call's inputs and its ray
+counters: every ray (closest or shadow) of a brute-force kernel tests all
+n_tris triangles (a closest hit must; an unoccluded shadow ray must), a BVH
+ray at least one root-to-leaf path of box tests (2 per level) and one
+cluster of leaf_size Woop tests; WOOP_FLOPS / BOX_FLOPS per test and
+SHADE_FLOPS per shaded vertex (rays / 2: a vertex issues one closest and at
+most one shadow ray).  Bytes: each input read once (rays, pixel ids,
+scene tables), each output written once (radiance, rays, partial planes).
+No single PyTorch call computes ray-triangle intersection or a path-traced
+pixel, so library_ms is null for every kernel.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -83,7 +126,17 @@ K3_RAYS = dict(parity=65536, timing=1 << 20)
 SPHERE_FIELD = "builtin:sphere_field"
 K4_ROWS = 8  # pixel rows of the sphere-field frame K4 is held to its plain version on
 PLAIN_BUDGET_S = 60.0  # longest plain-version leg of bvh_main before spp is cut
+GRAD = dict(size=512, spp=64, depth=5, steps=3)  # bench.py's grad row
+GRAD_1024 = dict(size=1024, spp=256, depth=5, steps=1)  # bench.py's grad_1024 row
+SPHERE_FIELD_NOENV = "builtin:sphere_field_noenv"
+GRAD_TOL = 2e-3  # gradients vs the plain version (tests/test_mega_grad.py's tolerance)
 DEVICE = "cuda"
+# the card's published peaks (H100 SXM, float32 outside the tensor cores)
+PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+WOOP_FLOPS = 32  # one Woop ray-triangle test (csrc/common.cuh:woop_test)
+BOX_FLOPS = 24  # one slab box test (csrc/bvh.cuh:box_entered)
+SHADE_FLOPS = 200  # one shaded vertex: BSDF sample and eval, light sample, MIS, RNG
 
 
 def log(*a):
@@ -185,12 +238,52 @@ def compare_images(tag, got, ref, rays_got, rays_ref, emission_only, mean_gate=2
 
 def _wrappers():
     from gpuspectral_tpu_torch.bvh import ftb
-    from gpuspectral_tpu_torch.integrator import mega, mega_bvh
+    from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad
     from gpuspectral_tpu_torch.ops import cuda_isect
 
     return dict(k1=mega.render_mega_rows, k2a=cuda_isect.closest_cuda,
                 k2b=cuda_isect.any_cuda, k3a=ftb.ftb_closest, k3b=ftb.ftb_any,
-                k4=mega_bvh.render_mega_bvh_rows)
+                k4=mega_bvh.render_mega_bvh_rows, k5=mega_grad.render_mega_fwdgrad_rows,
+                k6=mega_grad.render_mega_bvh_fwdgrad_rows)
+
+
+NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0)
+
+
+def nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def bound(flops, n_bytes):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops = flops / PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def brute_flops(rays, n_tris):
+    return rays * n_tris * WOOP_FLOPS + rays / 2 * SHADE_FLOPS
+
+
+def bvh_ray_flops(scene):
+    """Operations of the least BVH walk of one ray: a root-to-leaf path of
+    box tests and one cluster of Woop tests."""
+    return 2 * scene.bvh_levels * BOX_FLOPS + scene.bvh_leaf_size * WOOP_FLOPS
+
+
+def bvh_tables(scene):
+    from gpuspectral_tpu_torch.bvh import ftb
+
+    return ftb.kernel_tables(scene)[:4]
+
+
+def mega_tables(scene, bvh):
+    from gpuspectral_tpu_torch.integrator import mega, mega_bvh
+
+    woop_t, attr, light, camv = mega._pack_tables(scene)
+    if bvh:
+        return (*bvh_tables(scene), mega_bvh.pack_attr(scene, "uniform"), light, camv)
+    return woop_t[:, :scene.num_tris], attr, light, camv
 
 
 def reset_counts():
@@ -244,7 +337,7 @@ def phase_main(dev):
     log("  headline: " + json.dumps(result))
     log(f"  launches in the headline run_benchmark: {head_launches}")
     frames = max(1, args.warmup) + args.iters
-    if head_launches != dict(k1=frames, k2a=0, k2b=0, k3a=0, k3b=0, k4=0):
+    if head_launches != dict(NONE, k1=frames):
         raise AssertionError(f"headline run: want K1 launched {frames} times and no other kernel")
     a = img.cpu().numpy()
     if a.shape != (hs, hs, 3) or not np.isfinite(a).all() or a.mean() <= 0.0:
@@ -319,13 +412,21 @@ def phase_main(dev):
         f"({rays[0].shape[0]} rays, {scene.num_tris} tris)")
     head = f"headline run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
     wave = f"wavefront dispatch ({hs}x{hs}, 1 spp, d{depth}, power light pick)"
+    n = rays[0].shape[0]
+    k1_bound = bound(brute_flops(rays_k1, scene.num_tris),
+                     pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, False)))
+    k2_flops = n * scene.num_tris * WOOP_FLOPS
+    k2_in = n * 32 + 12 * 4 * scene.num_tris
     return dict(
         k1=dict(launches=head_launches["k1"], launched_by=head, max_abs_err=k1_err,
-                ms=k1_ms, plain_ms=ref_ms, headline_frame_ms=k1_head_ms),
+                ms=k1_ms, plain_ms=ref_ms, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+                headline_frame_ms=k1_head_ms),
         k2a=dict(launches=wave_launches["k2a"], launched_by=wave, max_abs_err=k2_err[0],
-                 ms=k2a_ms, plain_ms=k2a_ref),
+                 ms=k2a_ms, plain_ms=k2a_ref, **dict(zip(("bound_ms", "bound_by"),
+                                                         bound(k2_flops, k2_in + n * 8)))),
         k2b=dict(launches=wave_launches["k2b"], launched_by=wave, max_abs_err=k2_err[1],
-                 ms=k2b_ms, plain_ms=k2b_ref),
+                 ms=k2b_ms, plain_ms=k2b_ref, **dict(zip(("bound_ms", "bound_by"),
+                                                         bound(k2_flops, k2_in + n)))),
     )
 
 
@@ -403,6 +504,10 @@ def phase_k3(dev, scenes, field):
                                             reps=1)
             times[n]["k3b_plain"] = cuda_ms(lambda: ftb.ftb_any_ref(field, o, d, lo, hi), reps=1)
         log(f"  sphere field, {n} rays: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times[n].items()))
+    n = K3_RAYS["parity"]
+    tb = nbytes(*bvh_tables(field))
+    times["bounds"] = dict(k3a=bound(n * bvh_ray_flops(field), n * (28 + 16) + tb),
+                           k3b=bound(n * bvh_ray_flops(field), n * (32 + 1) + tb))
     return err, times
 
 
@@ -509,7 +614,7 @@ def phase_bvh_main(dev):
     log("  headline: " + json.dumps(result))
     log(f"  launches in the sphere-field run_benchmark: {launches}")
     frames = max(1, args.warmup) + args.iters
-    if launches != dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=frames):
+    if launches != dict(NONE, k4=frames):
         raise AssertionError(f"sphere-field run: want K4 launched {frames} times and no other")
     a = img.cpu().numpy()
     if a.shape != (hs, hs, 3) or not np.isfinite(a).all() or a.mean() <= 0.0:
@@ -561,8 +666,11 @@ def phase_bvh_main(dev):
     log(f"  K4 over the sphere-field frame: {k4_head_ms:.3f} ms of a {frame_ms:.3f} ms frame "
         f"(share {k4_head_ms / frame_ms:.3f})")
     head = f"sphere-field run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
+    k4_bound = bound(rays_k4 * bvh_ray_flops(scene) + rays_k4 / 2 * SHADE_FLOPS,
+                     pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, True)))
     return dict(launches=launches["k4"], launched_by=head, max_abs_err=k4_err, ms=k4_ms,
-                plain_ms=ref_ms, spp_compared=spp_cmp, headline_frame_ms=k4_head_ms,
+                plain_ms=ref_ms, bound_ms=k4_bound[0], bound_by=k4_bound[1],
+                spp_compared=spp_cmp, headline_frame_ms=k4_head_ms,
                 mrays_per_s=result["mrays_per_s"]), scene, cfg, float(img.mean())
 
 
@@ -589,6 +697,350 @@ def phase_bvh_wavefront(scene, cfg, k4_mean):
     if abs(k4_mean - float(a.mean())) > 0.05 * k4_mean:
         raise AssertionError("K4 and wavefront images disagree in mean by > 5%")
     return c, f"sphere-field wavefront dispatch ({hs}x{hs}, 1 spp, d{cfg.max_depth})"
+
+
+def contracted(parts, seed=5):
+    """Partial planes (NP, rows, LANES) contracted with a fixed numpy
+    cotangent of the lanes' radiance: (NP,) float64."""
+    npl = parts.shape[0]
+    lanes = parts[0].numel()
+    ct = torch.as_tensor(np.random.default_rng(seed).uniform(-1, 1, (lanes, 3)).astype(np.float32),
+                         device=parts.device)
+    cidx = torch.arange(npl, device=parts.device) % 3
+    return (parts.reshape(npl, -1) * ct.t()[cidx]).sum(1).double().cpu().numpy()
+
+
+def check_fused(tag, got, ref, spp, sub=False):
+    """K5 / K6 against the plain version: radiance gates (those of main
+    with sub), rays within 1%, contracted gradients within GRAD_TOL."""
+    img = torch.stack(got[:3], -1).reshape(-1, 3) / spp
+    img_ref = torch.stack(ref[:3], -1).reshape(-1, 3) / spp
+    rays, rays_ref = float(got[3].double().sum()), float(ref[3].double().sum())
+    gates = dict(mean_gate=SUB_MEAN_GATE, fine_gate=SUB_FINE_GATE) if sub else {}
+    err = compare_images(tag, img, img_ref, rays, rays_ref, emission_only=False, **gates)
+    cg, cr = contracted(got[4]), contracted(ref[4])
+    rel = float(np.abs(cg - cr).max() / max(np.abs(cr).max(), 1e-30))
+    log(f"  {tag}: {got[4].shape[0]} partial planes, contracted gradient max rel {rel:.3e}")
+    if not (np.isfinite(cg).all() and np.abs(cr).max() > 0 and rel <= GRAD_TOL):
+        raise AssertionError(f"{tag}: gradients outside {GRAD_TOL} of the plain version")
+    return max(err, float(np.abs(cg - cr).max()))
+
+
+def phase_k5(dev, cornell):
+    from gpuspectral_tpu_torch.integrator import mega, mega_grad as mg
+    from gpuspectral_tpu_torch.scene.zoo import build_zoo
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    log("phase K5: fused forward-gradient megakernel vs its plain version")
+    err = 0.0
+    for name, scene in (("cornell", cornell), ("zoo_diffuse", build_zoo(dev, diffuse_only=True))):
+        for depth, spp in ((3, 2), (5, 4)):
+            cfg = RenderConfig(width=64, height=64, spp=spp, max_depth=depth)
+            pix = mg.pix_rows(cfg, dev)
+            reset_counts()
+            got = mg.render_mega_fwdgrad_rows(scene, cfg, pix, 0)
+            k1 = mega.render_mega_rows(scene, cfg, pix, 0)
+            ref = mg.render_mega_fwdgrad_rows_ref(scene, cfg, pix, 0)
+            torch.cuda.synchronize()
+            c = counts()
+            if c["k5"] != 1 or c["k1"] != 1:
+                raise AssertionError(f"k5 {name}: launch counts {c}")
+            s5 = float(torch.stack(got[:3]).double().sum())
+            s1 = float(torch.stack(k1[:3]).double().sum())
+            if abs(s5 - s1) > 1e-5 * abs(s1):
+                raise AssertionError(f"k5 {name}: K5's image sum {s5} is not K1's {s1}")
+            err = max(err, check_fused(f"{name} d{depth} {spp}spp", got, ref, spp))
+    return err
+
+
+def phase_grad_main(dev):
+    from gpuspectral_tpu_torch.integrator import mega, mega_grad as mg
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.utils import RenderConfig
+    from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
+
+    hs, spp, depth, steps = GRAD["size"], GRAD["spp"], GRAD["depth"], GRAD["steps"]
+    log(f"phase grad_main: Cornell gradient step {hs}x{hs}, {spp} spp, depth {depth} through "
+        "run_grad_benchmark (K5)")
+    reset_counts()
+    result, g, ts = run_grad_benchmark(CORNELL, size=hs, spp=spp, depth=depth, steps=steps,
+                                       return_grad=True)
+    launches = counts()
+    log("  grad: " + json.dumps(result))
+    log(f"  launches in the grad run_grad_benchmark: {launches}")
+    if result["kernel"] != "mega" or launches != dict(NONE, k5=1 + steps):
+        raise AssertionError(f"grad run: want K5 launched {1 + steps} times and nothing else")
+    if not bool(torch.isfinite(g).all()) or float(g[:, 0:3].abs().max()) <= 0.0:
+        raise AssertionError("grad run: gradient not finite or zero")
+
+    scene, _ = load_mitsuba_scene(CORNELL, device=dev)
+    cfg = RenderConfig(width=hs, height=hs, spp=spp, max_depth=depth)
+    n_rows = hs * hs // mega.LANES
+    sub = torch.linspace(0, n_rows - 1, min(SUB_ROWS, n_rows), device=dev).round().to(torch.int32)
+    pix = (sub[:, None] * mega.LANES
+           + torch.arange(mega.LANES, dtype=torch.int32, device=dev)).contiguous()
+    got = mg.render_mega_fwdgrad_rows(scene, cfg, pix, ts)
+    k5_ms = cuda_ms(lambda: mg.render_mega_fwdgrad_rows(scene, cfg, pix, ts))
+    t0 = time.perf_counter()
+    ref = mg.render_mega_fwdgrad_rows_ref(scene, cfg, pix, ts)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    err = check_fused(f"K5 vs plain, {pix.shape[0]} rows of the grad frame (ts {ts})", got, ref,
+                      spp, sub=True)
+    rays = float(got[3].double().sum())
+    log(f"  K5 {k5_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows")
+    # the prediction: K5 against K1 over the whole frame at the same config
+    frame = mg.pix_rows(cfg, dev)
+    k5_frame = cuda_ms(lambda: mg.render_mega_fwdgrad_rows(scene, cfg, frame, ts))
+    k1_frame = cuda_ms(lambda: mega.render_mega_rows(scene, cfg, frame, ts))
+    log(f"  whole frame {hs}x{hs} @ {spp} spp, d{depth}: K5 {k5_frame:.3f} ms, K1 {k1_frame:.3f} ms "
+        f"(ratio {k5_frame / k1_frame:.3f}); grad step {result['seconds_per_step'] * 1e3:.3f} ms")
+    npl = got[4].shape[0]
+    k5_bound = bound(brute_flops(rays, scene.num_tris),
+                     pix.numel() * (4 + 16 + 4 * npl) + nbytes(*mega_tables(scene, False)))
+
+    big = GRAD_1024
+    log(f"  config 5: one gradient step {big['size']}x{big['size']}, {big['spp']} spp, "
+        f"d{big['depth']}")
+    reset_counts()
+    r1024 = run_grad_benchmark(CORNELL, size=big["size"], spp=big["spp"], depth=big["depth"],
+                               steps=big["steps"])
+    log("  grad_1024: " + json.dumps(r1024))
+    if r1024["kernel"] != "mega" or counts() != dict(NONE, k5=1 + big["steps"]):
+        raise AssertionError("grad_1024: want K5 only")
+    head = f"grad run_grad_benchmark ({hs}x{hs}, {spp} spp, d{depth}, {steps} steps)"
+    return dict(launches=launches["k5"], launched_by=head, max_abs_err=err, ms=k5_ms,
+                plain_ms=ref_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
+                grad_steps_per_s=result["grad_steps_per_s"],
+                seconds_per_step=result["seconds_per_step"], peak_hbm_gb=result["peak_hbm_gb"],
+                frame_ms=k5_frame, k1_frame_ms=k1_frame,
+                seconds_per_step_1024=r1024["seconds_per_step"])
+
+
+def mixed_scene(dev):
+    """tests/test_mega_grad.py:230's mixed-BSDF scene (slot-mode build)."""
+    from gpuspectral_tpu_torch.bsdf import table as bt
+    from gpuspectral_tpu_torch.scene.data import SceneBuilder
+    from gpuspectral_tpu_torch.scene.obj import make_cube, make_rectangle
+
+    b = SceneBuilder()
+    rpos, rnrm, ruv = make_rectangle()
+    cpos, cnrm, cuv = make_cube()
+    kd = b.add_bsdf(bt.diffuse((0.6, 0.4, 0.3)))
+    mirror = b.add_bsdf(bt.smooth_conductor(0.0))
+    b.add_object(rpos, rnrm, ruv, np.array([[2, 0, 0, 0], [0, 0, 2, 0], [0, -1, 0, 0],
+                                            [0, 0, 0, 1]], np.float32), kd, twofaced=True)
+    b.add_object(cpos, cnrm, cuv, np.array([[0.5, 0, 0, -0.5], [0, 0.5, 0, -0.49],
+                                            [0, 0, 0.5, 0], [0, 0, 0, 1]], np.float32), mirror)
+    light = b.add_bsdf(bt.diffuse((0.0, 0.0, 0.0)))
+    b.add_object(rpos, rnrm, ruv, np.array([[1, 0, 0, 0], [0, 0, -1, 2.5], [0, 1, 0, 0],
+                                            [0, 0, 0, 1]], np.float32), light,
+                 emission=(8.0, 8.0, 8.0))
+    b.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 0.6], [0, 0, -1, 3], [0, 0, 0, 1]],
+                          np.float32), np.deg2rad(60))
+    return b.build(dev)
+
+
+def textured_scene(dev):
+    """tests/test_mega_grad.py:289's vertex-textured diffuse scene."""
+    from gpuspectral_tpu_torch.bsdf import table as bt
+    from gpuspectral_tpu_torch.scene.data import TEX_RES, SceneBuilder
+    from gpuspectral_tpu_torch.scene.obj import make_rectangle
+
+    b = SceneBuilder()
+    pos, nrm, uv = make_rectangle()
+    u = (np.arange(TEX_RES, dtype=np.float32) + 0.5) / TEX_RES
+    mat = b.add_bsdf(bt.diffuse((0.7, 0.5, 0.4)),
+                     texture=np.broadcast_to(u[None, :, None], (TEX_RES, TEX_RES, 3)).copy())
+    b.add_object(pos, nrm, uv, np.array([[2, 0, 0, 0], [0, 0, 2, 0], [0, -1, 0, 0], [0, 0, 0, 1]],
+                                        np.float32), mat, twofaced=True)
+    light = b.add_bsdf(bt.diffuse((0.0, 0.0, 0.0)))
+    b.add_object(pos, nrm, uv, np.array([[1, 0, 0, 0], [0, 0, -1, 3], [0, 1, 0, 0], [0, 0, 0, 1]],
+                                        np.float32), light, emission=(10.0, 10.0, 10.0))
+    b.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 1.2], [0, 0, -1, 4], [0, 0, 0, 1]],
+                          np.float32), np.deg2rad(60))
+    return b.build(dev)
+
+
+def slot_mode(build):
+    from gpuspectral_tpu_torch.bvh import build as bvh_build
+
+    old = bvh_build.SLOT_DENSE_THRESHOLD
+    bvh_build.SLOT_DENSE_THRESHOLD = 8
+    try:
+        return build()
+    finally:
+        bvh_build.SLOT_DENSE_THRESHOLD = old
+
+
+def phase_k6(dev):
+    from gpuspectral_tpu_torch.integrator import mega_bvh, mega_grad as mg
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    log("phase K6: fused-BVH forward-gradient megakernel vs its plain version")
+    cases = dict(
+        cornell_slot=slot_mode(lambda: load_mitsuba_scene(CORNELL, device=dev)[0]),
+        mixed=slot_mode(lambda: mixed_scene(dev)),
+        textured=slot_mode(lambda: textured_scene(dev)),
+        sphere_field_noenv=build_sphere_field(dev, n_side=2, segs=16, rings=8, sky_hw=None))
+    err = 0.0
+    for name, scene in cases.items():
+        for depth, spp in ((3, 2), (5, 4)):
+            cfg = RenderConfig(width=64, height=64, spp=spp, max_depth=depth, use_bvh=True)
+            if not mg.mega_bvh_grad_eligible(scene, cfg):
+                raise AssertionError(f"k6 {name}: not eligible")
+            pix = mg.pix_rows(cfg, dev)
+            reset_counts()
+            got = mg.render_mega_bvh_fwdgrad_rows(scene, cfg, pix, 0)
+            k4 = mega_bvh.render_mega_bvh_rows(scene, cfg, pix, 0)
+            ref = mg.render_mega_bvh_fwdgrad_rows_ref(scene, cfg, pix, 0)
+            torch.cuda.synchronize()
+            c = counts()
+            if c["k6"] != 1 or c["k4"] != 1:
+                raise AssertionError(f"k6 {name}: launch counts {c}")
+            s6 = float(torch.stack(got[:3]).double().sum())
+            s4 = float(torch.stack(k4[:3]).double().sum())
+            if abs(s6 - s4) > 1e-5 * abs(s4):
+                raise AssertionError(f"k6 {name}: K6's image sum {s6} is not K4's {s4}")
+            err = max(err, check_fused(f"{name} d{depth} {spp}spp", got, ref, spp))
+    return err
+
+
+def phase_grad_bvh(dev):
+    from gpuspectral_tpu_torch.integrator import mega_bvh, mega_grad as mg
+    from gpuspectral_tpu_torch.utils import RenderConfig
+    from gpuspectral_tpu_torch.utils.bench import load_scene, run_grad_benchmark
+
+    hs, spp, depth, steps = GRAD["size"], GRAD["spp"], GRAD["depth"], 2
+    log(f"phase grad_bvh: {SPHERE_FIELD_NOENV} gradient step {hs}x{hs}, {spp} spp, depth "
+        f"{depth} through run_grad_benchmark (K6)")
+    reset_counts()
+    result, g, ts = run_grad_benchmark(SPHERE_FIELD_NOENV, size=hs, spp=spp, depth=depth,
+                                       steps=steps, use_bvh=True, return_grad=True)
+    launches = counts()
+    log("  grad_bvh: " + json.dumps(result))
+    log(f"  launches in the grad_bvh run_grad_benchmark: {launches}")
+    if result["kernel"] != "mega_bvh" or launches != dict(NONE, k6=1 + steps):
+        raise AssertionError(f"grad_bvh run: want K6 launched {1 + steps} times and nothing else")
+    if not bool(torch.isfinite(g).all()) or float(g[:, 0:3].abs().max()) <= 0.0:
+        raise AssertionError("grad_bvh run: gradient not finite or zero")
+
+    scene = load_scene(SPHERE_FIELD_NOENV, dev)
+    cfg = RenderConfig(width=hs, height=hs, spp=spp, max_depth=depth, use_bvh=True)
+    n_rows = hs * hs // mega_bvh.LANES
+    sub = torch.linspace(0, n_rows - 1, K4_ROWS, device=dev).round().to(torch.int32)
+    pix = (sub[:, None] * mega_bvh.LANES
+           + torch.arange(mega_bvh.LANES, dtype=torch.int32, device=dev)).contiguous()
+    t0 = time.perf_counter()
+    ref4 = mg.render_mega_bvh_fwdgrad_rows_ref(scene, cfg.replace(spp=4), pix, ts)
+    torch.cuda.synchronize()
+    dt4 = time.perf_counter() - t0
+    spp_cmp = 4
+    while spp_cmp < spp and dt4 * (2 * spp_cmp) / 4 < PLAIN_BUDGET_S:
+        spp_cmp *= 2
+    log(f"  plain version at 4 spp on {K4_ROWS} rows: {dt4:.2f} s; comparing at {spp_cmp} spp")
+    cfg_cmp = cfg.replace(spp=spp_cmp)
+    t0 = time.perf_counter()
+    ref = ref4 if spp_cmp == 4 else mg.render_mega_bvh_fwdgrad_rows_ref(scene, cfg_cmp, pix, ts)
+    torch.cuda.synchronize()
+    ref_ms = (dt4 if spp_cmp == 4 else time.perf_counter() - t0) * 1e3
+    got = mg.render_mega_bvh_fwdgrad_rows(scene, cfg_cmp, pix, ts)
+    k6_ms = cuda_ms(lambda: mg.render_mega_bvh_fwdgrad_rows(scene, cfg_cmp, pix, ts), reps=2)
+    err = check_fused(f"K6 vs plain, {K4_ROWS} rows of the grad_bvh frame (ts {ts}, {spp_cmp} spp)",
+                      got, ref, spp_cmp, sub=True)
+    log(f"  K6 {k6_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows at {spp_cmp} spp")
+    rays = float(got[3].double().sum())
+    k6_bound = bound(rays * bvh_ray_flops(scene) + rays / 2 * SHADE_FLOPS,
+                     pix.numel() * (4 + 16 + 4 * got[4].shape[0])
+                     + nbytes(*mega_tables(scene, True)))
+    head = f"grad_bvh run_grad_benchmark ({hs}x{hs}, {spp} spp, d{depth}, {steps} steps)"
+    return dict(launches=launches["k6"], launched_by=head, max_abs_err=err, ms=k6_ms,
+                plain_ms=ref_ms, bound_ms=k6_bound[0], bound_by=k6_bound[1],
+                spp_compared=spp_cmp, grad_steps_per_s=result["grad_steps_per_s"],
+                seconds_per_step=result["seconds_per_step"], peak_hbm_gb=result["peak_hbm_gb"])
+
+
+def wavefront_grads(scene, cfg, target):
+    """Albedo and emission gradients of the MSE through the differentiable
+    wavefront (diff/gradcheck.render_mean)."""
+    from gpuspectral_tpu_torch.diff.gradcheck import render_mean
+    from gpuspectral_tpu_torch.diff.invert import scatter_light_emission
+
+    p = scene.bsdf_params.clone().requires_grad_(True)
+    le = scene.light_emission.clone().requires_grad_(True)
+    img = render_mean(scatter_light_emission(scene.replace(bsdf_params=p), le), cfg,
+                      differentiable=True)
+    loss = torch.mean((img - target.to(img.device)) ** 2)
+    gp, gl = torch.autograd.grad(loss, (p, le))
+    return gp[:, 0:3].cpu().numpy(), gl.cpu().numpy()
+
+
+def phase_grad_wavefront(dev):
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    log("phase grad_wavefront: the differentiable wavefront on K2a / K3a vs the same on the CPU")
+    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=3, intersector="pallas")
+    target = torch.as_tensor(np.random.default_rng(2).uniform(0, 1, (32 * 32, 3)).astype(np.float32))
+    err = 0.0
+    for name, build, key, kw in (
+            ("cornell", lambda d: load_mitsuba_scene(CORNELL, device=d)[0], "k2a", {}),
+            ("sphere_field_small", lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8),
+             "k3a", dict(use_bvh=True))):
+        c = cfg.replace(**kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = wavefront_grads(build(dev), c, target)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = counts()
+        ref = wavefront_grads(build("cpu"), c, target)
+        if launches[key] < 1:
+            raise AssertionError(f"grad_wavefront {name}: {key} not launched: {launches}")
+        for tag, a, b in (("albedo", got[0], ref[0]), ("emission", got[1], ref[1])):
+            scale = float(np.abs(b).max())
+            rel = float(np.abs(a - b).max()) / max(scale, 1e-30)
+            log(f"  {name} {tag}: scale {scale:.4g}, max rel {rel:.3e} ({dt:.2f} s on the card, "
+                f"{key} launches {launches[key]})")
+            if not (np.isfinite(a).all() and scale > 0 and rel <= GRAD_TOL):
+                raise AssertionError(f"grad_wavefront {name} {tag}: outside {GRAD_TOL}")
+            err = max(err, float(np.abs(a - b).max()))
+    return err
+
+
+def phase_invert(dev):
+    from gpuspectral_tpu_torch.diff.invert import _render, gradient_path, invert, optimizable_mask
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    log("phase invert: 10 Adam steps of the self-target demo, Cornell 128x128, 8 spp, d5 (K5)")
+    scene, _ = load_mitsuba_scene(CORNELL, device=dev)
+    cfg = RenderConfig(width=128, height=128, spp=8, max_depth=5)
+    mask = optimizable_mask(scene.bsdf_kind.cpu().numpy())
+    if gradient_path(scene, cfg, mask, False) != "mega":
+        raise AssertionError("invert: want the K5 gradient path")
+    target = _render(scene, cfg, cfg.spp, 0).cpu().numpy()
+    p0 = scene.bsdf_params.cpu().numpy().copy()
+    p0[mask] = np.clip(p0[mask] + np.random.default_rng(0).uniform(-0.25, 0.25, mask.sum()),
+                       0.02, 1.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    # common random numbers (the target's sample set): the loss has its exact
+    # zero at the truth, so its fall is not hidden by path noise
+    params, history = invert(scene, target, cfg, steps=10, init_params=p0, timestamp0=0,
+                             resample=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = counts()
+    err0 = float(np.abs(p0 - scene.bsdf_params.cpu().numpy())[mask].mean())
+    err1 = float(np.abs(params.cpu().numpy() - scene.bsdf_params.cpu().numpy())[mask].mean())
+    log(f"  losses {[round(x, 7) for x in history]}; {dt:.2f} s for 10 steps; "
+        f"mean parameter error {err0:.4f} -> {err1:.4f}; launches {c}")
+    if c != dict(NONE, k5=10) or not np.isfinite(history).all() or not history[9] < history[0]:
+        raise AssertionError("invert: want 10 K5 launches and a falling loss")
 
 
 def main() -> int:
@@ -636,10 +1088,22 @@ def main() -> int:
     wave_c, wave = phase_bvh_wavefront(scene, cfg, k4_mean)
     small, big = k3_times[K3_RAYS["parity"]], k3_times[K3_RAYS["timing"]]
     for key in ("k3a", "k3b"):
+        b_ms, b_by = k3_times["bounds"][key]
         m[key] = dict(launches=wave_c[key], launched_by=wave, max_abs_err=k3_err,
-                      ms=small[key], plain_ms=small[key + "_plain"], rays=K3_RAYS["parity"],
-                      ms_1m_rays=big[key], k2_ms=small["k2" + key[2]],
-                      k2_ms_1m_rays=big["k2" + key[2]])
+                      ms=small[key], plain_ms=small[key + "_plain"], bound_ms=b_ms,
+                      bound_by=b_by, rays=K3_RAYS["parity"], ms_1m_rays=big[key],
+                      k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]])
+    del scene
+
+    k5_err = phase_k5(dev, scenes["cornell"])
+    m["k5"] = phase_grad_main(dev)
+    m["k5"]["max_abs_err"] = max(m["k5"]["max_abs_err"], k5_err)
+    k6_err = phase_k6(dev)
+    m["k6"] = phase_grad_bvh(dev)
+    m["k6"]["max_abs_err"] = max(m["k6"]["max_abs_err"], k6_err)
+    wave_err = phase_grad_wavefront(dev)
+    m["k2a"]["autograd_max_abs_err"] = wave_err
+    phase_invert(dev)
     specs = [
         ("K1 megakernel render_mega_rows", "gpuspectral_tpu_torch/csrc/mega.cu",
          "gpuspectral_tpu/integrator/mega.py:1452", "k1"),
@@ -653,10 +1117,18 @@ def main() -> int:
          "gpuspectral_tpu/bvh/ftb.py:370", "k3b"),
         ("K4 fused-BVH megakernel render_mega_bvh_rows", "gpuspectral_tpu_torch/csrc/mega_bvh.cu",
          "gpuspectral_tpu/integrator/mega_bvh.py:1009", "k4"),
+        ("K5 fused forward-gradient megakernel render_mega_fwdgrad_rows",
+         "gpuspectral_tpu_torch/csrc/mega_grad.cu",
+         "gpuspectral_tpu/integrator/mega_grad.py:417", "k5"),
+        ("K6 fused-BVH forward-gradient megakernel render_mega_bvh_fwdgrad_rows",
+         "gpuspectral_tpu_torch/csrc/mega_bvh.cu",
+         "gpuspectral_tpu/integrator/mega_grad.py:599", "k6"),
     ]
     kernels = []
     for kname, src, rep, key in specs:
-        kernels.append(dict(name=kname, route="cuda", source=src, replaces=rep, **m[key]))
+        # no PyTorch call computes ray-triangle intersection or a path-traced pixel
+        kernels.append(dict(name=kname, route="cuda", source=src, replaces=rep, library_ms=None,
+                            **m[key]))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

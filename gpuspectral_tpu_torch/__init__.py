@@ -3,23 +3,28 @@
 The JAX package beside this one is the reference; every module here mirrors
 its counterpart's name and semantics, with PyTorch idiom inside:
 
-  scene/       Mitsuba-XML + OBJ loading -> SceneData (dataclass of tensors)
+  scene/       Mitsuba-XML + OBJ loading -> SceneData (dataclass of tensors),
+               scenes built in code (zoo.py)
+  bvh/         the SAH build (numpy) and the BVH walk kernels
   ops/         RNG, 3D math, sampling, Fresnel/GGX, brute-force intersection
   bsdf/        the 8-BSDF library (sample/eval) with dispatch by kind
-  integrator/  the wavefront path tracer and the fused megakernel
-  utils/       RenderConfig, benchmark harness
-  cli/         render / benchmark entry points
+  integrator/  the wavefront path tracer (differentiable) and the megakernels
+  diff/        gradient checks and inverse rendering
+  io/          image, EXR and checkpoint files
+  utils/       RenderConfig, benchmark harness, metrics
+  cli/         render / benchmark / gradcheck / invert entry points
   csrc/        hand-written CUDA kernels for sm_90a (built by _build.py)
 
-Hand-written kernels: K1, the persistent path-tracing megakernel
-(csrc/mega.cu, wrapper integrator/mega.py) and K2, the brute-force closest /
-any-hit pair (csrc/isect.cu, wrapper ops/cuda_isect.py).  Each wrapper runs
-its plain PyTorch version for CPU tensors only; for CUDA tensors it launches
-the kernel or raises.
+Hand-written kernels: K1 and K4, the path-tracing megakernels (brute force
+and BVH; csrc/mega.cu, csrc/mega_bvh.cu), K5 and K6, the same with the
+fused gradient hook (csrc/mega_grad.cu, csrc/mega_bvh.cu, csrc/grad.cuh),
+K2, brute-force closest / any hit (csrc/isect.cu), and K3, BVH closest /
+any hit (csrc/bvh.cu).  Each wrapper runs its plain PyTorch version for CPU
+tensors only; for CUDA tensors it launches the kernel or raises.
 
-Scope: scenes of at most 2048 triangles, untextured, without environment
-emitters.  Anything else raises NotImplementedError naming the later slice
-of the port that adds it.
+The port imports neither JAX nor the JAX package; it keeps its own copies
+of the numpy modules it needs.  What is not ported yet (the multi-device
+paths, the alternative BVH kernels) raises NotImplementedError.
 
 No matmul is on the render path (the camera is explicit component
 products), and TF32 is switched off for both matmul and cuDNN so that any

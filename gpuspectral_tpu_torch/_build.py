@@ -49,6 +49,10 @@ _SIGNATURES = {
     "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P, _P, _P, _P, _P],
+    "gst_mega_grad": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+    "gst_mega_bvh_grad": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 

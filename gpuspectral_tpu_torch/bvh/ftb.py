@@ -12,6 +12,11 @@ that a 150k-slot scene fits in memory.  The kernel walks the scene's
 preorder tables and equals that scan bit for bit, ties included (the
 lowest slot wins among exactly tied t).
 
+`ftb_closest_diff` is the differentiable closest hit of the BVH wavefront
+(ftb.py:389-429): K3a forward (the plain version for CPU tensors), and the
+backward of ops/cuda_isect.closest_diff, which re-evaluates each ray's hit
+triangle's Woop test in plain torch; attrs are detached.
+
 attrs are the fused shading rows of gpuspectral_tpu/bvh/dfs_sweep.py:
 _attr_table, gathered by prim with a plain index: 9 corner normals,
 geometric normal, area, packed meta (bsdf row + 4096 * (light idx + 1) +
@@ -200,3 +205,28 @@ def ftb_any(scene, origin, direction, t_min, t_max, active=None):
 
 ftb_closest.launches = 0
 ftb_any.launches = 0
+
+
+class _FtbClosestDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, origin, direction, t_max, scene, attr):
+        t, prim, u, v, attrs = ftb_closest(scene, origin, direction, t_max=t_max, attr=attr)
+        ctx.save_for_backward(origin, direction, prim, scene.tri_woop)
+        ctx.mark_non_differentiable(prim, attrs)
+        return t, prim, u, v, attrs
+
+    @staticmethod
+    def backward(ctx, ct_t, _ct_prim, ct_u, ct_v, _ct_attrs):
+        from ..ops.cuda_isect import woop_vjp
+
+        o, d, prim, woop_rows = ctx.saved_tensors
+        do, dd = woop_vjp(o, d, prim, woop_rows, ct_t, ct_u, ct_v)
+        return do, dd, None, None, None
+
+
+def ftb_closest_diff(scene, origin, direction, active=None, attr=None):
+    """ftb_closest with exact (t, u, v) gradients w.r.t. (origin,
+    direction); attrs carry none (the scene's tables are detached)."""
+    t_max = _tmax(origin, None, active)
+    attr = (attr_table(scene) if attr is None else attr).detach()
+    return _FtbClosestDiff.apply(origin, direction, t_max, scene, attr)

@@ -1,12 +1,15 @@
 """Command-line entry points (port of gpuspectral_tpu/cli/main.py: the
-`render` and `benchmark` commands, with the reference's flags).
+`render`, `benchmark`, `gradcheck` and `invert` commands, with the
+reference's flags).
 
   python -m gpuspectral_tpu_torch.cli.main render <scene.xml> [-o out.png] [--size WxH] ...
   python -m gpuspectral_tpu_torch.cli.main benchmark <scene.xml> [...]
+  python -m gpuspectral_tpu_torch.cli.main gradcheck <scene.xml> [--spp N] [--size WxH]
+  python -m gpuspectral_tpu_torch.cli.main invert <scene.xml> [--target img.exr] [--steps N]
 
 Scene XML film/sampler/integrator settings are honored by default.  A scene
 argument of the form builtin:<name> renders a scene built in code
-(scene/zoo.py:BUILTIN: "sphere_field").  `--device` picks where the
+(scene/zoo.py:BUILTIN: "sphere_field", "sphere_field_noenv").  `--device` picks where the
 scene lives (default: cuda); the benchmark measures only a CUDA device.
 """
 
@@ -19,7 +22,7 @@ import time
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("scene", help="Mitsuba XML scene file, or builtin:sphere_field")
+    p.add_argument("scene", help="Mitsuba XML scene file, or builtin:<name> (scene/zoo.py)")
     p.add_argument("-o", "--output", default="out.png", help="output image (.png/.pfm/.exr)")
     p.add_argument("--spp", type=int, default=None, help="samples per pixel (default: scene XML)")
     p.add_argument("--size", default=None, help="WxH (default: scene XML film)")
@@ -59,6 +62,16 @@ class CliError(RuntimeError):
     pass
 
 
+def _check_device(args):
+    device = getattr(args, "device", "cuda")
+    if str(device).startswith("cuda"):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise CliError("no CUDA device: pass --device cpu to run with the plain versions")
+    return device
+
+
 def _build(args):
     import os
 
@@ -72,12 +85,7 @@ def _build(args):
         raise CliError(f"unknown builtin scene {builtin!r} (have: {', '.join(BUILTIN)})")
     if builtin is None and not os.path.exists(args.scene):
         raise CliError(f"scene file not found: {args.scene}")
-    device = getattr(args, "device", "cuda")
-    if str(device).startswith("cuda"):
-        import torch
-
-        if not torch.cuda.is_available():
-            raise CliError("no CUDA device: pass --device cpu to render with the plain versions")
+    device = _check_device(args)
     if builtin is not None:
         builder = BUILTIN[builtin](SceneBuilder())
         scene = builder.build(device)
@@ -182,6 +190,59 @@ def cmd_benchmark(args) -> int:
     return 0
 
 
+def cmd_gradcheck(args) -> int:
+    import os
+
+    from ..diff.gradcheck import run_gradcheck
+
+    if not os.path.exists(args.scene):
+        raise CliError(f"scene file not found: {args.scene}")
+    ok, report = run_gradcheck(args.scene, spp=args.spp or 64, size=args.size,
+                               device=_check_device(args))
+    print(json.dumps(report))
+    return 0 if ok else 1
+
+
+def cmd_invert(args) -> int:
+    import numpy as np
+
+    from ..diff.invert import _render, invert, optimizable_mask
+    from ..utils.metrics import MetricsLogger
+
+    scene, cfg = _build(args)
+    if cfg.width > 128 or args.spp is None:
+        cfg = cfg.replace(width=min(cfg.width, 128), height=min(cfg.height, 128),
+                          spp=args.spp or 8, max_depth=min(cfg.max_depth, 5))
+    log = MetricsLogger(args.metrics)
+    mask = optimizable_mask(scene.bsdf_kind.cpu().numpy())
+    if args.target:
+        if args.target.endswith(".exr"):
+            from ..io.exr import read_exr
+
+            target = read_exr(args.target)
+        else:
+            from ..io.image import read_pfm
+
+            target = read_pfm(args.target)
+        init = None
+    else:
+        # self-target demo: render the truth, perturb the optimizable entries
+        target = _render(scene, cfg, cfg.spp, 0).cpu().numpy()
+        p0 = scene.bsdf_params.cpu().numpy().copy()
+        rs = np.random.default_rng(0)
+        p0[mask] = np.clip(p0[mask] + rs.uniform(-0.25, 0.25, size=mask.sum()), 0.02, 1.0)
+        init = p0
+        print(f"self-target: perturbed {mask.sum()} parameters", file=sys.stderr)
+    params, history = invert(scene, target, cfg, steps=args.steps, lr=args.lr, init_params=init,
+                             metrics=log, checkpoint_dir=args.checkpoint_dir)
+    truth = scene.bsdf_params.cpu().numpy()
+    param_err = (float(np.abs(params.cpu().numpy() - truth)[mask].mean())
+                 if args.target is None else None)
+    print(json.dumps(dict(loss_first=history[0], loss_last=history[-1], steps=len(history),
+                          mean_param_error=param_err)))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gpuspectral_tpu_torch", description=__doc__)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -195,6 +256,20 @@ def main(argv=None) -> int:
     p_bench.add_argument("--warmup", type=int, default=1)
     p_bench.add_argument("--iters", type=int, default=3)
     p_bench.set_defaults(fn=cmd_benchmark)
+
+    p_grad = sub.add_parser("gradcheck", help="check path-replay grads vs finite differences")
+    _add_render_args(p_grad)
+    p_grad.set_defaults(fn=cmd_gradcheck)
+
+    p_inv = sub.add_parser("invert", help="inverse rendering: recover BSDF params")
+    _add_render_args(p_inv)
+    p_inv.add_argument("--target", default=None,
+                       help="target image (.exr/.pfm); default: self-target demo "
+                            "(render truth, perturb, recover)")
+    p_inv.add_argument("--steps", type=int, default=100)
+    p_inv.add_argument("--lr", type=float, default=0.02)
+    p_inv.add_argument("--checkpoint-dir", default=None)
+    p_inv.set_defaults(fn=cmd_invert)
 
     args = parser.parse_args(argv)
     try:

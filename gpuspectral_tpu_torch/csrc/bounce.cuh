@@ -578,19 +578,31 @@ inline Env make_env(const float* env, const int* ip) {
   return e;
 }
 
+// The hook of K1 and K4: none.  A hook with kActive false is never called,
+// so K1 and K4 compile to the code they had before hooks existed.
+struct NoHook {
+  static constexpr bool kActive = false;
+};
+
 // Trace lane `lane`'s pixel.  Isect provides
 //   closest(o, d, t, prim, u, v): prim = -1 on a miss
 //   any(o, d, t_lo, t_hi): an occluder strictly inside (t_lo, t_hi)
+// Hook (kActive true: the fused-gradient kernels K5 and K6, grad.cuh) is
+// called once per hit bounce where the TPU body calls grad_hook
+// (gpuspectral_tpu/integrator/mega.py:1108-1116): after the bounce's
+// contribution is final and before Russian roulette, with the throughput
+// before this bounce's update.  It is taken by value, so its per-lane state
+// lives in this function's registers.
 // kSync: block-synchronous sample regeneration (cfg.mega_sync_regen): a
 // block starts its next samples only once every lane finished the current
 // one; each lane's samples, and so its result, are those of the default.
 // With kSync every thread of the block must call this (lanes past n_lanes
 // included).
-template <class Isect, bool kSync>
+template <class Isect, bool kSync, class Hook = NoHook>
 __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P, int lane,
                             int n_lanes, const int* __restrict__ pix, float* __restrict__ rad_r,
                             float* __restrict__ rad_g, float* __restrict__ rad_b,
-                            int* __restrict__ rays_out) {
+                            int* __restrict__ rays_out, Hook hook = Hook()) {
   const bool valid = lane < n_lanes;
   if (!kSync && !valid) return;
   const float* cam = T.cam;
@@ -805,6 +817,12 @@ __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P
         const bool bad_pdf = !isfinite(s.pdf) || !finite3(s.f) || (s.pdf == 0.0f);
         const bool terminate = invalid_hemi || self_isect || bad_pdf;
 
+        if constexpr (Hook::kActive) {
+          const bool acc = e_r < P.firefly_clamp && e_g < P.firefly_clamp &&
+                           e_b < P.firefly_clamp;
+          hook.bounce(bounce, a, w, acc, !terminate, nee_done, nee_s, f_light, lfront, lemit,
+                      lidx, emit_w * light_flag, v3(e_r, e_g, e_b));
+        }
         rays += 1 + (nee_candidate ? 1 : 0);
         if (!terminate) {
           const float new_direct_weight = nee_done ? power_heuristic(s.pdf, light_pdf) : 1.0f;

@@ -4,7 +4,8 @@
 // pallas_call built by _make_kernel around make_bounce_body), environment
 // emitters included.  Wrapper: gpuspectral_tpu_torch/integrator/mega.py
 // (render_mega_rows).  The per-lane tracer is bounce.cuh:render_lane,
-// shared with K4; this file supplies the brute-force intersector.
+// shared with K4, with the brute-force intersector of brute.cuh (shared with
+// K5).
 //
 // What bounds it on the H100: the intersection loops.  Every bounce tests
 // the ray against all n_tris triangles (closest hit) plus up to all of them
@@ -30,55 +31,21 @@
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
+#include "brute.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-// closest / any hit over every triangle of the shared-memory Woop table;
-// strict t < best in index order: the lowest id wins among tied t
-struct BruteIsect {
-  const float* sw;  // (12, n)
-  int n;
-
-  __device__ void closest(gst::V3 o, gst::V3 d, float& best_t, int& prim, float& bu,
-                          float& bv) const {
-    best_t = gst::kBig;
-    prim = -1;
-    bu = 0.0f;
-    bv = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      float t, u, v;
-      if (gst::woop_test(sw + i, n, o, d, 0.0f, gst::kBig, t, u, v) && t < best_t) {
-        best_t = t;
-        prim = i;
-        bu = u;
-        bv = v;
-      }
-    }
-  }
-
-  __device__ bool any(gst::V3 o, gst::V3 d, float t_lo, float t_hi) const {
-    for (int i = 0; i < n; ++i) {
-      float t, u, v;
-      if (gst::woop_test(sw + i, n, o, d, t_lo, t_hi, t, u, v)) return true;
-    }
-    return false;
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 mega_kernel(const int* __restrict__ pix, int n_lanes, const float* __restrict__ woop_t,
             int t_stride, int n_tris, gst::Tables T, gst::Params P, float* __restrict__ rad_r,
             float* __restrict__ rad_g, float* __restrict__ rad_b, int* __restrict__ rays_out) {
   extern __shared__ float sw[];  // (12, n_tris) Woop rows
-  for (int i = threadIdx.x; i < 12 * n_tris; i += blockDim.x) {
-    sw[i] = woop_t[(size_t)(i / n_tris) * t_stride + (i % n_tris)];
-  }
-  __syncthreads();
-  const BruteIsect isect{sw, n_tris};
-  gst::render_lane<BruteIsect, false>(isect, T, P, blockIdx.x * blockDim.x + threadIdx.x,
-                                      n_lanes, pix, rad_r, rad_g, rad_b, rays_out);
+  gst::stage_woop(sw, woop_t, t_stride, n_tris);
+  const gst::BruteIsect isect{sw, n_tris};
+  gst::render_lane<gst::BruteIsect, false>(isect, T, P, blockIdx.x * blockDim.x + threadIdx.x,
+                                           n_lanes, pix, rad_r, rad_g, rad_b, rays_out);
 }
 
 }  // namespace

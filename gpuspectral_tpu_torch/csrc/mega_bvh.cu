@@ -22,6 +22,7 @@
 
 #include "bounce.cuh"
 #include "bvh.cuh"
+#include "grad.cuh"
 
 namespace {
 
@@ -49,6 +50,26 @@ mega_bvh_kernel(const int* __restrict__ pix, int n_lanes, gst::BvhTables B, gst:
                                     pix, rad_r, rad_g, rad_b, rays_out);
 }
 
+// K6: K4 with the gradient hook of grad.cuh (the counterpart of
+// gpuspectral_tpu/integrator/mega_grad.py:_mega_bvh_fwdgrad_blocks; wrapper
+// integrator/mega_grad.py:render_mega_bvh_fwdgrad_rows).  What bounds it is
+// what bounds K4, the per-ray walk; the partial planes add at most 3R + 6
+// read-modify-writes of the lane's own columns per bounce.
+template <bool kSync>
+__global__ void __launch_bounds__(kThreads)
+mega_bvh_grad_kernel(const int* __restrict__ pix, int n_lanes, gst::BvhTables B, gst::Tables T,
+                     gst::Params P, const int* __restrict__ rows, const float* __restrict__ kd,
+                     int n_rows, int n_glights, float* __restrict__ rad_r,
+                     float* __restrict__ rad_g, float* __restrict__ rad_b,
+                     int* __restrict__ rays_out, float* parts) {
+  const BvhIsect isect{B};
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  gst::render_lane<BvhIsect, kSync>(
+      isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out,
+      gst::make_grad_hook(parts, rows, kd, n_lanes, lane, n_rows, n_glights,
+                          P.attr_stride - 1));
+}
+
 }  // namespace
 
 // bvh_ip: n_nodes, n_clusters, n_slots, leaf_size, leaf_span; ip / fp: host
@@ -70,6 +91,34 @@ extern "C" int gst_mega_bvh(const int* pix, int n_lanes, const float* nodes, con
   } else {
     mega_bvh_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         pix, n_lanes, B, T, P, rad_r, rad_g, rad_b, rays);
+  }
+  return (int)cudaGetLastError();
+}
+
+// As gst_mega_bvh, plus the gradient arguments of gst_mega_grad (attr carries
+// the BSDF row in its last column).
+extern "C" int gst_mega_bvh_grad(const int* pix, int n_lanes, const float* nodes, const int* meta,
+                                 const float* clusters, const float* woop_t, const int* bvh_ip,
+                                 const float* attr, const float* light, const float* light_cdf,
+                                 const float* light_prob, const float* cam, const float* env,
+                                 const int* ip, const float* fp, int sync_regen, const int* rows,
+                                 const float* kd, int n_rows, int n_glights, float* rad_r,
+                                 float* rad_g, float* rad_b, int* rays, float* parts,
+                                 void* stream) {
+  if (n_lanes == 0) return 0;
+  if (n_rows > gst::kMaxGradRows || n_glights > gst::kMaxGradLights) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const gst::BvhTables B = gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip);
+  const gst::Params P = gst::make_params(ip, fp);
+  const gst::Tables T{attr, light, light_cdf, light_prob, cam, gst::make_env(env, ip)};
+  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  if (sync_regen) {
+    mega_bvh_grad_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pix, n_lanes, B, T, P, rows, kd, n_rows, n_glights, rad_r, rad_g, rad_b, rays, parts);
+  } else {
+    mega_bvh_grad_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pix, n_lanes, B, T, P, rows, kd, n_rows, n_glights, rad_r, rad_g, rad_b, rays, parts);
   }
   return (int)cudaGetLastError();
 }

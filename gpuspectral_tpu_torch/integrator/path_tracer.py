@@ -22,12 +22,24 @@ intersector "auto" or "pallas" the kernels of ops/cuda_isect.py (K2).  BVH
 (cfg.use_bvh, bvh_kernel "ftb"): for CUDA tensors the kernels of bvh/ftb.py
 (K3), with optional ray sorting (cfg.sort_rays) and shadow-ray sorting
 (cfg.shadow_sort).  For CPU tensors, or with intersector "woop", the plain
-torch Woop scans.  This module is also the plain version of both
-megakernels (integrator/mega.py, integrator/mega_bvh.py).
+torch Woop scans.  This module is also the plain version of the four
+megakernels (integrator/mega.py, integrator/mega_bvh.py and, with a
+gradient hook in `_bounce`, integrator/mega_grad.py).
+
+Differentiable mode (`trace_rays` / `render_sample` with
+differentiable=True, path_tracer.py:711-760, 924-936): torch autograd
+through the bounce loop.  With cfg.grad_remat "bounce" every bounce runs
+under torch.utils.checkpoint, so the backward pass replays it instead of
+storing its intermediates; the counter-based RNG makes the replay exact
+(path-replay backprop).  With "sample" the caller checkpoints whole
+samples.  The intersection kernels have no derivative of their own:
+closest hits go through `cuda_isect.closest_diff` / `ftb.ftb_closest_diff`,
+whose backward re-evaluates the hit triangle's Woop test in plain torch,
+and shadow rays and intersector tables are detached (visibility is a step
+function, as the JAX package's stop_gradient says).
 
 Not covered yet: intersector "mt" (the Moller-Trumbore XLA twin of
-bvh/traverse.py), the other BVH kernels (bvh_kernel != "ftb"), the
-differentiable path.
+bvh/traverse.py), the other BVH kernels (bvh_kernel != "ftb").
 """
 
 from __future__ import annotations
@@ -160,10 +172,14 @@ def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str):
     return out
 
 
-def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
+def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
+            differentiable: bool = False, grad_hook=None):
     """One wavefront bounce (path_tracer.py:_bounce).  `bounce` is the
     per-lane depth (int64 tensor); `state` a dict of per-lane tensors;
-    `tables` from _tables."""
+    `tables` from _tables.  differentiable: closest hits through the
+    autograd wrappers of the intersection kernels.  grad_hook(state, ctx)
+    -> state: the fused-gradient kernels' hook (integrator/mega_grad.py),
+    called where the JAX megakernel body calls it (mega.py:1108-1116)."""
     origin, direction = state["origin"], state["direction"]
     seed = state["seed"]
     alive = ~state["done"]
@@ -175,7 +191,10 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
     zeros = torch.zeros((r,), dtype=torch.float32, device=dev)
     pos_c = area_hit = None
     if cfg.use_bvh:
-        closest = ftb.ftb_closest if isector == "pallas" else ftb.ftb_closest_ref
+        if isector == "pallas":
+            closest = ftb.ftb_closest_diff if differentiable else ftb.ftb_closest
+        else:
+            closest = ftb.ftb_closest_ref
         t, prim, bu, bv, attrs = closest(scene, origin.contiguous(), direction.contiguous(),
                                          active=alive, attr=tables["attr"])
         nrm_c = attrs[:, 0:9].reshape(r, 3, 3)
@@ -189,7 +208,10 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
         uv_c = attrs[:, 14:20].reshape(r, 3, 2) if scene.has_textures else None
         tex_id = scene.bsdf_tex[bsdf_idx] if scene.has_textures else None
     else:
-        if isector == "pallas":
+        if isector == "pallas" and differentiable:
+            t, prim, bu, bv = cuda_isect.closest_diff(origin.contiguous(), direction.contiguous(),
+                                                      scene.tri_woop_t, scene.tri_woop, t_max0)
+        elif isector == "pallas":
             t, prim = cuda_isect.closest_cuda(origin.contiguous(), direction.contiguous(),
                                               scene.tri_woop_t, zeros, t_max0)
             bu, bv = woop_mod._recover_uv(origin, direction, scene.tri_woop, prim,
@@ -282,6 +304,9 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
     ldelta = light_pos - position
     ldist = m3.length(ldelta)
     ldir = ldelta / torch.clamp(ldist, min=1e-12)[..., None]
+    if grad_hook is not None:  # the light's facing flag, as the megakernels keep it
+        lnormal = m3.normalize(m3.cross(lv[:, 1] - lv[:, 0], lv[:, 2] - lv[:, 0]))
+        lfront = (m3.dot(-ldir, lnormal) > 0.0).to(torch.float32)
 
     # NEE over the environment emitter (path_tracer.py:404-433): with
     # probability p_env the NEE strategy samples the map instead of an area
@@ -330,19 +355,22 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
                 endpoint = torch.where(env_pick[..., None], position + ldir * diag, light_pos)
             order = torch.argsort(_segment_sort_key(scene, position, endpoint, nee_candidate),
                                   stable=True)
-            occ_s = any_hit(scene, position[order].contiguous(), ldir[order].contiguous(),
-                            sh_tmin, sh_tmax[order], active=nee_candidate[order])
+            occ_s = any_hit(scene, position.detach()[order].contiguous(),
+                            ldir.detach()[order].contiguous(), sh_tmin,
+                            sh_tmax.detach()[order], active=nee_candidate[order])
             shadowed = torch.zeros_like(occ_s).index_copy(0, order, occ_s)
         else:
-            shadowed = any_hit(scene, position.contiguous(), ldir.contiguous(), sh_tmin,
-                               sh_tmax, active=nee_candidate)
+            shadowed = any_hit(scene, position.detach().contiguous(),
+                               ldir.detach().contiguous(), sh_tmin, sh_tmax.detach(),
+                               active=nee_candidate)
     elif isector == "pallas":
-        shadowed = cuda_isect.any_cuda(position, ldir.contiguous(), scene.tri_woop_t, sh_tmin,
-                                       torch.where(nee_candidate, sh_tmax, -1.0))
+        shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
+                                       ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,
+                                       torch.where(nee_candidate, sh_tmax.detach(), -1.0))
     else:
         chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
-        shadowed = woop_mod.any_scan(position, ldir, scene.tri_woop, sh_tmin,
-                                     torch.where(nee_candidate, sh_tmax, -1.0), chunk)
+        shadowed = woop_mod.any_scan(position.detach(), ldir.detach(), scene.tri_woop, sh_tmin,
+                                     torch.where(nee_candidate, sh_tmax.detach(), -1.0), chunk)
     nee_done = nee_candidate & (~shadowed) & (light_pdf != 0.0)
 
     # MIS complement pdf: the reference reuses the *sampled* BSDF pdf
@@ -441,6 +469,20 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables):
     keep = torch.all(emitted < cfg.firefly_clamp, dim=-1)
     out["radiance"] = state["radiance"] + torch.where((alive & keep)[..., None], emitted, 0.0)
 
+    if grad_hook is not None:
+        if cfg.nee and cfg.mis_mode == "exact":
+            emit_w = torch.where((~ce) & (~wd), w_emit, 1.0)
+        elif cfg.nee:
+            emit_w = torch.where((~ce) & (~wd), state["direct_weight"], 1.0)
+        else:
+            emit_w = torch.ones_like(light_flag)
+        bidx = bsdf_idx if cfg.use_bvh else scene.tri_bsdf[torch.clamp(prim, min=0).long()]
+        out = grad_hook(out, dict(
+            depth=bounce, bidx=bidx, lhit=tri_lidx, weight=state["weight"], hit=hit,
+            acc=alive & keep, cont=cont, nee_done=nee_done,
+            nee_s=w_mis * nol * _safe_inv(light_pdf), f_light=f_light, lfront=lfront,
+            lemit=lemit, lidx=lidx, emit_w=emit_w, light_flag=light_flag, e=emitted))
+
     # Russian roulette (raygen.rgen:66-71)
     if_rr = bounce > cfg.rr_start_depth
     q = torch.clamp(torch.amax(out["weight"], dim=-1), cfg.rr_clamp_min, 1.0)
@@ -484,16 +526,31 @@ def _camera_rays(scene: SceneData, cfg: RenderConfig, pixel, seed):
     return generate_rays(scene.camera, cfg.width, cfg.height, pixel, jitter)
 
 
-def trace_rays(scene: SceneData, cfg: RenderConfig, origin, direction, seed):
+def trace_rays(scene: SceneData, cfg: RenderConfig, origin, direction, seed,
+               differentiable: bool = False):
     """Trace a batch of rays to completion: depth = 0 .. max_depth, stopping
-    early once every lane is done.  Returns (radiance (R,3), rays_traced
-    (R,) int32: closest-hit plus shadow rays issued per lane)."""
+    early once every lane is done (done lanes add nothing, so the early
+    exit changes neither the radiance nor its gradient).  Returns
+    (radiance (R,3), rays_traced (R,) int32: closest-hit plus shadow rays
+    issued per lane).
+
+    differentiable: the radiance carries autograd through the scene's
+    parameters (bsdf_params, emission, ...); with cfg.grad_remat "bounce"
+    each bounce runs under torch.utils.checkpoint and is replayed in the
+    backward pass (path_tracer.py:749-755)."""
+    from torch.utils.checkpoint import checkpoint
+
     tables = _tables(scene, cfg, "nearest")
     state = _fresh_state(origin, direction, rng.as_u32(seed))
+    remat = differentiable and cfg.grad_remat == "bounce"
     bounce = 0
     while bounce < cfg.max_depth + 1 and not bool(torch.all(state["done"])):
         depth = torch.full_like(state["seed"], bounce)
-        state = _bounce(scene, cfg, depth, state, tables)
+        if remat:
+            state = checkpoint(_bounce, scene, cfg, depth, state, tables, True,
+                               use_reentrant=False)
+        else:
+            state = _bounce(scene, cfg, depth, state, tables, differentiable)
         bounce += 1
     return state["radiance"], state["rays_traced"]
 
@@ -541,7 +598,7 @@ def _segment_sort_key(scene: SceneData, origin, endpoint, candidate):
 
 
 def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0,
-                    tex_mode: str = "nearest"):
+                    tex_mode: str = "nearest", grad_hook=None, hook_state=None):
     """Persistent-lane wavefront: each lane owns one pixel and runs its
     cfg.spp samples back to back, regenerating a fresh camera path the
     moment the previous one ends (path_tracer.py:770).  With cfg.sort_rays
@@ -551,6 +608,10 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
     tex_mode: "nearest" shades a textured hit with the texel at its uv (the
     wavefront's rule); "corners" with the barycentric blend of per-corner
     texels (the fused-BVH megakernel's rule, for its plain version).
+
+    grad_hook / hook_state: the fused-gradient kernels' hook and its
+    per-lane state tensors (leading axis R), carried with the lanes; the
+    final state comes back as a fourth result.
 
     Returns (radiance_sum (R,3), rays_traced (R,), pixel (R,)); divide the
     radiance by spp and scatter it by pixel."""
@@ -571,6 +632,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
     state["depth"] = zeros
     state["sample"] = zeros
     state["pixel"] = pixel_index
+    state.update(hook_state or {})
 
     max_iters = cfg.spp * (cfg.max_depth + 1)
     it = 0
@@ -578,7 +640,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
         if bool(torch.all(state["done"] & (state["sample"] + 1 >= cfg.spp))):
             break
         depth = state["depth"]
-        st = _bounce(scene, cfg, depth, state, tables)
+        st = _bounce(scene, cfg, depth, state, tables, grad_hook=grad_hook)
         st["depth"] = depth + 1
         st["done"] = st["done"] | (st["depth"] >= cfg.max_depth + 1)
 
@@ -606,16 +668,31 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
             st = {k: v[order] for k, v in st.items()}
         state = st
         it += 1
+    if grad_hook is not None:
+        return state["radiance"], state["rays_traced"], state["pixel"], state
     return state["radiance"], state["rays_traced"], state["pixel"]
 
 
-def render_sample(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp):
+def render_sample(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp,
+                  differentiable: bool = False):
     """Radiance of one sample per pixel index: (radiance (R,3),
-    rays_traced (R,))."""
+    rays_traced (R,)); differentiable as in trace_rays."""
     pixel_index = rng.as_u32(pixel_index)
     seed = rng.pixel_seed(pixel_index, int(timestamp) & 0xFFFFFFFF)
     origin, direction = _camera_rays(scene, cfg, pixel_index, seed)
-    return trace_rays(scene, cfg, origin, direction, seed)
+    return trace_rays(scene, cfg, origin, direction, seed, differentiable=differentiable)
+
+
+def render_samples(scene: SceneData, cfg: RenderConfig, pixel_index, timestamps,
+                   differentiable: bool = False):
+    """render_sample with a timestamp per lane: lane i traces the sample of
+    pixel_index[i] at timestamps[i] (the same draws as render_sample at
+    that timestamp), so several samples of a frame go in one batch.
+    Returns (radiance (R,3), rays_traced (R,))."""
+    pixel_index = rng.as_u32(pixel_index)
+    seed = rng.pixel_seed(pixel_index, rng.as_u32(timestamps))
+    origin, direction = _camera_rays(scene, cfg, pixel_index, seed)
+    return trace_rays(scene, cfg, origin, direction, seed, differentiable=differentiable)
 
 
 def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):

@@ -5,6 +5,10 @@ as `closest_pallas` / `any_pallas` and the same results.  For CPU tensors
 the wrappers run the plain torch versions, `closest_ref` / `any_ref`
 (ops/woop.py scans); for CUDA tensors they launch the kernel or raise.
 Each wrapper counts its kernel launches in `.launches`.
+
+`closest_diff` is the differentiable closest hit of the wavefront
+(path_tracer.py:_brute_vjp): K2a forward, and a backward that re-evaluates
+each ray's hit triangle's Woop test in plain torch (woop_eval_rows).
 """
 
 from __future__ import annotations
@@ -93,3 +97,61 @@ def any_cuda(origin, direction, woop_t, t_min, t_max):
 
 closest_cuda.launches = 0
 any_cuda.launches = 0
+
+
+def woop_eval_rows(rows, o, d):
+    """Woop test of each ray against its own triangle row, rows (R, 12):
+    (t, u, v), differentiable in (o, d) (bvh/dfs_sweep.py:_woop_eval_rows)."""
+    ax, ay, az = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    bx, by, bz = rows[:, 9], rows[:, 10], rows[:, 11]
+    opz = (o * az).sum(-1) + bz
+    dpz = (d * az).sum(-1)
+    live = torch.abs(dpz) > 1e-12
+    t = -opz / torch.where(live, dpz, 1.0)
+    p = o + t[:, None] * d
+    return t, (p * ax).sum(-1) + bx, (p * ay).sum(-1) + by
+
+
+def woop_vjp(o, d, prim, woop_rows, ct_t, ct_u, ct_v):
+    """(d origin, d direction) of the hit (t, u, v) for cotangents ct_*:
+    the vjp of woop_eval_rows at each ray's hit triangle; misses get zero."""
+    hit = prim >= 0
+    rows = woop_rows[torch.clamp(prim, min=0).long()]
+    zero = torch.zeros_like(ct_t)
+    with torch.enable_grad():
+        oo = o.detach().requires_grad_(True)
+        dd = d.detach().requires_grad_(True)
+        t, u, v = woop_eval_rows(rows, oo, dd)
+        return torch.autograd.grad(
+            (t, u, v), (oo, dd),
+            (torch.where(hit, ct_t, zero), torch.where(hit, ct_u, zero),
+             torch.where(hit, ct_v, zero)), allow_unused=True)
+
+
+class _ClosestDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, origin, direction, t_max, woop_t, woop_rows):
+        zeros = torch.zeros_like(t_max)
+        t, prim = closest_cuda(origin, direction, woop_t, zeros, t_max)
+        bu, bv = woop._recover_uv(origin, direction, woop_rows, prim,
+                                  torch.where(prim >= 0, t, 0.0))
+        bu = torch.where(prim >= 0, bu, 0.0)
+        bv = torch.where(prim >= 0, bv, 0.0)
+        ctx.save_for_backward(origin, direction, prim, woop_rows)
+        ctx.mark_non_differentiable(prim)
+        return t, prim, bu, bv
+
+    @staticmethod
+    def backward(ctx, ct_t, _ct_prim, ct_u, ct_v):
+        o, d, prim, woop_rows = ctx.saved_tensors
+        do, dd = woop_vjp(o, d, prim, woop_rows, ct_t, ct_u, ct_v)
+        return do, dd, None, None, None
+
+
+def closest_diff(origin, direction, woop_t, woop_rows, t_max):
+    """Closest hit with exact (t, u, v) gradients w.r.t. (origin, direction)
+    (path_tracer.py:_brute_closest_diff).  woop_t (12, T) is K2a's table,
+    woop_rows (T, 12) the same rows for the backward; both are detached.
+    Returns (t, prim, u, v): t = 1e30, prim = -1 and u = v = 0 on a miss."""
+    return _ClosestDiff.apply(origin, direction, t_max.detach().contiguous(),
+                              woop_t.detach(), woop_rows.detach())

@@ -9,7 +9,8 @@
                 its full size (6x6 spheres of 64 segments x 32 rings, a 32x64
                 sky) 147,460 triangles, the class of the reference's coffee
                 scene (168k), with a textured material and an image
-                environment of 2048 texels
+                environment of 2048 texels; "sphere_field_noenv" is the same
+                scene without the sky (the gradient benchmark's)
 
 The populate_* functions only call add_bsdf / add_object / set_envmap /
 set_camera, so they fill a gpuspectral_tpu SceneBuilder exactly as they fill
@@ -25,8 +26,10 @@ from .obj import make_cube, make_rectangle
 from .texture import make_checkerboard
 
 
-def populate_zoo(b):
-    """Add the zoo's objects, lights and camera to SceneBuilder `b`."""
+def populate_zoo(b, diffuse_only: bool = False):
+    """Add the zoo's objects, lights and camera to SceneBuilder `b`.
+    diffuse_only: the seven cubes get diffuse BSDFs of six colours instead
+    (eight BSDF rows in all: a scene the fused-gradient kernel K5 takes)."""
     pos, nrm, uv = make_rectangle()
 
     diffuse = b.add_bsdf(bt.diffuse((0.7, 0.7, 0.7)))
@@ -44,9 +47,14 @@ def populate_zoo(b):
         bt.rough_floor((0.7, 0.5, 0.3), 0.04, 0.3),
         bt.rough_plastic((0.2, 0.6, 0.2), 1.5, alpha=0.2),
     ]
+    if diffuse_only:
+        colours = [(0.8, 0.2, 0.2), (0.2, 0.8, 0.2), (0.2, 0.2, 0.8), (0.8, 0.8, 0.2),
+                   (0.2, 0.8, 0.8), (0.6, 0.4, 0.3)]
+        rows = [b.add_bsdf(bt.diffuse(c)) for c in colours]
+        kinds = [None] * len(kinds)
     cpos, cnrm, cuv = make_cube()
     for i, k in enumerate(kinds):
-        idx = b.add_bsdf(k)
+        idx = rows[i % len(rows)] if diffuse_only else b.add_bsdf(k)
         x = -3.0 + i
         xf = np.array(
             [[0.35, 0, 0, x], [0, 0.35, 0, 0.35], [0, 0, 0.35, 0], [0, 0, 0, 1]],
@@ -65,11 +73,11 @@ def populate_zoo(b):
     return b
 
 
-def build_zoo(device="cpu"):
+def build_zoo(device="cpu", diffuse_only: bool = False):
     """The zoo as this package's SceneData on `device`."""
     from .data import SceneBuilder, build_scene
 
-    return build_scene(populate_zoo(SceneBuilder()), device)
+    return build_scene(populate_zoo(SceneBuilder(), diffuse_only), device)
 
 
 def _uv_sphere(segs: int, rings: int):
@@ -138,7 +146,7 @@ def populate_sphere_field(b, n_side: int = 6, segs: int = 64, rings: int = 32,
     """Add the sphere field to SceneBuilder `b`: n_side x n_side spheres
     (radius 0.4, 1.0 apart) whose BSDFs cycle through all eight kinds, a
     checkerboard-textured floor, a back wall, a quad area light and a
-    sky_hw lat-long sky."""
+    sky_hw lat-long sky (no environment emitter when sky_hw is None)."""
     rect_pos, rect_nrm, rect_uv = make_rectangle()
     half = n_side / 2.0
     s = half + 2.0
@@ -175,7 +183,8 @@ def populate_sphere_field(b, n_side: int = 6, segs: int = 64, rings: int = 32,
     light_xf = np.array([[1.5, 0, 0, 0], [0, 0, -1, half + 2.0], [0, 1.5, 0, 0],
                          [0, 0, 0, 1]], np.float32)
     b.add_object(rect_pos, rect_nrm, rect_uv, light_xf, light, emission=(12.0, 12.0, 12.0))
-    b.set_envmap(_sky(*sky_hw))
+    if sky_hw is not None:
+        b.set_envmap(_sky(*sky_hw))
 
     # look at the grid from the front, above
     eye = np.array([0.0, half + 1.0, 2.0 * half + 2.5], np.float32)
@@ -188,8 +197,16 @@ def populate_sphere_field(b, n_side: int = 6, segs: int = 64, rings: int = 32,
     return b
 
 
+def populate_sphere_field_noenv(b):
+    """The sphere field without its sky: the fused-gradient kernels (K6,
+    like the JAX kernel) take no scene with an environment emitter, so this
+    is the BVH-scale scene of the gradient benchmark."""
+    return populate_sphere_field(b, sky_hw=None)
+
+
 # scenes built in code, by the name the CLI takes as "builtin:<name>"
-BUILTIN = {"sphere_field": populate_sphere_field}
+BUILTIN = {"sphere_field": populate_sphere_field,
+           "sphere_field_noenv": populate_sphere_field_noenv}
 
 
 def build_sphere_field(device="cpu", **kw):

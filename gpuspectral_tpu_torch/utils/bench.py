@@ -63,3 +63,102 @@ def run_benchmark(args, *, return_image: bool = False):
         "device": torch.cuda.get_device_name(dev),
     }
     return (result, img) if return_image else result
+
+
+def load_scene(scene_path: str, device):
+    """A Mitsuba XML scene, or builtin:<name> (scene/zoo.py:BUILTIN)."""
+    from ..scene import SceneBuilder, load_mitsuba_scene
+    from ..scene.zoo import BUILTIN
+
+    if scene_path.startswith("builtin:"):
+        return BUILTIN[scene_path[len("builtin:"):]](SceneBuilder()).build(device)
+    return load_mitsuba_scene(scene_path, device=device)[0]
+
+
+def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: int = 5,
+                       ray_batch: int = 65536, steps: int = 2, use_bvh: bool = False,
+                       device="cuda", return_grad: bool = False):
+    """Gradient-step throughput (grad-steps/s; gpuspectral_tpu/utils/bench.py:
+    run_grad_benchmark): one value-and-grad of the MSE against a fixed
+    target (zeros) w.r.t. bsdf_params, through K5 (`render_mega_diff`) when
+    mega_grad_eligible, else K6 (`render_mega_bvh_diff`) when
+    mega_bvh_grad_eligible, else the differentiable wavefront over pixel
+    batches of ray_batch with each sample checkpointed (grad_remat
+    "sample").  The first step (kernel build included) is compile_seconds;
+    each of `steps` timed steps, at timestamps 1.., runs between
+    torch.cuda.synchronize() calls, and seconds_per_step is their median.
+
+    With return_grad, return (result, gradient of the last step, its
+    timestamp)."""
+    from ..integrator.mega_grad import (mega_bvh_grad_eligible, mega_grad_eligible,
+                                        render_mega_bvh_diff, render_mega_diff)
+    from ..integrator.path_tracer import render_sample
+    from .config import RenderConfig
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"run_grad_benchmark measures a CUDA device; got {dev}")
+    scene = load_scene(scene_path, dev)
+    cfg = RenderConfig(width=size, height=size, spp=spp, max_depth=depth, ray_batch=ray_batch,
+                       grad_remat="sample", use_bvh=use_bvh)
+    n_pixels = size * size
+    target = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
+    if mega_grad_eligible(scene, cfg):
+        render_diff, kernel = render_mega_diff, "mega"
+    elif mega_bvh_grad_eligible(scene, cfg):
+        render_diff, kernel = render_mega_bvh_diff, "mega_bvh"
+    else:
+        render_diff, kernel = None, "wavefront"
+
+    def grad_step(ts):
+        p = scene.bsdf_params.detach().clone().requires_grad_(True)
+        sc = scene.replace(bsdf_params=p)
+        if render_diff is not None:
+            img = render_diff(sc, cfg, ts).reshape(n_pixels, 3)
+            loss = torch.mean((img - target) ** 2)
+            return loss.detach(), torch.autograd.grad(loss, p)[0]
+        # the per-pixel loss is separable: one backward per pixel batch
+        # keeps the replay's memory at one batch
+        from torch.utils.checkpoint import checkpoint
+
+        one = cfg.replace(spp=1)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        g = torch.zeros_like(p)
+        for b0 in range(0, n_pixels, ray_batch):
+            pb = torch.arange(b0, min(b0 + ray_batch, n_pixels), dtype=torch.int64, device=dev)
+            acc = torch.zeros((pb.numel(), 3), dtype=torch.float32, device=dev)
+            for s in range(spp):
+                acc = acc + checkpoint(lambda q, s=s: render_sample(
+                    sc.replace(bsdf_params=q), one, pb, ts + s, differentiable=True)[0],
+                    p, use_reentrant=False)
+            loss_b = torch.sum((acc / spp - target[pb]) ** 2) / (3 * n_pixels)
+            g = g + torch.autograd.grad(loss_b, p)[0]
+            total = total + loss_b.detach()
+        return total, g
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, g = grad_step(0)
+    torch.cuda.synchronize(dev)
+    compile_s = time.perf_counter() - t0
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, g = grad_step(i + 1)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    dt = sorted(times)[len(times) // 2]
+    result = {
+        "seconds_per_step": dt,
+        "grad_steps_per_s": 1.0 / dt,
+        "mpaths_per_s_fwd_bwd": n_pixels * spp / dt / 1e6,
+        "compile_seconds": round(compile_s, 2),
+        "size": size, "spp": spp, "max_depth": depth,
+        "kernel": kernel,
+        "peak_hbm_gb": round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
+        "backend": "cuda",
+        "device": torch.cuda.get_device_name(dev),
+    }
+    return (result, g, steps) if return_grad else result

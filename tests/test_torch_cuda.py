@@ -201,3 +201,126 @@ def test_run_benchmark_reports_the_card(cuda_device):  # noqa: F811
     assert mega.render_mega_rows.launches >= n0 + 3
     assert out["backend"] == "cuda" and out["device"] == torch.cuda.get_device_name()
     assert out["rays_traced"] > 64 * 64 * 2 and out["mrays_per_s"] > 0
+
+
+def _grad_gates(got, ref, spp):
+    """K5 / K6 against the plain version: the image under the tests/test_mega.py
+    gates, rays within 1%, and the partials contracted with a fixed numpy
+    cotangent within 2e-3 of the plain version's (tests/test_mega_grad.py's
+    tolerance: a path that crosses a seam on a rounding moves its terms)."""
+    img = (torch.stack(got[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
+    img_ref = (torch.stack(ref[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
+    assert_mega_gates(img_ref, img, float(ref[3].double().sum()), float(got[3].double().sum()))
+    n = img.shape[0]
+    ct = torch.as_tensor(np.random.default_rng(5).uniform(-1, 1, (n, 3)).astype(np.float32),
+                         device=got[4].device)
+    cidx = torch.arange(got[4].shape[0], device=ct.device) % 3
+    cg = (got[4].reshape(got[4].shape[0], -1) * ct.t()[cidx]).sum(1)
+    cr = (ref[4].reshape(ref[4].shape[0], -1) * ct.t()[cidx]).sum(1)
+    assert float(cr.abs().max()) > 0
+    assert float((cg - cr).abs().max()) <= 2e-3 * float(cr.abs().max())
+
+
+def test_k5_matches_plain_version(cuda_device):  # noqa: F811
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
+    ts = _scene("cornell", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4)
+    pix = mg.pix_rows(cfg, cuda_device)
+    n0 = mg.render_mega_fwdgrad_rows.launches
+    got = mg.render_mega_fwdgrad_rows(ts, cfg, pix, 0)
+    assert mg.render_mega_fwdgrad_rows.launches == n0 + 1
+    _grad_gates(got, mg.render_mega_fwdgrad_rows_ref(ts, cfg, pix, 0), cfg.spp)
+    # K5's image is K1's (the hook only reads)
+    k1 = mega.render_mega_rows(ts, cfg, pix, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], k1))
+
+
+@pytest.mark.parametrize("name", ["slot_mode", "sphere_field_noenv", "textured"])
+def test_k6_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
+    if name == "slot_mode":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = _scene("cornell", cuda_device)
+    elif name == "sphere_field_noenv":
+        ts = build_sphere_field(cuda_device, n_side=2, segs=16, rings=8, sky_hw=None)
+    else:
+        ts = _scene("textured", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True)
+    assert mg.mega_bvh_grad_eligible(ts, cfg)
+    pix = mg.pix_rows(cfg, cuda_device)
+    n0 = mg.render_mega_bvh_fwdgrad_rows.launches
+    got = mg.render_mega_bvh_fwdgrad_rows(ts, cfg, pix, 0)
+    assert mg.render_mega_bvh_fwdgrad_rows.launches == n0 + 1
+    _grad_gates(got, mg.render_mega_bvh_fwdgrad_rows_ref(ts, cfg, pix, 0), cfg.spp)
+    k4 = mega_bvh.render_mega_bvh_rows(ts, cfg, pix, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], k4))
+
+
+def _diff_rays(dev, seed=3, r=1 << 14):
+    o, d, _, hi = _rays(seed, r, dev)
+    return o.requires_grad_(True), d.requires_grad_(True), hi
+
+
+def _vjp(t, u, v, o, d, seed=9):
+    g = np.random.default_rng(seed).normal(size=(3, t.shape[0])).astype(np.float32)
+    g = torch.as_tensor(g, device=t.device)
+    hit = t < 1e29
+    loss = (torch.where(hit, t, 0.0) * g[0] + u * g[1] + v * g[2]).sum()
+    return torch.autograd.grad(loss, (o, d))
+
+
+@pytest.mark.parametrize("kind", ["k2a", "k3a"])
+def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
+    """The autograd wrappers of K2a / K3a on the card against the same
+    wrappers on the CPU (the plain forward, the same torch backward)."""
+    ts = _scene("cornell" if kind == "k2a" else "sphere_field", cuda_device)
+    cpu = _scene("cornell" if kind == "k2a" else "sphere_field", "cpu")
+    out = {}
+    for dev, sc in ((cuda_device, ts), (torch.device("cpu"), cpu)):
+        o, d, hi = (x.detach().to(dev) for x in _diff_rays(cuda_device))
+        o.requires_grad_(True)
+        d.requires_grad_(True)
+        if kind == "k2a":
+            t, prim, u, v = ci.closest_diff(o, d, sc.tri_woop_t, sc.tri_woop, hi)
+        else:
+            t, prim, u, v, _ = ftb.ftb_closest_diff(sc, o, d)
+        out[dev.type] = (prim.cpu(), [x.cpu() for x in (t, u, v)],
+                         [x.cpu() for x in _vjp(t, u, v, o, d)])
+    (p1, f1, g1), (p2, f2, g2) = out["cuda"], out["cpu"]
+    same = p1 == p2
+    assert int((~same).sum()) <= 2 and int((p2 >= 0).sum()) > 1000
+    for a, b in zip(f1, f2):
+        assert torch.allclose(a[same], b[same], rtol=1e-6, atol=1e-6)
+    rows = same[:, None].expand(-1, 3)
+    for a, b in zip(g1, g2):
+        assert torch.allclose(a[rows], b[rows], rtol=1e-5, atol=1e-5)
+
+
+def test_render_mega_diff_on_card(cuda_device):  # noqa: F811
+    """Autograd through K5 on the card against the plain version on the CPU."""
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ts = _scene("cornell", dev)
+        p = ts.bsdf_params.clone().requires_grad_(True)
+        le = ts.light_emission.clone().requires_grad_(True)
+        img = mg.render_mega_diff(ts.replace(bsdf_params=p, light_emission=le),
+                                  RenderConfig(width=32, height=32, spp=2, max_depth=3), 0)
+        (img * torch.arange(3.0, device=dev)).sum().backward()
+        grads[dev.type] = (p.grad.cpu(), le.grad.cpu())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+
+
+def test_run_grad_benchmark_reports_the_card(cuda_device):  # noqa: F811
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+    from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
+
+    n0 = mg.render_mega_fwdgrad_rows.launches
+    out = run_grad_benchmark(str(CORNELL_XML), size=64, spp=2, depth=5, steps=2)
+    assert mg.render_mega_fwdgrad_rows.launches == n0 + 3
+    assert out["kernel"] == "mega" and out["device"] == torch.cuda.get_device_name()
+    assert out["grad_steps_per_s"] > 0 and out["peak_hbm_gb"] > 0
