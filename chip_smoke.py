@@ -594,6 +594,27 @@ def phase_k4(dev, scenes):
     return err
 
 
+def plain_leg(plain, scene, cfg, pix, ts):
+    """A plain version on a few pixel rows of a BVH frame: timed at 4 spp,
+    run at cfg.spp when that fits PLAIN_BUDGET_S, else at the most spp (a
+    power of two) that does.  Returns (its result, the spp, its ms)."""
+    t0 = time.perf_counter()
+    ref = plain(scene, cfg.replace(spp=4), pix, ts)
+    torch.cuda.synchronize()
+    dt4 = time.perf_counter() - t0
+    spp_cmp = 4
+    while spp_cmp < cfg.spp and dt4 * (2 * spp_cmp) / 4 < PLAIN_BUDGET_S:
+        spp_cmp *= 2
+    log(f"  plain version at 4 spp on {pix.shape[0]} rows: {dt4:.2f} s; comparing at "
+        f"{spp_cmp} spp")
+    if spp_cmp == 4:
+        return ref, 4, dt4 * 1e3
+    t0 = time.perf_counter()
+    ref = plain(scene, cfg.replace(spp=spp_cmp), pix, ts)
+    torch.cuda.synchronize()
+    return ref, spp_cmp, (time.perf_counter() - t0) * 1e3
+
+
 def phase_bvh_main(dev):
     from gpuspectral_tpu_torch.cli.main import _build
     from gpuspectral_tpu_torch.integrator import mega_bvh
@@ -635,21 +656,8 @@ def phase_bvh_main(dev):
     if not torch.equal(img.reshape(-1, 3)[pix.reshape(-1).long()], got_full):
         raise AssertionError("sphere-field image rows differ from K4 on the same rows")
 
-    # the plain leg: time it at 4 spp, run it at full spp when that fits
-    # PLAIN_BUDGET_S, else at the most spp (a power of two) that does
-    t0 = time.perf_counter()
-    ref4 = mega_bvh.render_mega_bvh_rows_ref(scene, cfg.replace(spp=4), pix, ts)
-    torch.cuda.synchronize()
-    dt4 = time.perf_counter() - t0
-    spp_cmp = 4
-    while spp_cmp < spp and dt4 * (2 * spp_cmp) / 4 < PLAIN_BUDGET_S:
-        spp_cmp *= 2
-    log(f"  plain version at 4 spp on {K4_ROWS} rows: {dt4:.2f} s; comparing at {spp_cmp} spp")
+    ref, spp_cmp, ref_ms = plain_leg(mega_bvh.render_mega_bvh_rows_ref, scene, cfg, pix, ts)
     cfg_cmp = cfg.replace(spp=spp_cmp)
-    t0 = time.perf_counter()
-    ref = ref4 if spp_cmp == 4 else mega_bvh.render_mega_bvh_rows_ref(scene, cfg_cmp, pix, ts)
-    torch.cuda.synchronize()
-    ref_ms = (dt4 if spp_cmp == 4 else time.perf_counter() - t0) * 1e3
     out = mega_bvh.render_mega_bvh_rows(scene, cfg_cmp, pix, ts)
     k4_ms = cuda_ms(lambda: mega_bvh.render_mega_bvh_rows(scene, cfg_cmp, pix, ts), reps=2)
     got = torch.stack(out[:3], -1).reshape(-1, 3) / spp_cmp
@@ -724,33 +732,6 @@ def check_fused(tag, got, ref, spp, sub=False):
     if not (np.isfinite(cg).all() and np.abs(cr).max() > 0 and rel <= GRAD_TOL):
         raise AssertionError(f"{tag}: gradients outside {GRAD_TOL} of the plain version")
     return max(err, float(np.abs(cg - cr).max()))
-
-
-def phase_k5(dev, cornell):
-    from gpuspectral_tpu_torch.integrator import mega, mega_grad as mg
-    from gpuspectral_tpu_torch.scene.zoo import build_zoo
-    from gpuspectral_tpu_torch.utils import RenderConfig
-
-    log("phase K5: fused forward-gradient megakernel vs its plain version")
-    err = 0.0
-    for name, scene in (("cornell", cornell), ("zoo_diffuse", build_zoo(dev, diffuse_only=True))):
-        for depth, spp in ((3, 2), (5, 4)):
-            cfg = RenderConfig(width=64, height=64, spp=spp, max_depth=depth)
-            pix = mg.pix_rows(cfg, dev)
-            reset_counts()
-            got = mg.render_mega_fwdgrad_rows(scene, cfg, pix, 0)
-            k1 = mega.render_mega_rows(scene, cfg, pix, 0)
-            ref = mg.render_mega_fwdgrad_rows_ref(scene, cfg, pix, 0)
-            torch.cuda.synchronize()
-            c = counts()
-            if c["k5"] != 1 or c["k1"] != 1:
-                raise AssertionError(f"k5 {name}: launch counts {c}")
-            s5 = float(torch.stack(got[:3]).double().sum())
-            s1 = float(torch.stack(k1[:3]).double().sum())
-            if abs(s5 - s1) > 1e-5 * abs(s1):
-                raise AssertionError(f"k5 {name}: K5's image sum {s5} is not K1's {s1}")
-            err = max(err, check_fused(f"{name} d{depth} {spp}spp", got, ref, spp))
-    return err
 
 
 def phase_grad_main(dev):
@@ -873,37 +854,33 @@ def slot_mode(build):
         bvh_build.SLOT_DENSE_THRESHOLD = old
 
 
-def phase_k6(dev):
-    from gpuspectral_tpu_torch.integrator import mega_bvh, mega_grad as mg
-    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
-    from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
+def phase_fused(dev, bvh, cases):
+    """K5 (bvh False) or K6 against its plain version and against K1 / K4
+    (the hook only reads: same image), at 64x64, depths 3 and 5."""
+    from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad as mg
     from gpuspectral_tpu_torch.utils import RenderConfig
 
-    log("phase K6: fused-BVH forward-gradient megakernel vs its plain version")
-    cases = dict(
-        cornell_slot=slot_mode(lambda: load_mitsuba_scene(CORNELL, device=dev)[0]),
-        mixed=slot_mode(lambda: mixed_scene(dev)),
-        textured=slot_mode(lambda: textured_scene(dev)),
-        sphere_field_noenv=build_sphere_field(dev, n_side=2, segs=16, rings=8, sky_hw=None))
+    key, fwd_key = ("k6", "k4") if bvh else ("k5", "k1")
+    kernel = mg.render_mega_bvh_fwdgrad_rows if bvh else mg.render_mega_fwdgrad_rows
+    plain = mg.render_mega_bvh_fwdgrad_rows_ref if bvh else mg.render_mega_fwdgrad_rows_ref
+    forward = mega_bvh.render_mega_bvh_rows if bvh else mega.render_mega_rows
     err = 0.0
     for name, scene in cases.items():
         for depth, spp in ((3, 2), (5, 4)):
-            cfg = RenderConfig(width=64, height=64, spp=spp, max_depth=depth, use_bvh=True)
-            if not mg.mega_bvh_grad_eligible(scene, cfg):
-                raise AssertionError(f"k6 {name}: not eligible")
+            cfg = RenderConfig(width=64, height=64, spp=spp, max_depth=depth, use_bvh=bvh)
             pix = mg.pix_rows(cfg, dev)
             reset_counts()
-            got = mg.render_mega_bvh_fwdgrad_rows(scene, cfg, pix, 0)
-            k4 = mega_bvh.render_mega_bvh_rows(scene, cfg, pix, 0)
-            ref = mg.render_mega_bvh_fwdgrad_rows_ref(scene, cfg, pix, 0)
+            got = kernel(scene, cfg, pix, 0)
+            fwd = forward(scene, cfg, pix, 0)
+            ref = plain(scene, cfg, pix, 0)
             torch.cuda.synchronize()
             c = counts()
-            if c["k6"] != 1 or c["k4"] != 1:
-                raise AssertionError(f"k6 {name}: launch counts {c}")
-            s6 = float(torch.stack(got[:3]).double().sum())
-            s4 = float(torch.stack(k4[:3]).double().sum())
-            if abs(s6 - s4) > 1e-5 * abs(s4):
-                raise AssertionError(f"k6 {name}: K6's image sum {s6} is not K4's {s4}")
+            if c[key] != 1 or c[fwd_key] != 1:
+                raise AssertionError(f"{key} {name}: launch counts {c}")
+            s_got = float(torch.stack(got[:3]).double().sum())
+            s_fwd = float(torch.stack(fwd[:3]).double().sum())
+            if abs(s_got - s_fwd) > 1e-5 * abs(s_fwd):
+                raise AssertionError(f"{key} {name}: image sum {s_got}, {fwd_key}'s {s_fwd}")
             err = max(err, check_fused(f"{name} d{depth} {spp}spp", got, ref, spp))
     return err
 
@@ -933,19 +910,8 @@ def phase_grad_bvh(dev):
     sub = torch.linspace(0, n_rows - 1, K4_ROWS, device=dev).round().to(torch.int32)
     pix = (sub[:, None] * mega_bvh.LANES
            + torch.arange(mega_bvh.LANES, dtype=torch.int32, device=dev)).contiguous()
-    t0 = time.perf_counter()
-    ref4 = mg.render_mega_bvh_fwdgrad_rows_ref(scene, cfg.replace(spp=4), pix, ts)
-    torch.cuda.synchronize()
-    dt4 = time.perf_counter() - t0
-    spp_cmp = 4
-    while spp_cmp < spp and dt4 * (2 * spp_cmp) / 4 < PLAIN_BUDGET_S:
-        spp_cmp *= 2
-    log(f"  plain version at 4 spp on {K4_ROWS} rows: {dt4:.2f} s; comparing at {spp_cmp} spp")
+    ref, spp_cmp, ref_ms = plain_leg(mg.render_mega_bvh_fwdgrad_rows_ref, scene, cfg, pix, ts)
     cfg_cmp = cfg.replace(spp=spp_cmp)
-    t0 = time.perf_counter()
-    ref = ref4 if spp_cmp == 4 else mg.render_mega_bvh_fwdgrad_rows_ref(scene, cfg_cmp, pix, ts)
-    torch.cuda.synchronize()
-    ref_ms = (dt4 if spp_cmp == 4 else time.perf_counter() - t0) * 1e3
     got = mg.render_mega_bvh_fwdgrad_rows(scene, cfg_cmp, pix, ts)
     k6_ms = cuda_ms(lambda: mg.render_mega_bvh_fwdgrad_rows(scene, cfg_cmp, pix, ts), reps=2)
     err = check_fused(f"K6 vs plain, {K4_ROWS} rows of the grad_bvh frame (ts {ts}, {spp_cmp} spp)",
@@ -1095,10 +1061,16 @@ def main() -> int:
                       k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]])
     del scene
 
-    k5_err = phase_k5(dev, scenes["cornell"])
+    log("phase K5: fused forward-gradient megakernel vs its plain version")
+    k5_err = phase_fused(dev, False, dict(cornell=scenes["cornell"],
+                                          zoo_diffuse=build_zoo(dev, diffuse_only=True)))
     m["k5"] = phase_grad_main(dev)
     m["k5"]["max_abs_err"] = max(m["k5"]["max_abs_err"], k5_err)
-    k6_err = phase_k6(dev)
+    log("phase K6: fused-BVH forward-gradient megakernel vs its plain version")
+    k6_err = phase_fused(dev, True, dict(
+        cornell_slot=slot_mode(lambda: load_mitsuba_scene(CORNELL, device=dev)[0]),
+        mixed=slot_mode(lambda: mixed_scene(dev)), textured=slot_mode(lambda: textured_scene(dev)),
+        sphere_field_noenv=build_sphere_field(dev, n_side=2, segs=16, rings=8, sky_hw=None)))
     m["k6"] = phase_grad_bvh(dev)
     m["k6"]["max_abs_err"] = max(m["k6"]["max_abs_err"], k6_err)
     wave_err = phase_grad_wavefront(dev)

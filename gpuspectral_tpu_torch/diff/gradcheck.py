@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..integrator.path_tracer import render_samples
+from ..integrator.path_tracer import render_sample
 from ..scene.data import SceneData
 from ..utils.config import RenderConfig
 
@@ -28,8 +28,7 @@ def render_mean(scene: SceneData, cfg: RenderConfig, timestamp0: int = 0,
                 differentiable: bool = False):
     """(n_pixels, 3) mean of cfg.spp samples, sample s at timestamp
     timestamp0 + s, summed in sample order.  Several samples go in one
-    batch of lanes (path_tracer.render_samples; each lane's draws are its
-    sample's).  Differentiable with cfg.grad_remat "sample": each batch
+    batch of lanes (path_tracer.render_sample with a timestamp per lane).  Differentiable with cfg.grad_remat "sample": each batch
     runs under torch.utils.checkpoint and is replayed in the backward pass;
     with "bounce" trace_rays checkpoints each bounce instead."""
     from torch.utils.checkpoint import checkpoint
@@ -42,7 +41,7 @@ def render_mean(scene: SceneData, cfg: RenderConfig, timestamp0: int = 0,
 
     def batch(sc, s0, k):
         ts = timestamp0 + s0 + torch.arange(k, device=dev).repeat_interleave(n_pixels)
-        return render_samples(sc, cfg, pix.repeat(k), ts, differentiable=differentiable)[0]
+        return render_sample(sc, cfg, pix.repeat(k), ts, differentiable=differentiable)[0]
 
     for s0 in range(0, cfg.spp, group):
         k = min(group, cfg.spp - s0)

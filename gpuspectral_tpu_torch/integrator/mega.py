@@ -169,14 +169,21 @@ def render_mega_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
 render_mega_rows.launches = 0
 
 
+def pix_rows(cfg: RenderConfig, device):
+    """Raster pixel rows (rows, LANES) int32 of a whole frame; lanes past
+    the last pixel point at pixel 0 (mega.py:1471-1482)."""
+    n_pixels = cfg.width * cfg.height
+    rows = -(-n_pixels // LANES)
+    pix = torch.arange(rows * LANES, dtype=torch.int32, device=device)
+    return torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
+
+
 def render_mega(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     """Render (H, W, 3) radiance (mean over cfg.spp) plus the total rays
     traced (a float).  Lanes past the last pixel point at pixel 0 and are
     left out of the image and the ray total (mega.py:1471-1482)."""
     n_pixels = cfg.width * cfg.height
-    rows = -(-n_pixels // LANES)
-    pix = torch.arange(rows * LANES, dtype=torch.int32, device=scene.device)
-    pix = torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
+    pix = pix_rows(cfg, scene.device)
     rad_r, rad_g, rad_b, rays = render_mega_rows(scene, cfg, pix, timestamp0)
     rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
     nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())

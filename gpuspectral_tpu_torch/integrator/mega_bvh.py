@@ -28,7 +28,7 @@ from ..bvh import ftb
 from ..scene.data import SceneData
 from ..utils.config import RenderConfig
 from . import path_tracer
-from .mega import LANES, _pack_tables, env_fused_ok, kernel_params, pack_env
+from .mega import LANES, _pack_tables, env_fused_ok, kernel_params, pack_env, pix_rows
 
 
 def mega_bvh_eligible(scene: SceneData, cfg: RenderConfig) -> bool:
@@ -133,9 +133,7 @@ def render_mega_bvh(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     traced (a float), pixels in raster order.  Lanes past the last pixel
     point at pixel 0 and are left out of the image and the ray total."""
     n_pixels = cfg.width * cfg.height
-    rows = -(-n_pixels // LANES)
-    pix = torch.arange(rows * LANES, dtype=torch.int32, device=scene.device)
-    pix = torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
+    pix = pix_rows(cfg, scene.device)
     rad_r, rad_g, rad_b, rays = render_mega_bvh_rows(scene, cfg, pix, timestamp0)
     rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
     nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())

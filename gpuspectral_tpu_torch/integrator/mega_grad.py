@@ -46,7 +46,7 @@ from ..bsdf.table import BSDF_DIFFUSE
 from ..scene.data import SceneData
 from ..utils.config import RenderConfig
 from . import path_tracer
-from .mega import LANES, _pack_tables, kernel_params, mega_eligible, pack_env
+from .mega import LANES, _pack_tables, kernel_params, mega_eligible, pack_env, pix_rows
 
 MAX_GRAD_BSDFS = 8
 MAX_GRAD_LIGHTS = 4
@@ -173,15 +173,6 @@ def _scatter_grads(scene: SceneData, grad_rows, Lg: int, d_kd, d_te_l, d_le_g):
     lidx = scene.tri_light_idx.long()
     d_te = torch.where((lidx >= 0)[:, None], d_te_l[torch.clamp(lidx, min=0)], 0.0)
     return d_bp, d_te, d_le
-
-
-def pix_rows(cfg: RenderConfig, device):
-    """Raster pixel rows (rows, LANES) int32 of a whole frame; lanes past
-    the last pixel point at pixel 0 (mega_grad.py:_brute_pix_rows)."""
-    n_pixels = cfg.width * cfg.height
-    rows = -(-n_pixels // LANES)
-    pix = torch.arange(rows * LANES, dtype=torch.int32, device=device)
-    return torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
 
 
 def image_gp(cfg: RenderConfig, g):

@@ -676,21 +676,12 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
 def render_sample(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp,
                   differentiable: bool = False):
     """Radiance of one sample per pixel index: (radiance (R,3),
-    rays_traced (R,)); differentiable as in trace_rays."""
+    rays_traced (R,)); differentiable as in trace_rays.  `timestamp` is one
+    int for every lane or a tensor of one per lane (several samples of a
+    frame in one batch: lane i draws the sample of pixel_index[i] at
+    timestamp[i])."""
     pixel_index = rng.as_u32(pixel_index)
-    seed = rng.pixel_seed(pixel_index, int(timestamp) & 0xFFFFFFFF)
-    origin, direction = _camera_rays(scene, cfg, pixel_index, seed)
-    return trace_rays(scene, cfg, origin, direction, seed, differentiable=differentiable)
-
-
-def render_samples(scene: SceneData, cfg: RenderConfig, pixel_index, timestamps,
-                   differentiable: bool = False):
-    """render_sample with a timestamp per lane: lane i traces the sample of
-    pixel_index[i] at timestamps[i] (the same draws as render_sample at
-    that timestamp), so several samples of a frame go in one batch.
-    Returns (radiance (R,3), rays_traced (R,))."""
-    pixel_index = rng.as_u32(pixel_index)
-    seed = rng.pixel_seed(pixel_index, rng.as_u32(timestamps))
+    seed = rng.pixel_seed(pixel_index, rng.as_u32(timestamp, pixel_index.device))
     origin, direction = _camera_rays(scene, cfg, pixel_index, seed)
     return trace_rays(scene, cfg, origin, direction, seed, differentiable=differentiable)
 

@@ -82,17 +82,18 @@ def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: i
     run_grad_benchmark): one value-and-grad of the MSE against a fixed
     target (zeros) w.r.t. bsdf_params, through K5 (`render_mega_diff`) when
     mega_grad_eligible, else K6 (`render_mega_bvh_diff`) when
-    mega_bvh_grad_eligible, else the differentiable wavefront over pixel
-    batches of ray_batch with each sample checkpointed (grad_remat
-    "sample").  The first step (kernel build included) is compile_seconds;
-    each of `steps` timed steps, at timestamps 1.., runs between
-    torch.cuda.synchronize() calls, and seconds_per_step is their median.
+    mega_bvh_grad_eligible, else the differentiable wavefront
+    (diff/gradcheck.render_mean, each batch of samples checkpointed:
+    grad_remat "sample").  The first step (kernel build included) is
+    compile_seconds; each of `steps` timed steps, at timestamps 1.., runs
+    between torch.cuda.synchronize() calls, and seconds_per_step is their
+    median.
 
     With return_grad, return (result, gradient of the last step, its
     timestamp)."""
+    from ..diff.gradcheck import render_mean
     from ..integrator.mega_grad import (mega_bvh_grad_eligible, mega_grad_eligible,
                                         render_mega_bvh_diff, render_mega_diff)
-    from ..integrator.path_tracer import render_sample
     from .config import RenderConfig
 
     dev = torch.device(device)
@@ -115,26 +116,10 @@ def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: i
         sc = scene.replace(bsdf_params=p)
         if render_diff is not None:
             img = render_diff(sc, cfg, ts).reshape(n_pixels, 3)
-            loss = torch.mean((img - target) ** 2)
-            return loss.detach(), torch.autograd.grad(loss, p)[0]
-        # the per-pixel loss is separable: one backward per pixel batch
-        # keeps the replay's memory at one batch
-        from torch.utils.checkpoint import checkpoint
-
-        one = cfg.replace(spp=1)
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        g = torch.zeros_like(p)
-        for b0 in range(0, n_pixels, ray_batch):
-            pb = torch.arange(b0, min(b0 + ray_batch, n_pixels), dtype=torch.int64, device=dev)
-            acc = torch.zeros((pb.numel(), 3), dtype=torch.float32, device=dev)
-            for s in range(spp):
-                acc = acc + checkpoint(lambda q, s=s: render_sample(
-                    sc.replace(bsdf_params=q), one, pb, ts + s, differentiable=True)[0],
-                    p, use_reentrant=False)
-            loss_b = torch.sum((acc / spp - target[pb]) ** 2) / (3 * n_pixels)
-            g = g + torch.autograd.grad(loss_b, p)[0]
-            total = total + loss_b.detach()
-        return total, g
+        else:
+            img = render_mean(sc, cfg, ts, differentiable=True)
+        loss = torch.mean((img - target) ** 2)
+        return loss.detach(), torch.autograd.grad(loss, p)[0]
 
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)

@@ -25,7 +25,8 @@ from gpuspectral_tpu_torch.scene.zoo import build_sphere_field, build_zoo
 from gpuspectral_tpu_torch.utils import RenderConfig
 
 from torch_common import (CORNELL_XML, assert_mega_gates, cuda_device,  # noqa: F401
-                          env_box, sky, textured_floor)
+                          env_box, mixed_bsdf_scene, sky, textured_diffuse_scene,
+                          textured_floor)
 
 pytestmark = pytest.mark.cuda
 
@@ -236,17 +237,19 @@ def test_k5_matches_plain_version(cuda_device):  # noqa: F811
     assert all(torch.equal(a, b) for a, b in zip(got[:4], k1))
 
 
-@pytest.mark.parametrize("name", ["slot_mode", "sphere_field_noenv", "textured"])
+@pytest.mark.parametrize("name", ["slot_mode", "sphere_field_noenv", "mixed", "textured"])
 def test_k6_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
     from gpuspectral_tpu_torch.integrator import mega_grad as mg
 
+    monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)  # a multi-bin build
     if name == "slot_mode":
-        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
         ts = _scene("cornell", cuda_device)
     elif name == "sphere_field_noenv":
         ts = build_sphere_field(cuda_device, n_side=2, segs=16, rings=8, sky_hw=None)
+    elif name == "mixed":
+        ts = mixed_bsdf_scene(tdata.SceneBuilder())[0].build(cuda_device)
     else:
-        ts = _scene("textured", cuda_device)
+        ts = textured_diffuse_scene(tdata.SceneBuilder()).build(cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True)
     assert mg.mega_bvh_grad_eligible(ts, cfg)
     pix = mg.pix_rows(cfg, cuda_device)
@@ -324,3 +327,15 @@ def test_run_grad_benchmark_reports_the_card(cuda_device):  # noqa: F811
     assert mg.render_mega_fwdgrad_rows.launches == n0 + 3
     assert out["kernel"] == "mega" and out["device"] == torch.cuda.get_device_name()
     assert out["grad_steps_per_s"] > 0 and out["peak_hbm_gb"] > 0
+
+
+def test_run_grad_benchmark_wavefront_path(cuda_device):  # noqa: F811
+    """A scene neither fused kernel takes (an environment emitter): the
+    step runs the differentiable wavefront on K3a / K3b."""
+    from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
+
+    n0 = ftb.ftb_closest.launches
+    out = run_grad_benchmark("builtin:sphere_field", size=16, spp=2, depth=2, steps=1,
+                             use_bvh=True)
+    assert out["kernel"] == "wavefront" and ftb.ftb_closest.launches > n0
+    assert out["grad_steps_per_s"] > 0

@@ -18,10 +18,11 @@ from gpuspectral_tpu.scene import load_mitsuba_scene as jax_load
 from gpuspectral_tpu.scene.data import SceneBuilder as JaxBuilder
 from gpuspectral_tpu.utils.config import RenderConfig as JaxConfig
 from gpuspectral_tpu_torch.integrator import mega, mega_grad as mg
-from gpuspectral_tpu_torch.scene.data import TEX_RES, scene_from_arrays
+from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.utils import RenderConfig
 
-from torch_common import CORNELL_XML, env_box, jax_scene_arrays, textured_floor
+from torch_common import (CORNELL_XML, env_box, jax_scene_arrays, mixed_bsdf_scene,
+                          textured_diffuse_scene)
 
 # The same estimator and draws on both sides; gradients differ by float
 # rounding and by paths that cross a seam on it.  2e-3 of the gradient's
@@ -63,33 +64,6 @@ def _port_grads(ts, kw, bvh):
     return img.detach().numpy(), [x.grad.numpy() for x in p]
 
 
-def _mixed_scene(builder):
-    """tests/test_mega_grad.py:230's mixed-BSDF scene, into any builder."""
-    from gpuspectral_tpu_torch.bsdf import table as bt
-    from gpuspectral_tpu_torch.scene.obj import make_cube, make_rectangle
-
-    rpos, rnrm, ruv = make_rectangle()
-    cpos, cnrm, cuv = make_cube()
-    kd = builder.add_bsdf(bt.diffuse((0.6, 0.4, 0.3)))
-    mirror = builder.add_bsdf(bt.smooth_conductor(0.0))
-    floor = np.array([[2, 0, 0, 0], [0, 0, 2, 0], [0, -1, 0, 0], [0, 0, 0, 1]], np.float32)
-    builder.add_object(rpos, rnrm, ruv, floor, kd, twofaced=True)
-    boxxf = np.array([[0.5, 0, 0, -0.5], [0, 0.5, 0, -0.49], [0, 0, 0.5, 0], [0, 0, 0, 1]],
-                     np.float32)
-    builder.add_object(cpos, cnrm, cuv, boxxf, mirror)
-    light = builder.add_bsdf(bt.diffuse((0.0, 0.0, 0.0)))
-    lxf = np.array([[1, 0, 0, 0], [0, 0, -1, 2.5], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
-    builder.add_object(rpos, rnrm, ruv, lxf, light, emission=(8.0, 8.0, 8.0))
-    builder.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 0.6], [0, 0, -1, 3], [0, 0, 0, 1]],
-                                np.float32), np.deg2rad(60))
-    return builder, (kd, mirror, light)
-
-
-def _textured_scene(builder):
-    u = (np.arange(TEX_RES, dtype=np.float32) + 0.5) / TEX_RES
-    return textured_floor(builder, np.broadcast_to(u[None, :, None], (TEX_RES, TEX_RES, 3)).copy())
-
-
 CASES = {
     "k5_cornell": (False, {}),
     "k5_jitter_exact": (False, dict(jitter=True, mis_mode="exact")),
@@ -107,8 +81,8 @@ def results(cornell_scene):
         mp.setattr(jbuild, "SLOT_DENSE_THRESHOLD", 8)
         import gpuspectral_tpu.integrator.mega  # noqa: F401  (checks the threshold at import)
         slot = jax_load(str(CORNELL_XML))[0]
-        mixed = _mixed_scene(JaxBuilder())[0].build()
-        textured = _textured_scene(JaxBuilder()).build()
+        mixed = mixed_bsdf_scene(JaxBuilder())[0].build()
+        textured = textured_diffuse_scene(JaxBuilder()).build()
     finally:
         mp.undo()
     scenes = dict(k5_cornell=cornell_scene, k5_jitter_exact=cornell_scene,

@@ -124,3 +124,45 @@ def textured_floor(builder, texture):
     builder.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 1.2], [0, 0, -1, 4], [0, 0, 0, 1]],
                                 np.float32), np.deg2rad(60))
     return builder
+
+
+def mixed_bsdf_scene(builder):
+    """tests/test_mega_grad.py:230's mixed-BSDF scene, into any SceneBuilder:
+    a diffuse floor, a mirror cube and an area light.  Returns (builder,
+    (diffuse row, mirror row, light row))."""
+    from gpuspectral_tpu_torch.scene.obj import make_cube
+
+    rpos, rnrm, ruv = make_rectangle()
+    cpos, cnrm, cuv = make_cube()
+    kd = builder.add_bsdf(bt.diffuse((0.6, 0.4, 0.3)))
+    mirror = builder.add_bsdf(bt.smooth_conductor(0.0))
+    floor = np.array([[2, 0, 0, 0], [0, 0, 2, 0], [0, -1, 0, 0], [0, 0, 0, 1]], np.float32)
+    builder.add_object(rpos, rnrm, ruv, floor, kd, twofaced=True)
+    boxxf = np.array([[0.5, 0, 0, -0.5], [0, 0.5, 0, -0.49], [0, 0, 0.5, 0], [0, 0, 0, 1]],
+                     np.float32)
+    builder.add_object(cpos, cnrm, cuv, boxxf, mirror)
+    light = builder.add_bsdf(bt.diffuse((0.0, 0.0, 0.0)))
+    lxf = np.array([[1, 0, 0, 0], [0, 0, -1, 2.5], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
+    builder.add_object(rpos, rnrm, ruv, lxf, light, emission=(8.0, 8.0, 8.0))
+    builder.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 0.6], [0, 0, -1, 3], [0, 0, 0, 1]],
+                                np.float32), np.deg2rad(60))
+    return builder, (kd, mirror, light)
+
+
+def textured_diffuse_scene(builder):
+    """tests/test_mega_grad.py:289's vertex-textured diffuse scene (a
+    u-gradient texture on a diffuse floor, an area light)."""
+    from gpuspectral_tpu_torch.scene.data import TEX_RES
+
+    pos, nrm, uv = make_rectangle()
+    u = (np.arange(TEX_RES, dtype=np.float32) + 0.5) / TEX_RES
+    grad_tex = np.broadcast_to(u[None, :, None], (TEX_RES, TEX_RES, 3)).copy()
+    mat = builder.add_bsdf(bt.diffuse((0.7, 0.5, 0.4)), texture=grad_tex)
+    floor = np.array([[2, 0, 0, 0], [0, 0, 2, 0], [0, -1, 0, 0], [0, 0, 0, 1]], np.float32)
+    builder.add_object(pos, nrm, uv, floor, mat, twofaced=True)
+    light = builder.add_bsdf(bt.diffuse((0.0, 0.0, 0.0)))
+    lxf = np.array([[1, 0, 0, 0], [0, 0, -1, 3], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
+    builder.add_object(pos, nrm, uv, lxf, light, emission=(10.0, 10.0, 10.0))
+    builder.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 1.2], [0, 0, -1, 4], [0, 0, 0, 1]],
+                                np.float32), np.deg2rad(60))
+    return builder
