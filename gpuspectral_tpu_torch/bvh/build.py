@@ -4,7 +4,7 @@ The port's copy of gpuspectral_tpu/bvh/build.py (numpy only), so that the
 port builds the same BVH, and the same triangle order, without importing
 the JAX package; tests/test_torch_isolation.py holds the two equal.
 
-This replaces what the Vulkan driver gave the reference in hardware
+This replaces what Vulkan's hardware build gave the reference
 (`vkCmdBuildAccelerationStructuresKHR`, backend/vulkan/VulkanRays.cpp:6-86) —
 but the *shape* of the structure is chosen for TPU traversal, not for an RT
 core:

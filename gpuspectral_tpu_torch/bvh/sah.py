@@ -14,7 +14,7 @@ order inherit SAH tightness.
 
 This replaces the build-quality half of what `vkCmdBuildAccelerationStructuresKHR`
 (reference: backend/vulkan/VulkanRays.cpp:6-86, PREFER_FAST_TRACE) does in
-the driver; the traversal half lives in the sweep kernels.
+the graphics stack; the traversal half lives in the sweep kernels.
 
 Pure numpy, runs once at scene load.  O(N log N) with vectorized binning.
 """
