@@ -60,7 +60,9 @@ Phases:
         64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
         radiance under the tests/test_mega.py gates, rays within 1%, K5's
         image equal to K1's, the partials contracted with a fixed numpy
-        cotangent within 2e-3 of the plain version's
+        cotangent within 2e-3 of the plain version's, the kd, emitter-hit
+        and NEE-emission planes each against their own largest value, over
+        the lanes whose path did not diverge (at most 2% may)
   grad_main  run_grad_benchmark on Cornell 512x512, 64 spp, d5, 3 steps:
         K5 launched 4 times and nothing else; K5 vs its plain version on 16
         pixel rows at the last step's timestamp (the gates of main and the
@@ -80,18 +82,22 @@ Phases:
         spp, d5 through K5, on the target's sample set (common random
         numbers): K5 launched 10 times, the last loss below the first
 
-Bounds (bound_ms in the kernels line): the larger of the operations over
-67 TFLOP/s (float32, no tensor cores) and the bytes over 3.35 TB/s, for
-the work of the timed call, counted from that call's inputs and its ray
-counters: every ray (closest or shadow) of a brute-force kernel tests all
-n_tris triangles (a closest hit must; an unoccluded shadow ray must), a BVH
-ray at least one root-to-leaf path of box tests (2 per level) and one
-cluster of leaf_size Woop tests; WOOP_FLOPS / BOX_FLOPS per test and
-SHADE_FLOPS per shaded vertex (rays / 2: a vertex issues one closest and at
-most one shadow ray).  Bytes: each input read once (rays, pixel ids,
-scene tables), each output written once (radiance, rays, partial planes).
-No single PyTorch call computes ray-triangle intersection or a path-traced
-pixel, so library_ms is null for every kernel.
+Bounds (bound_ms in the kernels line, its terms in ops_ms and bytes_ms):
+the larger of the operations over 67 TFLOP/s (float32, no tensor cores)
+and the bytes over 3.35 TB/s, for the work of the timed call.  Operations: WOOP_FLOPS per Woop test,
+BOX_FLOPS per box test and, in the fused kernels, SHADE_FLOPS per shaded
+vertex (a closest ray that hits), with the tests counted by a WalkTally:
+a brute-force closest ray tests every triangle, a brute-force shadow ray
+the triangles up to its first occluder, a BVH ray what its walk did
+(ftb.ftb_walk_tests runs csrc/bvh.cuh's walk with counters).  K2 and K3 are
+tallied on the timed call's own rays.  The rays of a fused kernel stay
+inside it, so its timed rows are traced again by the torch wavefront on K2
+or K3 (same config and timestamp: the same paths, rays within 1%) under a
+tally, and its operations are that tally's per ray times the kernel's ray
+count.  Bytes: each input read once (rays, pixel ids, scene tables), each
+output written once (radiance, rays, partial planes).  No single PyTorch
+call computes ray-triangle intersection or a path-traced pixel, so
+library_ms is null for every kernel.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -134,9 +140,12 @@ DEVICE = "cuda"
 # the card's published peaks (H100 SXM, float32 outside the tensor cores)
 PEAK_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# float operations, a fused multiply-add counted as two, comparisons not at all
 WOOP_FLOPS = 32  # one Woop ray-triangle test (csrc/common.cuh:woop_test)
 BOX_FLOPS = 24  # one slab box test (csrc/bvh.cuh:box_entered)
-SHADE_FLOPS = 200  # one shaded vertex: BSDF sample and eval, light sample, MIS, RNG
+# one shaded vertex (BSDF sample and eval, light sample, MIS, throughput):
+# an estimate, not a count; it is under 15% of any fused kernel's operations
+SHADE_FLOPS = 200
 
 
 def log(*a):
@@ -255,20 +264,128 @@ def nbytes(*tensors):
 
 
 def bound(flops, n_bytes):
-    """(bound_ms, bound_by): the least time the card could take."""
+    """The least time the card could take, and both of its terms: the keys
+    bound_ms, bound_by, ops_ms and bytes_ms of the kernels line."""
     t_ops = flops / PEAK_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops_ms=t_ops, bytes_ms=t_bytes)
 
 
-def brute_flops(rays, n_tris):
-    return rays * n_tris * WOOP_FLOPS + rays / 2 * SHADE_FLOPS
+class WalkTally:
+    """While on (a `with` block), counts the work of every K2 / K3 call: the
+    active closest and shadow rays, the closest rays that hit (shaded
+    vertices), Woop tests and box tests.  A brute-force closest ray tests
+    each of the scene's n_tris triangles, a brute-force shadow ray those up
+    to its first occluder (csrc/brute.cuh scans in index order and stops
+    there), a BVH ray what its walk did (ftb.ftb_walk_tests).  A lane with
+    t_max <= t_min casts no ray in the fused kernels and counts nothing.
+    Launches made while it is on count on its stand-ins, never in counts()."""
+
+    def __init__(self, n_tris):
+        self.n_tris = n_tris
+        self.closest = self.shadow = self.hits = self.woop = self.box = 0
+
+    def rays(self):
+        return self.closest + self.shadow
+
+    def flops(self, shade):
+        return (self.woop * WOOP_FLOPS + self.box * BOX_FLOPS
+                + (self.hits * SHADE_FLOPS if shade else 0))
+
+    def _brute_any(self, o, d, woop_t, lo, hi):
+        from gpuspectral_tpu_torch.ops import woop
+
+        hit = woop._chunk_t(o, d, woop_t[:, :self.n_tris].t(), lo, hi) < 1e30
+        first = torch.where(hit.any(1), hit.int().argmax(1) + 1, self.n_tris)
+        return int(first.sum())
+
+    def __enter__(self):
+        from gpuspectral_tpu_torch.bvh import ftb
+        from gpuspectral_tpu_torch.ops import cuda_isect as ci
+
+        real = dict(closest_cuda=ci.closest_cuda, any_cuda=ci.any_cuda,
+                    ftb_closest=ftb.ftb_closest, ftb_any=ftb.ftb_any)
+
+        def closest_cuda(origin, direction, woop_t, t_min, t_max):
+            t, prim = real["closest_cuda"](origin, direction, woop_t, t_min, t_max)
+            n = int((t_max > t_min).sum())
+            self.closest += n
+            self.woop += n * self.n_tris
+            self.hits += int((prim >= 0).sum())
+            return t, prim
+
+        def any_cuda(origin, direction, woop_t, t_min, t_max):
+            occ = real["any_cuda"](origin, direction, woop_t, t_min, t_max)
+            act = t_max > t_min
+            self.shadow += int(act.sum())
+            self.woop += self._brute_any(origin[act], direction[act], woop_t, t_min[act],
+                                         t_max[act])
+            return occ
+
+        def walk(scene, origin, direction, lo, hi, any_hit):
+            act = hi > lo
+            boxes, woops = ftb.ftb_walk_tests(scene, origin[act], direction[act], lo[act],
+                                              hi[act], any_hit)
+            self.box += int(boxes.sum())
+            self.woop += int(woops.sum())
+            return int(act.sum())
+
+        def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
+            out = real["ftb_closest"](scene, origin, direction, active=active, t_max=t_max,
+                                      attr=attr)
+            hi = ftb._tmax(origin, t_max, active)
+            self.closest += walk(scene, origin, direction, torch.zeros_like(hi), hi, False)
+            self.hits += int((out[1] >= 0).sum())
+            return out
+
+        def ftb_any(scene, origin, direction, t_min, t_max, active=None):
+            occ = real["ftb_any"](scene, origin, direction, t_min, t_max, active=active)
+            r = origin.shape[0]
+
+            def full(x):
+                return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32,
+                                                          device=origin.device), (r,))
+
+            self.shadow += walk(scene, origin, direction, full(t_min).contiguous(),
+                                ftb._tmax(origin, full(t_max), active), True)
+            return occ
+
+        counting = dict(closest_cuda=closest_cuda, any_cuda=any_cuda, ftb_closest=ftb_closest,
+                        ftb_any=ftb_any)
+        self._saved = [(ci if k.endswith("cuda") else ftb, k, fn) for k, fn in real.items()]
+        for mod, k, _ in self._saved:
+            # a wrapper counts its launch on its module-level name, which is
+            # the stand-in while the tally is on: the main path's counts stay
+            counting[k].launches = 0
+            setattr(mod, k, counting[k])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, k, fn in self._saved:
+            setattr(mod, k, fn)
 
 
-def bvh_ray_flops(scene):
-    """Operations of the least BVH walk of one ray: a root-to-leaf path of
-    box tests and one cluster of Woop tests."""
-    return 2 * scene.bvh_levels * BOX_FLOPS + scene.bvh_leaf_size * WOOP_FLOPS
+def tally_rows(scene, cfg, pix, ts):
+    """The WalkTally of a fused kernel's rows: the torch wavefront over the
+    same rows, config and timestamp on K2 (brute force) or K3 (BVH)."""
+    from gpuspectral_tpu_torch.integrator import path_tracer
+
+    wcfg = cfg.replace(intersector="pallas", light_block=0, sort_rays=False, shadow_sort=False)
+    with WalkTally(scene.num_tris) as tally:
+        path_tracer.trace_wavefront(scene, wcfg, pix.reshape(-1), ts,
+                                    tex_mode="corners" if cfg.use_bvh else "nearest")
+    torch.cuda.synchronize()
+    log(f"  tally of {pix.shape[0]} rows: {tally.closest} closest and {tally.shadow} shadow rays, "
+        f"{tally.woop / max(tally.rays(), 1):.2f} Woop and {tally.box / max(tally.rays(), 1):.2f} "
+        f"box tests per ray, {tally.hits} shaded vertices")
+    return tally
+
+
+def fused_bound(tally, rays, n_bytes):
+    """bound() of a fused kernel that traced `rays` rays over the tallied
+    rows: the tally's operations per ray times the kernel's rays."""
+    return bound(tally.flops(shade=True) * rays / max(tally.rays(), 1), n_bytes)
 
 
 def bvh_tables(scene):
@@ -413,20 +530,24 @@ def phase_main(dev):
     head = f"headline run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
     wave = f"wavefront dispatch ({hs}x{hs}, 1 spp, d{depth}, power light pick)"
     n = rays[0].shape[0]
-    k1_bound = bound(brute_flops(rays_k1, scene.num_tris),
-                     pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, False)))
-    k2_flops = n * scene.num_tris * WOOP_FLOPS
+    k1_bound = fused_bound(tally_rows(scene, cfg, pix, ts), rays_k1,
+                           pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, False)))
+    with WalkTally(scene.num_tris) as k2a_tally:
+        ci.closest_cuda(*rays[:2], woop_t, *rays[2:])
+    with WalkTally(scene.num_tris) as k2b_tally:
+        ci.any_cuda(*rays[:2], woop_t, *rays[2:])
+    log(f"  K2 Woop tests per ray: closest {k2a_tally.woop / n:.2f}, any {k2b_tally.woop / n:.2f}")
     k2_in = n * 32 + 12 * 4 * scene.num_tris
+    k2a_bound = bound(k2a_tally.flops(shade=False), k2_in + n * 8)
+    k2b_bound = bound(k2b_tally.flops(shade=False), k2_in + n)
     return dict(
         k1=dict(launches=head_launches["k1"], launched_by=head, max_abs_err=k1_err,
-                ms=k1_ms, plain_ms=ref_ms, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+                ms=k1_ms, plain_ms=ref_ms, **k1_bound,
                 headline_frame_ms=k1_head_ms),
         k2a=dict(launches=wave_launches["k2a"], launched_by=wave, max_abs_err=k2_err[0],
-                 ms=k2a_ms, plain_ms=k2a_ref, **dict(zip(("bound_ms", "bound_by"),
-                                                         bound(k2_flops, k2_in + n * 8)))),
+                 ms=k2a_ms, plain_ms=k2a_ref, **k2a_bound),
         k2b=dict(launches=wave_launches["k2b"], launched_by=wave, max_abs_err=k2_err[1],
-                 ms=k2b_ms, plain_ms=k2b_ref, **dict(zip(("bound_ms", "bound_by"),
-                                                         bound(k2_flops, k2_in + n)))),
+                 ms=k2b_ms, plain_ms=k2b_ref, **k2b_bound),
     )
 
 
@@ -503,11 +624,18 @@ def phase_k3(dev, scenes, field):
             times[n]["k3a_plain"] = cuda_ms(lambda: ftb.ftb_closest_ref(field, o, d, t_max=hi),
                                             reps=1)
             times[n]["k3b_plain"] = cuda_ms(lambda: ftb.ftb_any_ref(field, o, d, lo, hi), reps=1)
+            with WalkTally(field.num_tris) as k3a_tally:
+                ftb.ftb_closest(field, o, d, t_max=hi)
+            with WalkTally(field.num_tris) as k3b_tally:
+                ftb.ftb_any(field, o, d, lo, hi)
         log(f"  sphere field, {n} rays: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times[n].items()))
     n = K3_RAYS["parity"]
+    for tag, t in (("closest", k3a_tally), ("any", k3b_tally)):
+        log(f"  K3 {tag} walk on {n} rays: {t.box / n:.2f} box and {t.woop / n:.2f} Woop tests "
+            "per ray")
     tb = nbytes(*bvh_tables(field))
-    times["bounds"] = dict(k3a=bound(n * bvh_ray_flops(field), n * (28 + 16) + tb),
-                           k3b=bound(n * bvh_ray_flops(field), n * (32 + 1) + tb))
+    times["bounds"] = dict(k3a=bound(k3a_tally.flops(shade=False), n * (28 + 16) + tb),
+                           k3b=bound(k3b_tally.flops(shade=False), n * (32 + 1) + tb))
     return err, times
 
 
@@ -517,9 +645,8 @@ def wavefront_rows(scene, cfg, pix, ts):
     from gpuspectral_tpu_torch.integrator import path_tracer
 
     wcfg = cfg.replace(intersector="pallas", light_block=0, sort_rays=False)
-    rad, rays, _ = path_tracer.trace_wavefront(scene, wcfg, pix.reshape(-1), ts,
-                                               tex_mode="corners")
-    return rad / cfg.spp, float(rays.double().sum())
+    st = path_tracer.trace_wavefront(scene, wcfg, pix.reshape(-1), ts, tex_mode="corners")
+    return st["radiance"] / cfg.spp, float(st["rays_traced"].double().sum())
 
 
 def phase_env(dev):
@@ -674,10 +801,10 @@ def phase_bvh_main(dev):
     log(f"  K4 over the sphere-field frame: {k4_head_ms:.3f} ms of a {frame_ms:.3f} ms frame "
         f"(share {k4_head_ms / frame_ms:.3f})")
     head = f"sphere-field run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
-    k4_bound = bound(rays_k4 * bvh_ray_flops(scene) + rays_k4 / 2 * SHADE_FLOPS,
-                     pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, True)))
+    k4_bound = fused_bound(tally_rows(scene, cfg_cmp, pix, ts), rays_k4,
+                           pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, True)))
     return dict(launches=launches["k4"], launched_by=head, max_abs_err=k4_err, ms=k4_ms,
-                plain_ms=ref_ms, bound_ms=k4_bound[0], bound_by=k4_bound[1],
+                plain_ms=ref_ms, **k4_bound,
                 spp_compared=spp_cmp, headline_frame_ms=k4_head_ms,
                 mrays_per_s=result["mrays_per_s"]), scene, cfg, float(img.mean())
 
@@ -707,29 +834,57 @@ def phase_bvh_wavefront(scene, cfg, k4_mean):
     return c, f"sphere-field wavefront dispatch ({hs}x{hs}, 1 spp, d{cfg.max_depth})"
 
 
-def contracted(parts, seed=5):
-    """Partial planes (NP, rows, LANES) contracted with a fixed numpy
-    cotangent of the lanes' radiance: (NP,) float64."""
+DIVERGED_RAD = 1e-5  # a lane's radiance moved by more: its path went another way
+DIVERGED_GATE = 0.02  # share of lanes whose path may go another way (the 2% of the image gate)
+
+
+def contracted(parts, keep, seed=5):
+    """Partial planes (NP, rows, LANES) of the lanes in `keep` contracted
+    with a fixed numpy cotangent of the lanes' radiance: (NP,) float64."""
     npl = parts.shape[0]
     lanes = parts[0].numel()
     ct = torch.as_tensor(np.random.default_rng(seed).uniform(-1, 1, (lanes, 3)).astype(np.float32),
-                         device=parts.device)
+                         device=parts.device) * keep.reshape(-1, 1)
     cidx = torch.arange(npl, device=parts.device) % 3
     return (parts.reshape(npl, -1) * ct.t()[cidx]).sum(1).double().cpu().numpy()
 
 
-def check_fused(tag, got, ref, spp, sub=False):
+def check_fused(tag, got, ref, spp, scene, sub=False):
     """K5 / K6 against the plain version: radiance gates (those of main
-    with sub), rays within 1%, contracted gradients within GRAD_TOL."""
+    with sub), rays within 1%, and contracted gradients within GRAD_TOL,
+    each family of planes (kd, emitter hit, NEE emission: grad_plane_keys)
+    against its own largest value.  A lane whose path went another way on a
+    rounding difference (a seam flip: its radiance differs by more than
+    DIVERGED_RAD, where rounding alone moves it by ~1e-7) has other partials
+    by right, and one such lane can move a contraction in which the other
+    lanes' terms cancel by several percent; the gradients are compared over
+    the other lanes, and at most DIVERGED_GATE of the lanes may diverge.
+    (A lane's ray count is no sign: on the sphere field 3% of the lanes
+    count other rays while every radiance agrees within 1e-4.)"""
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
     img = torch.stack(got[:3], -1).reshape(-1, 3) / spp
     img_ref = torch.stack(ref[:3], -1).reshape(-1, 3) / spp
     rays, rays_ref = float(got[3].double().sum()), float(ref[3].double().sum())
     gates = dict(mean_gate=SUB_MEAN_GATE, fine_gate=SUB_FINE_GATE) if sub else {}
     err = compare_images(tag, img, img_ref, rays, rays_ref, emission_only=False, **gates)
-    cg, cr = contracted(got[4]), contracted(ref[4])
-    rel = float(np.abs(cg - cr).max() / max(np.abs(cr).max(), 1e-30))
-    log(f"  {tag}: {got[4].shape[0]} partial planes, contracted gradient max rel {rel:.3e}")
-    if not (np.isfinite(cg).all() and np.abs(cr).max() > 0 and rel <= GRAD_TOL):
+    diverged = (img - img_ref).abs().amax(-1) > DIVERGED_RAD
+    keep = (~diverged).to(torch.float32)
+    cg, cr = contracted(got[4], keep), contracted(ref[4], keep)
+    lg = mg._grad_lights(scene)
+    kd_end = cg.shape[0] - 6 * lg
+    rel = {}
+    for fam, lo, hi in (("gkd", 0, kd_end), ("gte", kd_end, kd_end + 3 * lg),
+                        ("gle", kd_end + 3 * lg, cg.shape[0])):
+        if hi > lo:
+            d, scale = np.abs(cg[lo:hi] - cr[lo:hi]).max(), np.abs(cr[lo:hi]).max()
+            rel[fam] = float(d / scale) if scale > 0 else (0.0 if d == 0 else float("inf"))
+    share = float(diverged.double().mean())
+    log(f"  {tag}: {got[4].shape[0]} partial planes, {int(diverged.sum())} diverged lanes of "
+        f"{diverged.numel()}; contracted gradient max rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+    if not (bool(torch.isfinite(got[4]).all()) and np.abs(cr[:kd_end]).max() > 0
+            and max(rel.values()) <= GRAD_TOL and share <= DIVERGED_GATE):
         raise AssertionError(f"{tag}: gradients outside {GRAD_TOL} of the plain version")
     return max(err, float(np.abs(cg - cr).max()))
 
@@ -767,7 +922,7 @@ def phase_grad_main(dev):
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - t0) * 1e3
     err = check_fused(f"K5 vs plain, {pix.shape[0]} rows of the grad frame (ts {ts})", got, ref,
-                      spp, sub=True)
+                      spp, scene, sub=True)
     rays = float(got[3].double().sum())
     log(f"  K5 {k5_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows")
     # the prediction: K5 against K1 over the whole frame at the same config
@@ -777,8 +932,8 @@ def phase_grad_main(dev):
     log(f"  whole frame {hs}x{hs} @ {spp} spp, d{depth}: K5 {k5_frame:.3f} ms, K1 {k1_frame:.3f} ms "
         f"(ratio {k5_frame / k1_frame:.3f}); grad step {result['seconds_per_step'] * 1e3:.3f} ms")
     npl = got[4].shape[0]
-    k5_bound = bound(brute_flops(rays, scene.num_tris),
-                     pix.numel() * (4 + 16 + 4 * npl) + nbytes(*mega_tables(scene, False)))
+    k5_bound = fused_bound(tally_rows(scene, cfg, pix, ts), rays,
+                           pix.numel() * (4 + 16 + 4 * npl) + nbytes(*mega_tables(scene, False)))
 
     big = GRAD_1024
     log(f"  config 5: one gradient step {big['size']}x{big['size']}, {big['spp']} spp, "
@@ -791,7 +946,7 @@ def phase_grad_main(dev):
         raise AssertionError("grad_1024: want K5 only")
     head = f"grad run_grad_benchmark ({hs}x{hs}, {spp} spp, d{depth}, {steps} steps)"
     return dict(launches=launches["k5"], launched_by=head, max_abs_err=err, ms=k5_ms,
-                plain_ms=ref_ms, bound_ms=k5_bound[0], bound_by=k5_bound[1],
+                plain_ms=ref_ms, **k5_bound,
                 grad_steps_per_s=result["grad_steps_per_s"],
                 seconds_per_step=result["seconds_per_step"], peak_hbm_gb=result["peak_hbm_gb"],
                 frame_ms=k5_frame, k1_frame_ms=k1_frame,
@@ -881,7 +1036,7 @@ def phase_fused(dev, bvh, cases):
             s_fwd = float(torch.stack(fwd[:3]).double().sum())
             if abs(s_got - s_fwd) > 1e-5 * abs(s_fwd):
                 raise AssertionError(f"{key} {name}: image sum {s_got}, {fwd_key}'s {s_fwd}")
-            err = max(err, check_fused(f"{name} d{depth} {spp}spp", got, ref, spp))
+            err = max(err, check_fused(f"{name} d{depth} {spp}spp", got, ref, spp, scene))
     return err
 
 
@@ -915,15 +1070,15 @@ def phase_grad_bvh(dev):
     got = mg.render_mega_bvh_fwdgrad_rows(scene, cfg_cmp, pix, ts)
     k6_ms = cuda_ms(lambda: mg.render_mega_bvh_fwdgrad_rows(scene, cfg_cmp, pix, ts), reps=2)
     err = check_fused(f"K6 vs plain, {K4_ROWS} rows of the grad_bvh frame (ts {ts}, {spp_cmp} spp)",
-                      got, ref, spp_cmp, sub=True)
+                      got, ref, spp_cmp, scene, sub=True)
     log(f"  K6 {k6_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows at {spp_cmp} spp")
     rays = float(got[3].double().sum())
-    k6_bound = bound(rays * bvh_ray_flops(scene) + rays / 2 * SHADE_FLOPS,
-                     pix.numel() * (4 + 16 + 4 * got[4].shape[0])
-                     + nbytes(*mega_tables(scene, True)))
+    k6_bound = fused_bound(tally_rows(scene, cfg_cmp, pix, ts), rays,
+                           pix.numel() * (4 + 16 + 4 * got[4].shape[0])
+                           + nbytes(*mega_tables(scene, True)))
     head = f"grad_bvh run_grad_benchmark ({hs}x{hs}, {spp} spp, d{depth}, {steps} steps)"
     return dict(launches=launches["k6"], launched_by=head, max_abs_err=err, ms=k6_ms,
-                plain_ms=ref_ms, bound_ms=k6_bound[0], bound_by=k6_bound[1],
+                plain_ms=ref_ms, **k6_bound,
                 spp_compared=spp_cmp, grad_steps_per_s=result["grad_steps_per_s"],
                 seconds_per_step=result["seconds_per_step"], peak_hbm_gb=result["peak_hbm_gb"])
 
@@ -1054,10 +1209,9 @@ def main() -> int:
     wave_c, wave = phase_bvh_wavefront(scene, cfg, k4_mean)
     small, big = k3_times[K3_RAYS["parity"]], k3_times[K3_RAYS["timing"]]
     for key in ("k3a", "k3b"):
-        b_ms, b_by = k3_times["bounds"][key]
         m[key] = dict(launches=wave_c[key], launched_by=wave, max_abs_err=k3_err,
-                      ms=small[key], plain_ms=small[key + "_plain"], bound_ms=b_ms,
-                      bound_by=b_by, rays=K3_RAYS["parity"], ms_1m_rays=big[key],
+                      ms=small[key], plain_ms=small[key + "_plain"], **k3_times["bounds"][key],
+                      rays=K3_RAYS["parity"], ms_1m_rays=big[key],
                       k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]])
     del scene
 

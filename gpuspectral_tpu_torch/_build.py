@@ -47,6 +47,7 @@ _SIGNATURES = {
     "gst_mega": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "gst_bvh_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "gst_bvh_count": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P, _P, _P, _P, _P],
     "gst_mega_grad": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -207,6 +207,34 @@ ftb_closest.launches = 0
 ftb_any.launches = 0
 
 
+def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
+    """(box tests, Woop tests), each (R,) int32: what the walk of
+    csrc/bvh.cuh does for each ray, the closest-hit walk on (0, t_max) or,
+    with any_hit, the any-hit walk on (t_min, t_max).  It measures the work
+    of K3 and of the fused-BVH kernels (their least time on the card is
+    counted from it) and renders nothing.  CUDA tensors only: the plain
+    versions scan every slot and walk no tree."""
+    _check_rays(origin, direction, t_min, t_max)
+    _check_scene(scene, origin.device)
+    if origin.device.type != "cuda":
+        raise ValueError(f"ftb_walk_tests: the walk runs on a CUDA device, not {origin.device}")
+    from .. import _build
+
+    lib = _build.load()
+    nodes, meta, clusters, woop_t, ip = kernel_tables(scene)
+    r = origin.shape[0]
+    boxes = torch.empty((r,), dtype=torch.int32, device=origin.device)
+    woops = torch.empty((r,), dtype=torch.int32, device=origin.device)
+    with torch.cuda.device(origin.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_bvh_count(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+                               t_max.data_ptr(), r, nodes.data_ptr(), meta.data_ptr(),
+                               clusters.data_ptr(), woop_t.data_ptr(), ip.data_ptr(),
+                               int(any_hit), boxes.data_ptr(), woops.data_ptr(), stream)
+    _build.check(rc, "ftb_walk_tests")
+    return boxes, woops
+
+
 class _FtbClosestDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, origin, direction, t_max, scene, attr):

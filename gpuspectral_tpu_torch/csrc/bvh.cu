@@ -15,6 +15,11 @@
 // between the rays of a warp is the open cost: the TPU kernel's block-wide
 // front-to-back rounds (ftb.py:15-40) exist to share one sweep across 128
 // rays, which a per-ray walk gives up for simplicity.
+//
+// gst_bvh_count is no part of the render path: it runs the same walks with a
+// TestCount and writes each ray's box and Woop tests, the work that a BVH
+// kernel's least time on the card is counted from (bvh/ftb.py:
+// ftb_walk_tests).
 #include <cuda_runtime.h>
 
 #include "bvh.cuh"
@@ -52,6 +57,27 @@ bvh_any_kernel(const float* __restrict__ origin, const float* __restrict__ direc
   occ_out[r] = gst::bvh_any(B, o, d, t_min[r], t_max[r]);
 }
 
+__global__ void __launch_bounds__(kThreads)
+bvh_count_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+                 const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
+                 gst::BvhTables B, int any_hit, int* __restrict__ boxes_out,
+                 int* __restrict__ woops_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const gst::V3 o{origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
+  const gst::V3 d{direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
+  gst::TestCount count;
+  if (any_hit) {
+    gst::bvh_any(B, o, d, t_min[r], t_max[r], count);
+  } else {
+    float t, u, v;
+    int prim;
+    gst::bvh_closest(B, o, d, t_max[r], t, prim, u, v, count);
+  }
+  boxes_out[r] = count.boxes;
+  woops_out[r] = count.woops;
+}
+
 }  // namespace
 
 extern "C" int gst_bvh_closest(const float* origin, const float* direction, const float* t_max,
@@ -76,5 +102,17 @@ extern "C" int gst_bvh_any(const float* origin, const float* direction, const fl
   bvh_any_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       origin, direction, t_min, t_max, n_rays,
       gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip), occ_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gst_bvh_count(const float* origin, const float* direction, const float* t_min,
+                             const float* t_max, int n_rays, const float* nodes, const int* meta,
+                             const float* clusters, const float* woop_t, const int* bvh_ip,
+                             int any_hit, int* boxes_out, int* woops_out, void* stream) {
+  if (n_rays == 0) return 0;
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  bvh_count_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_min, t_max, n_rays,
+      gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip), any_hit, boxes_out, woops_out);
   return (int)cudaGetLastError();
 }

@@ -58,13 +58,26 @@ __device__ __forceinline__ bool box_entered(const float* __restrict__ b, int str
   return tn - kSlabMargin * fabsf(tn) <= tf + kSlabMargin * fabsf(tf);
 }
 
+struct NoCount {
+  __device__ __forceinline__ void box() {}
+  __device__ __forceinline__ void woop() {}
+};
+
+struct TestCount {
+  int boxes = 0, woops = 0;
+  __device__ __forceinline__ void box() { ++boxes; }
+  __device__ __forceinline__ void woop() { ++woops; }
+};
+
 __device__ __forceinline__ bool cluster_empty(const BvhTables& B, int c) {
   return B.clusters[c] > B.clusters[3 * B.n_clusters + c];
 }
 
 // Closest hit with t in (0, t_max): prim = -1, t = 1e30, u = v = 0 on a miss.
+template <class Count = NoCount>
 __device__ inline void bvh_closest(const BvhTables& B, V3 o, V3 d, float t_max, float& best_t,
-                                   int& best_prim, float& best_u, float& best_v) {
+                                   int& best_prim, float& best_u, float& best_v,
+                                   Count&& count = Count()) {
   const V3 inv = v3(inv_dir1(d.x), inv_dir1(d.y), inv_dir1(d.z));
   best_t = fminf(t_max, kBig);
   best_prim = -1;
@@ -72,6 +85,7 @@ __device__ inline void bvh_closest(const BvhTables& B, V3 o, V3 d, float t_max, 
   best_v = 0.0f;
   int ptr = 0;
   while (ptr < B.n_nodes) {
+    count.box();
     if (!box_entered(B.nodes, B.n_nodes, ptr, o, inv, 0.0f, best_t)) {
       ptr = B.meta[ptr];
       continue;
@@ -82,11 +96,13 @@ __device__ inline void bvh_closest(const BvhTables& B, V3 o, V3 d, float t_max, 
     const int c0 = leaf / B.leaf_size;
     const int c1 = min(c0 + B.leaf_span, B.n_clusters);
     for (int c = c0; c < c1; ++c) {
-      if (cluster_empty(B, c) || !box_entered(B.clusters, B.n_clusters, c, o, inv, 0.0f, best_t))
-        continue;
+      if (cluster_empty(B, c)) continue;
+      count.box();
+      if (!box_entered(B.clusters, B.n_clusters, c, o, inv, 0.0f, best_t)) continue;
       const int s1 = min((c + 1) * B.leaf_size, B.n_slots);
       for (int s = c * B.leaf_size; s < s1; ++s) {
         float t, u, v;
+        count.woop();
         if (woop_test(B.woop_t + s, B.n_slots, o, d, 0.0f, t_max, t, u, v) &&
             (t < best_t || (t == best_t && s < best_prim))) {
           best_t = t;
@@ -101,11 +117,14 @@ __device__ inline void bvh_closest(const BvhTables& B, V3 o, V3 d, float t_max, 
 }
 
 // Any hit with t in (t_lo, t_hi): stops at the first occluder.
-__device__ inline bool bvh_any(const BvhTables& B, V3 o, V3 d, float t_lo, float t_hi) {
+template <class Count = NoCount>
+__device__ inline bool bvh_any(const BvhTables& B, V3 o, V3 d, float t_lo, float t_hi,
+                               Count&& count = Count()) {
   if (!(t_hi > t_lo)) return false;
   const V3 inv = v3(inv_dir1(d.x), inv_dir1(d.y), inv_dir1(d.z));
   int ptr = 0;
   while (ptr < B.n_nodes) {
+    count.box();
     if (!box_entered(B.nodes, B.n_nodes, ptr, o, inv, t_lo, t_hi)) {
       ptr = B.meta[ptr];
       continue;
@@ -116,11 +135,13 @@ __device__ inline bool bvh_any(const BvhTables& B, V3 o, V3 d, float t_lo, float
     const int c0 = leaf / B.leaf_size;
     const int c1 = min(c0 + B.leaf_span, B.n_clusters);
     for (int c = c0; c < c1; ++c) {
-      if (cluster_empty(B, c) || !box_entered(B.clusters, B.n_clusters, c, o, inv, t_lo, t_hi))
-        continue;
+      if (cluster_empty(B, c)) continue;
+      count.box();
+      if (!box_entered(B.clusters, B.n_clusters, c, o, inv, t_lo, t_hi)) continue;
       const int s1 = min((c + 1) * B.leaf_size, B.n_slots);
       for (int s = c * B.leaf_size; s < s1; ++s) {
         float t, u, v;
+        count.woop();
         if (woop_test(B.woop_t + s, B.n_slots, o, d, t_lo, t_hi, t, u, v)) return true;
       }
     }

@@ -21,36 +21,36 @@ from ..scene.data import SceneData
 from ..utils.config import RenderConfig
 
 
-_LANES_PER_BATCH = 1 << 16  # lanes (pixels x samples) traced together
-
-
 def render_mean(scene: SceneData, cfg: RenderConfig, timestamp0: int = 0,
                 differentiable: bool = False):
     """(n_pixels, 3) mean of cfg.spp samples, sample s at timestamp
-    timestamp0 + s, summed in sample order.  Several samples go in one
-    batch of lanes (path_tracer.render_sample with a timestamp per lane).  Differentiable with cfg.grad_remat "sample": each batch
-    runs under torch.utils.checkpoint and is replayed in the backward pass;
-    with "bounce" trace_rays checkpoints each bounce instead."""
+    timestamp0 + s, summed in sample order.  The spp * n_pixels lanes, in
+    sample-major order, are traced cfg.ray_batch at a time, so a batch holds
+    part of one sample or several (path_tracer.render_sample with a
+    timestamp per lane).  Differentiable with cfg.grad_remat "sample": each
+    batch runs under torch.utils.checkpoint and is replayed in the backward
+    pass; with "bounce" trace_rays checkpoints each bounce instead."""
     from torch.utils.checkpoint import checkpoint
 
     n_pixels = cfg.width * cfg.height
+    n_lanes = cfg.spp * n_pixels
     dev = scene.device
-    pix = torch.arange(n_pixels, dtype=torch.int64, device=dev)
     acc = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
-    group = max(1, min(cfg.spp, _LANES_PER_BATCH // max(n_pixels, 1)))
 
-    def batch(sc, s0, k):
-        ts = timestamp0 + s0 + torch.arange(k, device=dev).repeat_interleave(n_pixels)
-        return render_sample(sc, cfg, pix.repeat(k), ts, differentiable=differentiable)[0]
+    def batch(sc, l0, l1):
+        lane = torch.arange(l0, l1, dtype=torch.int64, device=dev)
+        return render_sample(sc, cfg, lane % n_pixels, timestamp0 + lane // n_pixels,
+                             differentiable=differentiable)[0]
 
-    for s0 in range(0, cfg.spp, group):
-        k = min(group, cfg.spp - s0)
+    for l0 in range(0, n_lanes, cfg.ray_batch):
+        l1 = min(l0 + cfg.ray_batch, n_lanes)
         if differentiable and cfg.grad_remat == "sample":
-            rad = checkpoint(batch, scene, s0, k, use_reentrant=False)
+            rad = checkpoint(batch, scene, l0, l1, use_reentrant=False)
         else:
-            rad = batch(scene, s0, k)
-        for j in range(k):
-            acc = acc + rad[j * n_pixels:(j + 1) * n_pixels]
+            rad = batch(scene, l0, l1)
+        for s in range(l0 // n_pixels, (l1 - 1) // n_pixels + 1):  # each sample's lanes
+            a, b = max(l0, s * n_pixels), min(l1, (s + 1) * n_pixels)
+            acc[a - s * n_pixels:b - s * n_pixels] += rad[a - l0:b - l0]
     return acc / cfg.spp
 
 
@@ -166,14 +166,15 @@ def check_emission_gradients(scene: SceneData, cfg: RenderConfig, entries=None,
 def run_gradcheck(scene_path: str, spp: int = 32, size: Optional[str] = None,
                   device="cuda"):
     """CLI entry: gradcheck on a scene at small resolution (24x24 unless
-    `size`), depth 3; albedo and emission entries."""
+    `size`), depth 3; albedo and emission entries.  Every sample goes in one
+    batch of lanes."""
     from ..scene import load_mitsuba_scene
 
     scene, _ = load_mitsuba_scene(scene_path, device=device)
     w = h = 24
     if size:
         w, h = (int(x) for x in size.lower().split("x"))
-    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=3, ray_batch=w * h)
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=3, ray_batch=w * h * spp)
     ok, report = check_gradients(scene, cfg)
     ok_e, report_e = check_emission_gradients(scene, cfg)
     report["emission"] = report_e

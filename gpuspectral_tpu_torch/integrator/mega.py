@@ -122,8 +122,9 @@ def render_mega_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
     (rad_r, rad_g, rad_b, rays) planes: per-lane radiance sums over cfg.spp
     and ray counts."""
     rows = pix.shape[0]
-    rad, rays, _ = path_tracer.trace_wavefront(
+    st = path_tracer.trace_wavefront(
         scene, cfg.replace(intersector="woop", light_block=0), pix.reshape(-1), timestamp0)
+    rad, rays = st["radiance"], st["rays_traced"]
     shape = (rows, LANES)
     return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape),
             rad[:, 2].reshape(shape), rays.reshape(shape))

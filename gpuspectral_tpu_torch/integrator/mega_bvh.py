@@ -79,8 +79,9 @@ def render_mega_bvh_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp
     blend.  Returns (rad_r, rad_g, rad_b, rays) planes."""
     rows = pix.shape[0]
     plain = cfg.replace(intersector="woop", light_block=0, sort_rays=False, shadow_sort=False)
-    rad, rays, _ = path_tracer.trace_wavefront(scene, plain, pix.reshape(-1), timestamp0,
-                                               tex_mode="corners")
+    st = path_tracer.trace_wavefront(scene, plain, pix.reshape(-1), timestamp0,
+                                     tex_mode="corners")
+    rad, rays = st["radiance"], st["rays_traced"]
     shape = (rows, LANES)
     return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape),
             rad[:, 2].reshape(shape), rays.reshape(shape))

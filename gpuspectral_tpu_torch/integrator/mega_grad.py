@@ -199,9 +199,9 @@ def _planes_ref(scene, cfg, pix, timestamp0, grad_rows, Lg, tex_mode):
     hook = make_diffuse_grad_hook(grad_rows, Lg, kd)
     r = pix.numel()
     state0 = init_grad_state(r, len(grad_rows), Lg, pix.device)
-    rad, rays, _, st = path_tracer.trace_wavefront(
-        scene, cfg, pix.reshape(-1), timestamp0, tex_mode=tex_mode, grad_hook=hook,
-        hook_state=state0)
+    st = path_tracer.trace_wavefront(scene, cfg, pix.reshape(-1), timestamp0, tex_mode=tex_mode,
+                                     grad_hook=hook, hook_state=state0)
+    rad, rays = st["radiance"], st["rays_traced"]
     shape = (pix.shape[0], LANES)
     parts = st["g_parts"].t().reshape(-1, *shape).contiguous()
     return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape), rad[:, 2].reshape(shape),

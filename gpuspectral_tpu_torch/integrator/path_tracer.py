@@ -610,11 +610,11 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
     texels (the fused-BVH megakernel's rule, for its plain version).
 
     grad_hook / hook_state: the fused-gradient kernels' hook and its
-    per-lane state tensors (leading axis R), carried with the lanes; the
-    final state comes back as a fourth result.
+    per-lane state tensors (leading axis R), carried with the lanes.
 
-    Returns (radiance_sum (R,3), rays_traced (R,), pixel (R,)); divide the
-    radiance by spp and scatter it by pixel."""
+    Returns the final lane state: a dict of (R, ...) tensors, among them
+    "radiance" (the sum over the lane's samples: divide by spp and scatter
+    by "pixel"), "rays_traced", "pixel" and the keys of hook_state."""
     pixel_index = rng.as_u32(pixel_index)
     dev = pixel_index.device
     r = pixel_index.shape[0]
@@ -668,9 +668,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
             st = {k: v[order] for k, v in st.items()}
         state = st
         it += 1
-    if grad_hook is not None:
-        return state["radiance"], state["rays_traced"], state["pixel"], state
-    return state["radiance"], state["rays_traced"], state["pixel"]
+    return state
 
 
 def render_sample(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp,
@@ -700,7 +698,8 @@ def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     nrays = 0.0
     for b in range(n_batches):
         pix = torch.arange(b * batch, (b + 1) * batch, dtype=torch.int64, device=dev)
-        rad, rays, pixel = trace_wavefront(scene, cfg, pix, timestamp0)
+        st = trace_wavefront(scene, cfg, pix, timestamp0)
+        rad, rays, pixel = st["radiance"], st["rays_traced"], st["pixel"]
         if cfg.sort_rays:  # lanes permuted: scatter back to pixel order
             rad = torch.zeros_like(rad).index_copy(0, pixel - b * batch, rad)
         parts.append(rad / cfg.spp)

@@ -9,6 +9,7 @@ raises rather than report a CPU time under a device metric.
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -45,7 +46,7 @@ def run_benchmark(args, *, return_image: bool = False):
         img, nrays = render_image_stats_auto(scene, cfg, 100 + i)
         torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
-    seconds = sorted(times)[len(times) // 2]
+    seconds = statistics.median(times)
     total_rays = float(nrays)
     n_paths = cfg.width * cfg.height * cfg.spp
     result = {
@@ -77,14 +78,14 @@ def load_scene(scene_path: str, device):
 
 def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: int = 5,
                        ray_batch: int = 65536, steps: int = 2, use_bvh: bool = False,
-                       device="cuda", return_grad: bool = False):
+                       return_grad: bool = False):
     """Gradient-step throughput (grad-steps/s; gpuspectral_tpu/utils/bench.py:
     run_grad_benchmark): one value-and-grad of the MSE against a fixed
     target (zeros) w.r.t. bsdf_params, through K5 (`render_mega_diff`) when
     mega_grad_eligible, else K6 (`render_mega_bvh_diff`) when
     mega_bvh_grad_eligible, else the differentiable wavefront
-    (diff/gradcheck.render_mean, each batch of samples checkpointed:
-    grad_remat "sample").  The first step (kernel build included) is
+    (diff/gradcheck.render_mean: ray_batch lanes per batch, each batch
+    checkpointed: grad_remat "sample").  The first step (kernel build included) is
     compile_seconds; each of `steps` timed steps, at timestamps 1.., runs
     between torch.cuda.synchronize() calls, and seconds_per_step is their
     median.
@@ -96,9 +97,9 @@ def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: i
                                         render_mega_bvh_diff, render_mega_diff)
     from .config import RenderConfig
 
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise RuntimeError(f"run_grad_benchmark measures a CUDA device; got {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("run_grad_benchmark measures a CUDA device; there is none")
+    dev = torch.device("cuda")
     scene = load_scene(scene_path, dev)
     cfg = RenderConfig(width=size, height=size, spp=spp, max_depth=depth, ray_batch=ray_batch,
                        grad_remat="sample", use_bvh=use_bvh)
@@ -134,7 +135,7 @@ def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: i
         _, g = grad_step(i + 1)
         torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
-    dt = sorted(times)[len(times) // 2]
+    dt = statistics.median(times)
     result = {
         "seconds_per_step": dt,
         "grad_steps_per_s": 1.0 / dt,

@@ -136,6 +136,15 @@ def test_plain_k3_respects_active_and_tmax():
     np.testing.assert_array_equal(prim.numpy() >= 0, np.asarray(prim_j) >= 0)
 
 
+def test_walk_tests_need_the_card():
+    """ftb_walk_tests counts the work of the kernels' walk: there is no walk
+    on the CPU (the plain versions scan every slot), so it refuses."""
+    _, ts = _soup_pair(50)
+    o, d = _random_rays(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ftb.ftb_walk_tests(ts, _t(o), _t(d), torch.zeros(8), torch.full((8,), 1e30), False)
+
+
 @pytest.mark.parametrize("n_tris", [300, 3000])
 def test_plain_k3_any_matches_jax_ftb(n_tris):
     js, ts = _soup_pair(n_tris)

@@ -144,6 +144,27 @@ def test_k3_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
     assert int((occ != ftb.ftb_any_ref(ts, o, d, lo, hi)).sum()) <= 2
 
 
+def test_walk_tests_count_the_walk(cuda_device):  # noqa: F811
+    """ftb_walk_tests runs K3's walk with counters: a ray that hits tested at
+    least one triangle, no ray more than every slot; a ray whose segment
+    misses the root box tested that box alone; an empty segment nothing."""
+    ts = _scene("sphere_field", cuda_device)
+    o, d, lo, hi = _rays(12, 1 << 14, cuda_device)
+    _, prim, _, _, _ = ftb.ftb_closest(ts, o, d, t_max=hi)
+    boxes, woops = ftb.ftb_walk_tests(ts, o, d, torch.zeros_like(hi), hi, False)
+    n_slots, n_nodes = ts.tri_woop_t.shape[1], ts.bvh_dfs_bounds.shape[1]
+    assert bool((woops[prim >= 0] >= 1).all()) and int(woops.max()) <= n_slots
+    assert bool((boxes >= 1).all()) and int(boxes.max()) <= n_nodes + ts.bvh_clusters
+    far = torch.tensor([[1e4, 1e4, 1e4]], device=cuda_device)
+    out = torch.tensor([[1.0, 0.0, 0.0]], device=cuda_device)
+    one = torch.ones((1,), device=cuda_device)
+    assert [int(x) for x in ftb.ftb_walk_tests(ts, far, out, one * 0, one * 1e30, False)] == [1, 0]
+    assert [int(x) for x in ftb.ftb_walk_tests(ts, o[:1], d[:1], one, one, True)] == [0, 0]
+    b_any, w_any = ftb.ftb_walk_tests(ts, o, d, lo, hi, True)
+    occ = ftb.ftb_any(ts, o, d, lo, hi)
+    assert bool((w_any[occ] >= 1).all()) and int(w_any.max()) <= n_slots
+
+
 @pytest.mark.parametrize("name", ["env_const", "env_image"])
 def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
     ts = _scene(name, cuda_device)

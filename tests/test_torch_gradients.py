@@ -117,6 +117,27 @@ def test_bvh_diff_path_matches_brute(glossy):
     _assert_close(g.numpy(), g_ref.numpy(), rtol=1e-6)
 
 
+def test_ray_batch_does_not_change_render_mean(cornell):
+    """render_mean traces cfg.ray_batch lanes at a time: batches that split
+    a sample (100 lanes of 64-pixel samples), hold one (64) or all three
+    (192) give the same image bit for bit, and the same gradient up to the
+    order in which its per-row sums add the batches' lanes (1e-6 of its
+    scale)."""
+    ts = cornell[1]
+    target = torch.as_tensor(_target(64, 5))
+    out = []
+    for ray_batch in (100, 64, 192):
+        cfg = RenderConfig(width=8, height=8, spp=3, max_depth=2, ray_batch=ray_batch,
+                           grad_remat="sample")
+        p = ts.bsdf_params.clone().requires_grad_(True)
+        img = tgc.render_mean(ts.replace(bsdf_params=p), cfg, 7, differentiable=True)
+        (g,) = torch.autograd.grad(torch.mean((img - target) ** 2), p)
+        out.append((img.detach(), g))
+    for img, g in out[:2]:
+        assert torch.equal(img, out[2][0])
+        _assert_close(g.numpy(), out[2][1].numpy(), rtol=1e-6)
+
+
 @pytest.mark.parametrize("depth", [0, 3])
 def test_gradients_finite_all_depths(cornell, depth):
     cfg = RenderConfig(width=8, height=8, spp=2, max_depth=depth, ray_batch=64)

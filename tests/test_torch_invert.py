@@ -19,7 +19,7 @@ from gpuspectral_tpu_torch.utils import RenderConfig
 
 from torch_common import CORNELL_XML
 
-BASE = dict(width=16, height=16, spp=8, max_depth=2, ray_batch=256, grad_remat="sample")
+BASE = dict(width=16, height=16, spp=8, max_depth=2, ray_batch=2048, grad_remat="sample")
 
 
 @pytest.fixture(scope="module")
