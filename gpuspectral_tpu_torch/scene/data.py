@@ -220,7 +220,7 @@ class SceneBuilder:
         self.cam_to_world = np.asarray(to_world, np.float32)
         self.cam_fov = float(fov_radians)
 
-    def build(self, device="cpu") -> SceneData:
+    def build(self, device="cuda") -> SceneData:
         return build_scene(self, device)
 
 
@@ -401,18 +401,32 @@ def build_arrays(b: SceneBuilder) -> tuple[dict, dict]:
     return arrays, meta
 
 
-def build_scene(b: SceneBuilder, device="cpu") -> SceneData:
+def check_device(device) -> torch.device:
+    """The device a scene is built on.  Scenes live on the card by default;
+    without a CUDA device that default raises rather than quietly build a
+    CPU scene: the caller asks for the CPU (the plain versions) by name."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f'no CUDA device for a scene on {device}: pass device="cpu" to '
+                           "build it on the CPU (the kernels' plain versions)")
+    return device
+
+
+def build_scene(b: SceneBuilder, device="cuda") -> SceneData:
+    device = check_device(device)
     arrays, meta = build_arrays(b)
     return scene_from_arrays(arrays, meta, device)
 
 
-def scene_from_arrays(arrays: dict, meta: dict, device="cpu") -> SceneData:
-    """SceneData on `device` from numpy tables and static metadata.
+def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
+    """SceneData on `device` (check_device) from numpy tables and static
+    metadata.
 
     `arrays` holds every name of ARRAY_FIELDS: the SceneData tensor fields
     plus `cam_to_world` and `cam_fov`; `meta` every name of META_FIELDS.
     Given `np.asarray` of each field of a gpuspectral_tpu SceneData and its
     static fields, it carries that scene across unchanged."""
+    device = check_device(device)
     t = {k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
          for k in ARRAY_FIELDS}
     fields = {k: t[k] for k in ARRAY_FIELDS if not k.startswith("cam_")}

@@ -35,7 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..bsdf import table as bt
-from .data import SceneBuilder
+from .data import SceneBuilder, check_device
 from .obj import load_obj, make_cube, make_disk, make_rectangle
 
 _CAMEL_RE = re.compile(r"(?<=[a-z0-9])(?=[A-Z])")
@@ -250,10 +250,12 @@ def load_mitsuba_scene(
     path: str,
     builder: Optional[SceneBuilder] = None,
     build: bool = True,
-    device="cpu",
+    device="cuda",
 ):
     """Parse a Mitsuba scene XML into a SceneBuilder, or into
     (SceneData on `device`, SceneBuilder) when `build`."""
+    if build:
+        check_device(device)  # before the parse: no CUDA device raises at once
     b = builder or SceneBuilder()
     parent = os.path.dirname(os.path.abspath(path))
     root = ET.parse(path).getroot()

@@ -73,7 +73,7 @@ def populate_zoo(b, diffuse_only: bool = False):
     return b
 
 
-def build_zoo(device="cpu", diffuse_only: bool = False):
+def build_zoo(device="cuda", diffuse_only: bool = False):
     """The zoo as this package's SceneData on `device`."""
     from .data import SceneBuilder, build_scene
 
@@ -209,7 +209,7 @@ BUILTIN = {"sphere_field": populate_sphere_field,
            "sphere_field_noenv": populate_sphere_field_noenv}
 
 
-def build_sphere_field(device="cpu", **kw):
+def build_sphere_field(device="cuda", **kw):
     """The sphere field as this package's SceneData on `device`
     (populate_sphere_field's keywords)."""
     from .data import SceneBuilder, build_scene

@@ -51,7 +51,7 @@ def _soup_builder(builder, n_tris, seed=0, spread=2.0, size=0.4):
 def _pair(name, monkeypatch=None):
     """(JAX SceneData, the port's SceneData) built from the same inputs."""
     if name == "cornell":
-        return jax_load(str(CORNELL_XML))[0], load_mitsuba_scene(str(CORNELL_XML))[0]
+        return jax_load(str(CORNELL_XML))[0], load_mitsuba_scene(str(CORNELL_XML), device="cpu")[0]
     if name == "slot_mode":
         # the JAX megakernel module checks the dense threshold when first
         # imported (the JAX loader imports it): import it before lowering it
@@ -60,13 +60,13 @@ def _pair(name, monkeypatch=None):
         # the port builds with its own copy of the module: lower both
         monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
         monkeypatch.setattr(port_bvh_build, "SLOT_DENSE_THRESHOLD", 8)
-        return jax_load(str(CORNELL_XML))[0], load_mitsuba_scene(str(CORNELL_XML))[0]
+        return jax_load(str(CORNELL_XML))[0], load_mitsuba_scene(str(CORNELL_XML), device="cpu")[0]
     if name == "sphere_field":
         return (populate_sphere_field(JaxBuilder(), **SMALL_FIELD).build(),
-                populate_sphere_field(tdata.SceneBuilder(), **SMALL_FIELD).build())
+                populate_sphere_field(tdata.SceneBuilder(), **SMALL_FIELD).build("cpu"))
     n = int(name[len("soup"):])
     return (_random_scene(n),
-            _soup_builder(tdata.SceneBuilder(), n).build())
+            _soup_builder(tdata.SceneBuilder(), n).build("cpu"))
 
 
 @pytest.mark.parametrize("name", ["cornell", "soup300", "soup3000", "slot_mode", "sphere_field"])
@@ -86,7 +86,7 @@ def test_scene_tables_equal_jax(name, monkeypatch):
 
 def _soup_pair(n):
     js = _random_scene(n)
-    return js, tdata.scene_from_arrays(*jax_scene_arrays(js))
+    return js, tdata.scene_from_arrays(*jax_scene_arrays(js), "cpu")
 
 
 def _t(x):

@@ -29,7 +29,7 @@ from torch_common import assert_mega_gates, env_box, jax_scene_arrays, sky as _s
 
 def env_pair(with_light, envmap=None):
     js = env_box(JaxBuilder(), with_light, envmap).build()
-    return js, tdata.scene_from_arrays(*jax_scene_arrays(js))
+    return js, tdata.scene_from_arrays(*jax_scene_arrays(js), "cpu")
 
 
 def _dirs(n, seed):
@@ -79,7 +79,7 @@ def test_constant_and_envmap_emitters_parse(tmp_path):
         xml.write_text(f'<scene version="2.0.0">{body}<sensor type="perspective">'
                        '<float name="fov" value="90"/></sensor></scene>')
         js, _ = jax_load(str(xml))
-        ts, _ = load_mitsuba_scene(str(xml))
+        ts, _ = load_mitsuba_scene(str(xml), device="cpu")
         assert ts.has_envmap and js.has_envmap
         for k in ("envmap", "envmap_rot", "envmap_cdf", "envmap_pdf"):
             np.testing.assert_array_equal(getattr(ts, k).numpy(), np.asarray(getattr(js, k)), k)

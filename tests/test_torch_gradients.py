@@ -46,13 +46,13 @@ def _assert_close(got, ref, rtol=GRAD_RTOL):
 
 @pytest.fixture(scope="module")
 def cornell(cornell_scene):
-    return cornell_scene, scene_from_arrays(*jax_scene_arrays(cornell_scene))
+    return cornell_scene, scene_from_arrays(*jax_scene_arrays(cornell_scene), "cpu")
 
 
 @pytest.fixture(scope="module")
 def glossy():
     js, row = _glossy_box_scene()
-    return js, scene_from_arrays(*jax_scene_arrays(js)), row
+    return js, scene_from_arrays(*jax_scene_arrays(js), "cpu"), row
 
 
 @pytest.fixture(scope="module")

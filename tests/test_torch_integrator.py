@@ -33,7 +33,7 @@ PINNED = REPO / "tests" / "data" / "cornell_64x64_spp32_d6_seed0.npz"
 def pair(cornell_scene):
     """(JAX scene, the port's scene from the same tables) by name."""
     zoo = populate_zoo(JaxBuilder()).build()
-    return {name: (js, scene_from_arrays(*jax_scene_arrays(js)))
+    return {name: (js, scene_from_arrays(*jax_scene_arrays(js), "cpu"))
             for name, js in (("cornell", cornell_scene), ("zoo", zoo))}
 
 

@@ -31,8 +31,8 @@ def _soup(n, seed):
 
 
 def _tables():
-    cornell = load_mitsuba_scene(str(CORNELL_XML))[0].tri_woop_t.numpy()
-    zoo = build_zoo().tri_woop_t.numpy()
+    cornell = load_mitsuba_scene(str(CORNELL_XML), device="cpu")[0].tri_woop_t.numpy()
+    zoo = build_zoo("cpu").tri_woop_t.numpy()
     return {"cornell": cornell, "zoo": zoo, "soup256": _soup(256, 1)}
 
 

@@ -24,7 +24,7 @@ BASE = dict(width=16, height=16, spp=8, max_depth=2, ray_batch=2048, grad_remat=
 
 @pytest.fixture(scope="module")
 def cornell():
-    return load_mitsuba_scene(str(CORNELL_XML))[0]
+    return load_mitsuba_scene(str(CORNELL_XML), device="cpu")[0]
 
 
 def test_adam_matches_optax():

@@ -20,7 +20,7 @@ from torch_common import assert_mega_gates, jax_scene_arrays
 
 @pytest.fixture(scope="module")
 def scenes(cornell_scene):
-    return cornell_scene, scene_from_arrays(*jax_scene_arrays(cornell_scene))
+    return cornell_scene, scene_from_arrays(*jax_scene_arrays(cornell_scene), "cpu")
 
 
 def _cfg(**kw):

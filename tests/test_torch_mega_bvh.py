@@ -32,7 +32,7 @@ def _cfg(**kw):
 
 
 def _port(js):
-    return scene_from_arrays(*jax_scene_arrays(js))
+    return scene_from_arrays(*jax_scene_arrays(js), "cpu")
 
 
 @pytest.fixture(scope="module")

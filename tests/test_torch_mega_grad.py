@@ -39,7 +39,7 @@ def _kw(**kw):
 
 
 def _port(js):
-    return scene_from_arrays(*jax_scene_arrays(js))
+    return scene_from_arrays(*jax_scene_arrays(js), "cpu")
 
 
 def _jax_grads(js, kw, bvh):

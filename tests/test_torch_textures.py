@@ -34,7 +34,7 @@ def _pair():
     # port's pick neighbouring texels, a pixel moves by a fraction of it
     checker = make_checkerboard((0.9, 0.9, 0.9), (0.6, 0.6, 0.6), 8, 8)
     js = textured_floor(JaxBuilder(), checker).build()
-    return js, tdata.scene_from_arrays(*jax_scene_arrays(js))
+    return js, tdata.scene_from_arrays(*jax_scene_arrays(js), "cpu")
 
 
 def test_texture_lookup_bitwise():
@@ -64,6 +64,7 @@ def test_textured_wavefront_matches_jax(opts):
     assert_mega_gates(np.asarray(ref), got.numpy(), float(rays_ref), rays_got)
     # and the texture really shades: a white texture renders like none
     plain = tdata.scene_from_arrays(*jax_scene_arrays(
-        textured_floor(JaxBuilder(), np.ones((tdata.TEX_RES,) * 2 + (3,), np.float32)).build()))
+        textured_floor(JaxBuilder(), np.ones((tdata.TEX_RES,) * 2 + (3,), np.float32)).build()),
+        "cpu")
     white = pt.render_image_stats(plain, RenderConfig(**base), 0)[0].numpy()
     assert (got.numpy() <= white + 1e-5).all() and (white - got.numpy()).max() > 1e-2
