@@ -12,13 +12,16 @@ integrator.render_image_stats_auto:
   * the sphere field (scene/zoo.py, 147,460 triangles, a textured floor and
     a 32x64 sky) at 512x512, 64 spp, depth 50 -> the fused-BVH megakernel
     (K4), then the wavefront dispatch on the BVH kernels (K3);
+  * the sphere field at 512x512, 1 spp, depth 50 on the wavefront with
+    bvh_kernel "cluster" -> the cluster sweep (K7c votes, K7d / K7e sweeps);
 and the training path through utils.bench.run_grad_benchmark and
 diff.invert:
   * a gradient step on Cornell at 512x512, 64 spp, depth 5 (and one at
     1024x1024, 256 spp) -> the fused forward-gradient kernel K5;
   * a gradient step on the sphere field without its sky at 512x512, 64
     spp, depth 5 -> the fused-BVH forward-gradient kernel K6;
-  * the differentiable wavefront on K2a / K3a, and 10 Adam steps of invert.
+  * the differentiable wavefront on K2a / K3a / K7d, and 10 Adam steps of
+    invert.
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
@@ -56,6 +59,19 @@ Phases:
         spp at the same timestamp); those rows of the image equal K4's
   bvh_wavefront  the same scene with intersector "pallas" at 512x512,
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
+  k7    cluster_votes / cluster_closest / cluster_any vs their plain versions
+        on the scenes of k3 (65,536 random rays each): votes, t, prim, u, v,
+        attrs and occ equal, ties included; K7c-e timed on the sphere field
+        on 65,536 random rays and on the 262,144 primary rays of the 512x512
+        frame, beside K3a / K3b on the same rays; the plain versions once on
+        the random rays
+  cluster_main  the sphere field at 512x512, 1 spp, d50 through
+        run_benchmark with intersector "pallas" and bvh_kernel "cluster":
+        K7c launched once for each K7d and K7e launch, K1-K6 never; its last
+        frame against the wavefront on K3 at the same config and timestamp
+        under the tests/test_mega.py gates; that frame again under
+        torch.profiler: the device's busy time (idle share against the
+        unprofiled frame) and the K7 kernels' share of it
   k5    K5 vs its plain version (the wavefront with the gradient hook) at
         64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
         radiance under the tests/test_mega.py gates, rays within 1%, K5's
@@ -78,6 +94,8 @@ Phases:
         card (K2a through closest_diff on Cornell, K3a through
         ftb_closest_diff on a small sphere field) against the same on the
         CPU: albedo and emission gradients within 2e-3
+  cluster_grad  the same through cluster_closest_diff (K7c + K7d) on the
+        small sphere field without its sky
   invert  10 Adam steps of the self-target demo on Cornell 128x128, 8
         spp, d5 through K5, on the target's sample set (common random
         numbers): K5 launched 10 times, the last loss below the first
@@ -90,14 +108,18 @@ vertex (a closest ray that hits), with the tests counted by a WalkTally:
 a brute-force closest ray tests every triangle, a brute-force shadow ray
 the triangles up to its first occluder, a BVH ray what its walk did
 (ftb.ftb_walk_tests runs csrc/bvh.cuh's walk with counters).  K2 and K3 are
-tallied on the timed call's own rays.  The rays of a fused kernel stay
+tallied on the timed call's own rays.  The cluster kernels' tests are
+counted from the timed call's votes: S box tests per ray (K7c); for a
+sweep, per block of 256 rays its voted supernodes x their slots x its rays
+(K7d, K7e).  The rays of a fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
 tally, and its operations are that tally's per ray times the kernel's ray
-count.  Bytes: each input read once (rays, pixel ids, scene tables), each
-output written once (radiance, rays, partial planes).  No single PyTorch
-call computes ray-triangle intersection or a path-traced pixel, so
-library_ms is null for every kernel.
+count.  Bytes: each input read once (rays, pixel ids, scene tables, votes),
+each output written once (radiance, rays, partial planes, votes, hits).
+No single PyTorch call computes ray-triangle intersection, a path-traced
+pixel, a supernode vote or a gated sweep, so library_ms is null for every
+kernel.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -246,17 +268,18 @@ def compare_images(tag, got, ref, rays_got, rays_ref, emission_only, mean_gate=2
 
 
 def _wrappers():
-    from gpuspectral_tpu_torch.bvh import ftb
+    from gpuspectral_tpu_torch.bvh import cluster_sweep, ftb
     from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad
     from gpuspectral_tpu_torch.ops import cuda_isect
 
     return dict(k1=mega.render_mega_rows, k2a=cuda_isect.closest_cuda,
                 k2b=cuda_isect.any_cuda, k3a=ftb.ftb_closest, k3b=ftb.ftb_any,
                 k4=mega_bvh.render_mega_bvh_rows, k5=mega_grad.render_mega_fwdgrad_rows,
-                k6=mega_grad.render_mega_bvh_fwdgrad_rows)
+                k6=mega_grad.render_mega_bvh_fwdgrad_rows, k7c=cluster_sweep.cluster_votes,
+                k7d=cluster_sweep.cluster_closest, k7e=cluster_sweep.cluster_any)
 
 
-NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0)
+NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0, k7c=0, k7d=0, k7e=0)
 
 
 def nbytes(*tensors):
@@ -591,20 +614,26 @@ def soup_scene(n_tris, seed, dev):
     return b.build(dev)
 
 
-def phase_k3(dev, scenes, field):
-    from gpuspectral_tpu_torch.bvh import ftb
+def bvh_cases(dev, scenes, field):
+    """The BVH kernels' parity scenes: the sphere field, Cornell, the zoo, a
+    2048-triangle soup and a slot-mode build of Cornell."""
     from gpuspectral_tpu_torch.bvh.tables import sah
-    from gpuspectral_tpu_torch.ops import cuda_isect as ci
     from gpuspectral_tpu_torch.scene import load_mitsuba_scene
 
-    log("phase K3: ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref")
     old = sah.SLOT_DENSE_THRESHOLD
     sah.SLOT_DENSE_THRESHOLD = 8
     try:
         slot = load_mitsuba_scene(CORNELL, device=dev)[0]
     finally:
         sah.SLOT_DENSE_THRESHOLD = old
-    cases = dict(sphere_field=field, **scenes, soup2048=soup_scene(2048, 7, dev), slot_mode=slot)
+    return dict(sphere_field=field, **scenes, soup2048=soup_scene(2048, 7, dev), slot_mode=slot)
+
+
+def phase_k3(dev, cases, field):
+    from gpuspectral_tpu_torch.bvh import ftb
+    from gpuspectral_tpu_torch.ops import cuda_isect as ci
+
+    log("phase K3: ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref")
     err = 0.0
     for i, (name, scene) in enumerate(cases.items()):
         err = max(err, check_k3(name, scene, field_rays(K3_RAYS["parity"], scene, 20 + i, dev)))
@@ -832,6 +861,244 @@ def phase_bvh_wavefront(scene, cfg, k4_mean):
     if abs(k4_mean - float(a.mean())) > 0.05 * k4_mean:
         raise AssertionError("K4 and wavefront images disagree in mean by > 5%")
     return c, f"sphere-field wavefront dispatch ({hs}x{hs}, 1 spp, d{cfg.max_depth})"
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events
+    (the plain versions, too slow to repeat)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def cluster_work(scene, votes, n_rays):
+    """(box tests, Woop tests) of K7c and of one sweep over `votes`, counted
+    from the votes: S box tests per ray; per block of BLOCK rays, its voted
+    supernodes x their slots x its rays (K7e's early exit, taken only once
+    every ray of a block is occluded, is not subtracted)."""
+    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+
+    _, _, s, stride = cs._scene_tables(scene)
+    nb = votes.shape[0]
+    rays = torch.full((nb,), float(cs.BLOCK), dtype=torch.float64, device=votes.device)
+    rays[-1] = n_rays - (nb - 1) * cs.BLOCK
+    return n_rays * s, float((votes.sum(1).double() * rays).sum()) * stride
+
+
+def cluster_bounds(scene, votes, votes_any, n_rays):
+    """bound() of K7c (on the closest rays' votes), K7d and K7e for one
+    call each over n_rays rays, and the votes per block and Woop tests per
+    ray of the two sweeps."""
+    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+    from gpuspectral_tpu_torch.bvh import ftb
+
+    blo, bhi, s, _ = cs._scene_tables(scene)
+    box, woop_c = cluster_work(scene, votes, n_rays)
+    _, woop_a = cluster_work(scene, votes_any, n_rays)
+    vb = nbytes(votes)
+    table = nbytes(scene.tri_woop_t)
+    a = ftb.attr_table(scene).shape[1]
+    return dict(
+        k7c=bound(box * BOX_FLOPS, n_rays * 32 + nbytes(blo[:, :s], bhi[:, :s]) + vb),
+        k7d=bound(woop_c * WOOP_FLOPS, n_rays * (28 + 16 + 4 * a) + vb + table
+                  + 4 * a * scene.padded_tris),
+        k7e=bound(woop_a * WOOP_FLOPS, n_rays * (32 + 1) + vb + table),
+        votes_per_block=dict(closest=float(votes.double().sum(1).mean()),
+                             any=float(votes_any.double().sum(1).mean())),
+        woop_per_ray=dict(closest=woop_c / n_rays, any=woop_a / n_rays))
+
+
+def check_k7(name, scene, rays):
+    """K7c / K7d / K7e against their plain versions on `rays`: votes equal,
+    t, prim, u, v, attrs and occ equal.  Returns (the max abs errors, the
+    kernels' votes for the closest and the any-hit segments, the plain
+    versions' ms)."""
+    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+
+    o, d, lo, hi = rays
+    zero = torch.zeros_like(hi)
+    votes = cs.cluster_votes(scene, o, d, zero, hi)
+    votes_any = cs.cluster_votes(scene, o, d, lo, hi)
+    got = cs.cluster_closest(scene, o, d, t_max=hi, votes=votes)
+    occ = cs.cluster_any(scene, o, d, lo, hi, votes=votes_any)
+    vr, c_ms = timed_once(lambda: cs.cluster_votes_ref(scene, o, d, zero, hi))
+    vr_any = cs.cluster_votes_ref(scene, o, d, lo, hi)
+    ref, d_ms = timed_once(lambda: cs.cluster_closest_ref(scene, o, d, t_max=hi, votes=vr))
+    occ_r, e_ms = timed_once(lambda: cs.cluster_any_ref(scene, o, d, lo, hi, votes=vr_any))
+    bad = {k: int((a != b).sum()) for k, a, b in (
+        ("votes", votes, vr), ("votes_any", votes_any, vr_any), ("t", got[0], ref[0]),
+        ("prim", got[1], ref[1]), ("u", got[2], ref[2]), ("v", got[3], ref[3]),
+        ("attrs", got[4], ref[4]), ("occ", occ, occ_r))}
+    hit = ref[1] >= 0
+    log(f"  K7 {name}: rays={o.shape[0]} supernodes={votes.shape[1]} "
+        f"votes per block {float(votes.double().sum(1).mean()):.1f} (any "
+        f"{float(votes_any.double().sum(1).mean()):.1f}) hits={int(hit.sum())} "
+        f"occluded={int(occ_r.sum())} mismatches={bad}")
+    if any(bad.values()):
+        raise AssertionError(f"K7 disagrees with its plain version on {name}")
+    err = dict(k7c=float(max((votes - vr).abs().max(), (votes_any - vr_any).abs().max())),
+               k7d=float((got[0] - ref[0]).abs()[hit].max()) if hit.any() else 0.0,
+               k7e=float((occ.int() - occ_r.int()).abs().max()))
+    return err, votes, votes_any, dict(k7c=c_ms, k7d=d_ms, k7e=e_ms)
+
+
+def primary_rays(scene, size, dev):
+    """The camera rays of a size x size frame at timestamp 0, pixel order."""
+    from gpuspectral_tpu_torch.integrator import path_tracer
+    from gpuspectral_tpu_torch.ops import rng
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    pix = torch.arange(size * size, dtype=torch.int64, device=dev)
+    cfg = RenderConfig(width=size, height=size)
+    o, d = path_tracer._camera_rays(scene, cfg, rng.as_u32(pix),
+                                    rng.pixel_seed(rng.as_u32(pix), 0))
+    n = pix.shape[0]
+    return [o.contiguous(), d.contiguous(), torch.full((n,), 0.01, device=dev),
+            torch.full((n,), 1e30, device=dev)]
+
+
+def phase_k7(dev, cases, field):
+    """K7c-e against their plain versions on the five BVH scenes, then timed
+    on the sphere field beside K3: 65,536 random rays and the 262,144
+    primary rays of the 512x512 frame."""
+    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+    from gpuspectral_tpu_torch.bvh import ftb
+
+    log("phase k7: cluster_votes / cluster_closest / cluster_any vs their plain versions")
+    err = dict(k7c=0.0, k7d=0.0, k7e=0.0)
+    for i, (name, scene) in enumerate(cases.items()):
+        e, votes, votes_any, plain = check_k7(name, scene,
+                                              field_rays(K3_RAYS["parity"], scene, 20 + i, dev))
+        err = {k: max(err[k], e[k]) for k in err}
+        if name == "sphere_field":
+            field_votes, field_votes_any, plain_ms = votes, votes_any, plain
+    out = {}
+    for tag, rays, votes, votes_any in (
+            ("random", field_rays(K3_RAYS["parity"], field, 20, dev), field_votes, field_votes_any),
+            ("primary", primary_rays(field, HEADLINE["size"], dev), None, None)):
+        o, d, lo, hi = rays
+        zero = torch.zeros_like(hi)
+        if votes is None:
+            votes = cs.cluster_votes(field, o, d, zero, hi)
+            votes_any = cs.cluster_votes(field, o, d, lo, hi)
+        times = dict(
+            k7c=cuda_ms(lambda: cs.cluster_votes(field, o, d, zero, hi), reps=5),
+            k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, votes=votes), reps=2),
+            k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any), reps=2),
+            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
+        b = cluster_bounds(field, votes, votes_any, o.shape[0])
+        log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+            + f"; votes per block {b['votes_per_block']}, Woop tests per ray {b['woop_per_ray']}; "
+            + ", ".join(f"{k} bound {b[k]['bound_ms']:.4f} ms ({b[k]['bound_by']})"
+                        for k in ("k7c", "k7d", "k7e")))
+        out[tag] = dict(times=times, bounds=b, rays=o.shape[0])
+    rows = {}
+    for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b")):
+        r, p = out["random"], out["primary"]
+        rows[key] = dict(max_abs_err=err[key], ms=r["times"][key], plain_ms=plain_ms[key],
+                         **r["bounds"][key], rays=r["rays"], ms_primary=p["times"][key],
+                         bound_ms_primary=p["bounds"][key]["bound_ms"],
+                         primary_rays=p["rays"])
+        if k3:
+            rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
+                             votes_per_block=r["bounds"]["votes_per_block"],
+                             votes_per_block_primary=p["bounds"]["votes_per_block"],
+                             woop_per_ray=r["bounds"]["woop_per_ray"],
+                             woop_per_ray_primary=p["bounds"]["woop_per_ray"])
+    return rows
+
+
+CLUSTER_ITERS = 1  # timed frames of cluster_main (after one warmup frame)
+K7_KERNELS = dict(k7c="cluster_votes_kernel", k7d="cluster_closest_kernel",
+                  k7e="cluster_any_kernel")
+
+
+def profile_frame(scene, cfg, ts):
+    """One frame of the wavefront under torch.profiler: the device's busy
+    milliseconds (every kernel's and copy's own device time; one stream, so
+    they do not overlap) and each K7 kernel's milliseconds and launches.
+    The profiler slows the host, so the idle share is taken against the
+    unprofiled frame's time by the caller."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render_image_stats(scene, cfg, ts)
+        torch.cuda.synchronize()
+    busy, kernels = 0.0, {}
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        busy += ms
+        for key, name in K7_KERNELS.items():
+            if name in e.key:
+                kernels[key] = dict(device_ms=ms, launches=e.count)
+    if busy <= 0.0 or set(kernels) != set(K7_KERNELS):
+        raise AssertionError(f"the profile shows no device time for the K7 kernels: {kernels}")
+    return busy, kernels
+
+
+def phase_cluster_main(dev):
+    """The sphere field through run_benchmark on the wavefront with
+    bvh_kernel "cluster" (K7c-e), held to the K3 wavefront's frame."""
+    from gpuspectral_tpu_torch.cli.main import _build
+    from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
+    from gpuspectral_tpu_torch.utils.bench import run_benchmark
+
+    hs, depth = HEADLINE["size"], HEADLINE["depth"]
+    log(f"phase cluster_main: sphere field {hs}x{hs}, 1 spp, depth {depth} through run_benchmark "
+        "(intersector pallas, bvh_kernel cluster: K7c-e)")
+    args = argparse.Namespace(
+        scene=SPHERE_FIELD, size=f"{hs}x{hs}", spp=1, depth=depth, no_nee=False, jitter=False,
+        ray_batch=65536, bvh=None, bvh_kernel="cluster", light_block=None, packet_size=1024,
+        intersector="pallas", light_sampling="uniform", mis="reference", device=str(dev),
+        warmup=1, iters=CLUSTER_ITERS,
+    )
+    reset_counts()
+    result, img = run_benchmark(args, return_image=True)
+    launches = counts()
+    log("  cluster: " + json.dumps(result))
+    log(f"  launches in the cluster run_benchmark: {launches}")
+    others = {k: v for k, v in launches.items() if not k.startswith("k7")}
+    if not (launches["k7d"] > 0 and launches["k7e"] > 0
+            and launches["k7c"] == launches["k7d"] + launches["k7e"]
+            and others == {k: 0 for k in others}):
+        raise AssertionError("cluster run: want K7c = K7d + K7e > 0 and no K1-K6")
+    scene, cfg = _build(args)
+    ts = 100 + args.iters - 1
+    reset_counts()
+    t0 = time.perf_counter()
+    ref, rays_ref = render_image_stats(scene, cfg.replace(bvh_kernel="ftb"), ts)
+    torch.cuda.synchronize()
+    k3_s = time.perf_counter() - t0
+    c = counts()
+    if c["k3a"] < 1 or c["k7c"] != 0:
+        raise AssertionError(f"K3 wavefront reference: launch counts {c}")
+    err = compare_images(f"cluster frame vs the K3 wavefront (ts {ts})", img, ref,
+                         result["rays_traced"], rays_ref, emission_only=False)
+    log(f"  cluster frame {result['seconds_per_frame']:.3f} s, {result['mrays_per_s']:.4f} "
+        f"Mrays/s; the K3 wavefront {k3_s:.3f} s, {rays_ref / k3_s / 1e6:.4f} Mrays/s")
+    busy, kernels = profile_frame(scene, cfg, ts)
+    frame_ms = result["seconds_per_frame"] * 1e3
+    log(f"  profile of the frame at ts {ts}: device busy {busy:.1f} ms of the {frame_ms:.1f} ms "
+        f"frame (idle share {1.0 - busy / frame_ms:.3f}); "
+        + ", ".join(f"{k} {v['device_ms']:.1f} ms in {v['launches']} launches"
+                    for k, v in kernels.items()))
+    run = f"cluster run_benchmark ({hs}x{hs}, 1 spp, d{depth}, bvh_kernel cluster)"
+    frame = dict(seconds_per_frame=result["seconds_per_frame"], mrays_per_s=result["mrays_per_s"],
+                 rays_traced=result["rays_traced"], k3_wavefront_s=k3_s,
+                 frame_max_abs_err=err, frame_device_busy_ms=busy,
+                 frame_idle_share=1.0 - busy / frame_ms)
+    return {k: dict(launches=launches[k], launched_by=run, frame_device_ms=kernels[k]["device_ms"],
+                    **frame) for k in K7_KERNELS}
 
 
 DIVERGED_RAD = 1e-5  # a lane's radiance moved by more: its path went another way
@@ -1098,19 +1365,17 @@ def wavefront_grads(scene, cfg, target):
     return gp[:, 0:3].cpu().numpy(), gl.cpu().numpy()
 
 
-def phase_grad_wavefront(dev):
-    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
-    from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
+def grad_wavefront_cases(dev, cases):
+    """The differentiable wavefront at 32x32, 4 spp, d3 on the card against
+    the same on the CPU, for each (name, scene builder, kernel key, config
+    keywords): the kernel launched, albedo and emission gradients within
+    GRAD_TOL of the CPU's."""
     from gpuspectral_tpu_torch.utils import RenderConfig
 
-    log("phase grad_wavefront: the differentiable wavefront on K2a / K3a vs the same on the CPU")
     cfg = RenderConfig(width=32, height=32, spp=4, max_depth=3, intersector="pallas")
     target = torch.as_tensor(np.random.default_rng(2).uniform(0, 1, (32 * 32, 3)).astype(np.float32))
     err = 0.0
-    for name, build, key, kw in (
-            ("cornell", lambda d: load_mitsuba_scene(CORNELL, device=d)[0], "k2a", {}),
-            ("sphere_field_small", lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8),
-             "k3a", dict(use_bvh=True))):
+    for name, build, key, kw in cases:
         c = cfg.replace(**kw)
         reset_counts()
         t0 = time.perf_counter()
@@ -1130,6 +1395,28 @@ def phase_grad_wavefront(dev):
                 raise AssertionError(f"grad_wavefront {name} {tag}: outside {GRAD_TOL}")
             err = max(err, float(np.abs(a - b).max()))
     return err
+
+
+def phase_grad_wavefront(dev):
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
+
+    log("phase grad_wavefront: the differentiable wavefront on K2a / K3a vs the same on the CPU")
+    return grad_wavefront_cases(dev, (
+        ("cornell", lambda d: load_mitsuba_scene(CORNELL, device=d)[0], "k2a", {}),
+        ("sphere_field_small", lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8),
+         "k3a", dict(use_bvh=True))))
+
+
+def phase_cluster_grad(dev):
+    from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
+
+    log("phase cluster_grad: the differentiable wavefront on K7c + K7d (cluster_closest_diff) "
+        "vs the same on the CPU")
+    return grad_wavefront_cases(dev, (
+        ("sphere_field_small_noenv",
+         lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8, sky_hw=None), "k7d",
+         dict(use_bvh=True, bvh_kernel="cluster")),))
 
 
 def phase_invert(dev):
@@ -1199,8 +1486,10 @@ def main() -> int:
     t0 = time.perf_counter()
     field = build_sphere_field(dev)
     log(f"sphere field build: {time.perf_counter() - t0:.2f} s, {field.num_tris} triangles")
-    k3_err, k3_times = phase_k3(dev, scenes, field)
-    del field
+    cases = bvh_cases(dev, scenes, field)
+    k3_err, k3_times = phase_k3(dev, cases, field)
+    k7 = phase_k7(dev, cases, field)
+    del field, cases
     env_err = phase_env(dev)
     k4_err = phase_k4(dev, scenes)
     m["k1"]["max_abs_err"] = max(m["k1"]["max_abs_err"], env_err["k1"])
@@ -1214,6 +1503,8 @@ def main() -> int:
                       rays=K3_RAYS["parity"], ms_1m_rays=big[key],
                       k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]])
     del scene
+    for key, row in phase_cluster_main(dev).items():
+        m[key] = dict(row, **k7[key])
 
     log("phase K5: fused forward-gradient megakernel vs its plain version")
     k5_err = phase_fused(dev, False, dict(cornell=scenes["cornell"],
@@ -1229,6 +1520,7 @@ def main() -> int:
     m["k6"]["max_abs_err"] = max(m["k6"]["max_abs_err"], k6_err)
     wave_err = phase_grad_wavefront(dev)
     m["k2a"]["autograd_max_abs_err"] = wave_err
+    m["k7d"]["autograd_max_abs_err"] = phase_cluster_grad(dev)
     phase_invert(dev)
     specs = [
         ("K1 megakernel render_mega_rows", "gpuspectral_tpu_torch/csrc/mega.cu",
@@ -1249,10 +1541,17 @@ def main() -> int:
         ("K6 fused-BVH forward-gradient megakernel render_mega_bvh_fwdgrad_rows",
          "gpuspectral_tpu_torch/csrc/mega_bvh.cu",
          "gpuspectral_tpu/integrator/mega_grad.py:599", "k6"),
+        ("K7c cluster_votes", "gpuspectral_tpu_torch/csrc/cluster.cu",
+         "gpuspectral_tpu/bvh/cluster_sweep.py:316", "k7c"),
+        ("K7d cluster_closest", "gpuspectral_tpu_torch/csrc/cluster.cu",
+         "gpuspectral_tpu/bvh/cluster_sweep.py:369", "k7d"),
+        ("K7e cluster_any", "gpuspectral_tpu_torch/csrc/cluster.cu",
+         "gpuspectral_tpu/bvh/cluster_sweep.py:418", "k7e"),
     ]
     kernels = []
     for kname, src, rep, key in specs:
-        # no PyTorch call computes ray-triangle intersection or a path-traced pixel
+        # no PyTorch call computes ray-triangle intersection, a path-traced
+        # pixel or a supernode vote
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=rep, library_ms=None,
                             **m[key]))
     log(smi)

@@ -235,10 +235,14 @@ def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
     return boxes, woops
 
 
-class _FtbClosestDiff(torch.autograd.Function):
+class ClosestDiff(torch.autograd.Function):
+    """A BVH closest hit `closest(scene, o, d, t_max=, attr=)` (K3a's
+    ftb_closest or K7d's cluster_closest) forward, the backward of
+    ops/cuda_isect.woop_vjp: (t, u, v) derivatives w.r.t. (o, d)."""
+
     @staticmethod
-    def forward(ctx, origin, direction, t_max, scene, attr):
-        t, prim, u, v, attrs = ftb_closest(scene, origin, direction, t_max=t_max, attr=attr)
+    def forward(ctx, closest, origin, direction, t_max, scene, attr):
+        t, prim, u, v, attrs = closest(scene, origin, direction, t_max=t_max, attr=attr)
         ctx.save_for_backward(origin, direction, prim, scene.tri_woop)
         ctx.mark_non_differentiable(prim, attrs)
         return t, prim, u, v, attrs
@@ -249,7 +253,7 @@ class _FtbClosestDiff(torch.autograd.Function):
 
         o, d, prim, woop_rows = ctx.saved_tensors
         do, dd = woop_vjp(o, d, prim, woop_rows, ct_t, ct_u, ct_v)
-        return do, dd, None, None, None
+        return None, do, dd, None, None, None
 
 
 def ftb_closest_diff(scene, origin, direction, active=None, attr=None):
@@ -257,4 +261,4 @@ def ftb_closest_diff(scene, origin, direction, active=None, attr=None):
     direction); attrs carry none (the scene's tables are detached)."""
     t_max = _tmax(origin, None, active)
     attr = (attr_table(scene) if attr is None else attr).detach()
-    return _FtbClosestDiff.apply(origin, direction, t_max, scene, attr)
+    return ClosestDiff.apply(ftb_closest, origin, direction, t_max, scene, attr)

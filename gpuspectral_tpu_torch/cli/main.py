@@ -37,7 +37,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
         help="BVH traversal (default: auto — on above 2048 triangles)",
     )
     p.add_argument("--bvh-kernel", default="ftb", choices=["ftb", "binned", "cluster", "dfs"],
-                   help="BVH kernel of the wavefront (the port has ftb)")
+                   help="BVH kernel of the wavefront: ftb (K3) or cluster (K7c-e); "
+                        "binned and dfs are not ported yet")
     p.add_argument("--light-block", type=int, default=None,
                    help="share one NEE light pick per N-lane block of the wavefront "
                         "(0 disables; default 0 for brute-force scenes)")

@@ -10,7 +10,8 @@ def render_image_stats_auto(scene, cfg, timestamp0: int = 0):
       * the fused-BVH megakernel (K4) when mega_bvh_eligible, for CUDA
         tensors with "auto" or forced with "mega_bvh";
       * otherwise the wavefront, on the brute-force kernels (K2) or, with
-        cfg.use_bvh, the BVH kernels (K3).
+        cfg.use_bvh, the BVH kernels that cfg.bvh_kernel names (K3 for
+        "ftb", K7c-e for "cluster").
 
     For CPU tensors every path runs its plain torch version."""
     from .mega import mega_eligible, render_mega

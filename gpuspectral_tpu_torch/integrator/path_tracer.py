@@ -19,12 +19,16 @@ RNG channel layout per bounce (as the JAX package):
 
 Intersection.  Brute force (cfg.use_bvh False): for CUDA tensors with
 intersector "auto" or "pallas" the kernels of ops/cuda_isect.py (K2).  BVH
-(cfg.use_bvh, bvh_kernel "ftb"): for CUDA tensors the kernels of bvh/ftb.py
-(K3), with optional ray sorting (cfg.sort_rays) and shadow-ray sorting
-(cfg.shadow_sort).  For CPU tensors, or with intersector "woop", the plain
-torch Woop scans.  This module is also the plain version of the four
-megakernels (integrator/mega.py, integrator/mega_bvh.py and, with a
-gradient hook in `_bounce`, integrator/mega_grad.py).
+(cfg.use_bvh), with intersector "pallas" or, for CUDA tensors, "auto": the
+wrappers that cfg.bvh_kernel names in _BVH_KERNELS, "ftb" (the walk of
+bvh/ftb.py, K3a / K3b) or "cluster" (the cluster sweep of
+bvh/cluster_sweep.py: votes K7c, then K7d / K7e), with optional ray sorting
+(cfg.sort_rays) and shadow-ray sorting (cfg.shadow_sort) for either; they
+run their plain versions for CPU tensors.  With intersector "woop", or
+"auto" for CPU tensors, the plain torch Woop scans over every triangle.
+This module is also the plain version of the four megakernels
+(integrator/mega.py, integrator/mega_bvh.py and, with a gradient hook in
+`_bounce`, integrator/mega_grad.py).
 
 Differentiable mode (`trace_rays` / `render_sample` with
 differentiable=True, path_tracer.py:711-760, 924-936): torch autograd
@@ -33,13 +37,13 @@ under torch.utils.checkpoint, so the backward pass replays it instead of
 storing its intermediates; the counter-based RNG makes the replay exact
 (path-replay backprop).  With "sample" the caller checkpoints whole
 samples.  The intersection kernels have no derivative of their own:
-closest hits go through `cuda_isect.closest_diff` / `ftb.ftb_closest_diff`,
-whose backward re-evaluates the hit triangle's Woop test in plain torch,
-and shadow rays and intersector tables are detached (visibility is a step
+closest hits go through `cuda_isect.closest_diff`, `ftb.ftb_closest_diff`
+or `cluster_sweep.cluster_closest_diff`, whose backward re-evaluates the
+hit triangle's Woop test in plain torch, and shadow rays and intersector tables are detached (visibility is a step
 function, as the JAX package's stop_gradient says).
 
 Not covered yet: intersector "mt" (the Moller-Trumbore XLA twin of
-bvh/traverse.py), the other BVH kernels (bvh_kernel != "ftb").
+bvh/traverse.py), bvh_kernel "binned" and "dfs" (queue 2 of the port).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from __future__ import annotations
 import torch
 
 from ..bsdf.dispatch import eval_bsdf, is_transmission, sample_bsdf
-from ..bvh import ftb
+from ..bvh import cluster_sweep, ftb
 from ..ops import cuda_isect
 from ..ops import math3d as m3
 from ..ops import rng
@@ -73,6 +77,14 @@ CH_ENV_SELECT = 11
 
 _BIG = 1e30
 
+# cfg.bvh_kernel -> (module, closest hit, differentiable closest hit, any
+# hit).  The wrappers are looked up by name at each bounce, so one that is
+# patched onto its module (a tally of the kernels' work) is the one called.
+_BVH_KERNELS = {
+    "ftb": (ftb, "ftb_closest", "ftb_closest_diff", "ftb_any"),
+    "cluster": (cluster_sweep, "cluster_closest", "cluster_closest_diff", "cluster_any"),
+}
+
 
 def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
     """"pallas" (the CUDA kernels, or their plain versions for CPU tensors)
@@ -81,9 +93,10 @@ def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
     if isector == "mt":
         raise NotImplementedError(
             "intersector 'mt' (the XLA twin of bvh/traverse.py) is a later slice of the port")
-    if cfg.use_bvh and cfg.bvh_kernel != "ftb":
+    if cfg.use_bvh and cfg.bvh_kernel not in _BVH_KERNELS:
         raise NotImplementedError(
-            f"bvh_kernel {cfg.bvh_kernel!r}: queue 2 of the port (K7); only 'ftb' is ported")
+            f"bvh_kernel {cfg.bvh_kernel!r}: queue 2 of the port (K7); ported: "
+            + ", ".join(_BVH_KERNELS))
     if isector in ("auto", "mega", "mega_bvh"):
         return "pallas" if scene.device.type == "cuda" else "woop"
     if isector in ("pallas", "woop"):
@@ -192,7 +205,8 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
     pos_c = area_hit = None
     if cfg.use_bvh:
         if isector == "pallas":
-            closest = ftb.ftb_closest_diff if differentiable else ftb.ftb_closest
+            kernels, closest_name, diff_name, any_name = _BVH_KERNELS[cfg.bvh_kernel]
+            closest = getattr(kernels, diff_name if differentiable else closest_name)
         else:
             closest = ftb.ftb_closest_ref
         t, prim, bu, bv, attrs = closest(scene, origin.contiguous(), direction.contiguous(),
@@ -344,7 +358,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
     sh_tmin = torch.full((r,), cfg.shadow_epsilon, dtype=torch.float32, device=dev)
     sh_tmax = ldist - cfg.shadow_epsilon
     if cfg.use_bvh:
-        any_hit = ftb.ftb_any if isector == "pallas" else ftb.ftb_any_ref
+        any_hit = getattr(kernels, any_name) if isector == "pallas" else ftb.ftb_any_ref
         if cfg.shadow_sort:
             # sort shadow segments by endpoint + origin so that a warp's rays
             # head for one light region (path_tracer.py:456-473); occlusion

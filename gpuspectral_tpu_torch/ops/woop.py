@@ -91,14 +91,21 @@ def _chunks(woop, chunk: int):
         yield base, woop[base:base + chunk]
 
 
-def closest_scan(origin, direction, woop, t_min, t_max, chunk: int = 512):
+def _gated_t(origin, direction, base, w, t_min, t_max, gate):
+    t = _chunk_t(origin, direction, w, t_min, t_max)
+    return t if gate is None else torch.where(gate(base, w.shape[0]), t, _BIG)
+
+
+def closest_scan(origin, direction, woop, t_min, t_max, chunk: int = 512, gate=None):
     """Closest hit over all triangles of the (T,12) table, `chunk` at a
-    time.  Returns (t, prim, u, v): t = 1e30 and prim = -1 on a miss."""
+    time.  Returns (t, prim, u, v): t = 1e30 and prim = -1 on a miss.
+    gate(base, n) -> (R, n) bool, when given, keeps only the triangles
+    base .. base + n - 1 that each ray may test (bvh/cluster_sweep.py)."""
     r = origin.shape[0]
     best_t = torch.full((r,), _BIG, dtype=torch.float32, device=origin.device)
     best_prim = torch.full((r,), -1, dtype=torch.int32, device=origin.device)
     for base, w in _chunks(woop, chunk):
-        t = _chunk_t(origin, direction, w, t_min, t_max)
+        t = _gated_t(origin, direction, base, w, t_min, t_max, gate)
         arg = torch.argmin(t, dim=1)
         t_new = torch.gather(t, 1, arg[:, None])[:, 0]
         closer = t_new < best_t
@@ -111,10 +118,11 @@ def closest_scan(origin, direction, woop, t_min, t_max, chunk: int = 512):
     return best_t, prim, u, v
 
 
-def any_scan(origin, direction, woop, t_min, t_max, chunk: int = 512):
-    """Any-hit over all triangles: True where something lies in
-    (t_min, t_max)."""
+def any_scan(origin, direction, woop, t_min, t_max, chunk: int = 512, gate=None):
+    """Any-hit over all triangles (those `gate` keeps, as in closest_scan):
+    True where something lies in (t_min, t_max)."""
     occ = torch.zeros((origin.shape[0],), dtype=torch.bool, device=origin.device)
-    for _, w in _chunks(woop, chunk):
-        occ = occ | torch.any(_chunk_t(origin, direction, w, t_min, t_max) < _BIG, dim=1)
+    for base, w in _chunks(woop, chunk):
+        t = _gated_t(origin, direction, base, w, t_min, t_max, gate)
+        occ = occ | torch.any(t < _BIG, dim=1)
     return occ

@@ -78,14 +78,15 @@ def load_scene(scene_path: str, device):
 
 def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: int = 5,
                        ray_batch: int = 65536, steps: int = 2, use_bvh: bool = False,
-                       return_grad: bool = False):
+                       return_grad: bool = False, bvh_kernel: str = "ftb"):
     """Gradient-step throughput (grad-steps/s; gpuspectral_tpu/utils/bench.py:
     run_grad_benchmark): one value-and-grad of the MSE against a fixed
     target (zeros) w.r.t. bsdf_params, through K5 (`render_mega_diff`) when
     mega_grad_eligible, else K6 (`render_mega_bvh_diff`) when
     mega_bvh_grad_eligible, else the differentiable wavefront
     (diff/gradcheck.render_mean: ray_batch lanes per batch, each batch
-    checkpointed: grad_remat "sample").  The first step (kernel build included) is
+    checkpointed: grad_remat "sample"), on the BVH kernels that `bvh_kernel`
+    names when use_bvh.  The first step (kernel build included) is
     compile_seconds; each of `steps` timed steps, at timestamps 1.., runs
     between torch.cuda.synchronize() calls, and seconds_per_step is their
     median.
@@ -102,7 +103,7 @@ def run_grad_benchmark(scene_path: str, size: int = 512, spp: int = 64, depth: i
     dev = torch.device("cuda")
     scene = load_scene(scene_path, dev)
     cfg = RenderConfig(width=size, height=size, spp=spp, max_depth=depth, ray_batch=ray_batch,
-                       grad_remat="sample", use_bvh=use_bvh)
+                       grad_remat="sample", use_bvh=use_bvh, bvh_kernel=bvh_kernel)
     n_pixels = size * size
     target = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
     if mega_grad_eligible(scene, cfg):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gpuspectral_tpu_torch.bvh import build as bvh_build
+from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
 from gpuspectral_tpu_torch.bvh import ftb
 from gpuspectral_tpu_torch.integrator import mega, mega_bvh
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
@@ -165,6 +166,53 @@ def test_walk_tests_count_the_walk(cuda_device):  # noqa: F811
     assert bool((w_any[occ] >= 1).all()) and int(w_any.max()) <= n_slots
 
 
+def _k7_launches():
+    return (cs.cluster_votes.launches, cs.cluster_closest.launches, cs.cluster_any.launches)
+
+
+@pytest.mark.parametrize("name", ["cornell", "sphere_field"])
+def test_k7_matches_plain_version(cuda_device, name):  # noqa: F811
+    """K7c's votes equal the plain slab test's; K7d / K7e on those votes
+    equal the plain gated scan (m3.fma's rare double rounding aside)."""
+    ts = _scene(name, cuda_device)
+    o, d, lo, hi = _rays(13, 1 << 14, cuda_device)
+    zeros = torch.zeros_like(hi)
+    n0 = _k7_launches()
+    votes = cs.cluster_votes(ts, o, d, zeros, hi)
+    votes_any = cs.cluster_votes(ts, o, d, lo, hi)
+    got = cs.cluster_closest(ts, o, d, t_max=hi, votes=votes)
+    occ = cs.cluster_any(ts, o, d, lo, hi, votes=votes_any)
+    assert _k7_launches() == (n0[0] + 2, n0[1] + 1, n0[2] + 1)
+    assert torch.equal(votes, cs.cluster_votes_ref(ts, o, d, zeros, hi))
+    assert torch.equal(votes_any, cs.cluster_votes_ref(ts, o, d, lo, hi))
+    ref = cs.cluster_closest_ref(ts, o, d, t_max=hi, votes=votes)
+    assert (ref[1] >= 0).sum() > 1000
+    assert int((got[1] != ref[1]).sum()) <= 2
+    same = got[1] == ref[1]
+    for a, b in zip(got, ref):
+        assert torch.equal(a[same], b[same])
+    assert int((occ != cs.cluster_any_ref(ts, o, d, lo, hi, votes=votes_any)).sum()) <= 2
+    # the wrappers launch K7c themselves when not given the votes
+    t2 = cs.cluster_closest(ts, o, d, t_max=hi)[0]
+    assert torch.equal(t2, got[0]) and _k7_launches()[0] == n0[0] + 3
+
+
+def test_wavefront_on_k7_matches_plain_scans(cuda_device):  # noqa: F811
+    """The wavefront with bvh_kernel "cluster": K7c once for every K7d and
+    K7e launch, K3 never; the image against the plain brute-force scans
+    under the tests/test_mega.py gates."""
+    ts = _scene("sphere_field", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
+                       sort_rays=True, intersector="pallas", bvh_kernel="cluster")
+    n0, f0 = _k7_launches(), (ftb.ftb_closest.launches, ftb.ftb_any.launches)
+    got, rays_got = pt.render_image_stats(ts, cfg, 0)
+    votes, closest, any_hit = (a - b for a, b in zip(_k7_launches(), n0))
+    assert closest > 0 and any_hit > 0 and votes == closest + any_hit
+    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches) == f0
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
+    assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
+
+
 @pytest.mark.parametrize("name", ["env_const", "env_image"])
 def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
     ts = _scene(name, cuda_device)
@@ -295,9 +343,9 @@ def _vjp(t, u, v, o, d, seed=9):
     return torch.autograd.grad(loss, (o, d))
 
 
-@pytest.mark.parametrize("kind", ["k2a", "k3a"])
+@pytest.mark.parametrize("kind", ["k2a", "k3a", "k7d"])
 def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
-    """The autograd wrappers of K2a / K3a on the card against the same
+    """The autograd wrappers of K2a / K3a / K7d on the card against the same
     wrappers on the CPU (the plain forward, the same torch backward)."""
     ts = _scene("cornell" if kind == "k2a" else "sphere_field", cuda_device)
     cpu = _scene("cornell" if kind == "k2a" else "sphere_field", "cpu")
@@ -308,8 +356,10 @@ def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
         d.requires_grad_(True)
         if kind == "k2a":
             t, prim, u, v = ci.closest_diff(o, d, sc.tri_woop_t, sc.tri_woop, hi)
-        else:
+        elif kind == "k3a":
             t, prim, u, v, _ = ftb.ftb_closest_diff(sc, o, d)
+        else:
+            t, prim, u, v, _ = cs.cluster_closest_diff(sc, o, d)
         out[dev.type] = (prim.cpu(), [x.cpu() for x in (t, u, v)],
                          [x.cpu() for x in _vjp(t, u, v, o, d)])
     (p1, f1, g1), (p2, f2, g2) = out["cuda"], out["cpu"]
@@ -350,13 +400,16 @@ def test_run_grad_benchmark_reports_the_card(cuda_device):  # noqa: F811
     assert out["grad_steps_per_s"] > 0 and out["peak_hbm_gb"] > 0
 
 
-def test_run_grad_benchmark_wavefront_path(cuda_device):  # noqa: F811
+@pytest.mark.parametrize("bvh_kernel", ["ftb", "cluster"])
+def test_run_grad_benchmark_wavefront_path(cuda_device, bvh_kernel):  # noqa: F811
     """A scene neither fused kernel takes (an environment emitter): the
-    step runs the differentiable wavefront on K3a / K3b."""
+    step runs the differentiable wavefront on the BVH kernels it names,
+    K3a / K3b or K7c-e."""
     from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
 
-    n0 = ftb.ftb_closest.launches
+    wrapper = ftb.ftb_closest if bvh_kernel == "ftb" else cs.cluster_closest
+    n0 = wrapper.launches
     out = run_grad_benchmark("builtin:sphere_field", size=16, spp=2, depth=2, steps=1,
-                             use_bvh=True)
-    assert out["kernel"] == "wavefront" and ftb.ftb_closest.launches > n0
+                             use_bvh=True, bvh_kernel=bvh_kernel)
+    assert out["kernel"] == "wavefront" and wrapper.launches > n0
     assert out["grad_steps_per_s"] > 0
