@@ -69,9 +69,7 @@ Phases:
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
         K7c launched once for each K7d and K7e launch, K1-K6 never; its last
         frame against the wavefront on K3 at the same config and timestamp
-        under the tests/test_mega.py gates; that frame again under
-        torch.profiler: the device's busy time (idle share against the
-        unprofiled frame) and the K7 kernels' share of it
+        under the tests/test_mega.py gates
   k5    K5 vs its plain version (the wavefront with the gradient hook) at
         64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
         radiance under the tests/test_mega.py gates, rays within 1%, K5's
@@ -170,7 +168,14 @@ BOX_FLOPS = 24  # one slab box test (csrc/bvh.cuh:box_entered)
 SHADE_FLOPS = 200
 
 
+_START = time.perf_counter()
+
+
 def log(*a):
+    """Print a line now.  A phase's first line ("phase ...") also gives the
+    script's elapsed seconds, so a phase's time is the gap to the next."""
+    if a and str(a[0]).startswith("phase "):
+        a = (f"[{time.perf_counter() - _START:.1f} s]",) + a
     print(*a, flush=True)
 
 
@@ -1016,36 +1021,6 @@ def phase_k7(dev, cases, field):
 
 
 CLUSTER_ITERS = 1  # timed frames of cluster_main (after one warmup frame)
-K7_KERNELS = dict(k7c="cluster_votes_kernel", k7d="cluster_closest_kernel",
-                  k7e="cluster_any_kernel")
-
-
-def profile_frame(scene, cfg, ts):
-    """One frame of the wavefront under torch.profiler: the device's busy
-    milliseconds (every kernel's and copy's own device time; one stream, so
-    they do not overlap) and each K7 kernel's milliseconds and launches.
-    The profiler slows the host, so the idle share is taken against the
-    unprofiled frame's time by the caller."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render_image_stats(scene, cfg, ts)
-        torch.cuda.synchronize()
-    busy, kernels = 0.0, {}
-    for e in prof.key_averages():
-        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
-        busy += ms
-        for key, name in K7_KERNELS.items():
-            if name in e.key:
-                kernels[key] = dict(device_ms=ms, launches=e.count)
-    if busy <= 0.0 or set(kernels) != set(K7_KERNELS):
-        raise AssertionError(f"the profile shows no device time for the K7 kernels: {kernels}")
-    return busy, kernels
-
-
 def phase_cluster_main(dev):
     """The sphere field through run_benchmark on the wavefront with
     bvh_kernel "cluster" (K7c-e), held to the K3 wavefront's frame."""
@@ -1086,19 +1061,10 @@ def phase_cluster_main(dev):
                          result["rays_traced"], rays_ref, emission_only=False)
     log(f"  cluster frame {result['seconds_per_frame']:.3f} s, {result['mrays_per_s']:.4f} "
         f"Mrays/s; the K3 wavefront {k3_s:.3f} s, {rays_ref / k3_s / 1e6:.4f} Mrays/s")
-    busy, kernels = profile_frame(scene, cfg, ts)
-    frame_ms = result["seconds_per_frame"] * 1e3
-    log(f"  profile of the frame at ts {ts}: device busy {busy:.1f} ms of the {frame_ms:.1f} ms "
-        f"frame (idle share {1.0 - busy / frame_ms:.3f}); "
-        + ", ".join(f"{k} {v['device_ms']:.1f} ms in {v['launches']} launches"
-                    for k, v in kernels.items()))
     run = f"cluster run_benchmark ({hs}x{hs}, 1 spp, d{depth}, bvh_kernel cluster)"
     frame = dict(seconds_per_frame=result["seconds_per_frame"], mrays_per_s=result["mrays_per_s"],
-                 rays_traced=result["rays_traced"], k3_wavefront_s=k3_s,
-                 frame_max_abs_err=err, frame_device_busy_ms=busy,
-                 frame_idle_share=1.0 - busy / frame_ms)
-    return {k: dict(launches=launches[k], launched_by=run, frame_device_ms=kernels[k]["device_ms"],
-                    **frame) for k in K7_KERNELS}
+                 rays_traced=result["rays_traced"], k3_wavefront_s=k3_s, frame_max_abs_err=err)
+    return {k: dict(launches=launches[k], launched_by=run, **frame) for k in ("k7c", "k7d", "k7e")}
 
 
 DIVERGED_RAD = 1e-5  # a lane's radiance moved by more: its path went another way
@@ -1522,6 +1488,7 @@ def main() -> int:
     m["k2a"]["autograd_max_abs_err"] = wave_err
     m["k7d"]["autograd_max_abs_err"] = phase_cluster_grad(dev)
     phase_invert(dev)
+    log("phase end: every phase passed")
     specs = [
         ("K1 megakernel render_mega_rows", "gpuspectral_tpu_torch/csrc/mega.cu",
          "gpuspectral_tpu/integrator/mega.py:1452", "k1"),

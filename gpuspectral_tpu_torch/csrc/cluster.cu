@@ -32,10 +32,11 @@
 // What bounds it on the H100: operations.  The sweep tests every slot of a
 // voted supernode for every ray of the block: 256 slots x 256 rays per
 // voted supernode, ~32 flops each, all operands in registers or broadcast
-// from shared memory.  A block of rays that agree on few supernodes (sorted
-// bounce rays, shadow rays sorted by endpoint, primary rays) votes few; a
-// block of random rays votes for nearly all of them, and then each ray does
-// all ~262k Woop tests of the sphere field.  K3's per-ray walk tests ~57.
+// from shared memory.  So the votes set the time: a block of rays that agree
+// on few supernodes (sorted bounce rays, shadow rays sorted by endpoint,
+// primary rays) votes few, a block of long random segments many, and a
+// block that votes for all of them costs each ray every Woop test of the
+// scene.  K3's per-ray walk tests a few dozen triangles per ray.
 //
 // Precision: built with --fmad=false like the other kernels.  The slab
 // test is plain multiplies, subtracts, min / max and an IEEE division for

@@ -39,8 +39,9 @@ storing its intermediates; the counter-based RNG makes the replay exact
 samples.  The intersection kernels have no derivative of their own:
 closest hits go through `cuda_isect.closest_diff`, `ftb.ftb_closest_diff`
 or `cluster_sweep.cluster_closest_diff`, whose backward re-evaluates the
-hit triangle's Woop test in plain torch, and shadow rays and intersector tables are detached (visibility is a step
-function, as the JAX package's stop_gradient says).
+hit triangle's Woop test in plain torch, and shadow rays and intersector
+tables are detached (visibility is a step function, as the JAX package's
+stop_gradient says).
 
 Not covered yet: intersector "mt" (the Moller-Trumbore XLA twin of
 bvh/traverse.py), bvh_kernel "binned" and "dfs" (queue 2 of the port).
@@ -207,8 +208,9 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
         if isector == "pallas":
             kernels, closest_name, diff_name, any_name = _BVH_KERNELS[cfg.bvh_kernel]
             closest = getattr(kernels, diff_name if differentiable else closest_name)
+            any_hit = getattr(kernels, any_name)
         else:
-            closest = ftb.ftb_closest_ref
+            closest, any_hit = ftb.ftb_closest_ref, ftb.ftb_any_ref
         t, prim, bu, bv, attrs = closest(scene, origin.contiguous(), direction.contiguous(),
                                          active=alive, attr=tables["attr"])
         nrm_c = attrs[:, 0:9].reshape(r, 3, 3)
@@ -358,7 +360,6 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
     sh_tmin = torch.full((r,), cfg.shadow_epsilon, dtype=torch.float32, device=dev)
     sh_tmax = ldist - cfg.shadow_epsilon
     if cfg.use_bvh:
-        any_hit = getattr(kernels, any_name) if isector == "pallas" else ftb.ftb_any_ref
         if cfg.shadow_sort:
             # sort shadow segments by endpoint + origin so that a warp's rays
             # head for one light region (path_tracer.py:456-473); occlusion
