@@ -107,9 +107,12 @@ a brute-force closest ray tests every triangle, a brute-force shadow ray
 the triangles up to its first occluder, a BVH ray what its walk did
 (ftb.ftb_walk_tests runs csrc/bvh.cuh's walk with counters).  K2 and K3 are
 tallied on the timed call's own rays.  The cluster kernels' tests are
-counted from the timed call's votes: S box tests per ray (K7c); for a
-sweep, per block of 256 rays its voted supernodes x their slots x its rays
-(K7d, K7e).  The rays of a fused kernel stay
+counted as the kernels make them (cluster_sweep.vote_tests / sweep_tests):
+K7c slab-tests a (block of 256 rays, supernode) pair's rays up to the first
+that passes; K7d tests each ray with a non-empty segment against every slot
+of the supernodes its block voted for, K7e only up to the ray's first
+occluder (the count's occlusion is held equal to K7e's).  The rays of a
+fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
 tally, and its operations are that tally's per ray times the kernel's ray
@@ -881,41 +884,40 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def cluster_work(scene, votes, n_rays):
-    """(box tests, Woop tests) of K7c and of one sweep over `votes`, counted
-    from the votes: S box tests per ray; per block of BLOCK rays, its voted
-    supernodes x their slots x its rays (K7e's early exit, taken only once
-    every ray of a block is occluded, is not subtracted)."""
-    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
-
-    _, _, s, stride = cs._scene_tables(scene)
-    nb = votes.shape[0]
-    rays = torch.full((nb,), float(cs.BLOCK), dtype=torch.float64, device=votes.device)
-    rays[-1] = n_rays - (nb - 1) * cs.BLOCK
-    return n_rays * s, float((votes.sum(1).double() * rays).sum()) * stride
-
-
-def cluster_bounds(scene, votes, votes_any, n_rays):
-    """bound() of K7c (on the closest rays' votes), K7d and K7e for one
-    call each over n_rays rays, and the votes per block and Woop tests per
-    ray of the two sweeps."""
+def cluster_bounds(scene, rays, votes, votes_any, occ):
+    """bound() of K7c (on the closest rays' segments), K7d and K7e for one
+    call each over `rays` with these votes, the tests counted as the kernels
+    make them (cluster_sweep.vote_tests / sweep_tests): K7c slab-tests a
+    (block, supernode) pair's rays up to the first that passes; K7d tests
+    every voted slot for each ray with a non-empty segment, K7e up to the
+    ray's first occluder.  The count's occlusion must equal K7e's `occ`.
+    Also the votes per block and the Woop tests per ray of the sweeps."""
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
     from gpuspectral_tpu_torch.bvh import ftb
 
-    blo, bhi, s, _ = cs._scene_tables(scene)
-    box, woop_c = cluster_work(scene, votes, n_rays)
-    _, woop_a = cluster_work(scene, votes_any, n_rays)
+    o, d, lo, hi = rays
+    zero = torch.zeros_like(hi)
+    sn = cs.scene_supernodes(scene)
+    box = float(cs.vote_tests(scene, o, d, zero, hi, supernodes=sn).double().sum())
+    woop_c = float(cs.sweep_tests(scene, o, d, zero, hi, votes, False, supernodes=sn)[0]
+                   .double().sum())
+    tests_a, occ_count = cs.sweep_tests(scene, o, d, lo, hi, votes_any, True, supernodes=sn)
+    if not torch.equal(occ_count, occ):
+        raise AssertionError(f"K7e's tally disagrees with K7e on {int((occ_count != occ).sum())} "
+                             "rays")
+    woop_a = float(tests_a.double().sum())
+    n = o.shape[0]
     vb = nbytes(votes)
     table = nbytes(scene.tri_woop_t)
     a = ftb.attr_table(scene).shape[1]
     return dict(
-        k7c=bound(box * BOX_FLOPS, n_rays * 32 + nbytes(blo[:, :s], bhi[:, :s]) + vb),
-        k7d=bound(woop_c * WOOP_FLOPS, n_rays * (28 + 16 + 4 * a) + vb + table
+        k7c=bound(box * BOX_FLOPS, n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s]) + vb),
+        k7d=bound(woop_c * WOOP_FLOPS, n * (28 + 16 + 4 * a) + vb + table
                   + 4 * a * scene.padded_tris),
-        k7e=bound(woop_a * WOOP_FLOPS, n_rays * (32 + 1) + vb + table),
+        k7e=bound(woop_a * WOOP_FLOPS, n * (32 + 1) + vb + table),
         votes_per_block=dict(closest=float(votes.double().sum(1).mean()),
                              any=float(votes_any.double().sum(1).mean())),
-        woop_per_ray=dict(closest=woop_c / n_rays, any=woop_a / n_rays))
+        box_per_ray=box / n, woop_per_ray=dict(closest=woop_c / n, any=woop_a / n))
 
 
 def check_k7(name, scene, rays):
@@ -991,16 +993,18 @@ def phase_k7(dev, cases, field):
         if votes is None:
             votes = cs.cluster_votes(field, o, d, zero, hi)
             votes_any = cs.cluster_votes(field, o, d, lo, hi)
+        occ = cs.cluster_any(field, o, d, lo, hi, votes=votes_any)
         times = dict(
             k7c=cuda_ms(lambda: cs.cluster_votes(field, o, d, zero, hi), reps=5),
             k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, votes=votes), reps=2),
             k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any), reps=2),
             k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
-        b = cluster_bounds(field, votes, votes_any, o.shape[0])
+        b = cluster_bounds(field, rays, votes, votes_any, occ)
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
-            + f"; votes per block {b['votes_per_block']}, Woop tests per ray {b['woop_per_ray']}; "
+            + f"; votes per block {b['votes_per_block']}, box tests per ray "
+            + f"{b['box_per_ray']:.2f}, Woop tests per ray {b['woop_per_ray']}; "
             + ", ".join(f"{k} bound {b[k]['bound_ms']:.4f} ms ({b[k]['bound_by']})"
                         for k in ("k7c", "k7d", "k7e")))
         out[tag] = dict(times=times, bounds=b, rays=o.shape[0])
@@ -1011,6 +1015,9 @@ def phase_k7(dev, cases, field):
                          **r["bounds"][key], rays=r["rays"], ms_primary=p["times"][key],
                          bound_ms_primary=p["bounds"][key]["bound_ms"],
                          primary_rays=p["rays"])
+        if key == "k7c":
+            rows[key].update(box_per_ray=r["bounds"]["box_per_ray"],
+                             box_per_ray_primary=p["bounds"]["box_per_ray"])
         if k3:
             rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
                              votes_per_block=r["bounds"]["votes_per_block"],
@@ -1024,19 +1031,18 @@ CLUSTER_ITERS = 1  # timed frames of cluster_main (after one warmup frame)
 def phase_cluster_main(dev):
     """The sphere field through run_benchmark on the wavefront with
     bvh_kernel "cluster" (K7c-e), held to the K3 wavefront's frame."""
-    from gpuspectral_tpu_torch.cli.main import _build
+    from gpuspectral_tpu_torch.cli import main as cli
     from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
     from gpuspectral_tpu_torch.utils.bench import run_benchmark
 
     hs, depth = HEADLINE["size"], HEADLINE["depth"]
     log(f"phase cluster_main: sphere field {hs}x{hs}, 1 spp, depth {depth} through run_benchmark "
         "(intersector pallas, bvh_kernel cluster: K7c-e)")
-    args = argparse.Namespace(
-        scene=SPHERE_FIELD, size=f"{hs}x{hs}", spp=1, depth=depth, no_nee=False, jitter=False,
-        ray_batch=65536, bvh=None, bvh_kernel="cluster", light_block=None, packet_size=1024,
-        intersector="pallas", light_sampling="uniform", mis="reference", device=str(dev),
-        warmup=1, iters=CLUSTER_ITERS,
-    )
+    # the command line's own arguments, as `cli.main benchmark` parses them
+    args = cli.parser().parse_args([
+        "benchmark", SPHERE_FIELD, "--size", f"{hs}x{hs}", "--spp", "1", "--depth", str(depth),
+        "--intersector", "pallas", "--bvh-kernel", "cluster", "--device", str(dev),
+        "--warmup", "1", "--iters", str(CLUSTER_ITERS)])
     reset_counts()
     result, img = run_benchmark(args, return_image=True)
     launches = counts()
@@ -1047,7 +1053,7 @@ def phase_cluster_main(dev):
             and launches["k7c"] == launches["k7d"] + launches["k7e"]
             and others == {k: 0 for k in others}):
         raise AssertionError("cluster run: want K7c = K7d + K7e > 0 and no K1-K6")
-    scene, cfg = _build(args)
+    scene, cfg = cli._build(args)
     ts = 100 + args.iters - 1
     reset_counts()
     t0 = time.perf_counter()

@@ -30,7 +30,10 @@ hits take t in (0, t_max) and inactive rays miss; any hits take t in
 t_max = -1e30 and so never vote.  For CUDA tensors the wrappers launch the
 kernels or raise, and count their launches in `.launches`; for CPU tensors
 they run the plain versions.  `cluster_closest` and `cluster_any` launch
-K7c first unless given the votes.
+K7c first unless given the votes.  Every wrapper takes the scene's
+supernode tables (`scene_supernodes`) as `supernodes=`: the wavefront
+builds them once per render, not at each call.  `vote_tests` and
+`sweep_tests` count the tests the kernels make, for their bounds.
 
 Not carried over from the TPU: the fallback to the XLA traversal above
 MAX_VMEM_SLOTS (gpuspectral_tpu/integrator/path_tracer.py:213-221) and the
@@ -44,6 +47,9 @@ backward of ops/cuda_isect.woop_vjp (ftb.ClosestDiff); attrs are detached.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -91,7 +97,8 @@ def supernode_tables(node_min, node_max, n_clusters: int, padded_tris: int, leaf
     sp = -(-s // LANE) * LANE
     sn_min = pad(sn_min, sp - s, float("inf"))
     sn_max = pad(sn_max, sp - s, float("-inf"))
-    far = torch.tensor([2e8, 3e8, 4e8], dtype=torch.float32, device=dev)
+    # (2e8, 3e8, 4e8), made on the device: no copy from the host
+    far = torch.arange(2, 5, dtype=torch.float32, device=dev) * 1e8
     invalid = ~torch.isfinite(sn_min[:, 0:1]) | (sn_min[:, 0:1] > sn_max[:, 0:1])
     sn_min = torch.where(invalid, far, sn_min)
     sn_max = torch.where(invalid, far, sn_max)
@@ -99,12 +106,27 @@ def supernode_tables(node_min, node_max, n_clusters: int, padded_tris: int, leaf
             max(0, s * k * leaf_size - padded_tris), s, k)
 
 
-def _scene_tables(scene):
-    """(blo, bhi, S, stride) of the scene's supernodes."""
+class Supernodes(NamedTuple):
+    """A scene's supernodes as the wrappers take them: boxes (3, Sp), their
+    count S and the slots of one (stride = K * leaf_size)."""
+    blo: torch.Tensor
+    bhi: torch.Tensor
+    s: int
+    stride: int
+
+
+def scene_supernodes(scene) -> Supernodes:
+    """The scene's supernode tables.  Build them once per render and pass
+    them to the wrappers (`supernodes=`); a wrapper given none builds them
+    itself (about 15 torch ops over the leaf clusters)."""
     blo, bhi, _, s, k = supernode_tables(scene.bvh_node_min, scene.bvh_node_max,
                                          scene.bvh_clusters, scene.padded_tris,
                                          scene.bvh_leaf_size)
-    return blo, bhi, s, k * scene.bvh_leaf_size
+    return Supernodes(blo, bhi, s, k * scene.bvh_leaf_size)
+
+
+def _sn(scene, supernodes):
+    return scene_supernodes(scene) if supernodes is None else supernodes
 
 
 def _segment(origin, t_min, t_max, active):
@@ -125,14 +147,12 @@ def _inv_dir(dx):
     return torch.ones_like(dx) / torch.where(dx < 0, -mag, mag)
 
 
-def cluster_votes_ref(scene, origin, direction, t_min, t_max):
-    """Plain torch version of cluster_votes: the slab test of every ray
-    against every supernode box, any-reduced over each block of BLOCK rays."""
-    blo, bhi, s, _ = _scene_tables(scene)
+def _slab_blocks(sn: Supernodes, origin, direction, t_min, t_max):
+    """Yields (first block, (blocks, BLOCK, S) bool): the slab test of each
+    ray of those blocks against each supernode box, _VOTE_RAYS rays at a
+    time.  The last block's missing rays never pass."""
     r = origin.shape[0]
-    nb = -(-r // BLOCK)
-    lo, hi = blo[:, :s], bhi[:, :s]
-    votes = torch.zeros((nb, s), dtype=torch.int32, device=origin.device)
+    lo, hi = sn.blo[:, :sn.s], sn.bhi[:, :sn.s]
     for r0 in range(0, r, _VOTE_RAYS):
         r1 = min(r, r0 + _VOTE_RAYS)
         o = origin[r0:r1, :, None]
@@ -144,10 +164,20 @@ def cluster_votes_ref(scene, origin, direction, t_min, t_max):
                                torch.maximum(near[:, 2], t_min[r0:r1, None]))
         t_far = torch.minimum(torch.minimum(far[:, 0], far[:, 1]),
                               torch.minimum(far[:, 2], t_max[r0:r1, None]))
-        hit = (t_far >= t_near).to(torch.int32)
-        pad = -(r1 - r0) % BLOCK  # the last block's missing rays never vote
-        hit = torch.cat([hit, hit.new_zeros((pad, s))]) if pad else hit
-        votes[r0 // BLOCK:-(-r1 // BLOCK)] = hit.reshape(-1, BLOCK, s).amax(1)
+        hit = t_far >= t_near
+        pad = -(r1 - r0) % BLOCK
+        hit = torch.cat([hit, hit.new_zeros((pad, sn.s))]) if pad else hit
+        yield r0 // BLOCK, hit.reshape(-1, BLOCK, sn.s)
+
+
+def cluster_votes_ref(scene, origin, direction, t_min, t_max, supernodes=None):
+    """Plain torch version of cluster_votes: the slab test of every ray
+    against every supernode box, any-reduced over each block of BLOCK rays."""
+    sn = _sn(scene, supernodes)
+    votes = torch.zeros((-(-origin.shape[0] // BLOCK), sn.s), dtype=torch.int32,
+                        device=origin.device)
+    for b0, hit in _slab_blocks(sn, origin, direction, t_min, t_max):
+        votes[b0:b0 + hit.shape[0]] = hit.any(1).to(torch.int32)
     return votes
 
 
@@ -166,68 +196,72 @@ def _check_votes(votes, r, s, dev):
                          f"{tuple(votes.shape)} on {votes.device}")
 
 
-def cluster_votes(scene, origin, direction, t_min, t_max, active=None):
+def cluster_votes(scene, origin, direction, t_min, t_max, active=None, supernodes=None):
     """K7c: (ceil(R / BLOCK), S) int32 votes, 1 where some ray of the block
-    passes the slab test against the supernode's box on (t_min, t_max)."""
+    passes the slab test against the supernode's box on (t_min, t_max).
+    `supernodes`: scene_supernodes(scene), built here when not given."""
     t_min, t_max = _segment(origin, t_min, t_max, active)
     _check(scene, origin, direction, t_min, t_max)
+    sn = _sn(scene, supernodes)
     if origin.device.type == "cpu":
-        return cluster_votes_ref(scene, origin, direction, t_min, t_max)
+        return cluster_votes_ref(scene, origin, direction, t_min, t_max, supernodes=sn)
     from .. import _build
 
     lib = _build.load()
-    blo, bhi, s, _ = _scene_tables(scene)
     r = origin.shape[0]
-    votes = torch.empty((-(-r // BLOCK), s), dtype=torch.int32, device=origin.device)
+    votes = torch.empty((-(-r // BLOCK), sn.s), dtype=torch.int32, device=origin.device)
     with torch.cuda.device(origin.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_cluster_votes(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                                   t_max.data_ptr(), r, blo.data_ptr(), bhi.data_ptr(),
-                                   blo.shape[1], s, votes.data_ptr(), stream)
+                                   t_max.data_ptr(), r, sn.blo.data_ptr(), sn.bhi.data_ptr(),
+                                   sn.blo.shape[1], sn.s, votes.data_ptr(), stream)
     _build.check(rc, "cluster_votes")
     cluster_votes.launches += 1
     return votes
 
 
-def _gate(scene, votes, r: int):
+def _gate(sn: Supernodes, votes, r: int):
     """woop.closest_scan's gate: slot base + j lies in a supernode that ray
     i's block voted for.  Slots past the last supernode are never swept."""
-    _, _, _, stride = _scene_tables(scene)
     rows = torch.arange(r, device=votes.device)[:, None] // BLOCK
 
     def gate(base: int, n: int):
-        sn = torch.arange(base, base + n, device=votes.device) // stride
-        ok = sn < votes.shape[1]
-        return (votes[rows, torch.clamp(sn, max=votes.shape[1] - 1)[None, :]] > 0) & ok
+        s = torch.arange(base, base + n, device=votes.device) // sn.stride
+        ok = s < votes.shape[1]
+        return (votes[rows, torch.clamp(s, max=votes.shape[1] - 1)[None, :]] > 0) & ok
 
     return gate
 
 
 def cluster_closest_ref(scene, origin, direction, active=None, t_max=None, attr=None,
-                        votes=None):
+                        votes=None, supernodes=None):
     """Plain torch version of cluster_closest (votes: cluster_votes_ref's
     unless given)."""
+    sn = _sn(scene, supernodes)
     t_max = ftb._tmax(origin, t_max, active)
     zeros = torch.zeros_like(t_max)
     if votes is None:
-        votes = cluster_votes_ref(scene, origin, direction, zeros, t_max)
+        votes = cluster_votes_ref(scene, origin, direction, zeros, t_max, supernodes=sn)
     t, prim, u, v = woop.closest_scan(origin, direction, scene.tri_woop, zeros, t_max,
                                       ftb._chunk(scene, origin.shape[0]),
-                                      _gate(scene, votes, origin.shape[0]))
+                                      _gate(sn, votes, origin.shape[0]))
     attr = ftb.attr_table(scene) if attr is None else attr
     return t, prim, u, v, ftb._gather_attrs(attr, prim)
 
 
-def cluster_any_ref(scene, origin, direction, t_min, t_max, active=None, votes=None):
+def cluster_any_ref(scene, origin, direction, t_min, t_max, active=None, votes=None,
+                    supernodes=None):
     """Plain torch version of cluster_any."""
+    sn = _sn(scene, supernodes)
     t_min, t_max = _segment(origin, t_min, t_max, active)
     if votes is None:
-        votes = cluster_votes_ref(scene, origin, direction, t_min, t_max)
+        votes = cluster_votes_ref(scene, origin, direction, t_min, t_max, supernodes=sn)
     return woop.any_scan(origin, direction, scene.tri_woop, t_min, t_max,
-                         ftb._chunk(scene, origin.shape[0]), _gate(scene, votes, origin.shape[0]))
+                         ftb._chunk(scene, origin.shape[0]), _gate(sn, votes, origin.shape[0]))
 
 
-def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None, votes=None):
+def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None, votes=None,
+                    supernodes=None):
     """K7c + K7d: closest hit with t in (0, t_max) over the voted
     supernodes.  Returns (t (R,) float32, 1e30 on a miss; prim (R,) int32,
     -1 on a miss; u, v (R,) float32, 0 on a miss; attrs (R, A), the rows of
@@ -236,15 +270,16 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
     t_max = ftb._tmax(origin, t_max, active)
     zeros = torch.zeros_like(t_max)
     _check(scene, origin, direction, t_max)
+    sn = _sn(scene, supernodes)
     attr = ftb.attr_table(scene) if attr is None else attr
     if votes is None:
-        votes = cluster_votes(scene, origin, direction, zeros, t_max)
-    _, _, s, stride = _scene_tables(scene)
+        votes = cluster_votes(scene, origin, direction, zeros, t_max, supernodes=sn)
     r = origin.shape[0]
     dev = origin.device
-    _check_votes(votes, r, s, dev)
+    _check_votes(votes, r, sn.s, dev)
     if dev.type == "cpu":
-        return cluster_closest_ref(scene, origin, direction, t_max=t_max, attr=attr, votes=votes)
+        return cluster_closest_ref(scene, origin, direction, t_max=t_max, attr=attr, votes=votes,
+                                   supernodes=sn)
     a = attr.shape[1]
     if attr.device != dev or attr.dtype != torch.float32 or attr.shape[0] != scene.padded_tris:
         raise ValueError(f"attr: want float32 ({scene.padded_tris}, A) on {dev}")
@@ -261,7 +296,7 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_cluster_closest(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), r,
-                                     votes.data_ptr(), s, stride, woop_t.data_ptr(),
+                                     votes.data_ptr(), sn.s, sn.stride, woop_t.data_ptr(),
                                      woop_t.shape[1], attr.data_ptr(), a, t.data_ptr(),
                                      prim.data_ptr(), u.data_ptr(), v.data_ptr(),
                                      attrs.data_ptr(), stream)
@@ -270,21 +305,22 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
     return t, prim, u, v, attrs
 
 
-def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None):
+def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None,
+                supernodes=None):
     """K7c + K7e: True where a triangle of a voted supernode lies strictly
     inside (t_min, t_max); t_min / t_max are scalars or (R,) tensors.
     `votes`: K7c's output for these rays and segments, computed here when
     not given."""
     t_min, t_max = _segment(origin, t_min, t_max, active)
     _check(scene, origin, direction, t_min, t_max)
+    sn = _sn(scene, supernodes)
     if votes is None:
-        votes = cluster_votes(scene, origin, direction, t_min, t_max)
-    _, _, s, stride = _scene_tables(scene)
+        votes = cluster_votes(scene, origin, direction, t_min, t_max, supernodes=sn)
     r = origin.shape[0]
     dev = origin.device
-    _check_votes(votes, r, s, dev)
+    _check_votes(votes, r, sn.s, dev)
     if dev.type == "cpu":
-        return cluster_any_ref(scene, origin, direction, t_min, t_max, votes=votes)
+        return cluster_any_ref(scene, origin, direction, t_min, t_max, votes=votes, supernodes=sn)
     from .. import _build
 
     lib = _build.load()
@@ -293,7 +329,7 @@ def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_cluster_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                                 t_max.data_ptr(), r, votes.data_ptr(), s, stride,
+                                 t_max.data_ptr(), r, votes.data_ptr(), sn.s, sn.stride,
                                  woop_t.data_ptr(), woop_t.shape[1], occ.data_ptr(), stream)
     _build.check(rc, "cluster_any")
     cluster_any.launches += 1
@@ -305,9 +341,60 @@ cluster_closest.launches = 0
 cluster_any.launches = 0
 
 
-def cluster_closest_diff(scene, origin, direction, active=None, attr=None):
+def cluster_closest_diff(scene, origin, direction, active=None, attr=None, supernodes=None):
     """cluster_closest with exact (t, u, v) gradients w.r.t. (origin,
     direction); attrs carry none (the scene's tables are detached)."""
     t_max = ftb._tmax(origin, None, active)
     attr = (ftb.attr_table(scene) if attr is None else attr).detach()
-    return ftb.ClosestDiff.apply(cluster_closest, origin, direction, t_max, scene, attr)
+    closest = functools.partial(cluster_closest, supernodes=_sn(scene, supernodes))
+    return ftb.ClosestDiff.apply(closest, origin, direction, t_max, scene, attr)
+
+
+def vote_tests(scene, origin, direction, t_min, t_max, supernodes=None):
+    """(ceil(R / BLOCK), S) int64: the slab tests K7c makes for each (ray
+    block, supernode), its rays up to and including the first that passes,
+    or all BLOCK of them (padding rays too) when none does.  It measures the
+    kernel's work; nothing renders with it."""
+    sn = _sn(scene, supernodes)
+    tests = torch.zeros((-(-origin.shape[0] // BLOCK), sn.s), dtype=torch.int64,
+                        device=origin.device)
+    for b0, hit in _slab_blocks(sn, origin, direction, t_min, t_max):
+        first = hit.to(torch.int32).argmax(1) + 1
+        tests[b0:b0 + hit.shape[0]] = torch.where(hit.any(1), first, BLOCK)
+    return tests
+
+
+def sweep_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
+                supernodes=None):
+    """((R,) int64 Woop tests, (R,) bool occluded): the tests K7d (any_hit
+    False) or K7e (True) makes for each ray over `votes`.  A ray with an
+    empty segment (t_max <= t_min: inactive, or past its block's end) needs
+    none; otherwise every slot of each supernode its block voted for, in slot
+    order, and with any_hit only up to and including its first occluder,
+    where K7e stops testing it.  `occluded` is that sweep's any hit (all
+    False without any_hit).  It measures the kernels' work; nothing renders
+    with it."""
+    sn = _sn(scene, supernodes)
+    r = origin.shape[0]
+    dev = origin.device
+    n_slots = scene.tri_woop_t.shape[1]
+    ends = torch.clamp(torch.arange(1, sn.s + 1, device=dev) * sn.stride, max=n_slots)
+    slots = ends - torch.clamp(torch.arange(sn.s, device=dev) * sn.stride, max=n_slots)
+    block = torch.arange(r, device=dev) // BLOCK
+    live = t_max > t_min
+    occluded = torch.zeros((r,), dtype=torch.bool, device=dev)
+    if not any_hit:
+        per_block = ((votes > 0).to(torch.int64) * slots[None]).sum(1)
+        return torch.where(live, per_block[block], 0), occluded
+    tests = torch.zeros((r,), dtype=torch.int64, device=dev)
+    for s in range(sn.s):
+        base, end = s * sn.stride, min((s + 1) * sn.stride, n_slots)
+        rows = torch.nonzero((votes[block, s] > 0) & live & ~occluded)[:, 0]
+        if end <= base or rows.numel() == 0:
+            continue
+        hit = woop._chunk_t(origin[rows], direction[rows], scene.tri_woop[base:end],
+                            t_min[rows], t_max[rows]) < _BIG
+        found = hit.any(1)
+        tests[rows] += torch.where(found, hit.to(torch.int32).argmax(1) + 1, end - base)
+        occluded[rows[found]] = True
+    return tests, occluded

@@ -244,7 +244,9 @@ def cmd_invert(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The command line's parser: `parser().parse_args([...])` gives the
+    arguments that _build and utils.bench.run_benchmark take."""
     parser = argparse.ArgumentParser(prog="gpuspectral_tpu_torch", description=__doc__)
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -271,8 +273,11 @@ def main(argv=None) -> int:
     p_inv.add_argument("--lr", type=float, default=0.02)
     p_inv.add_argument("--checkpoint-dir", default=None)
     p_inv.set_defaults(fn=cmd_invert)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     try:
         return args.fn(args)
     except CliError as e:

@@ -179,6 +179,10 @@ def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str):
     out = dict(light=torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1))
     if cfg.use_bvh:
         out["attr"] = ftb.attr_table(scene)
+        # extra keywords of the BVH kernels' wrappers: the cluster sweep's
+        # supernode boxes, built once here and not at each call
+        out["bvh_kw"] = (dict(supernodes=cluster_sweep.scene_supernodes(scene))
+                         if cfg.bvh_kernel == "cluster" else {})
     else:
         out["tri"] = _tri_table(scene)
     if scene.has_textures and tex_mode == "corners":
@@ -209,10 +213,12 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
             kernels, closest_name, diff_name, any_name = _BVH_KERNELS[cfg.bvh_kernel]
             closest = getattr(kernels, diff_name if differentiable else closest_name)
             any_hit = getattr(kernels, any_name)
+            bvh_kw = tables["bvh_kw"]
         else:
             closest, any_hit = ftb.ftb_closest_ref, ftb.ftb_any_ref
+            bvh_kw = {}
         t, prim, bu, bv, attrs = closest(scene, origin.contiguous(), direction.contiguous(),
-                                         active=alive, attr=tables["attr"])
+                                         active=alive, attr=tables["attr"], **bvh_kw)
         nrm_c = attrs[:, 0:9].reshape(r, 3, 3)
         gn = attrs[:, 9:12]
         area_hit = attrs[:, 12]
@@ -372,12 +378,12 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
                                   stable=True)
             occ_s = any_hit(scene, position.detach()[order].contiguous(),
                             ldir.detach()[order].contiguous(), sh_tmin,
-                            sh_tmax.detach()[order], active=nee_candidate[order])
+                            sh_tmax.detach()[order], active=nee_candidate[order], **bvh_kw)
             shadowed = torch.zeros_like(occ_s).index_copy(0, order, occ_s)
         else:
             shadowed = any_hit(scene, position.detach().contiguous(),
                                ldir.detach().contiguous(), sh_tmin, sh_tmax.detach(),
-                               active=nee_candidate)
+                               active=nee_candidate, **bvh_kw)
     elif isector == "pallas":
         shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
                                        ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,

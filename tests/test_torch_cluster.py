@@ -22,6 +22,7 @@ from gpuspectral_tpu.utils.config import RenderConfig as JaxConfig
 from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
 from gpuspectral_tpu_torch.bvh import ftb
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
+from gpuspectral_tpu_torch.ops import woop
 from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_sphere_field
 from gpuspectral_tpu_torch.utils import RenderConfig
@@ -250,3 +251,83 @@ def test_wavefront_dispatch_reaches_the_cluster_wrappers(pairs, monkeypatch):
     assert calls["closest"] > 0 and calls["any"] > 0 and calls["closest_diff"] == 0
     loss, g = tgc._loss_and_grad(ts, cfg, ts.bsdf_params, np.zeros((64, 3), np.float32))
     assert calls["closest_diff"] > 0 and bool(torch.isfinite(g).all())
+
+
+def test_wavefront_builds_the_supernodes_once(pairs, monkeypatch):
+    """The wavefront builds the supernode tables once per batch of lanes
+    and hands them to every wrapper call, which then builds none."""
+    _, ts = pairs["cornell"]
+    builds = []
+    real = cs.scene_supernodes
+    monkeypatch.setattr(cs, "scene_supernodes", lambda scene: builds.append(1) or real(scene))
+    given = []
+    for name in ("cluster_closest", "cluster_any"):
+        wrapper = getattr(cs, name)
+
+        def spy(*a, _wrapper=wrapper, **kw):
+            given.append(isinstance(kw.get("supernodes"), cs.Supernodes))
+            return _wrapper(*a, **kw)
+
+        monkeypatch.setattr(cs, name, spy)
+    cfg = RenderConfig(width=16, height=8, spp=2, max_depth=3, ray_batch=64, use_bvh=True,
+                       intersector="pallas", bvh_kernel="cluster")
+    pt.render_image_stats(ts, cfg, 0)
+    assert len(given) > 4 and all(given)
+    assert len(builds) == 2  # two batches of 64 lanes, a lane per pixel
+
+
+def _passes(ts, sn, o, d, lo, hi):
+    """(R, S) bool: each ray's slab test against each supernode, one ray
+    at a time."""
+    return torch.stack([cs.cluster_votes_ref(ts, o[i:i + 1], d[i:i + 1], lo[i:i + 1],
+                                             hi[i:i + 1], supernodes=sn)[0] > 0
+                        for i in range(o.shape[0])])
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_vote_tests_count_up_to_the_first_pass(pairs, name):
+    """K7c's slab tests per (block, supernode): the rays up to and
+    including the first that passes, else all 256 (padding rays too)."""
+    _, ts = pairs[name]
+    o, d, t_min, t_max = (_t(x) for x in _rays(ts, 300, 8))
+    sn = cs.scene_supernodes(ts)
+    got = cs.vote_tests(ts, o, d, t_min, t_max, supernodes=sn)
+    passes = _passes(ts, sn, o, d, t_min, t_max)
+    assert tuple(got.shape) == (2, sn.s)
+    for b in range(2):
+        block = passes[b * cs.BLOCK:(b + 1) * cs.BLOCK]
+        for s in range(sn.s):
+            hits = torch.nonzero(block[:, s])[:, 0]
+            assert int(got[b, s]) == (int(hits[0]) + 1 if hits.numel() else cs.BLOCK)
+    votes = cs.cluster_votes(ts, o, d, t_min, t_max)
+    assert torch.equal(votes > 0, torch.stack([passes[:256].any(0), passes[256:].any(0)]))
+    assert bool((got[votes == 0] == cs.BLOCK).all()) and bool((got[votes > 0] < cs.BLOCK).any())
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_sweep_tests_count_the_voted_slots(pairs, name):
+    """K7d's Woop tests per ray: every slot of the supernodes its block
+    voted for, none for an empty segment; K7e's: those slots in order up to
+    and including the ray's first occluder, which the plain any hit agrees
+    with."""
+    _, ts = pairs[name]
+    o, d, t_min, t_max = (_t(x) for x in _rays(ts, 300, 9))
+    sn = cs.scene_supernodes(ts)
+    votes = cs.cluster_votes(ts, o, d, t_min, t_max, supernodes=sn)
+    n_slots = ts.tri_woop_t.shape[1]
+    closest, occ_c = cs.sweep_tests(ts, o, d, t_min, t_max, votes, False, supernodes=sn)
+    tests, occ = cs.sweep_tests(ts, o, d, t_min, t_max, votes, True, supernodes=sn)
+    assert not occ_c.any()
+    assert torch.equal(occ, cs.cluster_any_ref(ts, o, d, t_min, t_max, votes=votes))
+    assert 0 < int(occ.sum()) < 300
+    for i in range(300):
+        slots = [j for s in torch.nonzero(votes[i // cs.BLOCK])[:, 0].tolist()
+                 for j in range(s * sn.stride, min((s + 1) * sn.stride, n_slots))]
+        if not t_max[i] > t_min[i]:
+            assert int(closest[i]) == 0 and int(tests[i]) == 0
+            continue
+        assert int(closest[i]) == len(slots)
+        hit = woop._chunk_t(o[i:i + 1], d[i:i + 1], ts.tri_woop[slots], t_min[i:i + 1],
+                            t_max[i:i + 1])[0] < 1e30
+        first = torch.nonzero(hit)[:, 0]
+        assert int(tests[i]) == (int(first[0]) + 1 if first.numel() else len(slots))

@@ -1,8 +1,13 @@
-"""Time the PyTorch port's sphere-field wavefront frame (512x512, 1 spp,
-depth 50, the CLI's BVH settings) on the card, for the copy of the port
-under ROOT and the BVH kernel KERNEL ("ftb": K3, "cluster": K7c-e).
+"""Time the PyTorch port's sphere-field wavefront frame on the card: the
+command line's
 
-    python3 tools/torch_wavefront_ab.py ROOT KERNEL [profile]
+    benchmark builtin:sphere_field --size 512x512 --spp 1 --intersector pallas
+        --bvh-kernel KERNEL
+
+config (its parser and _build give the settings), with KERNEL "ftb" (K3)
+or "cluster" (K7c-e).  The port imported is the one on PYTHONPATH:
+
+    PYTHONPATH=ROOT python3 tools/torch_wavefront_ab.py KERNEL [profile]
 
 After a warmup frame it prints one line per timed frame (timestamps 100
 and 101).  With "profile" it renders timestamp 100 again under
@@ -19,15 +24,14 @@ import time
 
 import torch
 
-root, kernel = sys.argv[1], sys.argv[2]
-sys.path.insert(0, root)
-from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats  # noqa: E402
-from gpuspectral_tpu_torch.scene.zoo import build_sphere_field  # noqa: E402
-from gpuspectral_tpu_torch.utils import RenderConfig  # noqa: E402
+from gpuspectral_tpu_torch.cli import main as cli
+from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
 
-scene = build_sphere_field("cuda")
-cfg = RenderConfig(width=512, height=512, spp=1, max_depth=50, ray_batch=65536, use_bvh=True,
-                   intersector="pallas", sort_rays=True, light_block=256, bvh_kernel=kernel)
+kernel = sys.argv[1]
+scene, cfg = cli._build(cli.parser().parse_args([
+    "benchmark", "builtin:sphere_field", "--size", "512x512", "--spp", "1",
+    "--intersector", "pallas", "--bvh-kernel", kernel]))
+where = cli.__file__.rsplit("/gpuspectral_tpu_torch/", 1)[0]
 render_image_stats(scene, cfg, 0)
 torch.cuda.synchronize()
 seconds = {}
@@ -36,9 +40,9 @@ for ts in (100, 101):
     img, rays = render_image_stats(scene, cfg, ts)
     torch.cuda.synchronize()
     seconds[ts] = dt = time.perf_counter() - t0
-    print(f"AB root={root} kernel={kernel} ts={ts} s={dt:.4f} rays={rays:.0f} "
+    print(f"AB root={where} kernel={kernel} ts={ts} s={dt:.4f} rays={rays:.0f} "
           f"mrays_per_s={rays / dt / 1e6:.4f} mean={float(img.mean()):.6f}", flush=True)
-if "profile" in sys.argv[3:]:
+if "profile" in sys.argv[2:]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
