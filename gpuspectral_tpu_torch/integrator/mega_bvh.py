@@ -80,7 +80,7 @@ def render_mega_bvh_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp
     rows = pix.shape[0]
     plain = cfg.replace(intersector="woop", light_block=0, sort_rays=False, shadow_sort=False)
     st = path_tracer.trace_wavefront(scene, plain, pix.reshape(-1), timestamp0,
-                                     tex_mode="corners")
+                                     tex_mode="corners", bvh_isect=path_tracer.PLAIN_K3)
     rad, rays = st["radiance"], st["rays_traced"]
     shape = (rows, LANES)
     return (rad[:, 0].reshape(shape), rad[:, 1].reshape(shape),

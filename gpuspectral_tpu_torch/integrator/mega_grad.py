@@ -200,7 +200,8 @@ def _planes_ref(scene, cfg, pix, timestamp0, grad_rows, Lg, tex_mode):
     r = pix.numel()
     state0 = init_grad_state(r, len(grad_rows), Lg, pix.device)
     st = path_tracer.trace_wavefront(scene, cfg, pix.reshape(-1), timestamp0, tex_mode=tex_mode,
-                                     grad_hook=hook, hook_state=state0)
+                                     grad_hook=hook, hook_state=state0,
+                                     bvh_isect=path_tracer.PLAIN_K3)
     rad, rays = st["radiance"], st["rays_traced"]
     shape = (pix.shape[0], LANES)
     parts = st["g_parts"].t().reshape(-1, *shape).contiguous()

@@ -18,17 +18,22 @@ RNG channel layout per bounce (as the JAX package):
   ch 9..11 environment NEE (u1, u2, strategy select).
 
 Intersection.  Brute force (cfg.use_bvh False): for CUDA tensors with
-intersector "auto" or "pallas" the kernels of ops/cuda_isect.py (K2).  BVH
-(cfg.use_bvh), with intersector "pallas" or, for CUDA tensors, "auto": the
-wrappers that cfg.bvh_kernel names in _BVH_KERNELS, "ftb" (the walk of
-bvh/ftb.py, K3a / K3b) or "cluster" (the cluster sweep of
-bvh/cluster_sweep.py: votes K7c, then K7d / K7e), with optional ray sorting
-(cfg.sort_rays) and shadow-ray sorting (cfg.shadow_sort) for either; they
-run their plain versions for CPU tensors.  With intersector "woop", or
-"auto" for CPU tensors, the plain torch Woop scans over every triangle.
+intersector "auto" or "pallas" the kernels of ops/cuda_isect.py (K2); with
+"woop", or "auto" for CPU tensors, the plain torch Woop scans; with "mt"
+the Moller-Trumbore scans of ops/intersect.py.  BVH (cfg.use_bvh), with
+intersector "pallas" or, for CUDA tensors, "auto": the wrappers that
+cfg.bvh_kernel names in _BVH_KERNELS, "ftb" (the walk of bvh/ftb.py, K3a /
+K3b) or "cluster" (the cluster sweep of bvh/cluster_sweep.py: votes K7c,
+then K7d / K7e), with optional ray sorting (cfg.sort_rays) and shadow-ray
+sorting (cfg.shadow_sort) for either; they run their plain versions for
+CPU tensors and return the hit triangle's attribute rows.  With "woop" or
+"mt" (or "auto" for CPU tensors) and cfg.use_bvh, the torch packet
+traversal of bvh/traverse.py (Moller-Trumbore leaves, packets of
+cfg.packet_size rays), as the JAX wavefront runs its XLA traversal there.
 This module is also the plain version of the four megakernels
 (integrator/mega.py, integrator/mega_bvh.py and, with a gradient hook in
-`_bounce`, integrator/mega_grad.py).
+`_bounce`, integrator/mega_grad.py); the BVH ones name their intersector
+(`bvh_isect`, the plain K3 scans) instead of the traversal.
 
 Differentiable mode (`trace_rays` / `render_sample` with
 differentiable=True, path_tracer.py:711-760, 924-936): torch autograd
@@ -43,8 +48,7 @@ hit triangle's Woop test in plain torch, and shadow rays and intersector
 tables are detached (visibility is a step function, as the JAX package's
 stop_gradient says).
 
-Not covered yet: intersector "mt" (the Moller-Trumbore XLA twin of
-bvh/traverse.py), bvh_kernel "binned" and "dfs" (queue 2 of the port).
+Not covered yet: bvh_kernel "binned" and "dfs" (queue 2 of the port).
 """
 
 from __future__ import annotations
@@ -52,8 +56,9 @@ from __future__ import annotations
 import torch
 
 from ..bsdf.dispatch import eval_bsdf, is_transmission, sample_bsdf
-from ..bvh import cluster_sweep, ftb
+from ..bvh import cluster_sweep, ftb, traverse
 from ..ops import cuda_isect
+from ..ops import intersect as isect
 from ..ops import math3d as m3
 from ..ops import rng
 from ..ops import sampling as smp
@@ -78,6 +83,10 @@ CH_ENV_SELECT = 11
 
 _BIG = 1e30
 
+# the BVH intersector of the megakernels' plain versions (bvh_isect of
+# _bounce): the plain K3 scans, which K4 and K6 equal
+PLAIN_K3 = (ftb.ftb_closest_ref, ftb.ftb_any_ref)
+
 # cfg.bvh_kernel -> (module, closest hit, differentiable closest hit, any
 # hit).  The wrappers are looked up by name at each bounce, so one that is
 # patched onto its module (a tally of the kernels' work) is the one called.
@@ -88,19 +97,17 @@ _BVH_KERNELS = {
 
 
 def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
-    """"pallas" (the CUDA kernels, or their plain versions for CPU tensors)
-    or "woop" (always the plain torch scans)."""
+    """"pallas" (the CUDA kernels, or their plain versions for CPU tensors),
+    "woop" or "mt" (plain torch: the scans, or with cfg.use_bvh the packet
+    traversal)."""
     isector = cfg.intersector
-    if isector == "mt":
-        raise NotImplementedError(
-            "intersector 'mt' (the XLA twin of bvh/traverse.py) is a later slice of the port")
     if cfg.use_bvh and cfg.bvh_kernel not in _BVH_KERNELS:
         raise NotImplementedError(
             f"bvh_kernel {cfg.bvh_kernel!r}: queue 2 of the port (K7); ported: "
             + ", ".join(_BVH_KERNELS))
     if isector in ("auto", "mega", "mega_bvh"):
         return "pallas" if scene.device.type == "cuda" else "woop"
-    if isector in ("pallas", "woop"):
+    if isector in ("pallas", "woop", "mt"):
         return isector
     raise NotImplementedError(f"intersector {isector!r} is not in the port yet")
 
@@ -173,16 +180,24 @@ def corner_texture_rows(scene: SceneData):
                       for bu, bv in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0))], dim=1)
 
 
-def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str):
-    """Per-render lookup tables: the brute-force triangle rows or the BVH
+def _fused_bvh(scene: SceneData, cfg: RenderConfig, bvh_isect) -> bool:
+    """Whether the closest hits come from a BVH kernel's wrapper (or the
+    given `bvh_isect` pair) with the hit triangle's attribute rows, rather
+    than from a scan or the packet traversal, which give prim ids only."""
+    return cfg.use_bvh and (bvh_isect is not None
+                            or _resolve_intersector(scene, cfg) == "pallas")
+
+
+def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str, bvh_isect=None):
+    """Per-render lookup tables: the triangle rows, or the BVH kernels'
     attribute rows, the light rows, and the corner texture colours."""
     out = dict(light=torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1))
-    if cfg.use_bvh:
+    if _fused_bvh(scene, cfg, bvh_isect):
         out["attr"] = ftb.attr_table(scene)
         # extra keywords of the BVH kernels' wrappers: the cluster sweep's
         # supernode boxes, built once here and not at each call
         out["bvh_kw"] = (dict(supernodes=cluster_sweep.scene_supernodes(scene))
-                         if cfg.bvh_kernel == "cluster" else {})
+                         if bvh_isect is None and cfg.bvh_kernel == "cluster" else {})
     else:
         out["tri"] = _tri_table(scene)
     if scene.has_textures and tex_mode == "corners":
@@ -191,13 +206,17 @@ def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str):
 
 
 def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
-            differentiable: bool = False, grad_hook=None):
+            differentiable: bool = False, grad_hook=None, bvh_isect=None):
     """One wavefront bounce (path_tracer.py:_bounce).  `bounce` is the
     per-lane depth (int64 tensor); `state` a dict of per-lane tensors;
-    `tables` from _tables.  differentiable: closest hits through the
-    autograd wrappers of the intersection kernels.  grad_hook(state, ctx)
-    -> state: the fused-gradient kernels' hook (integrator/mega_grad.py),
-    called where the JAX megakernel body calls it (mega.py:1108-1116)."""
+    `tables` from _tables (with the same bvh_isect).  differentiable:
+    closest hits through the autograd wrappers of the intersection kernels.
+    grad_hook(state, ctx) -> state: the fused-gradient kernels' hook
+    (integrator/mega_grad.py), called where the JAX megakernel body calls it
+    (mega.py:1108-1116).  bvh_isect: (closest, any hit) with the signatures
+    of ftb.ftb_closest / ftb_any, run for cfg.use_bvh in place of the
+    intersector cfg names (the megakernels' plain versions pass the plain K3
+    scans, which K4 and K6 equal)."""
     origin, direction = state["origin"], state["direction"]
     seed = state["seed"]
     alive = ~state["done"]
@@ -208,15 +227,15 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
     t_max0 = torch.where(alive, _BIG, -_BIG)
     zeros = torch.zeros((r,), dtype=torch.float32, device=dev)
     pos_c = area_hit = None
-    if cfg.use_bvh:
-        if isector == "pallas":
+    fused = _fused_bvh(scene, cfg, bvh_isect)
+    if fused:
+        if bvh_isect is None:
             kernels, closest_name, diff_name, any_name = _BVH_KERNELS[cfg.bvh_kernel]
             closest = getattr(kernels, diff_name if differentiable else closest_name)
             any_hit = getattr(kernels, any_name)
-            bvh_kw = tables["bvh_kw"]
         else:
-            closest, any_hit = ftb.ftb_closest_ref, ftb.ftb_any_ref
-            bvh_kw = {}
+            closest, any_hit = bvh_isect
+        bvh_kw = tables["bvh_kw"]
         t, prim, bu, bv, attrs = closest(scene, origin.contiguous(), direction.contiguous(),
                                          active=alive, attr=tables["attr"], **bvh_kw)
         nrm_c = attrs[:, 0:9].reshape(r, 3, 3)
@@ -230,7 +249,12 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
         uv_c = attrs[:, 14:20].reshape(r, 3, 2) if scene.has_textures else None
         tex_id = scene.bsdf_tex[bsdf_idx] if scene.has_textures else None
     else:
-        if isector == "pallas" and differentiable:
+        if cfg.use_bvh:
+            t, prim, bu, bv = traverse.intersect_closest_bvh(
+                origin, direction, scene.tri_pos, scene.bvh_node_min, scene.bvh_node_max,
+                scene.bvh_clusters, scene.bvh_leaf_size, scene.bvh_levels, active=alive,
+                packet_size=cfg.packet_size)
+        elif isector == "pallas" and differentiable:
             t, prim, bu, bv = cuda_isect.closest_diff(origin.contiguous(), direction.contiguous(),
                                                       scene.tri_woop_t, scene.tri_woop, t_max0)
         elif isector == "pallas":
@@ -240,6 +264,9 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
                                           torch.where(prim >= 0, t, 0.0))
             bu = torch.where(prim >= 0, bu, 0.0)
             bv = torch.where(prim >= 0, bv, 0.0)
+        elif isector == "mt":
+            t, prim, bu, bv = isect.intersect_closest(origin, direction, scene.tri_pos,
+                                                      active=alive, tri_chunk=cfg.tri_chunk)
         else:
             chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
             t, prim, bu, bv = woop_mod.closest_scan(origin, direction, scene.tri_woop,
@@ -365,7 +392,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
 
     sh_tmin = torch.full((r,), cfg.shadow_epsilon, dtype=torch.float32, device=dev)
     sh_tmax = ldist - cfg.shadow_epsilon
-    if cfg.use_bvh:
+    if fused:
         if cfg.shadow_sort:
             # sort shadow segments by endpoint + origin so that a warp's rays
             # head for one light region (path_tracer.py:456-473); occlusion
@@ -384,10 +411,19 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
             shadowed = any_hit(scene, position.detach().contiguous(),
                                ldir.detach().contiguous(), sh_tmin, sh_tmax.detach(),
                                active=nee_candidate, **bvh_kw)
+    elif cfg.use_bvh:
+        shadowed = traverse.intersect_any_bvh(
+            position.detach(), ldir.detach(), scene.tri_pos, scene.bvh_node_min,
+            scene.bvh_node_max, scene.bvh_clusters, scene.bvh_leaf_size, scene.bvh_levels,
+            sh_tmin, sh_tmax.detach(), active=nee_candidate, packet_size=cfg.packet_size)
     elif isector == "pallas":
         shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
                                        ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,
                                        torch.where(nee_candidate, sh_tmax.detach(), -1.0))
+    elif isector == "mt":
+        shadowed = isect.intersect_any(position.detach(), ldir.detach(), scene.tri_pos, sh_tmin,
+                                       sh_tmax.detach(), active=nee_candidate,
+                                       tri_chunk=cfg.tri_chunk)
     else:
         chunk = min(cfg.tri_chunk, scene.tri_woop.shape[0])
         shadowed = woop_mod.any_scan(position.detach(), ldir.detach(), scene.tri_woop, sh_tmin,
@@ -497,7 +533,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
             emit_w = torch.where((~ce) & (~wd), state["direct_weight"], 1.0)
         else:
             emit_w = torch.ones_like(light_flag)
-        bidx = bsdf_idx if cfg.use_bvh else scene.tri_bsdf[torch.clamp(prim, min=0).long()]
+        bidx = bsdf_idx if fused else scene.tri_bsdf[torch.clamp(prim, min=0).long()]
         out = grad_hook(out, dict(
             depth=bounce, bidx=bidx, lhit=tri_lidx, weight=state["weight"], hit=hit,
             acc=alive & keep, cont=cont, nee_done=nee_done,
@@ -619,7 +655,8 @@ def _segment_sort_key(scene: SceneData, origin, endpoint, candidate):
 
 
 def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0,
-                    tex_mode: str = "nearest", grad_hook=None, hook_state=None):
+                    tex_mode: str = "nearest", grad_hook=None, hook_state=None,
+                    bvh_isect=None):
     """Persistent-lane wavefront: each lane owns one pixel and runs its
     cfg.spp samples back to back, regenerating a fresh camera path the
     moment the previous one ends (path_tracer.py:770).  With cfg.sort_rays
@@ -632,6 +669,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
 
     grad_hook / hook_state: the fused-gradient kernels' hook and its
     per-lane state tensors (leading axis R), carried with the lanes.
+    bvh_isect: the BVH intersector pair of _bounce.
 
     Returns the final lane state: a dict of (R, ...) tensors, among them
     "radiance" (the sum over the lane's samples: divide by spp and scatter
@@ -640,7 +678,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
     dev = pixel_index.device
     r = pixel_index.shape[0]
     t0 = int(timestamp0) & 0xFFFFFFFF
-    tables = _tables(scene, cfg, tex_mode)
+    tables = _tables(scene, cfg, tex_mode, bvh_isect)
 
     def fresh_ray(pixel, sample_idx):
         seed = rng.pixel_seed(pixel, (sample_idx + t0) & 0xFFFFFFFF)
@@ -661,7 +699,7 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
         if bool(torch.all(state["done"] & (state["sample"] + 1 >= cfg.spp))):
             break
         depth = state["depth"]
-        st = _bounce(scene, cfg, depth, state, tables, grad_hook=grad_hook)
+        st = _bounce(scene, cfg, depth, state, tables, grad_hook=grad_hook, bvh_isect=bvh_isect)
         st["depth"] = depth + 1
         st["done"] = st["done"] | (st["depth"] >= cfg.max_depth + 1)
 
@@ -705,12 +743,13 @@ def render_sample(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp,
     return trace_rays(scene, cfg, origin, direction, seed, differentiable=differentiable)
 
 
-def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):
+def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0, bvh_isect=None):
     """Render (H, W, 3) plus the total rays traced (a float).
 
     Mean of cfg.spp samples, batched over cfg.ray_batch lanes; every batch
     is full, so pixels past the last real one are traced (and their rays
-    counted) as in the JAX package (path_tracer.py:948-965)."""
+    counted) as in the JAX package (path_tracer.py:948-965).  bvh_isect: the
+    BVH intersector pair of _bounce."""
     n_pixels = cfg.width * cfg.height
     batch = min(cfg.ray_batch, n_pixels)
     n_batches = -(-n_pixels // batch)
@@ -719,7 +758,7 @@ def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     nrays = 0.0
     for b in range(n_batches):
         pix = torch.arange(b * batch, (b + 1) * batch, dtype=torch.int64, device=dev)
-        st = trace_wavefront(scene, cfg, pix, timestamp0)
+        st = trace_wavefront(scene, cfg, pix, timestamp0, bvh_isect=bvh_isect)
         rad, rays, pixel = st["radiance"], st["rays_traced"], st["pixel"]
         if cfg.sort_rays:  # lanes permuted: scatter back to pixel order
             rad = torch.zeros_like(rad).index_copy(0, pixel - b * batch, rad)

@@ -35,8 +35,10 @@ class RenderConfig:
     packet_size: int = 1024  # rays per BVH traversal packet
     # "auto": the CUDA kernels for CUDA tensors (the megakernel where
     # eligible, else the wavefront on the brute-force kernel), the plain
-    # torch versions for CPU tensors.  "woop" forces the plain torch scan,
-    # "pallas" the brute-force kernel, "mega" the megakernel.
+    # torch versions for CPU tensors.  "woop" forces the plain torch Woop
+    # scan, "mt" the Moller-Trumbore scan (with use_bvh either runs the torch
+    # packet traversal), "pallas" the intersection kernels, "mega" the
+    # megakernel.
     intersector: str = "auto"
     # BVH Pallas kernel: "ftb" (front-to-back per-(ray,bin) entry-distance
     # traversal with per-lane t-culling, bvh/ftb.py — the round-3 default),

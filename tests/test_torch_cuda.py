@@ -209,7 +209,8 @@ def test_wavefront_on_k7_matches_plain_scans(cuda_device):  # noqa: F811
     votes, closest, any_hit = (a - b for a, b in zip(_k7_launches(), n0))
     assert closest > 0 and any_hit > 0 and votes == closest + any_hit
     assert (ftb.ftb_closest.launches, ftb.ftb_any.launches) == f0
-    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
+                                          bvh_isect=pt.PLAIN_K3)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
 
 
@@ -251,7 +252,8 @@ def test_wavefront_on_k3_matches_plain_scans(cuda_device):  # noqa: F811
     n0 = ftb.ftb_closest.launches
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
     assert ftb.ftb_closest.launches > n0
-    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
+                                          bvh_isect=pt.PLAIN_K3)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got,
                       max_frac=0.001)
 
