@@ -13,15 +13,17 @@ integrator.render_image_stats_auto:
     a 32x64 sky) at 512x512, 64 spp, depth 50 -> the fused-BVH megakernel
     (K4), then the wavefront dispatch on the BVH kernels (K3);
   * the sphere field at 512x512, 1 spp, depth 50 on the wavefront with
-    bvh_kernel "cluster" -> the cluster sweep (K7c votes, K7d / K7e sweeps);
+    bvh_kernel "cluster" -> the cluster sweep (K7c votes, K7d / K7e sweeps),
+    and with bvh_kernel "dfs" -> the block-gated depth-first walk (K7f /
+    K7g);
 and the training path through utils.bench.run_grad_benchmark and
 diff.invert:
   * a gradient step on Cornell at 512x512, 64 spp, depth 5 (and one at
     1024x1024, 256 spp) -> the fused forward-gradient kernel K5;
   * a gradient step on the sphere field without its sky at 512x512, 64
     spp, depth 5 -> the fused-BVH forward-gradient kernel K6;
-  * the differentiable wavefront on K2a / K3a / K7d, and 10 Adam steps of
-    invert.
+  * the differentiable wavefront on K2a / K3a / K7d / K7f, and 10 Adam
+    steps of invert.
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
@@ -59,17 +61,19 @@ Phases:
         spp at the same timestamp); those rows of the image equal K4's
   bvh_wavefront  the same scene with intersector "pallas" at 512x512,
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
-  k7    cluster_votes / cluster_closest / cluster_any vs their plain versions
-        on the scenes of k3 (65,536 random rays each): votes, t, prim, u, v,
-        attrs and occ equal, ties included; K7c-e timed on the sphere field
-        on 65,536 random rays and on the 262,144 primary rays of the 512x512
-        frame, beside K3a / K3b on the same rays; the plain versions once on
-        the random rays
+  k7    cluster_votes / cluster_closest / cluster_any and dfs_closest /
+        dfs_any vs their plain versions on the scenes of k3 (65,536 random
+        rays each): votes, t, prim, u, v, attrs and occ equal, ties
+        included; K7c-g timed on the sphere field on 65,536 random rays and
+        on the 262,144 primary rays of the 512x512 frame, beside K3a / K3b
+        on the same rays; the plain versions once on the random rays
   cluster_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
-        K7c launched once for each K7d and K7e launch, K1-K6 never; its last
-        frame against the wavefront on K3 at the same config and timestamp
-        under the tests/test_mega.py gates
+        K7c launched once for each K7d and K7e launch, nothing else; its
+        last frame against the wavefront on K3 at the same config and
+        timestamp under the tests/test_mega.py gates
+  dfs_main  the same with bvh_kernel "dfs": K7f and K7g launched, nothing
+        else; its last frame against the same K3 frame
   k5    K5 vs its plain version (the wavefront with the gradient hook) at
         64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
         radiance under the tests/test_mega.py gates, rays within 1%, K5's
@@ -94,6 +98,7 @@ Phases:
         CPU: albedo and emission gradients within 2e-3
   cluster_grad  the same through cluster_closest_diff (K7c + K7d) on the
         small sphere field without its sky
+  dfs_grad  the same through dfs_closest_diff (K7f)
   invert  10 Adam steps of the self-target demo on Cornell 128x128, 8
         spp, d5 through K5, on the target's sample set (common random
         numbers): K5 launched 10 times, the last loss below the first
@@ -111,7 +116,11 @@ counted as the kernels make them (cluster_sweep.vote_tests / sweep_tests):
 K7c slab-tests a (block of 256 rays, supernode) pair's rays up to the first
 that passes; K7d tests each ray with a non-empty segment against every slot
 of the supernodes its block voted for, K7e only up to the ray's first
-occluder (the count's occlusion is held equal to K7e's).  The rays of a
+occluder (the count's occlusion is held equal to K7e's).  K7f / K7g's are
+counted by dfs_sweep.dfs_tests: a slab test per ray for each node its
+block visits, and at an entered leaf K7f's Woop tests of every slot for a
+ray with a segment, K7g's up to the ray's first occluder (the count's
+occlusion is held equal to K7g's).  The rays of a
 fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
@@ -119,8 +128,8 @@ tally, and its operations are that tally's per ray times the kernel's ray
 count.  Bytes: each input read once (rays, pixel ids, scene tables, votes),
 each output written once (radiance, rays, partial planes, votes, hits).
 No single PyTorch call computes ray-triangle intersection, a path-traced
-pixel, a supernode vote or a gated sweep, so library_ms is null for every
-kernel.
+pixel, a supernode vote, a gated sweep or a gated walk, so library_ms is
+null for every kernel.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -276,7 +285,7 @@ def compare_images(tag, got, ref, rays_got, rays_ref, emission_only, mean_gate=2
 
 
 def _wrappers():
-    from gpuspectral_tpu_torch.bvh import cluster_sweep, ftb
+    from gpuspectral_tpu_torch.bvh import cluster_sweep, dfs_sweep, ftb
     from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad
     from gpuspectral_tpu_torch.ops import cuda_isect
 
@@ -284,10 +293,12 @@ def _wrappers():
                 k2b=cuda_isect.any_cuda, k3a=ftb.ftb_closest, k3b=ftb.ftb_any,
                 k4=mega_bvh.render_mega_bvh_rows, k5=mega_grad.render_mega_fwdgrad_rows,
                 k6=mega_grad.render_mega_bvh_fwdgrad_rows, k7c=cluster_sweep.cluster_votes,
-                k7d=cluster_sweep.cluster_closest, k7e=cluster_sweep.cluster_any)
+                k7d=cluster_sweep.cluster_closest, k7e=cluster_sweep.cluster_any,
+                k7f=dfs_sweep.dfs_closest, k7g=dfs_sweep.dfs_any)
 
 
-NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0, k7c=0, k7d=0, k7e=0)
+NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0, k7c=0, k7d=0, k7e=0, k7f=0,
+            k7g=0)
 
 
 def nbytes(*tensors):
@@ -954,6 +965,58 @@ def check_k7(name, scene, rays):
     return err, votes, votes_any, dict(k7c=c_ms, k7d=d_ms, k7e=e_ms)
 
 
+def check_k7fg(name, scene, rays):
+    """K7f / K7g against their plain versions (the block-gated walk at
+    BLOCK) on `rays`: t, prim, u, v, attrs and occ equal.  Returns (the max
+    abs errors, the plain versions' ms)."""
+    from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
+
+    o, d, lo, hi = rays
+    got = ds.dfs_closest(scene, o, d, t_max=hi)
+    occ = ds.dfs_any(scene, o, d, lo, hi)
+    ref, f_ms = timed_once(lambda: ds.dfs_closest_ref(scene, o, d, t_max=hi))
+    occ_r, g_ms = timed_once(lambda: ds.dfs_any_ref(scene, o, d, lo, hi))
+    bad = {k: int((a != b).sum()) for k, a, b in (
+        ("t", got[0], ref[0]), ("prim", got[1], ref[1]), ("u", got[2], ref[2]),
+        ("v", got[3], ref[3]), ("attrs", got[4], ref[4]), ("occ", occ, occ_r))}
+    hit = ref[1] >= 0
+    log(f"  K7f/g {name}: rays={o.shape[0]} nodes={scene.bvh_dfs_bounds.shape[1]} "
+        f"hits={int(hit.sum())} occluded={int(occ_r.sum())} mismatches={bad}")
+    if any(bad.values()):
+        raise AssertionError(f"K7f / K7g disagree with their plain versions on {name}")
+    err = dict(k7f=float((got[0] - ref[0]).abs()[hit].max()) if hit.any() else 0.0,
+               k7g=float((occ.int() - occ_r.int()).abs().max()))
+    return err, dict(k7f=f_ms, k7g=g_ms)
+
+
+def dfs_bounds(scene, rays, occ):
+    """bound() of K7f (on (0, t_max)) and K7g for one call each over `rays`,
+    the tests counted as the kernels make them (dfs_sweep.dfs_tests): a slab
+    test per ray for each node its block visits; at an entered leaf K7f's
+    Woop tests of every slot for each ray with a segment, K7g's up to the
+    ray's first occluder.  The count's occlusion must equal K7g's `occ`.
+    Also the box and Woop tests per ray."""
+    from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
+    from gpuspectral_tpu_torch.bvh import ftb
+
+    o, d, lo, hi = rays
+    box_f, woop_f, _ = ds.dfs_tests(scene, o, d, lo, hi, any_hit=False)
+    box_g, woop_g, occ_count = ds.dfs_tests(scene, o, d, lo, hi, any_hit=True)
+    if not torch.equal(occ_count, occ):
+        raise AssertionError(f"K7g's tally disagrees with K7g on {int((occ_count != occ).sum())} "
+                             "rays")
+    n = o.shape[0]
+    tables = nbytes(scene.bvh_dfs_bounds, scene.bvh_dfs_meta, scene.tri_woop_t)
+    a = ftb.attr_table(scene).shape[1]
+    sums = [float(x.double().sum()) for x in (box_f, woop_f, box_g, woop_g)]
+    return dict(
+        k7f=bound(sums[0] * BOX_FLOPS + sums[1] * WOOP_FLOPS,
+                  n * (28 + 16 + 4 * a) + tables + 4 * a * scene.padded_tris),
+        k7g=bound(sums[2] * BOX_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
+        box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
+        woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
+
+
 def primary_rays(scene, size, dev):
     """The camera rays of a size x size frame at timestamp 0, pixel order."""
     from gpuspectral_tpu_torch.integrator import path_tracer
@@ -970,20 +1033,24 @@ def primary_rays(scene, size, dev):
 
 
 def phase_k7(dev, cases, field):
-    """K7c-e against their plain versions on the five BVH scenes, then timed
-    on the sphere field beside K3: 65,536 random rays and the 262,144
-    primary rays of the 512x512 frame."""
+    """K7c-e and K7f / K7g against their plain versions on the five BVH
+    scenes, then timed on the sphere field beside K3: 65,536 random rays and
+    the 262,144 primary rays of the 512x512 frame."""
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+    from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
     from gpuspectral_tpu_torch.bvh import ftb
 
-    log("phase k7: cluster_votes / cluster_closest / cluster_any vs their plain versions")
-    err = dict(k7c=0.0, k7d=0.0, k7e=0.0)
+    log("phase k7: cluster_votes / cluster_closest / cluster_any and dfs_closest / dfs_any vs "
+        "their plain versions")
+    err = dict(k7c=0.0, k7d=0.0, k7e=0.0, k7f=0.0, k7g=0.0)
     for i, (name, scene) in enumerate(cases.items()):
-        e, votes, votes_any, plain = check_k7(name, scene,
-                                              field_rays(K3_RAYS["parity"], scene, 20 + i, dev))
+        rays = field_rays(K3_RAYS["parity"], scene, 20 + i, dev)
+        e, votes, votes_any, plain = check_k7(name, scene, rays)
+        e_fg, plain_fg = check_k7fg(name, scene, rays)
+        e.update(e_fg)
         err = {k: max(err[k], e[k]) for k in err}
         if name == "sphere_field":
-            field_votes, field_votes_any, plain_ms = votes, votes_any, plain
+            field_votes, field_votes_any, plain_ms = votes, votes_any, dict(plain, **plain_fg)
     out = {}
     for tag, rays, votes, votes_any in (
             ("random", field_rays(K3_RAYS["parity"], field, 20, dev), field_votes, field_votes_any),
@@ -998,18 +1065,26 @@ def phase_k7(dev, cases, field):
             k7c=cuda_ms(lambda: cs.cluster_votes(field, o, d, zero, hi), reps=5),
             k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, votes=votes), reps=2),
             k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any), reps=2),
+            k7f=cuda_ms(lambda: ds.dfs_closest(field, o, d, t_max=hi), reps=2),
+            k7g=cuda_ms(lambda: ds.dfs_any(field, o, d, lo, hi), reps=2),
             k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
         b = cluster_bounds(field, rays, votes, votes_any, occ)
+        b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi))
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
             + f"; votes per block {b['votes_per_block']}, box tests per ray "
             + f"{b['box_per_ray']:.2f}, Woop tests per ray {b['woop_per_ray']}; "
-            + ", ".join(f"{k} bound {b[k]['bound_ms']:.4f} ms ({b[k]['bound_by']})"
-                        for k in ("k7c", "k7d", "k7e")))
-        out[tag] = dict(times=times, bounds=b, rays=o.shape[0])
+            + f"dfs box tests per ray {b_fg['box_per_ray']}, Woop tests per ray "
+            + f"{b_fg['woop_per_ray']}; "
+            + ", ".join(f"{k} bound {bb[k]['bound_ms']:.4f} ms ({bb[k]['bound_by']})"
+                        for bb, ks in ((b, ("k7c", "k7d", "k7e")), (b_fg, ("k7f", "k7g")))
+                        for k in ks))
+        out[tag] = dict(times=times, bounds=dict(b, **{k: b_fg[k] for k in ("k7f", "k7g")},
+                                                 dfs=b_fg), rays=o.shape[0])
     rows = {}
-    for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b")):
+    for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b"), ("k7f", "k3a"),
+                    ("k7g", "k3b")):
         r, p = out["random"], out["primary"]
         rows[key] = dict(max_abs_err=err[key], ms=r["times"][key], plain_ms=plain_ms[key],
                          **r["bounds"][key], rays=r["rays"], ms_primary=p["times"][key],
@@ -1018,7 +1093,13 @@ def phase_k7(dev, cases, field):
         if key == "k7c":
             rows[key].update(box_per_ray=r["bounds"]["box_per_ray"],
                              box_per_ray_primary=p["bounds"]["box_per_ray"])
-        if k3:
+        if key in ("k7f", "k7g"):
+            rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
+                             box_per_ray=r["bounds"]["dfs"]["box_per_ray"],
+                             box_per_ray_primary=p["bounds"]["dfs"]["box_per_ray"],
+                             woop_per_ray=r["bounds"]["dfs"]["woop_per_ray"],
+                             woop_per_ray_primary=p["bounds"]["dfs"]["woop_per_ray"])
+        elif k3:
             rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
                              votes_per_block=r["bounds"]["votes_per_block"],
                              votes_per_block_primary=p["bounds"]["votes_per_block"],
@@ -1027,50 +1108,60 @@ def phase_k7(dev, cases, field):
     return rows
 
 
-CLUSTER_ITERS = 1  # timed frames of cluster_main (after one warmup frame)
-def phase_cluster_main(dev):
+SWEEP_ITERS = 1  # timed frames of cluster_main and dfs_main (after one warmup frame)
+
+
+def phase_sweep_main(dev, kernel, keys, k3_ref=None):
     """The sphere field through run_benchmark on the wavefront with
-    bvh_kernel "cluster" (K7c-e), held to the K3 wavefront's frame."""
+    bvh_kernel `kernel` (its kernels `keys`, nothing else launched), its
+    last frame held to the K3 wavefront's frame at the same config and
+    timestamp.  Returns (the kernels' rows, the K3 frame and its rays and
+    seconds, for the next kernel family's phase)."""
     from gpuspectral_tpu_torch.cli import main as cli
     from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
     from gpuspectral_tpu_torch.utils.bench import run_benchmark
 
     hs, depth = HEADLINE["size"], HEADLINE["depth"]
-    log(f"phase cluster_main: sphere field {hs}x{hs}, 1 spp, depth {depth} through run_benchmark "
-        "(intersector pallas, bvh_kernel cluster: K7c-e)")
+    log(f"phase {kernel}_main: sphere field {hs}x{hs}, 1 spp, depth {depth} through "
+        f"run_benchmark (intersector pallas, bvh_kernel {kernel}: "
+        + ", ".join(k.upper() for k in keys) + ")")
     # the command line's own arguments, as `cli.main benchmark` parses them
     args = cli.parser().parse_args([
         "benchmark", SPHERE_FIELD, "--size", f"{hs}x{hs}", "--spp", "1", "--depth", str(depth),
-        "--intersector", "pallas", "--bvh-kernel", "cluster", "--device", str(dev),
-        "--warmup", "1", "--iters", str(CLUSTER_ITERS)])
+        "--intersector", "pallas", "--bvh-kernel", kernel, "--device", str(dev),
+        "--warmup", "1", "--iters", str(SWEEP_ITERS)])
     reset_counts()
     result, img = run_benchmark(args, return_image=True)
     launches = counts()
-    log("  cluster: " + json.dumps(result))
-    log(f"  launches in the cluster run_benchmark: {launches}")
-    others = {k: v for k, v in launches.items() if not k.startswith("k7")}
-    if not (launches["k7d"] > 0 and launches["k7e"] > 0
-            and launches["k7c"] == launches["k7d"] + launches["k7e"]
-            and others == {k: 0 for k in others}):
-        raise AssertionError("cluster run: want K7c = K7d + K7e > 0 and no K1-K6")
-    scene, cfg = cli._build(args)
+    log(f"  {kernel}: " + json.dumps(result))
+    log(f"  launches in the {kernel} run_benchmark: {launches}")
+    others = {k: v for k, v in launches.items() if k not in keys}
+    ok = all(launches[k] > 0 for k in keys) and others == {k: 0 for k in others}
+    if kernel == "cluster":  # K7c votes once for each sweep
+        ok = ok and launches["k7c"] == launches["k7d"] + launches["k7e"]
+    if not ok:
+        raise AssertionError(f"{kernel} run: want {keys} launched (K7c = K7d + K7e) and no other")
     ts = 100 + args.iters - 1
-    reset_counts()
-    t0 = time.perf_counter()
-    ref, rays_ref = render_image_stats(scene, cfg.replace(bvh_kernel="ftb"), ts)
-    torch.cuda.synchronize()
-    k3_s = time.perf_counter() - t0
-    c = counts()
-    if c["k3a"] < 1 or c["k7c"] != 0:
-        raise AssertionError(f"K3 wavefront reference: launch counts {c}")
-    err = compare_images(f"cluster frame vs the K3 wavefront (ts {ts})", img, ref,
+    if k3_ref is None:
+        scene, cfg = cli._build(args)
+        reset_counts()
+        t0 = time.perf_counter()
+        ref, rays_ref = render_image_stats(scene, cfg.replace(bvh_kernel="ftb"), ts)
+        torch.cuda.synchronize()
+        k3_ref = (ref, rays_ref, time.perf_counter() - t0)
+        c = counts()
+        if c["k3a"] < 1 or {k: v for k, v in c.items() if k.startswith("k7")} != dict(
+                k7c=0, k7d=0, k7e=0, k7f=0, k7g=0):
+            raise AssertionError(f"K3 wavefront reference: launch counts {c}")
+    ref, rays_ref, k3_s = k3_ref
+    err = compare_images(f"{kernel} frame vs the K3 wavefront (ts {ts})", img, ref,
                          result["rays_traced"], rays_ref, emission_only=False)
-    log(f"  cluster frame {result['seconds_per_frame']:.3f} s, {result['mrays_per_s']:.4f} "
+    log(f"  {kernel} frame {result['seconds_per_frame']:.3f} s, {result['mrays_per_s']:.4f} "
         f"Mrays/s; the K3 wavefront {k3_s:.3f} s, {rays_ref / k3_s / 1e6:.4f} Mrays/s")
-    run = f"cluster run_benchmark ({hs}x{hs}, 1 spp, d{depth}, bvh_kernel cluster)"
+    run = f"{kernel} run_benchmark ({hs}x{hs}, 1 spp, d{depth}, bvh_kernel {kernel})"
     frame = dict(seconds_per_frame=result["seconds_per_frame"], mrays_per_s=result["mrays_per_s"],
                  rays_traced=result["rays_traced"], k3_wavefront_s=k3_s, frame_max_abs_err=err)
-    return {k: dict(launches=launches[k], launched_by=run, **frame) for k in ("k7c", "k7d", "k7e")}
+    return {k: dict(launches=launches[k], launched_by=run, **frame) for k in keys}, k3_ref
 
 
 DIVERGED_RAD = 1e-5  # a lane's radiance moved by more: its path went another way
@@ -1380,15 +1471,15 @@ def phase_grad_wavefront(dev):
          "k3a", dict(use_bvh=True))))
 
 
-def phase_cluster_grad(dev):
+def phase_sweep_grad(dev, kernel, key, wrapper):
     from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
 
-    log("phase cluster_grad: the differentiable wavefront on K7c + K7d (cluster_closest_diff) "
+    log(f"phase {kernel}_grad: the differentiable wavefront on {key.upper()} ({wrapper}) "
         "vs the same on the CPU")
     return grad_wavefront_cases(dev, (
         ("sphere_field_small_noenv",
-         lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8, sky_hw=None), "k7d",
-         dict(use_bvh=True, bvh_kernel="cluster")),))
+         lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8, sky_hw=None), key,
+         dict(use_bvh=True, bvh_kernel=kernel)),))
 
 
 def phase_invert(dev):
@@ -1475,7 +1566,10 @@ def main() -> int:
                       rays=K3_RAYS["parity"], ms_1m_rays=big[key],
                       k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]])
     del scene
-    for key, row in phase_cluster_main(dev).items():
+    rows, k3_ref = phase_sweep_main(dev, "cluster", ("k7c", "k7d", "k7e"))
+    rows_fg, _ = phase_sweep_main(dev, "dfs", ("k7f", "k7g"), k3_ref)
+    del k3_ref
+    for key, row in dict(rows, **rows_fg).items():
         m[key] = dict(row, **k7[key])
 
     log("phase K5: fused forward-gradient megakernel vs its plain version")
@@ -1492,7 +1586,9 @@ def main() -> int:
     m["k6"]["max_abs_err"] = max(m["k6"]["max_abs_err"], k6_err)
     wave_err = phase_grad_wavefront(dev)
     m["k2a"]["autograd_max_abs_err"] = wave_err
-    m["k7d"]["autograd_max_abs_err"] = phase_cluster_grad(dev)
+    m["k7d"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "cluster", "k7d",
+                                                        "K7c + K7d, cluster_closest_diff")
+    m["k7f"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "dfs", "k7f", "dfs_closest_diff")
     phase_invert(dev)
     log("phase end: every phase passed")
     specs = [
@@ -1520,11 +1616,15 @@ def main() -> int:
          "gpuspectral_tpu/bvh/cluster_sweep.py:369", "k7d"),
         ("K7e cluster_any", "gpuspectral_tpu_torch/csrc/cluster.cu",
          "gpuspectral_tpu/bvh/cluster_sweep.py:418", "k7e"),
+        ("K7f dfs_closest", "gpuspectral_tpu_torch/csrc/dfs.cu",
+         "gpuspectral_tpu/bvh/dfs_sweep.py:427", "k7f"),
+        ("K7g dfs_any", "gpuspectral_tpu_torch/csrc/dfs.cu",
+         "gpuspectral_tpu/bvh/dfs_sweep.py:474", "k7g"),
     ]
     kernels = []
     for kname, src, rep, key in specs:
         # no PyTorch call computes ray-triangle intersection, a path-traced
-        # pixel or a supernode vote
+        # pixel, a supernode vote or a gated walk
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=rep, library_ms=None,
                             **m[key]))
     log(smi)

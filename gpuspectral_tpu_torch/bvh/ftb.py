@@ -37,11 +37,13 @@ _REF_ELEMS = 1 << 23
 
 
 def attr_table(scene) -> torch.Tensor:
-    """(T, 14 | 20) fused attribute rows (dfs_sweep.py:_attr_table, row-major)."""
+    """(T, 14 | 20) fused attribute rows (dfs_sweep.py:_attr_table, row-major),
+    bit for bit as the JAX package computes them outside jit: jnp.cross is
+    jitted, so its components are fused multiply-adds (m3.cross_fma)."""
     t = scene.tri_pos.shape[0]
     e1 = scene.tri_pos[:, 1] - scene.tri_pos[:, 0]
     e2 = scene.tri_pos[:, 2] - scene.tri_pos[:, 0]
-    cr = m3.cross(e1, e2)
+    cr = m3.cross_fma(e1, e2)
     crl = m3.sqrt(torch.clamp(m3.dot(cr, cr), min=1e-24))
     gn = cr / torch.clamp(crl, min=1e-12)[:, None]
     area = 0.5 * crl

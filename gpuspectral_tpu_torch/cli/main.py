@@ -37,8 +37,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
         help="BVH traversal (default: auto — on above 2048 triangles)",
     )
     p.add_argument("--bvh-kernel", default="ftb", choices=["ftb", "binned", "cluster", "dfs"],
-                   help="BVH kernel of the wavefront: ftb (K3) or cluster (K7c-e); "
-                        "binned and dfs are not ported yet")
+                   help="BVH kernel of the wavefront: ftb (K3), cluster (K7c-e) or dfs "
+                        "(K7f / K7g); binned is not ported yet")
     p.add_argument("--light-block", type=int, default=None,
                    help="share one NEE light pick per N-lane block of the wavefront "
                         "(0 disables; default 0 for brute-force scenes)")
@@ -49,7 +49,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--intersector", default="auto", choices=["auto", "mega", "mega_bvh", "pallas", "woop", "mt"],
         help="auto: a megakernel for CUDA scenes when eligible (mega: brute force, "
-             "mega_bvh: BVH), else the wavefront; woop forces the plain torch scans",
+             "mega_bvh: BVH), else the wavefront; woop / mt force the plain torch Woop / "
+             "Moller-Trumbore scans, or with a BVH the torch packet traversal",
     )
     p.add_argument("--light-sampling", default="uniform", choices=["uniform", "power"],
                    help="NEE light pick: uniform (reference) or power-proportional")

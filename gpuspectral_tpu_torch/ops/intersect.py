@@ -8,11 +8,11 @@ loop runs `tri_chunk` triangles at a time, so peak memory is R * tri_chunk
 whatever the scene size.  With `woop=` (the (T,12) transforms of
 ops/woop.py) the scans are the Woop scans instead.
 
-The arithmetic is XLA-CPU's for the JAX package's `_mt_chunk`: it fuses
-each cross product's component a1*b2 - a2*b1 into fma(a1, b2, -(a2*b1)) and
-each 3-term dot product into fma(x2, y2, fma(x1, y1, x0*y0)); m3.fma does
-the same here, so t, u and v agree bit for bit.  Ties: among exactly equal
-t the lowest prim id wins.
+The arithmetic is XLA-CPU's for the JAX package's jitted `_mt_chunk`: it
+fuses each cross product's component a1*b2 - a2*b1 into fma(a1, b2,
+-(a2*b1)) and each 3-term dot product into fma(x2, y2, fma(x1, y1, x0*y0))
+(m3.cross_fma, m3.dot_fma), so t, u and v agree bit for bit.  Ties: among
+exactly equal t the lowest prim id wins.
 """
 
 from __future__ import annotations
@@ -27,16 +27,6 @@ _EPS_PARALLEL = 1e-12
 _BIG = 1e30
 
 
-def _cross(a, b):
-    return torch.stack([m3.fma(a[..., 1], b[..., 2], -(a[..., 2] * b[..., 1])),
-                        m3.fma(a[..., 2], b[..., 0], -(a[..., 0] * b[..., 2])),
-                        m3.fma(a[..., 0], b[..., 1], -(a[..., 1] * b[..., 0]))], dim=-1)
-
-
-def _dot(x, y):
-    return m3.fma(x[..., 2], y[..., 2], m3.fma(x[..., 1], y[..., 1], x[..., 0] * y[..., 0]))
-
-
 def _mt_chunk(origin, direction, tri_chunk, t_min, t_max):
     """Moller-Trumbore: (..., R,3) rays x (..., C,3,3) triangles -> (hit, t,
     u, v), each (..., R,C); t_min / t_max are (..., R).  Leading axes
@@ -45,16 +35,16 @@ def _mt_chunk(origin, direction, tri_chunk, t_min, t_max):
     e1 = (tri_chunk[..., 1, :] - v0).unsqueeze(-3)  # (..., 1,C,3)
     e2 = (tri_chunk[..., 2, :] - v0).unsqueeze(-3)
     d = direction.unsqueeze(-2)  # (..., R,1,3)
-    h = _cross(d, e2)  # (..., R,C,3)
-    a = _dot(e1, h)
+    h = m3.cross_fma(d, e2)  # (..., R,C,3)
+    a = m3.dot_fma(e1, h)
     parallel = torch.abs(a) < _EPS_PARALLEL
     # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
     f = torch.ones_like(a) / torch.where(parallel, 1.0, a)
     s = origin.unsqueeze(-2) - v0.unsqueeze(-3)
-    u = f * _dot(s, h)
-    q = _cross(s, e1)
-    v = f * _dot(d, q)
-    t = f * _dot(e2, q)
+    u = f * m3.dot_fma(s, h)
+    q = m3.cross_fma(s, e1)
+    v = f * m3.dot_fma(d, q)
+    t = f * m3.dot_fma(e2, q)
     hit = (
         (~parallel)
         & (u >= 0.0)

@@ -47,6 +47,20 @@ def cross(a, b):
     )
 
 
+def cross_fma(a, b):
+    """The cross product as XLA-CPU contracts jnp.cross: each component
+    a1*b2 - a2*b1 as fma(a1, b2, -(a2*b1))."""
+    return torch.stack([fma(a[..., 1], b[..., 2], -(a[..., 2] * b[..., 1])),
+                        fma(a[..., 2], b[..., 0], -(a[..., 0] * b[..., 2])),
+                        fma(a[..., 0], b[..., 1], -(a[..., 1] * b[..., 0]))], dim=-1)
+
+
+def dot_fma(x, y):
+    """A 3-term dot product as XLA-CPU contracts a jitted sum of products:
+    fma(x2, y2, fma(x1, y1, x0*y0))."""
+    return fma(x[..., 2], y[..., 2], fma(x[..., 1], y[..., 1], x[..., 0] * y[..., 0]))
+
+
 def length(v):
     return sqrt(torch.clamp(dot(v, v), min=1e-24))
 

@@ -47,22 +47,24 @@ def woop_transform(tri_pos: np.ndarray) -> np.ndarray:
 
 
 def _chunk_t(origin, direction, w, t_min, t_max):
-    """(R,3) rays x (C,12) Woop rows -> (R,C) t with misses at 1e30.
+    """(R,3) rays x (C,12) Woop rows -> (R,C) t with misses at 1e30; leading
+    axes broadcast ((..., R,3) rays x (..., C,12) rows -> (..., R,C)).
     Multiply-adds are fused (m3.fma) as XLA fuses them in the JAX package,
     a*b + c*d + e*f as fma(e, f, fma(a, b, c*d)), and as the CUDA kernels
     call fmaf (csrc/common.cuh:woop_test)."""
-    ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
-    dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
-    az0, az1, az2, bz = w[None, :, 6], w[None, :, 7], w[None, :, 8], w[None, :, 11]
+    ox, oy, oz = origin[..., 0:1], origin[..., 1:2], origin[..., 2:3]
+    dx, dy, dz = direction[..., 0:1], direction[..., 1:2], direction[..., 2:3]
+    w = w.unsqueeze(-3)
+    az0, az1, az2, bz = w[..., 6], w[..., 7], w[..., 8], w[..., 11]
     opz = m3.fma(oz, az2, m3.fma(ox, az0, oy * az1)) + bz
     dpz = m3.fma(dz, az2, m3.fma(dx, az0, dy * az1))
     live = torch.abs(dpz) > 1e-12
     t = -opz / torch.where(live, dpz, 1.0)
 
     px, py, pz = m3.fma(t, dx, ox), m3.fma(t, dy, oy), m3.fma(t, dz, oz)
-    ax0, ax1, ax2, bx = w[None, :, 0], w[None, :, 1], w[None, :, 2], w[None, :, 9]
+    ax0, ax1, ax2, bx = w[..., 0], w[..., 1], w[..., 2], w[..., 9]
     u = m3.fma(pz, ax2, m3.fma(px, ax0, py * ax1)) + bx
-    ay0, ay1, ay2, by = w[None, :, 3], w[None, :, 4], w[None, :, 5], w[None, :, 10]
+    ay0, ay1, ay2, by = w[..., 3], w[..., 4], w[..., 5], w[..., 10]
     v = m3.fma(pz, ay2, m3.fma(px, ay0, py * ay1)) + by
 
     hit = (
@@ -70,8 +72,8 @@ def _chunk_t(origin, direction, w, t_min, t_max):
         & (u >= 0.0)
         & (v >= 0.0)
         & (u + v <= 1.0)
-        & (t > t_min[:, None])
-        & (t < t_max[:, None])
+        & (t > t_min[..., None])
+        & (t < t_max[..., None])
     )
     return torch.where(hit, t, _BIG)
 

@@ -14,6 +14,7 @@ import torch
 
 from gpuspectral_tpu_torch.bvh import build as bvh_build
 from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
 from gpuspectral_tpu_torch.bvh import ftb
 from gpuspectral_tpu_torch.integrator import mega, mega_bvh
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
@@ -209,6 +210,49 @@ def test_wavefront_on_k7_matches_plain_scans(cuda_device):  # noqa: F811
     votes, closest, any_hit = (a - b for a, b in zip(_k7_launches(), n0))
     assert closest > 0 and any_hit > 0 and votes == closest + any_hit
     assert (ftb.ftb_closest.launches, ftb.ftb_any.launches) == f0
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
+                                          bvh_isect=pt.PLAIN_K3)
+    assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
+
+
+def _k7fg_launches():
+    return ds.dfs_closest.launches, ds.dfs_any.launches
+
+
+@pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode"])
+def test_k7fg_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
+    """K7f / K7g equal the plain walk at BLOCK bit for bit: t, prim, u, v,
+    attrs and occ, ties included, with inactive rays."""
+    if name == "slot_mode":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+    ts = _scene("cornell" if name == "slot_mode" else name, cuda_device)
+    o, d, lo, hi = _rays(14, 1 << 14, cuda_device)
+    active = torch.arange(o.shape[0], device=cuda_device) % 7 != 0
+    n0 = _k7fg_launches()
+    got = ds.dfs_closest(ts, o, d, t_max=hi, active=active)
+    occ = ds.dfs_any(ts, o, d, lo, hi, active=active)
+    assert _k7fg_launches() == (n0[0] + 1, n0[1] + 1)
+    ref = ds.dfs_closest_ref(ts, o, d, t_max=hi, active=active)
+    assert (ref[1] >= 0).sum() > 1000 and not bool((ref[1][~active] >= 0).any())
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    occ_r = ds.dfs_any_ref(ts, o, d, lo, hi, active=active)
+    assert 0 < int(occ_r.sum()) < o.shape[0] and torch.equal(occ, occ_r)
+
+
+def test_wavefront_on_k7fg_matches_plain_scans(cuda_device):  # noqa: F811
+    """The wavefront with bvh_kernel "dfs": K7f and K7g launched, K3 and
+    K7c-e never; the image against the plain brute-force scans under the
+    tests/test_mega.py gates."""
+    ts = _scene("sphere_field", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
+                       sort_rays=True, intersector="pallas", bvh_kernel="dfs")
+    n0, others = _k7fg_launches(), (ftb.ftb_closest.launches, ftb.ftb_any.launches,
+                                    *_k7_launches())
+    got, rays_got = pt.render_image_stats(ts, cfg, 0)
+    closest, any_hit = (a - b for a, b in zip(_k7fg_launches(), n0))
+    assert closest > 0 and any_hit > 0
+    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches, *_k7_launches()) == others
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
                                           bvh_isect=pt.PLAIN_K3)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)

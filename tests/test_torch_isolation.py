@@ -136,3 +136,11 @@ def test_native_obj_parser_equal(tmp_path, monkeypatch):
     assert got is not None
     for x, y in zip(got, ref):
         np.testing.assert_array_equal(x, y)
+
+
+def test_isolation_walks_the_new_modules():
+    """The walk above covers the traversal, the Moller-Trumbore scans and
+    the dfs sweep as it covers every module of the port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert {"gpuspectral_tpu_torch/ops/intersect.py", "gpuspectral_tpu_torch/bvh/traverse.py",
+            "gpuspectral_tpu_torch/bvh/dfs_sweep.py", "chip_smoke.py"} <= names
