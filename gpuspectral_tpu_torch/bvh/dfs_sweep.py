@@ -56,7 +56,7 @@ from ..ops import woop
 from . import ftb
 
 _BIG = 1e30
-BLOCK = 128  # rays per CTA (csrc/dfs.cu:kBlock)
+BLOCK = 32  # rays per CTA, one warp (csrc/dfs.cu:kBlock)
 SWEEP = 128  # slots of a leaf (dfs_sweep.py:SWEEP)
 
 

@@ -4,11 +4,14 @@
 // the pallas_call at dfs_sweep.py:427) and _make_any_kernel (K7g, :474).
 // Wrapper: gpuspectral_tpu_torch/bvh/dfs_sweep.py (dfs_closest, dfs_any).
 //
-// Rays come in blocks of kBlock = 128 consecutive rays; one CTA of 128
-// threads takes one block, one thread per ray, the ray's state in
-// registers.  The CTA walks the scene's preorder tables from node 0: bounds
-// (6, N) float (lo xyz, hi xyz) and meta (2, N) int (the skip pointer past
-// the node's subtree; a leaf's first slot, -1 for an internal node).
+// Rays come in blocks of kBlock = 32 consecutive rays; one CTA of 32
+// threads (one warp) takes one block, one thread per ray, the ray's state
+// in registers.  32 was the fastest CTA of 32 / 64 / 128 / 256 for both
+// kernels on random and primary rays (tools/torch_dfs_block.py): a smaller
+// block enters fewer leaves for its rays.  The CTA walks the scene's
+// preorder tables from node 0: bounds (6, N) float (lo xyz, hi xyz) and
+// meta (2, N) int (the skip pointer past the node's subtree; a leaf's first
+// slot, -1 for an internal node).
 //
 //   * Every thread slab-tests the node's box (a uniform load) on its
 //     segment [t_min, horizon]; __syncthreads_or is the block's vote.  The
@@ -52,7 +55,7 @@
 
 namespace {
 
-constexpr int kBlock = 128;  // rays per CTA = dfs_sweep.BLOCK
+constexpr int kBlock = 32;  // rays per CTA = dfs_sweep.BLOCK
 constexpr int kSweep = 128;  // slots of a leaf = dfs_sweep.SWEEP
 
 __device__ __forceinline__ float inv_dir(float dx) {

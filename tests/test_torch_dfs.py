@@ -136,13 +136,13 @@ def test_active_mask(pairs):
     assert not occ[~active].any() and torch.equal(occ[active], occ_all[active])
 
 
-@pytest.mark.parametrize("block", [64, 128, 256])
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
 @pytest.mark.parametrize("name", SCENES)
 def test_block_sizes_agree_with_brute_force(pairs, name, block):
-    """The result does not hang on the block size: at 64, 128 and 256 rays
-    a block, the walk's closest hit and occlusion equal the brute-force Woop
-    scan's on >= 99.9% of rays (a block loses a hit only where every ray's
-    slab test rounds the other way at a box's edge)."""
+    """The result does not hang on the block size: at 32 (BLOCK), 64, 128
+    and 256 rays a block, the walk's closest hit and occlusion equal the
+    brute-force Woop scan's on >= 99.9% of rays (a block loses a hit only
+    where every ray's slab test rounds the other way at a box's edge)."""
     _, ts = pairs[name]
     o, d, t_min, t_max = (_t(x) for x in _rays(ts, 2000, 5))
     got = ds.dfs_closest_ref(ts, o, d, t_max=t_max, block=block)
