@@ -53,6 +53,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import math3d as m3
 from ..ops import woop
 from . import ftb
 
@@ -129,24 +130,6 @@ def _sn(scene, supernodes):
     return scene_supernodes(scene) if supernodes is None else supernodes
 
 
-def _segment(origin, t_min, t_max, active):
-    """(t_min, t_max) as contiguous (R,) float32, inactive rays at t_max = -1e30."""
-    r = origin.shape[0]
-    dev = origin.device
-
-    def full(x):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32, device=dev),
-                                  (r,)).contiguous()
-
-    return full(t_min), ftb._tmax(origin, full(t_max), active)
-
-
-def _inv_dir(dx):
-    mag = torch.clamp(torch.abs(dx), min=1e-12)
-    # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
-    return torch.ones_like(dx) / torch.where(dx < 0, -mag, mag)
-
-
 def _slab_blocks(sn: Supernodes, origin, direction, t_min, t_max):
     """Yields (first block, (blocks, BLOCK, S) bool): the slab test of each
     ray of those blocks against each supernode box, _VOTE_RAYS rays at a
@@ -156,7 +139,9 @@ def _slab_blocks(sn: Supernodes, origin, direction, t_min, t_max):
     for r0 in range(0, r, _VOTE_RAYS):
         r1 = min(r, r0 + _VOTE_RAYS)
         o = origin[r0:r1, :, None]
-        di = _inv_dir(direction[r0:r1])[:, :, None]
+        d = direction[r0:r1]
+        # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
+        di = m3.safe_div(torch.ones_like(d), d)[:, :, None]
         t0 = (lo[None] - o) * di  # (rays, 3, S)
         t1 = (hi[None] - o) * di
         near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
@@ -200,7 +185,7 @@ def cluster_votes(scene, origin, direction, t_min, t_max, active=None, supernode
     """K7c: (ceil(R / BLOCK), S) int32 votes, 1 where some ray of the block
     passes the slab test against the supernode's box on (t_min, t_max).
     `supernodes`: scene_supernodes(scene), built here when not given."""
-    t_min, t_max = _segment(origin, t_min, t_max, active)
+    t_min, t_max = ftb._segment(origin, t_min, t_max, active)
     _check(scene, origin, direction, t_min, t_max)
     sn = _sn(scene, supernodes)
     if origin.device.type == "cpu":
@@ -253,7 +238,7 @@ def cluster_any_ref(scene, origin, direction, t_min, t_max, active=None, votes=N
                     supernodes=None):
     """Plain torch version of cluster_any."""
     sn = _sn(scene, supernodes)
-    t_min, t_max = _segment(origin, t_min, t_max, active)
+    t_min, t_max = ftb._segment(origin, t_min, t_max, active)
     if votes is None:
         votes = cluster_votes_ref(scene, origin, direction, t_min, t_max, supernodes=sn)
     return woop.any_scan(origin, direction, scene.tri_woop, t_min, t_max,
@@ -311,7 +296,7 @@ def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None,
     inside (t_min, t_max); t_min / t_max are scalars or (R,) tensors.
     `votes`: K7c's output for these rays and segments, computed here when
     not given."""
-    t_min, t_max = _segment(origin, t_min, t_max, active)
+    t_min, t_max = ftb._segment(origin, t_min, t_max, active)
     _check(scene, origin, direction, t_min, t_max)
     sn = _sn(scene, supernodes)
     if votes is None:

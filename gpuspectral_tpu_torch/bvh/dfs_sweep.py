@@ -52,18 +52,13 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import math3d as m3
 from ..ops import woop
 from . import ftb
 
 _BIG = 1e30
 BLOCK = 32  # rays per CTA, one warp (csrc/dfs.cu:kBlock)
 SWEEP = 128  # slots of a leaf (dfs_sweep.py:SWEEP)
-
-
-def _inv_dir(dx):
-    mag = torch.clamp(torch.abs(dx), min=1e-12)
-    # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
-    return torch.ones_like(dx) / torch.where(dx < 0, -mag, mag)
 
 
 def _blocked(x, block: int, fill: float):
@@ -94,7 +89,8 @@ def _walk(scene, origin, direction, t_min, t_max, any_hit: bool, block: int,
     d = _blocked(direction.detach(), block, 1.0)
     lo = _blocked(t_min, block, 0.0)
     hi = _blocked(t_max, block, -_BIG)
-    inv = _inv_dir(d)
+    # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
+    inv = m3.safe_div(torch.ones_like(d), d)
     nb = o.shape[0]
     ptr = torch.zeros((nb,), dtype=torch.int64, device=dev)
     horizon = hi.clone()  # closest hits: the best t so far
@@ -182,20 +178,9 @@ def dfs_closest_ref(scene, origin, direction, active=None, t_max=None, attr=None
     return _closest_out(scene, origin, direction, t, prim, attr)
 
 
-def _segment(origin, t_min, t_max, active):
-    r = origin.shape[0]
-    dev = origin.device
-
-    def full(x):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32, device=dev),
-                                  (r,)).contiguous()
-
-    return full(t_min), ftb._tmax(origin, full(t_max), active)
-
-
 def dfs_any_ref(scene, origin, direction, t_min, t_max, active=None, block: int = BLOCK):
     """Plain torch version of dfs_any with blocks of `block` rays."""
-    t_min, t_max = _segment(origin, t_min, t_max, active)
+    t_min, t_max = ftb._segment(origin, t_min, t_max, active)
     return _walk(scene, origin, direction, t_min, t_max, True, block)
 
 
@@ -251,7 +236,7 @@ def dfs_closest(scene, origin, direction, active=None, t_max=None, attr=None):
 def dfs_any(scene, origin, direction, t_min, t_max, active=None):
     """K7g: True where a triangle lies strictly inside (t_min, t_max), by
     the block-gated walk; t_min / t_max are scalars or (R,) tensors."""
-    t_min, t_max = _segment(origin, t_min, t_max, active)
+    t_min, t_max = ftb._segment(origin, t_min, t_max, active)
     _check(scene, origin, direction, t_min, t_max)
     dev = origin.device
     if dev.type == "cpu":

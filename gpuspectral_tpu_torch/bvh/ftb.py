@@ -88,6 +88,19 @@ def _tmax(origin, t_max, active):
     return t_max.to(torch.float32).contiguous()
 
 
+def _segment(origin, t_min, t_max, active):
+    """(t_min, t_max), scalars or (R,), as contiguous (R,) float32, inactive
+    rays at t_max = -1e30."""
+    r = origin.shape[0]
+    dev = origin.device
+
+    def full(x):
+        return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32, device=dev),
+                                  (r,)).contiguous()
+
+    return full(t_min), _tmax(origin, full(t_max), active)
+
+
 def ftb_closest_ref(scene, origin, direction, active=None, t_max=None, attr=None):
     """Plain torch version of ftb_closest: the brute-force Woop scan."""
     t_max = _tmax(origin, t_max, active)
@@ -100,13 +113,9 @@ def ftb_closest_ref(scene, origin, direction, active=None, t_max=None, attr=None
 
 def ftb_any_ref(scene, origin, direction, t_min, t_max, active=None):
     """Plain torch version of ftb_any: the brute-force Woop scan."""
-    r = origin.shape[0]
-    t_min = torch.broadcast_to(torch.as_tensor(t_min, dtype=torch.float32,
-                                               device=origin.device), (r,))
-    t_max = _tmax(origin, torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=origin.device), (r,)), active)
+    t_min, t_max = _segment(origin, t_min, t_max, active)
     return woop.any_scan(origin, direction, scene.tri_woop, t_min, t_max,
-                         _chunk(scene, r))
+                         _chunk(scene, origin.shape[0]))
 
 
 def kernel_tables(scene):
@@ -177,12 +186,8 @@ def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
 def ftb_any(scene, origin, direction, t_min, t_max, active=None):
     """Any hit: True where a triangle lies strictly inside (t_min, t_max);
     t_min / t_max are scalars or (R,) tensors."""
-    r = origin.shape[0]
     dev = origin.device
-    t_min = torch.broadcast_to(torch.as_tensor(t_min, dtype=torch.float32, device=dev),
-                               (r,)).contiguous()
-    t_max = _tmax(origin, torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=dev), (r,)), active)
+    t_min, t_max = _segment(origin, t_min, t_max, active)
     _check_rays(origin, direction, t_min, t_max)
     _check_scene(scene, dev)
     if dev.type == "cpu":

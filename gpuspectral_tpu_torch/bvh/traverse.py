@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import math3d as m3
 from ..ops.intersect import _mt_chunk, _segment
 
 _BIG = 1e30
@@ -38,12 +39,6 @@ def _ray_aabb(origin, inv_dir, bb_min, bb_max):
     return torch.amax(torch.minimum(t0, t1), dim=-1), torch.amin(torch.maximum(t0, t1), dim=-1)
 
 
-def _safe_inv_dir(direction):
-    mag = torch.clamp(torch.abs(direction), min=1e-12)
-    # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
-    return torch.ones_like(direction) / torch.where(direction < 0, -mag, mag)
-
-
 def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_max,
                      n_clusters: int, leaf_size: int, n_levels: int, any_hit: bool):
     """(P, B) rays of P packets against the tree.  Returns (t, prim, u, v),
@@ -52,7 +47,9 @@ def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_ma
     p, b = t_min.shape
     dev = origin.device
     o_box = origin.detach()
-    inv_dir = _safe_inv_dir(direction.detach())
+    d = direction.detach()
+    # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
+    inv_dir = m3.safe_div(torch.ones_like(d), d)
     first_leaf = n_clusters - 1
     stack = torch.zeros((p, 2 * n_levels + 2), dtype=torch.int64, device=dev)
     sp = torch.ones((p,), dtype=torch.int64, device=dev)  # the root, index 0, pushed

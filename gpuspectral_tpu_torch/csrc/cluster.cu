@@ -40,7 +40,7 @@
 //
 // Precision: built with --fmad=false like the other kernels.  The slab
 // test is plain multiplies, subtracts, min / max and an IEEE division for
-// the inverse direction (cluster_sweep.py:_inv_dir), as the plain torch
+// the inverse direction (math3d.safe_div(1, d)), as the plain torch
 // version computes them: the votes are equal.  The Woop test is
 // csrc/common.cuh:woop_test, whose fmaf calls sit where ops/woop.py calls
 // m3.fma: opz, dpz, the hit point and u, v are fused multiply-adds, the

@@ -45,7 +45,7 @@
 //
 // Precision: built with --fmad=false like the other kernels.  The slab
 // test is plain subtracts, multiplies, min / max and an IEEE division for
-// the inverse direction (dfs_sweep.py:_inv_dir), as the plain torch walk
+// the inverse direction (math3d.safe_div(1, d)), as the plain torch walk
 // computes them, so the votes are equal.  The Woop test is
 // csrc/common.cuh:woop_test, whose fmaf calls sit where ops/woop.py calls
 // m3.fma.  So t, prim, u and v equal the plain walk bit for bit.

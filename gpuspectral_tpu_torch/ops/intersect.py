@@ -5,8 +5,9 @@ traversal (bvh/traverse.py).
 
 Rays are (R,3) origins and directions, triangles (T,3,3).  The triangle
 loop runs `tri_chunk` triangles at a time, so peak memory is R * tri_chunk
-whatever the scene size.  With `woop=` (the (T,12) transforms of
-ops/woop.py) the scans are the Woop scans instead.
+whatever the scene size.  The JAX functions' `woop=` branch is not carried
+over: it calls the Woop scans, which the port has as ops/woop.py's
+closest_scan / any_scan.
 
 The arithmetic is XLA-CPU's for the JAX package's jitted `_mt_chunk`: it
 fuses each cross product's component a1*b2 - a2*b1 into fma(a1, b2,
@@ -20,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from . import math3d as m3
-from . import woop as woop_mod
 
 TRI_CHUNK = 512
 _EPS_PARALLEL = 1e-12
@@ -86,15 +86,11 @@ def _chunks(tri_pos, tri_chunk: int):
 
 
 def intersect_closest(origin, direction, tri_pos, t_min=None, t_max=None, active=None,
-                      tri_chunk: int = TRI_CHUNK, woop=None):
+                      tri_chunk: int = TRI_CHUNK):
     """Closest hit with t in (t_min, t_max) (default (0, 1e30)); inactive
     rays hit nothing.  Returns (t (R,), 1e30 on a miss; prim (R,) int32, -1
-    on a miss; u, v (R,), the barycentric weights of corners 1 and 2).
-    With `woop` ((T,12) transforms) the Woop scan, else Moller-Trumbore."""
+    on a miss; u, v (R,), the barycentric weights of corners 1 and 2)."""
     t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
-    if woop is not None:
-        return woop_mod.closest_scan(origin, direction, woop, t_min, t_max,
-                                     min(tri_chunk, woop.shape[0]))
     r = origin.shape[0]
     dev = origin.device
     best_t = torch.full((r,), _BIG, dtype=torch.float32, device=dev)
@@ -116,13 +112,10 @@ def intersect_closest(origin, direction, tri_pos, t_min=None, t_max=None, active
 
 
 def intersect_any(origin, direction, tri_pos, t_min, t_max, active=None,
-                  tri_chunk: int = TRI_CHUNK, woop=None):
+                  tri_chunk: int = TRI_CHUNK):
     """Any hit: True where a triangle lies strictly inside (t_min, t_max);
     inactive rays are never occluded."""
     t_min, t_max = _segment(origin, t_min, t_max, active, -1.0)
-    if woop is not None:
-        return woop_mod.any_scan(origin, direction, woop, t_min, t_max,
-                                 min(tri_chunk, woop.shape[0]))
     occ = torch.zeros((origin.shape[0],), dtype=torch.bool, device=origin.device)
     for _, tris in _chunks(tri_pos, tri_chunk):
         occ = occ | torch.any(_mt_chunk(origin, direction, tris, t_min, t_max)[0], dim=1)

@@ -255,7 +255,8 @@ def _block_walk(ts, o, d, lo, hi, any_hit):
     bounds, meta = ts.bvh_dfs_bounds, ts.bvh_dfs_meta
     n_nodes, n_slots = bounds.shape[1], ts.tri_woop.shape[0]
     n = o.shape[0]
-    inv = ds._inv_dir(d)
+    mag = d.abs().clamp(min=1e-12)
+    inv = torch.ones_like(d) / torch.where(d < 0, -mag, mag)
     horizon, occ = hi.clone(), torch.zeros(n, dtype=torch.bool)
     empty = ~(hi > lo)
     boxes, woops = torch.zeros(n, dtype=torch.int64), torch.zeros(n, dtype=torch.int64)

@@ -29,6 +29,7 @@ from gpuspectral_tpu_torch.diff import gradcheck as tgc
 from gpuspectral_tpu_torch.integrator import mega_bvh, mega_grad
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
 from gpuspectral_tpu_torch.ops import intersect as tis
+from gpuspectral_tpu_torch.ops import woop as twoop
 from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_sphere_field
 from gpuspectral_tpu_torch.utils import RenderConfig
@@ -88,14 +89,15 @@ def test_mt_scans_match_jax(n_tris):
                             tri_chunk=128)
     assert int(occ.sum()) > 5
     _assert_equal([occ], [occ_ref])
-    # the Woop branch: the port's scans of ops/woop.py
+    # JAX's woop= branch is the port's Woop scans (ops/woop.py), bit for bit
     w = jwoop.woop_transform(tris)
     ref = jis.intersect_closest(o, d, tris, active=jnp.asarray(active), woop=jnp.asarray(w),
                                 tri_chunk=128)
-    got = tis.intersect_closest(_t(o), _t(d), _t(tris), active=_t(active), woop=_t(w),
-                                tri_chunk=128)
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
-    occ = tis.intersect_any(_t(o), _t(d), _t(tris), 0.0, 5.0, woop=_t(w), tri_chunk=128)
+    t_max_w = torch.where(_t(active), 1e30, -1e30)
+    got = twoop.closest_scan(_t(o), _t(d), _t(w), torch.zeros(300), t_max_w, 128)
+    _assert_equal(got, ref)
+    occ = twoop.any_scan(_t(o), _t(d), _t(w), torch.full((300,), 0.0), torch.full((300,), 5.0),
+                         128)
     _assert_equal([occ], [jis.intersect_any(o, d, tris, 0.0, 5.0, woop=jnp.asarray(w),
                                             tri_chunk=128)])
 
