@@ -38,7 +38,7 @@ SCENES = ["cornell", "zoo", "sphere_field"]
 def pairs(cornell_scene):
     """(JAX scene, the port's scene from the same tables) by name.  Every
     emitter has a BSDF row of its own: JAX's unpack_meta rounds half to
-    even and misreads an emitter of row 0 with an even light index (F8)."""
+    even and misreads an emitter of row 0 with an even light index."""
     out = {}
     for name, js in (("cornell", cornell_scene), ("zoo", populate_zoo(JaxBuilder()).build()),
                      ("sphere_field", populate_sphere_field(JaxBuilder(), **SMALL_FIELD).build())):
@@ -76,7 +76,7 @@ def _jax_block(js, n_attr):
 def test_plain_closest_matches_jax(pairs, name):
     """At JAX's block size: t, u, v and attrs bit for bit; prim equal except
     at exact-t ties (the JAX kernel keeps a best per lane and breaks a tie
-    between lanes by lane position, the port takes the lowest slot: F11)."""
+    between lanes by lane position, the port takes the lowest slot)."""
     js, ts = pairs[name]
     o, d, _, t_max = _rays(js, 900, 2)
     t_j, prim_j, u_j, v_j, attrs_j = (np.asarray(x) for x in jdfs.dfs_closest(
