@@ -198,6 +198,7 @@ def ftb_any(scene, origin, direction, t_min, t_max, active=None):
 
     lib = _build.load()
     nodes, meta, clusters, woop_t, ip = kernel_tables(scene)
+    r = origin.shape[0]
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
