@@ -14,16 +14,17 @@ integrator.render_image_stats_auto:
     (K4), then the wavefront dispatch on the BVH kernels (K3);
   * the sphere field at 512x512, 1 spp, depth 50 on the wavefront with
     bvh_kernel "cluster" -> the cluster sweep (K7c votes, K7d / K7e sweeps),
-    and with bvh_kernel "dfs" -> the block-gated depth-first walk (K7f /
-    K7g);
+    with bvh_kernel "dfs" -> the block-gated depth-first walk (K7f / K7g),
+    and with bvh_kernel "binned" -> the per-ray-vote binned sweep (K7a /
+    K7b);
 and the training path through utils.bench.run_grad_benchmark and
 diff.invert:
   * a gradient step on Cornell at 512x512, 64 spp, depth 5 (and one at
     1024x1024, 256 spp) -> the fused forward-gradient kernel K5;
   * a gradient step on the sphere field without its sky at 512x512, 64
     spp, depth 5 -> the fused-BVH forward-gradient kernel K6;
-  * the differentiable wavefront on K2a / K3a / K7d / K7f, and 10 Adam
-    steps of invert.
+  * the differentiable wavefront on K2a / K3a / K7d / K7f / K7a, and 10
+    Adam steps of invert.
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
@@ -61,12 +62,13 @@ Phases:
         spp at the same timestamp); those rows of the image equal K4's
   bvh_wavefront  the same scene with intersector "pallas" at 512x512,
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
-  k7    cluster_votes / cluster_closest / cluster_any and dfs_closest /
-        dfs_any vs their plain versions on the scenes of k3 (65,536 random
-        rays each): votes, t, prim, u, v, attrs and occ equal, ties
-        included; K7c-g timed on the sphere field on 65,536 random rays and
-        on the 262,144 primary rays of the 512x512 frame, beside K3a / K3b
-        on the same rays; the plain versions once on the random rays
+  k7    cluster_votes / cluster_closest / cluster_any, dfs_closest /
+        dfs_any and binned_closest / binned_any vs their plain versions on
+        the scenes of k3 (65,536 random rays each): votes, t, prim, u, v,
+        attrs and occ equal, ties included; K7a-g timed on the sphere field
+        on 65,536 random rays and on the 262,144 primary rays of the
+        512x512 frame, beside K3a / K3b on the same rays; the plain
+        versions once on the random rays
   cluster_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
         K7c launched once for each K7d and K7e launch, nothing else; its
@@ -74,6 +76,8 @@ Phases:
         timestamp under the tests/test_mega.py gates
   dfs_main  the same with bvh_kernel "dfs": K7f and K7g launched, nothing
         else; its last frame against the same K3 frame
+  binned_main  the same with bvh_kernel "binned": K7a and K7b launched,
+        nothing else; its last frame against the same K3 frame
   k5    K5 vs its plain version (the wavefront with the gradient hook) at
         64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
         radiance under the tests/test_mega.py gates, rays within 1%, K5's
@@ -99,6 +103,7 @@ Phases:
   cluster_grad  the same through cluster_closest_diff (K7c + K7d) on the
         small sphere field without its sky
   dfs_grad  the same through dfs_closest_diff (K7f)
+  binned_grad  the same through binned_closest_diff (K7a)
   invert  10 Adam steps of the self-target demo on Cornell 128x128, 8
         spp, d5 through K5, on the target's sample set (common random
         numbers): K5 launched 10 times, the last loss below the first
@@ -120,7 +125,11 @@ occluder (the count's occlusion is held equal to K7e's).  K7f / K7g's are
 counted by dfs_sweep.dfs_tests: a slab test per ray for each node its
 block visits, and at an entered leaf K7f's Woop tests of every slot for a
 ray with a segment, K7g's up to the ray's first occluder (the count's
-occlusion is held equal to K7g's).  The rays of a
+occlusion is held equal to K7g's).  K7a / K7b's are counted by
+binned.binned_tests: a slab test per ray for each bin (K7b: up to the bin
+of the ray's first occluder), and the Woop tests of the slots of the bins
+the ray voted for (K7b: up to its first occluder; the count's occlusion is
+held equal to K7b's).  The rays of a
 fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
@@ -128,8 +137,8 @@ tally, and its operations are that tally's per ray times the kernel's ray
 count.  Bytes: each input read once (rays, pixel ids, scene tables, votes),
 each output written once (radiance, rays, partial planes, votes, hits).
 No single PyTorch call computes ray-triangle intersection, a path-traced
-pixel, a supernode vote, a gated sweep or a gated walk, so library_ms is
-null for every kernel.
+pixel, a supernode vote, a gated sweep, a gated walk or a binned
+vote-and-sweep, so library_ms is null for every kernel.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -275,7 +284,8 @@ def compare_images(tag, got, ref, rays_got, rays_ref, emission_only, mean_gate=2
         frac = float(np.mean(d > 1e-3))
         fine = float(np.mean(d > 1e-4))
         dmean = abs(float(got.mean()) - float(ref.mean()))
-        log(f"  {tag} full: pixels_off_1e-3={frac:.5f} pixels_off_1e-4={fine:.5f} "
+        log(f"  {tag} full: pixels_off_1e-3={frac:.5f} ({int(np.sum(d > 1e-3))} of {d.size}) "
+            f"pixels_off_1e-4={fine:.5f} "
             f"mean {got.mean():.6f} vs {ref.mean():.6f} (|d|={dmean:.2e}) "
             f"rays {rays_got:.0f} vs {rays_ref:.0f} (rel {rays_rel:.2e})")
         ok = frac <= 0.02 and fine <= fine_gate and dmean < mean_gate and rays_rel < 0.01
@@ -285,7 +295,7 @@ def compare_images(tag, got, ref, rays_got, rays_ref, emission_only, mean_gate=2
 
 
 def _wrappers():
-    from gpuspectral_tpu_torch.bvh import cluster_sweep, dfs_sweep, ftb
+    from gpuspectral_tpu_torch.bvh import binned, cluster_sweep, dfs_sweep, ftb
     from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad
     from gpuspectral_tpu_torch.ops import cuda_isect
 
@@ -294,11 +304,12 @@ def _wrappers():
                 k4=mega_bvh.render_mega_bvh_rows, k5=mega_grad.render_mega_fwdgrad_rows,
                 k6=mega_grad.render_mega_bvh_fwdgrad_rows, k7c=cluster_sweep.cluster_votes,
                 k7d=cluster_sweep.cluster_closest, k7e=cluster_sweep.cluster_any,
-                k7f=dfs_sweep.dfs_closest, k7g=dfs_sweep.dfs_any)
+                k7f=dfs_sweep.dfs_closest, k7g=dfs_sweep.dfs_any,
+                k7a=binned.binned_closest, k7b=binned.binned_any)
 
 
 NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0, k7c=0, k7d=0, k7e=0, k7f=0,
-            k7g=0)
+            k7g=0, k7a=0, k7b=0)
 
 
 def nbytes(*tensors):
@@ -965,28 +976,30 @@ def check_k7(name, scene, rays):
     return err, votes, votes_any, dict(k7c=c_ms, k7d=d_ms, k7e=e_ms)
 
 
-def check_k7fg(name, scene, rays):
-    """K7f / K7g against their plain versions (the block-gated walk at
-    BLOCK) on `rays`: t, prim, u, v, attrs and occ equal.  Returns (the max
-    abs errors, the plain versions' ms)."""
-    from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
-
+def check_sweep(name, scene, rays, keys, fns, tables):
+    """A closest-hit and any-hit kernel pair (`keys`, e.g. ("k7f", "k7g");
+    `fns` = (closest, any hit, their plain versions)) against the plain
+    versions on `rays`: t, prim, u, v, attrs and occ equal.  `tables` names
+    the scene's tables in the log.  Returns (the max abs errors, the plain
+    versions' ms)."""
+    closest, any_hit, closest_ref, any_ref = fns
     o, d, lo, hi = rays
-    got = ds.dfs_closest(scene, o, d, t_max=hi)
-    occ = ds.dfs_any(scene, o, d, lo, hi)
-    ref, f_ms = timed_once(lambda: ds.dfs_closest_ref(scene, o, d, t_max=hi))
-    occ_r, g_ms = timed_once(lambda: ds.dfs_any_ref(scene, o, d, lo, hi))
+    got = closest(scene, o, d, t_max=hi)
+    occ = any_hit(scene, o, d, lo, hi)
+    ref, c_ms = timed_once(lambda: closest_ref(scene, o, d, t_max=hi))
+    occ_r, a_ms = timed_once(lambda: any_ref(scene, o, d, lo, hi))
     bad = {k: int((a != b).sum()) for k, a, b in (
         ("t", got[0], ref[0]), ("prim", got[1], ref[1]), ("u", got[2], ref[2]),
         ("v", got[3], ref[3]), ("attrs", got[4], ref[4]), ("occ", occ, occ_r))}
     hit = ref[1] >= 0
-    log(f"  K7f/g {name}: rays={o.shape[0]} nodes={scene.bvh_dfs_bounds.shape[1]} "
-        f"hits={int(hit.sum())} occluded={int(occ_r.sum())} mismatches={bad}")
+    label = f"{keys[0].upper()} / {keys[1].upper()}"
+    log(f"  {label} {name}: rays={o.shape[0]} {tables} hits={int(hit.sum())} "
+        f"occluded={int(occ_r.sum())} mismatches={bad}")
     if any(bad.values()):
-        raise AssertionError(f"K7f / K7g disagree with their plain versions on {name}")
-    err = dict(k7f=float((got[0] - ref[0]).abs()[hit].max()) if hit.any() else 0.0,
-               k7g=float((occ.int() - occ_r.int()).abs().max()))
-    return err, dict(k7f=f_ms, k7g=g_ms)
+        raise AssertionError(f"{label} disagree with their plain versions on {name}")
+    err = {keys[0]: float((got[0] - ref[0]).abs()[hit].max()) if hit.any() else 0.0,
+           keys[1]: float((occ.int() - occ_r.int()).abs().max())}
+    return err, {keys[0]: c_ms, keys[1]: a_ms}
 
 
 def dfs_bounds(scene, rays, occ):
@@ -1017,6 +1030,33 @@ def dfs_bounds(scene, rays, occ):
         woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
 
 
+def binned_bounds(scene, rays, occ):
+    """bound() of K7a (on (0, t_max)) and K7b for one call each over
+    `rays`, the tests counted as the kernels make them
+    (binned.binned_tests): a slab test per ray and bin (K7b: up to the bin
+    of the ray's first occluder), the Woop tests of the slots of the ray's
+    voted bins (K7b: up to its first occluder).  The count's occlusion must
+    equal K7b's `occ`.  Also the box and Woop tests per ray and the bins a
+    CTA visits per ray (the union of its rays' votes)."""
+    from gpuspectral_tpu_torch.bvh import binned as bn
+
+    o, d, lo, hi = rays
+    box_a, woop_a, visit_a, _ = bn.binned_tests(scene, o, d, torch.zeros_like(hi), hi, False)
+    box_b, woop_b, visit_b, occ_count = bn.binned_tests(scene, o, d, lo, hi, True)
+    if not torch.equal(occ_count, occ):
+        raise AssertionError(f"K7b's tally disagrees with K7b on {int((occ_count != occ).sum())} "
+                             "rays")
+    n = o.shape[0]
+    tables = nbytes(scene.bvh_bin_bounds[:, :scene.bvh_bins], scene.tri_woop_t)
+    sums = [float(x.double().sum()) for x in (box_a, woop_a, box_b, woop_b, visit_a, visit_b)]
+    return dict(
+        k7a=bound(sums[0] * BOX_FLOPS + sums[1] * WOOP_FLOPS, n * (28 + 16) + tables),
+        k7b=bound(sums[2] * BOX_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
+        box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
+        woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n),
+        visits_per_ray=dict(closest=sums[4] / n, any=sums[5] / n))
+
+
 def primary_rays(scene, size, dev):
     """The camera rays of a size x size frame at timestamp 0, pixel order."""
     from gpuspectral_tpu_torch.integrator import path_tracer
@@ -1033,24 +1073,33 @@ def primary_rays(scene, size, dev):
 
 
 def phase_k7(dev, cases, field):
-    """K7c-e and K7f / K7g against their plain versions on the five BVH
-    scenes, then timed on the sphere field beside K3: 65,536 random rays and
-    the 262,144 primary rays of the 512x512 frame."""
+    """K7c-e, K7f / K7g and K7a / K7b against their plain versions on the
+    five BVH scenes, then timed on the sphere field beside K3: 65,536 random
+    rays and the 262,144 primary rays of the 512x512 frame."""
+    from gpuspectral_tpu_torch.bvh import binned as bn
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
     from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
     from gpuspectral_tpu_torch.bvh import ftb
 
-    log("phase k7: cluster_votes / cluster_closest / cluster_any and dfs_closest / dfs_any vs "
-        "their plain versions")
-    err = dict(k7c=0.0, k7d=0.0, k7e=0.0, k7f=0.0, k7g=0.0)
+    log("phase k7: cluster_votes / cluster_closest / cluster_any, dfs_closest / dfs_any and "
+        "binned_closest / binned_any vs their plain versions")
+    err = dict(k7c=0.0, k7d=0.0, k7e=0.0, k7f=0.0, k7g=0.0, k7a=0.0, k7b=0.0)
     for i, (name, scene) in enumerate(cases.items()):
         rays = field_rays(K3_RAYS["parity"], scene, 20 + i, dev)
         e, votes, votes_any, plain = check_k7(name, scene, rays)
-        e_fg, plain_fg = check_k7fg(name, scene, rays)
-        e.update(e_fg)
+        e_fg, plain_fg = check_sweep(
+            name, scene, rays, ("k7f", "k7g"),
+            (ds.dfs_closest, ds.dfs_any, ds.dfs_closest_ref, ds.dfs_any_ref),
+            f"nodes={scene.bvh_dfs_bounds.shape[1]}")
+        e_ab, plain_ab = check_sweep(
+            name, scene, rays, ("k7a", "k7b"),
+            (bn.binned_closest, bn.binned_any, bn.binned_closest_ref, bn.binned_any_ref),
+            f"bins={scene.bvh_bins}x{scene.bvh_bin_slots}")
+        e.update(e_fg, **e_ab)
         err = {k: max(err[k], e[k]) for k in err}
         if name == "sphere_field":
-            field_votes, field_votes_any, plain_ms = votes, votes_any, dict(plain, **plain_fg)
+            field_votes, field_votes_any = votes, votes_any
+            plain_ms = dict(plain, **plain_fg, **plain_ab)
     out = {}
     for tag, rays, votes, votes_any in (
             ("random", field_rays(K3_RAYS["parity"], field, 20, dev), field_votes, field_votes_any),
@@ -1067,24 +1116,31 @@ def phase_k7(dev, cases, field):
             k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any), reps=2),
             k7f=cuda_ms(lambda: ds.dfs_closest(field, o, d, t_max=hi), reps=2),
             k7g=cuda_ms(lambda: ds.dfs_any(field, o, d, lo, hi), reps=2),
+            k7a=cuda_ms(lambda: bn.binned_closest(field, o, d, t_max=hi), reps=2),
+            k7b=cuda_ms(lambda: bn.binned_any(field, o, d, lo, hi), reps=2),
             k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
         b = cluster_bounds(field, rays, votes, votes_any, occ)
         b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi))
+        b_ab = binned_bounds(field, rays, bn.binned_any(field, o, d, lo, hi))
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
             + f"; votes per block {b['votes_per_block']}, box tests per ray "
             + f"{b['box_per_ray']:.2f}, Woop tests per ray {b['woop_per_ray']}; "
             + f"dfs box tests per ray {b_fg['box_per_ray']}, Woop tests per ray "
-            + f"{b_fg['woop_per_ray']}; "
+            + f"{b_fg['woop_per_ray']}; binned box tests per ray {b_ab['box_per_ray']}, "
+            + f"Woop tests per ray {b_ab['woop_per_ray']}, bins a CTA visits per ray "
+            + f"{b_ab['visits_per_ray']}; "
             + ", ".join(f"{k} bound {bb[k]['bound_ms']:.4f} ms ({bb[k]['bound_by']})"
-                        for bb, ks in ((b, ("k7c", "k7d", "k7e")), (b_fg, ("k7f", "k7g")))
+                        for bb, ks in ((b, ("k7c", "k7d", "k7e")), (b_fg, ("k7f", "k7g")),
+                                       (b_ab, ("k7a", "k7b")))
                         for k in ks))
         out[tag] = dict(times=times, bounds=dict(b, **{k: b_fg[k] for k in ("k7f", "k7g")},
-                                                 dfs=b_fg), rays=o.shape[0])
+                                                 **{k: b_ab[k] for k in ("k7a", "k7b")},
+                                                 dfs=b_fg, binned=b_ab), rays=o.shape[0])
     rows = {}
     for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b"), ("k7f", "k3a"),
-                    ("k7g", "k3b")):
+                    ("k7g", "k3b"), ("k7a", "k3a"), ("k7b", "k3b")):
         r, p = out["random"], out["primary"]
         rows[key] = dict(max_abs_err=err[key], ms=r["times"][key], plain_ms=plain_ms[key],
                          **r["bounds"][key], rays=r["rays"], ms_primary=p["times"][key],
@@ -1093,12 +1149,16 @@ def phase_k7(dev, cases, field):
         if key == "k7c":
             rows[key].update(box_per_ray=r["bounds"]["box_per_ray"],
                              box_per_ray_primary=p["bounds"]["box_per_ray"])
-        if key in ("k7f", "k7g"):
+        if key in ("k7f", "k7g", "k7a", "k7b"):
+            fam = "dfs" if key in ("k7f", "k7g") else "binned"
             rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
-                             box_per_ray=r["bounds"]["dfs"]["box_per_ray"],
-                             box_per_ray_primary=p["bounds"]["dfs"]["box_per_ray"],
-                             woop_per_ray=r["bounds"]["dfs"]["woop_per_ray"],
-                             woop_per_ray_primary=p["bounds"]["dfs"]["woop_per_ray"])
+                             box_per_ray=r["bounds"][fam]["box_per_ray"],
+                             box_per_ray_primary=p["bounds"][fam]["box_per_ray"],
+                             woop_per_ray=r["bounds"][fam]["woop_per_ray"],
+                             woop_per_ray_primary=p["bounds"][fam]["woop_per_ray"])
+            if fam == "binned":
+                rows[key].update(visits_per_ray=r["bounds"][fam]["visits_per_ray"],
+                                 visits_per_ray_primary=p["bounds"][fam]["visits_per_ray"])
         elif k3:
             rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
                              votes_per_block=r["bounds"]["votes_per_block"],
@@ -1108,7 +1168,7 @@ def phase_k7(dev, cases, field):
     return rows
 
 
-SWEEP_ITERS = 1  # timed frames of cluster_main and dfs_main (after one warmup frame)
+SWEEP_ITERS = 1  # timed frames of cluster_main, dfs_main and binned_main (after one warmup frame)
 
 
 def phase_sweep_main(dev, kernel, keys, k3_ref=None):
@@ -1150,8 +1210,7 @@ def phase_sweep_main(dev, kernel, keys, k3_ref=None):
         torch.cuda.synchronize()
         k3_ref = (ref, rays_ref, time.perf_counter() - t0)
         c = counts()
-        if c["k3a"] < 1 or {k: v for k, v in c.items() if k.startswith("k7")} != dict(
-                k7c=0, k7d=0, k7e=0, k7f=0, k7g=0):
+        if c["k3a"] < 1 or any(v for k, v in c.items() if k.startswith("k7")):
             raise AssertionError(f"K3 wavefront reference: launch counts {c}")
     ref, rays_ref, k3_s = k3_ref
     err = compare_images(f"{kernel} frame vs the K3 wavefront (ts {ts})", img, ref,
@@ -1568,8 +1627,9 @@ def main() -> int:
     del scene
     rows, k3_ref = phase_sweep_main(dev, "cluster", ("k7c", "k7d", "k7e"))
     rows_fg, _ = phase_sweep_main(dev, "dfs", ("k7f", "k7g"), k3_ref)
+    rows_ab, _ = phase_sweep_main(dev, "binned", ("k7a", "k7b"), k3_ref)
     del k3_ref
-    for key, row in dict(rows, **rows_fg).items():
+    for key, row in dict(rows, **rows_fg, **rows_ab).items():
         m[key] = dict(row, **k7[key])
 
     log("phase K5: fused forward-gradient megakernel vs its plain version")
@@ -1589,6 +1649,8 @@ def main() -> int:
     m["k7d"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "cluster", "k7d",
                                                         "K7c + K7d, cluster_closest_diff")
     m["k7f"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "dfs", "k7f", "dfs_closest_diff")
+    m["k7a"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "binned", "k7a",
+                                                        "binned_closest_diff")
     phase_invert(dev)
     log("phase end: every phase passed")
     specs = [
@@ -1620,11 +1682,15 @@ def main() -> int:
          "gpuspectral_tpu/bvh/dfs_sweep.py:427", "k7f"),
         ("K7g dfs_any", "gpuspectral_tpu_torch/csrc/dfs.cu",
          "gpuspectral_tpu/bvh/dfs_sweep.py:474", "k7g"),
+        ("K7a binned_closest", "gpuspectral_tpu_torch/csrc/binned.cu",
+         "gpuspectral_tpu/bvh/binned.py:409", "k7a"),
+        ("K7b binned_any", "gpuspectral_tpu_torch/csrc/binned.cu",
+         "gpuspectral_tpu/bvh/binned.py:449", "k7b"),
     ]
     kernels = []
     for kname, src, rep, key in specs:
         # no PyTorch call computes ray-triangle intersection, a path-traced
-        # pixel, a supernode vote or a gated walk
+        # pixel, a supernode vote, a gated walk or a binned vote-and-sweep
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=rep, library_ms=None,
                             **m[key]))
     log(smi)

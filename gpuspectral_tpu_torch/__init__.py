@@ -18,13 +18,16 @@ its counterpart's name and semantics, with PyTorch idiom inside:
 Hand-written kernels: K1 and K4, the path-tracing megakernels (brute force
 and BVH; csrc/mega.cu, csrc/mega_bvh.cu), K5 and K6, the same with the
 fused gradient hook (csrc/mega_grad.cu, csrc/mega_bvh.cu, csrc/grad.cuh),
-K2, brute-force closest / any hit (csrc/isect.cu), and K3, BVH closest /
-any hit (csrc/bvh.cu).  Each wrapper runs its plain PyTorch version for CPU
-tensors only; for CUDA tensors it launches the kernel or raises.
+K2, brute-force closest / any hit (csrc/isect.cu), K3, BVH closest / any
+hit (csrc/bvh.cu), and the wavefront's other BVH kernels: K7a / K7b, the
+binned sweep (csrc/binned.cu), K7c-e, the cluster sweep (csrc/cluster.cu),
+and K7f / K7g, the dfs walk (csrc/dfs.cu).  Each wrapper runs its plain
+PyTorch version for CPU tensors only; for CUDA tensors it launches the
+kernel or raises.
 
 The port imports neither JAX nor the JAX package; it keeps its own copies
-of the numpy modules it needs.  What is not ported yet (the multi-device
-paths, the alternative BVH kernels) raises NotImplementedError.
+of the numpy modules it needs.  The multi-device paths and the
+progressive engine are not ported yet.
 
 No matmul is on the render path (the camera is explicit component
 products), and TF32 is switched off for both matmul and cuDNN so that any

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "gst_cluster_any": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P],
     "gst_dfs_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "gst_dfs_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
+    "gst_binned_closest": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    "gst_binned_any": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P],
     "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P, _P, _P, _P, _P],
     "gst_mega_grad": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -37,8 +37,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
         help="BVH traversal (default: auto — on above 2048 triangles)",
     )
     p.add_argument("--bvh-kernel", default="ftb", choices=["ftb", "binned", "cluster", "dfs"],
-                   help="BVH kernel of the wavefront: ftb (K3), cluster (K7c-e) or dfs "
-                        "(K7f / K7g); binned is not ported yet")
+                   help="BVH kernel of the wavefront: ftb (K3), binned (K7a / K7b), "
+                        "cluster (K7c-e) or dfs (K7f / K7g)")
     p.add_argument("--light-block", type=int, default=None,
                    help="share one NEE light pick per N-lane block of the wavefront "
                         "(0 disables; default 0 for brute-force scenes)")

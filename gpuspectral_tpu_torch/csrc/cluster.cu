@@ -55,11 +55,6 @@ namespace {
 constexpr int kBlock = 256;  // rays per CTA = cluster_sweep.BLOCK
 constexpr int kSweep = 128;  // slots staged at a time = cluster_sweep.SWEEP
 
-__device__ __forceinline__ float inv_dir(float dx) {
-  const float mag = fmaxf(fabsf(dx), 1e-12f);
-  return 1.0f / (dx < 0.0f ? -mag : mag);
-}
-
 __global__ void __launch_bounds__(kBlock)
 cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                      const float* __restrict__ t_min, const float* __restrict__ t_max,
@@ -70,7 +65,7 @@ cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__
   const bool live = r < n_rays;  // padding rays: o 0, d 1, t_max -1e30
   for (int c = 0; c < 3; ++c) {
     ray[c][threadIdx.x] = live ? origin[3 * r + c] : 0.0f;
-    ray[3 + c][threadIdx.x] = inv_dir(live ? direction[3 * r + c] : 1.0f);
+    ray[3 + c][threadIdx.x] = gst::inv_dir(live ? direction[3 * r + c] : 1.0f);
   }
   ray[6][threadIdx.x] = live ? t_min[r] : 0.0f;
   ray[7][threadIdx.x] = live ? t_max[r] : -gst::kBig;
@@ -93,20 +88,6 @@ cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__
   }
 }
 
-// Stage slots [base, base + n) of the (12, n_slots) Woop table; the caller
-// puts a barrier before (the previous chunk's readers) and after.
-__device__ __forceinline__ void stage(float (*w)[kSweep], const float* __restrict__ woop_t,
-                                      int n_slots, int base, int n) {
-  for (int i = threadIdx.x; i < 12 * kSweep; i += kBlock) {
-    const int row = i / kSweep, c = i % kSweep;
-    w[row][c] = c < n ? woop_t[(size_t)row * n_slots + base + c] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ gst::V3 load3(const float* p, int r, bool live, float fill) {
-  return live ? gst::V3{p[3 * r], p[3 * r + 1], p[3 * r + 2]} : gst::V3{fill, fill, fill};
-}
-
 __global__ void __launch_bounds__(kBlock)
 cluster_closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                        const float* __restrict__ t_max, int n_rays,
@@ -118,8 +99,8 @@ cluster_closest_kernel(const float* __restrict__ origin, const float* __restrict
   __shared__ float w[12][kSweep];
   const int r = blockIdx.x * kBlock + threadIdx.x;
   const bool live = r < n_rays;
-  const gst::V3 o = load3(origin, r, live, 0.0f);
-  const gst::V3 d = load3(direction, r, live, 1.0f);
+  const gst::V3 o = gst::load3(origin, r, live, 0.0f);
+  const gst::V3 d = gst::load3(direction, r, live, 1.0f);
   float best = live ? t_max[r] : -gst::kBig;
   float best_u = 0.0f, best_v = 0.0f;
   int best_prim = -1;
@@ -130,7 +111,7 @@ cluster_closest_kernel(const float* __restrict__ origin, const float* __restrict
     for (int base = s * stride; base < end; base += kSweep) {
       const int n = min(kSweep, end - base);
       __syncthreads();
-      stage(w, woop_t, n_slots, base, n);
+      gst::stage<kBlock, kSweep>(w, woop_t, n_slots, base, n);
       __syncthreads();
       for (int c = 0; c < n; ++c) {
         float t, u, v;
@@ -161,8 +142,8 @@ cluster_any_kernel(const float* __restrict__ origin, const float* __restrict__ d
   __shared__ float w[12][kSweep];
   const int r = blockIdx.x * kBlock + threadIdx.x;
   const bool live = r < n_rays;
-  const gst::V3 o = load3(origin, r, live, 0.0f);
-  const gst::V3 d = load3(direction, r, live, 1.0f);
+  const gst::V3 o = gst::load3(origin, r, live, 0.0f);
+  const gst::V3 d = gst::load3(direction, r, live, 1.0f);
   const float lo = live ? t_min[r] : 0.0f;
   const float hi = live ? t_max[r] : -gst::kBig;
   bool occ = false;
@@ -179,7 +160,7 @@ cluster_any_kernel(const float* __restrict__ origin, const float* __restrict__ d
         break;
       }
       const int n = min(kSweep, end - base);
-      stage(w, woop_t, n_slots, base, n);
+      gst::stage<kBlock, kSweep>(w, woop_t, n_slots, base, n);
       __syncthreads();
       if (occ || empty) continue;
       for (int c = 0; c < n; ++c) {

@@ -107,4 +107,48 @@ __device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d
   return live && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > t_lo) && (t < t_hi);
 }
 
+// ------------------------------------------------ block-gated sweeps ---
+// Shared by the cluster, dfs and binned kernels (csrc/cluster.cu, dfs.cu,
+// binned.cu): one thread per ray, one CTA per block of consecutive rays.
+
+// math3d.safe_div(1, dx): a component of the slab tests' inverse direction.
+__device__ __forceinline__ float inv_dir(float dx) {
+  const float mag = fmaxf(fabsf(dx), 1e-12f);
+  return 1.0f / (dx < 0.0f ? -mag : mag);
+}
+
+// Ray r's xyz of an (R, 3) array, or `fill` for a padding thread past the
+// last ray.
+__device__ __forceinline__ V3 load3(const float* p, int r, bool live, float fill) {
+  return live ? V3{p[3 * r], p[3 * r + 1], p[3 * r + 2]} : V3{fill, fill, fill};
+}
+
+// The slab test of box i of a (6, stride) table (rows lo xyz, hi xyz) on
+// the segment [lo, hi], as the plain torch versions compute it: no
+// widening.
+__device__ __forceinline__ bool slab(const float* __restrict__ b, int stride, int i, V3 o, V3 inv,
+                                     float lo, float hi) {
+  const float t0x = (b[i] - o.x) * inv.x;
+  const float t1x = (b[3 * stride + i] - o.x) * inv.x;
+  const float t0y = (b[stride + i] - o.y) * inv.y;
+  const float t1y = (b[4 * stride + i] - o.y) * inv.y;
+  const float t0z = (b[2 * stride + i] - o.z) * inv.z;
+  const float t1z = (b[5 * stride + i] - o.z) * inv.z;
+  const float t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), lo));
+  const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), hi));
+  return t_far >= t_near;
+}
+
+// Stage slots [base, base + n) of the (12, n_slots) Woop table into the
+// kWidth columns of w (zeros past n) with the CTA's kThreads threads; the
+// caller puts a barrier before (the previous readers) and after.
+template <int kThreads, int kWidth>
+__device__ __forceinline__ void stage(float (*w)[kWidth], const float* __restrict__ woop_t,
+                                      int n_slots, int base, int n) {
+  for (int i = threadIdx.x; i < 12 * kWidth; i += kThreads) {
+    const int row = i / kWidth, c = i % kWidth;
+    w[row][c] = c < n ? woop_t[(size_t)row * n_slots + base + c] : 0.0f;
+  }
+}
+
 }  // namespace gst

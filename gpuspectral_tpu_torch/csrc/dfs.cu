@@ -58,39 +58,6 @@ namespace {
 constexpr int kBlock = 32;  // rays per CTA = dfs_sweep.BLOCK
 constexpr int kSweep = 128;  // slots of a leaf = dfs_sweep.SWEEP
 
-__device__ __forceinline__ float inv_dir(float dx) {
-  const float mag = fmaxf(fabsf(dx), 1e-12f);
-  return 1.0f / (dx < 0.0f ? -mag : mag);
-}
-
-__device__ __forceinline__ gst::V3 load3(const float* p, int r, bool live, float fill) {
-  return live ? gst::V3{p[3 * r], p[3 * r + 1], p[3 * r + 2]} : gst::V3{fill, fill, fill};
-}
-
-// The slab test of dfs_sweep.py:233-241 against node `ptr` on [lo, hi].
-__device__ __forceinline__ bool slab(const float* __restrict__ bounds, int n_nodes, int ptr,
-                                     gst::V3 o, gst::V3 inv, float lo, float hi) {
-  const float t0x = (bounds[ptr] - o.x) * inv.x;
-  const float t1x = (bounds[3 * n_nodes + ptr] - o.x) * inv.x;
-  const float t0y = (bounds[n_nodes + ptr] - o.y) * inv.y;
-  const float t1y = (bounds[4 * n_nodes + ptr] - o.y) * inv.y;
-  const float t0z = (bounds[2 * n_nodes + ptr] - o.z) * inv.z;
-  const float t1z = (bounds[5 * n_nodes + ptr] - o.z) * inv.z;
-  const float t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), lo));
-  const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), hi));
-  return t_far >= t_near;
-}
-
-// Stage slots [base, base + n) of the (12, n_slots) Woop table; the caller
-// puts a barrier before (the previous leaf's readers) and after.
-__device__ __forceinline__ void stage(float (*w)[kSweep], const float* __restrict__ woop_t,
-                                      int n_slots, int base, int n) {
-  for (int i = threadIdx.x; i < 12 * kSweep; i += kBlock) {
-    const int row = i / kSweep, c = i % kSweep;
-    w[row][c] = c < n ? woop_t[(size_t)row * n_slots + base + c] : 0.0f;
-  }
-}
-
 __global__ void __launch_bounds__(kBlock)
 dfs_closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                    const float* __restrict__ t_max, int n_rays, const float* __restrict__ bounds,
@@ -102,16 +69,16 @@ dfs_closest_kernel(const float* __restrict__ origin, const float* __restrict__ d
   __shared__ float w[12][kSweep];
   const int r = blockIdx.x * kBlock + threadIdx.x;
   const bool live = r < n_rays;  // padding rays: o 0, d 1, t_max -1e30
-  const gst::V3 o = load3(origin, r, live, 0.0f);
-  const gst::V3 d = load3(direction, r, live, 1.0f);
-  const gst::V3 inv = {inv_dir(d.x), inv_dir(d.y), inv_dir(d.z)};
+  const gst::V3 o = gst::load3(origin, r, live, 0.0f);
+  const gst::V3 d = gst::load3(direction, r, live, 1.0f);
+  const gst::V3 inv = {gst::inv_dir(d.x), gst::inv_dir(d.y), gst::inv_dir(d.z)};
   float best = live ? t_max[r] : -gst::kBig;  // also the voting horizon
   const bool tests = best > 0.0f;  // t must lie in (0, best): else never hits
   float best_u = 0.0f, best_v = 0.0f;
   int best_prim = -1;
   int ptr = 0;
   while (ptr < n_nodes) {
-    if (!__syncthreads_or(slab(bounds, n_nodes, ptr, o, inv, 0.0f, best))) {
+    if (!__syncthreads_or(gst::slab(bounds, n_nodes, ptr, o, inv, 0.0f, best))) {
       ptr = meta[ptr];  // the same for every thread of the CTA
       continue;
     }
@@ -119,7 +86,7 @@ dfs_closest_kernel(const float* __restrict__ origin, const float* __restrict__ d
     ++ptr;
     if (off < 0) continue;
     const int n = min(kSweep, n_slots - off);
-    stage(w, woop_t, n_slots, off, n);
+    gst::stage<kBlock, kSweep>(w, woop_t, n_slots, off, n);
     __syncthreads();
     if (!tests) continue;
     for (int c = 0; c < n; ++c) {
@@ -150,9 +117,9 @@ dfs_any_kernel(const float* __restrict__ origin, const float* __restrict__ direc
   __shared__ float w[12][kSweep];
   const int r = blockIdx.x * kBlock + threadIdx.x;
   const bool live = r < n_rays;
-  const gst::V3 o = load3(origin, r, live, 0.0f);
-  const gst::V3 d = load3(direction, r, live, 1.0f);
-  const gst::V3 inv = {inv_dir(d.x), inv_dir(d.y), inv_dir(d.z)};
+  const gst::V3 o = gst::load3(origin, r, live, 0.0f);
+  const gst::V3 d = gst::load3(direction, r, live, 1.0f);
+  const gst::V3 inv = {gst::inv_dir(d.x), gst::inv_dir(d.y), gst::inv_dir(d.z)};
   const float lo = live ? t_min[r] : 0.0f;
   const float hi = live ? t_max[r] : -gst::kBig;
   const bool empty = !(hi > lo);  // no t lies in (lo, hi): never occluded
@@ -160,7 +127,7 @@ dfs_any_kernel(const float* __restrict__ origin, const float* __restrict__ direc
   bool occ = false;
   int ptr = __syncthreads_and(empty) ? n_nodes : 0;
   while (ptr < n_nodes) {
-    if (!__syncthreads_or(slab(bounds, n_nodes, ptr, o, inv, lo, horizon))) {
+    if (!__syncthreads_or(gst::slab(bounds, n_nodes, ptr, o, inv, lo, horizon))) {
       ptr = meta[ptr];
       continue;
     }
@@ -168,7 +135,7 @@ dfs_any_kernel(const float* __restrict__ origin, const float* __restrict__ direc
     ++ptr;
     if (off < 0) continue;
     const int n = min(kSweep, n_slots - off);
-    stage(w, woop_t, n_slots, off, n);
+    gst::stage<kBlock, kSweep>(w, woop_t, n_slots, off, n);
     __syncthreads();
     if (!occ && !empty) {
       for (int c = 0; c < n; ++c) {

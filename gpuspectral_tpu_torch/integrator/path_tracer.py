@@ -24,8 +24,9 @@ the Moller-Trumbore scans of ops/intersect.py.  BVH (cfg.use_bvh), with
 intersector "pallas" or, for CUDA tensors, "auto": the wrappers that
 cfg.bvh_kernel names in _BVH_KERNELS, "ftb" (the walk of bvh/ftb.py, K3a /
 K3b), "cluster" (the cluster sweep of bvh/cluster_sweep.py: votes K7c,
-then K7d / K7e) or "dfs" (the block-gated depth-first walk of
-bvh/dfs_sweep.py, K7f / K7g), with optional ray sorting (cfg.sort_rays)
+then K7d / K7e), "dfs" (the block-gated depth-first walk of
+bvh/dfs_sweep.py, K7f / K7g) or "binned" (the per-ray-vote binned sweep of
+bvh/binned.py, K7a / K7b), with optional ray sorting (cfg.sort_rays)
 and shadow-ray sorting (cfg.shadow_sort) for any; they run their plain
 versions for CPU tensors and return the hit triangle's attribute rows.  With "woop" or
 "mt" (or "auto" for CPU tensors) and cfg.use_bvh, the torch packet
@@ -44,13 +45,12 @@ storing its intermediates; the counter-based RNG makes the replay exact
 (path-replay backprop).  With "sample" the caller checkpoints whole
 samples.  The intersection kernels have no derivative of their own:
 closest hits go through `cuda_isect.closest_diff`, `ftb.ftb_closest_diff`,
-`cluster_sweep.cluster_closest_diff` or `dfs_sweep.dfs_closest_diff`, whose
+`cluster_sweep.cluster_closest_diff`, `dfs_sweep.dfs_closest_diff` or
+`binned.binned_closest_diff`, whose
 backward re-evaluates the hit triangle's Woop test in plain torch (the
 scans and the packet traversal are plain torch, differentiated as they
 are), and shadow rays and intersector tables are detached (visibility is a
 step function, as the JAX package's stop_gradient says).
-
-Not covered yet: bvh_kernel "binned" (queue 2 of the port).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from __future__ import annotations
 import torch
 
 from ..bsdf.dispatch import eval_bsdf, is_transmission, sample_bsdf
-from ..bvh import cluster_sweep, dfs_sweep, ftb, traverse
+from ..bvh import binned, cluster_sweep, dfs_sweep, ftb, traverse
 from ..ops import cuda_isect
 from ..ops import intersect as isect
 from ..ops import math3d as m3
@@ -96,6 +96,7 @@ _BVH_KERNELS = {
     "ftb": (ftb, "ftb_closest", "ftb_closest_diff", "ftb_any"),
     "cluster": (cluster_sweep, "cluster_closest", "cluster_closest_diff", "cluster_any"),
     "dfs": (dfs_sweep, "dfs_closest", "dfs_closest_diff", "dfs_any"),
+    "binned": (binned, "binned_closest", "binned_closest_diff", "binned_any"),
 }
 
 
@@ -106,8 +107,8 @@ def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
     isector = cfg.intersector
     if cfg.use_bvh and cfg.bvh_kernel not in _BVH_KERNELS:
         raise NotImplementedError(
-            f"bvh_kernel {cfg.bvh_kernel!r}: queue 2 of the port (K7); ported: "
-            + ", ".join(_BVH_KERNELS))
+            f"bvh_kernel {cfg.bvh_kernel!r} is not a BVH kernel of the port (have: "
+            + ", ".join(_BVH_KERNELS) + ")")
     if isector in ("auto", "mega", "mega_bvh"):
         return "pallas" if scene.device.type == "cuda" else "woop"
     if isector in ("pallas", "woop", "mt"):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpuspectral_tpu_torch.bvh import binned as tb
 from gpuspectral_tpu_torch.bvh import build as bvh_build
 from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
 from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
@@ -258,6 +259,50 @@ def test_wavefront_on_k7fg_matches_plain_scans(cuda_device):  # noqa: F811
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
 
 
+def _k7ab_launches():
+    return tb.binned_closest.launches, tb.binned_any.launches
+
+
+@pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode"])
+def test_k7ab_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
+    """K7a / K7b equal the plain binned sweep bit for bit: t, prim, u, v,
+    attrs and occ, ties included, with inactive rays."""
+    if name == "slot_mode":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+    ts = _scene("cornell" if name == "slot_mode" else name, cuda_device)
+    o, d, lo, hi = _rays(15, 1 << 14, cuda_device)
+    active = torch.arange(o.shape[0], device=cuda_device) % 7 != 0
+    n0 = _k7ab_launches()
+    got = tb.binned_closest(ts, o, d, t_max=hi, active=active)
+    occ = tb.binned_any(ts, o, d, lo, hi, active=active)
+    assert _k7ab_launches() == (n0[0] + 1, n0[1] + 1)
+    ref = tb.binned_closest_ref(ts, o, d, t_max=hi, active=active)
+    assert (ref[1] >= 0).sum() > 1000 and not bool((ref[1][~active] >= 0).any())
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    occ_r = tb.binned_any_ref(ts, o, d, lo, hi, active=active)
+    assert 0 < int(occ_r.sum()) < o.shape[0] and torch.equal(occ, occ_r)
+
+
+def test_wavefront_on_k7ab_matches_plain_scans(cuda_device):  # noqa: F811
+    """The wavefront with bvh_kernel "binned": K7a and K7b launched, K3,
+    K7c-e and K7f / K7g never; the image against the plain brute-force
+    scans under the tests/test_mega.py gates."""
+    ts = _scene("sphere_field", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
+                       sort_rays=True, intersector="pallas", bvh_kernel="binned")
+    n0, others = _k7ab_launches(), (ftb.ftb_closest.launches, ftb.ftb_any.launches,
+                                    *_k7_launches(), *_k7fg_launches())
+    got, rays_got = pt.render_image_stats(ts, cfg, 0)
+    closest, any_hit = (a - b for a, b in zip(_k7ab_launches(), n0))
+    assert closest > 0 and any_hit > 0
+    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches, *_k7_launches(),
+            *_k7fg_launches()) == others
+    ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
+                                          bvh_isect=pt.PLAIN_K3)
+    assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
+
+
 @pytest.mark.parametrize("name", ["env_const", "env_image"])
 def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
     ts = _scene(name, cuda_device)
@@ -389,9 +434,9 @@ def _vjp(t, u, v, o, d, seed=9):
     return torch.autograd.grad(loss, (o, d))
 
 
-@pytest.mark.parametrize("kind", ["k2a", "k3a", "k7d"])
+@pytest.mark.parametrize("kind", ["k2a", "k3a", "k7d", "k7a"])
 def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
-    """The autograd wrappers of K2a / K3a / K7d on the card against the same
+    """The autograd wrappers of K2a / K3a / K7d / K7a on the card against the same
     wrappers on the CPU (the plain forward, the same torch backward)."""
     ts = _scene("cornell" if kind == "k2a" else "sphere_field", cuda_device)
     cpu = _scene("cornell" if kind == "k2a" else "sphere_field", "cpu")
@@ -404,8 +449,10 @@ def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
             t, prim, u, v = ci.closest_diff(o, d, sc.tri_woop_t, sc.tri_woop, hi)
         elif kind == "k3a":
             t, prim, u, v, _ = ftb.ftb_closest_diff(sc, o, d)
-        else:
+        elif kind == "k7d":
             t, prim, u, v, _ = cs.cluster_closest_diff(sc, o, d)
+        else:
+            t, prim, u, v, _ = tb.binned_closest_diff(sc, o, d)
         out[dev.type] = (prim.cpu(), [x.cpu() for x in (t, u, v)],
                          [x.cpu() for x in _vjp(t, u, v, o, d)])
     (p1, f1, g1), (p2, f2, g2) = out["cuda"], out["cpu"]
@@ -446,14 +493,15 @@ def test_run_grad_benchmark_reports_the_card(cuda_device):  # noqa: F811
     assert out["grad_steps_per_s"] > 0 and out["peak_hbm_gb"] > 0
 
 
-@pytest.mark.parametrize("bvh_kernel", ["ftb", "cluster"])
+@pytest.mark.parametrize("bvh_kernel", ["ftb", "cluster", "binned"])
 def test_run_grad_benchmark_wavefront_path(cuda_device, bvh_kernel):  # noqa: F811
     """A scene neither fused kernel takes (an environment emitter): the
     step runs the differentiable wavefront on the BVH kernels it names,
-    K3a / K3b or K7c-e."""
+    K3a / K3b, K7c-e or K7a / K7b."""
     from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
 
-    wrapper = ftb.ftb_closest if bvh_kernel == "ftb" else cs.cluster_closest
+    wrapper = dict(ftb=ftb.ftb_closest, cluster=cs.cluster_closest,
+                   binned=tb.binned_closest)[bvh_kernel]
     n0 = wrapper.launches
     out = run_grad_benchmark("builtin:sphere_field", size=16, spp=2, depth=2, steps=1,
                              use_bvh=True, bvh_kernel=bvh_kernel)

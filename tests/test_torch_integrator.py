@@ -123,10 +123,10 @@ def test_render_sample_matches_jax(pair):
 
 
 def test_later_slices_raise(pair):
-    # BVH traversal and ray sorting are in the port; the binned BVH kernel
-    # is a later slice
+    # BVH traversal, ray sorting and every BVH kernel of the JAX package are
+    # in the port; a bvh_kernel it does not have raises
     ts = pair["cornell"][1]
-    for kw in (dict(use_bvh=True, bvh_kernel="binned"),):
+    for kw in (dict(use_bvh=True, bvh_kernel="bogus"),):
         with pytest.raises(NotImplementedError):
             pt.render_image_stats(ts, RenderConfig(width=8, height=8, spp=1, max_depth=1, **kw))
     img, rays = pt.render_image_stats(ts, RenderConfig(width=8, height=8, spp=1, max_depth=1,
