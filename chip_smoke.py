@@ -15,16 +15,16 @@ integrator.render_image_stats_auto:
   * the sphere field at 512x512, 1 spp, depth 50 on the wavefront with
     bvh_kernel "cluster" -> the cluster sweep (K7c votes, K7d / K7e sweeps),
     with bvh_kernel "dfs" -> the block-gated depth-first walk (K7f / K7g),
-    and with bvh_kernel "binned" -> the per-ray-vote binned sweep (K7a /
-    K7b);
+    with bvh_kernel "binned" -> the per-ray-vote binned sweep (K7a /
+    K7b), and with intersector "mt" -> the packet traversal (K7h);
 and the training path through utils.bench.run_grad_benchmark and
 diff.invert:
   * a gradient step on Cornell at 512x512, 64 spp, depth 5 (and one at
     1024x1024, 256 spp) -> the fused forward-gradient kernel K5;
   * a gradient step on the sphere field without its sky at 512x512, 64
     spp, depth 5 -> the fused-BVH forward-gradient kernel K6;
-  * the differentiable wavefront on K2a / K3a / K7d / K7f / K7a, and 10
-    Adam steps of invert.
+  * the differentiable wavefront on K2a / K3a / K7d / K7f / K7a / K7h, and
+    10 Adam steps of invert.
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
@@ -78,6 +78,18 @@ Phases:
         else; its last frame against the same K3 frame
   binned_main  the same with bvh_kernel "binned": K7a and K7b launched,
         nothing else; its last frame against the same K3 frame
+  k7 (K7h)  traverse_closest / traverse_any vs their plain versions
+        (intersect_closest_bvh_ref / intersect_any_bvh_ref) on the scenes of
+        k3 at packets of 32 and 1024, the soup also at 1, 96 and 2048, with
+        NaN and inactive lanes mixed in (the sphere field: its 65,536 clean
+        random rays at 1024, 2,048 of them with odd lanes at 32): t, prim,
+        u, v and occ equal, ties included; K7h timed on the sphere field's
+        random and primary rays beside K3a / K3b, the plain closest hit
+        once on the random rays
+  traverse_main  the sphere field at 512x512, 1 spp, d50 through
+        run_benchmark with intersector "mt" (the CLI's packets of 1024):
+        K7h launched for closest and shadow rays, nothing else; its last
+        frame against the same K3 frame
   k5    K5 vs its plain version (the wavefront with the gradient hook) at
         64x64 on Cornell and the diffuse zoo (depth 3 and 5, 2 and 4 spp):
         radiance under the tests/test_mega.py gates, rays within 1%, K5's
@@ -104,6 +116,9 @@ Phases:
         small sphere field without its sky
   dfs_grad  the same through dfs_closest_diff (K7f)
   binned_grad  the same through binned_closest_diff (K7a)
+  traverse_grad  the same with intersector "mt" through
+        traverse_closest_diff (K7h) against autograd through the plain
+        traversal on the CPU
   invert  10 Adam steps of the self-target demo on Cornell 128x128, 8
         spp, d5 through K5, on the target's sample set (common random
         numbers): K5 launched 10 times, the last loss below the first
@@ -129,16 +144,23 @@ occlusion is held equal to K7g's).  K7a / K7b's are counted by
 binned.binned_tests: a slab test per ray for each bin (K7b: up to the bin
 of the ray's first occluder), and the Woop tests of the slots of the bins
 the ray voted for (K7b: up to its first occluder; the count's occlusion is
-held equal to K7b's).  The rays of a
-fused kernel stay
+held equal to K7b's).  K7h's are counted by K7h's own walk
+(kernels.traverse_tests): a slab test per ray for each node its packet pops
+(any hit: while the ray is not occluded) and, at each leaf the packet
+enters, MT_FLOPS per Moller-Trumbore test of the leaf's slots for each ray
+with a non-empty window (any hit: up to its first hit; the count's
+occlusion is held equal to K7h's).  The rays of a fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
 tally, and its operations are that tally's per ray times the kernel's ray
 count.  Bytes: each input read once (rays, pixel ids, scene tables, votes),
 each output written once (radiance, rays, partial planes, votes, hits).
 No single PyTorch call computes ray-triangle intersection, a path-traced
-pixel, a supernode vote, a gated sweep, a gated walk or a binned
-vote-and-sweep, so library_ms is null for every kernel.
+pixel, a supernode vote, a gated sweep, a gated walk, a binned
+vote-and-sweep or a BVH traversal, so library_ms is null for every kernel.
+K7h's row stands for both wrappers: launches is the sum of both counts
+(launches_closest, launches_any), ms / bound_ms are the closest hit's and
+ms_any / bound_ms_any the any hit's.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -183,6 +205,7 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # float operations, a fused multiply-add counted as two, comparisons not at all
 WOOP_FLOPS = 32  # one Woop ray-triangle test (csrc/common.cuh:woop_test)
+MT_FLOPS = 46  # one Moller-Trumbore test (csrc/traverse.cu:mt_test)
 BOX_FLOPS = 24  # one slab box test (csrc/bvh.cuh:box_entered)
 # one shaded vertex (BSDF sample and eval, light sample, MIS, throughput):
 # an estimate, not a count; it is under 15% of any fused kernel's operations
@@ -295,7 +318,7 @@ def compare_images(tag, got, ref, rays_got, rays_ref, emission_only, mean_gate=2
 
 
 def _wrappers():
-    from gpuspectral_tpu_torch.bvh import binned, cluster_sweep, dfs_sweep, ftb
+    from gpuspectral_tpu_torch.bvh import binned, cluster_sweep, dfs_sweep, ftb, kernels
     from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad
     from gpuspectral_tpu_torch.ops import cuda_isect
 
@@ -305,11 +328,12 @@ def _wrappers():
                 k6=mega_grad.render_mega_bvh_fwdgrad_rows, k7c=cluster_sweep.cluster_votes,
                 k7d=cluster_sweep.cluster_closest, k7e=cluster_sweep.cluster_any,
                 k7f=dfs_sweep.dfs_closest, k7g=dfs_sweep.dfs_any,
-                k7a=binned.binned_closest, k7b=binned.binned_any)
+                k7a=binned.binned_closest, k7b=binned.binned_any,
+                k7h=kernels.traverse_closest, k7h_any=kernels.traverse_any)
 
 
 NONE = dict(k1=0, k2a=0, k2b=0, k3a=0, k3b=0, k4=0, k5=0, k6=0, k7c=0, k7d=0, k7e=0, k7f=0,
-            k7g=0, k7a=0, k7b=0)
+            k7g=0, k7a=0, k7b=0, k7h=0, k7h_any=0)
 
 
 def nbytes(*tensors):
@@ -1168,12 +1192,150 @@ def phase_k7(dev, cases, field):
     return rows
 
 
+def odd_lanes(rays, seed=4):
+    """The rays with NaN directions, NaN origins, zero direction components
+    and inactive lanes (t_max = -1e30) mixed in."""
+    o, d, lo, hi = (x.clone() for x in rays)
+    k = torch.as_tensor(np.random.default_rng(seed).uniform(size=o.shape[0]), device=o.device)
+    d[k < 0.02, 1] = float("nan")
+    o[(k >= 0.02) & (k < 0.04), 0] = float("nan")
+    d[(k >= 0.04) & (k < 0.06), 2] = 0.0
+    hi[(k >= 0.06) & (k < 0.15)] = -1e30
+    return o, d, lo, hi
+
+
+def traverse_tree(scene):
+    """The tables of K7h: the packed leaf rows, the node boxes, n_levels."""
+    from gpuspectral_tpu_torch.bvh import kernels
+
+    return (kernels.pack_tris(scene.tri_pos, scene.bvh_clusters, scene.bvh_leaf_size),
+            scene.bvh_node_min.contiguous(), scene.bvh_node_max.contiguous(), scene.bvh_levels)
+
+
+def check_traverse(name, scene, rays, packet, timed=False):
+    """traverse_closest / traverse_any against their plain versions on
+    `rays` in packets of `packet`: t, prim, u, v and occ equal, ties
+    included; the closest hit on (0, t_max), the any hit on (t_min, t_max).
+    Returns (the max abs errors, the plain closest hit's ms or None)."""
+    from gpuspectral_tpu_torch.bvh import kernels
+    from gpuspectral_tpu_torch.bvh import traverse
+
+    o, d, lo, hi = rays
+    zero = torch.zeros_like(hi)
+    tree = traverse_tree(scene)
+    got = kernels.traverse_closest(o, d, *tree, zero, hi, packet)
+    occ = kernels.traverse_any(o, d, *tree, lo, hi, packet)
+    ref, ms = timed_once(lambda: traverse.intersect_closest_bvh_ref(o, d, *tree, zero, hi, packet))
+    occ_r = traverse.intersect_any_bvh_ref(o, d, *tree, lo, hi, packet)
+    bad = {k: int((a != b).sum()) for k, a, b in (
+        ("t", got[0], ref[0]), ("prim", got[1], ref[1]), ("u", got[2], ref[2]),
+        ("v", got[3], ref[3]), ("occ", occ, occ_r))}
+    hit = ref[1] >= 0
+    log(f"  K7h {name}: rays={o.shape[0]} packet={packet} clusters={scene.bvh_clusters}x"
+        f"{scene.bvh_leaf_size} hits={int(hit.sum())} occluded={int(occ_r.sum())} "
+        f"mismatches={bad} (plain closest {ms / 1e3:.1f} s)")
+    if any(bad.values()):
+        raise AssertionError(f"K7h disagrees with its plain version on {name} at packet {packet}")
+    return (float((got[0] - ref[0]).abs()[hit].max()) if hit.any() else 0.0,
+            float((occ.int() - occ_r.int()).abs().max())), (ms if timed else None)
+
+
+def traverse_bounds(scene, rays, occ):
+    """bound() of K7h's closest hit (on (0, t_max)) and any hit for one call
+    each over `rays` at packets of 1024, the tests counted by K7h's own walk
+    (kernels.traverse_tests): a slab test per ray for each node its packet
+    pops (any hit: while not occluded), and at each leaf the packet enters
+    the leaf's Moller-Trumbore tests for each ray with a window (any hit:
+    up to its first hit).  The count's occlusion must equal K7h's `occ`.
+    Also the tests per ray."""
+    from gpuspectral_tpu_torch.bvh import kernels
+
+    o, d, lo, hi = rays
+    tree = traverse_tree(scene)
+    box_c, mt_c, _ = kernels.traverse_tests(o, d, *tree, torch.zeros_like(hi), hi, False)
+    box_a, mt_a, occ_count = kernels.traverse_tests(o, d, *tree, lo, hi, True)
+    if not torch.equal(occ_count, occ):
+        raise AssertionError(f"K7h's tally disagrees with K7h on {int((occ_count != occ).sum())} "
+                             "rays")
+    n = o.shape[0]
+    tables = nbytes(*tree[:3])
+    sums = [float(x.double().sum()) for x in (box_c, mt_c, box_a, mt_a)]
+    return dict(
+        closest=bound(sums[0] * BOX_FLOPS + sums[1] * MT_FLOPS, n * (32 + 16) + tables),
+        any=bound(sums[2] * BOX_FLOPS + sums[3] * MT_FLOPS, n * (32 + 1) + tables),
+        box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
+        mt_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
+
+
+TRAVERSE_PACKETS = (32, 1024)  # K7h's parity on every BVH scene; the soup also at 1, 96, 2048
+TRAVERSE_FIELD_SMALL = 2048  # rays of the sphere field's parity at 32 (the plain walk is slow)
+
+
+def phase_k7h(dev, cases, field):
+    """K7h against its plain versions on the five BVH scenes (NaN and
+    inactive lanes mixed in, the sphere field at packets of 1024 on the
+    clean random rays of the timing), then timed on the sphere field beside
+    K3 on 65,536 random rays and the 262,144 primary rays of the 512x512
+    frame, at the CLI's packets of 1024.  The plain version is timed once,
+    on the random rays."""
+    from gpuspectral_tpu_torch.bvh import ftb, kernels
+
+    log("phase k7 (K7h): traverse_closest / traverse_any vs their plain versions")
+    err = (0.0, 0.0)
+    plain_ms = None
+    for i, (name, scene) in enumerate(cases.items()):
+        rays = field_rays(K3_RAYS["parity"], scene, 20 + i, dev)
+        packets = TRAVERSE_PACKETS + ((1, 96, 2048) if name == "soup2048" else ())
+        for packet in packets:
+            if name == "sphere_field" and packet == 1024:
+                e, plain_ms = check_traverse(name, scene, rays, packet, timed=True)
+            elif name == "sphere_field":
+                small = [x[:TRAVERSE_FIELD_SMALL] for x in rays]
+                e, _ = check_traverse(name + " (odd lanes)", scene, odd_lanes(small), packet)
+            else:
+                e, _ = check_traverse(name + " (odd lanes)", scene, odd_lanes(rays), packet)
+            err = tuple(max(a, b) for a, b in zip(err, e))
+    tree = traverse_tree(field)
+    out = {}
+    for tag, rays in (("random", field_rays(K3_RAYS["parity"], field, 20, dev)),
+                      ("primary", primary_rays(field, HEADLINE["size"], dev))):
+        o, d, lo, hi = rays
+        zero = torch.zeros_like(hi)
+        times = dict(
+            closest=cuda_ms(lambda: kernels.traverse_closest(o, d, *tree, zero, hi), reps=2),
+            any=cuda_ms(lambda: kernels.traverse_any(o, d, *tree, lo, hi), reps=2),
+            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
+        b = traverse_bounds(field, rays, kernels.traverse_any(o, d, *tree, lo, hi))
+        log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items())
+            + f"; K7h slab tests per ray {b['box_per_ray']}, Moller-Trumbore tests per ray "
+            + f"{b['mt_per_ray']}; bound closest {b['closest']['bound_ms']:.4f} ms, any "
+            + f"{b['any']['bound_ms']:.4f} ms; {o.shape[0] // 1024} CTAs for "
+            + f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+        out[tag] = dict(times=times, bounds=b, rays=o.shape[0])
+    r, p = out["random"], out["primary"]
+    return dict(max_abs_err=err[0], occ_max_abs_err=err[1], ms=r["times"]["closest"],
+                plain_ms=plain_ms, **r["bounds"]["closest"], rays=r["rays"],
+                ms_any=r["times"]["any"], bound_ms_any=r["bounds"]["any"]["bound_ms"],
+                bound_by_any=r["bounds"]["any"]["bound_by"],
+                ms_primary=p["times"]["closest"], bound_ms_primary=p["bounds"]["closest"]["bound_ms"],
+                ms_any_primary=p["times"]["any"],
+                bound_ms_any_primary=p["bounds"]["any"]["bound_ms"], primary_rays=p["rays"],
+                k3_ms=dict(closest=r["times"]["k3a"], any=r["times"]["k3b"]),
+                k3_ms_primary=dict(closest=p["times"]["k3a"], any=p["times"]["k3b"]),
+                box_per_ray=r["bounds"]["box_per_ray"], mt_per_ray=r["bounds"]["mt_per_ray"],
+                box_per_ray_primary=p["bounds"]["box_per_ray"],
+                mt_per_ray_primary=p["bounds"]["mt_per_ray"], packet=1024)
+
+
 SWEEP_ITERS = 1  # timed frames of cluster_main, dfs_main and binned_main (after one warmup frame)
 
 
-def phase_sweep_main(dev, kernel, keys, k3_ref=None):
+def phase_sweep_main(dev, kernel, keys, k3_ref=None, intersector="pallas"):
     """The sphere field through run_benchmark on the wavefront with
-    bvh_kernel `kernel` (its kernels `keys`, nothing else launched), its
+    bvh_kernel `kernel` (its kernels `keys`, nothing else launched), or with
+    intersector "mt" (`kernel` "traverse": the packet traversal, K7h), its
     last frame held to the K3 wavefront's frame at the same config and
     timestamp.  Returns (the kernels' rows, the K3 frame and its rays and
     seconds, for the next kernel family's phase)."""
@@ -1182,14 +1344,14 @@ def phase_sweep_main(dev, kernel, keys, k3_ref=None):
     from gpuspectral_tpu_torch.utils.bench import run_benchmark
 
     hs, depth = HEADLINE["size"], HEADLINE["depth"]
+    select = (["--intersector", intersector] if intersector != "pallas"
+              else ["--intersector", "pallas", "--bvh-kernel", kernel])
     log(f"phase {kernel}_main: sphere field {hs}x{hs}, 1 spp, depth {depth} through "
-        f"run_benchmark (intersector pallas, bvh_kernel {kernel}: "
-        + ", ".join(k.upper() for k in keys) + ")")
+        f"run_benchmark ({' '.join(select)}: " + ", ".join(k.upper() for k in keys) + ")")
     # the command line's own arguments, as `cli.main benchmark` parses them
     args = cli.parser().parse_args([
         "benchmark", SPHERE_FIELD, "--size", f"{hs}x{hs}", "--spp", "1", "--depth", str(depth),
-        "--intersector", "pallas", "--bvh-kernel", kernel, "--device", str(dev),
-        "--warmup", "1", "--iters", str(SWEEP_ITERS)])
+        *select, "--device", str(dev), "--warmup", "1", "--iters", str(SWEEP_ITERS)])
     reset_counts()
     result, img = run_benchmark(args, return_image=True)
     launches = counts()
@@ -1206,7 +1368,8 @@ def phase_sweep_main(dev, kernel, keys, k3_ref=None):
         scene, cfg = cli._build(args)
         reset_counts()
         t0 = time.perf_counter()
-        ref, rays_ref = render_image_stats(scene, cfg.replace(bvh_kernel="ftb"), ts)
+        ref, rays_ref = render_image_stats(scene, cfg.replace(bvh_kernel="ftb",
+                                                              intersector="pallas"), ts)
         torch.cuda.synchronize()
         k3_ref = (ref, rays_ref, time.perf_counter() - t0)
         c = counts()
@@ -1217,7 +1380,7 @@ def phase_sweep_main(dev, kernel, keys, k3_ref=None):
                          result["rays_traced"], rays_ref, emission_only=False)
     log(f"  {kernel} frame {result['seconds_per_frame']:.3f} s, {result['mrays_per_s']:.4f} "
         f"Mrays/s; the K3 wavefront {k3_s:.3f} s, {rays_ref / k3_s / 1e6:.4f} Mrays/s")
-    run = f"{kernel} run_benchmark ({hs}x{hs}, 1 spp, d{depth}, bvh_kernel {kernel})"
+    run = f"{kernel} run_benchmark ({hs}x{hs}, 1 spp, d{depth}, {' '.join(select)})"
     frame = dict(seconds_per_frame=result["seconds_per_frame"], mrays_per_s=result["mrays_per_s"],
                  rays_traced=result["rays_traced"], k3_wavefront_s=k3_s, frame_max_abs_err=err)
     return {k: dict(launches=launches[k], launched_by=run, **frame) for k in keys}, k3_ref
@@ -1530,7 +1693,10 @@ def phase_grad_wavefront(dev):
          "k3a", dict(use_bvh=True))))
 
 
-def phase_sweep_grad(dev, kernel, key, wrapper):
+def phase_sweep_grad(dev, kernel, key, wrapper, select=None):
+    """grad_wavefront_cases on the small sphere field without its sky, with
+    bvh_kernel `kernel` or the config keywords `select` (the packet
+    traversal: intersector "mt")."""
     from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
 
     log(f"phase {kernel}_grad: the differentiable wavefront on {key.upper()} ({wrapper}) "
@@ -1538,7 +1704,7 @@ def phase_sweep_grad(dev, kernel, key, wrapper):
     return grad_wavefront_cases(dev, (
         ("sphere_field_small_noenv",
          lambda d: build_sphere_field(d, n_side=2, segs=16, rings=8, sky_hw=None), key,
-         dict(use_bvh=True, bvh_kernel=kernel)),))
+         dict(use_bvh=True, **(select or dict(bvh_kernel=kernel)))),))
 
 
 def phase_invert(dev):
@@ -1611,6 +1777,7 @@ def main() -> int:
     cases = bvh_cases(dev, scenes, field)
     k3_err, k3_times = phase_k3(dev, cases, field)
     k7 = phase_k7(dev, cases, field)
+    k7h = phase_k7h(dev, cases, field)
     del field, cases
     env_err = phase_env(dev)
     k4_err = phase_k4(dev, scenes)
@@ -1628,9 +1795,14 @@ def main() -> int:
     rows, k3_ref = phase_sweep_main(dev, "cluster", ("k7c", "k7d", "k7e"))
     rows_fg, _ = phase_sweep_main(dev, "dfs", ("k7f", "k7g"), k3_ref)
     rows_ab, _ = phase_sweep_main(dev, "binned", ("k7a", "k7b"), k3_ref)
+    rows_h, _ = phase_sweep_main(dev, "traverse", ("k7h", "k7h_any"), k3_ref, intersector="mt")
     del k3_ref
     for key, row in dict(rows, **rows_fg, **rows_ab).items():
         m[key] = dict(row, **k7[key])
+    closest, any_hit = rows_h["k7h"], rows_h["k7h_any"]
+    m["k7h"] = dict(closest, launches=closest["launches"] + any_hit["launches"],
+                    launches_closest=closest["launches"], launches_any=any_hit["launches"],
+                    **k7h)
 
     log("phase K5: fused forward-gradient megakernel vs its plain version")
     k5_err = phase_fused(dev, False, dict(cornell=scenes["cornell"],
@@ -1651,6 +1823,8 @@ def main() -> int:
     m["k7f"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "dfs", "k7f", "dfs_closest_diff")
     m["k7a"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "binned", "k7a",
                                                         "binned_closest_diff")
+    m["k7h"]["autograd_max_abs_err"] = phase_sweep_grad(
+        dev, "traverse", "k7h", "intersector mt, traverse_closest_diff", dict(intersector="mt"))
     phase_invert(dev)
     log("phase end: every phase passed")
     specs = [
@@ -1686,11 +1860,14 @@ def main() -> int:
          "gpuspectral_tpu/bvh/binned.py:409", "k7a"),
         ("K7b binned_any", "gpuspectral_tpu_torch/csrc/binned.cu",
          "gpuspectral_tpu/bvh/binned.py:449", "k7b"),
+        ("K7h traverse_closest / traverse_any", "gpuspectral_tpu_torch/csrc/traverse.cu",
+         "gpuspectral_tpu/bvh/kernels.py:269", "k7h"),
     ]
     kernels = []
     for kname, src, rep, key in specs:
         # no PyTorch call computes ray-triangle intersection, a path-traced
-        # pixel, a supernode vote, a gated walk or a binned vote-and-sweep
+        # pixel, a supernode vote, a gated walk, a binned vote-and-sweep or
+        # a BVH traversal
         kernels.append(dict(name=kname, route="cuda", source=src, replaces=rep, library_ms=None,
                             **m[key]))
     log(smi)

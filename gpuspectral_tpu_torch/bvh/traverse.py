@@ -1,4 +1,4 @@
-"""BVH packet traversal in plain torch (port of gpuspectral_tpu/bvh/traverse.py).
+"""BVH packet traversal (port of gpuspectral_tpu/bvh/traverse.py).
 
 The wavefront's BVH intersector for intersector "woop" or "mt" (and "auto"
 for CPU tensors), as in the JAX package: packets of `packet_size` rays walk
@@ -6,19 +6,27 @@ the implicit cluster tree of bvh/build.py together, one stack per packet.
 
   * A packet enters a node if any of its live rays passes the slab test
     against the node's box on [t_min, best_t] (the packet-wide vote).
-  * Internal nodes push the right child first, so leaves are visited in
-    ascending prim order and exact-t ties go to the lowest prim, as in the
-    brute-force scan.
-  * A leaf's leaf_size Morton-sorted triangles are Moller-Trumbore tested
-    (ops/intersect.py:_mt_chunk) against each ray's current best_t, which
-    culls the rest of the walk.
+  * Internal nodes push the right child first, so the left subtree is
+    visited first: leaves in ascending prim order, and exact-t ties go to
+    the lowest prim, as in the brute-force scan and the JAX XLA traversal.
+    (The JAX Pallas kernel, bvh/kernels.py, pops the right child first and
+    so reports the higher prim of a tie across leaves.)
+  * Every ray of a packet that enters a leaf Moller-Trumbore tests its
+    leaf_size Morton-sorted triangles, the rows of kernels.pack_tris
+    (ops/intersect.py:_mt_edges), against its current best_t, which culls
+    the rest of its walk.
   * Any-hit packets stop once every ray is occluded.
 
-Every packet steps at once: the stacks are one (packets, stack_cap) tensor,
-and the loop runs as long as the longest packet's walk, each iteration
-popping one node per live packet and testing the leaves that packets
-entered.  t, u and v carry autograd through the leaf tests (the slab tests
-are comparisons and take none), as jax.grad flows through the XLA loop.
+`intersect_closest_bvh` / `intersect_any_bvh` launch K7h (bvh/kernels.py,
+csrc/traverse.cu; the closest hit through kernels.TraverseClosestDiff) for
+CUDA tensors, or raise, and run the plain versions
+`intersect_closest_bvh_ref` / `intersect_any_bvh_ref`, which K7h equals bit
+for bit, for CPU tensors.  The plain versions step every packet at once:
+the stacks are one (packets, stack_cap) tensor, and the loop runs as long
+as the longest packet's walk, each iteration popping one node per live
+packet and testing the leaves that packets entered.  t, u and v carry
+autograd through the leaf tests (the slab tests are comparisons and take
+none), as jax.grad flows through the XLA loop.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import math3d as m3
-from ..ops.intersect import _mt_chunk, _segment
+from ..ops.intersect import _mt_edges, _segment
 
 _BIG = 1e30
 
@@ -39,12 +47,15 @@ def _ray_aabb(origin, inv_dir, bb_min, bb_max):
     return torch.amax(torch.minimum(t0, t1), dim=-1), torch.amin(torch.maximum(t0, t1), dim=-1)
 
 
-def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_max,
-                     n_clusters: int, leaf_size: int, n_levels: int, any_hit: bool):
-    """(P, B) rays of P packets against the tree.  Returns (t, prim, u, v),
-    each (P, B), prim indexing the sorted triangle array, or with any_hit
-    the (P, B) occluded mask."""
+def _traverse_packet(origin, direction, t_min, t_max, packed, node_min, node_max,
+                     n_levels: int, any_hit: bool, count: bool = False):
+    """(P, B) rays of P packets against the tree, `packed` the (C, leaf, 12)
+    rows of kernels.pack_tris.  Returns (t, prim, u, v), each (P, B), prim
+    indexing the sorted triangle array, or with any_hit the (P, B) occluded
+    mask.  With `count`, also ((P, B) box tests, (P, B) Moller-Trumbore
+    tests): what K7h does for each ray (kernels.traverse_tests)."""
     p, b = t_min.shape
+    n_clusters, leaf_size = packed.shape[:2]
     dev = origin.device
     o_box = origin.detach()
     d = direction.detach()
@@ -58,13 +69,8 @@ def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_ma
     u = torch.zeros((p, b), dtype=torch.float32, device=dev)
     v = torch.zeros((p, b), dtype=torch.float32, device=dev)
     occluded = torch.zeros((p, b), dtype=torch.bool, device=dev)
-    slots = torch.arange(leaf_size, device=dev)
-    # leaves of padding clusters reach past the table: zero-area triangles,
-    # which never hit, stand in for the slots there (the JAX package's
-    # dynamic_slice clamps the start instead, onto the table's last slots)
-    short = n_clusters * leaf_size - tri_pos.shape[0]
-    if short > 0:
-        tri_pos = torch.cat([tri_pos, tri_pos.new_zeros((short, 3, 3))])
+    boxes = torch.zeros((p, b), dtype=torch.int64, device=dev)
+    tests = torch.zeros((p, b), dtype=torch.int64, device=dev)
     while True:
         live = sp > 0
         if any_hit:
@@ -77,6 +83,8 @@ def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_ma
         node_hit = (t_exit >= t_enter) & (t_exit >= t_min) & (t_enter <= best_t.detach())
         if any_hit:
             node_hit = node_hit & ~occluded
+        if count:  # every ray of a live packet slab-tests (any hit: while not occluded)
+            boxes += (live[:, None] & ~occluded) if any_hit else live[:, None]
         go = live & node_hit.any(1)
         is_leaf = node >= first_leaf
         inner = torch.nonzero(go & ~is_leaf)[:, 0]
@@ -88,10 +96,18 @@ def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_ma
         leaf = torch.nonzero(go & is_leaf)[:, 0]
         if not leaf.numel():
             continue
-        off = (node[leaf] - first_leaf) * leaf_size
-        tris = tri_pos[off[:, None] + slots]  # (n, leaf_size, 3, 3)
-        hit, t, tu, tv = _mt_chunk(origin[leaf], direction[leaf], tris, t_min[leaf],
-                                   best_t[leaf])
+        cluster = node[leaf] - first_leaf
+        off = cluster * leaf_size
+        rows = packed[cluster]  # (n, leaf_size, 12)
+        hit, t, tu, tv = _mt_edges(origin[leaf], direction[leaf], rows[..., 0:3], rows[..., 3:6],
+                                   rows[..., 6:9], t_min[leaf], best_t[leaf])
+        if count:  # a ray with an empty window tests nothing
+            window = best_t[leaf].detach() > t_min[leaf]
+            n = torch.full_like(window, leaf_size, dtype=torch.int64)
+            if any_hit:  # up to its first hit, while not occluded
+                first = torch.where(hit.any(2), hit.to(torch.int64).argmax(2) + 1, leaf_size)
+                n = torch.where(occluded[leaf], 0, first)
+            tests = tests.index_add(0, leaf, torch.where(window, n, 0))
         if any_hit:
             occluded = occluded.index_copy(0, leaf, occluded[leaf] | hit.any(2))
             continue
@@ -107,10 +123,8 @@ def _traverse_packet(origin, direction, t_min, t_max, tri_pos, node_min, node_ma
         u = pick(torch.gather(tu, 2, arg)[..., 0], u)
         v = pick(torch.gather(tv, 2, arg)[..., 0], v)
         best_t = pick(t_new, best_t)
-    if any_hit:
-        return occluded
-    t = torch.where(prim >= 0, best_t, _BIG)
-    return t, prim, u, v
+    out = occluded if any_hit else (torch.where(prim >= 0, best_t, _BIG), prim, u, v)
+    return (out, boxes, tests) if count else out
 
 
 def _packets(origin, direction, t_min, t_max, packet_size: int):
@@ -132,34 +146,84 @@ def _packets(origin, direction, t_min, t_max, packet_size: int):
             padf(t_min, 0.0).reshape(n_packets, b), padf(t_max, -_BIG).reshape(n_packets, b))
 
 
+def traverse_ref(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
+                 any_hit: bool, packet_size: int = 1024, count: bool = False):
+    """The plain traversal of (R,) rays with (R,) t_min / t_max: (t, prim,
+    u, v), or with any_hit the occlusion flags; with `count` also the (R,)
+    box and Moller-Trumbore tests of each ray."""
+    r = origin.shape[0]
+    packs = _packets(origin, direction, t_min, t_max, packet_size)
+    out = _traverse_packet(*packs, packed, node_min, node_max, n_levels, any_hit, count)
+    res, boxes, tests = out if count else (out, None, None)
+    if any_hit:
+        res = res.reshape(-1)[:r]
+    else:
+        t, prim, u, v = (x.reshape(-1)[:r] for x in res)
+        res = t, torch.where(t < _BIG, prim, -1), u, v
+    return (res, boxes.reshape(-1)[:r], tests.reshape(-1)[:r]) if count else res
+
+
+def intersect_closest_bvh_ref(origin, direction, packed, node_min, node_max, n_levels: int,
+                              t_min, t_max, packet_size: int = 1024):
+    """Plain torch version of kernels.traverse_closest (K7h)."""
+    return traverse_ref(origin, direction, packed, node_min, node_max, n_levels, t_min, t_max,
+                        False, packet_size)
+
+
+def intersect_any_bvh_ref(origin, direction, packed, node_min, node_max, n_levels: int, t_min,
+                          t_max, packet_size: int = 1024):
+    """Plain torch version of kernels.traverse_any (K7h)."""
+    return traverse_ref(origin, direction, packed, node_min, node_max, n_levels, t_min, t_max,
+                        True, packet_size)
+
+
+def _packed(tri_pos, n_clusters: int, leaf_size: int, packed):
+    from .kernels import pack_tris
+
+    if packed is None:
+        return pack_tris(tri_pos, n_clusters, leaf_size)
+    if tuple(packed.shape) != (n_clusters, leaf_size, 12):
+        raise ValueError(f"packed table {tuple(packed.shape)}, want ({n_clusters}, "
+                         f"{leaf_size}, 12)")
+    return packed
+
+
 def intersect_closest_bvh(origin, direction, tri_pos, node_min, node_max, n_clusters: int,
                           leaf_size: int, n_levels: int, t_min=None, t_max=None, active=None,
-                          packet_size: int = 1024):
+                          packet_size: int = 1024, packed=None):
     """Closest hit via the BVH, the contract of ops.intersect.intersect_closest:
     (t, prim, u, v), t = 1e30 and prim = -1 on a miss; prim indexes the
-    sorted triangle array (tri_pos)."""
+    sorted triangle array (tri_pos).  `packed`: kernels.pack_tris(tri_pos,
+    n_clusters, leaf_size), built here when not given."""
     r = origin.shape[0]
     t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
     if r == 0:
         z = torch.zeros((0,), dtype=torch.float32, device=origin.device)
         return z, z.to(torch.int32), z, z
-    packs = _packets(origin, direction, t_min, t_max, packet_size)
-    t, prim, u, v = _traverse_packet(*packs, tri_pos, node_min, node_max, n_clusters,
-                                     leaf_size, n_levels, any_hit=False)
-    t, prim, u, v = (x.reshape(-1)[:r] for x in (t, prim, u, v))
-    return t, torch.where(t < _BIG, prim, -1), u, v
+    packed = _packed(tri_pos, n_clusters, leaf_size, packed)
+    if origin.device.type == "cpu":
+        return intersect_closest_bvh_ref(origin, direction, packed, node_min, node_max, n_levels,
+                                         t_min, t_max, packet_size)
+    from .kernels import traverse_closest_diff
+
+    o, d, lo, hi = (x.contiguous() for x in (origin, direction, t_min, t_max))
+    return traverse_closest_diff(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size)
 
 
 def intersect_any_bvh(origin, direction, tri_pos, node_min, node_max, n_clusters: int,
                       leaf_size: int, n_levels: int, t_min, t_max, active=None,
-                      packet_size: int = 1024):
+                      packet_size: int = 1024, packed=None):
     """Any hit via the BVH: True where a triangle lies strictly inside
     (t_min, t_max); packets stop once all their rays are occluded."""
     r = origin.shape[0]
     t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
     if r == 0:
         return torch.zeros((0,), dtype=torch.bool, device=origin.device)
-    packs = _packets(origin, direction, t_min, t_max, packet_size)
-    occ = _traverse_packet(*packs, tri_pos, node_min, node_max, n_clusters, leaf_size,
-                           n_levels, any_hit=True)
-    return occ.reshape(-1)[:r]
+    packed = _packed(tri_pos, n_clusters, leaf_size, packed)
+    if origin.device.type == "cpu":
+        return intersect_any_bvh_ref(origin, direction, packed, node_min, node_max, n_levels,
+                                     t_min, t_max, packet_size)
+    from .kernels import traverse_any
+
+    o, d, lo, hi = (x.contiguous() for x in (origin, direction, t_min, t_max))
+    return traverse_any(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size)

@@ -50,7 +50,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
         "--intersector", default="auto", choices=["auto", "mega", "mega_bvh", "pallas", "woop", "mt"],
         help="auto: a megakernel for CUDA scenes when eligible (mega: brute force, "
              "mega_bvh: BVH), else the wavefront; woop / mt force the plain torch Woop / "
-             "Moller-Trumbore scans, or with a BVH the torch packet traversal",
+             "Moller-Trumbore scans, or with a BVH the packet traversal (K7h on the card, "
+             "its plain torch version on the CPU)",
     )
     p.add_argument("--light-sampling", default="uniform", choices=["uniform", "power"],
                    help="NEE light pick: uniform (reference) or power-proportional")

@@ -29,9 +29,11 @@ bvh/dfs_sweep.py, K7f / K7g) or "binned" (the per-ray-vote binned sweep of
 bvh/binned.py, K7a / K7b), with optional ray sorting (cfg.sort_rays)
 and shadow-ray sorting (cfg.shadow_sort) for any; they run their plain
 versions for CPU tensors and return the hit triangle's attribute rows.  With "woop" or
-"mt" (or "auto" for CPU tensors) and cfg.use_bvh, the torch packet
-traversal of bvh/traverse.py (Moller-Trumbore leaves, packets of
-cfg.packet_size rays), as the JAX wavefront runs its XLA traversal there.
+"mt" (or "auto" for CPU tensors) and cfg.use_bvh, the packet traversal of
+bvh/traverse.py (Moller-Trumbore leaves, packets of cfg.packet_size rays),
+as the JAX wavefront runs its XLA traversal there: K7h (bvh/kernels.py,
+csrc/traverse.cu) for CUDA tensors, its plain torch version for CPU
+tensors, over the packed leaf rows that _tables builds once per render.
 This module is also the plain version of the four megakernels
 (integrator/mega.py, integrator/mega_bvh.py and, with a gradient hook in
 `_bounce`, integrator/mega_grad.py); the BVH ones name their intersector
@@ -46,11 +48,14 @@ storing its intermediates; the counter-based RNG makes the replay exact
 samples.  The intersection kernels have no derivative of their own:
 closest hits go through `cuda_isect.closest_diff`, `ftb.ftb_closest_diff`,
 `cluster_sweep.cluster_closest_diff`, `dfs_sweep.dfs_closest_diff` or
-`binned.binned_closest_diff`, whose
-backward re-evaluates the hit triangle's Woop test in plain torch (the
-scans and the packet traversal are plain torch, differentiated as they
-are), and shadow rays and intersector tables are detached (visibility is a
-step function, as the JAX package's stop_gradient says).
+`binned.binned_closest_diff`, whose backward re-evaluates the hit
+triangle's Woop test in plain torch, or, with a BVH and intersector "woop"
+/ "mt" on the card, through `kernels.traverse_closest_diff` (K7h forward,
+the hit triangle's Moller-Trumbore test re-evaluated in the backward); the
+scans, and the packet traversal for CPU tensors, are plain torch,
+differentiated as they are.  Shadow rays and intersector tables are
+detached (visibility is a step function, as the JAX package's
+stop_gradient says).
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from __future__ import annotations
 import torch
 
 from ..bsdf.dispatch import eval_bsdf, is_transmission, sample_bsdf
-from ..bvh import binned, cluster_sweep, dfs_sweep, ftb, traverse
+from ..bvh import binned, cluster_sweep, dfs_sweep, ftb, kernels, traverse
 from ..ops import cuda_isect
 from ..ops import intersect as isect
 from ..ops import math3d as m3
@@ -102,8 +107,8 @@ _BVH_KERNELS = {
 
 def _resolve_intersector(scene: SceneData, cfg: RenderConfig) -> str:
     """"pallas" (the CUDA kernels, or their plain versions for CPU tensors),
-    "woop" or "mt" (plain torch: the scans, or with cfg.use_bvh the packet
-    traversal)."""
+    "woop" or "mt" (the plain torch scans, or with cfg.use_bvh the packet
+    traversal: K7h for CUDA tensors)."""
     isector = cfg.intersector
     if cfg.use_bvh and cfg.bvh_kernel not in _BVH_KERNELS:
         raise NotImplementedError(
@@ -194,7 +199,8 @@ def _fused_bvh(scene: SceneData, cfg: RenderConfig, bvh_isect) -> bool:
 
 def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str, bvh_isect=None):
     """Per-render lookup tables: the triangle rows, or the BVH kernels'
-    attribute rows, the light rows, and the corner texture colours."""
+    attribute rows, the light rows, the corner texture colours and, for the
+    packet traversal, its packed leaf rows."""
     out = dict(light=torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1))
     if _fused_bvh(scene, cfg, bvh_isect):
         out["attr"] = ftb.attr_table(scene)
@@ -204,6 +210,9 @@ def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str, bvh_isect=None):
                          if bvh_isect is None and cfg.bvh_kernel == "cluster" else {})
     else:
         out["tri"] = _tri_table(scene)
+        if cfg.use_bvh:
+            out["packed"] = kernels.pack_tris(scene.tri_pos, scene.bvh_clusters,
+                                              scene.bvh_leaf_size)
     if scene.has_textures and tex_mode == "corners":
         out["corner_tex"] = corner_texture_rows(scene)
     return out
@@ -257,7 +266,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
             t, prim, bu, bv = traverse.intersect_closest_bvh(
                 origin, direction, scene.tri_pos, scene.bvh_node_min, scene.bvh_node_max,
                 scene.bvh_clusters, scene.bvh_leaf_size, scene.bvh_levels, active=alive,
-                packet_size=cfg.packet_size)
+                packet_size=cfg.packet_size, packed=tables["packed"])
         elif isector == "pallas" and differentiable:
             t, prim, bu, bv = cuda_isect.closest_diff(origin.contiguous(), direction.contiguous(),
                                                       scene.tri_woop_t, scene.tri_woop, t_max0)
@@ -419,7 +428,8 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
         shadowed = traverse.intersect_any_bvh(
             position.detach(), ldir.detach(), scene.tri_pos, scene.bvh_node_min,
             scene.bvh_node_max, scene.bvh_clusters, scene.bvh_leaf_size, scene.bvh_levels,
-            sh_tmin, sh_tmax.detach(), active=nee_candidate, packet_size=cfg.packet_size)
+            sh_tmin, sh_tmax.detach(), active=nee_candidate, packet_size=cfg.packet_size,
+            packed=tables["packed"])
     elif isector == "pallas":
         shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
                                        ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,

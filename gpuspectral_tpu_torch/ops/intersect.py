@@ -30,10 +30,18 @@ _BIG = 1e30
 def _mt_chunk(origin, direction, tri_chunk, t_min, t_max):
     """Moller-Trumbore: (..., R,3) rays x (..., C,3,3) triangles -> (hit, t,
     u, v), each (..., R,C); t_min / t_max are (..., R).  Leading axes
-    broadcast (the packet axis of bvh/traverse.py)."""
-    v0 = tri_chunk[..., 0, :]  # (..., C,3)
-    e1 = (tri_chunk[..., 1, :] - v0).unsqueeze(-3)  # (..., 1,C,3)
-    e2 = (tri_chunk[..., 2, :] - v0).unsqueeze(-3)
+    broadcast."""
+    v0 = tri_chunk[..., 0, :]
+    return _mt_edges(origin, direction, v0, tri_chunk[..., 1, :] - v0,
+                     tri_chunk[..., 2, :] - v0, t_min, t_max)
+
+
+def _mt_edges(origin, direction, v0, e1, e2, t_min, t_max):
+    """_mt_chunk on triangles given as corner v0 and edges e1 = p1 - v0, e2 =
+    p2 - v0, each (..., C,3): the rows of bvh/kernels.pack_tris, which the
+    packet traversal (bvh/traverse.py, the packet axis leading) tests."""
+    e1 = e1.unsqueeze(-3)  # (..., 1,C,3)
+    e2 = e2.unsqueeze(-3)
     d = direction.unsqueeze(-2)  # (..., R,1,3)
     h = m3.cross_fma(d, e2)  # (..., R,C,3)
     a = m3.dot_fma(e1, h)

@@ -17,6 +17,9 @@ from gpuspectral_tpu_torch.bvh import build as bvh_build
 from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
 from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
 from gpuspectral_tpu_torch.bvh import ftb
+from gpuspectral_tpu_torch.bvh import kernels as tk
+from gpuspectral_tpu_torch.bvh import traverse as ttr
+from gpuspectral_tpu_torch.bsdf.table import diffuse
 from gpuspectral_tpu_torch.integrator import mega, mega_bvh
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
 from gpuspectral_tpu_torch.integrator import render_image_stats_auto
@@ -303,6 +306,108 @@ def test_wavefront_on_k7ab_matches_plain_scans(cuda_device):  # noqa: F811
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
 
 
+def _k7h_launches():
+    return tk.traverse_closest.launches, tk.traverse_any.launches
+
+
+def _soup_scene(dev, n_tris=2048):
+    rng = np.random.default_rng(7)
+    tris = (rng.uniform(-2.0, 2.0, size=(n_tris, 1, 3))
+            + rng.normal(scale=0.15, size=(n_tris, 3, 3))).astype(np.float32)
+    b = tdata.SceneBuilder()
+    b.add_object(tris, tris, None, np.eye(4, dtype=np.float32), b.add_bsdf(diffuse((0.5,) * 3)))
+    return b.build(dev)
+
+
+def _tree(ts):
+    return (tk.pack_tris(ts.tri_pos, ts.bvh_clusters, ts.bvh_leaf_size),
+            ts.bvh_node_min.contiguous(), ts.bvh_node_max.contiguous(), ts.bvh_levels)
+
+
+def _odd_lanes(rays, seed=4):
+    """The rays with NaN directions, NaN origins, zero direction components
+    and inactive lanes (t_max = -1e30) mixed in."""
+    o, d, lo, hi = (x.clone() for x in rays)
+    k = torch.as_tensor(np.random.default_rng(seed).uniform(size=o.shape[0]), device=o.device)
+    d[k < 0.02, 1] = float("nan")
+    o[(k >= 0.02) & (k < 0.04), 0] = float("nan")
+    d[(k >= 0.04) & (k < 0.06), 2] = 0.0
+    hi[(k >= 0.06) & (k < 0.15)] = -1e30
+    return o, d, lo, hi
+
+
+@pytest.mark.parametrize("name,packet", [
+    ("cornell", 32), ("zoo", 1024), ("sphere_field", 32), ("sphere_field", 1024),
+    ("soup2048", 1), ("soup2048", 96), ("soup2048", 2048)])
+def test_k7h_matches_plain_version(cuda_device, name, packet):  # noqa: F811
+    """K7h equals the plain packet traversal bit for bit: t, prim, u, v and
+    occ, ties included, with NaN and inactive lanes and a ragged last
+    packet."""
+    ts = _soup_scene(cuda_device) if name == "soup2048" else _scene(name, cuda_device)
+    o, d, lo, hi = _odd_lanes(_rays(17, 5000, cuda_device))
+    tree = _tree(ts)
+    n0 = _k7h_launches()
+    got = tk.traverse_closest(o, d, *tree, lo, hi, packet)
+    occ = tk.traverse_any(o, d, *tree, lo, hi, packet)
+    assert _k7h_launches() == (n0[0] + 1, n0[1] + 1)
+    ref = ttr.intersect_closest_bvh_ref(o, d, *tree, lo, hi, packet)
+    assert int((ref[1] >= 0).sum()) > 100
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    occ_r = ttr.intersect_any_bvh_ref(o, d, *tree, lo, hi, packet)
+    assert 0 < int(occ_r.sum()) < o.shape[0] and torch.equal(occ, occ_r)
+
+
+def test_k7h_rejects_bad_inputs(cuda_device):  # noqa: F811
+    ts = _scene("cornell", cuda_device)
+    o, d, lo, hi = _rays(3, 64, cuda_device)
+    tree = _tree(ts)
+    with pytest.raises(ValueError, match="float32"):
+        tk.traverse_closest(o.double(), d, *tree, lo, hi)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.traverse_any(o, d, *tree, lo, torch.stack([hi, hi], 1)[:, 0])
+    o, d, lo, hi = _rays(3, tk.MAX_PACKET + 1, cuda_device)
+    with pytest.raises(ValueError, match="packets of up to"):
+        tk.traverse_any(o, d, *tree, lo, hi, tk.MAX_PACKET + 1)
+
+
+def test_traverse_tests_count_the_plain_walk(cuda_device):  # noqa: F811
+    """traverse_tests on the card (K7h's walk with counters) equals the plain
+    walk's count on the CPU, test for test, and its result equals K7h's."""
+    ts, cpu = _scene("sphere_field", cuda_device), _scene("sphere_field", "cpu")
+    o, d, lo, hi = _odd_lanes(_rays(21, 3000, cuda_device))
+    zero = torch.zeros_like(hi)
+    for any_hit, tmin in ((False, zero), (True, lo)):
+        rays = (o, d, tmin, hi)
+        got = tk.traverse_tests(*rays[:2], *_tree(ts), *rays[2:], any_hit, 256)
+        ref = tk.traverse_tests(*[x.cpu() for x in rays[:2]], *_tree(cpu),
+                                *[x.cpu() for x in rays[2:]], any_hit, 256)
+        assert int(got[1].sum()) > 0
+        assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+        if any_hit:
+            assert torch.equal(got[2], tk.traverse_any(o, d, *_tree(ts), lo, hi, 256))
+        else:
+            k7h = tk.traverse_closest(o, d, *_tree(ts), zero, hi, 256)
+            assert all(torch.equal(a, b) for a, b in zip(got[2], k7h))
+
+
+def test_wavefront_on_k7h_matches_cpu(cuda_device):  # noqa: F811
+    """The wavefront with intersector "mt" and a BVH: K7h launched for the
+    closest hits and the shadow rays, no other intersection kernel; the
+    image against the same render on the CPU (the plain traversal) under
+    the tests/test_mega.py gates."""
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=4, ray_batch=2048, use_bvh=True,
+                       intersector="mt", packet_size=256)
+    others = lambda: (ci.closest_cuda.launches, ci.any_cuda.launches, ftb.ftb_closest.launches,  # noqa: E731
+                      ftb.ftb_any.launches, *_k7_launches(), *_k7fg_launches(),
+                      *_k7ab_launches())
+    n0, o0 = _k7h_launches(), others()
+    got, rays_got = pt.render_image_stats(_scene("sphere_field", cuda_device), cfg, 0)
+    assert all(a > b for a, b in zip(_k7h_launches(), n0)) and others() == o0
+    ref, rays_ref = pt.render_image_stats(_scene("sphere_field", "cpu"), cfg, 0)
+    assert_mega_gates(ref.numpy(), got.cpu().numpy(), rays_ref, rays_got)
+
+
 @pytest.mark.parametrize("name", ["env_const", "env_image"])
 def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
     ts = _scene(name, cuda_device)
@@ -434,10 +539,11 @@ def _vjp(t, u, v, o, d, seed=9):
     return torch.autograd.grad(loss, (o, d))
 
 
-@pytest.mark.parametrize("kind", ["k2a", "k3a", "k7d", "k7a"])
+@pytest.mark.parametrize("kind", ["k2a", "k3a", "k7d", "k7a", "k7h"])
 def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
-    """The autograd wrappers of K2a / K3a / K7d / K7a on the card against the same
-    wrappers on the CPU (the plain forward, the same torch backward)."""
+    """The autograd wrappers of K2a / K3a / K7d / K7a / K7h on the card against
+    the same wrappers on the CPU (the plain forward, the same torch
+    backward)."""
     ts = _scene("cornell" if kind == "k2a" else "sphere_field", cuda_device)
     cpu = _scene("cornell" if kind == "k2a" else "sphere_field", "cpu")
     out = {}
@@ -451,8 +557,10 @@ def test_closest_diff_matches_plain_version(cuda_device, kind):  # noqa: F811
             t, prim, u, v, _ = ftb.ftb_closest_diff(sc, o, d)
         elif kind == "k7d":
             t, prim, u, v, _ = cs.cluster_closest_diff(sc, o, d)
-        else:
+        elif kind == "k7a":
             t, prim, u, v, _ = tb.binned_closest_diff(sc, o, d)
+        else:
+            t, prim, u, v = tk.traverse_closest_diff(o, d, *_tree(sc), torch.zeros_like(hi), hi)
         out[dev.type] = (prim.cpu(), [x.cpu() for x in (t, u, v)],
                          [x.cpu() for x in _vjp(t, u, v, o, d)])
     (p1, f1, g1), (p2, f2, g2) = out["cuda"], out["cpu"]
