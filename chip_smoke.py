@@ -145,11 +145,14 @@ binned.binned_tests: a slab test per ray for each bin (K7b: up to the bin
 of the ray's first occluder), and the Woop tests of the slots of the bins
 the ray voted for (K7b: up to its first occluder; the count's occlusion is
 held equal to K7b's).  K7h's are counted by K7h's own walk
-(kernels.traverse_tests): a slab test per ray for each node its packet pops
-(any hit: while the ray is not occluded) and, at each leaf the packet
-enters, MT_FLOPS per Moller-Trumbore test of the leaf's slots for each ray
-with a non-empty window (any hit: up to its first hit; the count's
-occlusion is held equal to K7h's).  The rays of a fused kernel stay
+(kernels.traverse_tests) on the tree with its empty subtrees' boxes made
+NaN (skip_empty: an empty padding cluster's zero rows never hit, so the
+function needs none of their tests, and the results are held equal to
+K7h's): SLAB_FLOPS per ray for each node its packet pops (any hit: while
+the ray is not occluded) and, at each leaf the packet enters, MT_FLOPS per
+Moller-Trumbore test of the leaf's slots for each ray with a non-empty
+window (any hit: up to its first hit).  The tests K7h makes on the tree as
+built are reported beside them.  The rays of a fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
 tally, and its operations are that tally's per ray times the kernel's ray
@@ -207,6 +210,7 @@ PEAK_BYTES_PER_S = 3.35e12
 WOOP_FLOPS = 32  # one Woop ray-triangle test (csrc/common.cuh:woop_test)
 MT_FLOPS = 46  # one Moller-Trumbore test (csrc/traverse.cu:mt_test)
 BOX_FLOPS = 24  # one slab box test (csrc/bvh.cuh:box_entered)
+SLAB_FLOPS = 12  # one slab test of K7h (csrc/traverse.cu:node_hit): 6 subtractions, 6 products
 # one shaded vertex (BSDF sample and eval, light sample, MIS, throughput):
 # an estimate, not a count; it is under 15% of any fused kernel's operations
 SHADE_FLOPS = 200
@@ -1240,31 +1244,38 @@ def check_traverse(name, scene, rays, packet, timed=False):
             float((occ.int() - occ_r.int()).abs().max())), (ms if timed else None)
 
 
-def traverse_bounds(scene, rays, occ):
+def traverse_bounds(scene, rays, k7h):
     """bound() of K7h's closest hit (on (0, t_max)) and any hit for one call
-    each over `rays` at packets of 1024, the tests counted by K7h's own walk
-    (kernels.traverse_tests): a slab test per ray for each node its packet
-    pops (any hit: while not occluded), and at each leaf the packet enters
-    the leaf's Moller-Trumbore tests for each ray with a window (any hit:
-    up to its first hit).  The count's occlusion must equal K7h's `occ`.
-    Also the tests per ray."""
+    each over `rays` at packets of 1024, from the tests the function needs
+    (kernels.traverse_tests with skip_empty: K7h's walk entering no empty
+    subtree): a slab test per ray for each node its packet pops (any hit:
+    while not occluded), and at each leaf the packet enters the leaf's
+    Moller-Trumbore tests for each ray with a window (any hit: up to its
+    first hit).  Both counts' results must equal K7h's `k7h` ((t, prim, u,
+    v), occ).  Also the tests per ray, needed and made by K7h."""
     from gpuspectral_tpu_torch.bvh import kernels
 
     o, d, lo, hi = rays
     tree = traverse_tree(scene)
-    box_c, mt_c, _ = kernels.traverse_tests(o, d, *tree, torch.zeros_like(hi), hi, False)
-    box_a, mt_a, occ_count = kernels.traverse_tests(o, d, *tree, lo, hi, True)
-    if not torch.equal(occ_count, occ):
-        raise AssertionError(f"K7h's tally disagrees with K7h on {int((occ_count != occ).sum())} "
-                             "rays")
+    per_ray, sums = {}, {}
+    for skip in (True, False):
+        box_c, mt_c, res_c = kernels.traverse_tests(o, d, *tree, torch.zeros_like(hi), hi,
+                                                    False, skip_empty=skip)
+        box_a, mt_a, res_a = kernels.traverse_tests(o, d, *tree, lo, hi, True, skip_empty=skip)
+        if not (all(torch.equal(a, b) for a, b in zip(res_c, k7h[0]))
+                and torch.equal(res_a, k7h[1])):
+            raise AssertionError(f"K7h's tally (skip_empty={skip}) disagrees with K7h")
+        sums[skip] = [float(x.double().sum()) for x in (box_c, mt_c, box_a, mt_a)]
+        per_ray["needed" if skip else "k7h"] = dict(
+            slab=dict(closest=sums[skip][0] / o.shape[0], any=sums[skip][2] / o.shape[0]),
+            mt=dict(closest=sums[skip][1] / o.shape[0], any=sums[skip][3] / o.shape[0]))
     n = o.shape[0]
     tables = nbytes(*tree[:3])
-    sums = [float(x.double().sum()) for x in (box_c, mt_c, box_a, mt_a)]
+    need = sums[True]
     return dict(
-        closest=bound(sums[0] * BOX_FLOPS + sums[1] * MT_FLOPS, n * (32 + 16) + tables),
-        any=bound(sums[2] * BOX_FLOPS + sums[3] * MT_FLOPS, n * (32 + 1) + tables),
-        box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
-        mt_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
+        closest=bound(need[0] * SLAB_FLOPS + need[1] * MT_FLOPS, n * (32 + 16) + tables),
+        any=bound(need[2] * SLAB_FLOPS + need[3] * MT_FLOPS, n * (32 + 1) + tables),
+        tests_per_ray=per_ray)
 
 
 TRAVERSE_PACKETS = (32, 1024)  # K7h's parity on every BVH scene; the soup also at 1, 96, 2048
@@ -1306,12 +1317,13 @@ def phase_k7h(dev, cases, field):
             any=cuda_ms(lambda: kernels.traverse_any(o, d, *tree, lo, hi), reps=2),
             k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
-        b = traverse_bounds(field, rays, kernels.traverse_any(o, d, *tree, lo, hi))
+        b = traverse_bounds(field, rays, (kernels.traverse_closest(o, d, *tree, zero, hi),
+                                          kernels.traverse_any(o, d, *tree, lo, hi)))
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
-            + f"; K7h slab tests per ray {b['box_per_ray']}, Moller-Trumbore tests per ray "
-            + f"{b['mt_per_ray']}; bound closest {b['closest']['bound_ms']:.4f} ms, any "
-            + f"{b['any']['bound_ms']:.4f} ms; {o.shape[0] // 1024} CTAs for "
+            + f"; tests per ray {json.dumps(b['tests_per_ray'])}; bound closest "
+            + f"{b['closest']['bound_ms']:.4f} ms, any {b['any']['bound_ms']:.4f} ms; "
+            + f"{o.shape[0] // 1024} CTAs for "
             + f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
         out[tag] = dict(times=times, bounds=b, rays=o.shape[0])
     r, p = out["random"], out["primary"]
@@ -1324,9 +1336,8 @@ def phase_k7h(dev, cases, field):
                 bound_ms_any_primary=p["bounds"]["any"]["bound_ms"], primary_rays=p["rays"],
                 k3_ms=dict(closest=r["times"]["k3a"], any=r["times"]["k3b"]),
                 k3_ms_primary=dict(closest=p["times"]["k3a"], any=p["times"]["k3b"]),
-                box_per_ray=r["bounds"]["box_per_ray"], mt_per_ray=r["bounds"]["mt_per_ray"],
-                box_per_ray_primary=p["bounds"]["box_per_ray"],
-                mt_per_ray_primary=p["bounds"]["mt_per_ray"], packet=1024)
+                tests_per_ray=r["bounds"]["tests_per_ray"],
+                tests_per_ray_primary=p["bounds"]["tests_per_ray"], packet=1024)
 
 
 SWEEP_ITERS = 1  # timed frames of cluster_main, dfs_main and binned_main (after one warmup frame)

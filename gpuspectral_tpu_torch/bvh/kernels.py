@@ -26,7 +26,8 @@ version bit for bit.
     winning triangle's Moller-Trumbore test in plain torch.  The tables are
     detached, as for every intersector of the wavefront.
   * `traverse_tests`: the slab and Moller-Trumbore tests K7h makes for each
-    ray, for its bound.
+    ray, or with `skip_empty` those the function needs (no empty cluster
+    entered), for its bound.
 
 Rays are (R, 3) origins and directions with (R,) t_min / t_max (inactive
 rays at t_max = -1e30); hits take t in (t_min, t_max).  Not carried over
@@ -43,7 +44,7 @@ from . import traverse
 from ..ops.intersect import _mt_edges
 
 _BIG = 1e30
-MAX_PACKET = 8192  # 1024 threads a CTA of up to 8 rays each (csrc/traverse.cu:kMaxPacket)
+MAX_PACKET = 2048  # 1024 threads a CTA of up to 2 rays each (csrc/traverse.cu:kMaxPacket)
 MAX_LEAF = 1024  # 48 KB of staged rows a leaf
 
 
@@ -194,20 +195,36 @@ def traverse_closest_diff(origin, direction, packed, node_min, node_max, n_level
                                      t_min.detach(), t_max.detach(), packet_size)
 
 
+def nan_empty(node_min, node_max):
+    """The node boxes with every inverted box (lo > hi on an axis: an empty
+    cluster of bvh/build.py, or a node over empty clusters only) made NaN.
+    A NaN box fails every slab test, so no packet enters an empty subtree;
+    an inverted one passes every slab test (t_enter = -inf, t_exit = +inf),
+    and the zero rows of its leaves never hit."""
+    empty = (node_min > node_max).any(1, keepdim=True)
+    return (torch.where(empty, float("nan"), node_min).contiguous(),
+            torch.where(empty, float("nan"), node_max).contiguous())
+
+
 def traverse_tests(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
-                   any_hit: bool, packet_size: int = 1024):
+                   any_hit: bool, packet_size: int = 1024, skip_empty: bool = False):
     """((R,) int64 slab tests, (R,) int64 Moller-Trumbore tests, the
     result): what K7h does for each ray.  Closest hit: a slab test for every
     node its packet pops, and at every leaf the packet enters the leaf's
     leaf_size tests if the ray's window (t_min, best) is not empty.  Any
     hit: the same while the ray is not occluded, and in a leaf the tests up
     to its first hit.  The result is (t, prim, u, v) or the occlusion
-    flags, for holding the count to the kernel.  For CUDA tensors K7h's
-    walk counts its own tests (csrc/traverse.cu:gst_traverse_count, as
-    ftb.ftb_walk_tests counts K3's); for CPU tensors the plain walk counts
-    them.  It measures the kernel's work; nothing renders with it, and it
-    adds no launch to the wrappers' counts."""
+    flags, for holding the count to the kernel.  With `skip_empty`, the same
+    walk of the tree with nan_empty's boxes: the tests the function needs,
+    with the same result, since an empty cluster's rows never hit (its
+    bound counts these).  For CUDA tensors K7h's walk counts its own tests
+    (csrc/traverse.cu:gst_traverse_count, as ftb.ftb_walk_tests counts
+    K3's); for CPU tensors the plain walk counts them.  It measures the
+    kernel's work; nothing renders with it, and it adds no launch to the
+    wrappers' counts."""
     packet = _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_size)
+    if skip_empty:
+        node_min, node_max = nan_empty(node_min, node_max)
     if origin.device.type == "cpu":
         out, boxes, tests = traverse.traverse_ref(origin, direction, packed, node_min, node_max,
                                                   n_levels, t_min, t_max, any_hit, packet_size,

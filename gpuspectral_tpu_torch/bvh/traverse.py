@@ -17,16 +17,18 @@ the implicit cluster tree of bvh/build.py together, one stack per packet.
     the rest of its walk.
   * Any-hit packets stop once every ray is occluded.
 
-`intersect_closest_bvh` / `intersect_any_bvh` launch K7h (bvh/kernels.py,
-csrc/traverse.cu; the closest hit through kernels.TraverseClosestDiff) for
-CUDA tensors, or raise, and run the plain versions
-`intersect_closest_bvh_ref` / `intersect_any_bvh_ref`, which K7h equals bit
-for bit, for CPU tensors.  The plain versions step every packet at once:
-the stacks are one (packets, stack_cap) tensor, and the loop runs as long
-as the longest packet's walk, each iteration popping one node per live
-packet and testing the leaves that packets entered.  t, u and v carry
-autograd through the leaf tests (the slab tests are comparisons and take
-none), as jax.grad flows through the XLA loop.
+`intersect_closest_bvh` / `intersect_any_bvh` call the wrappers of
+bvh/kernels.py (the closest hit through kernels.TraverseClosestDiff),
+which launch K7h (csrc/traverse.cu) for CUDA tensors, or raise, and run
+the plain versions `intersect_closest_bvh_ref` / `intersect_any_bvh_ref`,
+which K7h equals bit for bit, for CPU tensors.  The plain versions step
+every packet at once: the stacks are one (packets, stack_cap) tensor, and
+the loop runs as long as the longest packet's walk, each iteration popping
+one node per live packet and testing the leaves that packets entered.
+t, u and v carry autograd through the leaf tests (the slab tests are
+comparisons and take none), as jax.grad flows through the XLA loop; the
+wrapper's backward, which re-evaluates each ray's winning test, gives the
+same (origin, direction) gradients.
 """
 
 from __future__ import annotations
@@ -177,53 +179,34 @@ def intersect_any_bvh_ref(origin, direction, packed, node_min, node_max, n_level
                         True, packet_size)
 
 
-def _packed(tri_pos, n_clusters: int, leaf_size: int, packed):
-    from .kernels import pack_tris
-
-    if packed is None:
-        return pack_tris(tri_pos, n_clusters, leaf_size)
-    if tuple(packed.shape) != (n_clusters, leaf_size, 12):
-        raise ValueError(f"packed table {tuple(packed.shape)}, want ({n_clusters}, "
-                         f"{leaf_size}, 12)")
-    return packed
-
-
-def intersect_closest_bvh(origin, direction, tri_pos, node_min, node_max, n_clusters: int,
-                          leaf_size: int, n_levels: int, t_min=None, t_max=None, active=None,
-                          packet_size: int = 1024, packed=None):
+def intersect_closest_bvh(origin, direction, packed, node_min, node_max, n_levels: int,
+                          t_min=None, t_max=None, active=None, packet_size: int = 1024):
     """Closest hit via the BVH, the contract of ops.intersect.intersect_closest:
     (t, prim, u, v), t = 1e30 and prim = -1 on a miss; prim indexes the
-    sorted triangle array (tri_pos).  `packed`: kernels.pack_tris(tri_pos,
-    n_clusters, leaf_size), built here when not given."""
-    r = origin.shape[0]
-    t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
-    if r == 0:
-        z = torch.zeros((0,), dtype=torch.float32, device=origin.device)
-        return z, z.to(torch.int32), z, z
-    packed = _packed(tri_pos, n_clusters, leaf_size, packed)
-    if origin.device.type == "cpu":
-        return intersect_closest_bvh_ref(origin, direction, packed, node_min, node_max, n_levels,
-                                         t_min, t_max, packet_size)
+    sorted triangle array.  `packed`: kernels.pack_tris of that array.
+    Through kernels.traverse_closest_diff: K7h for CUDA tensors, the plain
+    version for CPU tensors, with (t, u, v) gradients w.r.t. (origin,
+    direction)."""
     from .kernels import traverse_closest_diff
 
+    t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
+    if origin.shape[0] == 0:
+        z = torch.zeros((0,), dtype=torch.float32, device=origin.device)
+        return z, z.to(torch.int32), z, z
     o, d, lo, hi = (x.contiguous() for x in (origin, direction, t_min, t_max))
     return traverse_closest_diff(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size)
 
 
-def intersect_any_bvh(origin, direction, tri_pos, node_min, node_max, n_clusters: int,
-                      leaf_size: int, n_levels: int, t_min, t_max, active=None,
-                      packet_size: int = 1024, packed=None):
+def intersect_any_bvh(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
+                      active=None, packet_size: int = 1024):
     """Any hit via the BVH: True where a triangle lies strictly inside
-    (t_min, t_max); packets stop once all their rays are occluded."""
-    r = origin.shape[0]
-    t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
-    if r == 0:
-        return torch.zeros((0,), dtype=torch.bool, device=origin.device)
-    packed = _packed(tri_pos, n_clusters, leaf_size, packed)
-    if origin.device.type == "cpu":
-        return intersect_any_bvh_ref(origin, direction, packed, node_min, node_max, n_levels,
-                                     t_min, t_max, packet_size)
+    (t_min, t_max); packets stop once all their rays are occluded.  Through
+    kernels.traverse_any: K7h for CUDA tensors, the plain version for CPU
+    tensors."""
     from .kernels import traverse_any
 
+    t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
+    if origin.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=origin.device)
     o, d, lo, hi = (x.contiguous() for x in (origin, direction, t_min, t_max))
     return traverse_any(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size)

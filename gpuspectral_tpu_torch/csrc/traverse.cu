@@ -17,7 +17,8 @@
 // padded with rays o = 0, d = 1, t_min = 0, t_max = -1e30, which never hit,
 // as traverse._packets pads it).  T = min(packet rounded up to a warp, 1024)
 // threads, each owning kPer rays of the packet (ray j on thread j % T; kPer =
-// 1 up to 1024 rays a packet, else 2, 4 or 8), their state in registers.
+// 1 up to 1024 rays a packet, 2 up to kMaxPacket = 2048), their state in
+// registers.
 // The walk is the CTA's, not a ray's: every thread holds the same node and
 // stack pointer, and the stack of right children still to visit lives in
 // shared memory, written by thread 0.  At each node:
@@ -75,7 +76,7 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxStack = 64;  // right children pending: at most log2(C)
-constexpr int kMaxPacket = 8 * kMaxThreads;
+constexpr int kMaxPacket = 2 * kMaxThreads;
 
 struct Ray {
   gst::V3 o, d, inv;
@@ -275,12 +276,8 @@ int launch(const float* origin, const float* direction, const float* t_min, cons
       leaf_size, t_out, prim_out, u_out, v_out, occ_out, boxes_out, tests_out)
   if (per == 1) {
     GST_TRAVERSE(1);
-  } else if (per == 2) {
-    GST_TRAVERSE(2);
-  } else if (per <= 4) {
-    GST_TRAVERSE(4);
   } else {
-    GST_TRAVERSE(8);
+    GST_TRAVERSE(2);
   }
 #undef GST_TRAVERSE
   return (int)cudaGetLastError();

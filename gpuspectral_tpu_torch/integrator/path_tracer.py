@@ -50,9 +50,9 @@ closest hits go through `cuda_isect.closest_diff`, `ftb.ftb_closest_diff`,
 `cluster_sweep.cluster_closest_diff`, `dfs_sweep.dfs_closest_diff` or
 `binned.binned_closest_diff`, whose backward re-evaluates the hit
 triangle's Woop test in plain torch, or, with a BVH and intersector "woop"
-/ "mt" on the card, through `kernels.traverse_closest_diff` (K7h forward,
-the hit triangle's Moller-Trumbore test re-evaluated in the backward); the
-scans, and the packet traversal for CPU tensors, are plain torch,
+/ "mt", through `kernels.traverse_closest_diff` (K7h forward on the card,
+the plain traversal for CPU tensors; the hit triangle's Moller-Trumbore
+test re-evaluated in the backward); the scans are plain torch,
 differentiated as they are.  Shadow rays and intersector tables are
 detached (visibility is a step function, as the JAX package's
 stop_gradient says).
@@ -264,9 +264,8 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
     else:
         if cfg.use_bvh:
             t, prim, bu, bv = traverse.intersect_closest_bvh(
-                origin, direction, scene.tri_pos, scene.bvh_node_min, scene.bvh_node_max,
-                scene.bvh_clusters, scene.bvh_leaf_size, scene.bvh_levels, active=alive,
-                packet_size=cfg.packet_size, packed=tables["packed"])
+                origin, direction, tables["packed"], scene.bvh_node_min, scene.bvh_node_max,
+                scene.bvh_levels, active=alive, packet_size=cfg.packet_size)
         elif isector == "pallas" and differentiable:
             t, prim, bu, bv = cuda_isect.closest_diff(origin.contiguous(), direction.contiguous(),
                                                       scene.tri_woop_t, scene.tri_woop, t_max0)
@@ -426,10 +425,9 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
                                active=nee_candidate, **bvh_kw)
     elif cfg.use_bvh:
         shadowed = traverse.intersect_any_bvh(
-            position.detach(), ldir.detach(), scene.tri_pos, scene.bvh_node_min,
-            scene.bvh_node_max, scene.bvh_clusters, scene.bvh_leaf_size, scene.bvh_levels,
-            sh_tmin, sh_tmax.detach(), active=nee_candidate, packet_size=cfg.packet_size,
-            packed=tables["packed"])
+            position.detach(), ldir.detach(), tables["packed"], scene.bvh_node_min,
+            scene.bvh_node_max, scene.bvh_levels, sh_tmin, sh_tmax.detach(),
+            active=nee_candidate, packet_size=cfg.packet_size)
     elif isector == "pallas":
         shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
                                        ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,

@@ -30,6 +30,7 @@ from gpuspectral_tpu_torch.scene import load_mitsuba_scene
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field, build_zoo
 from gpuspectral_tpu_torch.utils import RenderConfig
 
+from chip_smoke import odd_lanes
 from torch_common import (CORNELL_XML, assert_mega_gates, cuda_device,  # noqa: F401
                           env_box, mixed_bsdf_scene, sky, textured_diffuse_scene,
                           textured_floor)
@@ -324,18 +325,6 @@ def _tree(ts):
             ts.bvh_node_min.contiguous(), ts.bvh_node_max.contiguous(), ts.bvh_levels)
 
 
-def _odd_lanes(rays, seed=4):
-    """The rays with NaN directions, NaN origins, zero direction components
-    and inactive lanes (t_max = -1e30) mixed in."""
-    o, d, lo, hi = (x.clone() for x in rays)
-    k = torch.as_tensor(np.random.default_rng(seed).uniform(size=o.shape[0]), device=o.device)
-    d[k < 0.02, 1] = float("nan")
-    o[(k >= 0.02) & (k < 0.04), 0] = float("nan")
-    d[(k >= 0.04) & (k < 0.06), 2] = 0.0
-    hi[(k >= 0.06) & (k < 0.15)] = -1e30
-    return o, d, lo, hi
-
-
 @pytest.mark.parametrize("name,packet", [
     ("cornell", 32), ("zoo", 1024), ("sphere_field", 32), ("sphere_field", 1024),
     ("soup2048", 1), ("soup2048", 96), ("soup2048", 2048)])
@@ -344,7 +333,7 @@ def test_k7h_matches_plain_version(cuda_device, name, packet):  # noqa: F811
     occ, ties included, with NaN and inactive lanes and a ragged last
     packet."""
     ts = _soup_scene(cuda_device) if name == "soup2048" else _scene(name, cuda_device)
-    o, d, lo, hi = _odd_lanes(_rays(17, 5000, cuda_device))
+    o, d, lo, hi = odd_lanes(_rays(17, 5000, cuda_device))
     tree = _tree(ts)
     n0 = _k7h_launches()
     got = tk.traverse_closest(o, d, *tree, lo, hi, packet)
@@ -371,17 +360,19 @@ def test_k7h_rejects_bad_inputs(cuda_device):  # noqa: F811
         tk.traverse_any(o, d, *tree, lo, hi, tk.MAX_PACKET + 1)
 
 
-def test_traverse_tests_count_the_plain_walk(cuda_device):  # noqa: F811
-    """traverse_tests on the card (K7h's walk with counters) equals the plain
+@pytest.mark.parametrize("skip_empty", [False, True])
+def test_traverse_tests_count_the_plain_walk(cuda_device, skip_empty):  # noqa: F811
+    """traverse_tests on the card (K7h's walk with counters; with
+    skip_empty, the walk that enters no empty cluster) equals the plain
     walk's count on the CPU, test for test, and its result equals K7h's."""
     ts, cpu = _scene("sphere_field", cuda_device), _scene("sphere_field", "cpu")
-    o, d, lo, hi = _odd_lanes(_rays(21, 3000, cuda_device))
+    o, d, lo, hi = odd_lanes(_rays(21, 3000, cuda_device))
     zero = torch.zeros_like(hi)
     for any_hit, tmin in ((False, zero), (True, lo)):
         rays = (o, d, tmin, hi)
-        got = tk.traverse_tests(*rays[:2], *_tree(ts), *rays[2:], any_hit, 256)
+        got = tk.traverse_tests(*rays[:2], *_tree(ts), *rays[2:], any_hit, 256, skip_empty)
         ref = tk.traverse_tests(*[x.cpu() for x in rays[:2]], *_tree(cpu),
-                                *[x.cpu() for x in rays[2:]], any_hit, 256)
+                                *[x.cpu() for x in rays[2:]], any_hit, 256, skip_empty)
         assert int(got[1].sum()) > 0
         assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
         if any_hit:

@@ -24,6 +24,7 @@ from gpuspectral_tpu.ops import woop as jwoop
 from gpuspectral_tpu.scene.data import SceneBuilder as JaxBuilder
 from gpuspectral_tpu.utils.config import RenderConfig as JaxConfig
 from gpuspectral_tpu_torch.bvh import ftb
+from gpuspectral_tpu_torch.bvh import kernels as tk
 from gpuspectral_tpu_torch.bvh import traverse as ttr
 from gpuspectral_tpu_torch.diff import gradcheck as tgc
 from gpuspectral_tpu_torch.integrator import mega_bvh, mega_grad
@@ -132,9 +133,16 @@ def test_mt_analytic_cases():
     assert int(tis.intersect_closest(torch.tensor([[0.0, 0.0, -1.0]]), d[:1], padded)[1][0]) == 0
 
 
-def _tree(bvh, mod):
-    arr = jnp.asarray if mod is jtr else torch.as_tensor
-    return (arr(bvh.node_min), arr(bvh.node_max), bvh.n_clusters, bvh.leaf_size, bvh.n_levels)
+def _tree(bvh):
+    return (jnp.asarray(bvh.node_min), jnp.asarray(bvh.node_max), bvh.n_clusters, bvh.leaf_size,
+            bvh.n_levels)
+
+
+def _port_tree(tris, bvh):
+    """The port's traversal takes the packed leaf rows in place of the
+    triangles, cluster count and leaf size."""
+    return (tk.pack_tris(_t(tris), bvh.n_clusters, bvh.leaf_size), _t(bvh.node_min),
+            _t(bvh.node_max), bvh.n_levels)
 
 
 @pytest.mark.parametrize("n_tris,packet_size", [(50, 64), (700, 64), (700, 1024), (3000, 256)])
@@ -143,17 +151,17 @@ def test_traversal_matches_jax(n_tris, packet_size):
     windows, an active mask and a ragged last packet."""
     tris, bvh = _soup(n_tris)
     o, d, t_min, t_max, active = _rays(700)
-    ref = jtr.intersect_closest_bvh(o, d, jnp.asarray(tris), *_tree(bvh, jtr),
+    ref = jtr.intersect_closest_bvh(o, d, jnp.asarray(tris), *_tree(bvh),
                                     t_min=jnp.asarray(t_min), t_max=jnp.asarray(t_max),
                                     active=jnp.asarray(active), packet_size=packet_size)
-    got = ttr.intersect_closest_bvh(_t(o), _t(d), _t(tris), *_tree(bvh, ttr), t_min=_t(t_min),
+    got = ttr.intersect_closest_bvh(_t(o), _t(d), *_port_tree(tris, bvh), t_min=_t(t_min),
                                     t_max=_t(t_max), active=_t(active), packet_size=packet_size)
     assert got[1].dtype == torch.int32 and int((got[1] >= 0).sum()) > 10
     _assert_equal(got, ref)
-    occ_ref = jtr.intersect_any_bvh(o, d, jnp.asarray(tris), *_tree(bvh, jtr), t_min=0.01,
+    occ_ref = jtr.intersect_any_bvh(o, d, jnp.asarray(tris), *_tree(bvh), t_min=0.01,
                                     t_max=8.0, active=jnp.asarray(active),
                                     packet_size=packet_size)
-    occ = ttr.intersect_any_bvh(_t(o), _t(d), _t(tris), *_tree(bvh, ttr), t_min=0.01, t_max=8.0,
+    occ = ttr.intersect_any_bvh(_t(o), _t(d), *_port_tree(tris, bvh), t_min=0.01, t_max=8.0,
                                 active=_t(active), packet_size=packet_size)
     assert int(occ.sum()) > 5
     _assert_equal([occ], [occ_ref])
@@ -168,11 +176,11 @@ def test_traversal_active_mask_and_window():
     tris, bvh = _soup(100, seed=9)
     o = torch.zeros((4, 3))
     d = torch.tensor([[1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0]], dtype=torch.float32)
-    _, prim, _, _ = ttr.intersect_closest_bvh(o, d, _t(tris), *_tree(bvh, ttr),
+    _, prim, _, _ = ttr.intersect_closest_bvh(o, d, *_port_tree(tris, bvh),
                                               active=torch.tensor([True, False, True, False]),
                                               packet_size=4)
     assert int(prim[1]) == -1 and int(prim[3]) == -1
-    assert ttr.intersect_closest_bvh(o[:0], d[:0], _t(tris), *_tree(bvh, ttr))[1].shape == (0,)
+    assert ttr.intersect_closest_bvh(o[:0], d[:0], *_port_tree(tris, bvh))[1].shape == (0,)
 
 
 def test_traversal_carries_autograd():
@@ -182,7 +190,7 @@ def test_traversal_carries_autograd():
     o, d, _, _, _ = _rays(256, seed=4)
     w = _t(np.random.default_rng(5).normal(size=(3, 256)).astype(np.float32))
     grads = []
-    for fn in (lambda oo, dd: ttr.intersect_closest_bvh(oo, dd, _t(tris), *_tree(bvh, ttr),
+    for fn in (lambda oo, dd: ttr.intersect_closest_bvh(oo, dd, *_port_tree(tris, bvh),
                                                         packet_size=64),
                lambda oo, dd: tis.intersect_closest(oo, dd, _t(tris), tri_chunk=128)):
         oo, dd = _t(o).requires_grad_(True), _t(d).requires_grad_(True)

@@ -133,8 +133,8 @@ def test_exact_t_ties_across_leaves():
                              interpret=True)
     xla = jtr.intersect_closest_bvh(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tris), *tree,
                                     packet_size=8)
-    port = ttr.intersect_closest_bvh(_t(o), _t(d), _t(tris), _t(node_min), _t(node_max), 4, 16,
-                                     3, packet_size=8)
+    port = ttr.intersect_closest_bvh(_t(o), _t(d), tk.pack_tris(_t(tris), 4, 16), _t(node_min),
+                                     _t(node_max), 3, packet_size=8)
     assert np.asarray(pallas[1]).tolist() == [55, 55]
     assert np.asarray(xla[1]).tolist() == [5, 5] and port[1].tolist() == [5, 5]
     for i in (0, 2, 3):
@@ -208,10 +208,33 @@ def test_traverse_tests_count_the_walk(any_hit):
             assert (boxes[s] == nodes).all()
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_skip_empty_counts_the_needed_tests(any_hit):
+    """traverse_tests with skip_empty (every inverted box, an empty cluster
+    or a node over empty ones only, made NaN): the same result as K7h's
+    walk, never more tests for a ray, and fewer Moller-Trumbore tests in
+    all on a soup whose tree pads 44 clusters to 64 (the tests its bound
+    counts)."""
+    tris, bvh, rs = _pallas_soup(700, 3, 4.0, 0.3)
+    tree = _port_tree(tris, bvh)
+    assert bool((tree[1] > tree[2]).any())
+    o, d = _unit_rays(rs, 96, -6, 6)
+    rays = [_t(o), _t(d), torch.zeros(96), torch.full((96,), 1e30)]
+    if any_hit:
+        rays[3] = _t(rs.uniform(2, 9, 96).astype(np.float32))
+    walk = tk.traverse_tests(*rays[:2], *tree, *rays[2:], any_hit, 32)
+    need = tk.traverse_tests(*rays[:2], *tree, *rays[2:], any_hit, 32, skip_empty=True)
+    for a, b in zip([walk[2]] if any_hit else walk[2], [need[2]] if any_hit else need[2]):
+        assert torch.equal(a, b)
+    assert (need[0] <= walk[0]).all() and (need[1] <= walk[1]).all()
+    assert int(need[1].sum()) < int(walk[1].sum()) and int(need[1].sum()) > 0
+
+
 def test_cpu_tensors_run_the_plain_versions(monkeypatch):
-    """On CPU tensors the wrappers run the plain versions (no launch) and
-    intersect_closest_bvh never reaches the kernel's autograd wrapper;
-    another device is refused."""
+    """On CPU tensors the wrappers run the plain versions (no launch);
+    intersect_closest_bvh / intersect_any_bvh dispatch only through them
+    (the closest hit through traverse_closest_diff), so they give the plain
+    versions' results; another device is refused."""
     tris, bvh, rs = _pallas_soup(500, 11, 3.0, 0.4)
     tree = _port_tree(tris, bvh)
     o, d = (_t(x) for x in _unit_rays(rs, 100, -5, 5))
@@ -224,12 +247,15 @@ def test_cpu_tensors_run_the_plain_versions(monkeypatch):
         assert torch.equal(a, b)
     assert torch.equal(occ, ttr.intersect_any_bvh_ref(o, d, *tree, lo, torch.full((100,), 3.0),
                                                        16))
-    monkeypatch.setattr(tk, "traverse_closest_diff", lambda *a: pytest.fail("the kernel ran"))
-    plain = ttr.intersect_closest_bvh(o, d, _t(tris), _t(bvh.node_min), _t(bvh.node_max),
-                                      bvh.n_clusters, bvh.leaf_size, bvh.n_levels,
-                                      packet_size=16)
+    calls = []
+    for fn in ("traverse_closest_diff", "traverse_any"):
+        real = getattr(tk, fn)
+        monkeypatch.setattr(tk, fn, lambda *a, _r=real: calls.append(1) or _r(*a))
+    plain = ttr.intersect_closest_bvh(o, d, *tree, packet_size=16)
     for a, b in zip(plain, got):
         assert torch.equal(a, b)
+    assert torch.equal(ttr.intersect_any_bvh(o, d, *tree, lo, 3.0, packet_size=16), occ)
+    assert len(calls) == 2
     meta = [x.to("meta") for x in (o, d, *tree[:3], lo, hi)]
     with pytest.raises(ValueError, match="unsupported device"):
         tk.traverse_closest(*meta[:5], tree[3], *meta[5:])

@@ -8,8 +8,8 @@ power of two, 16,384, and gives each empty cluster the inverted box
 (t_enter = -inf, t_exit = +inf), so a packet enters every empty leaf under
 a node it enters and tests its 16 zero rows, which never hit.  This script
 times K7h (csrc/traverse.cu) on the tree as built and on a copy whose
-inverted boxes are NaN (a NaN box fails every slab test), on chip_smoke.py's
-65,536 random rays and the 262,144 primary rays of the 512x512 frame, in
+inverted boxes are NaN (kernels.nan_empty: a NaN box fails every slab
+test), on chip_smoke.py's 65,536 random rays and the 262,144 primary rays of the 512x512 frame, in
 turns (built, NaN, NaN, built), holds the two trees' results equal, and
 prints the slab and Moller-Trumbore tests per ray of each
 (kernels.traverse_tests).  It changes nothing in the package: it measures
@@ -34,12 +34,9 @@ def main():
                          capture_output=True, text=True).stdout.strip())
     field = build_sphere_field(dev)
     packed, lo_box, hi_box, levels = cs.traverse_tree(field)
-    empty = (lo_box > hi_box).any(1)
-    nan = torch.full_like(lo_box, float("nan"))
     trees = dict(built=(packed, lo_box, hi_box, levels),
-                 nan_empty=(packed, torch.where(empty[:, None], nan, lo_box).contiguous(),
-                            torch.where(empty[:, None], nan, hi_box).contiguous(), levels))
-    out = dict(empty_nodes=int(empty.sum()), nodes=int(empty.numel()))
+                 nan_empty=(packed, *kernels.nan_empty(lo_box, hi_box), levels))
+    out = dict(empty_nodes=int((lo_box > hi_box).any(1).sum()), nodes=lo_box.shape[0])
     for tag, rays in (("random", cs.field_rays(cs.K3_RAYS["parity"], field, 20, dev)),
                       ("primary", cs.primary_rays(field, cs.HEADLINE["size"], dev))):
         o, d, lo, hi = rays
