@@ -84,8 +84,11 @@ Phases:
         NaN and inactive lanes mixed in (the sphere field: its 65,536 clean
         random rays at 1024, 2,048 of them with odd lanes at 32): t, prim,
         u, v and occ equal, ties included; K7h timed on the sphere field's
-        random and primary rays beside K3a / K3b, the plain closest hit
-        once on the random rays
+        random and primary rays beside K3a / K3b and PR 8's walk (the
+        counting kernel, gst_traverse_count), the plain closest hit once on
+        the random rays; the tests the function needs per ray held to
+        NEEDED_TESTS; K7h's registers and spills and its CTAs (clusters)
+        per launch logged
   traverse_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "mt" (the CLI's packets of 1024):
         K7h launched for closest and shadow rays, nothing else; its last
@@ -144,15 +147,17 @@ occlusion is held equal to K7g's).  K7a / K7b's are counted by
 binned.binned_tests: a slab test per ray for each bin (K7b: up to the bin
 of the ray's first occluder), and the Woop tests of the slots of the bins
 the ray voted for (K7b: up to its first occluder; the count's occlusion is
-held equal to K7b's).  K7h's are counted by K7h's own walk
-(kernels.traverse_tests) on the tree with its empty subtrees' boxes made
-NaN (skip_empty: an empty padding cluster's zero rows never hit, so the
-function needs none of their tests, and the results are held equal to
-K7h's): SLAB_FLOPS per ray for each node its packet pops (any hit: while
-the ray is not occluded) and, at each leaf the packet enters, MT_FLOPS per
-Moller-Trumbore test of the leaf's slots for each ray with a non-empty
-window (any hit: up to its first hit).  The tests K7h makes on the tree as
-built are reported beside them.  The rays of a fused kernel stay
+held equal to K7b's).  K7h's are counted by PR 8's walk, a vote per node
+popped (kernels.traverse_tests, csrc/traverse.cu:gst_traverse_count), on
+the tree with its empty subtrees' boxes made NaN (skip_empty: an empty
+padding cluster's zero rows never hit, so the function needs none of their
+tests, and the results are held equal to K7h's): SLAB_FLOPS per ray for
+each node its packet pops (any hit: while the ray is not occluded) and, at
+each leaf the packet enters, MT_FLOPS per Moller-Trumbore test of the
+leaf's slots for each ray with a non-empty window (any hit: up to its first
+hit).  That count is held to PR 8's (NEEDED_TESTS), whatever K7h's walk
+does.  The tests PR 8's walk makes on the tree as built are reported
+beside them.  The rays of a fused kernel stay
 inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
 tally, and its operations are that tally's per ray times the kernel's ray
@@ -163,7 +168,10 @@ pixel, a supernode vote, a gated sweep, a gated walk, a binned
 vote-and-sweep or a BVH traversal, so library_ms is null for every kernel.
 K7h's row stands for both wrappers: launches is the sum of both counts
 (launches_closest, launches_any), ms / bound_ms are the closest hit's and
-ms_any / bound_ms_any the any hit's.
+ms_any / bound_ms_any the any hit's; ms_pr8 / ms_any_pr8 time PR 8's walk
+(csrc/traverse.cu:gst_traverse_count, the counting kernel with its
+counters, on the tree as built) on the same rays, so the row keeps the
+time K7h had before its redesign.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -1209,11 +1217,20 @@ def odd_lanes(rays, seed=4):
 
 
 def traverse_tree(scene):
-    """The tables of K7h: the packed leaf rows, the node boxes, n_levels."""
+    """The tables of K7h's wrappers: the packed leaf rows, the node boxes,
+    n_levels."""
     from gpuspectral_tpu_torch.bvh import kernels
 
     return (kernels.pack_tris(scene.tri_pos, scene.bvh_clusters, scene.bvh_leaf_size),
             scene.bvh_node_min.contiguous(), scene.bvh_node_max.contiguous(), scene.bvh_levels)
+
+
+def traverse_nodes(tree):
+    """K7h's node rows (kernels.pack_nodes) of a traverse_tree, built once as
+    the wavefront builds them once per render."""
+    from gpuspectral_tpu_torch.bvh import kernels
+
+    return kernels.pack_nodes(tree[1], tree[2], tree[0])
 
 
 def check_traverse(name, scene, rays, packet, timed=False):
@@ -1247,12 +1264,14 @@ def check_traverse(name, scene, rays, packet, timed=False):
 def traverse_bounds(scene, rays, k7h):
     """bound() of K7h's closest hit (on (0, t_max)) and any hit for one call
     each over `rays` at packets of 1024, from the tests the function needs
-    (kernels.traverse_tests with skip_empty: K7h's walk entering no empty
+    (kernels.traverse_tests with skip_empty: PR 8's walk entering no empty
     subtree): a slab test per ray for each node its packet pops (any hit:
     while not occluded), and at each leaf the packet enters the leaf's
     Moller-Trumbore tests for each ray with a window (any hit: up to its
     first hit).  Both counts' results must equal K7h's `k7h` ((t, prim, u,
-    v), occ).  Also the tests per ray, needed and made by K7h."""
+    v), occ).  Also the tests per ray, needed and made by PR 8's walk on
+    the tree as built (K7h enters the needed leaves, so it makes the needed
+    Moller-Trumbore tests; its slab tests are not counted)."""
     from gpuspectral_tpu_torch.bvh import kernels
 
     o, d, lo, hi = rays
@@ -1266,7 +1285,7 @@ def traverse_bounds(scene, rays, k7h):
                 and torch.equal(res_a, k7h[1])):
             raise AssertionError(f"K7h's tally (skip_empty={skip}) disagrees with K7h")
         sums[skip] = [float(x.double().sum()) for x in (box_c, mt_c, box_a, mt_a)]
-        per_ray["needed" if skip else "k7h"] = dict(
+        per_ray["needed" if skip else "pr8_walk"] = dict(
             slab=dict(closest=sums[skip][0] / o.shape[0], any=sums[skip][2] / o.shape[0]),
             mt=dict(closest=sums[skip][1] / o.shape[0], any=sums[skip][3] / o.shape[0]))
     n = o.shape[0]
@@ -1280,6 +1299,26 @@ def traverse_bounds(scene, rays, k7h):
 
 TRAVERSE_PACKETS = (32, 1024)  # K7h's parity on every BVH scene; the soup also at 1, 96, 2048
 TRAVERSE_FIELD_SMALL = 2048  # rays of the sphere field's parity at 32 (the plain walk is slow)
+# The tests a ray needs on the sphere field at packets of 1024 (traverse_bounds'
+# "needed", rounded), as PR 8's runs counted them: the bound's yardstick, which
+# no change to K7h may move.
+NEEDED_TESTS = dict(random=dict(slab=dict(closest=1950, any=771), mt=dict(closest=4445, any=1754)),
+                    primary=dict(slab=dict(closest=805, any=74), mt=dict(closest=3186, any=147)))
+
+
+def traverse_ptxas():
+    """ptxas's registers and spills of K7h (packet_kernel<rays a thread,
+    CTAs a packet, any hit>) and of the counting walk, by kernel."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {}
+    for kern, line in _build.build_info()["ptxas"].items():
+        for tag in ("packet_kernel", "count_kernel"):
+            if tag in kern:
+                # the template arguments of the mangled name: ILi1ELi1ELb0EE -> 1,1,0
+                args = kern.split(tag, 1)[1].split("EE", 1)[0]
+                out[tag + "<" + ",".join(x[-1] for x in args.split("E") if x) + ">"] = line
+    return out
 
 
 def phase_k7h(dev, cases, field):
@@ -1292,6 +1331,11 @@ def phase_k7h(dev, cases, field):
     from gpuspectral_tpu_torch.bvh import ftb, kernels
 
     log("phase k7 (K7h): traverse_closest / traverse_any vs their plain versions")
+    regs = traverse_ptxas()
+    for kern, line in regs.items():
+        log(f"  ptxas {kern}: {line}")
+    shape = kernels.launch_shape(1024)
+    log(f"  K7h at packets of 1024: {json.dumps(shape)}")
     err = (0.0, 0.0)
     plain_ms = None
     for i, (name, scene) in enumerate(cases.items()):
@@ -1307,37 +1351,55 @@ def phase_k7h(dev, cases, field):
                 e, _ = check_traverse(name + " (odd lanes)", scene, odd_lanes(rays), packet)
             err = tuple(max(a, b) for a, b in zip(err, e))
     tree = traverse_tree(field)
+    nodes = traverse_nodes(tree)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for tag, rays in (("random", field_rays(K3_RAYS["parity"], field, 20, dev)),
                       ("primary", primary_rays(field, HEADLINE["size"], dev))):
         o, d, lo, hi = rays
         zero = torch.zeros_like(hi)
         times = dict(
-            closest=cuda_ms(lambda: kernels.traverse_closest(o, d, *tree, zero, hi), reps=2),
-            any=cuda_ms(lambda: kernels.traverse_any(o, d, *tree, lo, hi), reps=2),
+            closest=cuda_ms(lambda: kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes),
+                            reps=5),
+            any=cuda_ms(lambda: kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes), reps=5),
+            closest_pr8=cuda_ms(lambda: kernels.traverse_tests(o, d, *tree, zero, hi, False),
+                                reps=2),
+            any_pr8=cuda_ms(lambda: kernels.traverse_tests(o, d, *tree, lo, hi, True), reps=2),
             k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
-        b = traverse_bounds(field, rays, (kernels.traverse_closest(o, d, *tree, zero, hi),
-                                          kernels.traverse_any(o, d, *tree, lo, hi)))
+        b = traverse_bounds(field, rays, (
+            kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes),
+            kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes)))
+        packets = -(-o.shape[0] // 1024)
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
             + f"; tests per ray {json.dumps(b['tests_per_ray'])}; bound closest "
             + f"{b['closest']['bound_ms']:.4f} ms, any {b['any']['bound_ms']:.4f} ms; "
-            + f"{o.shape[0] // 1024} CTAs for "
-            + f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+            + f"{packets} packets: {packets * shape['ctas_per_packet']} CTAs of "
+            + f"{shape['threads_per_cta']} threads (clusters of {shape['ctas_per_packet']}) "
+            + f"for {sms} SMs")
+        need = b["tests_per_ray"]["needed"]
+        for kind, want in NEEDED_TESTS[tag].items():
+            for hit, n in want.items():
+                if round(need[kind][hit]) != n:
+                    raise AssertionError(f"K7h's needed {kind} tests per {tag} ray ({hit}) "
+                                         f"{need[kind][hit]:.2f}, PR 8's count {n}")
         out[tag] = dict(times=times, bounds=b, rays=o.shape[0])
     r, p = out["random"], out["primary"]
     return dict(max_abs_err=err[0], occ_max_abs_err=err[1], ms=r["times"]["closest"],
-                plain_ms=plain_ms, **r["bounds"]["closest"], rays=r["rays"],
-                ms_any=r["times"]["any"], bound_ms_any=r["bounds"]["any"]["bound_ms"],
+                ms_pr8=r["times"]["closest_pr8"], plain_ms=plain_ms, **r["bounds"]["closest"],
+                rays=r["rays"], ms_any=r["times"]["any"], ms_any_pr8=r["times"]["any_pr8"],
+                bound_ms_any=r["bounds"]["any"]["bound_ms"],
                 bound_by_any=r["bounds"]["any"]["bound_by"],
-                ms_primary=p["times"]["closest"], bound_ms_primary=p["bounds"]["closest"]["bound_ms"],
-                ms_any_primary=p["times"]["any"],
+                ms_primary=p["times"]["closest"], ms_primary_pr8=p["times"]["closest_pr8"],
+                bound_ms_primary=p["bounds"]["closest"]["bound_ms"],
+                ms_any_primary=p["times"]["any"], ms_any_primary_pr8=p["times"]["any_pr8"],
                 bound_ms_any_primary=p["bounds"]["any"]["bound_ms"], primary_rays=p["rays"],
                 k3_ms=dict(closest=r["times"]["k3a"], any=r["times"]["k3b"]),
                 k3_ms_primary=dict(closest=p["times"]["k3a"], any=p["times"]["k3b"]),
                 tests_per_ray=r["bounds"]["tests_per_ray"],
-                tests_per_ray_primary=p["bounds"]["tests_per_ray"], packet=1024)
+                tests_per_ray_primary=p["bounds"]["tests_per_ray"], packet=1024,
+                launch_shape=shape, ptxas=regs)
 
 
 SWEEP_ITERS = 1  # timed frames of cluster_main, dfs_main and binned_main (after one warmup frame)

@@ -55,8 +55,9 @@ _SIGNATURES = {
     "gst_dfs_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "gst_binned_closest": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     "gst_binned_any": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P],
-    "gst_traverse_closest": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "gst_traverse_any": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    "gst_traverse_closest": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "gst_traverse_any": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "gst_traverse_shape": [_I, _P],
     "gst_traverse_count": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P, _P, _P],
     "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

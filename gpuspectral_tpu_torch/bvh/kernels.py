@@ -17,17 +17,25 @@ version bit for bit.
     sorted triangles (bvh/kernels.py:_pack_tris), zero rows past the scene
     (they never hit) and the table cut at C * leaf rows.  The wavefront
     builds it once per render (integrator/path_tracer.py:_tables).
+  * `pack_nodes`: K7h's (2C - 1, 8) node rows [min.xyz, empty, max.xyz, 0],
+    `empty` marking each subtree whose box is inverted (an empty padding
+    cluster, or a node over such clusters only), after checking that every
+    cluster under a marked node has all-zero rows, which never hit: K7h
+    enters no marked subtree, and no result changes.  Built once per render
+    beside pack_tris.
   * `traverse_closest` -> (t, prim, u, v) and `traverse_any` -> occluded:
     for CUDA tensors they launch the kernel or raise, and count their
     launches in `.launches`; for CPU tensors they run the plain versions
-    (traverse.intersect_closest_bvh_ref / intersect_any_bvh_ref).
+    (traverse.intersect_closest_bvh_ref / intersect_any_bvh_ref), which
+    walk the boxes as built.
   * `TraverseClosestDiff` / `traverse_closest_diff`: the closest hit with
     (t, u, v) gradients w.r.t. (origin, direction); the backward re-runs the
     winning triangle's Moller-Trumbore test in plain torch.  The tables are
     detached, as for every intersector of the wavefront.
-  * `traverse_tests`: the slab and Moller-Trumbore tests K7h makes for each
-    ray, or with `skip_empty` those the function needs (no empty cluster
-    entered), for its bound.
+  * `traverse_tests`: the slab and Moller-Trumbore tests of PR 8's walk
+    (a vote per node popped, csrc/traverse.cu:gst_traverse_count) for each
+    ray, or with `skip_empty` those the function needs (the same walk
+    entering no empty cluster), for K7h's bound.
 
 Rays are (R, 3) origins and directions with (R,) t_min / t_max (inactive
 rays at t_max = -1e30); hits take t in (t_min, t_max).  Not carried over
@@ -45,7 +53,8 @@ from ..ops.intersect import _mt_edges
 
 _BIG = 1e30
 MAX_PACKET = 2048  # 1024 threads a CTA of up to 2 rays each (csrc/traverse.cu:kMaxPacket)
-MAX_LEAF = 1024  # 48 KB of staged rows a leaf
+MAX_LEAF = 1024  # 48 KB of staged rows a leaf in the counting walk
+MAX_CLUSTERS = 1 << 30  # csrc/traverse.cu: a bit of `pending` per level of the tree
 
 
 def pack_tris(tri_pos, n_clusters: int, leaf_size: int) -> torch.Tensor:
@@ -63,6 +72,35 @@ def pack_tris(tri_pos, n_clusters: int, leaf_size: int) -> torch.Tensor:
     return rows.reshape(n_clusters, leaf_size, 12)
 
 
+def pack_nodes(node_min, node_max, packed) -> torch.Tensor:
+    """(2C - 1, 3) node boxes and the (C, leaf, 12) rows of pack_tris ->
+    K7h's (2C - 1, 8) float32 node rows [min.xyz, empty, max.xyz, 0], empty
+    1.0 where the box is inverted (lo > hi on an axis).  Raises ValueError
+    if a cluster under a marked node has a non-zero row: K7h skips marked
+    subtrees, which is exact only because their rows never hit."""
+    n_clusters = packed.shape[0]
+    n_nodes = node_min.shape[0]
+    if n_nodes != 2 * n_clusters - 1 or tuple(node_max.shape) != (n_nodes, 3):
+        raise ValueError(f"pack_nodes: want (2C - 1, 3) boxes for C = {n_clusters}, got "
+                         f"{tuple(node_min.shape)} and {tuple(node_max.shape)}")
+    empty = (node_min > node_max).any(1)
+    # rows[n]: some cluster under node n has a non-zero row (children 2n + 1, 2n + 2)
+    rows = torch.zeros((n_nodes,), dtype=torch.bool, device=packed.device)
+    rows[n_clusters - 1:] = (packed != 0).reshape(n_clusters, -1).any(1)
+    first = n_clusters - 1
+    while first:
+        first //= 2  # the level above: nodes [first, 2 * first + 1)
+        idx = torch.arange(first, 2 * first + 1, device=packed.device)
+        rows[idx] = rows[2 * idx + 1] | rows[2 * idx + 2]
+    bad = empty & rows
+    if bool(bad.any()):
+        node = int(torch.nonzero(bad)[0, 0])
+        raise ValueError(f"pack_nodes: node {node} has an inverted box but a cluster under it "
+                         "has non-zero rows (an empty cluster's rows must be zero)")
+    flag = empty.to(torch.float32)[:, None]
+    return torch.cat([node_min, flag, node_max, torch.zeros_like(flag)], 1).contiguous()
+
+
 def _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_size):
     r = origin.shape[0]
     dev = origin.device
@@ -77,9 +115,9 @@ def _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_s
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"traverse: {name} must be contiguous")
-    if n_clusters & (n_clusters - 1) or not 1 <= leaf_size <= MAX_LEAF:
-        raise ValueError(f"traverse: want a power-of-two cluster count and 1-{MAX_LEAF} slots "
-                         f"a leaf, got {n_clusters} x {leaf_size}")
+    if n_clusters & (n_clusters - 1) or n_clusters > MAX_CLUSTERS or not 1 <= leaf_size <= MAX_LEAF:
+        raise ValueError(f"traverse: want a power-of-two cluster count up to {MAX_CLUSTERS} and "
+                         f"1-{MAX_LEAF} slots a leaf, got {n_clusters} x {leaf_size}")
     if packet_size < 1:
         raise ValueError(f"traverse: packet_size {packet_size}")
     if dev.type not in ("cpu", "cuda"):
@@ -90,28 +128,46 @@ def _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_s
     return max(1, min(packet_size, r))
 
 
-def _launch(fn, origin, direction, packed, node_min, node_max, t_min, t_max, packet, outs,
-            *flags):
+def _node_rows(nodes, node_min, node_max, packed):
+    """K7h's node rows: `nodes` (pack_nodes of the same tree, built once per
+    render) checked, or pack_nodes now."""
+    if nodes is None:
+        return pack_nodes(node_min, node_max, packed)
+    shape = (node_min.shape[0], 8)
+    if nodes.device != packed.device or nodes.dtype != torch.float32 or \
+            tuple(nodes.shape) != shape or not nodes.is_contiguous():
+        raise ValueError(f"traverse: nodes wants contiguous float32 {shape} on {packed.device} "
+                         f"(pack_nodes), got {nodes.dtype} {tuple(nodes.shape)} on {nodes.device}")
+    return nodes
+
+
+def _launch(fn, origin, direction, packed, boxes, t_min, t_max, packet, outs, *flags):
     """Launch `fn` of csrc/traverse.cu on the current stream: the rays, the
-    tree, the int `flags`, then the output pointers."""
+    node tables `boxes` (K7h's node rows, or the counting walk's min and max
+    boxes), the leaf rows, the int `flags`, then the output pointers."""
     from .. import _build
 
+    for x in (*boxes, packed):
+        if x.data_ptr() % 16:
+            raise ValueError("traverse: the node and leaf tables must be 16-byte aligned")
     lib = _build.load()
     n_clusters, leaf_size = packed.shape[:2]
     with torch.cuda.device(origin.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                              t_max.data_ptr(), origin.shape[0], packet, node_min.data_ptr(),
-                              node_max.data_ptr(), packed.data_ptr(), n_clusters, leaf_size,
-                              *flags, *[x.data_ptr() for x in outs], stream)
+                              t_max.data_ptr(), origin.shape[0], packet,
+                              *[x.data_ptr() for x in boxes], packed.data_ptr(), n_clusters,
+                              leaf_size, *flags, *[x.data_ptr() for x in outs], stream)
     _build.check(rc, fn)
 
 
 def traverse_closest(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
-                     packet_size: int = 1024):
+                     packet_size: int = 1024, nodes=None):
     """K7h closest hit with t in (t_min, t_max).  Returns (t (R,) float32,
     1e30 on a miss; prim (R,) int32, -1 on a miss; u, v (R,) float32, the
-    barycentric weights of corners 1 and 2, 0 on a miss)."""
+    barycentric weights of corners 1 and 2, 0 on a miss).  `nodes`:
+    pack_nodes of the tree (built here if None; the plain version needs
+    none)."""
     packet = _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_size)
     if origin.device.type == "cpu":
         return traverse.intersect_closest_bvh_ref(origin, direction, packed, node_min, node_max,
@@ -120,30 +176,46 @@ def traverse_closest(origin, direction, packed, node_min, node_max, n_levels: in
     outs = [torch.empty((r,), dtype=dt, device=origin.device)
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
     if r:
-        _launch("gst_traverse_closest", origin, direction, packed, node_min, node_max, t_min,
-                t_max, packet, outs)
+        rows = _node_rows(nodes, node_min, node_max, packed)
+        _launch("gst_traverse_closest", origin, direction, packed, [rows], t_min, t_max, packet,
+                outs)
         traverse_closest.launches += 1
     return tuple(outs)
 
 
 def traverse_any(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
-                 packet_size: int = 1024):
+                 packet_size: int = 1024, nodes=None):
     """K7h any hit: (R,) bool, True where a triangle lies strictly inside
-    (t_min, t_max)."""
+    (t_min, t_max).  `nodes` as for traverse_closest."""
     packet = _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_size)
     if origin.device.type == "cpu":
         return traverse.intersect_any_bvh_ref(origin, direction, packed, node_min, node_max,
                                               n_levels, t_min, t_max, packet_size)
     occ = torch.empty((origin.shape[0],), dtype=torch.bool, device=origin.device)
     if origin.shape[0]:
-        _launch("gst_traverse_any", origin, direction, packed, node_min, node_max, t_min, t_max,
-                packet, [occ])
+        rows = _node_rows(nodes, node_min, node_max, packed)
+        _launch("gst_traverse_any", origin, direction, packed, [rows], t_min, t_max, packet,
+                [occ])
         traverse_any.launches += 1
     return occ
 
 
 traverse_closest.launches = 0
 traverse_any.launches = 0
+
+
+def launch_shape(packet_size: int = 1024) -> dict:
+    """K7h's launch at packets of `packet_size` rays, as csrc/traverse.cu
+    chooses it: CTAs a packet (a thread block cluster if more than one),
+    threads a CTA and rays a thread.  Needs the built kernels (a card)."""
+    import ctypes
+
+    from .. import _build
+
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.load().gst_traverse_shape(packet_size, ctypes.addressof(shape)),
+                 "gst_traverse_shape")
+    return dict(ctas_per_packet=shape[0], threads_per_cta=shape[1], rays_per_thread=shape[2])
 
 
 def _winner_tuv(origin, direction, packed, prim):
@@ -167,9 +239,9 @@ class TraverseClosestDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, closest, origin, direction, packed, node_min, node_max, n_levels, t_min,
-                t_max, packet_size):
+                t_max, packet_size, nodes=None):
         t, prim, u, v = closest(origin, direction, packed, node_min, node_max, n_levels, t_min,
-                                t_max, packet_size)
+                                t_max, packet_size, nodes=nodes)
         ctx.save_for_backward(origin, direction, packed, prim)
         ctx.mark_non_differentiable(prim)
         return t, prim, u, v
@@ -183,16 +255,17 @@ class TraverseClosestDiff(torch.autograd.Function):
             t, u, v = _winner_tuv(o, d, packed, prim)
             do, dd = torch.autograd.grad((t, u, v), (o, d), (ct_t, ct_u, ct_v),
                                          allow_unused=True)
-        return None, do, dd, None, None, None, None, None, None, None
+        return None, do, dd, None, None, None, None, None, None, None, None
 
 
 def traverse_closest_diff(origin, direction, packed, node_min, node_max, n_levels: int, t_min,
-                          t_max, packet_size: int = 1024):
+                          t_max, packet_size: int = 1024, nodes=None):
     """traverse_closest with exact (t, u, v) gradients w.r.t. (origin,
     direction); the tables carry none."""
     return TraverseClosestDiff.apply(traverse_closest, origin, direction, packed.detach(),
                                      node_min.detach(), node_max.detach(), n_levels,
-                                     t_min.detach(), t_max.detach(), packet_size)
+                                     t_min.detach(), t_max.detach(), packet_size,
+                                     None if nodes is None else nodes.detach())
 
 
 def nan_empty(node_min, node_max):
@@ -209,19 +282,21 @@ def nan_empty(node_min, node_max):
 def traverse_tests(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
                    any_hit: bool, packet_size: int = 1024, skip_empty: bool = False):
     """((R,) int64 slab tests, (R,) int64 Moller-Trumbore tests, the
-    result): what K7h does for each ray.  Closest hit: a slab test for every
-    node its packet pops, and at every leaf the packet enters the leaf's
-    leaf_size tests if the ray's window (t_min, best) is not empty.  Any
-    hit: the same while the ray is not occluded, and in a leaf the tests up
-    to its first hit.  The result is (t, prim, u, v) or the occlusion
-    flags, for holding the count to the kernel.  With `skip_empty`, the same
-    walk of the tree with nan_empty's boxes: the tests the function needs,
-    with the same result, since an empty cluster's rows never hit (its
-    bound counts these).  For CUDA tensors K7h's walk counts its own tests
+    result): what PR 8's walk (the plain version's: a vote per node popped)
+    does for each ray.  Closest hit: a slab test for every node its packet
+    pops, and at every leaf the packet enters the leaf's leaf_size tests if
+    the ray's window (t_min, best) is not empty.  Any hit: the same while
+    the ray is not occluded, and in a leaf the tests up to its first hit.
+    The result is (t, prim, u, v) or the occlusion flags, for holding the
+    count to the kernel.  With `skip_empty`, the same walk of the tree with
+    nan_empty's boxes: the tests the function needs, with the same result,
+    since an empty cluster's rows never hit (K7h's bound counts these; K7h
+    enters the same leaves, so its Moller-Trumbore tests are these).  For
+    CUDA tensors the walk runs on the card with counters
     (csrc/traverse.cu:gst_traverse_count, as ftb.ftb_walk_tests counts
-    K3's); for CPU tensors the plain walk counts them.  It measures the
-    kernel's work; nothing renders with it, and it adds no launch to the
-    wrappers' counts."""
+    K3's); for CPU tensors the plain walk counts them.  It measures work;
+    nothing renders with it, and it adds no launch to the wrappers'
+    counts."""
     packet = _check(origin, direction, packed, node_min, node_max, t_min, t_max, packet_size)
     if skip_empty:
         node_min, node_max = nan_empty(node_min, node_max)
@@ -235,7 +310,7 @@ def traverse_tests(origin, direction, packed, node_min, node_max, n_levels: int,
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32, torch.bool,
                        torch.int32, torch.int32)]
     if r:
-        _launch("gst_traverse_count", origin, direction, packed, node_min, node_max, t_min,
+        _launch("gst_traverse_count", origin, direction, packed, [node_min, node_max], t_min,
                 t_max, packet, outs, int(any_hit))
     out = outs[4] if any_hit else tuple(outs[:4])
     return outs[5].long(), outs[6].long(), out

@@ -180,13 +180,15 @@ def intersect_any_bvh_ref(origin, direction, packed, node_min, node_max, n_level
 
 
 def intersect_closest_bvh(origin, direction, packed, node_min, node_max, n_levels: int,
-                          t_min=None, t_max=None, active=None, packet_size: int = 1024):
+                          t_min=None, t_max=None, active=None, packet_size: int = 1024,
+                          nodes=None):
     """Closest hit via the BVH, the contract of ops.intersect.intersect_closest:
     (t, prim, u, v), t = 1e30 and prim = -1 on a miss; prim indexes the
-    sorted triangle array.  `packed`: kernels.pack_tris of that array.
-    Through kernels.traverse_closest_diff: K7h for CUDA tensors, the plain
-    version for CPU tensors, with (t, u, v) gradients w.r.t. (origin,
-    direction)."""
+    sorted triangle array.  `packed`: kernels.pack_tris of that array;
+    `nodes`: kernels.pack_nodes of the tree, K7h's node rows (built per call
+    if None).  Through kernels.traverse_closest_diff: K7h for CUDA tensors,
+    the plain version for CPU tensors, with (t, u, v) gradients w.r.t.
+    (origin, direction)."""
     from .kernels import traverse_closest_diff
 
     t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
@@ -194,19 +196,20 @@ def intersect_closest_bvh(origin, direction, packed, node_min, node_max, n_level
         z = torch.zeros((0,), dtype=torch.float32, device=origin.device)
         return z, z.to(torch.int32), z, z
     o, d, lo, hi = (x.contiguous() for x in (origin, direction, t_min, t_max))
-    return traverse_closest_diff(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size)
+    return traverse_closest_diff(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size,
+                                 nodes)
 
 
 def intersect_any_bvh(origin, direction, packed, node_min, node_max, n_levels: int, t_min, t_max,
-                      active=None, packet_size: int = 1024):
+                      active=None, packet_size: int = 1024, nodes=None):
     """Any hit via the BVH: True where a triangle lies strictly inside
     (t_min, t_max); packets stop once all their rays are occluded.  Through
-    kernels.traverse_any: K7h for CUDA tensors, the plain version for CPU
-    tensors."""
+    kernels.traverse_any (`nodes` as for intersect_closest_bvh): K7h for
+    CUDA tensors, the plain version for CPU tensors."""
     from .kernels import traverse_any
 
     t_min, t_max = _segment(origin, t_min, t_max, active, -_BIG)
     if origin.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.bool, device=origin.device)
     o, d, lo, hi = (x.contiguous() for x in (origin, direction, t_min, t_max))
-    return traverse_any(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size)
+    return traverse_any(o, d, packed, node_min, node_max, n_levels, lo, hi, packet_size, nodes)

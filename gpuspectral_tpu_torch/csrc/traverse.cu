@@ -7,57 +7,77 @@
 // intersect_any_bvh_ref), which the kernels equal bit for bit.
 //
 // The tree is bvh/build.py's: C clusters (a power of two) of leaf_size
-// slots, nodes in (2C - 1, 3) min / max tables, node n's children 2n + 1 and
-// 2n + 2, leaves from C - 1 on; leaf C - 1 + c holds the rows
-// [c * leaf_size, (c + 1) * leaf_size) of the (C * leaf_size, 12) table of
-// kernels.pack_tris, [v0, e1 = p1 - v0, e2 = p2 - v0, 0, 0, 0] (zero rows,
-// which never hit, past the scene's triangles).
+// slots, node n's children 2n + 1 and 2n + 2, leaves from C - 1 on; leaf
+// C - 1 + c holds the rows [c * leaf_size, (c + 1) * leaf_size) of the
+// (C * leaf_size, 12) table of kernels.pack_tris, [v0, e1 = p1 - v0,
+// e2 = p2 - v0, 0, 0, 0] (zero rows, which never hit, past the scene's
+// triangles).  K7h reads the boxes from kernels.pack_nodes' (2C - 1, 8) rows
+// [min.xyz, empty, max.xyz, 0], two 16-byte loads a node: `empty` marks a
+// subtree whose box is inverted (an empty padding cluster, or a node over
+// such clusters only), and pack_nodes has checked that its rows are all zero.
 //
-// One CTA per packet of `packet` consecutive rays (the ragged last packet
-// padded with rays o = 0, d = 1, t_min = 0, t_max = -1e30, which never hit,
-// as traverse._packets pads it).  T = min(packet rounded up to a warp, 1024)
-// threads, each owning kPer rays of the packet (ray j on thread j % T; kPer =
-// 1 up to 1024 rays a packet, 2 up to kMaxPacket = 2048), their state in
-// registers.
-// The walk is the CTA's, not a ray's: every thread holds the same node and
-// stack pointer, and the stack of right children still to visit lives in
-// shared memory, written by thread 0.  At each node:
-//   * each thread slab-tests its rays against the node's box (a broadcast
-//     load) on [t_min, best]; __syncthreads_or of those votes is the
-//     packet's vote.  No slab widening: a ray may find its hit in a leaf
-//     that only another ray's vote let the packet enter, as in the plain
-//     version.
-//   * an entered internal node pushes its right child 2n + 2 and visits its
-//     left child 2n + 1 next: the left subtree first, the order in which the
-//     plain version pops (the JAX Pallas kernel pops the right child first
-//     and so breaks exact-t ties across leaves the other way).
-//   * at an entered leaf the CTA stages its leaf_size rows (16 x 12 floats
-//     on the sphere field) in shared memory, and every ray of the packet
-//     tests them in slot order with a strict `<` against its running best:
-//     the plain version's argmin over the leaf followed by `t_new < best`
-//     across leaves, so exact-t ties go to the lowest slot.
+// The rule: K7h enters the leaves the plain version enters, in its order,
+// less those under a marked subtree.  The plain version's packet enters a
+// node when any of its rays passes the slab test on [t_min, best] (no slab
+// widening: a ray may find its hit in a leaf that only another ray's vote
+// let the packet in), visits the left subtree first and tests every row of
+// an entered leaf for every ray of the packet, so exact-t ties go to the
+// lowest prim.  What K7h may change, and nothing else:
+//   (a) it enters no marked subtree: its zero rows never hit, so no ray's
+//       best, prim, u, v or occlusion changes there;
+//   (b) a vote taken before it is due, with a larger best, only prunes:
+//       best only falls and t_min is fixed (an occluded ray stops voting),
+//       so an early "no" stays "no"; an early "yes" is voted again when the
+//       node is reached;
+//   (c) which threads, CTAs and SMs hold which rays of a packet.
+// So no front-to-back order, no widened vote, no other packet size.
+//
+// The walk, uniform over the packet (every thread holds the same node):
+//   * at an internal node the packet entered, each thread slab-tests its
+//     rays against both children's boxes (a marked child is never voted
+//     for); one reduction gives the packet both votes.  The left child's is
+//     exact (no leaf test lies between it and the plain version's vote).
+//     The left child is entered if its vote is yes; the right child is then
+//     remembered if its vote is yes, a hint by (b).  If the left child's
+//     vote is no, the right child's vote is exact too and decides.
+//   * a remembered node, reached again after the left subtree, is voted
+//     again on its own box in the same reduction as its children's votes.
+//   * an entered leaf: every ray with a non-empty window (t_min, best) tests
+//     its rows in slot order with a strict `<` against its running best (the
+//     plain version's argmin over the leaf, then `t_new < best` across
+//     leaves); rows are read from global memory, a broadcast load per warp.
+//     An entered leaf costs no barrier.
+//   * the remembered right children are one bit per level of the tree
+//     (`pending`): the deepest set bit is the next to visit, the right
+//     sibling of the current node's ancestor at that level.  No stack
+//     memory, nothing to fence.
 //   any hit: an occluded ray stops voting and testing, a ray stops at its
-//     first hit in (t_min, t_max), and the CTA stops once every ray of the
-//     packet, padding included, is occluded (__syncthreads_and), where the
-//     plain version's loop stops.
-// Barriers: the vote's __syncthreads_or also keeps the previous leaf's
-// readers ahead of the next staging, and thread 0's push ahead of the pop
-// that reads it (a push is always followed by the vote on the left child).
+//     first hit in (t_min, t_max), and the packet stops at the first
+//     reduction that finds every ray of it, padding included, occluded.
+// A reduction: each warp ORs its threads' vote bits (__reduce_or_sync), lane
+// 0 ORs them into a shared word (in a cluster: into every CTA's word,
+// through distributed shared memory), then one barrier (__syncthreads, or
+// the cluster barrier), and every thread reads the word.  Three words in
+// turn, so a word is cleared two reductions before it is used again.
 //
-// What bounds it on the H100: operations.  On the sphere field (C = 16,384
-// clusters of 16 slots, 7,159 of them empty) a 1024-ray packet of random
-// rays votes on ~12,900 nodes and enters ~5,800 leaves, and every ray of the
-// packet makes an entered leaf's 16 Moller-Trumbore tests (46 flops each)
-// whether it voted or not: ~92,800 tests a ray.  Most entered leaves are
-// empty padding: an empty cluster's inverted infinite box (bvh/build.py)
-// passes every slab test (t_enter = -inf, t_exit = +inf) and its zero rows
-// never hit, so skipping inverted boxes would cut the tests ~20x without
-// changing a result (tools/torch_traverse_empty.py).  Past that, the fixed
-// left-first order culls only by the packet's best t.  One CTA per packet
-// gives a 65,536-ray batch 64 CTAs for 132 SMs, and each node costs a CTA
-// barrier; votes across a thread block cluster (distributed shared memory)
-// and a front-to-back order are later work.  No wgmma or TMA: the tests
-// are scalar float32.
+// Launch shape: one CTA per packet of `packet` consecutive rays (the ragged
+// last packet padded with rays that never hit, as traverse._packets pads
+// it), or with kClusterCtas > 1 a thread block cluster of that many CTAs on
+// neighbouring SMs, each holding a share of the packet's rays.  A CTA has
+// T = min(its rays / kRaysPerThread rounded up to a warp, 1024) threads,
+// each holding kPer = 1 or 2 rays (ray j of the CTA on thread j % T), their
+// state in registers.  tools/torch_traverse_variants.py builds this file at
+// the other shapes and with the votes or the prefetch switched off, and
+// times them.
+//
+// What bounds it on the H100: operations (the tests a packet's walk needs,
+// kernels.traverse_tests with skip_empty) and the walk's serial chain: one
+// reduction per internal node and per remembered node, each behind the load
+// of the boxes it votes on.  Before each reduction one thread prefetches
+// into L1 the boxes the next step may need (the left and right children's
+// children, or their leaf rows, and the next remembered node's box and
+// children), so the load after the barrier finds them near.  No wgmma or
+// TMA: the tests are scalar float32.
 //
 // Precision: built with --fmad=false like the other kernels.  fmaf stands
 // exactly where ops/intersect.py:_mt_edges calls m3.fma (math3d.cross_fma,
@@ -68,22 +88,43 @@
 // (math3d.safe_div's clamp propagates it, where fmaxf in common.cuh:inv_dir
 // drops it).  So a packet with NaN rays enters the nodes the plain version
 // enters, and t, prim, u, v and occ equal it bit for bit.
+//
+// gst_traverse_count keeps PR 8's walk (a vote per node popped from a
+// stack, on the (2C - 1, 3) min / max tables, marked or not) with each
+// ray's slab and Moller-Trumbore tests counted: kernels.traverse_tests, the
+// count K7h's bound is taken from.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+// The launch shape and walk (tools/torch_traverse_variants.py rewrites these).
+constexpr int kClusterCtas = 1;      // CTAs of a cluster holding one packet: 1, 2 or 4
+constexpr int kRaysPerThread = 1;    // rays a thread holds (more above 1,024 a CTA)
+constexpr bool kMergedVotes = true;  // both children's votes in one reduction
+constexpr bool kPrefetch = true;     // prefetch the next step's boxes before a reduction
+
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxStack = 64;  // right children pending: at most log2(C)
+constexpr int kMaxStack = 64;  // the counting walk's right children pending: at most log2(C)
 constexpr int kMaxPacket = 2 * kMaxThreads;
+constexpr int kMaxLevels = 31;  // log2(C) + 1: `pending` has a bit per level
+
+// vote bits of a reduction
+constexpr unsigned kSelf = 1u;   // the node reached again passes
+constexpr unsigned kLeft = 2u;   // its left child passes
+constexpr unsigned kRight = 4u;  // its right child passes
+constexpr unsigned kLive = 8u;   // any hit: a ray of the packet is not occluded
 
 struct Ray {
   gst::V3 o, d, inv;
   float lo, best, u, v;
   int prim;
   bool occ;
-  int boxes, tests;  // the tests made, kept by the counting kernels only
+  int boxes, tests;  // the tests made, kept by the counting walk only
 };
 
 // math3d.safe_div(1, d): |d| clamped to 1e-12 with its sign, NaN kept
@@ -96,20 +137,33 @@ __device__ __forceinline__ float inv_dir(float dx) {
 // The plain version's node test (bvh/traverse.py:_ray_aabb and node_hit):
 // t_enter = max of the per-axis min, t_exit = min of the per-axis max,
 // (t_exit >= t_enter) & (t_exit >= t_min) & (t_enter <= best).
-__device__ __forceinline__ bool node_hit(const float* __restrict__ lo,
-                                         const float* __restrict__ hi, const Ray& r) {
-  const float t0x = (lo[0] - r.o.x) * r.inv.x;
-  const float t0y = (lo[1] - r.o.y) * r.inv.y;
-  const float t0z = (lo[2] - r.o.z) * r.inv.z;
-  const float t1x = (hi[0] - r.o.x) * r.inv.x;
-  const float t1y = (hi[1] - r.o.y) * r.inv.y;
-  const float t1z = (hi[2] - r.o.z) * r.inv.z;
+__device__ __forceinline__ bool slab_hit(float lx, float ly, float lz, float hx, float hy,
+                                         float hz, const Ray& r) {
+  const float t0x = (lx - r.o.x) * r.inv.x;
+  const float t0y = (ly - r.o.y) * r.inv.y;
+  const float t0z = (lz - r.o.z) * r.inv.z;
+  const float t1x = (hx - r.o.x) * r.inv.x;
+  const float t1y = (hy - r.o.y) * r.inv.y;
+  const float t1z = (hz - r.o.z) * r.inv.z;
   if (isnan(t0x) || isnan(t0y) || isnan(t0z) || isnan(t1x) || isnan(t1y) || isnan(t1z)) {
     return false;
   }
   const float t_enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   const float t_exit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   return (t_exit >= t_enter) && (t_exit >= r.lo) && (t_enter <= r.best);
+}
+
+// A node of pack_nodes' table: lo = (min.xyz, empty), hi = (max.xyz, 0).
+struct Box {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ Box load_box(const float4* __restrict__ nodes, unsigned heap) {
+  return {__ldg(nodes + 2 * (heap - 1)), __ldg(nodes + 2 * (heap - 1) + 1)};
+}
+
+__device__ __forceinline__ bool box_hit(const Box& b, const Ray& r) {
+  return slab_hit(b.lo.x, b.lo.y, b.lo.z, b.hi.x, b.hi.y, b.hi.z, r);
 }
 
 // One Moller-Trumbore test (ops/intersect.py:_mt_edges, op for op) of ray r
@@ -140,45 +194,260 @@ __device__ __forceinline__ bool mt_test(const float* w, const Ray& r, float hi, 
          (t > r.lo) && (t < hi);
 }
 
-// kCount: also count each ray's slab and Moller-Trumbore tests into
-// boxes_out / tests_out (kernels.traverse_tests); the walk is the same.
-template <int kPer, bool kAny, bool kCount>
+// Ray j of a packet starting at global ray `first`: its state, or with
+// `in_packet` false a thread slot past the packet (no ray, never holds the
+// packet back).  Rays past n_rays pad the last packet: o = 0, d = 1,
+// t_min = 0, t_max = -1e30, which never hit.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
+                                        const float* __restrict__ direction,
+                                        const float* __restrict__ t_min,
+                                        const float* __restrict__ t_max, long long i,
+                                        bool in_packet, int n_rays) {
+  const bool live = in_packet && i < n_rays;
+  Ray r;
+  r.o = live ? gst::V3{origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]}
+             : gst::V3{0.0f, 0.0f, 0.0f};
+  r.d = live ? gst::V3{direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]}
+             : gst::V3{1.0f, 1.0f, 1.0f};
+  r.inv = {inv_dir(r.d.x), inv_dir(r.d.y), inv_dir(r.d.z)};
+  r.lo = live ? t_min[i] : 0.0f;
+  const float hi = live ? t_max[i] : -gst::kBig;
+  r.best = hi > r.lo ? hi : -gst::kBig;  // the ray's search window (lo, best)
+  r.u = 0.0f;
+  r.v = 0.0f;
+  r.prim = -1;
+  r.occ = !in_packet;
+  r.boxes = 0;
+  r.tests = 0;
+  return r;
+}
+
+template <bool kAny>
+__device__ __forceinline__ void store_ray(const Ray& r, long long i, float* __restrict__ t_out,
+                                          int* __restrict__ prim_out, float* __restrict__ u_out,
+                                          float* __restrict__ v_out, bool* __restrict__ occ_out) {
+  if (kAny) {
+    occ_out[i] = r.occ;
+  } else {
+    const float t = r.prim >= 0 ? r.best : gst::kBig;
+    t_out[i] = t;
+    prim_out[i] = t < gst::kBig ? r.prim : -1;
+    u_out[i] = r.u;
+    v_out[i] = r.v;
+  }
+}
+
+// Leaf `cluster`'s rows (in global or shared memory) against ray r, in slot
+// order (the caller has checked that the ray is not occluded and its window
+// is not empty).
+template <bool kAny, bool kCount>
+__device__ __forceinline__ void test_leaf(const float* __restrict__ rows, int cluster,
+                                          int leaf_size, Ray& r) {
+  for (int s = 0; s < leaf_size; ++s) {
+    const float4* row = reinterpret_cast<const float4*>(rows + 12 * s);
+    const float4 p = row[0], q = row[1];
+    const float w[9] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w, rows[12 * s + 8]};
+    float t, u, v;
+    if (kCount) ++r.tests;
+    if (mt_test(w, r, r.best, t, u, v)) {
+      if (kAny) {
+        r.occ = true;
+        return;
+      }
+      r.best = t;
+      r.u = u;
+      r.v = v;
+      r.prim = cluster * leaf_size + s;
+    }
+  }
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// The packet's OR of `bits` (see the header): warp OR, lane 0 into the
+// shared word of round `round` (of every CTA of the cluster), one barrier.
+template <int kG>
+__device__ __forceinline__ unsigned packet_or(unsigned bits, unsigned* votes, int& round) {
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  unsigned* word = votes + round;
+  if ((threadIdx.x & 31u) == 0 && bits != 0) {
+    if constexpr (kG == 1) {
+      atomicOr(word, bits);
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      for (unsigned r = 0; r < (unsigned)kG; ++r) atomicOr(cluster.map_shared_rank(word, r), bits);
+    }
+  }
+  if constexpr (kG == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+  const unsigned out = *reinterpret_cast<volatile unsigned*>(word);
+  // the word of the round before this one: every thread read it before
+  // this barrier, and it is next written after the next barrier
+  if (threadIdx.x == 0) votes[round == 0 ? 2 : round - 1] = 0;
+  round = round == 2 ? 0 : round + 1;
+  return out;
+}
+
+// K7h: one packet per CTA (kG = 1) or per cluster of kG CTAs, each CTA
+// holding cta_rays of its rays, kPer a thread.
+template <int kPer, int kG, bool kAny>
 __global__ void __launch_bounds__(kMaxThreads)
-traverse_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
-                const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
-                int packet, const float* __restrict__ node_min,
-                const float* __restrict__ node_max, const float* __restrict__ tris,
-                int n_clusters, int leaf_size, float* __restrict__ t_out,
-                int* __restrict__ prim_out, float* __restrict__ u_out,
-                float* __restrict__ v_out, bool* __restrict__ occ_out,
-                int* __restrict__ boxes_out, int* __restrict__ tests_out) {
-  extern __shared__ float leaf_rows[];  // leaf_size x 12
-  __shared__ int stack[kMaxStack];
-  const int first_leaf = n_clusters - 1;
-  const long long first_ray = (long long)blockIdx.x * packet;
+packet_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+              const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
+              int packet, int cta_rays, const float4* __restrict__ nodes,
+              const float* __restrict__ tris, int n_clusters, int leaf_size,
+              float* __restrict__ t_out, int* __restrict__ prim_out, float* __restrict__ u_out,
+              float* __restrict__ v_out, bool* __restrict__ occ_out) {
+  __shared__ unsigned votes[3];
+  int rank = 0;
+  if constexpr (kG > 1) rank = (int)cg::this_cluster().block_rank();
+  const int first = rank * cta_rays;  // this CTA's first ray in the packet
+  const int mine = min(cta_rays, packet - first);
+  const long long base = (long long)(blockIdx.x / kG) * packet + first;
   Ray ray[kPer];
   bool in_packet[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int j = k * blockDim.x + threadIdx.x;
-    const long long i = first_ray + j;
-    in_packet[k] = j < packet;  // else a thread slot past the packet: no ray
-    const bool live = in_packet[k] && i < n_rays;
-    Ray& r = ray[k];
-    r.o = live ? gst::V3{origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]}
-               : gst::V3{0.0f, 0.0f, 0.0f};
-    r.d = live ? gst::V3{direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]}
-               : gst::V3{1.0f, 1.0f, 1.0f};
-    r.inv = {inv_dir(r.d.x), inv_dir(r.d.y), inv_dir(r.d.z)};
-    r.lo = live ? t_min[i] : 0.0f;
-    const float hi = live ? t_max[i] : -gst::kBig;
-    r.best = hi > r.lo ? hi : -gst::kBig;  // the ray's search window (lo, best)
-    r.u = 0.0f;
-    r.v = 0.0f;
-    r.prim = -1;
-    r.occ = !in_packet[k];  // a slot past the packet never holds the packet back
-    r.boxes = 0;
-    r.tests = 0;
+    in_packet[k] = j < mine;
+    ray[k] = load_ray(origin, direction, t_min, t_max, base + j, in_packet[k], n_rays);
+  }
+  if (threadIdx.x < 3) votes[threadIdx.x] = 0;
+  if constexpr (kG == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();  // no CTA ORs into a word before its owner cleared it
+  }
+
+  const unsigned first_leaf = (unsigned)n_clusters;  // heap index of leaf 0
+  unsigned heap = 1;      // the current node, heap-numbered: children 2h and 2h + 1
+  int depth = 0;          // its level; the root's is 0
+  unsigned pending = 0;   // bit l: the right child at level l is remembered
+  bool vote_self = true;  // the current node is voted on (the root, a remembered node)
+  int round = 0;
+  // an empty tree: the root is marked, and nothing can hit
+  bool walking = __ldg(nodes).w == 0.0f;
+  while (walking) {
+    const bool internal = heap < first_leaf;
+    bool entered = true;
+    if (internal || vote_self) {
+      Box self{}, left{}, right{};
+      if (vote_self) self = load_box(nodes, heap);
+      bool left_open = false, right_open = false;  // not marked empty
+      if (internal) {
+        left = load_box(nodes, 2 * heap);
+        right = load_box(nodes, 2 * heap + 1);
+        left_open = left.lo.w == 0.0f;
+        right_open = right.lo.w == 0.0f;
+      }
+      unsigned bits = 0;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const Ray& r = ray[k];
+        if (!in_packet[k] || (kAny && r.occ)) continue;
+        if (kAny) bits |= kLive;
+        if (vote_self && box_hit(self, r)) bits |= kSelf;
+        if (kMergedVotes && left_open && box_hit(left, r)) bits |= kLeft;
+        if (kMergedVotes && right_open && box_hit(right, r)) bits |= kRight;
+      }
+      if (kPrefetch && threadIdx.x == 0) {
+        if (internal && 2 * heap < first_leaf) {  // the children's children
+          prefetch_l1(nodes + 2 * (4 * heap - 1));
+          prefetch_l1(nodes + 2 * (4 * heap + 2));
+        } else if (internal) {  // the children's leaf rows
+          const float* rows = tris + (size_t)(2 * heap - first_leaf) * leaf_size * 12;
+          for (int e = 0; e < 2 * leaf_size * 12; e += 32) prefetch_l1(rows + e);
+        }
+        if (pending) {  // the next remembered node and its children
+          const int l = 31 - __clz(pending);
+          const unsigned next = (heap >> (depth - l)) | 1u;
+          prefetch_l1(nodes + 2 * (next - 1));
+          if (next < first_leaf) prefetch_l1(nodes + 2 * (2 * next - 1));
+        }
+      }
+      bits = packet_or<kG>(bits, votes, round);
+      if (kAny && !(bits & kLive)) break;  // every ray of the packet is occluded
+      if (vote_self && !(bits & kSelf)) {
+        entered = false;
+      } else if (internal) {
+        // without merged votes a child is voted on when reached
+        const bool go_left = kMergedVotes ? (bits & kLeft) != 0 : left_open;
+        const bool go_right = kMergedVotes ? (bits & kRight) != 0 : right_open;
+        vote_self = !kMergedVotes;
+        if (go_left) {
+          if (go_right) pending |= 1u << (depth + 1);
+          heap = 2 * heap;
+          ++depth;
+          continue;
+        }
+        if (go_right) {
+          heap = 2 * heap + 1;
+          ++depth;
+          continue;
+        }
+        entered = false;
+      }
+    }
+    if (entered) {  // a leaf
+      const int cluster = (int)(heap - first_leaf);
+      const float* rows = tris + (size_t)cluster * leaf_size * 12;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        Ray& r = ray[k];
+        // an empty window (lo, best) holds no hit: such a ray tests nothing
+        if (in_packet[k] && !(kAny && r.occ) && r.best > r.lo) {
+          test_leaf<kAny, false>(rows, cluster, leaf_size, r);
+        }
+      }
+    }
+    if (pending == 0) break;
+    const int l = 31 - __clz(pending);  // the deepest remembered right child
+    pending &= ~(1u << l);
+    heap = (heap >> (depth - l)) | 1u;  // the right sibling of the ancestor at level l
+    depth = l;
+    vote_self = true;
+  }
+
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const long long i = base + k * blockDim.x + threadIdx.x;
+    if (in_packet[k] && i < n_rays) store_ray<kAny>(ray[k], i, t_out, prim_out, u_out, v_out,
+                                                   occ_out);
+  }
+}
+
+// PR 8's walk with each ray's slab and Moller-Trumbore tests counted
+// (kernels.traverse_tests): one CTA per packet, a vote by __syncthreads_or
+// at every node popped from a shared stack, on the (2C - 1, 3) min / max
+// tables, an entered leaf's rows staged in shared memory.  A push is always
+// followed by the vote on the left child, whose barrier fences it; the
+// vote's barrier also keeps the previous leaf's readers ahead of the next
+// staging.
+template <int kPer, bool kAny>
+__global__ void __launch_bounds__(kMaxThreads)
+count_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+             const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
+             int packet, const float* __restrict__ node_min, const float* __restrict__ node_max,
+             const float* __restrict__ tris, int n_clusters, int leaf_size,
+             float* __restrict__ t_out, int* __restrict__ prim_out, float* __restrict__ u_out,
+             float* __restrict__ v_out, bool* __restrict__ occ_out, int* __restrict__ boxes_out,
+             int* __restrict__ tests_out) {
+  extern __shared__ float4 leaf_rows[];  // leaf_size x 12 floats
+  __shared__ int stack[kMaxStack];
+  const int first_leaf = n_clusters - 1;
+  const long long base = (long long)blockIdx.x * packet;
+  Ray ray[kPer];
+  bool in_packet[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int j = k * blockDim.x + threadIdx.x;
+    in_packet[k] = j < packet;
+    ray[k] = load_ray(origin, direction, t_min, t_max, base + j, in_packet[k], n_rays);
   }
 
   int node = 0, sp = 0;
@@ -189,8 +458,8 @@ traverse_kernel(const float* __restrict__ origin, const float* __restrict__ dire
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       if (in_packet[k] && !(kAny && ray[k].occ)) {
-        vote |= node_hit(lo, hi, ray[k]);
-        if (kCount) ++ray[k].boxes;
+        vote |= slab_hit(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], ray[k]);
+        ++ray[k].boxes;
       }
     }
     if (__syncthreads_or(vote)) {
@@ -201,28 +470,15 @@ traverse_kernel(const float* __restrict__ origin, const float* __restrict__ dire
         continue;
       }
       const int cluster = node - first_leaf;
-      const float* src = tris + (size_t)cluster * leaf_size * 12;
-      for (int e = threadIdx.x; e < leaf_size * 12; e += blockDim.x) leaf_rows[e] = src[e];
+      const float4* src = reinterpret_cast<const float4*>(tris) + (size_t)cluster * leaf_size * 3;
+      for (int e = threadIdx.x; e < leaf_size * 3; e += blockDim.x) leaf_rows[e] = src[e];
       __syncthreads();
       bool done = true;
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         Ray& r = ray[k];
-        // an empty window (lo, best) holds no hit: such a ray tests nothing
-        const bool tests = in_packet[k] && !(kAny && r.occ) && r.best > r.lo;
-        for (int s = 0; tests && s < leaf_size; ++s) {
-          float t, u, v;
-          if (kCount) ++r.tests;
-          if (mt_test(&leaf_rows[12 * s], r, r.best, t, u, v)) {
-            if (kAny) {
-              r.occ = true;
-              break;
-            }
-            r.best = t;
-            r.u = u;
-            r.v = v;
-            r.prim = cluster * leaf_size + s;
-          }
+        if (in_packet[k] && !(kAny && r.occ) && r.best > r.lo) {
+          test_leaf<kAny, true>(reinterpret_cast<const float*>(leaf_rows), cluster, leaf_size, r);
         }
         done = done && r.occ;
       }
@@ -234,78 +490,115 @@ traverse_kernel(const float* __restrict__ origin, const float* __restrict__ dire
 
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    const int j = k * blockDim.x + threadIdx.x;
-    const long long i = first_ray + j;
+    const long long i = base + k * blockDim.x + threadIdx.x;
     if (!in_packet[k] || i >= n_rays) continue;
-    const Ray& r = ray[k];
-    if (kCount) {
-      boxes_out[i] = r.boxes;
-      tests_out[i] = r.tests;
-    }
-    if (kAny) {
-      occ_out[i] = r.occ;
-    } else {
-      const float t = r.prim >= 0 ? r.best : gst::kBig;
-      t_out[i] = t;
-      prim_out[i] = t < gst::kBig ? r.prim : -1;
-      u_out[i] = r.u;
-      v_out[i] = r.v;
-    }
+    boxes_out[i] = ray[k].boxes;
+    tests_out[i] = ray[k].tests;
+    store_ray<kAny>(ray[k], i, t_out, prim_out, u_out, v_out, occ_out);
   }
 }
 
-template <bool kAny, bool kCount>
-int launch(const float* origin, const float* direction, const float* t_min, const float* t_max,
-           int n_rays, int packet, const float* node_min, const float* node_max,
-           const float* tris, int n_clusters, int leaf_size, float* t_out, int* prim_out,
-           float* u_out, float* v_out, bool* occ_out, int* boxes_out, int* tests_out,
-           void* stream) {
-  if (n_rays <= 0) return 0;
-  const size_t smem = (size_t)leaf_size * 12 * sizeof(float);
-  if (packet < 1 || packet > kMaxPacket || leaf_size < 1 || smem > 48 * 1024 ||
-      n_clusters < 1 || (n_clusters & (n_clusters - 1)) != 0) {
-    return (int)cudaErrorInvalidValue;
+// Launch `kernel` on grid x threads with `smem` bytes of dynamic shared
+// memory, in clusters of `cluster` CTAs.
+template <typename... Params, typename... Args>
+int launch_kernel(void (*kernel)(Params...), long long grid, int threads, size_t smem,
+                  int cluster, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+bool bad_tree(int n_rays, int packet, int n_clusters, int leaf_size) {
+  return packet < 1 || packet > kMaxPacket || leaf_size < 1 || leaf_size > 1024 ||
+         n_clusters < 1 ||
+         (n_clusters & (n_clusters - 1)) != 0 || n_clusters > (1 << (kMaxLevels - 1)) ||
+         n_rays < 0;
+}
+
+// K7h's launch shape for packets of `packet` rays (1 to kMaxPacket).
+struct Shape {
+  int ctas;     // CTAs a packet: a cluster only where each holds a warp of rays or more
+  int rays;     // rays a CTA holds (the last CTA of a cluster may hold fewer)
+  int threads;  // threads a CTA
+  int per;      // rays a thread: 1 or 2
+};
+
+Shape packet_shape(int packet) {
+  Shape s;
+  s.ctas = packet >= 32 * kClusterCtas ? kClusterCtas : 1;
+  s.rays = (packet + s.ctas - 1) / s.ctas;
+  s.threads = min(kMaxThreads, ((s.rays + kRaysPerThread - 1) / kRaysPerThread + 31) / 32 * 32);
+  s.per = (s.rays + s.threads - 1) / s.threads;
+  return s;
+}
+
+template <bool kAny>
+int launch_packets(const float* origin, const float* direction, const float* t_min,
+                   const float* t_max, int n_rays, int packet, const float* nodes,
+                   const float* tris, int n_clusters, int leaf_size, float* t_out,
+                   int* prim_out, float* u_out, float* v_out, bool* occ_out, void* stream) {
+  if (bad_tree(n_rays, packet, n_clusters, leaf_size)) return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return 0;
+  const Shape sh = packet_shape(packet);
+  const int g = sh.ctas, cta_rays = sh.rays, threads = sh.threads, per = sh.per;
+  const long long grid = ((long long)n_rays + packet - 1) / packet * g;
+  const float4* boxes = reinterpret_cast<const float4*>(nodes);
+#define GST_PACKETS(P, G)                                                                    \
+  launch_kernel(packet_kernel<P, G, kAny>, grid, threads, 0, G, stream, origin, direction,  \
+                t_min, t_max, n_rays, packet, cta_rays, boxes, tris, n_clusters, leaf_size, \
+                t_out, prim_out, u_out, v_out, occ_out)
+  if (g == 1) return per == 1 ? GST_PACKETS(1, 1) : GST_PACKETS(2, 1);
+  if constexpr (kClusterCtas > 1) {
+    return per == 1 ? GST_PACKETS(1, kClusterCtas) : GST_PACKETS(2, kClusterCtas);
   }
-  const int threads = min(kMaxThreads, (packet + 31) / 32 * 32);
-  const int per = (packet + threads - 1) / threads;
-  const int grid = (int)(((long long)n_rays + packet - 1) / packet);
-  const cudaStream_t s = (cudaStream_t)stream;
-#define GST_TRAVERSE(K)                                                                       \
-  traverse_kernel<K, kAny, kCount><<<grid, threads, smem, s>>>(                               \
-      origin, direction, t_min, t_max, n_rays, packet, node_min, node_max, tris, n_clusters, \
-      leaf_size, t_out, prim_out, u_out, v_out, occ_out, boxes_out, tests_out)
-  if (per == 1) {
-    GST_TRAVERSE(1);
-  } else {
-    GST_TRAVERSE(2);
-  }
-#undef GST_TRAVERSE
-  return (int)cudaGetLastError();
+#undef GST_PACKETS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int gst_traverse_closest(const float* origin, const float* direction,
                                     const float* t_min, const float* t_max, int n_rays,
-                                    int packet, const float* node_min, const float* node_max,
-                                    const float* tris, int n_clusters, int leaf_size,
-                                    float* t_out, int* prim_out, float* u_out, float* v_out,
-                                    void* stream) {
-  return launch<false, false>(origin, direction, t_min, t_max, n_rays, packet, node_min,
-                              node_max, tris, n_clusters, leaf_size, t_out, prim_out, u_out,
-                              v_out, nullptr, nullptr, nullptr, stream);
+                                    int packet, const float* nodes, const float* tris,
+                                    int n_clusters, int leaf_size, float* t_out, int* prim_out,
+                                    float* u_out, float* v_out, void* stream) {
+  return launch_packets<false>(origin, direction, t_min, t_max, n_rays, packet, nodes, tris,
+                               n_clusters, leaf_size, t_out, prim_out, u_out, v_out, nullptr,
+                               stream);
 }
 
 extern "C" int gst_traverse_any(const float* origin, const float* direction, const float* t_min,
-                                const float* t_max, int n_rays, int packet,
-                                const float* node_min, const float* node_max, const float* tris,
-                                int n_clusters, int leaf_size, bool* occ_out, void* stream) {
-  return launch<true, false>(origin, direction, t_min, t_max, n_rays, packet, node_min, node_max,
-                             tris, n_clusters, leaf_size, nullptr, nullptr, nullptr, nullptr,
-                             occ_out, nullptr, nullptr, stream);
+                                const float* t_max, int n_rays, int packet, const float* nodes,
+                                const float* tris, int n_clusters, int leaf_size, bool* occ_out,
+                                void* stream) {
+  return launch_packets<true>(origin, direction, t_min, t_max, n_rays, packet, nodes, tris,
+                              n_clusters, leaf_size, nullptr, nullptr, nullptr, nullptr, occ_out,
+                              stream);
 }
 
-// The same walk with each ray's slab and Moller-Trumbore tests counted
+// K7h's launch shape at packets of `packet` rays: shape = {CTAs a packet
+// (a thread block cluster if more than 1), threads a CTA, rays a thread}.
+extern "C" int gst_traverse_shape(int packet, int* shape) {
+  if (packet < 1 || packet > kMaxPacket) return (int)cudaErrorInvalidValue;
+  const Shape sh = packet_shape(packet);
+  shape[0] = sh.ctas;
+  shape[1] = sh.threads;
+  shape[2] = sh.per;
+  return 0;
+}
+
+// PR 8's walk with each ray's slab and Moller-Trumbore tests counted
 // (kernels.traverse_tests): the closest hit's outputs, or with any_hit occ.
 extern "C" int gst_traverse_count(const float* origin, const float* direction,
                                   const float* t_min, const float* t_max, int n_rays, int packet,
@@ -313,12 +606,17 @@ extern "C" int gst_traverse_count(const float* origin, const float* direction,
                                   const float* tris, int n_clusters, int leaf_size, int any_hit,
                                   float* t_out, int* prim_out, float* u_out, float* v_out,
                                   bool* occ_out, int* boxes_out, int* tests_out, void* stream) {
-  if (any_hit) {
-    return launch<true, true>(origin, direction, t_min, t_max, n_rays, packet, node_min,
-                              node_max, tris, n_clusters, leaf_size, nullptr, nullptr, nullptr,
-                              nullptr, occ_out, boxes_out, tests_out, stream);
-  }
-  return launch<false, true>(origin, direction, t_min, t_max, n_rays, packet, node_min, node_max,
-                             tris, n_clusters, leaf_size, t_out, prim_out, u_out, v_out, nullptr,
-                             boxes_out, tests_out, stream);
+  if (bad_tree(n_rays, packet, n_clusters, leaf_size)) return (int)cudaErrorInvalidValue;
+  if (n_rays == 0) return 0;
+  const int threads = min(kMaxThreads, (packet + 31) / 32 * 32);
+  const int per = (packet + threads - 1) / threads;
+  const long long grid = ((long long)n_rays + packet - 1) / packet;
+  const size_t smem = (size_t)leaf_size * 12 * sizeof(float);
+#define GST_COUNT(P, A)                                                                       \
+  launch_kernel(count_kernel<P, A>, grid, threads, smem, 1, stream, origin, direction, t_min,  \
+                t_max, n_rays, packet, node_min, node_max, tris, n_clusters, leaf_size,       \
+                t_out, prim_out, u_out, v_out, occ_out, boxes_out, tests_out)
+  if (any_hit) return per == 1 ? GST_COUNT(1, true) : GST_COUNT(2, true);
+  return per == 1 ? GST_COUNT(1, false) : GST_COUNT(2, false);
+#undef GST_COUNT
 }

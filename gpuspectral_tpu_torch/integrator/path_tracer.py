@@ -200,7 +200,7 @@ def _fused_bvh(scene: SceneData, cfg: RenderConfig, bvh_isect) -> bool:
 def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str, bvh_isect=None):
     """Per-render lookup tables: the triangle rows, or the BVH kernels'
     attribute rows, the light rows, the corner texture colours and, for the
-    packet traversal, its packed leaf rows."""
+    packet traversal, its packed leaf rows and node rows."""
     out = dict(light=torch.cat([scene.light_pos.reshape(-1, 9), scene.light_emission], dim=1))
     if _fused_bvh(scene, cfg, bvh_isect):
         out["attr"] = ftb.attr_table(scene)
@@ -213,6 +213,8 @@ def _tables(scene: SceneData, cfg: RenderConfig, tex_mode: str, bvh_isect=None):
         if cfg.use_bvh:
             out["packed"] = kernels.pack_tris(scene.tri_pos, scene.bvh_clusters,
                                               scene.bvh_leaf_size)
+            out["nodes"] = kernels.pack_nodes(scene.bvh_node_min, scene.bvh_node_max,
+                                              out["packed"])
     if scene.has_textures and tex_mode == "corners":
         out["corner_tex"] = corner_texture_rows(scene)
     return out
@@ -265,7 +267,8 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
         if cfg.use_bvh:
             t, prim, bu, bv = traverse.intersect_closest_bvh(
                 origin, direction, tables["packed"], scene.bvh_node_min, scene.bvh_node_max,
-                scene.bvh_levels, active=alive, packet_size=cfg.packet_size)
+                scene.bvh_levels, active=alive, packet_size=cfg.packet_size,
+                nodes=tables["nodes"])
         elif isector == "pallas" and differentiable:
             t, prim, bu, bv = cuda_isect.closest_diff(origin.contiguous(), direction.contiguous(),
                                                       scene.tri_woop_t, scene.tri_woop, t_max0)
@@ -427,7 +430,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
         shadowed = traverse.intersect_any_bvh(
             position.detach(), ldir.detach(), tables["packed"], scene.bvh_node_min,
             scene.bvh_node_max, scene.bvh_levels, sh_tmin, sh_tmax.detach(),
-            active=nee_candidate, packet_size=cfg.packet_size)
+            active=nee_candidate, packet_size=cfg.packet_size, nodes=tables["nodes"])
     elif isector == "pallas":
         shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
                                        ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,

@@ -325,9 +325,120 @@ def _tree(ts):
             ts.bvh_node_min.contiguous(), ts.bvh_node_max.contiguous(), ts.bvh_levels)
 
 
+def _hand_tree(dev, clusters, n_clusters=64, leaf=16, seed=5):
+    """A tree of n_clusters x leaf slots built by hand, triangles only in
+    the clusters named in `clusters` ({cluster: (16, 3, 3) triangles}), the
+    other clusters' rows zero under inverted boxes: (packed rows, node_min,
+    node_max, n_levels)."""
+    tris = np.zeros((n_clusters * leaf, 3, 3), np.float32)
+    node_min = np.full((2 * n_clusters - 1, 3), np.inf, np.float32)
+    node_max = np.full((2 * n_clusters - 1, 3), -np.inf, np.float32)
+    for c, rows in clusters.items():
+        tris[c * leaf:c * leaf + rows.shape[0]] = rows
+        node_min[n_clusters - 1 + c] = rows.min((0, 1))
+        node_max[n_clusters - 1 + c] = rows.max((0, 1))
+    for n in range(n_clusters - 2, -1, -1):
+        node_min[n] = np.minimum(node_min[2 * n + 1], node_min[2 * n + 2])
+        node_max[n] = np.maximum(node_max[2 * n + 1], node_max[2 * n + 2])
+    packed = tk.pack_tris(torch.as_tensor(tris, device=dev), n_clusters, leaf)
+    return (packed, torch.as_tensor(node_min, device=dev), torch.as_tensor(node_max, device=dev),
+            int(np.log2(n_clusters)) + 1)
+
+
+def _blob(rng, n=16, scale=0.3):
+    return (rng.uniform(-1, 1, size=(n, 1, 3))
+            + rng.normal(scale=scale, size=(n, 3, 3))).astype(np.float32)
+
+
+def _special_case(name, dev):
+    """(tree, rays) of the K7h edge cases: one real cluster among 64 (the
+    root's right half), a tree with no empty cluster (1,024 triangles in 64
+    full clusters), a packet occluded at the first leaf it enters (a wide
+    triangle in cluster 0 in front of every ray, a blob in cluster 63), and
+    packets of inactive rays only (t_max = -1e30) between active ones."""
+    rng = np.random.default_rng(9)
+    if name == "one_cluster":
+        tree = _hand_tree(dev, {37: _blob(rng)})
+        rays = _rays(31, 3000, dev)
+    elif name == "no_empty_cluster":
+        tris = _blob(rng, 1024, 0.1) * 2.0
+        bvh = bvh_build.build_bvh(tris, 1024)
+        assert bvh.n_clusters == bvh.n_clusters_real == 64
+        tree = (tk.pack_tris(torch.as_tensor(tris[bvh.perm], device=dev), 64, bvh.leaf_size),
+                torch.as_tensor(bvh.node_min, device=dev), torch.as_tensor(bvh.node_max, device=dev),
+                bvh.n_levels)
+        rays = _rays(32, 3000, dev)
+    elif name == "occluded_first_leaf":
+        wall = np.array([[[-50.0, -50.0, 1.0], [50.0, -50.0, 1.0], [0.0, 80.0, 1.0]]], np.float32)
+        tree = _hand_tree(dev, {0: wall, 63: _blob(rng) + 3.0})
+        r = 2048
+        o = np.concatenate([rng.uniform(-1, 1, size=(r, 2)), np.zeros((r, 1))], 1)
+        d = np.concatenate([rng.normal(scale=0.2, size=(r, 2)), np.ones((r, 1))], 1)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rays = [torch.as_tensor(x.astype(np.float32), device=dev)
+                for x in (o, d, np.zeros(r), np.full(r, 1e30))]
+    else:  # inactive_packets
+        tree = _tree(_scene("sphere_field", dev))
+        rays = _rays(33, 4096, dev)
+        rays[3][1024:3072] = -1e30
+    return tree, rays
+
+
+@pytest.mark.parametrize("name", ["one_cluster", "no_empty_cluster", "occluded_first_leaf",
+                                  "inactive_packets"])
+@pytest.mark.parametrize("packet", [32, 1024])
+def test_k7h_edge_cases_match_plain_version(cuda_device, name, packet):  # noqa: F811
+    """K7h equals the plain traversal bit for bit on trees and packets at
+    the edges of its walk (pack_nodes marks every empty subtree, or none;
+    an any-hit packet stops after its first leaf; a packet votes for
+    nothing)."""
+    tree, (o, d, lo, hi) = _special_case(name, cuda_device)
+    nodes = tk.pack_nodes(*tree[1:3], tree[0])
+    marked = int(nodes[:, 3].sum())
+    assert marked == 0 if name == "no_empty_cluster" else marked > 0
+    zero = torch.zeros_like(hi)
+    got = tk.traverse_closest(o, d, *tree, zero, hi, packet, nodes=nodes)
+    occ = tk.traverse_any(o, d, *tree, lo, hi, packet, nodes=nodes)
+    ref = ttr.intersect_closest_bvh_ref(o, d, *tree, zero, hi, packet)
+    occ_r = ttr.intersect_any_bvh_ref(o, d, *tree, lo, hi, packet)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, occ_r)
+    if name == "occluded_first_leaf":
+        assert bool(occ_r.all()) and bool((ref[1] < 16).all())
+    elif name == "inactive_packets":
+        assert not bool(occ_r[1024:3072].any()) and bool((ref[1][1024:3072] == -1).all())
+        assert bool(occ_r.any())
+    else:
+        assert int((ref[1] >= 0).sum()) > 20 and bool(occ_r.any())
+
+
+def test_k7h_node_rows_argument(cuda_device):  # noqa: F811
+    """The node rows built once (pack_nodes, as the wavefront passes them)
+    and built by the wrapper give the same result; rows of another shape,
+    type or device raise, and so does a marked cluster with a row."""
+    ts = _scene("sphere_field", cuda_device)
+    tree = _tree(ts)
+    o, d, lo, hi = _rays(7, 3000, cuda_device)
+    nodes = tk.pack_nodes(*tree[1:3], tree[0])
+    a = tk.traverse_closest(o, d, *tree, lo, hi, nodes=nodes)
+    b = tk.traverse_closest(o, d, *tree, lo, hi)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(tk.traverse_any(o, d, *tree, lo, hi, nodes=nodes),
+                       tk.traverse_any(o, d, *tree, lo, hi))
+    for bad in (nodes[:, :7].contiguous(), nodes.double(), nodes.cpu(), nodes[1:]):
+        with pytest.raises(ValueError, match="nodes wants"):
+            tk.traverse_any(o, d, *tree, lo, hi, nodes=bad)
+    packed = tree[0].clone()
+    leaf = int(torch.nonzero(nodes[ts.bvh_clusters - 1:, 3])[0, 0])
+    packed[leaf, 0, 0] = 1.0
+    with pytest.raises(ValueError, match="inverted box"):
+        tk.traverse_closest(o, d, packed, *tree[1:], lo, hi)
+
+
 @pytest.mark.parametrize("name,packet", [
     ("cornell", 32), ("zoo", 1024), ("sphere_field", 32), ("sphere_field", 1024),
-    ("soup2048", 1), ("soup2048", 96), ("soup2048", 2048)])
+    ("soup2048", 1), ("soup2048", 96), ("soup2048", 2048), ("soup2048", 32), ("soup2048", 1024)])
 def test_k7h_matches_plain_version(cuda_device, name, packet):  # noqa: F811
     """K7h equals the plain packet traversal bit for bit: t, prim, u, v and
     occ, ties included, with NaN and inactive lanes and a ragged last

@@ -2,12 +2,14 @@
 behind bvh/kernels.py's wrappers), against the JAX Pallas traversal
 (gpuspectral_tpu/bvh/kernels.py:traverse_pallas) in interpret mode on
 tests/test_pallas.py's soups and rays, with its tolerances; the tie rule
-where the two differ; the packed leaf table bit for bit; the
-kernel's test counts against a walk of one packet at a time; the wrappers'
-dispatch and TraverseClosestDiff's backward; and the wavefront with
-intersector "mt" and a BVH against the JAX wavefront.  Both packages get
-the same numpy inputs.  The CUDA kernel against this plain version:
-tests/test_torch_cuda.py.
+where the two differ; the packed leaf table bit for bit; K7h's node rows
+(pack_nodes) on the sah, morton and slot-mode builds, and the plain walk
+that skips their marked subtrees against the plain version and the JAX
+XLA traversal; the kernel's test counts against a walk of one packet at a
+time; the wrappers' dispatch and TraverseClosestDiff's backward; and the
+wavefront with intersector "mt" and a BVH against the JAX wavefront.  Both
+packages get the same numpy inputs.  The CUDA kernel against this plain
+version: tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -15,19 +17,23 @@ import numpy as np
 import pytest
 import torch
 
+from gpuspectral_tpu.bvh import build as jax_bvh_build
 from gpuspectral_tpu.bvh import traverse as jtr
 from gpuspectral_tpu.bvh.build import build_bvh
 from gpuspectral_tpu.bvh.kernels import _pack_tris, traverse_pallas
 from gpuspectral_tpu.integrator.path_tracer import render_sample as jax_render_sample
 from gpuspectral_tpu.scene.data import SceneBuilder as JaxBuilder
 from gpuspectral_tpu.utils.config import RenderConfig as JaxConfig
+from gpuspectral_tpu_torch.bvh import build as port_bvh_build
 from gpuspectral_tpu_torch.bvh import kernels as tk
 from gpuspectral_tpu_torch.bvh import traverse as ttr
+from gpuspectral_tpu_torch.scene import data as tdata
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
 from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_sphere_field
 from gpuspectral_tpu_torch.utils import RenderConfig
 
+from chip_smoke import odd_lanes
 from test_torch_bvh import SMALL_FIELD
 from torch_common import assert_mega_gates, jax_scene_arrays
 
@@ -151,6 +157,123 @@ def test_pack_tris_matches_jax(n_tris):
     got = tk.pack_tris(_t(tris), 4, 16)
     assert got.dtype == torch.float32 and got.shape == (4, 16, 12)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _build(mode, monkeypatch):
+    """(sorted triangles (T, 3, 3), node_min, node_max, C, leaf, n_levels) of
+    the port's build in `mode`: "sah" or "morton" on a 700-triangle soup
+    (44 clusters padded to 64), "slot" the small sphere field in slot mode
+    (bins of SAH subtrees, empty clusters between the real ones)."""
+    if mode == "slot":
+        import gpuspectral_tpu.integrator.mega  # noqa: F401  (it checks the threshold)
+
+        monkeypatch.setattr(jax_bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        monkeypatch.setattr(port_bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = populate_sphere_field(tdata.SceneBuilder(), **SMALL_FIELD).build("cpu")
+        return (ts.tri_pos.numpy(), ts.bvh_node_min.numpy(), ts.bvh_node_max.numpy(),
+                ts.bvh_clusters, ts.bvh_leaf_size, ts.bvh_levels)
+    rs = np.random.default_rng(3)
+    tris = (rs.uniform(-4.0, 4.0, size=(700, 1, 3))
+            + rs.uniform(-0.3, 0.3, size=(700, 3, 3))).astype(np.float32)
+    padded = np.concatenate([tris, np.zeros((68, 3, 3), np.float32)])
+    bvh = port_bvh_build.build_bvh(padded, 700, order=mode)
+    return (padded[bvh.perm], bvh.node_min, bvh.node_max, bvh.n_clusters, bvh.leaf_size,
+            bvh.n_levels)
+
+
+def _ancestors(node):
+    while True:
+        yield node
+        if node == 0:
+            return
+        node = (node - 1) // 2
+
+
+@pytest.mark.parametrize("mode", ["sah", "morton", "slot"])
+def test_pack_nodes_marks_only_empty_clusters(mode, monkeypatch):
+    """K7h's node rows [min, empty, max, 0] on each build mode: the boxes
+    as built, `empty` exactly on the inverted boxes, and no marked node over
+    a cluster whose packed rows are not all zero (every real cluster and
+    its ancestors unmarked)."""
+    tris, node_min, node_max, c, leaf, _ = _build(mode, monkeypatch)
+    packed = tk.pack_tris(_t(tris), c, leaf)
+    nodes = tk.pack_nodes(_t(node_min), _t(node_max), packed)
+    assert nodes.dtype == torch.float32 and nodes.shape == (2 * c - 1, 8) and nodes.is_contiguous()
+    np.testing.assert_array_equal(nodes[:, 0:3].numpy(), node_min)
+    np.testing.assert_array_equal(nodes[:, 4:7].numpy(), node_max)
+    assert (nodes[:, 7] == 0).all()
+    marked = nodes[:, 3].numpy()
+    np.testing.assert_array_equal(marked, (node_min > node_max).any(1).astype(np.float32))
+    assert 0 < marked.sum() < 2 * c - 1
+    full = (packed != 0).reshape(c, -1).any(1).numpy()
+    assert full.sum() > 1
+    for cluster in np.nonzero(full)[0]:
+        assert not any(marked[n] for n in _ancestors(c - 1 + int(cluster)))
+    for n in np.nonzero(marked)[0]:  # a marked node covers zero rows only
+        first, count = int(n), 1
+        while first < c - 1:
+            first, count = 2 * first + 1, 2 * count
+        assert not full[first - (c - 1):first - (c - 1) + count].any()
+
+
+@pytest.mark.parametrize("mode", ["sah", "morton", "slot"])
+def test_plain_walk_skipping_marked_subtrees_matches(mode, monkeypatch):
+    """The plain traversal on the tree with pack_nodes' marked boxes made
+    NaN (never entered) equals the plain traversal on the boxes as built
+    and the JAX XLA traversal, bit for bit: t, prim, u, v and occ, with
+    NaN and inactive lanes and a ragged last packet."""
+    tris, node_min, node_max, c, leaf, levels = _build(mode, monkeypatch)
+    port = (tk.pack_tris(_t(tris), c, leaf), _t(node_min), _t(node_max), levels)
+    nodes = tk.pack_nodes(*port[1:3], port[0])
+    marked = nodes[:, 3:4] == 1
+    skip = (port[0], torch.where(marked, float("nan"), port[1]),
+            torch.where(marked, float("nan"), port[2]), levels)
+    lo_box, hi_box = node_min[0], node_max[0]
+    rs = np.random.default_rng(11)
+    o = rs.uniform(lo_box - 1, hi_box + 1, size=(700, 3)).astype(np.float32)
+    d = (rs.uniform(lo_box, hi_box, size=(700, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.where(rs.uniform(size=700) < 0.5, 0.0, rs.uniform(0, 0.5, 700)).astype(np.float32)
+    t_max = np.where(rs.uniform(size=700) < 0.5, 1e30, rs.uniform(1, 9, 700)).astype(np.float32)
+    o, d, t_min, t_max = odd_lanes([_t(x) for x in (o, d, t_min, t_max)])
+    jtree = (jnp.asarray(node_min), jnp.asarray(node_max), c, leaf, levels)
+    jray = [jnp.asarray(x.numpy()) for x in (o, d, t_min, t_max)]
+    zero = torch.zeros_like(t_max)
+    ref = jtr.intersect_closest_bvh(*jray[:2], jnp.asarray(tris), *jtree, t_min=jnp.zeros(700),
+                                    t_max=jray[3], packet_size=64)
+    occ_ref = jtr.intersect_any_bvh(*jray[:2], jnp.asarray(tris), *jtree, t_min=jray[2],
+                                    t_max=jray[3], packet_size=64)
+    assert int((np.asarray(ref[1]) >= 0).sum()) > 20 and 5 < int(np.asarray(occ_ref).sum()) < 690
+    for tree in (port, skip):
+        got = ttr.intersect_closest_bvh_ref(o, d, *tree, zero, t_max, 64)
+        _assert_np_equal(got, ref)
+        _assert_np_equal([ttr.intersect_any_bvh_ref(o, d, *tree, t_min, t_max, 64)], [occ_ref])
+
+
+def _assert_np_equal(got, ref):
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("where", ["leaf", "internal"])
+def test_pack_nodes_rejects_rows_under_a_marked_node(where):
+    """A cluster under an inverted box must have all-zero rows: a non-zero
+    row there (in an empty padding cluster, or under an internal node whose
+    box was inverted by hand over real clusters) raises, since K7h would
+    skip a row that can hit."""
+    tris, bvh, _ = _pallas_soup(700, 3, 4.0, 0.3)
+    packed, node_min, node_max, _ = _port_tree(tris, bvh)
+    c = bvh.n_clusters
+    tk.pack_nodes(node_min, node_max, packed)
+    if where == "leaf":  # an empty padding cluster given a row
+        leaf = int(torch.nonzero((node_min > node_max).any(1)[c - 1:])[0, 0])
+        packed = packed.clone()
+        packed[leaf, 3, 4] = 0.5
+    else:  # the root's left child, over real clusters, inverted
+        node_min, node_max = node_min.clone(), node_max.clone()
+        node_min[1], node_max[1] = float("inf"), -float("inf")
+    with pytest.raises(ValueError, match="inverted box"):
+        tk.pack_nodes(node_min, node_max, packed)
 
 
 def _walk_one_packet(rays, tree, any_hit):
@@ -285,18 +408,19 @@ def test_closest_diff_backward_matches_autograd_through_the_plain_version():
 def test_wavefront_mt_bvh_matches_jax(monkeypatch):
     """The slice's path at a small size: render_sample (16x16, depth 3) on
     the small sphere field with intersector "mt" and a BVH against the JAX
-    wavefront under the tests/test_mega.py gates; the leaf rows are packed
-    once for the render, not once per bounce."""
+    wavefront under the tests/test_mega.py gates; the leaf rows and K7h's
+    node rows are packed once for the render, not once per bounce."""
     js = populate_sphere_field(JaxBuilder(), **SMALL_FIELD).build()
     ts = scene_from_arrays(*jax_scene_arrays(js), "cpu")
     packs = []
-    real = tk.pack_tris
-    monkeypatch.setattr(tk, "pack_tris", lambda *a: packs.append(1) or real(*a))
+    for name in ("pack_tris", "pack_nodes"):
+        real = getattr(tk, name)
+        monkeypatch.setattr(tk, name, lambda *a, _r=real, _n=name: packs.append(_n) or _r(*a))
     base = dict(width=16, height=16, max_depth=3, use_bvh=True, intersector="mt")
     pix = np.arange(256, dtype=np.uint32)
     ref, rays_ref = jax_render_sample(js, JaxConfig(**base), jnp.asarray(pix), jnp.uint32(5))
     got, rays_got = pt.render_sample(ts, RenderConfig(**base),
                                      torch.as_tensor(pix.astype(np.int64)), 5)
-    assert len(packs) == 1
+    assert packs == ["pack_tris", "pack_nodes"]
     assert_mega_gates(np.asarray(ref)[:, None], got.numpy()[:, None],
                       float(np.asarray(rays_ref).sum()), float(rays_got.sum()))
