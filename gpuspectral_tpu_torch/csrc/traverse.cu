@@ -45,8 +45,12 @@
 //   * an entered leaf: every ray with a non-empty window (t_min, best) tests
 //     its rows in slot order with a strict `<` against its running best (the
 //     plain version's argmin over the leaf, then `t_new < best` across
-//     leaves); rows are read from global memory, a broadcast load per warp.
-//     An entered leaf costs no barrier.
+//     leaves).  The rows were staged in shared memory by its parent's
+//     reduction, which stages both children's rows when they are leaves: a
+//     leaf is tested either right after its parent's reduction or, a
+//     remembered right leaf, right after its own vote, with no staging
+//     between.  Two staging buffers in turn, so a buffer is rewritten only
+//     after a later barrier.  An entered leaf costs no barrier of its own.
 //   * the remembered right children are one bit per level of the tree
 //     (`pending`): the deepest set bit is the next to visit, the right
 //     sibling of the current node's ancestor at that level.  No stack
@@ -55,10 +59,11 @@
 //     first hit in (t_min, t_max), and the packet stops at the first
 //     reduction that finds every ray of it, padding included, occluded.
 // A reduction: each warp ORs its threads' vote bits (__reduce_or_sync), lane
-// 0 ORs them into a shared word (in a cluster: into every CTA's word,
-// through distributed shared memory), then one barrier (__syncthreads, or
-// the cluster barrier), and every thread reads the word.  Three words in
-// turn, so a word is cleared two reductions before it is used again.
+// 0 stores them in its warp's slot (in a cluster: in every CTA's copy of
+// the slots, through distributed shared memory), then one barrier
+// (__syncthreads, or the cluster barrier); then lane i of every warp reads
+// slot i and the warp ORs them again.  No atomics; two rows of slots in
+// turn, so a row is rewritten only after the next barrier.
 //
 // Launch shape: one CTA per packet of `packet` consecutive rays (the ragged
 // last packet padded with rays that never hit, as traverse._packets pads
@@ -66,18 +71,15 @@
 // neighbouring SMs, each holding a share of the packet's rays.  A CTA has
 // T = min(its rays / kRaysPerThread rounded up to a warp, 1024) threads,
 // each holding kPer = 1 or 2 rays (ray j of the CTA on thread j % T), their
-// state in registers.  tools/torch_traverse_variants.py builds this file at
-// the other shapes and with the votes or the prefetch switched off, and
-// times them.
+// state in registers (in a cluster a CTA has at most 1024 / kClusterCtas
+// threads, so the cluster's warps fit the 32 slots of a reduction).
+// tools/torch_traverse_variants.py builds this file at the other shapes and
+// with the merged votes or the leaf staging switched off, and times them.
 //
 // What bounds it on the H100: operations (the tests a packet's walk needs,
 // kernels.traverse_tests with skip_empty) and the walk's serial chain: one
 // reduction per internal node and per remembered node, each behind the load
-// of the boxes it votes on.  Before each reduction one thread prefetches
-// into L1 the boxes the next step may need (the left and right children's
-// children, or their leaf rows, and the next remembered node's box and
-// children), so the load after the barrier finds them near.  No wgmma or
-// TMA: the tests are scalar float32.
+// of the boxes it votes on.  No wgmma or TMA: the tests are scalar float32.
 //
 // Precision: built with --fmad=false like the other kernels.  fmaf stands
 // exactly where ops/intersect.py:_mt_edges calls m3.fma (math3d.cross_fma,
@@ -103,10 +105,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 // The launch shape and walk (tools/torch_traverse_variants.py rewrites these).
-constexpr int kClusterCtas = 1;      // CTAs of a cluster holding one packet: 1, 2 or 4
-constexpr int kRaysPerThread = 1;    // rays a thread holds (more above 1,024 a CTA)
-constexpr bool kMergedVotes = true;  // both children's votes in one reduction
-constexpr bool kPrefetch = true;     // prefetch the next step's boxes before a reduction
+constexpr int kClusterCtas = 8;       // CTAs of a cluster holding one packet: 1 to 8
+constexpr int kRaysPerThread = 1;     // rays a thread holds (more above 1,024 a CTA)
+constexpr bool kMergedVotes = true;   // both children's votes in one reduction
+constexpr bool kStageLeaves = true;   // leaf rows staged in shared memory by the parent
+constexpr bool kSpeculate = true;     // clusters: load the next round's boxes in the barrier
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxStack = 64;  // the counting walk's right children pending: at most log2(C)
@@ -134,9 +137,24 @@ __device__ __forceinline__ float inv_dir(float dx) {
   return 1.0f / (dx < 0.0f ? -mag : mag);
 }
 
+// torch.minimum / torch.maximum: NaN if either operand is NaN (fminf and
+// fmaxf drop it)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // The plain version's node test (bvh/traverse.py:_ray_aabb and node_hit):
 // t_enter = max of the per-axis min, t_exit = min of the per-axis max,
-// (t_exit >= t_enter) & (t_exit >= t_min) & (t_enter <= best).
+// (t_exit >= t_enter) & (t_exit >= t_min) & (t_enter <= best).  A NaN slab
+// distance makes t_enter and t_exit NaN, and every comparison false.
 __device__ __forceinline__ bool slab_hit(float lx, float ly, float lz, float hx, float hy,
                                          float hz, const Ray& r) {
   const float t0x = (lx - r.o.x) * r.inv.x;
@@ -145,11 +163,8 @@ __device__ __forceinline__ bool slab_hit(float lx, float ly, float lz, float hx,
   const float t1x = (hx - r.o.x) * r.inv.x;
   const float t1y = (hy - r.o.y) * r.inv.y;
   const float t1z = (hz - r.o.z) * r.inv.z;
-  if (isnan(t0x) || isnan(t0y) || isnan(t0z) || isnan(t1x) || isnan(t1y) || isnan(t1z)) {
-    return false;
-  }
-  const float t_enter = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  const float t_exit = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  const float t_enter = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)), min_nan(t0z, t1z));
+  const float t_exit = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
   return (t_exit >= t_enter) && (t_exit >= r.lo) && (t_enter <= r.best);
 }
 
@@ -262,48 +277,65 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ rows, int cl
   }
 }
 
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+// The cluster barrier in two halves, so that loads can be in flight between
+// them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
 
-// The packet's OR of `bits` (see the header): warp OR, lane 0 into the
-// shared word of round `round` (of every CTA of the cluster), one barrier.
-template <int kG>
-__device__ __forceinline__ unsigned packet_or(unsigned bits, unsigned* votes, int& round) {
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The packet's OR of `bits` (see the header): warp OR into the warp's slot
+// of row `row` (in every CTA of the cluster, at this CTA's rank), one
+// barrier, then the OR of the slots.  `during()` runs inside the barrier
+// (between the cluster barrier's arrive and wait), for loads that need not
+// wait for it.
+template <int kG, typename During>
+__device__ __forceinline__ unsigned packet_or(unsigned bits, unsigned (*slots)[32], int rank,
+                                              int& row, During&& during) {
   bits = __reduce_or_sync(0xffffffffu, bits);
-  unsigned* word = votes + round;
-  if ((threadIdx.x & 31u) == 0 && bits != 0) {
+  const unsigned lane = threadIdx.x & 31u, warps = blockDim.x >> 5;
+  const unsigned slot = rank * warps + (threadIdx.x >> 5);
+  if (lane == 0) {
     if constexpr (kG == 1) {
-      atomicOr(word, bits);
+      slots[row][slot] = bits;
     } else {
       cg::cluster_group cluster = cg::this_cluster();
-      for (unsigned r = 0; r < (unsigned)kG; ++r) atomicOr(cluster.map_shared_rank(word, r), bits);
+      for (unsigned r = 0; r < (unsigned)kG; ++r) cluster.map_shared_rank(slots[row], r)[slot] = bits;
     }
   }
   if constexpr (kG == 1) {
+    during();
     __syncthreads();
   } else {
-    cg::this_cluster().sync();
+    cluster_arrive();
+    during();
+    cluster_wait();
   }
-  const unsigned out = *reinterpret_cast<volatile unsigned*>(word);
-  // the word of the round before this one: every thread read it before
-  // this barrier, and it is next written after the next barrier
-  if (threadIdx.x == 0) votes[round == 0 ? 2 : round - 1] = 0;
-  round = round == 2 ? 0 : round + 1;
-  return out;
+  const unsigned out = lane < kG * warps ? slots[row][lane] : 0u;
+  row ^= 1;
+  return __reduce_or_sync(0xffffffffu, out);
+}
+
+// Rows [0, n) of float4 from src to dst, by the CTA's threads.
+__device__ __forceinline__ void stage(float4* dst, const float4* __restrict__ src, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
 // K7h: one packet per CTA (kG = 1) or per cluster of kG CTAs, each CTA
 // holding cta_rays of its rays, kPer a thread.
 template <int kPer, int kG, bool kAny>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads / kG)
 packet_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
               const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
               int packet, int cta_rays, const float4* __restrict__ nodes,
               const float* __restrict__ tris, int n_clusters, int leaf_size,
               float* __restrict__ t_out, int* __restrict__ prim_out, float* __restrict__ u_out,
               float* __restrict__ v_out, bool* __restrict__ occ_out) {
-  __shared__ unsigned votes[3];
+  __shared__ unsigned slots[2][32];    // the reductions' warp slots, two rows in turn
+  extern __shared__ float4 staged[];  // 2 buffers x 2 leaves x leaf_size x 12 floats
   int rank = 0;
   if constexpr (kG > 1) rank = (int)cg::this_cluster().block_rank();
   const int first = rank * cta_rays;  // this CTA's first ray in the packet
@@ -317,19 +349,23 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     in_packet[k] = j < mine;
     ray[k] = load_ray(origin, direction, t_min, t_max, base + j, in_packet[k], n_rays);
   }
-  if (threadIdx.x < 3) votes[threadIdx.x] = 0;
-  if constexpr (kG == 1) {
-    __syncthreads();
-  } else {
-    cg::this_cluster().sync();  // no CTA ORs into a word before its owner cleared it
-  }
+  if constexpr (kG > 1) cg::this_cluster().sync();  // every CTA of the cluster has started
 
   const unsigned first_leaf = (unsigned)n_clusters;  // heap index of leaf 0
   unsigned heap = 1;      // the current node, heap-numbered: children 2h and 2h + 1
   int depth = 0;          // its level; the root's is 0
   unsigned pending = 0;   // bit l: the right child at level l is remembered
   bool vote_self = true;  // the current node is voted on (the root, a remembered node)
-  int round = 0;
+  // in a cluster, the boxes of the next round loaded during this round's
+  // barrier: the children of the child descended to (`down`), or the node
+  // popped next and its children (`popped` = its heap index)
+  constexpr bool kSpec = kSpeculate && kG > 1;
+  Box down_l{}, down_r{}, pop_self{}, pop_l{}, pop_r{};
+  bool down = false;
+  unsigned popped = 0;
+  int row = 0;            // the reduction's row of slots
+  int buffer = 1;         // the staging buffer of the last leaves staged
+  const int leaf_vec = leaf_size * 3;  // float4 of a leaf's rows
   // an empty tree: the root is marked, and nothing can hit
   bool walking = __ldg(nodes).w == 0.0f;
   while (walking) {
@@ -337,13 +373,30 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     bool entered = true;
     if (internal || vote_self) {
       Box self{}, left{}, right{};
-      if (vote_self) self = load_box(nodes, heap);
+      const bool was_popped = kSpec && popped == heap;
+      if (vote_self) self = was_popped ? pop_self : load_box(nodes, heap);
       bool left_open = false, right_open = false;  // not marked empty
       if (internal) {
-        left = load_box(nodes, 2 * heap);
-        right = load_box(nodes, 2 * heap + 1);
+        if (kSpec && down) {
+          left = down_l;
+          right = down_r;
+        } else if (was_popped) {
+          left = pop_l;
+          right = pop_r;
+        } else {
+          left = load_box(nodes, 2 * heap);
+          right = load_box(nodes, 2 * heap + 1);
+        }
         left_open = left.lo.w == 0.0f;
         right_open = right.lo.w == 0.0f;
+      }
+      down = false;
+      popped = 0;
+      if (kStageLeaves && internal && 2 * heap >= first_leaf) {  // the children are leaves
+        buffer ^= 1;
+        stage(staged + 2 * buffer * leaf_vec,
+              reinterpret_cast<const float4*>(tris) + (size_t)(2 * heap - first_leaf) * leaf_vec,
+              2 * leaf_vec);
       }
       unsigned bits = 0;
 #pragma unroll
@@ -355,22 +408,28 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         if (kMergedVotes && left_open && box_hit(left, r)) bits |= kLeft;
         if (kMergedVotes && right_open && box_hit(right, r)) bits |= kRight;
       }
-      if (kPrefetch && threadIdx.x == 0) {
-        if (internal && 2 * heap < first_leaf) {  // the children's children
-          prefetch_l1(nodes + 2 * (4 * heap - 1));
-          prefetch_l1(nodes + 2 * (4 * heap + 2));
-        } else if (internal) {  // the children's leaf rows
-          const float* rows = tris + (size_t)(2 * heap - first_leaf) * leaf_size * 12;
-          for (int e = 0; e < 2 * leaf_size * 12; e += 32) prefetch_l1(rows + e);
+      // the grandchildren, and the node a pop would reach, loaded in the barrier
+      Box g0{}, g1{}, g2{}, g3{};
+      unsigned next_pop = 0;
+      bits = packet_or<kG>(bits, slots, rank, row, [&]() {
+        if constexpr (kSpec) {
+          if (internal && 2 * heap < first_leaf) {
+            g0 = load_box(nodes, 4 * heap);
+            g1 = load_box(nodes, 4 * heap + 1);
+            g2 = load_box(nodes, 4 * heap + 2);
+            g3 = load_box(nodes, 4 * heap + 3);
+          }
+          if (pending) {
+            next_pop = (heap >> (depth - (31 - __clz(pending)))) | 1u;
+            pop_self = load_box(nodes, next_pop);
+            if (next_pop < first_leaf) {
+              pop_l = load_box(nodes, 2 * next_pop);
+              pop_r = load_box(nodes, 2 * next_pop + 1);
+            }
+          }
         }
-        if (pending) {  // the next remembered node and its children
-          const int l = 31 - __clz(pending);
-          const unsigned next = (heap >> (depth - l)) | 1u;
-          prefetch_l1(nodes + 2 * (next - 1));
-          if (next < first_leaf) prefetch_l1(nodes + 2 * (2 * next - 1));
-        }
-      }
-      bits = packet_or<kG>(bits, votes, round);
+      });
+      popped = next_pop;
       if (kAny && !(bits & kLive)) break;  // every ray of the packet is occluded
       if (vote_self && !(bits & kSelf)) {
         entered = false;
@@ -379,13 +438,18 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         const bool go_left = kMergedVotes ? (bits & kLeft) != 0 : left_open;
         const bool go_right = kMergedVotes ? (bits & kRight) != 0 : right_open;
         vote_self = !kMergedVotes;
+        down = kSpec && (go_left || go_right) && 2 * heap < first_leaf;
         if (go_left) {
           if (go_right) pending |= 1u << (depth + 1);
+          down_l = g0;
+          down_r = g1;
           heap = 2 * heap;
           ++depth;
           continue;
         }
         if (go_right) {
+          down_l = g2;
+          down_r = g3;
           heap = 2 * heap + 1;
           ++depth;
           continue;
@@ -395,7 +459,11 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     }
     if (entered) {  // a leaf
       const int cluster = (int)(heap - first_leaf);
-      const float* rows = tris + (size_t)cluster * leaf_size * 12;
+      // staged by the parent's reduction (the root has none)
+      const float* rows =
+          kStageLeaves && heap > 1
+              ? reinterpret_cast<const float*>(staged + (2 * buffer + (heap & 1)) * leaf_vec)
+              : tris + (size_t)cluster * leaf_size * 12;
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         Ray& r = ray[k];
@@ -515,7 +583,11 @@ int launch_kernel(void (*kernel)(Params...), long long grid, int threads, size_t
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  cudaError_t rc = cudaSuccess;
+  if (smem > 48 * 1024) {  // above the default: opt in
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (rc == cudaSuccess) rc = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
@@ -538,7 +610,8 @@ Shape packet_shape(int packet) {
   Shape s;
   s.ctas = packet >= 32 * kClusterCtas ? kClusterCtas : 1;
   s.rays = (packet + s.ctas - 1) / s.ctas;
-  s.threads = min(kMaxThreads, ((s.rays + kRaysPerThread - 1) / kRaysPerThread + 31) / 32 * 32);
+  s.threads = min(kMaxThreads / s.ctas,  // the cluster's warps fill at most 32 slots
+                  ((s.rays + kRaysPerThread - 1) / kRaysPerThread + 31) / 32 * 32);
   s.per = (s.rays + s.threads - 1) / s.threads;
   return s;
 }
@@ -554,8 +627,9 @@ int launch_packets(const float* origin, const float* direction, const float* t_m
   const int g = sh.ctas, cta_rays = sh.rays, threads = sh.threads, per = sh.per;
   const long long grid = ((long long)n_rays + packet - 1) / packet * g;
   const float4* boxes = reinterpret_cast<const float4*>(nodes);
-#define GST_PACKETS(P, G)                                                                    \
-  launch_kernel(packet_kernel<P, G, kAny>, grid, threads, 0, G, stream, origin, direction,  \
+  const size_t smem = kStageLeaves ? (size_t)4 * leaf_size * 12 * sizeof(float) : 0;
+#define GST_PACKETS(P, G)                                                                     \
+  launch_kernel(packet_kernel<P, G, kAny>, grid, threads, smem, G, stream, origin, direction, \
                 t_min, t_max, n_rays, packet, cta_rays, boxes, tris, n_clusters, leaf_size, \
                 t_out, prim_out, u_out, v_out, occ_out)
   if (g == 1) return per == 1 ? GST_PACKETS(1, 1) : GST_PACKETS(2, 1);

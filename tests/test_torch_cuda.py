@@ -413,6 +413,21 @@ def test_k7h_edge_cases_match_plain_version(cuda_device, name, packet):  # noqa:
         assert int((ref[1] >= 0).sum()) > 20 and bool(occ_r.any())
 
 
+@pytest.mark.parametrize("packet", [1, 32, 96, 256, 1024, 2048])
+def test_k7h_launch_shape(cuda_device, packet):  # noqa: F811
+    """K7h's launch holds every ray of a packet once: a thread block cluster
+    of CTAs at the CLI's packets of 1,024 (the cluster variant is kept),
+    whose warps fill at most the 32 slots of a reduction, one or two rays a
+    thread."""
+    shape = tk.launch_shape(packet)
+    ctas, threads, per = (shape[k] for k in ("ctas_per_packet", "threads_per_cta",
+                                             "rays_per_thread"))
+    assert threads % 32 == 0 and ctas * threads <= 1024 and per in (1, 2)
+    assert ctas * threads * per >= packet
+    if packet >= 1024:
+        assert ctas > 1
+
+
 def test_k7h_node_rows_argument(cuda_device):  # noqa: F811
     """The node rows built once (pack_nodes, as the wavefront passes them)
     and built by the wrapper give the same result; rows of another shape,

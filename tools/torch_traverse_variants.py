@@ -3,17 +3,22 @@ walk of its design, on the sphere field.
 
     PYTHONPATH=. python3 tools/torch_traverse_variants.py [variant ...]
 
-A variant sets the four constants at the top of csrc/traverse.cu:
+A variant sets the five constants at the top of csrc/traverse.cu:
 
-  cta          one CTA of 1,024 threads a packet, one ray a thread, both
-               children voted behind one barrier, boxes prefetched
-  cta_x2       one CTA of 512 threads a packet, two rays a thread
+  cta_unmerged one CTA of 1,024 threads a packet, one ray a thread, a vote
+               on each node as it is reached (PR 8's walk with the empty
+               subtrees skipped: a barrier per node)
+  cta          the same with both children voted behind one barrier, leaf
+               rows staged in shared memory by the parent's reduction
+  cta_x2       cta at 512 threads a CTA, two rays a thread
   cluster2     a thread block cluster of 2 CTAs x 512 threads a packet, the
-               votes through distributed shared memory and the cluster barrier
+               votes through distributed shared memory and the cluster
+               barrier, the next round's boxes loaded inside the barrier
   cluster4     a cluster of 4 CTAs x 256 threads
-  unmerged     a vote on each node as it is reached (PR 8's walk with the
-               empty subtrees skipped: one barrier per node)
-  no_prefetch  cta without the L1 prefetch of the next step's boxes
+  cluster8     a cluster of 8 CTAs x 128 threads
+  cluster8_no_spec      cluster8 with the boxes loaded after the barrier
+  cluster8_unmerged     cluster8 with a vote on each node as it is reached
+  cluster8_global_rows  cluster8 with the leaf rows read from global memory
 
 Each variant's copy of the source goes to build/traverse_variants/<name>/
 and is compiled with the flags of gpuspectral_tpu_torch/_build.py (one nvcc
@@ -48,14 +53,19 @@ from gpuspectral_tpu_torch import _build  # noqa: E402
 from gpuspectral_tpu_torch.bvh import kernels  # noqa: E402
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field  # noqa: E402
 
-SHIPPED = dict(kClusterCtas="1", kRaysPerThread="1", kMergedVotes="true", kPrefetch="true")
+CTA = dict(kClusterCtas="1", kRaysPerThread="1", kMergedVotes="true", kStageLeaves="true",
+           kSpeculate="true")
+CLUSTER8 = dict(CTA, kClusterCtas="8")
 VARIANTS = dict(
-    cta=SHIPPED,
-    cta_x2=dict(SHIPPED, kRaysPerThread="2"),
-    cluster2=dict(SHIPPED, kClusterCtas="2"),
-    cluster4=dict(SHIPPED, kClusterCtas="4"),
-    unmerged=dict(SHIPPED, kMergedVotes="false"),
-    no_prefetch=dict(SHIPPED, kPrefetch="false"),
+    cta_unmerged=dict(CTA, kMergedVotes="false"),
+    cta=CTA,
+    cta_x2=dict(CTA, kRaysPerThread="2"),
+    cluster2=dict(CTA, kClusterCtas="2"),
+    cluster4=dict(CTA, kClusterCtas="4"),
+    cluster8=CLUSTER8,
+    cluster8_no_spec=dict(CLUSTER8, kSpeculate="false"),
+    cluster8_unmerged=dict(CLUSTER8, kMergedVotes="false"),
+    cluster8_global_rows=dict(CLUSTER8, kStageLeaves="false"),
 )
 ENTRY_POINTS = ("gst_traverse_closest", "gst_traverse_any", "gst_traverse_shape")
 
