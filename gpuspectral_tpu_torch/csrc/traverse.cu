@@ -58,28 +58,36 @@
 //   any hit: an occluded ray stops voting and testing, a ray stops at its
 //     first hit in (t_min, t_max), and the packet stops at the first
 //     reduction that finds every ray of it, padding included, occluded.
-// A reduction: each warp ORs its threads' vote bits (__reduce_or_sync), lane
-// 0 stores them in its warp's slot (in a cluster: in every CTA's copy of
-// the slots, through distributed shared memory), then one barrier
+// A reduction: each warp ORs its threads' vote bits (__reduce_or_sync) and
+// stores them in its warp's slot (in a cluster: lane r stores into CTA r's
+// copy of the slots, through distributed shared memory), then one barrier
 // (__syncthreads, or the cluster barrier); then lane i of every warp reads
 // slot i and the warp ORs them again.  No atomics; two rows of slots in
 // turn, so a row is rewritten only after the next barrier.
 //
-// Launch shape: one CTA per packet of `packet` consecutive rays (the ragged
-// last packet padded with rays that never hit, as traverse._packets pads
-// it), or with kClusterCtas > 1 a thread block cluster of that many CTAs on
-// neighbouring SMs, each holding a share of the packet's rays.  A CTA has
-// T = min(its rays / kRaysPerThread rounded up to a warp, 1024) threads,
-// each holding kPer = 1 or 2 rays (ray j of the CTA on thread j % T), their
-// state in registers (in a cluster a CTA has at most 1024 / kClusterCtas
-// threads, so the cluster's warps fit the 32 slots of a reduction).
-// tools/torch_traverse_variants.py builds this file at the other shapes and
-// with the merged votes or the leaf staging switched off, and times them.
+// Launch shape: a thread block cluster of kClusterCtas = 8 CTAs on
+// neighbouring SMs per packet of `packet` consecutive rays (the ragged last
+// packet padded with rays that never hit, as traverse._packets pads it),
+// each CTA holding an eighth of the packet's rays; packets under 32 rays a
+// CTA take one CTA.  A CTA has T = min(its rays / kRaysPerThread rounded up
+// to a warp, 1024 / kClusterCtas) threads, so the cluster's warps fit the 32
+// slots of a reduction, each holding kPer = 1 or 2 rays (ray j of the CTA
+// on thread j % T), their state in registers.  At the CLI's packets of
+// 1,024, a 65,536-ray batch is 64 clusters of 8 x 128 threads: 512 CTAs for
+// 132 SMs, where one CTA of 1,024 threads a packet gave 64.
+// tools/torch_traverse_variants.py builds this file at the other shapes
+// (one CTA of 1,024 or 512 threads, clusters of 2 or 4) and with the merged
+// votes or the leaf staging switched off, and times them.
 //
 // What bounds it on the H100: operations (the tests a packet's walk needs,
-// kernels.traverse_tests with skip_empty) and the walk's serial chain: one
-// reduction per internal node and per remembered node, each behind the load
-// of the boxes it votes on.  No wgmma or TMA: the tests are scalar float32.
+// kernels.traverse_tests with skip_empty; every ray of a packet tests every
+// entered leaf, ~55 instructions a Moller-Trumbore test) and the walk's
+// serial chain: one reduction per internal node entered and per remembered
+// node, each behind the load of the boxes it votes on and a cluster
+// barrier.  The cluster spreads a packet's leaf tests over 8 SMs; loading
+// the next round's boxes inside the split cluster barrier took registers
+// and lost (tools/torch_traverse_variants.py, PERF.md).  No wgmma or TMA:
+// the tests are scalar float32.
 //
 // Precision: built with --fmad=false like the other kernels.  fmaf stands
 // exactly where ops/intersect.py:_mt_edges calls m3.fma (math3d.cross_fma,
@@ -109,7 +117,6 @@ constexpr int kClusterCtas = 8;       // CTAs of a cluster holding one packet: 1
 constexpr int kRaysPerThread = 1;     // rays a thread holds (more above 1,024 a CTA)
 constexpr bool kMergedVotes = true;   // both children's votes in one reduction
 constexpr bool kStageLeaves = true;   // leaf rows staged in shared memory by the parent
-constexpr bool kSpeculate = true;     // clusters: load the next round's boxes in the barrier
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxStack = 64;  // the counting walk's right children pending: at most log2(C)
@@ -277,42 +284,21 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ rows, int cl
   }
 }
 
-// The cluster barrier in two halves, so that loads can be in flight between
-// them.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // The packet's OR of `bits` (see the header): warp OR into the warp's slot
-// of row `row` (in every CTA of the cluster, at this CTA's rank), one
-// barrier, then the OR of the slots.  `during()` runs inside the barrier
-// (between the cluster barrier's arrive and wait), for loads that need not
-// wait for it.
-template <int kG, typename During>
+// of row `row` (in every CTA of the cluster, at this CTA's rank: lane r
+// stores into CTA r), one barrier, then the OR of the slots.
+template <int kG>
 __device__ __forceinline__ unsigned packet_or(unsigned bits, unsigned (*slots)[32], int rank,
-                                              int& row, During&& during) {
+                                              int& row) {
   bits = __reduce_or_sync(0xffffffffu, bits);
   const unsigned lane = threadIdx.x & 31u, warps = blockDim.x >> 5;
   const unsigned slot = rank * warps + (threadIdx.x >> 5);
-  if (lane == 0) {
-    if constexpr (kG == 1) {
-      slots[row][slot] = bits;
-    } else {
-      cg::cluster_group cluster = cg::this_cluster();
-      for (unsigned r = 0; r < (unsigned)kG; ++r) cluster.map_shared_rank(slots[row], r)[slot] = bits;
-    }
-  }
   if constexpr (kG == 1) {
-    during();
+    if (lane == 0) slots[row][slot] = bits;
     __syncthreads();
   } else {
-    cluster_arrive();
-    during();
-    cluster_wait();
+    if (lane < (unsigned)kG) cg::this_cluster().map_shared_rank(slots[row], lane)[slot] = bits;
+    cg::this_cluster().sync();
   }
   const unsigned out = lane < kG * warps ? slots[row][lane] : 0u;
   row ^= 1;
@@ -356,13 +342,6 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
   int depth = 0;          // its level; the root's is 0
   unsigned pending = 0;   // bit l: the right child at level l is remembered
   bool vote_self = true;  // the current node is voted on (the root, a remembered node)
-  // in a cluster, the boxes of the next round loaded during this round's
-  // barrier: the children of the child descended to (`down`), or the node
-  // popped next and its children (`popped` = its heap index)
-  constexpr bool kSpec = kSpeculate && kG > 1;
-  Box down_l{}, down_r{}, pop_self{}, pop_l{}, pop_r{};
-  bool down = false;
-  unsigned popped = 0;
   int row = 0;            // the reduction's row of slots
   int buffer = 1;         // the staging buffer of the last leaves staged
   const int leaf_vec = leaf_size * 3;  // float4 of a leaf's rows
@@ -373,25 +352,14 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     bool entered = true;
     if (internal || vote_self) {
       Box self{}, left{}, right{};
-      const bool was_popped = kSpec && popped == heap;
-      if (vote_self) self = was_popped ? pop_self : load_box(nodes, heap);
+      if (vote_self) self = load_box(nodes, heap);
       bool left_open = false, right_open = false;  // not marked empty
       if (internal) {
-        if (kSpec && down) {
-          left = down_l;
-          right = down_r;
-        } else if (was_popped) {
-          left = pop_l;
-          right = pop_r;
-        } else {
-          left = load_box(nodes, 2 * heap);
-          right = load_box(nodes, 2 * heap + 1);
-        }
+        left = load_box(nodes, 2 * heap);
+        right = load_box(nodes, 2 * heap + 1);
         left_open = left.lo.w == 0.0f;
         right_open = right.lo.w == 0.0f;
       }
-      down = false;
-      popped = 0;
       if (kStageLeaves && internal && 2 * heap >= first_leaf) {  // the children are leaves
         buffer ^= 1;
         stage(staged + 2 * buffer * leaf_vec,
@@ -408,28 +376,7 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         if (kMergedVotes && left_open && box_hit(left, r)) bits |= kLeft;
         if (kMergedVotes && right_open && box_hit(right, r)) bits |= kRight;
       }
-      // the grandchildren, and the node a pop would reach, loaded in the barrier
-      Box g0{}, g1{}, g2{}, g3{};
-      unsigned next_pop = 0;
-      bits = packet_or<kG>(bits, slots, rank, row, [&]() {
-        if constexpr (kSpec) {
-          if (internal && 2 * heap < first_leaf) {
-            g0 = load_box(nodes, 4 * heap);
-            g1 = load_box(nodes, 4 * heap + 1);
-            g2 = load_box(nodes, 4 * heap + 2);
-            g3 = load_box(nodes, 4 * heap + 3);
-          }
-          if (pending) {
-            next_pop = (heap >> (depth - (31 - __clz(pending)))) | 1u;
-            pop_self = load_box(nodes, next_pop);
-            if (next_pop < first_leaf) {
-              pop_l = load_box(nodes, 2 * next_pop);
-              pop_r = load_box(nodes, 2 * next_pop + 1);
-            }
-          }
-        }
-      });
-      popped = next_pop;
+      bits = packet_or<kG>(bits, slots, rank, row);
       if (kAny && !(bits & kLive)) break;  // every ray of the packet is occluded
       if (vote_self && !(bits & kSelf)) {
         entered = false;
@@ -438,18 +385,13 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         const bool go_left = kMergedVotes ? (bits & kLeft) != 0 : left_open;
         const bool go_right = kMergedVotes ? (bits & kRight) != 0 : right_open;
         vote_self = !kMergedVotes;
-        down = kSpec && (go_left || go_right) && 2 * heap < first_leaf;
         if (go_left) {
           if (go_right) pending |= 1u << (depth + 1);
-          down_l = g0;
-          down_r = g1;
           heap = 2 * heap;
           ++depth;
           continue;
         }
         if (go_right) {
-          down_l = g2;
-          down_r = g3;
           heap = 2 * heap + 1;
           ++depth;
           continue;

@@ -3,7 +3,7 @@ walk of its design, on the sphere field.
 
     PYTHONPATH=. python3 tools/torch_traverse_variants.py [variant ...]
 
-A variant sets the five constants at the top of csrc/traverse.cu:
+A variant sets the four constants at the top of csrc/traverse.cu:
 
   cta_unmerged one CTA of 1,024 threads a packet, one ray a thread, a vote
                on each node as it is reached (PR 8's walk with the empty
@@ -13,10 +13,9 @@ A variant sets the five constants at the top of csrc/traverse.cu:
   cta_x2       cta at 512 threads a CTA, two rays a thread
   cluster2     a thread block cluster of 2 CTAs x 512 threads a packet, the
                votes through distributed shared memory and the cluster
-               barrier, the next round's boxes loaded inside the barrier
+               barrier
   cluster4     a cluster of 4 CTAs x 256 threads
-  cluster8     a cluster of 8 CTAs x 128 threads
-  cluster8_no_spec      cluster8 with the boxes loaded after the barrier
+  cluster8     a cluster of 8 CTAs x 128 threads (the shipped shape)
   cluster8_unmerged     cluster8 with a vote on each node as it is reached
   cluster8_global_rows  cluster8 with the leaf rows read from global memory
 
@@ -53,8 +52,7 @@ from gpuspectral_tpu_torch import _build  # noqa: E402
 from gpuspectral_tpu_torch.bvh import kernels  # noqa: E402
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field  # noqa: E402
 
-CTA = dict(kClusterCtas="1", kRaysPerThread="1", kMergedVotes="true", kStageLeaves="true",
-           kSpeculate="true")
+CTA = dict(kClusterCtas="1", kRaysPerThread="1", kMergedVotes="true", kStageLeaves="true")
 CLUSTER8 = dict(CTA, kClusterCtas="8")
 VARIANTS = dict(
     cta_unmerged=dict(CTA, kMergedVotes="false"),
@@ -63,7 +61,6 @@ VARIANTS = dict(
     cluster2=dict(CTA, kClusterCtas="2"),
     cluster4=dict(CTA, kClusterCtas="4"),
     cluster8=CLUSTER8,
-    cluster8_no_spec=dict(CLUSTER8, kSpeculate="false"),
     cluster8_unmerged=dict(CLUSTER8, kMergedVotes="false"),
     cluster8_global_rows=dict(CLUSTER8, kStageLeaves="false"),
 )
