@@ -1225,13 +1225,6 @@ def traverse_tree(scene):
             scene.bvh_node_min.contiguous(), scene.bvh_node_max.contiguous(), scene.bvh_levels)
 
 
-def traverse_nodes(tree):
-    """K7h's node rows (kernels.pack_nodes) of a traverse_tree, built once as
-    the wavefront builds them once per render."""
-    from gpuspectral_tpu_torch.bvh import kernels
-
-    return kernels.pack_nodes(tree[1], tree[2], tree[0])
-
 
 def check_traverse(name, scene, rays, packet, timed=False):
     """traverse_closest / traverse_any against their plain versions on
@@ -1314,9 +1307,10 @@ def traverse_ptxas():
     out = {}
     for kern, line in _build.build_info()["ptxas"].items():
         for tag in ("packet_kernel", "count_kernel"):
-            if tag in kern:
-                # the template arguments of the mangled name: ILi1ELi1ELb0EE -> 1,1,0
-                args = kern.split(tag, 1)[1].split("EE", 1)[0]
+            mangled = f"{len(tag)}{tag}I"  # csrc/traverse.cu's, not bvh.cu's bvh_count_kernel
+            if mangled in kern:
+                # the template arguments of the mangled name: ILi1ELi8ELb0EE -> 1,8,0
+                args = kern.split(mangled, 1)[1].split("EE", 1)[0]
                 out[tag + "<" + ",".join(x[-1] for x in args.split("E") if x) + ">"] = line
     return out
 
@@ -1351,7 +1345,7 @@ def phase_k7h(dev, cases, field):
                 e, _ = check_traverse(name + " (odd lanes)", scene, odd_lanes(rays), packet)
             err = tuple(max(a, b) for a, b in zip(err, e))
     tree = traverse_tree(field)
-    nodes = traverse_nodes(tree)
+    nodes = kernels.pack_nodes(*tree[1:3], tree[0])  # once, as the wavefront builds them
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for tag, rays in (("random", field_rays(K3_RAYS["parity"], field, 20, dev)),

@@ -59,15 +59,11 @@
 //     first hit in (t_min, t_max), and the packet stops at the first
 //     reduction that finds every ray of it, padding included, occluded.
 // A reduction: each warp ORs its threads' vote bits (__reduce_or_sync) and
-// stores them in its warp's slot; then lane i of every warp reads slot i and
-// the warp ORs them again.  One CTA: a __syncthreads between the store and
-// the reads.  A cluster: no barrier; lane r of each warp posts (round,
-// votes) into CTA r's copy of the slots through distributed shared memory
-// with a release store, and lane i polls its own CTA's slot i with acquire
-// loads until it holds this round's number (the release also publishes the
-// warp's staged leaf rows).  No atomics; two rows of slots in turn: a warp
-// reaches round k + 2 only after every warp of the cluster posted round
-// k + 1, which each did after reading round k.
+// stores them in its warp's slot (in a cluster: lane r stores into CTA r's
+// copy of the slots, through distributed shared memory), then one barrier
+// (__syncthreads, or the cluster barrier); then lane i of every warp reads
+// slot i and the warp ORs them again.  No atomics; two rows of slots in
+// turn, so a row is rewritten only after the next barrier.
 //
 // Launch shape: a thread block cluster of kClusterCtas = 8 CTAs on
 // neighbouring SMs per packet of `packet` consecutive rays (the ragged last
@@ -87,12 +83,14 @@
 // kernels.traverse_tests with skip_empty; every ray of a packet tests every
 // entered leaf, ~55 instructions a Moller-Trumbore test) and the walk's
 // serial chain: one reduction per internal node entered and per remembered
-// node, each behind the load of the boxes it votes on and the latency of
-// distributed shared memory.  The cluster spreads a packet's leaf tests over
-// 8 SMs; a cluster barrier a round cost ~1 us more than a CTA barrier, and
-// loading the next round's boxes inside it took registers and lost
-// (tools/torch_traverse_variants.py, PERF.md).  No wgmma or TMA: the tests
-// are scalar float32.
+// node, each behind the load of the boxes it votes on and a cluster
+// barrier (~1 us more a round than a CTA barrier).  The cluster spreads a
+// packet's leaf tests over 8 SMs.  Two ways around the barrier lost
+// (tools/torch_traverse_variants.py, PERF.md): loading the next round's
+// boxes inside a split cluster barrier (registers), and posting the votes
+// into every CTA's slots with release stores and polling them in place of
+// the barrier (the polling warps take issue slots from the leaf tests).  No
+// wgmma or TMA: the tests are scalar float32.
 //
 // Precision: built with --fmad=false like the other kernels.  fmaf stands
 // exactly where ops/intersect.py:_mt_edges calls m3.fma (math3d.cross_fma,
@@ -289,50 +287,24 @@ __device__ __forceinline__ void test_leaf(const float* __restrict__ rows, int cl
   }
 }
 
-// A store another CTA of the cluster may read with load_acquire, after
-// every earlier write of the warp (__syncwarp orders the other lanes').
-__device__ __forceinline__ void post_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.cluster.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.cluster.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// The packet's OR of `bits` in reduction number `round` (see the header):
-// warp OR into the warp's slot of row round % 2 (in a cluster: with the
-// round's number, in every CTA, at this CTA's rank), then the OR of the
-// slots.
+// The packet's OR of `bits` (see the header): warp OR into the warp's slot
+// of row `row` (in every CTA of the cluster, at this CTA's rank: lane r
+// stores into CTA r), one barrier, then the OR of the slots.
 template <int kG>
-__device__ __forceinline__ unsigned packet_or(unsigned bits, unsigned long long (*slots)[32],
-                                              int rank, unsigned& round) {
+__device__ __forceinline__ unsigned packet_or(unsigned bits, unsigned (*slots)[32], int rank,
+                                              int& row) {
   bits = __reduce_or_sync(0xffffffffu, bits);
   const unsigned lane = threadIdx.x & 31u, warps = blockDim.x >> 5;
   const unsigned slot = rank * warps + (threadIdx.x >> 5);
-  unsigned long long* row = slots[round & 1u];
-  ++round;
-  unsigned out = 0;
   if constexpr (kG == 1) {
-    if (lane == 0) row[slot] = bits;
+    if (lane == 0) slots[row][slot] = bits;
     __syncthreads();
-    if (lane < warps) out = (unsigned)row[lane];
   } else {
-    __syncwarp();  // the warp's staged rows before the post
-    if (lane < (unsigned)kG) {
-      post_release(cg::this_cluster().map_shared_rank(row, lane) + slot,
-                   (unsigned long long)round << 32 | bits);
-    }
-    if (lane < kG * warps) {
-      unsigned long long v;
-      do {
-        v = load_acquire(row + lane);
-      } while ((unsigned)(v >> 32) != round);
-      out = (unsigned)v;
-    }
-    __syncwarp();  // the other CTAs' staged rows after the polls
+    if (lane < (unsigned)kG) cg::this_cluster().map_shared_rank(slots[row], lane)[slot] = bits;
+    cg::this_cluster().sync();
   }
+  const unsigned out = lane < kG * warps ? slots[row][lane] : 0u;
+  row ^= 1;
   return __reduce_or_sync(0xffffffffu, out);
 }
 
@@ -351,7 +323,7 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
               const float* __restrict__ tris, int n_clusters, int leaf_size,
               float* __restrict__ t_out, int* __restrict__ prim_out, float* __restrict__ u_out,
               float* __restrict__ v_out, bool* __restrict__ occ_out) {
-  __shared__ unsigned long long slots[2][32];  // the reductions' warp slots, two rows in turn
+  __shared__ unsigned slots[2][32];    // the reductions' warp slots, two rows in turn
   extern __shared__ float4 staged[];  // 2 buffers x 2 leaves x leaf_size x 12 floats
   int rank = 0;
   if constexpr (kG > 1) rank = (int)cg::this_cluster().block_rank();
@@ -366,17 +338,14 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     in_packet[k] = j < mine;
     ray[k] = load_ray(origin, direction, t_min, t_max, base + j, in_packet[k], n_rays);
   }
-  if constexpr (kG > 1) {  // every CTA's slots cleared before any is posted to
-    for (int e = threadIdx.x; e < 64; e += blockDim.x) slots[e / 32][e % 32] = 0;
-    cg::this_cluster().sync();
-  }
+  if constexpr (kG > 1) cg::this_cluster().sync();  // every CTA of the cluster has started
 
   const unsigned first_leaf = (unsigned)n_clusters;  // heap index of leaf 0
   unsigned heap = 1;      // the current node, heap-numbered: children 2h and 2h + 1
   int depth = 0;          // its level; the root's is 0
   unsigned pending = 0;   // bit l: the right child at level l is remembered
   bool vote_self = true;  // the current node is voted on (the root, a remembered node)
-  unsigned round = 0;     // reductions so far
+  int row = 0;            // the reduction's row of slots
   int buffer = 1;         // the staging buffer of the last leaves staged
   const int leaf_vec = leaf_size * 3;  // float4 of a leaf's rows
   // an empty tree: the root is marked, and nothing can hit
@@ -410,7 +379,7 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         if (kMergedVotes && left_open && box_hit(left, r)) bits |= kLeft;
         if (kMergedVotes && right_open && box_hit(right, r)) bits |= kRight;
       }
-      bits = packet_or<kG>(bits, slots, rank, round);
+      bits = packet_or<kG>(bits, slots, rank, row);
       if (kAny && !(bits & kLive)) break;  // every ray of the packet is occluded
       if (vote_self && !(bits & kSelf)) {
         entered = false;
@@ -456,8 +425,6 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     depth = l;
     vote_self = true;
   }
-  // no CTA leaves while another may still post into its slots
-  if constexpr (kG > 1) cg::this_cluster().sync();
 
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {

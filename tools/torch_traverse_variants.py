@@ -11,11 +11,12 @@ A variant sets the four constants at the top of csrc/traverse.cu:
   cta          the same with both children voted behind one barrier, leaf
                rows staged in shared memory by the parent's reduction
   cta_x2       cta at 512 threads a CTA, two rays a thread
-  cluster2     a thread block cluster of 2 CTAs x 512 threads a packet, each
-               warp's votes posted into every CTA through distributed shared
-               memory, no barrier a round
+  cluster2     a thread block cluster of 2 CTAs x 512 threads a packet, the
+               votes through distributed shared memory and the cluster
+               barrier
   cluster4     a cluster of 4 CTAs x 256 threads
   cluster8     a cluster of 8 CTAs x 128 threads (the shipped shape)
+  cluster8_x2  a cluster of 8 CTAs x 64 threads, two rays a thread
   cluster8_unmerged     cluster8 with a vote on each node as it is reached
   cluster8_global_rows  cluster8 with the leaf rows read from global memory
 
@@ -61,6 +62,7 @@ VARIANTS = dict(
     cluster2=dict(CTA, kClusterCtas="2"),
     cluster4=dict(CTA, kClusterCtas="4"),
     cluster8=CLUSTER8,
+    cluster8_x2=dict(CLUSTER8, kRaysPerThread="2"),
     cluster8_unmerged=dict(CLUSTER8, kMergedVotes="false"),
     cluster8_global_rows=dict(CLUSTER8, kStageLeaves="false"),
 )
