@@ -34,23 +34,29 @@
 //
 // The walk, uniform over the packet (every thread holds the same node):
 //   * at an internal node the packet entered, each thread slab-tests its
-//     rays against both children's boxes (a marked child is never voted
-//     for); one reduction gives the packet both votes.  The left child's is
-//     exact (no leaf test lies between it and the plain version's vote).
-//     The left child is entered if its vote is yes; the right child is then
-//     remembered if its vote is yes, a hint by (b).  If the left child's
-//     vote is no, the right child's vote is exact too and decides.
+//     rays against both children's boxes and, where the children are
+//     internal, the four grandchildren's (a marked box is never voted for);
+//     one reduction gives the packet every vote.  Between a node's vote and
+//     the plain version's votes on its left-first descendants no leaf is
+//     tested until the packet enters one, so those votes are exact: the
+//     packet descends to the first grandchild, left first, that passes
+//     under a child that passes (or, where the children are leaves, to the
+//     first child that passes).  The later ones that passed are remembered,
+//     hints by (b): a grandchild's right sibling, and the right child only
+//     if one of its own children passed.  Two levels a reduction: on the
+//     sphere field a random packet takes 580 reductions, where one level a
+//     reduction took 960.
 //   * a remembered node, reached again after the left subtree, is voted
-//     again on its own box in the same reduction as its children's votes.
+//     again on its own box in the same reduction as its descendants' votes.
 //   * an entered leaf: every ray with a non-empty window (t_min, best) tests
 //     its rows in slot order with a strict `<` against its running best (the
 //     plain version's argmin over the leaf, then `t_new < best` across
-//     leaves).  The rows were staged in shared memory by its parent's
-//     reduction, which stages both children's rows when they are leaves: a
-//     leaf is tested either right after its parent's reduction or, a
-//     remembered right leaf, right after its own vote, with no staging
-//     between.  Two staging buffers in turn, so a buffer is rewritten only
-//     after a later barrier.  An entered leaf costs no barrier of its own.
+//     leaves).  The rows were staged in shared memory by the reduction that
+//     voted on the leaf (two children's or four grandchildren's leaves): a
+//     leaf is tested either right after that reduction or, a remembered
+//     leaf, right after its own vote, with no staging between.  Two staging
+//     buffers in turn, so a buffer is rewritten only after a later barrier.
+//     An entered leaf costs no barrier of its own.
 //   * the remembered right children are one bit per level of the tree
 //     (`pending`): the deepest set bit is the next to visit, the right
 //     sibling of the current node's ancestor at that level.  No stack
@@ -82,10 +88,12 @@
 // What bounds it on the H100: operations (the tests a packet's walk needs,
 // kernels.traverse_tests with skip_empty; every ray of a packet tests every
 // entered leaf, ~55 instructions a Moller-Trumbore test) and the walk's
-// serial chain: one reduction per internal node entered and per remembered
+// serial chain: one reduction per two levels descended and per remembered
 // node, each behind the load of the boxes it votes on and a cluster
 // barrier (~1 us more a round than a CTA barrier).  The cluster spreads a
-// packet's leaf tests over 8 SMs.  Two ways around the barrier lost
+// packet's leaf tests over 8 SMs; one CTA of 1,024 threads a packet cannot
+// hold the grandchildren's boxes in its 64 registers a thread and spills.
+// Two ways around the barrier lost
 // (tools/torch_traverse_variants.py, PERF.md): loading the next round's
 // boxes inside a split cluster barrier (registers), and posting the votes
 // into every CTA's slots with release stores and polling them in place of
@@ -131,6 +139,7 @@ constexpr unsigned kSelf = 1u;   // the node reached again passes
 constexpr unsigned kLeft = 2u;   // its left child passes
 constexpr unsigned kRight = 4u;  // its right child passes
 constexpr unsigned kLive = 8u;   // any hit: a ray of the packet is not occluded
+constexpr unsigned kGrand = 16u;  // kGrand << i: grandchild i (heap 4h + i) passes
 
 struct Ray {
   gst::V3 o, d, inv;
@@ -320,11 +329,11 @@ __global__ void __launch_bounds__(kMaxThreads / kG)
 packet_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
               const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
               int packet, int cta_rays, const float4* __restrict__ nodes,
-              const float* __restrict__ tris, int n_clusters, int leaf_size,
+              const float* __restrict__ tris, int n_clusters, int leaf_size, bool stage_rows,
               float* __restrict__ t_out, int* __restrict__ prim_out, float* __restrict__ u_out,
               float* __restrict__ v_out, bool* __restrict__ occ_out) {
   __shared__ unsigned slots[2][32];    // the reductions' warp slots, two rows in turn
-  extern __shared__ float4 staged[];  // 2 buffers x 2 leaves x leaf_size x 12 floats
+  extern __shared__ float4 staged[];  // 2 buffers x 4 leaves x leaf_size x 12 floats
   int rank = 0;
   if constexpr (kG > 1) rank = (int)cg::this_cluster().block_rank();
   const int first = rank * cta_rays;  // this CTA's first ray in the packet
@@ -347,6 +356,7 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
   bool vote_self = true;  // the current node is voted on (the root, a remembered node)
   int row = 0;            // the reduction's row of slots
   int buffer = 1;         // the staging buffer of the last leaves staged
+  unsigned staged_first = 0;  // and the heap index of the first of them
   const int leaf_vec = leaf_size * 3;  // float4 of a leaf's rows
   // an empty tree: the root is marked, and nothing can hit
   bool walking = __ldg(nodes).w == 0.0f;
@@ -354,7 +364,7 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     const bool internal = heap < first_leaf;
     bool entered = true;
     if (internal || vote_self) {
-      Box self{}, left{}, right{};
+      Box self{}, left{}, right{}, grand[4];
       if (vote_self) self = load_box(nodes, heap);
       bool left_open = false, right_open = false;  // not marked empty
       if (internal) {
@@ -363,11 +373,20 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         left_open = left.lo.w == 0.0f;
         right_open = right.lo.w == 0.0f;
       }
-      if (kStageLeaves && internal && 2 * heap >= first_leaf) {  // the children are leaves
+      // two levels a reduction where the children are internal
+      const bool two = kMergedVotes && internal && 2 * heap < first_leaf;
+      if (two) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) grand[i] = load_box(nodes, 4 * heap + i);
+      }
+      // the leaves the packet may test before its next reduction
+      const unsigned stage_first = two ? 4 * heap : 2 * heap;
+      if (kStageLeaves && stage_rows && internal && stage_first >= first_leaf) {
         buffer ^= 1;
-        stage(staged + 2 * buffer * leaf_vec,
-              reinterpret_cast<const float4*>(tris) + (size_t)(2 * heap - first_leaf) * leaf_vec,
-              2 * leaf_vec);
+        staged_first = stage_first;
+        stage(staged + 4 * buffer * leaf_vec,
+              reinterpret_cast<const float4*>(tris) + (size_t)(stage_first - first_leaf) * leaf_vec,
+              (two ? 4 : 2) * leaf_vec);
       }
       unsigned bits = 0;
 #pragma unroll
@@ -378,10 +397,39 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
         if (vote_self && box_hit(self, r)) bits |= kSelf;
         if (kMergedVotes && left_open && box_hit(left, r)) bits |= kLeft;
         if (kMergedVotes && right_open && box_hit(right, r)) bits |= kRight;
+        if (two) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (grand[i].lo.w == 0.0f && box_hit(grand[i], r)) bits |= kGrand << i;
+          }
+        }
       }
       bits = packet_or<kG>(bits, slots, rank, row);
       if (kAny && !(bits & kLive)) break;  // every ray of the packet is occluded
       if (vote_self && !(bits & kSelf)) {
+        entered = false;
+      } else if (two) {
+        // the first grandchild, left first, under a child that passes: its
+        // vote and its parent's are exact (no leaf test lies between them
+        // and the plain version's); a later one is remembered as a hint, a
+        // right child only if one of its children passed
+        const bool l = (bits & kLeft) != 0, r = (bits & kRight) != 0;
+        const bool a0 = l && (bits & kGrand), a1 = l && (bits & (kGrand << 1));
+        const bool a2 = r && (bits & (kGrand << 2)), a3 = r && (bits & (kGrand << 3));
+        const bool keep_right = a2 || a3;
+        vote_self = false;
+        if (a0 || a1 || a2 || a3) {
+          if (a0 || a1) {
+            if (keep_right) pending |= 1u << (depth + 1);
+            if (a0 && a1) pending |= 1u << (depth + 2);
+            heap = 4 * heap + (a0 ? 0 : 1);
+          } else {
+            if (a2 && a3) pending |= 1u << (depth + 2);
+            heap = 4 * heap + (a2 ? 2 : 3);
+          }
+          depth += 2;
+          continue;
+        }
         entered = false;
       } else if (internal) {
         // without merged votes a child is voted on when reached
@@ -406,8 +454,9 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
       const int cluster = (int)(heap - first_leaf);
       // staged by the parent's reduction (the root has none)
       const float* rows =
-          kStageLeaves && heap > 1
-              ? reinterpret_cast<const float*>(staged + (2 * buffer + (heap & 1)) * leaf_vec)
+          kStageLeaves && stage_rows && heap > 1
+              ? reinterpret_cast<const float*>(staged +
+                                               (4 * buffer + (heap - staged_first)) * leaf_vec)
               : tris + (size_t)cluster * leaf_size * 12;
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
@@ -572,10 +621,15 @@ int launch_packets(const float* origin, const float* direction, const float* t_m
   const int g = sh.ctas, cta_rays = sh.rays, threads = sh.threads, per = sh.per;
   const long long grid = ((long long)n_rays + packet - 1) / packet * g;
   const float4* boxes = reinterpret_cast<const float4*>(nodes);
-  const size_t smem = kStageLeaves ? (size_t)4 * leaf_size * 12 * sizeof(float) : 0;
+  // two buffers of four leaves' rows, where they fit (the 16-slot leaves of
+  // bvh/build.py take 6 KB)
+  const size_t staging = (size_t)8 * leaf_size * 12 * sizeof(float);
+  const bool stage_rows = kStageLeaves && staging <= 200 * 1024;
+  const size_t smem = stage_rows ? staging : 0;
 #define GST_PACKETS(P, G)                                                                     \
   launch_kernel(packet_kernel<P, G, kAny>, grid, threads, smem, G, stream, origin, direction, \
-                t_min, t_max, n_rays, packet, cta_rays, boxes, tris, n_clusters, leaf_size, \
+                t_min, t_max, n_rays, packet, cta_rays, boxes, tris, n_clusters, leaf_size,  \
+                stage_rows,                                                                  \
                 t_out, prim_out, u_out, v_out, occ_out)
   if (g == 1) return per == 1 ? GST_PACKETS(1, 1) : GST_PACKETS(2, 1);
   if constexpr (kClusterCtas > 1) {

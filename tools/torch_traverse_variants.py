@@ -8,8 +8,9 @@ A variant sets the four constants at the top of csrc/traverse.cu:
   cta_unmerged one CTA of 1,024 threads a packet, one ray a thread, a vote
                on each node as it is reached (PR 8's walk with the empty
                subtrees skipped: a barrier per node)
-  cta          the same with both children voted behind one barrier, leaf
-               rows staged in shared memory by the parent's reduction
+  cta          the same with the children and grandchildren voted behind
+               one barrier, leaf rows staged in shared memory by the
+               reduction that voted on them
   cta_x2       cta at 512 threads a CTA, two rays a thread
   cluster2     a thread block cluster of 2 CTAs x 512 threads a packet, the
                votes through distributed shared memory and the cluster
