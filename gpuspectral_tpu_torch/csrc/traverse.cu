@@ -43,9 +43,8 @@
 //     under a child that passes (or, where the children are leaves, to the
 //     first child that passes).  The later ones that passed are remembered,
 //     hints by (b): a grandchild's right sibling, and the right child only
-//     if one of its own children passed.  Two levels a reduction: on the
-//     sphere field a random packet takes 580 reductions, where one level a
-//     reduction took 960.
+//     if one of its own children passed.  Two levels a reduction halve the
+//     reductions of a descent.
 //   * a remembered node, reached again after the left subtree, is voted
 //     again on its own box in the same reduction as its descendants' votes.
 //   * an entered leaf: every ray with a non-empty window (t_min, best) tests
