@@ -124,9 +124,9 @@ namespace {
 
 // The launch shape and walk (tools/torch_traverse_variants.py rewrites these).
 constexpr int kClusterCtas = 8;       // CTAs of a cluster holding one packet: 1 to 8
-constexpr int kRaysPerThread = 1;     // rays a thread holds (more above 1,024 a CTA)
-constexpr bool kMergedVotes = true;   // both children's votes in one reduction
-constexpr bool kStageLeaves = true;   // leaf rows staged in shared memory by the parent
+constexpr int kRaysPerThread = 1;     // rays a thread holds (2 where a packet needs them)
+constexpr bool kMergedVotes = true;   // children's and grandchildren's votes in one reduction
+constexpr bool kStageLeaves = true;   // leaf rows staged by the reduction that votes on them
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxStack = 64;  // the counting walk's right children pending: at most log2(C)
@@ -451,7 +451,7 @@ packet_kernel(const float* __restrict__ origin, const float* __restrict__ direct
     }
     if (entered) {  // a leaf
       const int cluster = (int)(heap - first_leaf);
-      // staged by the parent's reduction (the root has none)
+      // staged by the reduction that voted on the leaf (the root has none)
       const float* rows =
           kStageLeaves && stage_rows && heap > 1
               ? reinterpret_cast<const float*>(staged +
