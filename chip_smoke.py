@@ -44,22 +44,31 @@ Phases:
         run alone; K2 vs closest_ref / any_ref on 1M rays
   k3    ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref on 65,536
         random rays over the sphere field, Cornell, the zoo, a
-        2048-triangle soup and a slot-mode build: t, prim, u, v, attrs and
-        occ equal, ties included; K3 timed on 1M and 65,536 rays beside K2
-        on the same rays and the plain version on 65,536
+        2048-triangle soup, a slot-mode build, a morton build of a soup and
+        a soup of exact-t twins, each clean and with NaN and inactive lanes
+        mixed in: t, prim, u, v, attrs and occ equal, ties included (every
+        hit on the twins a tie won by the lower slot); K3 timed on 1M and
+        65,536 random rays beside K2 on the same rays and the plain version
+        on 65,536, and on the 262,144 primary rays of the 512x512 frame;
+        the tests per ray of K3's own walk (ftb.walk_tests) logged beside
+        the counting walk's; the walk's kernels' registers, spills and
+        stack logged (walk_ptxas: K4 and K6 must not spill)
   env   K1 and K4 on Cornell under a constant emitter and a 32x64 sky, at
         64x64, vs the wavefront: every pixel within 2e-5 (the gate of
         tests/test_envmap.py:246-335), rays within 1%
   k4    K4 vs the wavefront on K3 (textures by the same per-corner blend)
-        at 64x64 on Cornell, the zoo and a small sphere field: emission
-        only equal on >= 99.9% of pixels; full (depth 4, NEE, 2 spp) and
+        at 64x64 on Cornell, the zoo, a small sphere field, a slot-mode
+        Cornell, and a morton-built soup and a soup of twins under a quad
+        light: emission only equal on >= 99.9% of pixels; full (depth 4, NEE, 2 spp) and
         power light pick with exact MIS under the tests/test_mega.py gates,
         the latter with <= 0.8% of pixels off by > 1e-4
   bvh_main       the sphere-field run_benchmark, with K4's launch count
         from that run alone (K1, K2, K3 never); K4 vs its plain version on
         8 pixel rows of the last frame at its timestamp (the gates of
         main; full spp when the plain leg takes under 60 s, else fewer
-        spp at the same timestamp); those rows of the image equal K4's
+        spp at the same timestamp); those rows of the image equal K4's;
+        K4 timed over the whole frame (the main path's launch), its bound
+        the 8 rows' tally of tests per ray times the frame's rays
   bvh_wavefront  the same scene with intersector "pallas" at 512x512,
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
   k7    cluster_votes / cluster_closest / cluster_any, dfs_closest /
@@ -110,7 +119,9 @@ Phases:
         small sphere field without sky, under the gates of k5
   grad_bvh  run_grad_benchmark on builtin:sphere_field_noenv 512x512, 64
         spp, d5, 2 steps: K6 launched 3 times, K4 / K3 never; K6 vs its
-        plain version on 8 rows (the spp rule of bvh_main)
+        plain version on 8 rows (the spp rule of bvh_main); K6 timed over
+        the step's frame (its one launch a step) and its share of the step,
+        its bound as K4's
   grad_wavefront  the differentiable wavefront at 32x32, 4 spp, d3 on the
         card (K2a through closest_diff on Cornell, K3a through
         ftb_closest_diff on a small sphere field) against the same on the
@@ -132,8 +143,10 @@ and the bytes over 3.35 TB/s, for the work of the timed call.  Operations: WOOP_
 BOX_FLOPS per box test and, in the fused kernels, SHADE_FLOPS per shaded
 vertex (a closest ray that hits), with the tests counted by a WalkTally:
 a brute-force closest ray tests every triangle, a brute-force shadow ray
-the triangles up to its first occluder, a BVH ray what its walk did
-(ftb.ftb_walk_tests runs csrc/bvh.cuh's walk with counters).  K2 and K3 are
+the triangles up to its first occluder, a BVH ray what the preorder walk
+did (ftb.ftb_walk_tests runs csrc/bvh.cuh's counting walk with counters;
+K3, K4 and K6 take the child-pair walk since PR 10, whose own tests,
+ftb.walk_tests, are logged beside and bound nothing).  K2 and K3 are
 tallied on the timed call's own rays.  The cluster kernels' tests are
 counted as the kernels make them (cluster_sweep.vote_tests / sweep_tests):
 K7c slab-tests a (block of 256 rays, supernode) pair's rays up to the first
@@ -171,7 +184,9 @@ K7h's row stands for both wrappers: launches is the sum of both counts
 ms_any / bound_ms_any the any hit's; ms_pr8 / ms_any_pr8 time PR 8's walk
 (csrc/traverse.cu:gst_traverse_count, the counting kernel with its
 counters, on the tree as built) on the same rays, so the row keeps the
-time K7h had before its redesign.
+time K7h had before its redesign.  K4's and K6's rows time the main
+path's launch (the whole frame; ms_rows the 8 rows that plain_ms times),
+their bounds the 8 rows' tally per ray times the frame's rays.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -374,6 +389,8 @@ class WalkTally:
     def __init__(self, n_tris):
         self.n_tris = n_tris
         self.closest = self.shadow = self.hits = self.woop = self.box = 0
+        # the tests K3's own walk made (ftb.walk_tests), beside the count
+        self.walk_woop = self.walk_box = 0
 
     def rays(self):
         return self.closest + self.shadow
@@ -414,10 +431,13 @@ class WalkTally:
 
         def walk(scene, origin, direction, lo, hi, any_hit):
             act = hi > lo
-            boxes, woops = ftb.ftb_walk_tests(scene, origin[act], direction[act], lo[act],
-                                              hi[act], any_hit)
+            rays = (scene, origin[act], direction[act], lo[act], hi[act], any_hit)
+            boxes, woops = ftb.ftb_walk_tests(*rays)
             self.box += int(boxes.sum())
             self.woop += int(woops.sum())
+            boxes, woops = ftb.walk_tests(*rays)
+            self.walk_box += int(boxes.sum())
+            self.walk_woop += int(woops.sum())
             return int(act.sum())
 
         def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
@@ -465,9 +485,11 @@ def tally_rows(scene, cfg, pix, ts):
         path_tracer.trace_wavefront(scene, wcfg, pix.reshape(-1), ts,
                                     tex_mode="corners" if cfg.use_bvh else "nearest")
     torch.cuda.synchronize()
+    n = max(tally.rays(), 1)
     log(f"  tally of {pix.shape[0]} rows: {tally.closest} closest and {tally.shadow} shadow rays, "
-        f"{tally.woop / max(tally.rays(), 1):.2f} Woop and {tally.box / max(tally.rays(), 1):.2f} "
-        f"box tests per ray, {tally.hits} shaded vertices")
+        f"{tally.woop / n:.2f} Woop and {tally.box / n:.2f} box tests per ray, {tally.hits} "
+        f"shaded vertices; K3's own walk {tally.walk_woop / n:.2f} Woop and "
+        f"{tally.walk_box / n:.2f} box tests per ray")
     return tally
 
 
@@ -478,9 +500,10 @@ def fused_bound(tally, rays, n_bytes):
 
 
 def bvh_tables(scene):
+    """The tables K3, K4 and K6 read: pair, cluster and Woop rows."""
     from gpuspectral_tpu_torch.bvh import ftb
 
-    return ftb.kernel_tables(scene)[:4]
+    return ftb.walk_tables(scene)[:3]
 
 
 def mega_tables(scene, bvh):
@@ -660,24 +683,60 @@ def check_k3(name, scene, rays):
         ("t", t, t_r), ("prim", prim, prim_r), ("u", u, u_r), ("v", v, v_r),
         ("attrs", attrs, attrs_r), ("occ", occ, occ_r))}
     hit = prim_r >= 0
+    ties = tied_hits(scene, prim_r) if "ties" in name else 0
     log(f"  K3 {name}: rays={o.shape[0]} slots={scene.tri_woop_t.shape[1]} "
-        f"nodes={scene.bvh_dfs_bounds.shape[1]} hits={int(hit.sum())} "
-        f"occluded={int(occ_r.sum())} mismatches={bad}")
+        f"pair rows={scene.bvh_pairs.shape[0]} (depth {scene.bvh_depth}) hits={int(hit.sum())} "
+        f"exact_t_ties={ties} occluded={int(occ_r.sum())} mismatches={bad}")
     if any(bad.values()):
         raise AssertionError(f"K3 disagrees with its plain version on {name}")
+    if "ties" in name and ties != int(hit.sum()):
+        raise AssertionError(f"{name}: a hit of the plain version is no tie won by the lower slot")
     return float((t - t_r).abs()[hit].max()) if hit.any() else 0.0
 
 
-def soup_scene(n_tris, seed, dev):
+def tied_hits(scene, prim):
+    """Hits on a triangle that has a twin (the same corners in another
+    slot) and is the lower slot of the two: on a soup_scene(ties=True),
+    every hit, each an exact-t tie won by the lowest slot."""
+    pos = scene.tri_pos.reshape(scene.padded_tris, 9)
+    _, ids, counts = torch.unique(pos, dim=0, return_inverse=True, return_counts=True)
+    slots = torch.arange(ids.shape[0], device=ids.device)
+    first = torch.full_like(counts, ids.shape[0]).scatter_reduce(0, ids, slots, "amin")
+    p = prim[prim >= 0].long()
+    return int(((counts[ids[p]] == 2) & (first[ids[p]] == p)).sum())
+
+
+def soup_scene(n_tris, seed, dev, order="sah", ties=False, light=False):
+    """A random soup of n_tris triangles, its tree built in `order` ("sah"
+    or bvh/build.py's "morton").  ties: every triangle twice, the copies in
+    reverse order (a ray that hits one hits its copy at the same t: an exact
+    tie, which the lowest slot wins).  light: an emitting quad above the
+    soup and a camera in front of it (a scene K4 renders)."""
     from gpuspectral_tpu_torch.bsdf.table import diffuse
+    from gpuspectral_tpu_torch.bvh import build as bvh_build
     from gpuspectral_tpu_torch.scene.data import SceneBuilder
+    from gpuspectral_tpu_torch.scene.obj import make_rectangle
 
     rng = np.random.default_rng(seed)
     tris = (rng.uniform(-2.0, 2.0, size=(n_tris, 1, 3))
             + rng.normal(scale=0.15, size=(n_tris, 3, 3))).astype(np.float32)
+    if ties:
+        tris = np.concatenate([tris, tris[::-1]])
     b = SceneBuilder()
     b.add_object(tris, tris, None, np.eye(4, dtype=np.float32), b.add_bsdf(diffuse((0.5,) * 3)))
-    return b.build(dev)
+    if light:
+        pos, nrm, uv = make_rectangle()
+        b.add_object(pos, nrm, uv, np.array([[2, 0, 0, 0], [0, 0, -2, 3], [0, 2, 0, 0],
+                                             [0, 0, 0, 1]], np.float32),
+                     b.add_bsdf(diffuse((0.0,) * 3)), emission=(8.0, 8.0, 8.0))
+        b.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 0.5], [0, 0, -1, 6], [0, 0, 0, 1]],
+                              np.float32), np.deg2rad(60))
+    real = bvh_build.build_bvh
+    bvh_build.build_bvh = lambda *a, **kw: real(*a, **dict(kw, order=order))
+    try:
+        return b.build(dev)
+    finally:
+        bvh_build.build_bvh = real
 
 
 def bvh_cases(dev, scenes, field):
@@ -695,14 +754,23 @@ def bvh_cases(dev, scenes, field):
     return dict(sphere_field=field, **scenes, soup2048=soup_scene(2048, 7, dev), slot_mode=slot)
 
 
+def walk_cases(dev, cases):
+    """K3's parity scenes (bvh_cases) and two more builds: a morton build of
+    a soup and a soup of exact-t twins."""
+    return dict(cases, soup_morton=soup_scene(2048, 8, dev, order="morton"),
+                soup_ties=soup_scene(1024, 9, dev, ties=True))
+
+
 def phase_k3(dev, cases, field):
     from gpuspectral_tpu_torch.bvh import ftb
     from gpuspectral_tpu_torch.ops import cuda_isect as ci
 
     log("phase K3: ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref")
     err = 0.0
-    for i, (name, scene) in enumerate(cases.items()):
-        err = max(err, check_k3(name, scene, field_rays(K3_RAYS["parity"], scene, 20 + i, dev)))
+    for i, (name, scene) in enumerate(walk_cases(dev, cases).items()):
+        rays = field_rays(K3_RAYS["parity"], scene, 20 + i, dev)
+        err = max(err, check_k3(name, scene, rays),
+                  check_k3(name + " (NaN and inactive lanes)", scene, odd_lanes(rays)))
 
     # timing on the sphere field: K3 at 1M and 65,536 rays, K2 over the
     # same table and rays, the plain version at 65,536
@@ -726,8 +794,14 @@ def phase_k3(dev, cases, field):
         log(f"  sphere field, {n} rays: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times[n].items()))
     n = K3_RAYS["parity"]
     for tag, t in (("closest", k3a_tally), ("any", k3b_tally)):
-        log(f"  K3 {tag} walk on {n} rays: {t.box / n:.2f} box and {t.woop / n:.2f} Woop tests "
-            "per ray")
+        log(f"  K3 {tag} on {n} random rays: the counting walk {t.box / n:.2f} box and "
+            f"{t.woop / n:.2f} Woop tests per ray, K3's own walk {t.walk_box / n:.2f} and "
+            f"{t.walk_woop / n:.2f}")
+    o, d, lo, hi = primary_rays(field, HEADLINE["size"], dev)
+    times["primary"] = dict(k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+                            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
+    log(f"  sphere field, {o.shape[0]} primary rays: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times["primary"].items()))
     tb = nbytes(*bvh_tables(field))
     times["bounds"] = dict(k3a=bound(k3a_tally.flops(shade=False), n * (28 + 16) + tb),
                            k3b=bound(k3b_tally.flops(shade=False), n * (32 + 1) + tb))
@@ -782,11 +856,15 @@ def phase_env(dev):
 
 def phase_k4(dev, scenes):
     from gpuspectral_tpu_torch.integrator import mega_bvh
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
     from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
     from gpuspectral_tpu_torch.utils import RenderConfig
 
     log("phase K4: fused-BVH megakernel vs the wavefront on K3")
-    cases = dict(scenes, sphere_field_small=build_sphere_field(dev, n_side=2, segs=16, rings=8))
+    cases = dict(scenes, sphere_field_small=build_sphere_field(dev, n_side=2, segs=16, rings=8),
+                 cornell_slot=slot_mode(lambda: load_mitsuba_scene(CORNELL, device=dev)[0]),
+                 soup_morton=soup_scene(1024, 5, dev, order="morton", light=True),
+                 soup_ties=soup_scene(1024, 5, dev, ties=True, light=True))
     pix = torch.arange(64 * 64, dtype=torch.int32, device=dev).reshape(-1, 128)
     err = 0.0
     for name, scene in cases.items():
@@ -891,16 +969,25 @@ def phase_bvh_main(dev):
         fine_gate=SUB_FINE_GATE)
     log(f"  K4 {k4_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows at {spp_cmp} spp "
         f"({rays_k4 / k4_ms / 1e3:.3f} vs {rays_ref / ref_ms / 1e3:.3f} Mrays/s)")
-    k4_head_ms = cuda_ms(lambda: mega_bvh.render_mega_bvh(scene, cfg, ts), reps=1)
+    # the main path's shape: one K4 launch over the whole frame
+    _, frame_rays = mega_bvh.render_mega_bvh(scene, cfg, ts)
+    k4_head_ms = cuda_ms(lambda: mega_bvh.render_mega_bvh(scene, cfg, ts), reps=2)
     frame_ms = result["seconds_per_frame"] * 1e3
     log(f"  K4 over the sphere-field frame: {k4_head_ms:.3f} ms of a {frame_ms:.3f} ms frame "
-        f"(share {k4_head_ms / frame_ms:.3f})")
+        f"(share {k4_head_ms / frame_ms:.3f}), {frame_rays:.0f} rays")
     head = f"sphere-field run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
-    k4_bound = fused_bound(tally_rows(scene, cfg_cmp, pix, ts), rays_k4,
-                           pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, True)))
-    return dict(launches=launches["k4"], launched_by=head, max_abs_err=k4_err, ms=k4_ms,
-                plain_ms=ref_ms, **k4_bound,
-                spp_compared=spp_cmp, headline_frame_ms=k4_head_ms,
+    tally = tally_rows(scene, cfg_cmp, pix, ts)
+    tables = nbytes(*mega_tables(scene, True))
+    k4_bound = fused_bound(tally, frame_rays, hs * hs * (4 + 16) + tables)
+    rows_bound = fused_bound(tally, rays_k4, pix.numel() * (4 + 16) + tables)
+    log(f"  K4 frame bound {k4_bound['bound_ms']:.4f} ms ({k4_bound['bound_by']}): "
+        f"K4 at {k4_bound['bound_ms'] / k4_head_ms:.5f} of it")
+    return dict(launches=launches["k4"], launched_by=head, max_abs_err=k4_err, ms=k4_head_ms,
+                timed_call=f"one launch over the {hs}x{hs} frame at {spp} spp, d{depth}",
+                frame_rays=frame_rays, plain_ms=ref_ms,
+                plain_call=f"{K4_ROWS} pixel rows at {spp_cmp} spp", ms_rows=k4_ms,
+                bound_ms_rows=rows_bound["bound_ms"], **k4_bound,
+                spp_compared=spp_cmp, share_of_frame=k4_head_ms / frame_ms,
                 mrays_per_s=result["mrays_per_s"]), scene, cfg, float(img.mean())
 
 
@@ -1315,6 +1402,26 @@ def traverse_ptxas():
     return out
 
 
+def walk_ptxas():
+    """ptxas's registers, spills and stack of the kernels that take the walk
+    of csrc/bvh.cuh (K3a / K3b and K4 / K6 with and without block-
+    synchronous regeneration), by kernel; raises if K4 or K6 spills."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {}
+    for kern, line in _build.build_info()["ptxas"].items():
+        for tag in ("mega_bvh_kernel", "mega_bvh_grad_kernel", "bvh_closest_kernel",
+                    "bvh_any_kernel"):
+            if f"{len(tag)}{tag}" in kern:
+                sync = "<sync>" if "ILb1E" in kern else "<no sync>" if "ILb0E" in kern else ""
+                out[tag + sync] = line
+    log("  ptxas of the walk's kernels: " + json.dumps(out))
+    spills = {k: v for k, v in out.items() if "mega" in k and "0 bytes spill stores" not in v}
+    if len(out) != 6 or spills:
+        raise AssertionError(f"K4 / K6 spill or are missing: {spills or out}")
+    return out
+
+
 def phase_k7h(dev, cases, field):
     """K7h against its plain versions on the five BVH scenes (NaN and
     inactive lanes mixed in, the sphere field at packets of 1024 on the
@@ -1691,14 +1798,31 @@ def phase_grad_bvh(dev):
     err = check_fused(f"K6 vs plain, {K4_ROWS} rows of the grad_bvh frame (ts {ts}, {spp_cmp} spp)",
                       got, ref, spp_cmp, scene, sub=True)
     log(f"  K6 {k6_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows at {spp_cmp} spp")
-    rays = float(got[3].double().sum())
-    k6_bound = fused_bound(tally_rows(scene, cfg_cmp, pix, ts), rays,
-                           pix.numel() * (4 + 16 + 4 * got[4].shape[0])
-                           + nbytes(*mega_tables(scene, True)))
+    # the main path's shape: the one K6 launch of a step, over the whole frame
+    pix_frame = mg.pix_rows(cfg, dev)
+    frame = mg.render_mega_bvh_fwdgrad_rows(scene, cfg, pix_frame, ts)
+    k6_step_ms = cuda_ms(lambda: mg.render_mega_bvh_fwdgrad_rows(scene, cfg, pix_frame, ts),
+                         reps=2)
+    step_ms = result["seconds_per_step"] * 1e3
+    frame_rays = float(frame[3].reshape(-1)[:hs * hs].double().sum())
+    log(f"  K6 over the step's frame: {k6_step_ms:.3f} ms of a {step_ms:.3f} ms step "
+        f"(share {k6_step_ms / step_ms:.3f}), {frame_rays:.0f} rays")
+    tally = tally_rows(scene, cfg_cmp, pix, ts)
+    planes = 4 * frame[4].shape[0]
+    tables = nbytes(*mega_tables(scene, True))
+    k6_bound = fused_bound(tally, frame_rays, pix_frame.numel() * (4 + 16 + planes) + tables)
+    rows_bound = fused_bound(tally, float(got[3].double().sum()),
+                             pix.numel() * (4 + 16 + planes) + tables)
+    log(f"  K6 frame bound {k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}): "
+        f"K6 at {k6_bound['bound_ms'] / k6_step_ms:.5f} of it")
     head = f"grad_bvh run_grad_benchmark ({hs}x{hs}, {spp} spp, d{depth}, {steps} steps)"
-    return dict(launches=launches["k6"], launched_by=head, max_abs_err=err, ms=k6_ms,
-                plain_ms=ref_ms, **k6_bound,
-                spp_compared=spp_cmp, grad_steps_per_s=result["grad_steps_per_s"],
+    return dict(launches=launches["k6"], launched_by=head, max_abs_err=err, ms=k6_step_ms,
+                timed_call=f"the step's launch over the {hs}x{hs} frame at {spp} spp, d{depth}",
+                frame_rays=frame_rays, plain_ms=ref_ms,
+                plain_call=f"{K4_ROWS} pixel rows at {spp_cmp} spp", ms_rows=k6_ms,
+                bound_ms_rows=rows_bound["bound_ms"], **k6_bound,
+                spp_compared=spp_cmp, share_of_step=k6_step_ms / step_ms,
+                grad_steps_per_s=result["grad_steps_per_s"],
                 seconds_per_step=result["seconds_per_step"], peak_hbm_gb=result["peak_hbm_gb"])
 
 
@@ -1853,11 +1977,15 @@ def main() -> int:
     m["k4"]["max_abs_err"] = max(m["k4"]["max_abs_err"], k4_err, env_err["k4"])
     wave_c, wave = phase_bvh_wavefront(scene, cfg, k4_mean)
     small, big = k3_times[K3_RAYS["parity"]], k3_times[K3_RAYS["timing"]]
+    ptxas = walk_ptxas()
     for key in ("k3a", "k3b"):
         m[key] = dict(launches=wave_c[key], launched_by=wave, max_abs_err=k3_err,
                       ms=small[key], plain_ms=small[key + "_plain"], **k3_times["bounds"][key],
                       rays=K3_RAYS["parity"], ms_1m_rays=big[key],
-                      k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]])
+                      ms_primary_rays=k3_times["primary"][key],
+                      k2_ms=small["k2" + key[2]], k2_ms_1m_rays=big["k2" + key[2]],
+                      ptxas={k: v for k, v in ptxas.items() if "mega" not in k})
+    m["k4"]["ptxas"] = {k: v for k, v in ptxas.items() if k.startswith("mega_bvh_kernel")}
     del scene
     rows, k3_ref = phase_sweep_main(dev, "cluster", ("k7c", "k7d", "k7e"))
     rows_fg, _ = phase_sweep_main(dev, "dfs", ("k7f", "k7g"), k3_ref)
@@ -1883,6 +2011,7 @@ def main() -> int:
         sphere_field_noenv=build_sphere_field(dev, n_side=2, segs=16, rings=8, sky_hw=None)))
     m["k6"] = phase_grad_bvh(dev)
     m["k6"]["max_abs_err"] = max(m["k6"]["max_abs_err"], k6_err)
+    m["k6"]["ptxas"] = {k: v for k, v in ptxas.items() if k.startswith("mega_bvh_grad")}
     wave_err = phase_grad_wavefront(dev)
     m["k2a"]["autograd_max_abs_err"] = wave_err
     m["k7d"]["autograd_max_abs_err"] = phase_sweep_grad(dev, "cluster", "k7d",

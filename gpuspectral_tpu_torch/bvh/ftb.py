@@ -9,8 +9,9 @@ count their launches in `.launches`; for CPU tensors they run the plain
 versions, `ftb_closest_ref` / `ftb_any_ref`: the brute-force Woop scan over
 every triangle slot that K2 is held to (ops/woop.py), chunked over slots so
 that a 150k-slot scene fits in memory.  The kernel walks the scene's
-preorder tables and equals that scan bit for bit, ties included (the
-lowest slot wins among exactly tied t).
+child-pair rows (`walk_tables`, built once with the scene) and equals that
+scan bit for bit, ties included (the lowest slot wins among exactly tied
+t).
 
 `ftb_closest_diff` is the differentiable closest hit of the BVH wavefront
 (ftb.py:389-429): K3a forward (the plain version for CPU tensors), and the
@@ -119,18 +120,40 @@ def ftb_any_ref(scene, origin, direction, t_min, t_max, active=None):
 
 
 def kernel_tables(scene):
-    """(nodes, meta, clusters, woop_t, bvh_ip) for the walk of csrc/bvh.cuh:
-    the preorder tables, the cluster boxes (the implicit tree's leaf level,
-    (6, C), inverted where a cluster is empty) and the int parameters
-    n_nodes, n_clusters, n_slots, leaf_size, leaf_span."""
+    """(nodes, meta, clusters, woop_t, bvh_ip) for the counting walk of
+    csrc/bvh.cuh (bvh_closest / bvh_any, ftb_walk_tests): the preorder
+    tables, the cluster boxes (the implicit tree's leaf level, (6, C),
+    inverted where a cluster is empty) and the int parameters n_nodes,
+    n_clusters, n_slots, leaf_size, leaf_span."""
     c = scene.bvh_clusters
     clusters = torch.cat([scene.bvh_node_min[c - 1:], scene.bvh_node_max[c - 1:]],
                          dim=1).t().contiguous()
-    leaf_span = max(2, 128 // scene.bvh_leaf_size)
     ip = torch.tensor([scene.bvh_dfs_bounds.shape[1], c, scene.tri_woop_t.shape[1],
-                       scene.bvh_leaf_size, leaf_span], dtype=torch.int32)
+                       scene.bvh_leaf_size, leaf_span(scene)], dtype=torch.int32)
     return (scene.bvh_dfs_bounds.contiguous(), scene.bvh_dfs_meta.contiguous(), clusters,
             scene.tri_woop_t.contiguous(), ip)
+
+
+def leaf_span(scene) -> int:
+    """Clusters a leaf of the walk covers (bvh/tables.py:build_dfs_tables)."""
+    return max(2, 128 // scene.bvh_leaf_size)
+
+
+def walk_tables(scene):
+    """(nodes, clusters, woop, walk_ip) for the walk of K3, K4 and K6
+    (csrc/bvh.cuh: walk_closest / walk_any), all of them the scene's own
+    tensors, packed once when the scene was made: the child-pair rows
+    (P, 16), the cluster rows (C, 8), the Woop rows (T, 12), and the host
+    ints n_pairs, n_clusters, n_slots, leaf_size, leaf_span, root code,
+    depth (csrc/bvh.cuh:make_walk_tables)."""
+    ip = torch.tensor([scene.bvh_pairs.shape[0], scene.bvh_clusters, scene.tri_woop.shape[0],
+                       scene.bvh_leaf_size, leaf_span(scene), scene.bvh_root, scene.bvh_depth],
+                      dtype=torch.int32)
+    for name, x in (("bvh_pairs", scene.bvh_pairs), ("bvh_cluster_rows", scene.bvh_cluster_rows),
+                    ("tri_woop", scene.tri_woop)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"scene.{name}: want contiguous float32, got {x.dtype}")
+    return scene.bvh_pairs, scene.bvh_cluster_rows, scene.tri_woop, ip
 
 
 def _check_rays(origin, direction, *scalars):
@@ -164,7 +187,7 @@ def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
     from .. import _build
 
     lib = _build.load()
-    nodes, meta, clusters, woop_t, ip = kernel_tables(scene)
+    nodes, clusters, woop_rows, ip = walk_tables(scene)
     r = origin.shape[0]
     dev = origin.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -174,9 +197,9 @@ def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_bvh_closest(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), r,
-                                 nodes.data_ptr(), meta.data_ptr(), clusters.data_ptr(),
-                                 woop_t.data_ptr(), ip.data_ptr(), t.data_ptr(),
-                                 prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
+                                 nodes.data_ptr(), clusters.data_ptr(), woop_rows.data_ptr(),
+                                 ip.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+                                 v.data_ptr(), stream)
     _build.check(rc, "ftb_closest")
     ftb_closest.launches += 1
     attr = attr_table(scene) if attr is None else attr
@@ -197,15 +220,14 @@ def ftb_any(scene, origin, direction, t_min, t_max, active=None):
     from .. import _build
 
     lib = _build.load()
-    nodes, meta, clusters, woop_t, ip = kernel_tables(scene)
+    nodes, clusters, woop_rows, ip = walk_tables(scene)
     r = origin.shape[0]
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_bvh_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                             t_max.data_ptr(), r, nodes.data_ptr(), meta.data_ptr(),
-                             clusters.data_ptr(), woop_t.data_ptr(), ip.data_ptr(),
-                             occ.data_ptr(), stream)
+                             t_max.data_ptr(), r, nodes.data_ptr(), clusters.data_ptr(),
+                             woop_rows.data_ptr(), ip.data_ptr(), occ.data_ptr(), stream)
     _build.check(rc, "ftb_any")
     ftb_any.launches += 1
     return occ
@@ -216,12 +238,13 @@ ftb_any.launches = 0
 
 
 def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
-    """(box tests, Woop tests), each (R,) int32: what the walk of
-    csrc/bvh.cuh does for each ray, the closest-hit walk on (0, t_max) or,
-    with any_hit, the any-hit walk on (t_min, t_max).  It measures the work
-    of K3 and of the fused-BVH kernels (their least time on the card is
-    counted from it) and renders nothing.  CUDA tensors only: the plain
-    versions scan every slot and walk no tree."""
+    """(box tests, Woop tests), each (R,) int32: what the preorder walk of
+    csrc/bvh.cuh (bvh_closest / bvh_any) does for each ray, the closest-hit
+    walk on (0, t_max) or, with any_hit, the any-hit walk on (t_min,
+    t_max).  It measures the work of K3 and of the fused-BVH kernels (their
+    least time on the card is counted from it, whatever walk they take) and
+    renders nothing.  CUDA tensors only: the plain versions scan every slot
+    and walk no tree."""
     _check_rays(origin, direction, t_min, t_max)
     _check_scene(scene, origin.device)
     if origin.device.type != "cuda":
@@ -240,6 +263,32 @@ def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
                                clusters.data_ptr(), woop_t.data_ptr(), ip.data_ptr(),
                                int(any_hit), boxes.data_ptr(), woops.data_ptr(), stream)
     _build.check(rc, "ftb_walk_tests")
+    return boxes, woops
+
+
+def walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
+    """(box tests, Woop tests), each (R,) int32, of the walk that K3, K4 and
+    K6 take (walk_tables: the child pairs, near child first), counted as
+    ftb_walk_tests counts the preorder walk: two box tests a pair row, one
+    a non-empty cluster.  CUDA tensors only."""
+    _check_rays(origin, direction, t_min, t_max)
+    _check_scene(scene, origin.device)
+    if origin.device.type != "cuda":
+        raise ValueError(f"walk_tests: the walk runs on a CUDA device, not {origin.device}")
+    from .. import _build
+
+    lib = _build.load()
+    nodes, clusters, woop_rows, ip = walk_tables(scene)
+    r = origin.shape[0]
+    boxes = torch.empty((r,), dtype=torch.int32, device=origin.device)
+    woops = torch.empty((r,), dtype=torch.int32, device=origin.device)
+    with torch.cuda.device(origin.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_bvh_walk_count(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+                                    t_max.data_ptr(), r, nodes.data_ptr(), clusters.data_ptr(),
+                                    woop_rows.data_ptr(), ip.data_ptr(), int(any_hit),
+                                    boxes.data_ptr(), woops.data_ptr(), stream)
+    _build.check(rc, "walk_tests")
     return boxes, woops
 
 

@@ -4,22 +4,25 @@
 // front-to-back binned closest hit) and ftb_any (K3b).  Wrapper:
 // gpuspectral_tpu_torch/bvh/ftb.py (ftb_closest, ftb_any).
 //
-// What bounds it on the H100: scattered reads.  One thread walks one ray
-// down the preorder tables (bvh.cuh): per visited node 24 B of box, per
-// visited cluster 24 B of box and 16 x 48 B of Woop rows, all gathered from
-// global memory in an order that differs from ray to ray.  The design keeps
-// the tables in the 50 MB L2 (a 150k-triangle scene's Woop table is ~7 MB,
-// its node and cluster boxes under 1 MB) and lets the cluster boxes cull
-// most of a leaf's 128 slots before any Woop test; the walk is stackless,
-// so a thread holds nothing but its ray and its best hit.  Divergence
-// between the rays of a warp is the open cost: the TPU kernel's block-wide
-// front-to-back rounds (ftb.py:15-40) exist to share one sweep across 128
-// rays, which a per-ray walk gives up for simplicity.
+// What bounds it on the H100: the latency of scattered reads.  One thread
+// walks one ray down the child-pair rows of bvh.cuh (near child first, the
+// farther on a stack in shared memory): per visited node 64 B of two
+// boxes, per visited cluster 32 B of box and 16 x 48 B of Woop rows, in an
+// order that differs from ray to ray.  The design reads every row with
+// 128-bit loads, keeps the tables in the 50 MB L2 (the sphere field's Woop
+// table as stored, 262,144 slots x 48 B, is 12.6 MB; its 1,373 pair rows
+// 88 KB and its 16,384 cluster rows 512 KB), stages the pair rows'
+// breadth-first prefix that fits the CTA's share of shared memory at block
+// start, and lets the cluster boxes cull most of a leaf's 128 slots before
+// any Woop test.  Divergence between the rays of a warp is the open cost:
+// the TPU kernel's block-wide front-to-back rounds (ftb.py:15-40) share one
+// sweep across 128 rays, which a per-ray walk gives up.
 //
-// gst_bvh_count is no part of the render path: it runs the same walks with a
-// TestCount and writes each ray's box and Woop tests, the work that a BVH
-// kernel's least time on the card is counted from (bvh/ftb.py:
-// ftb_walk_tests).
+// gst_bvh_count is no part of the render path: it runs the preorder walk
+// of bvh.cuh (bvh_closest / bvh_any) with a TestCount and writes each
+// ray's box and Woop tests, the work that a BVH kernel's least time on the
+// card is counted from (bvh/ftb.py: ftb_walk_tests).  gst_bvh_walk_count
+// counts the pair walk's own tests the same way (ftb.walk_tests).
 #include <cuda_runtime.h>
 
 #include "bvh.cuh"
@@ -27,34 +30,58 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarpsPerSm = 16;
+constexpr int kCtasPerSm = kWarpsPerSm * 32 / kThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ gst::V3 ray3(const float* p, int r) {
+  return gst::V3{p[3 * r], p[3 * r + 1], p[3 * r + 2]};
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 bvh_closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
-                   const float* __restrict__ t_max, int n_rays, gst::BvhTables B,
+                   const float* __restrict__ t_max, int n_rays, gst::WalkTables B, int n_staged,
                    float* __restrict__ t_out, int* __restrict__ prim_out,
                    float* __restrict__ u_out, float* __restrict__ v_out) {
+  const gst::WalkSmem S = gst::stage_top(B, n_staged);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const gst::V3 o{origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
-  const gst::V3 d{direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
   float t, u, v;
   int prim;
-  gst::bvh_closest(B, o, d, t_max[r], t, prim, u, v);
+  gst::walk_closest(B, S, ray3(origin, r), ray3(direction, r), t_max[r], t, prim, u, v);
   t_out[r] = t;
   prim_out[r] = prim;
   u_out[r] = u;
   v_out[r] = v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 bvh_any_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
-               gst::BvhTables B, bool* __restrict__ occ_out) {
+               gst::WalkTables B, int n_staged, bool* __restrict__ occ_out) {
+  const gst::WalkSmem S = gst::stage_top(B, n_staged);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const gst::V3 o{origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
-  const gst::V3 d{direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
-  occ_out[r] = gst::bvh_any(B, o, d, t_min[r], t_max[r]);
+  occ_out[r] = gst::walk_any(B, S, ray3(origin, r), ray3(direction, r), t_min[r], t_max[r]);
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+walk_count_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+                  const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
+                  gst::WalkTables B, int n_staged, int any_hit, int* __restrict__ boxes_out,
+                  int* __restrict__ woops_out) {
+  const gst::WalkSmem S = gst::stage_top(B, n_staged);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  gst::TestCount count;
+  if (any_hit) {
+    gst::walk_any(B, S, ray3(origin, r), ray3(direction, r), t_min[r], t_max[r], count);
+  } else {
+    float t, u, v;
+    int prim;
+    gst::walk_closest(B, S, ray3(origin, r), ray3(direction, r), t_max[r], t, prim, u, v, count);
+  }
+  boxes_out[r] = count.boxes;
+  woops_out[r] = count.woops;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,8 +91,7 @@ bvh_count_kernel(const float* __restrict__ origin, const float* __restrict__ dir
                  int* __restrict__ woops_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const gst::V3 o{origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
-  const gst::V3 d{direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
+  const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
   gst::TestCount count;
   if (any_hit) {
     gst::bvh_any(B, o, d, t_min[r], t_max[r], count);
@@ -78,30 +104,54 @@ bvh_count_kernel(const float* __restrict__ origin, const float* __restrict__ dir
   woops_out[r] = count.woops;
 }
 
+int blocks(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
+
 }  // namespace
 
+// walk_ip: the ints of bvh.cuh:make_walk_tables (bvh/ftb.py:walk_tables)
 extern "C" int gst_bvh_closest(const float* origin, const float* direction, const float* t_max,
-                               int n_rays, const float* nodes, const int* meta,
-                               const float* clusters, const float* woop_t, const int* bvh_ip,
-                               float* t_out, int* prim_out, float* u_out, float* v_out,
-                               void* stream) {
+                               int n_rays, const float* nodes, const float* clusters,
+                               const float* woop, const int* walk_ip, float* t_out, int* prim_out,
+                               float* u_out, float* v_out, void* stream) {
   if (n_rays == 0) return 0;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  bvh_closest_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, n_rays,
-      gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip), t_out, prim_out, u_out, v_out);
+  const gst::WalkTables B = gst::make_walk_tables(nodes, clusters, woop, walk_ip);
+  int n_staged;
+  size_t smem;
+  const int rc = gst::walk_launch(bvh_closest_kernel, B, kThreads, kCtasPerSm, n_staged, smem);
+  if (rc) return rc;
+  bvh_closest_kernel<<<blocks(n_rays), kThreads, smem, (cudaStream_t)stream>>>(
+      origin, direction, t_max, n_rays, B, n_staged, t_out, prim_out, u_out, v_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gst_bvh_any(const float* origin, const float* direction, const float* t_min,
-                           const float* t_max, int n_rays, const float* nodes, const int* meta,
-                           const float* clusters, const float* woop_t, const int* bvh_ip,
+                           const float* t_max, int n_rays, const float* nodes,
+                           const float* clusters, const float* woop, const int* walk_ip,
                            bool* occ_out, void* stream) {
   if (n_rays == 0) return 0;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  bvh_any_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_min, t_max, n_rays,
-      gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip), occ_out);
+  const gst::WalkTables B = gst::make_walk_tables(nodes, clusters, woop, walk_ip);
+  int n_staged;
+  size_t smem;
+  const int rc = gst::walk_launch(bvh_any_kernel, B, kThreads, kCtasPerSm, n_staged, smem);
+  if (rc) return rc;
+  bvh_any_kernel<<<blocks(n_rays), kThreads, smem, (cudaStream_t)stream>>>(
+      origin, direction, t_min, t_max, n_rays, B, n_staged, occ_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gst_bvh_walk_count(const float* origin, const float* direction,
+                                  const float* t_min, const float* t_max, int n_rays,
+                                  const float* nodes, const float* clusters, const float* woop,
+                                  const int* walk_ip, int any_hit, int* boxes_out,
+                                  int* woops_out, void* stream) {
+  if (n_rays == 0) return 0;
+  const gst::WalkTables B = gst::make_walk_tables(nodes, clusters, woop, walk_ip);
+  int n_staged;
+  size_t smem;
+  const int rc = gst::walk_launch(walk_count_kernel, B, kThreads, kCtasPerSm, n_staged, smem);
+  if (rc) return rc;
+  walk_count_kernel<<<blocks(n_rays), kThreads, smem, (cudaStream_t)stream>>>(
+      origin, direction, t_min, t_max, n_rays, B, n_staged, any_hit, boxes_out, woops_out);
   return (int)cudaGetLastError();
 }
 
@@ -110,8 +160,7 @@ extern "C" int gst_bvh_count(const float* origin, const float* direction, const 
                              const float* clusters, const float* woop_t, const int* bvh_ip,
                              int any_hit, int* boxes_out, int* woops_out, void* stream) {
   if (n_rays == 0) return 0;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  bvh_count_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  bvh_count_kernel<<<blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
       origin, direction, t_min, t_max, n_rays,
       gst::make_bvh_tables(nodes, meta, clusters, woop_t, bvh_ip), any_hit, boxes_out, woops_out);
   return (int)cudaGetLastError();

@@ -84,14 +84,12 @@ __device__ __forceinline__ float safe_inv(float x) { return 1.0f / fmaxf(x, 1e-1
 // ---------------------------------------------------------------- Woop ---
 // One unit-triangle test (ops/woop.py, pallas_isect.py:39-58, op for op),
 // its multiply-adds fused where XLA fuses them and where ops/woop.py calls
-// m3.fma.  w points at the triangle's 12 rows, `stride` floats apart.
-__device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d,
-                                          float t_lo, float t_hi, float& t_out,
-                                          float& u_out, float& v_out) {
-  const float ax0 = w[0 * stride], ax1 = w[1 * stride], ax2 = w[2 * stride];
-  const float ay0 = w[3 * stride], ay1 = w[4 * stride], ay2 = w[5 * stride];
-  const float az0 = w[6 * stride], az1 = w[7 * stride], az2 = w[8 * stride];
-  const float bx = w[9 * stride], by = w[10 * stride], bz = w[11 * stride];
+// m3.fma, on the triangle's 12 Woop floats.
+__device__ __forceinline__ bool woop_eval(float ax0, float ax1, float ax2, float ay0, float ay1,
+                                          float ay2, float az0, float az1, float az2, float bx,
+                                          float by, float bz, V3 o, V3 d, float t_lo,
+                                          float t_hi, float& t_out, float& u_out,
+                                          float& v_out) {
   const float opz = fmaf(o.z, az2, fmaf(o.x, az0, o.y * az1)) + bz;
   const float dpz = fmaf(d.z, az2, fmaf(d.x, az0, d.y * az1));
   const bool live = fabsf(dpz) > 1e-12f;
@@ -105,6 +103,15 @@ __device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d
   u_out = u;
   v_out = v;
   return live && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > t_lo) && (t < t_hi);
+}
+
+// woop_test of the triangle whose 12 rows w points at, `stride` floats apart.
+__device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d,
+                                          float t_lo, float t_hi, float& t_out,
+                                          float& u_out, float& v_out) {
+  return woop_eval(w[0 * stride], w[1 * stride], w[2 * stride], w[3 * stride], w[4 * stride],
+                   w[5 * stride], w[6 * stride], w[7 * stride], w[8 * stride], w[9 * stride],
+                   w[10 * stride], w[11 * stride], o, d, t_lo, t_hi, t_out, u_out, v_out);
 }
 
 // ------------------------------------------------ block-gated sweeps ---

@@ -172,6 +172,62 @@ def test_walk_tests_count_the_walk(cuda_device):  # noqa: F811
     assert bool((w_any[occ] >= 1).all()) and int(w_any.max()) <= n_slots
 
 
+@pytest.mark.parametrize("name", ["soup_morton", "soup_ties", "slot_field", "one_leaf"])
+def test_k3_pair_walk_edge_cases(cuda_device, name, monkeypatch):  # noqa: F811
+    """K3's pair walk on a morton build, a soup of exact-t twins, a
+    slot-mode sphere field and a tree of one leaf (no pair row), with NaN
+    and inactive lanes: the brute scan's hits, the lowest slot of a tie."""
+    from chip_smoke import field_rays, soup_scene
+
+    if name == "soup_morton":
+        ts = soup_scene(700, 3, cuda_device, order="morton")
+    elif name == "soup_ties":
+        ts = soup_scene(600, 5, cuda_device, ties=True)
+    elif name == "slot_field":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = _scene("sphere_field", cuda_device)
+    else:
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = _scene("cornell", cuda_device)
+        assert ts.bvh_pairs.shape[0] == 0 and ts.bvh_root < 0
+    o, d, lo, hi = odd_lanes(field_rays(1 << 15, ts, 13, cuda_device))
+    t, prim, u, v, attrs = ftb.ftb_closest(ts, o, d, t_max=hi)
+    occ = ftb.ftb_any(ts, o, d, lo, hi)
+    t_r, prim_r, u_r, v_r, attrs_r = ftb.ftb_closest_ref(ts, o, d, t_max=hi)
+    assert (prim_r >= 0).sum() > 500
+    # the brute scan's fused arithmetic: equal up to m3.fma's rare double
+    # rounding (about one op in 2^29), ties included
+    assert int((prim != prim_r).sum()) <= 2
+    same = prim == prim_r
+    assert torch.equal(t[same], t_r[same]) and torch.equal(u[same], u_r[same])
+    assert torch.equal(v[same], v_r[same]) and torch.equal(attrs[same], attrs_r[same])
+    assert int((occ != ftb.ftb_any_ref(ts, o, d, lo, hi)).sum()) <= 2
+
+
+def test_walk_tests_count_the_pair_walk(cuda_device):  # noqa: F811
+    """walk_tests runs K3's own walk with counters: a ray that hits tested
+    at least one triangle, none more than every slot; a ray far outside the
+    scene tested the root's two child boxes alone; an empty segment
+    nothing."""
+    ts = _scene("sphere_field", cuda_device)
+    o, d, lo, hi = _rays(12, 1 << 14, cuda_device)
+    _, prim, _, _, _ = ftb.ftb_closest(ts, o, d, t_max=hi)
+    zero = torch.zeros_like(hi)
+    boxes, woops = ftb.walk_tests(ts, o, d, zero, hi, False)
+    n_slots = ts.tri_woop.shape[0]
+    assert bool((woops[prim >= 0] >= 1).all()) and int(woops.max()) <= n_slots
+    most = 2 * ts.bvh_pairs.shape[0] + ts.bvh_clusters
+    assert bool((boxes >= 2).all()) and int(boxes.max()) <= most
+    far = torch.tensor([[1e4, 1e4, 1e4]], device=cuda_device)
+    out = torch.tensor([[1.0, 0.0, 0.0]], device=cuda_device)
+    one = torch.ones((1,), device=cuda_device)
+    assert [int(x) for x in ftb.walk_tests(ts, far, out, one * 0, one * 1e30, False)] == [2, 0]
+    assert [int(x) for x in ftb.walk_tests(ts, o[:1], d[:1], one, one, True)] == [0, 0]
+    b_any, w_any = ftb.walk_tests(ts, o, d, lo, hi, True)
+    occ = ftb.ftb_any(ts, o, d, lo, hi)
+    assert bool((w_any[occ] >= 1).all()) and int(w_any.max()) <= n_slots
+
+
 def _k7_launches():
     return (cs.cluster_votes.launches, cs.cluster_closest.launches, cs.cluster_any.launches)
 
@@ -543,9 +599,17 @@ def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
     ("cornell", {}), ("sphere_field", {}), ("textured", {}), ("env_image", {}),
     ("cornell", dict(light_sampling="power", mis_mode="exact")),
     ("sphere_field", dict(mega_sync_regen=True)),
-], ids=["cornell", "sphere_field", "textured", "env_image", "power_exact", "sync_regen"])
+    ("soup_morton", {}), ("soup_ties", dict(mega_sync_regen=True)),
+], ids=["cornell", "sphere_field", "textured", "env_image", "power_exact", "sync_regen",
+        "soup_morton", "soup_ties_sync_regen"])
 def test_k4_matches_plain_version(cuda_device, name, opts):  # noqa: F811
-    ts = _scene(name, cuda_device)
+    from chip_smoke import soup_scene
+
+    if name.startswith("soup"):
+        ts = soup_scene(600, 5, cuda_device, order="morton" if name == "soup_morton" else "sah",
+                        ties=name == "soup_ties", light=True)
+    else:
+        ts = _scene(name, cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True, **opts)
     n0 = mega_bvh.render_mega_bvh_rows.launches
     got, rays_got = render_image_stats_auto(ts, cfg, 0)
@@ -619,8 +683,10 @@ def test_k5_matches_plain_version(cuda_device):  # noqa: F811
     assert all(torch.equal(a, b) for a, b in zip(got[:4], k1))
 
 
-@pytest.mark.parametrize("name", ["slot_mode", "sphere_field_noenv", "mixed", "textured"])
+@pytest.mark.parametrize("name", ["slot_mode", "sphere_field_noenv", "mixed", "textured",
+                                  "soup_morton"])
 def test_k6_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
+    from chip_smoke import soup_scene
     from gpuspectral_tpu_torch.integrator import mega_grad as mg
 
     monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)  # a multi-bin build
@@ -630,6 +696,8 @@ def test_k6_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
         ts = build_sphere_field(cuda_device, n_side=2, segs=16, rings=8, sky_hw=None)
     elif name == "mixed":
         ts = mixed_bsdf_scene(tdata.SceneBuilder())[0].build(cuda_device)
+    elif name == "soup_morton":
+        ts = soup_scene(600, 5, cuda_device, order="morton", light=True)
     else:
         ts = textured_diffuse_scene(tdata.SceneBuilder()).build(cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True)
