@@ -144,9 +144,10 @@ BOX_FLOPS per box test and, in the fused kernels, SHADE_FLOPS per shaded
 vertex (a closest ray that hits), with the tests counted by a WalkTally:
 a brute-force closest ray tests every triangle, a brute-force shadow ray
 the triangles up to its first occluder, a BVH ray what the preorder walk
-did (ftb.ftb_walk_tests runs csrc/bvh.cuh's counting walk with counters;
-K3, K4 and K6 take the child-pair walk since PR 10, whose own tests,
-ftb.walk_tests, are logged beside and bound nothing).  K2 and K3 are
+did (ftb.ftb_walk_tests runs csrc/bvh.cuh's counting walk, the preorder
+walk with skip pointers, with counters; K3, K4 and K6 take the child-pair
+walk, whose own tests, ftb.walk_tests, are logged beside and bound
+nothing).  K2 and K3 are
 tallied on the timed call's own rays.  The cluster kernels' tests are
 counted as the kernels make them (cluster_sweep.vote_tests / sweep_tests):
 K7c slab-tests a (block of 256 rays, supernode) pair's rays up to the first
@@ -500,10 +501,10 @@ def fused_bound(tally, rays, n_bytes):
 
 
 def bvh_tables(scene):
-    """The tables K3, K4 and K6 read: pair, cluster and Woop rows."""
+    """The tables K3, K4 and K6 read: pair and Woop rows."""
     from gpuspectral_tpu_torch.bvh import ftb
 
-    return ftb.walk_tables(scene)[:3]
+    return ftb.walk_tables(scene)[:2]
 
 
 def mega_tables(scene, bvh):

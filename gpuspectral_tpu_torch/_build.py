@@ -45,9 +45,9 @@ _SIGNATURES = {
     "gst_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
     "gst_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
     "gst_mega": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "gst_bvh_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-    "gst_bvh_walk_count": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    "gst_bvh_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "gst_bvh_walk_count": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     "gst_bvh_count": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "gst_cluster_votes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "gst_cluster_closest": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
@@ -61,11 +61,11 @@ _SIGNATURES = {
     "gst_traverse_shape": [_I, _P],
     "gst_traverse_count": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P, _P, _P],
-    "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+    "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P, _P, _P, _P, _P],
     "gst_mega_grad": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _P, _P, _P, _P, _P, _P],
-    "gst_mega_bvh_grad": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+    "gst_mega_bvh_grad": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 

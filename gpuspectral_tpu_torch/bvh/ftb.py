@@ -129,31 +129,24 @@ def kernel_tables(scene):
     clusters = torch.cat([scene.bvh_node_min[c - 1:], scene.bvh_node_max[c - 1:]],
                          dim=1).t().contiguous()
     ip = torch.tensor([scene.bvh_dfs_bounds.shape[1], c, scene.tri_woop_t.shape[1],
-                       scene.bvh_leaf_size, leaf_span(scene)], dtype=torch.int32)
+                       scene.bvh_leaf_size, max(2, 128 // scene.bvh_leaf_size)],
+                      dtype=torch.int32)
     return (scene.bvh_dfs_bounds.contiguous(), scene.bvh_dfs_meta.contiguous(), clusters,
             scene.tri_woop_t.contiguous(), ip)
 
 
-def leaf_span(scene) -> int:
-    """Clusters a leaf of the walk covers (bvh/tables.py:build_dfs_tables)."""
-    return max(2, 128 // scene.bvh_leaf_size)
-
-
 def walk_tables(scene):
-    """(nodes, clusters, woop, walk_ip) for the walk of K3, K4 and K6
-    (csrc/bvh.cuh: walk_closest / walk_any), all of them the scene's own
-    tensors, packed once when the scene was made: the child-pair rows
-    (P, 16), the cluster rows (C, 8), the Woop rows (T, 12), and the host
-    ints n_pairs, n_clusters, n_slots, leaf_size, leaf_span, root code,
-    depth (csrc/bvh.cuh:make_walk_tables)."""
-    ip = torch.tensor([scene.bvh_pairs.shape[0], scene.bvh_clusters, scene.tri_woop.shape[0],
-                       scene.bvh_leaf_size, leaf_span(scene), scene.bvh_root, scene.bvh_depth],
-                      dtype=torch.int32)
-    for name, x in (("bvh_pairs", scene.bvh_pairs), ("bvh_cluster_rows", scene.bvh_cluster_rows),
-                    ("tri_woop", scene.tri_woop)):
+    """(pairs, woop, walk_ip) for the walk of K3, K4 and K6 (csrc/bvh.cuh:
+    walk_closest / walk_any): the scene's own child-pair rows (P, 16) and
+    Woop rows (T, 12), packed once when the scene was made, and the host
+    ints n_pairs, n_slots, leaf_size, root code, depth
+    (csrc/bvh.cuh:make_walk_tables)."""
+    for name, x in (("bvh_pairs", scene.bvh_pairs), ("tri_woop", scene.tri_woop)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"scene.{name}: want contiguous float32, got {x.dtype}")
-    return scene.bvh_pairs, scene.bvh_cluster_rows, scene.tri_woop, ip
+    ip = torch.tensor([scene.bvh_pairs.shape[0], scene.tri_woop.shape[0], scene.bvh_leaf_size,
+                       scene.bvh_root, scene.bvh_depth], dtype=torch.int32)
+    return scene.bvh_pairs, scene.tri_woop, ip
 
 
 def _check_rays(origin, direction, *scalars):
@@ -187,7 +180,7 @@ def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
     from .. import _build
 
     lib = _build.load()
-    nodes, clusters, woop_rows, ip = walk_tables(scene)
+    pairs, woop_rows, ip = walk_tables(scene)
     r = origin.shape[0]
     dev = origin.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -197,9 +190,9 @@ def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_bvh_closest(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), r,
-                                 nodes.data_ptr(), clusters.data_ptr(), woop_rows.data_ptr(),
-                                 ip.data_ptr(), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
-                                 v.data_ptr(), stream)
+                                 pairs.data_ptr(), woop_rows.data_ptr(), ip.data_ptr(),
+                                 t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+                                 stream)
     _build.check(rc, "ftb_closest")
     ftb_closest.launches += 1
     attr = attr_table(scene) if attr is None else attr
@@ -220,14 +213,14 @@ def ftb_any(scene, origin, direction, t_min, t_max, active=None):
     from .. import _build
 
     lib = _build.load()
-    nodes, clusters, woop_rows, ip = walk_tables(scene)
+    pairs, woop_rows, ip = walk_tables(scene)
     r = origin.shape[0]
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_bvh_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                             t_max.data_ptr(), r, nodes.data_ptr(), clusters.data_ptr(),
-                             woop_rows.data_ptr(), ip.data_ptr(), occ.data_ptr(), stream)
+                             t_max.data_ptr(), r, pairs.data_ptr(), woop_rows.data_ptr(),
+                             ip.data_ptr(), occ.data_ptr(), stream)
     _build.check(rc, "ftb_any")
     ftb_any.launches += 1
     return occ
@@ -269,8 +262,9 @@ def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
 def walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
     """(box tests, Woop tests), each (R,) int32, of the walk that K3, K4 and
     K6 take (walk_tables: the child pairs, near child first), counted as
-    ftb_walk_tests counts the preorder walk: two box tests a pair row, one
-    a non-empty cluster.  CUDA tensors only."""
+    ftb_walk_tests counts the preorder walk: two box tests a pair row
+    visited, one Woop test a slot of a cluster entered.  CUDA tensors
+    only."""
     _check_rays(origin, direction, t_min, t_max)
     _check_scene(scene, origin.device)
     if origin.device.type != "cuda":
@@ -278,16 +272,16 @@ def walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
     from .. import _build
 
     lib = _build.load()
-    nodes, clusters, woop_rows, ip = walk_tables(scene)
+    pairs, woop_rows, ip = walk_tables(scene)
     r = origin.shape[0]
     boxes = torch.empty((r,), dtype=torch.int32, device=origin.device)
     woops = torch.empty((r,), dtype=torch.int32, device=origin.device)
     with torch.cuda.device(origin.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_bvh_walk_count(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                                    t_max.data_ptr(), r, nodes.data_ptr(), clusters.data_ptr(),
-                                    woop_rows.data_ptr(), ip.data_ptr(), int(any_hit),
-                                    boxes.data_ptr(), woops.data_ptr(), stream)
+                                    t_max.data_ptr(), r, pairs.data_ptr(), woop_rows.data_ptr(),
+                                    ip.data_ptr(), int(any_hit), boxes.data_ptr(),
+                                    woops.data_ptr(), stream)
     _build.check(rc, "walk_tests")
     return boxes, woops
 

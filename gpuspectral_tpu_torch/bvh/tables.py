@@ -8,7 +8,7 @@ builders, so the port builds the same tables without importing JAX).
                     skip pointers (K7f / K7g's tree, and the counting walk
                     of K3's bound)
   build_pair_rows   the child-pair rows that K3, K4 and K6 walk
-                    (csrc/bvh.cuh), and build_cluster_rows their clusters'
+                    (csrc/bvh.cuh)
 """
 
 from __future__ import annotations
@@ -115,82 +115,57 @@ def build_dfs_tables(node_min, node_max, n_clusters: int, real_clusters: int,
 
 
 PAIR_COLS = 16  # floats of a child-pair row: 4 x float4 (64 bytes)
-CLUSTER_COLS = 8  # floats of a cluster row: 2 x float4 (32 bytes)
-LEAF_BITS = 8  # a leaf's code: ~(first cluster << LEAF_BITS | clusters)
+EMPTY_ROOT = 0x7FFFFFFF  # the root code of a tree without a triangle (csrc/bvh.cuh: kPop)
 
 
-def leaf_code(first: int, count: int) -> int:
-    """The code of a leaf of `count` clusters from `first` (negative; a
-    pair's code is its row index, >= 0)."""
-    return ~((first << LEAF_BITS) | count)
-
-
-def build_pair_rows(node_min, node_max, n_clusters: int, real_clusters: int,
-                    leaf_size: int, leaf_span: int = 0):
+def build_pair_rows(node_min, node_max, n_clusters: int):
     """The child-pair table of the walk of csrc/bvh.cuh.
 
-    The implicit complete binary tree of bvh/build.py, with the padding
-    subtrees (clusters from real_clusters on) pruned as build_dfs_tables
-    prunes them and leaves of max(2, SWEEP // leaf_size) clusters as there
-    (or of `leaf_span` clusters, a power of two, when given);
+    The implicit complete binary tree of bvh/build.py down to its clusters
+    (its leaf level, heap nodes n_clusters - 1 on), with every empty cluster
+    (an inverted box: padding) and every subtree of empty clusters pruned;
     an inner node left with one child is replaced by that child.  Each
     remaining inner node is one row, in breadth-first order (so the top
     levels are a prefix), holding both children's boxes, the heap boxes:
       [a.lo xyz, code a, a.hi xyz, code b, b.lo xyz, 0, b.hi xyz, 0]
     with the int32 codes stored bit for bit in the float32 lanes: a row
-    index for an inner child, leaf_code(first cluster, clusters) for a
-    leaf.  Returns (rows (P, 16) float32, root code, depth): the code the
-    walk starts from (a leaf when the whole tree is one), and the most
+    index for an inner child, ~c for cluster c.  Returns (rows (P, 16)
+    float32, root code, depth): the code the walk starts from (a cluster
+    when only one holds triangles, EMPTY_ROOT when none does), and the most
     rows on a path from the root (the stack the walk needs)."""
     node_min = np.asarray(node_min, np.float32)
     node_max = np.asarray(node_max, np.float32)
-    real_clusters = max(1, real_clusters)
-    leaf_span = leaf_span or max(2, SWEEP // leaf_size)
-    assert leaf_span < (1 << LEAF_BITS), leaf_span
+    first_leaf = n_clusters - 1
 
-    def child(heap: int, lo: int, hi: int):
-        """(heap index, leaf (first, count) or None, inner children) of the
-        subtree over clusters [lo, hi), or None when it holds no real one."""
-        if lo >= real_clusters:
-            return None
-        if hi - lo <= leaf_span:
-            return heap, (lo, hi - lo), None
-        mid = (lo + hi) // 2
-        a = child(2 * heap + 1, lo, mid)
-        b = child(2 * heap + 2, mid, hi)
-        return a if b is None else (heap, None, (a, b))
+    def child(heap: int):
+        """(heap index, inner children or None for a cluster) of the
+        subtree at `heap`, or None when it holds no triangle."""
+        if heap >= first_leaf:
+            return None if node_min[heap, 0] > node_max[heap, 0] else (heap, None)
+        a, b = child(2 * heap + 1), child(2 * heap + 2)
+        if a is None or b is None:
+            return a if b is None else b
+        return heap, (a, b)
 
-    root = child(0, 0, n_clusters)
-    order = [] if root[2] is None else [root]
+    root = child(0)
+    order = [] if root is None or root[1] is None else [root]
     for node in order:  # breadth first: `order` grows while it is read
-        order.extend(c for c in node[2] if c[2] is not None)
+        order.extend(c for c in node[1] if c[1] is not None)
     index = {id(node): i for i, node in enumerate(order)}
 
     def code(node) -> int:
-        return leaf_code(*node[1]) if node[2] is None else index[id(node)]
+        return ~(node[0] - first_leaf) if node[1] is None else index[id(node)]
 
     rows = np.zeros((len(order), PAIR_COLS), np.float32)
     codes = rows.view(np.int32)
     for i, node in enumerate(order):
-        for k, c in enumerate(node[2]):
+        for k, c in enumerate(node[1]):
             rows[i, 8 * k:8 * k + 3] = node_min[c[0]]
             rows[i, 8 * k + 4:8 * k + 7] = node_max[c[0]]
             codes[i, 3 + 4 * k] = code(c)
     depth = [0] * len(order)
     for i in range(len(order) - 1, -1, -1):  # children come after parents
-        depth[i] = 1 + max((depth[index[id(c)]] for c in order[i][2] if c[2] is not None),
+        depth[i] = 1 + max((depth[index[id(c)]] for c in order[i][1] if c[1] is not None),
                            default=0)
-    return rows, code(root), (depth[0] if order else 0)
-
-
-def build_cluster_rows(node_min, node_max, n_clusters: int):
-    """(C, 8) float32 rows of the implicit tree's leaf level, the clusters'
-    boxes: [lo xyz, empty, hi xyz, 0], empty 1.0 where the box is inverted
-    (lo.x > hi.x: a padding cluster) and 0.0 elsewhere."""
-    lo = np.asarray(node_min, np.float32)[n_clusters - 1:]
-    hi = np.asarray(node_max, np.float32)[n_clusters - 1:]
-    rows = np.zeros((n_clusters, CLUSTER_COLS), np.float32)
-    rows[:, 0:3] = lo
-    rows[:, 3] = lo[:, 0] > hi[:, 0]
-    rows[:, 4:7] = hi
-    return rows
+    root_code = EMPTY_ROOT if root is None else code(root)
+    return rows, root_code, (depth[0] if order else 0)

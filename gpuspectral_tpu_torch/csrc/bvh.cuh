@@ -3,23 +3,27 @@
 // The tree is the implicit tree of the scene build as child pairs
 // (SceneData.bvh_pairs, bvh/tables.py:build_pair_rows): one 64-byte row per
 // inner node, in breadth-first order, holding both children's boxes and
-// codes (a row index, or a leaf of up to leaf_span clusters).  A thread
-// tests both children of its node at once, descends to the nearer one that
-// its segment enters and keeps the farther on a stack in shared memory
-// (near first: the committed t falls sooner, so later boxes cull more).  A
-// cluster's own box (SceneData.bvh_cluster_rows, one 32-byte row with its
-// emptiness in a spare lane) is tested before its slots, whose Woop rows
-// are 48 bytes each (SceneData.tri_woop).  Every row is read with 128-bit
-// read-only loads; the rows of the breadth-first prefix that fits the CTA's
-// share of shared memory are read from there (stage_top).
+// codes (a row index, or ~c for a leaf, one cluster c of leaf_size triangle
+// slots; empty clusters and the subtrees over them are pruned).  A thread
+// tests both children of its node at once, goes on to the nearer one that
+// its segment enters and pushes the farther onto a stack (near first: the
+// committed t falls sooner, so later boxes cull more).  Each lane descends
+// to its next leaf before the warp tests leaves (while-while), so the lanes
+// of a warp test their clusters' Woop rows (SceneData.tri_woop, 48 bytes a
+// slot) together instead of one lane's leaf at a time.  Every row is read
+// with 128-bit read-only loads.
 //
-// What bounds it on the H100: the latency of scattered reads.  Once the
-// rays of a warp leave their first hits they stand at different nodes, so
-// each load of a warp touches up to 32 cache lines; the test arithmetic is
-// ~2,600 flops a ray, milliseconds a frame against hundreds.  The packed
-// rows cut the loads a ray makes ~3.7x against one scalar load per field
-// (6 per node box, 8 per cluster, 12 per Woop test): 4 per pair, 2 per
-// cluster, 3 per Woop test.
+// What bounds it on the H100: the SIMT efficiency of a divergent walk and
+// the latency of its scattered reads.  Once the rays of a warp leave their
+// first hits they stand at different nodes, each load of a warp touches up
+// to 32 cache lines, and each lane's walk has its own length; the tests'
+// arithmetic is milliseconds a frame against hundreds.  The design keeps
+// the lanes' leaf tests in step (while-while), visits near children first,
+// unrolls a cluster's Woop loop so that its rows' loads overlap, and keeps
+// every table in the 50 MB L2 and the whole of the SM's 256 KB of L1 and
+// shared memory to the L1 cache (the stack is a per-thread local array;
+// staging the top of the tree in shared memory lost, as did leaves of 2-8
+// clusters: tools/torch_mega_bvh_variants.py and PERF.md).
 //
 // Exactness: the result equals the brute-force Woop scan over every slot
 // (ops/woop.py:closest_scan / any_scan) bit for bit.  Box tests only ever
@@ -27,10 +31,10 @@
 // distance of its box lies beyond the committed t, with the slab interval
 // widened by a relative margin so that rounding in the slab arithmetic
 // cannot cull a box whose triangle the Woop test would accept.  A stacked
-// child is culled when popped only by its entry distance against the
-// committed t widened the same way, which culls no box that the full slab
-// test would enter (slab_entered).  Closest hit commits on t < best ||
-// (t == best && slot < best_slot): the lowest slot among exactly tied t
+// child is culled when popped only by its widened entry distance against
+// the committed t, widened the same way: that culls no box that the full
+// slab test would enter (still_entered).  Closest hit commits on t < best
+// || (t == best && slot < best_slot): the lowest slot among exactly tied t
 // wins, as in the brute scan, whatever order the walk visits them in.
 //
 // The preorder walk with skip pointers (SceneData.bvh_dfs_bounds /
@@ -39,27 +43,18 @@
 // own tests in gst_bvh_walk_count.
 #pragma once
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-
 #include "common.cuh"
 
 namespace gst {
 
-// The walk's design, one constant per step that tools/torch_mega_bvh_variants.py
-// times (it builds copies with other values):
-constexpr bool kPairWalk = true;       // child pairs; false: the preorder walk on 32-byte rows
+// The walk's design; tools/torch_mega_bvh_variants.py builds copies with
+// other values:
 constexpr bool kNearFirst = true;      // closest hit: the nearer child first (else the left)
 constexpr bool kNearFirstAny = false;  // any hit: the same
-constexpr bool kStageTop = false;      // the pair rows' breadth-first prefix in shared memory
-constexpr bool kWhileWhile = true;     // descend to a leaf before testing it (else one step a turn)
-constexpr int kWoopUnroll = 4;         // Woop tests of a cluster unrolled by this factor
-constexpr bool kPrefetchCluster = false;  // a leaf's next cluster row loaded during this one's
-constexpr bool kSmemStack = true;      // the stack in shared memory (else a local array)
-constexpr int kMaxDepth = 32;          // the local stack's entries (pair rows on a path)
-// Shared memory an SM holds (H100: 228 KB, 1 KB of it reserved per CTA).
-constexpr int kSmemPerSm = 228 * 1024;
-constexpr int kSmemPerCta = 1024;
+constexpr bool kWhileWhile = true;     // descend to a leaf before testing it (else a step a turn)
+constexpr bool kSpeculative = false;   // put a leaf off and go on down until the warp has leaves
+constexpr int kWoopUnroll = 4;         // a cluster's Woop tests unrolled by this factor
+constexpr int kMaxDepth = 32;          // stack entries: the most pair rows on a path
 
 constexpr float kSlabMargin = 1.0f / 16384.0f;
 
@@ -70,9 +65,7 @@ __device__ __forceinline__ float inv_dir1(float x) {
 
 // Whether the ray's segment [lo, hi] enters the box [bl, bh], the slab
 // interval widened by kSlabMargin; `near` is the widened entry distance, the
-// left side of the comparison.  For a smaller hi, the box is entered only
-// if near <= hi + kSlabMargin * |hi|: x + kSlabMargin * |x| rises with x,
-// and its right side is that expression of min(far, hi) <= hi.
+// left side of the comparison.
 __device__ __forceinline__ bool slab_entered(V3 bl, V3 bh, V3 o, V3 inv, float lo, float hi,
                                              float& near) {
   const float t0x = (bl.x - o.x) * inv.x;
@@ -87,79 +80,25 @@ __device__ __forceinline__ bool slab_entered(V3 bl, V3 bh, V3 o, V3 inv, float l
   return near <= tf + kSlabMargin * fabsf(tf);
 }
 
+// Whether a box whose widened entry distance is `near` may still be entered
+// by the segment cut at a smaller hi.  slab_entered's right side is
+// x + kSlabMargin * |x| at x = min(far, hi) <= hi, and that rises with x,
+// so a box this culls the full test culls too.
 __device__ __forceinline__ bool still_entered(float near, float hi) {
   return near <= hi + kSlabMargin * fabsf(hi);
 }
 
 // ------------------------------------------------- the walk of K3 / K4 ----
 struct WalkTables {
-  const float4* nodes;     // pair rows (n_nodes, 4 float4), or preorder rows (n_nodes, 2)
-  const float4* clusters;  // (n_clusters, 2 float4): [lo, empty], [hi, 0]
-  const float4* woop;      // (n_slots, 3 float4): a slot's 12 Woop floats
-  int n_nodes, n_clusters, n_slots, leaf_size, leaf_span, root, depth;
+  const float4* pairs;  // (n_pairs, 4 float4): [a.lo, code a], [a.hi, code b], [b.lo, 0], [b.hi, 0]
+  const float4* woop;   // (n_slots, 3 float4): a slot's 12 Woop floats
+  int n_pairs, n_slots, leaf_size, root, depth;
 };
 
-// ip (host): n_nodes, n_clusters, n_slots, leaf_size, leaf_span, root code,
-// depth (bvh/ftb.py:walk_tables)
-inline WalkTables make_walk_tables(const float* nodes, const float* clusters, const float* woop,
-                                   const int* ip) {
-  return WalkTables{reinterpret_cast<const float4*>(nodes),
-                    reinterpret_cast<const float4*>(clusters),
-                    reinterpret_cast<const float4*>(woop),
-                    ip[0], ip[1], ip[2], ip[3], ip[4], ip[5], ip[6]};
-}
-
-// A thread's view of its CTA's shared memory: the staged pair rows, then
-// one stack entry (code, widened entry distance) per level and thread.
-struct WalkSmem {
-  const float4* staged;
-  int n_staged;
-  int2* stack;  // this thread's entry k at stack[k * stride]
-  int stride;
-};
-
-// Pair rows staged by a CTA of `threads` threads when ctas_per_sm CTAs
-// share an SM, and the dynamic shared memory of the launch.
-inline int staged_rows(const WalkTables& B, int threads, int ctas_per_sm) {
-  if (!kPairWalk || !kStageTop) return 0;
-  const int share = kSmemPerSm / ctas_per_sm - kSmemPerCta - B.depth * threads * 8;
-  return max(0, min(B.n_nodes, share / 64));
-}
-
-inline size_t walk_smem_bytes(const WalkTables& B, int threads, int n_staged) {
-  return kPairWalk ? (size_t)n_staged * 64 + (kSmemStack ? (size_t)B.depth * threads * 8 : 0)
-                   : 0;
-}
-
-// The pair rows a CTA of `threads` stages and the launch's dynamic shared
-// memory, the kernel opted in above the default 48 KB.  Returns a
-// cudaError_t.
-template <class Kernel>
-int walk_launch(Kernel kernel, const WalkTables& B, int threads, int ctas_per_sm, int& n_staged,
-                size_t& smem) {
-  if (!kSmemStack && B.depth > kMaxDepth) return (int)cudaErrorInvalidValue;
-  n_staged = staged_rows(B, threads, ctas_per_sm);
-  smem = walk_smem_bytes(B, threads, n_staged);
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-extern __shared__ float4 walk_smem[];
-
-// Copy the first n_staged pair rows into shared memory (cp.async, 16 bytes
-// a thread a step) and lay out the stacks behind them.  Every thread of the
-// CTA calls it: it ends with a barrier.
-__device__ __forceinline__ WalkSmem stage_top(const WalkTables& B, int n_staged) {
-  for (int i = threadIdx.x; i < 4 * n_staged; i += blockDim.x) {
-    __pipeline_memcpy_async(walk_smem + i, B.nodes + i, sizeof(float4));
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  return WalkSmem{walk_smem, n_staged,
-                  reinterpret_cast<int2*>(walk_smem + 4 * n_staged) + threadIdx.x,
-                  (int)blockDim.x};
+// ip (host): n_pairs, n_slots, leaf_size, root code, depth (bvh/ftb.py:walk_tables)
+inline WalkTables make_walk_tables(const float* pairs, const float* woop, const int* ip) {
+  return WalkTables{reinterpret_cast<const float4*>(pairs), reinterpret_cast<const float4*>(woop),
+                    ip[0], ip[1], ip[2], ip[3], ip[4]};
 }
 
 __device__ __forceinline__ V3 xyz(float4 q) { return v3(q.x, q.y, q.z); }
@@ -184,116 +123,70 @@ struct TestCount {
   __device__ __forceinline__ void woop() { ++woops; }
 };
 
-// A cluster's row, [lo, empty] and [hi, 0], and the walk over a leaf's rows:
-// with kPrefetchCluster the next row is loaded while this one is tested.
-struct ClusterRow {
-  float4 lo, hi;
-};
-
-__device__ __forceinline__ ClusterRow cluster_row(const WalkTables& B, int c) {
-  return ClusterRow{__ldg(B.clusters + 2 * c), __ldg(B.clusters + 2 * c + 1)};
-}
-
-__device__ __forceinline__ ClusterRow next_row(const WalkTables& B, int c, int c1,
-                                               ClusterRow& next) {
-  if (!kPrefetchCluster) return cluster_row(B, c);
-  const ClusterRow row = next;
-  if (c + 1 < c1) next = cluster_row(B, c + 1);
-  return row;
-}
-
-// The closest hit among the clusters [c0, c0 + n) (the empty ones skipped,
-// each other one box-tested first).
+// The closest hit among cluster c's slots, committed into best_*.
 template <class Count>
-__device__ __forceinline__ void leaf_closest(const WalkTables& B, int c0, int n, V3 o, V3 d,
-                                             V3 inv, float t_max, float& best_t, int& best_prim,
-                                             float& best_u, float& best_v, Count& count) {
-  const int c1 = min(c0 + n, B.n_clusters);
-  ClusterRow next = kPrefetchCluster ? cluster_row(B, c0) : ClusterRow{};
-  for (int c = c0; c < c1; ++c) {
-    const ClusterRow row = next_row(B, c, c1, next);
-    if (row.lo.w != 0.0f) continue;
-    float near;
-    count.box();
-    if (!slab_entered(xyz(row.lo), xyz(row.hi), o, inv, 0.0f, best_t, near)) continue;
-    const int s1 = min((c + 1) * B.leaf_size, B.n_slots);
+__device__ __forceinline__ void cluster_closest(const WalkTables& B, int c, V3 o, V3 d,
+                                                float t_max, float& best_t, int& best_prim,
+                                                float& best_u, float& best_v, Count& count) {
+  const int s1 = min((c + 1) * B.leaf_size, B.n_slots);
 #pragma unroll(kWoopUnroll)
-    for (int s = c * B.leaf_size; s < s1; ++s) {
-      float t, u, v;
-      count.woop();
-      if (woop_row(B.woop + 3 * s, o, d, 0.0f, t_max, t, u, v) &&
-          (t < best_t || (t == best_t && s < best_prim))) {
-        best_t = t;
-        best_prim = s;
-        best_u = u;
-        best_v = v;
-      }
+  for (int s = c * B.leaf_size; s < s1; ++s) {
+    float t, u, v;
+    count.woop();
+    if (woop_row(B.woop + 3 * s, o, d, 0.0f, t_max, t, u, v) &&
+        (t < best_t || (t == best_t && s < best_prim))) {
+      best_t = t;
+      best_prim = s;
+      best_u = u;
+      best_v = v;
     }
   }
 }
 
-// Whether a triangle of the clusters [c0, c0 + n) lies in (t_lo, t_hi).
+// Whether a triangle of cluster c lies in (t_lo, t_hi).
 template <class Count>
-__device__ __forceinline__ bool leaf_any(const WalkTables& B, int c0, int n, V3 o, V3 d, V3 inv,
-                                         float t_lo, float t_hi, Count& count) {
-  const int c1 = min(c0 + n, B.n_clusters);
-  ClusterRow next = kPrefetchCluster ? cluster_row(B, c0) : ClusterRow{};
-  for (int c = c0; c < c1; ++c) {
-    const ClusterRow row = next_row(B, c, c1, next);
-    if (row.lo.w != 0.0f) continue;
-    float near;
-    count.box();
-    if (!slab_entered(xyz(row.lo), xyz(row.hi), o, inv, t_lo, t_hi, near)) continue;
-    const int s1 = min((c + 1) * B.leaf_size, B.n_slots);
+__device__ __forceinline__ bool cluster_any(const WalkTables& B, int c, V3 o, V3 d, float t_lo,
+                                            float t_hi, Count& count) {
+  const int s1 = min((c + 1) * B.leaf_size, B.n_slots);
 #pragma unroll(kWoopUnroll)
-    for (int s = c * B.leaf_size; s < s1; ++s) {
-      float t, u, v;
-      count.woop();
-      if (woop_row(B.woop + 3 * s, o, d, t_lo, t_hi, t, u, v)) return true;
-    }
+  for (int s = c * B.leaf_size; s < s1; ++s) {
+    float t, u, v;
+    count.woop();
+    if (woop_row(B.woop + 3 * s, o, d, t_lo, t_hi, t, u, v)) return true;
   }
   return false;
 }
 
-// The pair row `i`: staged rows from shared memory, the others from global.
-__device__ __forceinline__ void load_pair(const WalkTables& B, const WalkSmem& S, int i,
-                                          float4 (&q)[4]) {
-  if (kStageTop && i < S.n_staged) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = S.staged[4 * i + k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = __ldg(B.nodes + 4 * i + k);
-  }
-}
-
-// A thread's stack of (code, widened entry distance): entry k at
-// base[k * stride], in shared memory (WalkSmem.stack) or a local array.
+// A thread's stack of (code, widened entry distance) in a local array.
 struct WalkStack {
-  int2* base;
-  int stride, sp;
-  __device__ __forceinline__ void push(int2 e) { base[sp++ * stride] = e; }
-  __device__ __forceinline__ int2 pop() { return base[--sp * stride]; }
+  int2 e[kMaxDepth];
+  int sp = 0;
+  __device__ __forceinline__ void push(int2 x) { e[sp++] = x; }
+  __device__ __forceinline__ int2 pop() { return e[--sp]; }
 };
 
-// One step of the pair walk at the inner node `code`: test both children on
-// [lo, hi]; returns the code to visit next (and pushes the other child that
-// the segment enters, the farther one first when near_first), or 0x7fffffff
-// when the segment enters neither.
+// A code that is neither a pair row nor a leaf: the walk is over (and the
+// root of a tree without a triangle).
 constexpr int kPop = 0x7fffffff;
 
+__device__ __forceinline__ bool inner(int code) { return code >= 0 && code != kPop; }
+
+// One step of the walk at pair row `code`: test both children on [lo, hi];
+// returns the code to visit next (and pushes the other child when the
+// segment enters both, the farther one when kNear), or kPop when it enters
+// neither.
 template <bool kNear, class Count>
-__device__ __forceinline__ int pair_step(const WalkTables& B, const WalkSmem& S, int code, V3 o,
-                                         V3 inv, float lo, float hi, WalkStack& st,
-                                         Count& count) {
-  float4 q[4];
-  load_pair(B, S, code, q);
+__device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3 inv, float lo,
+                                         float hi, WalkStack& st, Count& count) {
+  const float4* row = B.pairs + 4 * code;
+  const float4 a_lo = __ldg(row), a_hi = __ldg(row + 1), b_lo = __ldg(row + 2),
+               b_hi = __ldg(row + 3);
   float na, nb;
   count.box();
   count.box();
-  const bool ea = slab_entered(xyz(q[0]), xyz(q[1]), o, inv, lo, hi, na);
-  const bool eb = slab_entered(xyz(q[2]), xyz(q[3]), o, inv, lo, hi, nb);
-  const int ca = __float_as_int(q[0].w), cb = __float_as_int(q[1].w);
+  const bool ea = slab_entered(xyz(a_lo), xyz(a_hi), o, inv, lo, hi, na);
+  const bool eb = slab_entered(xyz(b_lo), xyz(b_hi), o, inv, lo, hi, nb);
+  const int ca = __float_as_int(a_lo.w), cb = __float_as_int(a_hi.w);
   if (ea && eb) {
     const bool b_first = kNear && nb < na;
     st.push(make_int2(b_first ? ca : cb, __float_as_int(b_first ? na : nb)));
@@ -312,100 +205,67 @@ __device__ __forceinline__ int pop_entered(WalkStack& st, float best_t) {
   return kPop;
 }
 
-__device__ __forceinline__ bool inner(int code) { return code >= 0 && code != kPop; }
-
 // Closest hit with t in (0, t_max): prim = -1, t = 1e30, u = v = 0 on a miss.
 template <class Count = NoCount>
-__device__ inline void walk_closest(const WalkTables& B, const WalkSmem& S, V3 o, V3 d,
-                                    float t_max, float& best_t, int& best_prim, float& best_u,
-                                    float& best_v, Count&& count = Count()) {
+__device__ inline void walk_closest(const WalkTables& B, V3 o, V3 d, float t_max, float& best_t,
+                                    int& best_prim, float& best_u, float& best_v,
+                                    Count&& count = Count()) {
   const V3 inv = v3(inv_dir1(d.x), inv_dir1(d.y), inv_dir1(d.z));
   best_t = fminf(t_max, kBig);
   best_prim = -1;
   best_u = 0.0f;
   best_v = 0.0f;
-  if constexpr (kPairWalk) {
-    int2 local[kSmemStack ? 1 : kMaxDepth];
-    WalkStack st = kSmemStack ? WalkStack{S.stack, S.stride, 0} : WalkStack{local, 1, 0};
-    int code = B.root;
-    while (code != kPop) {
-      // kWhileWhile: a lane descends to its next leaf before any lane tests
-      // one, so the warp's lanes test their leaves together
-      while (inner(code)) {
-        code = pair_step<kNearFirst>(B, S, code, o, inv, 0.0f, best_t, st, count);
-        if (code == kPop) code = pop_entered(st, best_t);
-        if (!kWhileWhile) break;
-      }
-      if (code < 0) {
-        const int leaf = ~code;
-        leaf_closest(B, leaf >> 8, leaf & 255, o, d, inv, t_max, best_t, best_prim, best_u,
-                     best_v, count);
+  WalkStack st;
+  int code = B.root;
+  while (code != kPop) {
+    int put_off = kPop;  // kSpeculative: a leaf the lane tests once the warp has leaves
+    while (inner(code)) {
+      code = pair_step<kNearFirst>(B, code, o, inv, 0.0f, best_t, st, count);
+      if (code == kPop) code = pop_entered(st, best_t);
+      if (kSpeculative && code < 0 && put_off == kPop) {
+        put_off = code;
         code = pop_entered(st, best_t);
       }
+      if (!kWhileWhile || (kSpeculative && __all_sync(__activemask(), put_off != kPop))) break;
     }
-  } else {
-    int ptr = 0;
-    while (ptr < B.n_nodes) {
-      const float4 lo = __ldg(B.nodes + 2 * ptr), hi = __ldg(B.nodes + 2 * ptr + 1);
-      float near;
-      count.box();
-      if (!slab_entered(xyz(lo), xyz(hi), o, inv, 0.0f, best_t, near)) {
-        ptr = __float_as_int(lo.w);
-        continue;
-      }
-      const int leaf = __float_as_int(hi.w);
-      ptr += 1;
-      if (leaf >= 0) {
-        leaf_closest(B, leaf / B.leaf_size, B.leaf_span, o, d, inv, t_max, best_t, best_prim,
-                     best_u, best_v, count);
-      }
+    if (put_off != kPop) {
+      cluster_closest(B, ~put_off, o, d, t_max, best_t, best_prim, best_u, best_v, count);
+    }
+    if (code < 0) {
+      cluster_closest(B, ~code, o, d, t_max, best_t, best_prim, best_u, best_v, count);
+      code = pop_entered(st, best_t);
     }
   }
   if (best_prim < 0) best_t = kBig;
 }
 
-// Any hit with t in (t_lo, t_hi): stops at the first occluder.
+// Any hit with t in (t_lo, t_hi): stops at the first occluder.  t_hi never
+// falls, so a stacked child is entered when popped.
 template <class Count = NoCount>
-__device__ inline bool walk_any(const WalkTables& B, const WalkSmem& S, V3 o, V3 d, float t_lo,
-                                float t_hi, Count&& count = Count()) {
+__device__ inline bool walk_any(const WalkTables& B, V3 o, V3 d, float t_lo, float t_hi,
+                                Count&& count = Count()) {
   if (!(t_hi > t_lo)) return false;
   const V3 inv = v3(inv_dir1(d.x), inv_dir1(d.y), inv_dir1(d.z));
-  if constexpr (kPairWalk) {
-    // t_hi never falls, so a stacked child is entered when popped
-    int2 local[kSmemStack ? 1 : kMaxDepth];
-    WalkStack st = kSmemStack ? WalkStack{S.stack, S.stride, 0} : WalkStack{local, 1, 0};
-    int code = B.root;
-    while (code != kPop) {
-      while (inner(code)) {
-        code = pair_step<kNearFirstAny>(B, S, code, o, inv, t_lo, t_hi, st, count);
-        if (code == kPop && st.sp > 0) code = st.pop().x;
-        if (!kWhileWhile) break;
-      }
-      if (code < 0) {
-        const int leaf = ~code;
-        if (leaf_any(B, leaf >> 8, leaf & 255, o, d, inv, t_lo, t_hi, count)) return true;
+  WalkStack st;
+  int code = B.root;
+  while (code != kPop) {
+    int put_off = kPop;
+    while (inner(code)) {
+      code = pair_step<kNearFirstAny>(B, code, o, inv, t_lo, t_hi, st, count);
+      if (code == kPop && st.sp > 0) code = st.pop().x;
+      if (kSpeculative && code < 0 && put_off == kPop) {
+        put_off = code;
         code = st.sp > 0 ? st.pop().x : kPop;
       }
+      if (!kWhileWhile || (kSpeculative && __all_sync(__activemask(), put_off != kPop))) break;
     }
-    return false;
-  } else {
-    int ptr = 0;
-    while (ptr < B.n_nodes) {
-      const float4 lo = __ldg(B.nodes + 2 * ptr), hi = __ldg(B.nodes + 2 * ptr + 1);
-      float near;
-      count.box();
-      if (!slab_entered(xyz(lo), xyz(hi), o, inv, t_lo, t_hi, near)) {
-        ptr = __float_as_int(lo.w);
-        continue;
-      }
-      const int leaf = __float_as_int(hi.w);
-      ptr += 1;
-      if (leaf >= 0 && leaf_any(B, leaf / B.leaf_size, B.leaf_span, o, d, inv, t_lo, t_hi, count)) {
-        return true;
-      }
+    if (put_off != kPop && cluster_any(B, ~put_off, o, d, t_lo, t_hi, count)) return true;
+    if (code < 0) {
+      if (cluster_any(B, ~code, o, d, t_lo, t_hi, count)) return true;
+      code = st.sp > 0 ? st.pop().x : kPop;
     }
-    return false;
   }
+  return false;
 }
 
 // ------------------------------------------ the counting (preorder) walk ----

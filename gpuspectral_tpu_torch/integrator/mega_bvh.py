@@ -100,7 +100,7 @@ def render_mega_bvh_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
 
     lib = _build.load()
     power = cfg.light_sampling == "power"
-    nodes, clusters, woop_rows, walk_ip = ftb.walk_tables(scene)
+    pairs, woop_rows, walk_ip = ftb.walk_tables(scene)
     attr = pack_attr(scene, cfg.light_sampling)
     _, _, light, camv = _pack_tables(scene)
     env = pack_env(scene)
@@ -115,8 +115,8 @@ def render_mega_bvh_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega_bvh(
-            pix.data_ptr(), pix.numel(), nodes.data_ptr(), clusters.data_ptr(),
-            woop_rows.data_ptr(), walk_ip.data_ptr(), attr.data_ptr(),
+            pix.data_ptr(), pix.numel(), pairs.data_ptr(), woop_rows.data_ptr(),
+            walk_ip.data_ptr(), attr.data_ptr(),
             light.data_ptr(), light_cdf.data_ptr(), light_prob.data_ptr(), camv.data_ptr(),
             env.data_ptr(), ip.ctypes.data, fp.ctypes.data, int(cfg.mega_sync_regen),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,

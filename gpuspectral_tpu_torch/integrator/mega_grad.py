@@ -297,7 +297,7 @@ def render_mega_bvh_fwdgrad_rows(scene: SceneData, cfg: RenderConfig, pix, times
 
     lib = _build.load()
     R, Lg = len(grad_rows), _grad_lights(scene)
-    nodes, clusters, woop_rows, walk_ip = ftb.walk_tables(scene)
+    pairs, woop_rows, walk_ip = ftb.walk_tables(scene)
     attr = pack_attr(scene, cfg.light_sampling)
     attr = torch.cat([attr, scene.tri_bsdf[:, None].to(torch.float32)], dim=1).contiguous()
     _, _, light, camv = _pack_tables(scene)
@@ -313,8 +313,8 @@ def render_mega_bvh_fwdgrad_rows(scene: SceneData, cfg: RenderConfig, pix, times
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega_bvh_grad(
-            pix.data_ptr(), pix.numel(), nodes.data_ptr(), clusters.data_ptr(),
-            woop_rows.data_ptr(), walk_ip.data_ptr(), attr.data_ptr(),
+            pix.data_ptr(), pix.numel(), pairs.data_ptr(), woop_rows.data_ptr(),
+            walk_ip.data_ptr(), attr.data_ptr(),
             light.data_ptr(), light_cdf.data_ptr(), light_prob.data_ptr(), camv.data_ptr(),
             env.data_ptr(), ip.ctypes.data, fp.ctypes.data, int(cfg.mega_sync_regen),
             rows.data_ptr(), kd.data_ptr(), R, Lg,

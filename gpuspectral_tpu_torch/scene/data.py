@@ -101,10 +101,9 @@ class SceneData:
     bvh_dfs_bounds: torch.Tensor  # (6,N) f32: rows 0-2 lo, 3-5 hi
     bvh_dfs_meta: torch.Tensor  # (2,N) i32: [skip index, leaf slot | -1]
     bvh_bin_bounds: torch.Tensor  # (6, 24*ceil(bins/24)) f32
-    # the rows K3, K4 and K6 walk (csrc/bvh.cuh), made from the tables above
+    # the rows K3, K4 and K6 walk (csrc/bvh.cuh), made from the boxes above
     # with the scene (scene_from_arrays); tri_woop holds their triangles
     bvh_pairs: torch.Tensor  # (P,16) f32: child-pair rows, breadth first
-    bvh_cluster_rows: torch.Tensor  # (C,8) f32: [lo, empty, hi, 0]
     camera: CameraData
     num_tris: int
     num_lights: int
@@ -439,28 +438,13 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
     statics = {k: (tuple(int(x) for x in meta[k]) if k == "kinds_present"
                    else bool(meta[k]) if k.startswith("has_") else int(meta[k]))
                for k in META_FIELDS}
-    pairs, clusters, root, depth = walk_rows(arrays, statics["bvh_clusters"],
-                                             statics["bvh_leaf_size"])
+    from ..bvh.tables import build_pair_rows
+
+    pairs, root, depth = build_pair_rows(arrays["bvh_node_min"], arrays["bvh_node_max"],
+                                         statics["bvh_clusters"])
     return SceneData(camera=CameraData(to_world=t["cam_to_world"], fov=t["cam_fov"]),
-                     bvh_pairs=torch.as_tensor(pairs, device=device),
-                     bvh_cluster_rows=torch.as_tensor(clusters, device=device),
-                     bvh_root=root, bvh_depth=depth, **fields, **statics)
-
-
-def walk_rows(arrays: dict, n_clusters: int, leaf_size: int):
-    """(pair rows, cluster rows, root code, depth) of the scene's tree
-    (bvh/tables.py: build_pair_rows, build_cluster_rows).  The tree keeps
-    the clusters that the preorder table keeps: build_dfs_tables prunes the
-    subtrees from cluster n_clusters_real on, which the scene does not
-    store, so the last cluster of its last leaf stands for it (the same
-    pruning: every kept subtree starts at or before that leaf)."""
-    from ..bvh.tables import build_cluster_rows, build_pair_rows
-
-    leaf_slots = np.asarray(arrays["bvh_dfs_meta"])[1]
-    real = int(leaf_slots.max()) // leaf_size + 1
-    tree = (arrays["bvh_node_min"], arrays["bvh_node_max"], n_clusters)
-    pairs, root, depth = build_pair_rows(*tree, real, leaf_size)
-    return pairs, build_cluster_rows(*tree), root, depth
+                     bvh_pairs=torch.as_tensor(pairs, device=device), bvh_root=root,
+                     bvh_depth=depth, **fields, **statics)
 
 
 def scene_to_arrays(scene: SceneData) -> tuple[dict, dict]:

@@ -1,14 +1,15 @@
 """The packed rows of the BVH walk of K3, K4 and K6 (csrc/bvh.cuh), on the CPU.
 
-The scene packs them once when it is made (scene/data.py:walk_rows,
-bvh/tables.py:build_pair_rows / build_cluster_rows; the Woop rows are the
-scene's (T, 12) tri_woop):
+The scene packs them once when it is made (scene/data.py:scene_from_arrays,
+bvh/tables.py:build_pair_rows; the Woop rows are the scene's (T, 12)
+tri_woop):
 
-  * the Woop, cluster and child-pair rows decode to the SoA tables of
-    bvh/ftb.py:kernel_tables (the preorder walk's) bit for bit;
-  * the pair table reaches every real cluster exactly once, holds the heap
-    boxes of the implicit tree, keeps no padding subtree and keeps the
-    leaves that build_dfs_tables keeps;
+  * the Woop and child-pair rows decode to the SoA tables of
+    bvh/ftb.py:kernel_tables (the preorder walk's: its Woop table and its
+    cluster boxes) and to the heap boxes bit for bit;
+  * the pair table reaches every cluster that holds a triangle exactly
+    once, each as a leaf of its own, and no empty (padding) cluster; those
+    are the non-empty clusters of the preorder table's leaves;
   * a numpy walk over the pair table, written here as csrc/bvh.cuh's walk
     is (both children tested, the nearer first, the farther stacked and
     culled on pop by its entry distance), gives the plain K3's t, prim, u,
@@ -26,7 +27,7 @@ import torch
 
 from gpuspectral_tpu_torch.bvh import build as bvh_build
 from gpuspectral_tpu_torch.bvh import ftb
-from gpuspectral_tpu_torch.bvh.tables import LEAF_BITS, build_pair_rows, leaf_code
+from gpuspectral_tpu_torch.bvh.tables import EMPTY_ROOT, build_pair_rows
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field, build_zoo
 
@@ -68,33 +69,26 @@ def _codes(pairs):
     return pairs.view(np.int32)[:, [3, 7]]
 
 
-def _leaf(code):
-    leaf = ~int(code)
-    return leaf >> LEAF_BITS, leaf & ((1 << LEAF_BITS) - 1)
-
-
 def _heap_of(code, codes, n_clusters):
-    """Heap index of the implicit-tree node a code stands for: a leaf's
-    from its aligned cluster range, a pair's as the lowest common ancestor
-    of its two children's nodes."""
+    """Heap index of the implicit-tree node a code stands for: cluster ~code
+    for a leaf, a pair's the lowest common ancestor of its two children's
+    nodes."""
     if code < 0:
-        first, count = _leaf(code)
-        return n_clusters // count - 1 + first // count
+        return n_clusters - 1 + ~int(code)
     a, b = (_heap_of(int(c), codes, n_clusters) for c in codes[code])
     while a != b:
         a, b = ((a - 1) // 2, b) if a > b else (a, (b - 1) // 2)
     return a
 
 
-def _leaves(scene):
-    """[(first cluster, count), ...] of every leaf the pair table reaches."""
-    pairs = scene.bvh_pairs.numpy()
+def _leaves(pairs, root):
+    """The clusters the pair table reaches, one a leaf, in walk order."""
     codes = _codes(pairs)
-    out, todo = [], [scene.bvh_root]
+    out, todo = [], [] if root == EMPTY_ROOT else [root]
     while todo:
         code = todo.pop()
         if code < 0:
-            out.append(_leaf(code))
+            out.append(~code)
         else:
             todo.extend(int(c) for c in codes[code])
     return out
@@ -102,60 +96,63 @@ def _leaves(scene):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_packed_rows_decode_to_kernel_tables(name, monkeypatch):
-    """The Woop rows are tri_woop_t transposed; a cluster row is the
-    cluster's box from the (6, C) table of kernel_tables with its emptiness
-    (the box inverted) in lane 3; a pair's child boxes are heap boxes and
-    its two spare lanes zero; walk_tables hands the scene's own tensors."""
+    """The Woop rows are tri_woop_t transposed; a pair's child boxes are the
+    heap boxes of its children, a leaf child's the cluster's box of the
+    (6, C) table of kernel_tables; its two spare lanes are zero;
+    walk_tables hands the scene's own tensors."""
     ts = _scene(name, monkeypatch)
     nodes, meta, clusters, woop_t, ip = ftb.kernel_tables(ts)
     woop = ts.tri_woop.numpy()
     assert ts.tri_woop.dtype == torch.float32 and ts.tri_woop.is_contiguous()
     np.testing.assert_array_equal(_bits(woop), _bits(woop_t.numpy().T))
 
-    rows = ts.bvh_cluster_rows.numpy()
-    c = ts.bvh_clusters
-    assert rows.shape == (c, 8) and ts.bvh_cluster_rows.is_contiguous()
-    box = clusters.numpy()
-    np.testing.assert_array_equal(_bits(rows[:, 0:3]), _bits(box[0:3].T))
-    np.testing.assert_array_equal(_bits(rows[:, 4:7]), _bits(box[3:6].T))
-    empty = box[0] > box[3]
-    np.testing.assert_array_equal(rows[:, 3], empty.astype(np.float32))
-    assert (rows[:, 7] == 0).all() and 0 < (~empty).sum()
-
     pairs = ts.bvh_pairs.numpy()
+    c = ts.bvh_clusters
     assert pairs.shape[1] == 16 and ts.bvh_pairs.is_contiguous()
     assert (pairs[:, 11] == 0).all() and (pairs[:, 15] == 0).all()
     codes = _codes(pairs)
     node_min, node_max = ts.bvh_node_min.numpy(), ts.bvh_node_max.numpy()
+    box = clusters.numpy()
     for i in range(pairs.shape[0]):
         for k in range(2):
-            h = _heap_of(int(codes[i, k]), codes, c)
+            code = int(codes[i, k])
+            h = _heap_of(code, codes, c)
             np.testing.assert_array_equal(_bits(pairs[i, 8 * k:8 * k + 3]), _bits(node_min[h]))
             np.testing.assert_array_equal(_bits(pairs[i, 8 * k + 4:8 * k + 7]),
                                           _bits(node_max[h]))
+            if code < 0:
+                np.testing.assert_array_equal(_bits(pairs[i, 8 * k:8 * k + 3]),
+                                              _bits(box[0:3, ~code]))
+                np.testing.assert_array_equal(_bits(pairs[i, 8 * k + 4:8 * k + 7]),
+                                              _bits(box[3:6, ~code]))
 
     tables = ftb.walk_tables(ts)
-    assert tables[0] is ts.bvh_pairs and tables[1] is ts.bvh_cluster_rows
-    assert tables[2] is ts.tri_woop
-    assert tables[3].tolist() == [pairs.shape[0], c, woop.shape[0], ts.bvh_leaf_size,
-                                  ftb.leaf_span(ts), ts.bvh_root, ts.bvh_depth]
-    assert ip.tolist()[1:] == [c, woop.shape[0], ts.bvh_leaf_size, ftb.leaf_span(ts)]
+    assert tables[0] is ts.bvh_pairs and tables[1] is ts.tri_woop
+    assert tables[2].tolist() == [pairs.shape[0], woop.shape[0], ts.bvh_leaf_size, ts.bvh_root,
+                                  ts.bvh_depth]
+    assert ip.tolist()[1:4] == [c, woop.shape[0], ts.bvh_leaf_size]
 
 
 @pytest.mark.parametrize("name", SCENES)
-def test_pair_rows_keep_the_preorder_leaves(name, monkeypatch):
-    """The pair table reaches each leaf of the preorder table
-    (build_dfs_tables, the scene's bvh_dfs_meta) exactly once and no other:
-    the padding subtrees are pruned alike.  Its rows are in breadth-first
-    order (a child after its parent) and bvh_depth is the most rows on a
-    path from the root."""
+def test_pair_rows_reach_each_full_cluster_once(name, monkeypatch):
+    """The pair table reaches each cluster with a triangle exactly once, as
+    a leaf of its own, and no empty cluster: the non-empty clusters of the
+    preorder table's leaves (build_dfs_tables, the scene's bvh_dfs_meta),
+    so no padding subtree is left.  Its rows are in breadth-first order (a
+    child after its parent) and bvh_depth is the most rows on a path from
+    the root."""
     ts = _scene(name, monkeypatch)
-    leaves = _leaves(ts)
-    first_slots = ts.bvh_dfs_meta[1].numpy()
-    want = sorted(int(s) // ts.bvh_leaf_size for s in first_slots[first_slots >= 0])
-    assert sorted(f for f, _ in leaves) == want
-    span = ftb.leaf_span(ts)
-    assert all(0 < n <= span and f % n == 0 for f, n in leaves)
+    leaves = _leaves(ts.bvh_pairs.numpy(), ts.bvh_root)
+    assert len(leaves) == len(set(leaves))
+    lo, hi = ts.bvh_node_min.numpy(), ts.bvh_node_max.numpy()
+    c = ts.bvh_clusters
+    full = lo[c - 1:, 0] <= hi[c - 1:, 0]
+    first = ts.bvh_dfs_meta[1].numpy()
+    span = max(2, 128 // ts.bvh_leaf_size)
+    in_dfs = {k for f in first[first >= 0] for k in range(f // ts.bvh_leaf_size,
+                                                          f // ts.bvh_leaf_size + span)}
+    want = sorted(k for k in in_dfs if k < c and full[k])
+    assert sorted(leaves) == want == sorted(np.nonzero(full)[0].tolist())
     codes = _codes(ts.bvh_pairs.numpy())
     depth = np.zeros(codes.shape[0] + 1, int)
     for i in range(codes.shape[0] - 1, -1, -1):
@@ -167,10 +164,10 @@ def test_pair_rows_keep_the_preorder_leaves(name, monkeypatch):
 
 
 def _tree(mode, monkeypatch):
-    """(node_min, node_max, C, real clusters, leaf size, cluster has
-    triangles) of the port's build: "sah" or "morton" on a 700-triangle
-    soup (44 clusters padded to 64), "slot" a slot-mode build of it (bins
-    of SAH subtrees, empty clusters between the real ones)."""
+    """(node_min, node_max, C, leaf size, cluster holds a triangle) of the
+    port's build: "sah" or "morton" on a 700-triangle soup (44 clusters
+    padded to 64), "slot" a slot-mode build of it (bins of SAH subtrees,
+    empty clusters between the real ones)."""
     rs = np.random.default_rng(3)
     tris = (rs.uniform(-4.0, 4.0, size=(700, 1, 3))
             + rs.uniform(-0.3, 0.3, size=(700, 3, 3))).astype(np.float32)
@@ -181,50 +178,48 @@ def _tree(mode, monkeypatch):
     slots = np.full(bvh.n_clusters * bvh.leaf_size, -1)
     slots[:bvh.perm.shape[0]] = np.where(bvh.perm < 700, bvh.perm, -1)
     full = (slots.reshape(bvh.n_clusters, -1) >= 0).any(1)
-    return (bvh.node_min, bvh.node_max, bvh.n_clusters, bvh.n_clusters_real, bvh.leaf_size,
-            full)
+    return bvh.node_min, bvh.node_max, bvh.n_clusters, bvh.leaf_size, full
 
 
 @pytest.mark.parametrize("mode", ["sah", "morton", "slot"])
-def test_pair_rows_reach_every_real_cluster_once(mode, monkeypatch):
+def test_pair_rows_of_each_build(mode, monkeypatch):
     """build_pair_rows on the sah, morton and slot-mode builds: the leaves
-    tile the real clusters [0, real) once each (every cluster that holds a
-    triangle among them), no leaf starts at a padding cluster, each child
-    box is its heap node's box, and an inner child has two children."""
-    node_min, node_max, c, real, leaf_size, full = _tree(mode, monkeypatch)
-    assert full.any() and not full[real:].any()
-    pairs, root, depth = build_pair_rows(node_min, node_max, c, real, leaf_size)
+    are exactly the clusters that hold a triangle (the slot mode's empty
+    clusters between real ones pruned too), each child box is its heap
+    node's box, and the depth is at most the tree's."""
+    node_min, node_max, c, leaf_size, full = _tree(mode, monkeypatch)
+    assert full.any() and (mode != "slot" or not full[:np.nonzero(full)[0].max()].all())
+    pairs, root, depth = build_pair_rows(node_min, node_max, c)
     codes = _codes(pairs)
-    seen = np.zeros(c, int)
-    todo = [root]
-    while todo:
-        code = todo.pop()
-        if code < 0:
-            first, n = _leaf(code)
-            assert first < real
-            seen[first:first + n] += 1
-        else:
-            todo.extend(int(x) for x in codes[code])
-            for k in range(2):
-                h = _heap_of(int(codes[code, k]), codes, c)
-                np.testing.assert_array_equal(pairs[code, 8 * k:8 * k + 3], node_min[h])
-                np.testing.assert_array_equal(pairs[code, 8 * k + 4:8 * k + 7], node_max[h])
-    assert (seen[:real] == 1).all() and (seen[real:] <= 1).all()
-    assert 0 < depth <= int(np.log2(c))
+    assert sorted(_leaves(pairs, root)) == np.nonzero(full)[0].tolist()
+    for i in range(pairs.shape[0]):
+        for k in range(2):
+            h = _heap_of(int(codes[i, k]), codes, c)
+            np.testing.assert_array_equal(pairs[i, 8 * k:8 * k + 3], node_min[h])
+            np.testing.assert_array_equal(pairs[i, 8 * k + 4:8 * k + 7], node_max[h])
+    assert pairs.shape[0] == full.sum() - 1 and 0 < depth <= int(np.log2(c))
 
 
 def test_pair_rows_of_tiny_trees():
-    """A tree of one leaf is no row: the root code is that leaf; a tree of
-    two leaves is one row."""
-    lo = np.zeros((1, 3), np.float32)
-    pairs, root, depth = build_pair_rows(lo, lo + 1, 1, 1, 16)
-    assert pairs.shape == (0, 16) and root == leaf_code(0, 1) and depth == 0
+    """A tree without a triangle has no row and the root EMPTY_ROOT; a tree
+    of one full cluster no row and that cluster as its root; two full
+    clusters one row."""
+    inf = np.full((1, 3), np.inf, np.float32)
+    assert build_pair_rows(inf, -inf, 1)[1:] == (EMPTY_ROOT, 0)
     lo = np.zeros((31, 3), np.float32)
-    pairs, root, depth = build_pair_rows(lo, lo + 1, 16, 16, 16)
+    pairs, root, depth = build_pair_rows(lo, lo + 1, 1)
+    assert pairs.shape == (0, 16) and root == ~0 and depth == 0
+    hi = lo + 1
+    hi[15:] = -1  # clusters 0-15 empty but for 3 and 9
+    hi[15 + 3] = hi[15 + 9] = 1
+    for n in range(14, -1, -1):
+        hi[n] = np.maximum(hi[2 * n + 1], hi[2 * n + 2])
+    pairs, root, depth = build_pair_rows(lo, hi, 16)
     assert pairs.shape == (1, 16) and root == 0 and depth == 1
-    assert _codes(pairs).tolist() == [[leaf_code(0, 8), leaf_code(8, 8)]]
-    pairs, root, depth = build_pair_rows(lo, lo + 1, 16, 5, 16)  # one real leaf
-    assert pairs.shape == (0, 16) and root == leaf_code(0, 8) and depth == 0
+    assert _codes(pairs).tolist() == [[~3, ~9]]
+    hi[15 + 9] = -1
+    assert build_pair_rows(lo, hi, 16)[0].shape == (0, 16)
+    assert build_pair_rows(lo, hi, 16)[1] == ~3
 
 
 # ----------------------------------------------- the walk, in numpy -------
@@ -271,7 +266,6 @@ def _walk(scene, o, d, t_lo, t_hi, any_hit):
     (t, prim, u, v) on (0, t_hi), or any hit on (t_lo, t_hi)."""
     pairs = scene.bvh_pairs.numpy()
     codes = _codes(pairs)
-    rows = scene.bvh_cluster_rows.numpy()
     woop = scene.tri_woop.numpy()
     leaf_size, n_slots = scene.bvh_leaf_size, woop.shape[0]
     inv = np.array([_inv(x) for x in d], np.float32)
@@ -281,7 +275,7 @@ def _walk(scene, o, d, t_lo, t_hi, any_hit):
         return False
     lo = t_lo if any_hit else F32(0)
     stack, code = [], scene.bvh_root
-    while True:
+    while code != EMPTY_ROOT:
         if code >= 0:
             hi = t_hi if any_hit else best[0]
             ea, na = _slab(pairs[code, 0:3], pairs[code, 4:7], o, inv, lo, hi)
@@ -297,31 +291,23 @@ def _walk(scene, o, d, t_lo, t_hi, any_hit):
                 code = ca if ea else cb
                 continue
         else:
-            first, count = _leaf(code)
-            for c in range(first, min(first + count, scene.bvh_clusters)):
-                if rows[c, 3] != 0:
-                    continue
-                hi = t_hi if any_hit else best[0]
-                if not _slab(rows[c, 0:3], rows[c, 4:7], o, inv, lo, hi)[0]:
-                    continue
-                for s in range(c * leaf_size, min((c + 1) * leaf_size, n_slots)):
-                    hit, t, u, v = _woop(woop[s], o, d, lo, t_hi)
-                    if hit and any_hit:
-                        return True
-                    if hit and (t < best[0] or (t == best[0] and s < best[1])):
-                        best = (t, s, u, v)
-        code = None
+            c = ~code
+            for s in range(c * leaf_size, min((c + 1) * leaf_size, n_slots)):
+                hit, t, u, v = _woop(woop[s], o, d, lo, t_hi)
+                if hit and any_hit:
+                    return True
+                if hit and (t < best[0] or (t == best[0] and s < best[1])):
+                    best = (t, s, u, v)
+        code = EMPTY_ROOT
         while stack:
             c, near = stack.pop()
             hi = t_hi if any_hit else best[0]
             if any_hit or near <= F32(hi + SLAB_MARGIN * abs(hi)):
                 code = c
                 break
-        if code is None:
-            break
     if any_hit:
         return False
-    return (best[0], best[1], best[2], best[3]) if best[1] >= 0 else (BIG, -1, F32(0), F32(0))
+    return best if best[1] >= 0 else (BIG, -1, F32(0), F32(0))
 
 
 @pytest.mark.parametrize("name", SCENES)

@@ -172,11 +172,12 @@ def test_walk_tests_count_the_walk(cuda_device):  # noqa: F811
     assert bool((w_any[occ] >= 1).all()) and int(w_any.max()) <= n_slots
 
 
-@pytest.mark.parametrize("name", ["soup_morton", "soup_ties", "slot_field", "one_leaf"])
+@pytest.mark.parametrize("name", ["soup_morton", "soup_ties", "slot_field", "one_cluster"])
 def test_k3_pair_walk_edge_cases(cuda_device, name, monkeypatch):  # noqa: F811
     """K3's pair walk on a morton build, a soup of exact-t twins, a
-    slot-mode sphere field and a tree of one leaf (no pair row), with NaN
-    and inactive lanes: the brute scan's hits, the lowest slot of a tie."""
+    slot-mode sphere field and a tree of one cluster (no pair row), with
+    NaN and inactive lanes: the brute scan's hits, the lowest slot of a
+    tie."""
     from chip_smoke import field_rays, soup_scene
 
     if name == "soup_morton":
@@ -187,14 +188,13 @@ def test_k3_pair_walk_edge_cases(cuda_device, name, monkeypatch):  # noqa: F811
         monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
         ts = _scene("sphere_field", cuda_device)
     else:
-        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
-        ts = _scene("cornell", cuda_device)
-        assert ts.bvh_pairs.shape[0] == 0 and ts.bvh_root < 0
+        ts = soup_scene(12, 3, cuda_device)
+        assert ts.bvh_pairs.shape[0] == 0 and ts.bvh_root == ~0
     o, d, lo, hi = odd_lanes(field_rays(1 << 15, ts, 13, cuda_device))
     t, prim, u, v, attrs = ftb.ftb_closest(ts, o, d, t_max=hi)
     occ = ftb.ftb_any(ts, o, d, lo, hi)
     t_r, prim_r, u_r, v_r, attrs_r = ftb.ftb_closest_ref(ts, o, d, t_max=hi)
-    assert (prim_r >= 0).sum() > 500
+    assert (prim_r >= 0).sum() > (50 if name == "one_cluster" else 500)
     # the brute scan's fused arithmetic: equal up to m3.fma's rare double
     # rounding (about one op in 2^29), ties included
     assert int((prim != prim_r).sum()) <= 2
@@ -216,8 +216,7 @@ def test_walk_tests_count_the_pair_walk(cuda_device):  # noqa: F811
     boxes, woops = ftb.walk_tests(ts, o, d, zero, hi, False)
     n_slots = ts.tri_woop.shape[0]
     assert bool((woops[prim >= 0] >= 1).all()) and int(woops.max()) <= n_slots
-    most = 2 * ts.bvh_pairs.shape[0] + ts.bvh_clusters
-    assert bool((boxes >= 2).all()) and int(boxes.max()) <= most
+    assert bool((boxes >= 2).all()) and int(boxes.max()) <= 2 * ts.bvh_pairs.shape[0]
     far = torch.tensor([[1e4, 1e4, 1e4]], device=cuda_device)
     out = torch.tensor([[1.0, 0.0, 0.0]], device=cuda_device)
     one = torch.ones((1,), device=cuda_device)

@@ -6,41 +6,26 @@ on the sphere field.
     PYTHONPATH=ROOT python3 tools/torch_mega_bvh_variants.py ab
 
 `variants` builds copies of bvh.cuh, bvh.cu and mega_bvh.cu with the
-constants at the top of bvh.cuh and the launch shape (kThreads,
-kWarpsPerSm) of bvh.cu and mega_bvh.cu set per variant.  The steps of the
-first design, as first built (one walk step a loop turn, the staged top
-of the tree, the Woop loop not unrolled):
+constants at the top of bvh.cuh and the launch shape (kThreads, K3's
+kWarpsPerSm) of bvh.cu and mega_bvh.cu set per variant, one change each
+from the shipped walk (child pairs down to single clusters, the nearer
+child first, while-while, a cluster's Woop loop unrolled by 4, the stack
+in a local array; 16 warps an SM):
 
-  packed_preorder  the preorder walk with skip pointers of PR 9 on 128-bit
-                   rows: a node 32 B ([lo, skip], [hi, leaf]; packed by this
-                   tool from bvh_dfs_bounds / bvh_dfs_meta), a cluster 32 B,
-                   a triangle's Woop rows 48 B
-  pairs_left       child pairs (both children's boxes in one 64 B row), the
-                   left child first, the other on a stack in shared memory
-  pairs_near       the same, the nearer child first (closest hit)
-  staged           pairs_near with the breadth-first prefix of the pair rows
-                   that fits a CTA's share of shared memory staged there
-  staged_k3_warps32  staged with K3 at 32 warps an SM (K4 and K6 at 16)
-  while_while      staged, each lane descending to its next leaf before the
-                   warp tests leaves (the walks above take one step a turn,
-                   so a warp tests one lane's leaf while the others wait)
-  ww_unstaged      while_while without the staged rows
-  ww_near_any, ww_unroll2, ww_unroll4, ww_smem128, ww_threads256,
-  ww_k3_warps32    while_while with the any-hit walk near first too; the
-                   Woop loop unrolled by 2 or 4; the SM's shared memory
-                   taken as 128 KB; 256 threads a CTA; K3 at 32 warps an SM
+  near_left        the left child first
+  if_if            one walk step a loop turn: a warp tests one lane's leaf
+                   while the others wait
+  speculative      a lane that reaches a leaf puts it off and goes on down
+                   the tree until every lane of the warp has one
+  near_any         the any-hit walk near first too
+  unroll1, unroll2, unroll8   the Woop loop unrolled by 1, 2 or 8
+  k3_warps32       K3 at 32 warps an SM (at most 64 registers a thread)
+  threads256       256 threads a CTA (K4 / K6 at 2 CTAs an SM)
 
-and one change each from the shipped design (while-while, no staged rows,
-the Woop loop unrolled by 4):
-
-  unroll2, unroll8     the Woop loop unrolled by 2 or 8
-  prefetch         a leaf's next cluster row loaded during this one's tests
-  local_stack      the stack in a local array, not in shared memory
-  staged64         the staged prefix with the SM's shared memory taken as
-                   64 KB
-  k3_warps32       K3 at 32 warps an SM
-  leaf1, leaf2, leaf4  pair rows whose leaves hold 1, 2 or 4 clusters, not
-                   8 (built by this tool with bvh/tables.py:build_pair_rows)
+The study's earlier steps (the preorder walk on 128-bit rows, child pairs
+with leaves of 1-8 clusters over 32-byte cluster rows, the top of the
+tree staged in shared memory, the stack in shared memory, a prefetched
+cluster row) are variants of this tool at commit 276c7be.
 
 Each variant goes to build/mega_bvh_variants/<name>/ (one nvcc per variant,
 all started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -55,7 +40,7 @@ sphere-field frame (the CLI's `benchmark builtin:sphere_field --size
 512x512 --spp 64 --depth 50` config), K6 over the grad_bvh frame
 (builtin:sphere_field_noenv, 512x512 @ 64 spp, d5: what one step of
 run_grad_benchmark launches), K3a / K3b on both ray sets.  One JSON line.
-About 6 minutes of command for all of them.
+About 3 minutes of command for all nine.
 
 `ab` times the port on PYTHONPATH (the tree's own build): the same K4 and
 K6 frames and K3 rays, and run_grad_benchmark's grad_bvh step (2 steps),
@@ -69,7 +54,6 @@ the change's tree in one call, in the order parent, change, change, parent
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import importlib.util
 import json
@@ -85,38 +69,19 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", TOOL_ROOT / "chip_s
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)  # its imports of the port are lazy: PYTHONPATH's
 
-BASE = dict(kPairWalk="true", kNearFirst="true", kNearFirstAny="false", kStageTop="false",
-            kWhileWhile="true", kWoopUnroll="4", kPrefetchCluster="false", kSmemStack="true",
-            kSmemPerSm="228 * 1024", kThreads="128", kWarpsPerSm="16")
-FIRST = dict(kWhileWhile="false", kStageTop="true", kWoopUnroll="1")  # the first design
+BASE = dict(kNearFirst="true", kNearFirstAny="false", kWhileWhile="true", kSpeculative="false",
+            kWoopUnroll="4", kThreads="128", kWarpsPerSm="16")
 VARIANTS = dict(
-    # the steps of the first study, each from the design as first built
-    packed_preorder=dict(FIRST, kPairWalk="false", kStageTop="false"),
-    pairs_left=dict(FIRST, kNearFirst="false", kStageTop="false"),
-    pairs_near=dict(FIRST, kStageTop="false"),
-    staged=FIRST,
-    staged_k3_warps32=dict(FIRST, kWarpsPerSm="32"),
-    while_while=dict(FIRST, kWhileWhile="true"),
-    ww_unstaged=dict(FIRST, kWhileWhile="true", kStageTop="false"),
-    ww_near_any=dict(FIRST, kWhileWhile="true", kNearFirstAny="true"),
-    ww_unroll2=dict(FIRST, kWhileWhile="true", kWoopUnroll="2"),
-    ww_unroll4=dict(FIRST, kWhileWhile="true", kWoopUnroll="4"),
-    ww_smem128=dict(FIRST, kWhileWhile="true", kSmemPerSm="128 * 1024"),
-    ww_threads256=dict(FIRST, kWhileWhile="true", kThreads="256"),
-    ww_k3_warps32=dict(FIRST, kWhileWhile="true", kWarpsPerSm="32"),
-    # one change each from the shipped design (BASE: while-while, no
-    # staged rows, the Woop loop unrolled by 4)
+    near_left=dict(kNearFirst="false"),
+    if_if=dict(kWhileWhile="false"),
+    speculative=dict(kSpeculative="true"),
+    near_any=dict(kNearFirstAny="true"),
+    unroll1=dict(kWoopUnroll="1"),
     unroll2=dict(kWoopUnroll="2"),
     unroll8=dict(kWoopUnroll="8"),
-    prefetch=dict(kPrefetchCluster="true"),
-    local_stack=dict(kSmemStack="false"),
-    staged64=dict(kStageTop="true", kSmemPerSm="64 * 1024"),
     k3_warps32=dict(kWarpsPerSm="32"),
-    leaf1={},
-    leaf2={},
-    leaf4={},
+    threads256=dict(kThreads="256"),
 )
-LEAF_SPAN = dict(leaf1=1, leaf2=2, leaf4=4)
 ENTRY_POINTS = ("gst_bvh_closest", "gst_bvh_any", "gst_mega_bvh", "gst_mega_bvh_grad")
 K4_ARGS = ["benchmark", "builtin:sphere_field", "--size", "512x512", "--spp", "64",
            "--depth", "50"]
@@ -237,49 +202,6 @@ def build(names):
     return libs
 
 
-_TABLES = {}
-
-
-def span_tables(scene, walk_tables, span):
-    """walk_tables(scene) with pair rows whose leaves hold `span` clusters
-    (bvh/tables.py:build_pair_rows), the clusters after the last one that
-    holds a triangle pruned; built once a scene."""
-    from gpuspectral_tpu_torch.bvh.tables import build_pair_rows
-
-    key = (id(scene), span)
-    if key not in _TABLES:
-        c = scene.bvh_clusters
-        lo, hi = scene.bvh_node_min.cpu().numpy(), scene.bvh_node_max.cpu().numpy()
-        full = (lo[c - 1:] <= hi[c - 1:]).all(1).nonzero()[0]
-        pairs, root, depth = build_pair_rows(lo, hi, c, int(full.max()) + 1,
-                                             scene.bvh_leaf_size, span)
-        _, clusters, woop, ip = walk_tables(scene)
-        ip = ip.clone()
-        ip[0], ip[5], ip[6] = pairs.shape[0], root, depth
-        _TABLES[key] = scene, (torch.as_tensor(pairs, device=woop.device), clusters, woop, ip)
-    return _TABLES[key][1]
-
-
-def preorder_tables(scene, walk_tables):
-    """walk_tables(scene) with the preorder table packed as 32-byte rows
-    [lo xyz, skip index, hi xyz, first slot of a leaf | -1] (the
-    packed_preorder variant's nodes), packed once a scene."""
-    key = (id(scene), "preorder")
-    if key in _TABLES:
-        return _TABLES[key][1]
-    b, m = scene.bvh_dfs_bounds, scene.bvh_dfs_meta
-    rows = torch.zeros((b.shape[1], 8), dtype=torch.float32, device=b.device)
-    rows[:, 0:3] = b[0:3].t()
-    rows[:, 4:7] = b[3:6].t()
-    rows.view(torch.int32)[:, 3] = m[0]
-    rows.view(torch.int32)[:, 7] = m[1]
-    _, clusters, woop, ip = walk_tables(scene)
-    ip = ip.clone()
-    ip[0] = rows.shape[0]
-    _TABLES[key] = scene, (rows.contiguous(), clusters, woop, ip)
-    return _TABLES[key][1]
-
-
 def main_variants(names) -> int:
     from gpuspectral_tpu_torch import _build
     from gpuspectral_tpu_torch.bvh import ftb
@@ -296,18 +218,12 @@ def main_variants(names) -> int:
     ref = results(work)
     if not (same(ref["k3a_random"][:4], plain[0]) and same(ref["k3b_random"], [plain[1]])):
         raise AssertionError("the tree's K3 differs from its plain version on random rays")
-    real_load, real_tables = _build.load, ftb.walk_tables
+    real_load = _build.load
     builds = dict(libs, tree=None)
 
     def use(name):
         lib = builds[name]
         _build.load = real_load if lib is None else (lambda: lib)
-        ftb.walk_tables = real_tables
-        if name == "packed_preorder":
-            ftb.walk_tables = functools.partial(preorder_tables, walk_tables=real_tables)
-        elif name in LEAF_SPAN:
-            ftb.walk_tables = functools.partial(span_tables, walk_tables=real_tables,
-                                                span=LEAF_SPAN[name])
 
     try:
         for name in libs:
@@ -323,7 +239,7 @@ def main_variants(names) -> int:
             for key, ms in time_all(work, REPS).items():
                 times[name][key].append(ms)
     finally:
-        _build.load, ftb.walk_tables = real_load, real_tables
+        _build.load = real_load
     print(json.dumps(dict(card=smi, rays={k: v[0].shape[0] for k, v in rays.items()},
                           k4_frame=" ".join(K4_ARGS), k6_frame=K6, ms=times)), flush=True)
     return 0
