@@ -686,7 +686,7 @@ def check_k3(name, scene, rays):
     hit = prim_r >= 0
     ties = tied_hits(scene, prim_r) if "ties" in name else 0
     log(f"  K3 {name}: rays={o.shape[0]} slots={scene.tri_woop_t.shape[1]} "
-        f"pair rows={scene.bvh_pairs.shape[0]} (depth {scene.bvh_depth}) hits={int(hit.sum())} "
+        f"pair rows={scene.bvh_pairs.shape[0]} hits={int(hit.sum())} "
         f"exact_t_ties={ties} occluded={int(occ_r.sum())} mismatches={bad}")
     if any(bad.values()):
         raise AssertionError(f"K3 disagrees with its plain version on {name}")

@@ -128,9 +128,9 @@ def kernel_tables(scene):
     c = scene.bvh_clusters
     clusters = torch.cat([scene.bvh_node_min[c - 1:], scene.bvh_node_max[c - 1:]],
                          dim=1).t().contiguous()
+    leaf_span = max(2, 128 // scene.bvh_leaf_size)
     ip = torch.tensor([scene.bvh_dfs_bounds.shape[1], c, scene.tri_woop_t.shape[1],
-                       scene.bvh_leaf_size, max(2, 128 // scene.bvh_leaf_size)],
-                      dtype=torch.int32)
+                       scene.bvh_leaf_size, leaf_span], dtype=torch.int32)
     return (scene.bvh_dfs_bounds.contiguous(), scene.bvh_dfs_meta.contiguous(), clusters,
             scene.tri_woop_t.contiguous(), ip)
 
@@ -139,13 +139,12 @@ def walk_tables(scene):
     """(pairs, woop, walk_ip) for the walk of K3, K4 and K6 (csrc/bvh.cuh:
     walk_closest / walk_any): the scene's own child-pair rows (P, 16) and
     Woop rows (T, 12), packed once when the scene was made, and the host
-    ints n_pairs, n_slots, leaf_size, root code, depth
-    (csrc/bvh.cuh:make_walk_tables)."""
+    ints n_slots, leaf_size, root code (csrc/bvh.cuh:make_walk_tables)."""
     for name, x in (("bvh_pairs", scene.bvh_pairs), ("tri_woop", scene.tri_woop)):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"scene.{name}: want contiguous float32, got {x.dtype}")
-    ip = torch.tensor([scene.bvh_pairs.shape[0], scene.tri_woop.shape[0], scene.bvh_leaf_size,
-                       scene.bvh_root, scene.bvh_depth], dtype=torch.int32)
+    ip = torch.tensor([scene.tri_woop.shape[0], scene.bvh_leaf_size, scene.bvh_root],
+                      dtype=torch.int32)
     return scene.bvh_pairs, scene.tri_woop, ip
 
 
@@ -238,25 +237,8 @@ def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
     least time on the card is counted from it, whatever walk they take) and
     renders nothing.  CUDA tensors only: the plain versions scan every slot
     and walk no tree."""
-    _check_rays(origin, direction, t_min, t_max)
-    _check_scene(scene, origin.device)
-    if origin.device.type != "cuda":
-        raise ValueError(f"ftb_walk_tests: the walk runs on a CUDA device, not {origin.device}")
-    from .. import _build
-
-    lib = _build.load()
-    nodes, meta, clusters, woop_t, ip = kernel_tables(scene)
-    r = origin.shape[0]
-    boxes = torch.empty((r,), dtype=torch.int32, device=origin.device)
-    woops = torch.empty((r,), dtype=torch.int32, device=origin.device)
-    with torch.cuda.device(origin.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gst_bvh_count(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                               t_max.data_ptr(), r, nodes.data_ptr(), meta.data_ptr(),
-                               clusters.data_ptr(), woop_t.data_ptr(), ip.data_ptr(),
-                               int(any_hit), boxes.data_ptr(), woops.data_ptr(), stream)
-    _build.check(rc, "ftb_walk_tests")
-    return boxes, woops
+    return _walk_counts("ftb_walk_tests", "gst_bvh_count", kernel_tables, scene, origin,
+                        direction, t_min, t_max, any_hit)
 
 
 def walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
@@ -265,24 +247,29 @@ def walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
     ftb_walk_tests counts the preorder walk: two box tests a pair row
     visited, one Woop test a slot of a cluster entered.  CUDA tensors
     only."""
+    return _walk_counts("walk_tests", "gst_bvh_walk_count", walk_tables, scene, origin,
+                        direction, t_min, t_max, any_hit)
+
+
+def _walk_counts(what, entry, tables, scene, origin, direction, t_min, t_max, any_hit):
+    """Launch the counting kernel `entry` on the tables(scene) it walks."""
     _check_rays(origin, direction, t_min, t_max)
     _check_scene(scene, origin.device)
     if origin.device.type != "cuda":
-        raise ValueError(f"walk_tests: the walk runs on a CUDA device, not {origin.device}")
+        raise ValueError(f"{what}: the walk runs on a CUDA device, not {origin.device}")
     from .. import _build
 
     lib = _build.load()
-    pairs, woop_rows, ip = walk_tables(scene)
+    walked = tables(scene)  # held until the launch returns: the host ints are read by it
     r = origin.shape[0]
     boxes = torch.empty((r,), dtype=torch.int32, device=origin.device)
     woops = torch.empty((r,), dtype=torch.int32, device=origin.device)
     with torch.cuda.device(origin.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gst_bvh_walk_count(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                                    t_max.data_ptr(), r, pairs.data_ptr(), woop_rows.data_ptr(),
-                                    ip.data_ptr(), int(any_hit), boxes.data_ptr(),
-                                    woops.data_ptr(), stream)
-    _build.check(rc, "walk_tests")
+        rc = getattr(lib, entry)(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+                                 t_max.data_ptr(), r, *(x.data_ptr() for x in walked),
+                                 int(any_hit), boxes.data_ptr(), woops.data_ptr(), stream)
+    _build.check(rc, what)
     return boxes, woops
 
 

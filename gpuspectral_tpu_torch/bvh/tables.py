@@ -130,9 +130,9 @@ def build_pair_rows(node_min, node_max, n_clusters: int):
       [a.lo xyz, code a, a.hi xyz, code b, b.lo xyz, 0, b.hi xyz, 0]
     with the int32 codes stored bit for bit in the float32 lanes: a row
     index for an inner child, ~c for cluster c.  Returns (rows (P, 16)
-    float32, root code, depth): the code the walk starts from (a cluster
-    when only one holds triangles, EMPTY_ROOT when none does), and the most
-    rows on a path from the root (the stack the walk needs)."""
+    float32, root code): the code the walk starts from, a cluster when only
+    one holds triangles, EMPTY_ROOT when none does.  A path from the root
+    holds at most log2(n_clusters) rows."""
     node_min = np.asarray(node_min, np.float32)
     node_max = np.asarray(node_max, np.float32)
     first_leaf = n_clusters - 1
@@ -163,9 +163,4 @@ def build_pair_rows(node_min, node_max, n_clusters: int):
             rows[i, 8 * k:8 * k + 3] = node_min[c[0]]
             rows[i, 8 * k + 4:8 * k + 7] = node_max[c[0]]
             codes[i, 3 + 4 * k] = code(c)
-    depth = [0] * len(order)
-    for i in range(len(order) - 1, -1, -1):  # children come after parents
-        depth[i] = 1 + max((depth[index[id(c)]] for c in order[i][1] if c[1] is not None),
-                           default=0)
-    root_code = EMPTY_ROOT if root is None else code(root)
-    return rows, root_code, (depth[0] if order else 0)
+    return rows, EMPTY_ROOT if root is None else code(root)

@@ -18,12 +18,14 @@
 // first hits they stand at different nodes, each load of a warp touches up
 // to 32 cache lines, and each lane's walk has its own length; the tests'
 // arithmetic is milliseconds a frame against hundreds.  The design keeps
-// the lanes' leaf tests in step (while-while), visits near children first,
-// unrolls a cluster's Woop loop so that its rows' loads overlap, and keeps
-// every table in the 50 MB L2 and the whole of the SM's 256 KB of L1 and
-// shared memory to the L1 cache (the stack is a per-thread local array;
-// staging the top of the tree in shared memory lost, as did leaves of 2-8
-// clusters: tools/torch_mega_bvh_variants.py and PERF.md).
+// the lanes' leaf tests in step (while-while: one walk step a loop turn
+// took K4 1.45x as long), visits near children first (left first: 1.2x),
+// tests one cluster a leaf (leaves of 2-8 clusters over rows of their own
+// cluster boxes: 1.03-1.22x), unrolls a cluster's Woop loop by 4 so that its rows'
+// loads overlap, and leaves the SM's 256 KB of L1 and shared memory all to
+// the L1 cache (the stack is a per-thread local array; the top of the tree
+// staged in shared memory, or the stack kept there, lost).  The variants
+// and their times: tools/torch_mega_bvh_variants.py and PERF.md.
 //
 // Exactness: the result equals the brute-force Woop scan over every slot
 // (ops/woop.py:closest_scan / any_scan) bit for bit.  Box tests only ever
@@ -52,9 +54,10 @@ namespace gst {
 constexpr bool kNearFirst = true;      // closest hit: the nearer child first (else the left)
 constexpr bool kNearFirstAny = false;  // any hit: the same
 constexpr bool kWhileWhile = true;     // descend to a leaf before testing it (else a step a turn)
-constexpr bool kSpeculative = false;   // put a leaf off and go on down until the warp has leaves
 constexpr int kWoopUnroll = 4;         // a cluster's Woop tests unrolled by this factor
-constexpr int kMaxDepth = 32;          // stack entries: the most pair rows on a path
+// Stack entries: a path from the root holds at most log2(n_clusters) < 31
+// pair rows (a cluster's code ~c is an int).
+constexpr int kMaxDepth = 32;
 
 constexpr float kSlabMargin = 1.0f / 16384.0f;
 
@@ -92,13 +95,13 @@ __device__ __forceinline__ bool still_entered(float near, float hi) {
 struct WalkTables {
   const float4* pairs;  // (n_pairs, 4 float4): [a.lo, code a], [a.hi, code b], [b.lo, 0], [b.hi, 0]
   const float4* woop;   // (n_slots, 3 float4): a slot's 12 Woop floats
-  int n_pairs, n_slots, leaf_size, root, depth;
+  int n_slots, leaf_size, root;
 };
 
-// ip (host): n_pairs, n_slots, leaf_size, root code, depth (bvh/ftb.py:walk_tables)
+// ip (host): n_slots, leaf_size, root code (bvh/ftb.py:walk_tables)
 inline WalkTables make_walk_tables(const float* pairs, const float* woop, const int* ip) {
   return WalkTables{reinterpret_cast<const float4*>(pairs), reinterpret_cast<const float4*>(woop),
-                    ip[0], ip[1], ip[2], ip[3], ip[4]};
+                    ip[0], ip[1], ip[2]};
 }
 
 __device__ __forceinline__ V3 xyz(float4 q) { return v3(q.x, q.y, q.z); }
@@ -218,18 +221,10 @@ __device__ inline void walk_closest(const WalkTables& B, V3 o, V3 d, float t_max
   WalkStack st;
   int code = B.root;
   while (code != kPop) {
-    int put_off = kPop;  // kSpeculative: a leaf the lane tests once the warp has leaves
     while (inner(code)) {
       code = pair_step<kNearFirst>(B, code, o, inv, 0.0f, best_t, st, count);
       if (code == kPop) code = pop_entered(st, best_t);
-      if (kSpeculative && code < 0 && put_off == kPop) {
-        put_off = code;
-        code = pop_entered(st, best_t);
-      }
-      if (!kWhileWhile || (kSpeculative && __all_sync(__activemask(), put_off != kPop))) break;
-    }
-    if (put_off != kPop) {
-      cluster_closest(B, ~put_off, o, d, t_max, best_t, best_prim, best_u, best_v, count);
+      if (!kWhileWhile) break;
     }
     if (code < 0) {
       cluster_closest(B, ~code, o, d, t_max, best_t, best_prim, best_u, best_v, count);
@@ -249,17 +244,11 @@ __device__ inline bool walk_any(const WalkTables& B, V3 o, V3 d, float t_lo, flo
   WalkStack st;
   int code = B.root;
   while (code != kPop) {
-    int put_off = kPop;
     while (inner(code)) {
       code = pair_step<kNearFirstAny>(B, code, o, inv, t_lo, t_hi, st, count);
       if (code == kPop && st.sp > 0) code = st.pop().x;
-      if (kSpeculative && code < 0 && put_off == kPop) {
-        put_off = code;
-        code = st.sp > 0 ? st.pop().x : kPop;
-      }
-      if (!kWhileWhile || (kSpeculative && __all_sync(__activemask(), put_off != kPop))) break;
+      if (!kWhileWhile) break;
     }
-    if (put_off != kPop && cluster_any(B, ~put_off, o, d, t_lo, t_hi, count)) return true;
     if (code < 0) {
       if (cluster_any(B, ~code, o, d, t_lo, t_hi, count)) return true;
       code = st.sp > 0 ? st.pop().x : kPop;

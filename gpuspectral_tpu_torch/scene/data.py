@@ -119,7 +119,6 @@ class SceneData:
     # whether any area lights exist (else one zero-radiance pad light)
     has_area_lights: bool
     bvh_root: int  # the code the pair walk starts from
-    bvh_depth: int  # the most pair rows on a path from the root
 
     @property
     def padded_tris(self) -> int:
@@ -430,7 +429,10 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
     `arrays` holds every name of ARRAY_FIELDS: the SceneData tensor fields
     plus `cam_to_world` and `cam_fov`; `meta` every name of META_FIELDS.
     Given `np.asarray` of each field of a gpuspectral_tpu SceneData and its
-    static fields, it carries that scene across unchanged."""
+    static fields, it carries that scene across unchanged.  The child-pair
+    rows of the BVH walk are built here (bvh/tables.py:build_pair_rows)."""
+    from ..bvh.tables import build_pair_rows
+
     device = check_device(device)
     t = {k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
          for k in ARRAY_FIELDS}
@@ -438,13 +440,11 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
     statics = {k: (tuple(int(x) for x in meta[k]) if k == "kinds_present"
                    else bool(meta[k]) if k.startswith("has_") else int(meta[k]))
                for k in META_FIELDS}
-    from ..bvh.tables import build_pair_rows
-
-    pairs, root, depth = build_pair_rows(arrays["bvh_node_min"], arrays["bvh_node_max"],
-                                         statics["bvh_clusters"])
+    pairs, root = build_pair_rows(arrays["bvh_node_min"], arrays["bvh_node_max"],
+                                  statics["bvh_clusters"])
     return SceneData(camera=CameraData(to_world=t["cam_to_world"], fov=t["cam_fov"]),
                      bvh_pairs=torch.as_tensor(pairs, device=device), bvh_root=root,
-                     bvh_depth=depth, **fields, **statics)
+                     **fields, **statics)
 
 
 def scene_to_arrays(scene: SceneData) -> tuple[dict, dict]:

@@ -128,8 +128,7 @@ def test_packed_rows_decode_to_kernel_tables(name, monkeypatch):
 
     tables = ftb.walk_tables(ts)
     assert tables[0] is ts.bvh_pairs and tables[1] is ts.tri_woop
-    assert tables[2].tolist() == [pairs.shape[0], woop.shape[0], ts.bvh_leaf_size, ts.bvh_root,
-                                  ts.bvh_depth]
+    assert tables[2].tolist() == [woop.shape[0], ts.bvh_leaf_size, ts.bvh_root]
     assert ip.tolist()[1:4] == [c, woop.shape[0], ts.bvh_leaf_size]
 
 
@@ -139,8 +138,8 @@ def test_pair_rows_reach_each_full_cluster_once(name, monkeypatch):
     a leaf of its own, and no empty cluster: the non-empty clusters of the
     preorder table's leaves (build_dfs_tables, the scene's bvh_dfs_meta),
     so no padding subtree is left.  Its rows are in breadth-first order (a
-    child after its parent) and bvh_depth is the most rows on a path from
-    the root."""
+    child after its parent), and a path from the root holds at most
+    log2(C) of them (the walk's stack, csrc/bvh.cuh:kMaxDepth)."""
     ts = _scene(name, monkeypatch)
     leaves = _leaves(ts.bvh_pairs.numpy(), ts.bvh_root)
     assert len(leaves) == len(set(leaves))
@@ -159,7 +158,7 @@ def test_pair_rows_reach_each_full_cluster_once(name, monkeypatch):
         kids = [int(x) for x in codes[i] if x >= 0]
         assert all(k > i for k in kids)
         depth[i] = 1 + max((depth[k] for k in kids), default=0)
-    assert ts.bvh_depth == (depth[0] if codes.shape[0] else 0)
+    assert (depth[0] if codes.shape[0] else 0) <= int(np.log2(c))
     assert (ts.bvh_root == 0) == (codes.shape[0] > 0)
 
 
@@ -186,10 +185,10 @@ def test_pair_rows_of_each_build(mode, monkeypatch):
     """build_pair_rows on the sah, morton and slot-mode builds: the leaves
     are exactly the clusters that hold a triangle (the slot mode's empty
     clusters between real ones pruned too), each child box is its heap
-    node's box, and the depth is at most the tree's."""
+    node's box, and there is one row fewer than leaves."""
     node_min, node_max, c, leaf_size, full = _tree(mode, monkeypatch)
     assert full.any() and (mode != "slot" or not full[:np.nonzero(full)[0].max()].all())
-    pairs, root, depth = build_pair_rows(node_min, node_max, c)
+    pairs, root = build_pair_rows(node_min, node_max, c)
     codes = _codes(pairs)
     assert sorted(_leaves(pairs, root)) == np.nonzero(full)[0].tolist()
     for i in range(pairs.shape[0]):
@@ -197,7 +196,7 @@ def test_pair_rows_of_each_build(mode, monkeypatch):
             h = _heap_of(int(codes[i, k]), codes, c)
             np.testing.assert_array_equal(pairs[i, 8 * k:8 * k + 3], node_min[h])
             np.testing.assert_array_equal(pairs[i, 8 * k + 4:8 * k + 7], node_max[h])
-    assert pairs.shape[0] == full.sum() - 1 and 0 < depth <= int(np.log2(c))
+    assert pairs.shape[0] == full.sum() - 1
 
 
 def test_pair_rows_of_tiny_trees():
@@ -205,17 +204,17 @@ def test_pair_rows_of_tiny_trees():
     of one full cluster no row and that cluster as its root; two full
     clusters one row."""
     inf = np.full((1, 3), np.inf, np.float32)
-    assert build_pair_rows(inf, -inf, 1)[1:] == (EMPTY_ROOT, 0)
+    assert build_pair_rows(inf, -inf, 1)[1] == EMPTY_ROOT
     lo = np.zeros((31, 3), np.float32)
-    pairs, root, depth = build_pair_rows(lo, lo + 1, 1)
-    assert pairs.shape == (0, 16) and root == ~0 and depth == 0
+    pairs, root = build_pair_rows(lo, lo + 1, 1)
+    assert pairs.shape == (0, 16) and root == ~0
     hi = lo + 1
     hi[15:] = -1  # clusters 0-15 empty but for 3 and 9
     hi[15 + 3] = hi[15 + 9] = 1
     for n in range(14, -1, -1):
         hi[n] = np.maximum(hi[2 * n + 1], hi[2 * n + 2])
-    pairs, root, depth = build_pair_rows(lo, hi, 16)
-    assert pairs.shape == (1, 16) and root == 0 and depth == 1
+    pairs, root = build_pair_rows(lo, hi, 16)
+    assert pairs.shape == (1, 16) and root == 0
     assert _codes(pairs).tolist() == [[~3, ~9]]
     hi[15 + 9] = -1
     assert build_pair_rows(lo, hi, 16)[0].shape == (0, 16)
@@ -284,7 +283,7 @@ def _walk(scene, o, d, t_lo, t_hi, any_hit):
             if ea and eb:
                 far_first = not any_hit and nb < na  # any hit: the left child first
                 stack.append((ca, na) if far_first else (cb, nb))
-                assert len(stack) <= scene.bvh_depth
+                assert len(stack) <= int(np.log2(scene.bvh_clusters))
                 code = cb if far_first else ca
                 continue
             if ea or eb:
@@ -336,3 +335,12 @@ def test_numpy_pair_walk_matches_plain_k3(name, monkeypatch):
         hit = prim_r.numpy()[prim_r.numpy() >= 0]
         twins = [np.nonzero((pos == pos[p]).all(1))[0] for p in hit]
         assert all(len(w) == 2 and p == w.min() for p, w in zip(hit, twins))
+
+
+def test_walk_tests_need_the_card(monkeypatch):
+    """walk_tests counts the tests of the kernels' own walk: there is no
+    walk on the CPU (the plain versions scan every slot), so it refuses."""
+    ts = _scene("field_small", monkeypatch)
+    o, d, lo, hi = field_rays(8, ts, 3, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ftb.walk_tests(ts, o, d, lo, hi, False)

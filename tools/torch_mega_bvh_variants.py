@@ -15,8 +15,6 @@ in a local array; 16 warps an SM):
   near_left        the left child first
   if_if            one walk step a loop turn: a warp tests one lane's leaf
                    while the others wait
-  speculative      a lane that reaches a leaf puts it off and goes on down
-                   the tree until every lane of the warp has one
   near_any         the any-hit walk near first too
   unroll1, unroll2, unroll8   the Woop loop unrolled by 1, 2 or 8
   k3_warps32       K3 at 32 warps an SM (at most 64 registers a thread)
@@ -25,7 +23,9 @@ in a local array; 16 warps an SM):
 The study's earlier steps (the preorder walk on 128-bit rows, child pairs
 with leaves of 1-8 clusters over 32-byte cluster rows, the top of the
 tree staged in shared memory, the stack in shared memory, a prefetched
-cluster row) are variants of this tool at commit 276c7be.
+cluster row) are variants of this tool at commit 276c7be; speculative
+traversal (a lane puts a leaf off and goes on down until every lane of
+its warp has one) at commit 8685d23.
 
 Each variant goes to build/mega_bvh_variants/<name>/ (one nvcc per variant,
 all started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -40,7 +40,7 @@ sphere-field frame (the CLI's `benchmark builtin:sphere_field --size
 512x512 --spp 64 --depth 50` config), K6 over the grad_bvh frame
 (builtin:sphere_field_noenv, 512x512 @ 64 spp, d5: what one step of
 run_grad_benchmark launches), K3a / K3b on both ray sets.  One JSON line.
-About 3 minutes of command for all nine.
+About 3 minutes of command for all eight.
 
 `ab` times the port on PYTHONPATH (the tree's own build): the same K4 and
 K6 frames and K3 rays, and run_grad_benchmark's grad_bvh step (2 steps),
@@ -69,12 +69,11 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", TOOL_ROOT / "chip_s
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)  # its imports of the port are lazy: PYTHONPATH's
 
-BASE = dict(kNearFirst="true", kNearFirstAny="false", kWhileWhile="true", kSpeculative="false",
-            kWoopUnroll="4", kThreads="128", kWarpsPerSm="16")
+BASE = dict(kNearFirst="true", kNearFirstAny="false", kWhileWhile="true", kWoopUnroll="4",
+            kThreads="128", kWarpsPerSm="16")
 VARIANTS = dict(
     near_left=dict(kNearFirst="false"),
     if_if=dict(kWhileWhile="false"),
-    speculative=dict(kSpeculative="true"),
     near_any=dict(kNearFirstAny="true"),
     unroll1=dict(kWoopUnroll="1"),
     unroll2=dict(kWoopUnroll="2"),
