@@ -140,14 +140,14 @@ Phases:
 Bounds (bound_ms in the kernels line, its terms in ops_ms and bytes_ms):
 the larger of the operations over 67 TFLOP/s (float32, no tensor cores)
 and the bytes over 3.35 TB/s, for the work of the timed call.  Operations: WOOP_FLOPS per Woop test,
-BOX_FLOPS per box test and, in the fused kernels, SHADE_FLOPS per shaded
+SLAB_FLOPS per box test and, in the fused kernels, SHADE_FLOPS per shaded
 vertex (a closest ray that hits), with the tests counted by a WalkTally:
 a brute-force closest ray tests every triangle, a brute-force shadow ray
-the triangles up to its first occluder, a BVH ray what the preorder walk
-did (ftb.ftb_walk_tests runs csrc/bvh.cuh's counting walk, the preorder
-walk with skip pointers, with counters; K3, K4 and K6 take the child-pair
-walk, whose own tests, ftb.walk_tests, are logged beside and bound
-nothing).  K2 and K3 are
+the triangles up to its first occluder, a BVH ray the fewer operations of
+two walks, each run with counters on the ray: the preorder walk with skip
+pointers (ftb.ftb_walk_tests, csrc/bvh.cuh's counting walk, the
+reference) and the child-pair walk that K3, K4 and K6 take
+(ftb.walk_tests).  Both walks' tests per ray are logged.  K2 and K3 are
 tallied on the timed call's own rays.  The cluster kernels' tests are
 counted as the kernels make them (cluster_sweep.vote_tests / sweep_tests):
 K7c slab-tests a (block of 256 rays, supernode) pair's rays up to the first
@@ -187,7 +187,7 @@ ms_any / bound_ms_any the any hit's; ms_pr8 / ms_any_pr8 time PR 8's walk
 counters, on the tree as built) on the same rays, so the row keeps the
 time K7h had before its redesign.  K4's and K6's rows time the main
 path's launch (the whole frame; ms_rows the 8 rows that plain_ms times),
-their bounds the 8 rows' tally per ray times the frame's rays.
+their bounds the 8 rows' operations per ray times the frame's rays.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -233,8 +233,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # float operations, a fused multiply-add counted as two, comparisons not at all
 WOOP_FLOPS = 32  # one Woop ray-triangle test (csrc/common.cuh:woop_test)
 MT_FLOPS = 46  # one Moller-Trumbore test (csrc/traverse.cu:mt_test)
-BOX_FLOPS = 24  # one slab box test (csrc/bvh.cuh:box_entered)
-SLAB_FLOPS = 12  # one slab test of K7h (csrc/traverse.cu:node_hit): 6 subtractions, 6 products
+# one slab box test (csrc/common.cuh:slab, csrc/traverse.cu:slab_hit,
+# csrc/bvh.cuh:slab_entered): 6 subtractions, 6 products; bvh.cuh's widening
+# by kSlabMargin keeps its culls conservative and is not work the function needs
+SLAB_FLOPS = 12
 # one shaded vertex (BSDF sample and eval, light sample, MIS, throughput):
 # an estimate, not a count; it is under 15% of any fused kernel's operations
 SHADE_FLOPS = 200
@@ -383,22 +385,31 @@ class WalkTally:
     vertices), Woop tests and box tests.  A brute-force closest ray tests
     each of the scene's n_tris triangles, a brute-force shadow ray those up
     to its first occluder (csrc/brute.cuh scans in index order and stops
-    there), a BVH ray what its walk did (ftb.ftb_walk_tests).  A lane with
+    there), a BVH ray what the fewer of two walks did.  A lane with
     t_max <= t_min casts no ray in the fused kernels and counts nothing.
     Launches made while it is on count on its stand-ins, never in counts()."""
 
     def __init__(self, n_tris):
         self.n_tris = n_tris
-        self.closest = self.shadow = self.hits = self.woop = self.box = 0
-        # the tests K3's own walk made (ftb.walk_tests), beside the count
+        self.closest = self.shadow = self.hits = 0
+        # the operations of the tests the function needs: a brute-force ray's
+        # own, a BVH ray's the fewer of its two walks'
+        self.ops = 0
+        # the tests a brute-force ray or the preorder walk (ftb.ftb_walk_tests)
+        # makes, and those K3's own walk (ftb.walk_tests) makes, logged side
+        # by side
+        self.woop = self.box = 0
         self.walk_woop = self.walk_box = 0
 
     def rays(self):
         return self.closest + self.shadow
 
     def flops(self, shade):
-        return (self.woop * WOOP_FLOPS + self.box * BOX_FLOPS
-                + (self.hits * SHADE_FLOPS if shade else 0))
+        return self.ops + (self.hits * SHADE_FLOPS if shade else 0)
+
+    def _brute(self, tests):
+        self.woop += tests
+        self.ops += tests * WOOP_FLOPS
 
     def _brute_any(self, o, d, woop_t, lo, hi):
         from gpuspectral_tpu_torch.ops import woop
@@ -418,7 +429,7 @@ class WalkTally:
             t, prim = real["closest_cuda"](origin, direction, woop_t, t_min, t_max)
             n = int((t_max > t_min).sum())
             self.closest += n
-            self.woop += n * self.n_tris
+            self._brute(n * self.n_tris)
             self.hits += int((prim >= 0).sum())
             return t, prim
 
@@ -426,19 +437,20 @@ class WalkTally:
             occ = real["any_cuda"](origin, direction, woop_t, t_min, t_max)
             act = t_max > t_min
             self.shadow += int(act.sum())
-            self.woop += self._brute_any(origin[act], direction[act], woop_t, t_min[act],
-                                         t_max[act])
+            self._brute(self._brute_any(origin[act], direction[act], woop_t, t_min[act],
+                                        t_max[act]))
             return occ
 
         def walk(scene, origin, direction, lo, hi, any_hit):
             act = hi > lo
             rays = (scene, origin[act], direction[act], lo[act], hi[act], any_hit)
-            boxes, woops = ftb.ftb_walk_tests(*rays)
-            self.box += int(boxes.sum())
-            self.woop += int(woops.sum())
-            boxes, woops = ftb.walk_tests(*rays)
-            self.walk_box += int(boxes.sum())
-            self.walk_woop += int(woops.sum())
+            pre, own = ftb.ftb_walk_tests(*rays), ftb.walk_tests(*rays)
+            self.box += int(pre[0].sum())
+            self.woop += int(pre[1].sum())
+            self.walk_box += int(own[0].sum())
+            self.walk_woop += int(own[1].sum())
+            ops = [b.long() * SLAB_FLOPS + w.long() * WOOP_FLOPS for b, w in (pre, own)]
+            self.ops += int(torch.minimum(*ops).sum())
             return int(act.sum())
 
         def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
@@ -490,7 +502,8 @@ def tally_rows(scene, cfg, pix, ts):
     log(f"  tally of {pix.shape[0]} rows: {tally.closest} closest and {tally.shadow} shadow rays, "
         f"{tally.woop / n:.2f} Woop and {tally.box / n:.2f} box tests per ray, {tally.hits} "
         f"shaded vertices; K3's own walk {tally.walk_woop / n:.2f} Woop and "
-        f"{tally.walk_box / n:.2f} box tests per ray")
+        f"{tally.walk_box / n:.2f} box tests per ray; the tests' operations per ray "
+        f"{tally.ops / n:.1f}")
     return tally
 
 
@@ -714,7 +727,6 @@ def soup_scene(n_tris, seed, dev, order="sah", ties=False, light=False):
     tie, which the lowest slot wins).  light: an emitting quad above the
     soup and a camera in front of it (a scene K4 renders)."""
     from gpuspectral_tpu_torch.bsdf.table import diffuse
-    from gpuspectral_tpu_torch.bvh import build as bvh_build
     from gpuspectral_tpu_torch.scene.data import SceneBuilder
     from gpuspectral_tpu_torch.scene.obj import make_rectangle
 
@@ -732,12 +744,7 @@ def soup_scene(n_tris, seed, dev, order="sah", ties=False, light=False):
                      b.add_bsdf(diffuse((0.0,) * 3)), emission=(8.0, 8.0, 8.0))
         b.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 0.5], [0, 0, -1, 6], [0, 0, 0, 1]],
                               np.float32), np.deg2rad(60))
-    real = bvh_build.build_bvh
-    bvh_build.build_bvh = lambda *a, **kw: real(*a, **dict(kw, order=order))
-    try:
-        return b.build(dev)
-    finally:
-        bvh_build.build_bvh = real
+    return b.build(dev, order=order)
 
 
 def bvh_cases(dev, scenes, field):
@@ -797,7 +804,7 @@ def phase_k3(dev, cases, field):
     for tag, t in (("closest", k3a_tally), ("any", k3b_tally)):
         log(f"  K3 {tag} on {n} random rays: the counting walk {t.box / n:.2f} box and "
             f"{t.woop / n:.2f} Woop tests per ray, K3's own walk {t.walk_box / n:.2f} and "
-            f"{t.walk_woop / n:.2f}")
+            f"{t.walk_woop / n:.2f}; operations per ray {t.ops / n:.1f}")
     o, d, lo, hi = primary_rays(field, HEADLINE["size"], dev)
     times["primary"] = dict(k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
                             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
@@ -1057,7 +1064,7 @@ def cluster_bounds(scene, rays, votes, votes_any, occ):
     table = nbytes(scene.tri_woop_t)
     a = ftb.attr_table(scene).shape[1]
     return dict(
-        k7c=bound(box * BOX_FLOPS, n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s]) + vb),
+        k7c=bound(box * SLAB_FLOPS, n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s]) + vb),
         k7d=bound(woop_c * WOOP_FLOPS, n * (28 + 16 + 4 * a) + vb + table
                   + 4 * a * scene.padded_tris),
         k7e=bound(woop_a * WOOP_FLOPS, n * (32 + 1) + vb + table),
@@ -1147,9 +1154,9 @@ def dfs_bounds(scene, rays, occ):
     a = ftb.attr_table(scene).shape[1]
     sums = [float(x.double().sum()) for x in (box_f, woop_f, box_g, woop_g)]
     return dict(
-        k7f=bound(sums[0] * BOX_FLOPS + sums[1] * WOOP_FLOPS,
+        k7f=bound(sums[0] * SLAB_FLOPS + sums[1] * WOOP_FLOPS,
                   n * (28 + 16 + 4 * a) + tables + 4 * a * scene.padded_tris),
-        k7g=bound(sums[2] * BOX_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
+        k7g=bound(sums[2] * SLAB_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
         box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
         woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
 
@@ -1174,8 +1181,8 @@ def binned_bounds(scene, rays, occ):
     tables = nbytes(scene.bvh_bin_bounds[:, :scene.bvh_bins], scene.tri_woop_t)
     sums = [float(x.double().sum()) for x in (box_a, woop_a, box_b, woop_b, visit_a, visit_b)]
     return dict(
-        k7a=bound(sums[0] * BOX_FLOPS + sums[1] * WOOP_FLOPS, n * (28 + 16) + tables),
-        k7b=bound(sums[2] * BOX_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
+        k7a=bound(sums[0] * SLAB_FLOPS + sums[1] * WOOP_FLOPS, n * (28 + 16) + tables),
+        k7b=bound(sums[2] * SLAB_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
         box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
         woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n),
         visits_per_ray=dict(closest=sums[4] / n, any=sums[5] / n))

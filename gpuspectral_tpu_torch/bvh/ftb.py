@@ -233,9 +233,10 @@ def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):
     """(box tests, Woop tests), each (R,) int32: what the preorder walk of
     csrc/bvh.cuh (bvh_closest / bvh_any) does for each ray, the closest-hit
     walk on (0, t_max) or, with any_hit, the any-hit walk on (t_min,
-    t_max).  It measures the work of K3 and of the fused-BVH kernels (their
-    least time on the card is counted from it, whatever walk they take) and
-    renders nothing.  CUDA tensors only: the plain versions scan every slot
+    t_max).  It is the reference count of the work of K3 and of the
+    fused-BVH kernels (their least time on the card is counted from the
+    fewer of its and walk_tests' operations, ray by ray) and renders
+    nothing.  CUDA tensors only: the plain versions scan every slot
     and walk no tree."""
     return _walk_counts("ftb_walk_tests", "gst_bvh_count", kernel_tables, scene, origin,
                         direction, t_min, t_max, any_hit)

@@ -42,7 +42,7 @@
 // block's votes sets the time: coherent rays (primary rays, sorted bounce
 // rays, shadow rays sorted by endpoint) visit few bins, a block of
 // incoherent rays the union of its rays' bins.  The votes cost one slab
-// test (24 flops) per ray and bin, the bin's bounds read once per CTA.
+// test (12 flops) per ray and bin, the bin's bounds read once per CTA.
 //
 // Precision: built with --fmad=false like the other kernels.  The slab
 // test is plain subtracts, multiplies, min / max and an IEEE division for

@@ -12,17 +12,19 @@
 // every row with 128-bit loads and keeps the tables in the 50 MB L2 (the
 // sphere field's Woop table as stored, 262,144 slots x 48 B, is 12.6 MB;
 // its pair rows 9,224 x 64 B, 590 KB) and the SM's 256 KB of L1 and shared
-// memory all to the L1 cache, at K4's 16 warps an SM (32 lost on primary
-// rays: twice the threads' local stacks in L1).  Divergence between the
+// memory all to the L1 cache, at K4's 16 warps an SM (32 gave no gain on
+// primary rays, 0.698 against 0.692 ms in PERF.md's study, round 3; 16 keep
+// the threads' local stacks to half as much of L1).  Divergence between the
 // rays of a warp is the open cost: the TPU kernel's block-wide
 // front-to-back rounds (ftb.py:15-40) share one sweep across 128 rays,
 // which a per-ray walk gives up.
 //
 // gst_bvh_count is no part of the render path: it runs the preorder walk
 // of bvh.cuh (bvh_closest / bvh_any) with a TestCount and writes each
-// ray's box and Woop tests, the work that a BVH kernel's least time on the
-// card is counted from (bvh/ftb.py: ftb_walk_tests).  gst_bvh_walk_count
-// counts the pair walk's own tests the same way (ftb.walk_tests).
+// ray's box and Woop tests (bvh/ftb.py: ftb_walk_tests).
+// gst_bvh_walk_count counts the pair walk's own tests the same way
+// (ftb.walk_tests).  A BVH kernel's least time on the card is counted from
+// the fewer of the two walks' operations, ray by ray.
 #include <cuda_runtime.h>
 
 #include "bvh.cuh"

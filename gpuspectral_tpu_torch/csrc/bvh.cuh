@@ -7,7 +7,8 @@
 // slots; empty clusters and the subtrees over them are pruned).  A thread
 // tests both children of its node at once, goes on to the nearer one that
 // its segment enters and pushes the farther onto a stack (near first: the
-// committed t falls sooner, so later boxes cull more).  Each lane descends
+// committed t falls sooner, so later boxes cull more; the any hit, which
+// stops at its first occluder, takes the left child first).  Each lane descends
 // to its next leaf before the warp tests leaves (while-while), so the lanes
 // of a warp test their clusters' Woop rows (SceneData.tri_woop, 48 bytes a
 // slot) together instead of one lane's leaf at a time.  Every row is read
@@ -49,12 +50,9 @@
 
 namespace gst {
 
-// The walk's design; tools/torch_mega_bvh_variants.py builds copies with
-// other values:
-constexpr bool kNearFirst = true;      // closest hit: the nearer child first (else the left)
-constexpr bool kNearFirstAny = false;  // any hit: the same
-constexpr bool kWhileWhile = true;     // descend to a leaf before testing it (else a step a turn)
-constexpr int kWoopUnroll = 4;         // a cluster's Woop tests unrolled by this factor
+// A cluster's Woop tests are unrolled by this factor;
+// tools/torch_mega_bvh_variants.py builds copies with other values.
+constexpr int kWoopUnroll = 4;
 // Stack entries: a path from the root holds at most log2(n_clusters) < 31
 // pair rows (a cluster's code ~c is an int).
 constexpr int kMaxDepth = 32;
@@ -175,10 +173,11 @@ constexpr int kPop = 0x7fffffff;
 __device__ __forceinline__ bool inner(int code) { return code >= 0 && code != kPop; }
 
 // One step of the walk at pair row `code`: test both children on [lo, hi];
-// returns the code to visit next (and pushes the other child when the
-// segment enters both, the farther one when kNear), or kPop when it enters
-// neither.
-template <bool kNear, class Count>
+// returns the code to visit next, or kPop when the segment enters neither.
+// When it enters both, the other child is pushed with its widened entry
+// distance: the closest hit visits the nearer child first, the any hit the
+// left one (near first slowed it, PERF.md's study).
+template <bool kClosest, class Count>
 __device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3 inv, float lo,
                                          float hi, WalkStack& st, Count& count) {
   const float4* row = B.pairs + 4 * code;
@@ -191,7 +190,7 @@ __device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3
   const bool eb = slab_entered(xyz(b_lo), xyz(b_hi), o, inv, lo, hi, nb);
   const int ca = __float_as_int(a_lo.w), cb = __float_as_int(a_hi.w);
   if (ea && eb) {
-    const bool b_first = kNear && nb < na;
+    const bool b_first = kClosest && nb < na;
     st.push(make_int2(b_first ? ca : cb, __float_as_int(b_first ? na : nb)));
     return b_first ? cb : ca;
   }
@@ -222,9 +221,8 @@ __device__ inline void walk_closest(const WalkTables& B, V3 o, V3 d, float t_max
   int code = B.root;
   while (code != kPop) {
     while (inner(code)) {
-      code = pair_step<kNearFirst>(B, code, o, inv, 0.0f, best_t, st, count);
+      code = pair_step<true>(B, code, o, inv, 0.0f, best_t, st, count);
       if (code == kPop) code = pop_entered(st, best_t);
-      if (!kWhileWhile) break;
     }
     if (code < 0) {
       cluster_closest(B, ~code, o, d, t_max, best_t, best_prim, best_u, best_v, count);
@@ -245,9 +243,8 @@ __device__ inline bool walk_any(const WalkTables& B, V3 o, V3 d, float t_lo, flo
   int code = B.root;
   while (code != kPop) {
     while (inner(code)) {
-      code = pair_step<kNearFirstAny>(B, code, o, inv, t_lo, t_hi, st, count);
+      code = pair_step<false>(B, code, o, inv, t_lo, t_hi, st, count);
       if (code == kPop && st.sp > 0) code = st.pop().x;
-      if (!kWhileWhile) break;
     }
     if (code < 0) {
       if (cluster_any(B, ~code, o, d, t_lo, t_hi, count)) return true;

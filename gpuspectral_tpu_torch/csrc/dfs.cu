@@ -40,7 +40,7 @@
 // shared memory), so the block's votes set the time: rays that agree on
 // few leaves (primary rays, sorted bounce rays, shadow rays sorted by
 // endpoint) walk few, and a block of incoherent rays enters the union of
-// its rays' leaves.  The walk itself is one slab test (24 flops) per node
+// its rays' leaves.  The walk itself is one slab test (12 flops) per node
 // visited by the block, with the node's bounds read once per CTA from L1.
 //
 // Precision: built with --fmad=false like the other kernels.  The slab

@@ -224,8 +224,8 @@ class SceneBuilder:
         self.cam_to_world = np.asarray(to_world, np.float32)
         self.cam_fov = float(fov_radians)
 
-    def build(self, device="cuda") -> SceneData:
-        return build_scene(self, device)
+    def build(self, device="cuda", order="sah") -> SceneData:
+        return build_scene(self, device, order)
 
 
 def _pad_to(x: np.ndarray, n: int, fill: float = 0.0) -> np.ndarray:
@@ -236,12 +236,12 @@ def _pad_to(x: np.ndarray, n: int, fill: float = 0.0) -> np.ndarray:
     return np.concatenate([x, np.full(shape, fill, x.dtype)], axis=0)
 
 
-def _bvh_and_bins(pos, num_tris: int, na: int, n_lights_est: int):
-    """SAH build in the JAX package's three bands of bin size (data.py:
-    273-337): fine 128-slot bins while the fused table stays under
-    MEGA_BVH_TABLE_BYTES, mid 256-slot under MEGA_BVH_RESIDENT_BYTES, fat
-    512-slot beyond; a band whose padded table overflows its cap drops to
-    the next.  The band fixes the slot order of the triangles."""
+def _bvh_and_bins(pos, num_tris: int, na: int, n_lights_est: int, order: str):
+    """The tree build in `order` in the JAX package's three bands of bin
+    size (data.py:273-337): fine 128-slot bins while the fused table stays
+    under MEGA_BVH_TABLE_BYTES, mid 256-slot under MEGA_BVH_RESIDENT_BYTES,
+    fat 512-slot beyond; a band whose padded table overflows its cap drops
+    to the next.  The band fixes the slot order of the triangles."""
     from ..bvh.tables import MAX_BINS, build_bins, sah
 
     bands = (
@@ -253,7 +253,7 @@ def _bvh_and_bins(pos, num_tris: int, na: int, n_lights_est: int):
 
     def build(i):
         tgt, mx, _ = bands[i]
-        tree = sah.build_bvh(pos, num_tris, bin_target=tgt)
+        tree = sah.build_bvh(pos, num_tris, order=order, bin_target=tgt)
         bounds, nb, ns = build_bins(
             tree.node_min, tree.node_max, tree.n_clusters, tree.n_clusters_real,
             tree.leaf_size, max_bins=mx, slots_per_bin=tgt if num_tris > 0 else 0)
@@ -287,8 +287,10 @@ def _env_tables(image: Optional[np.ndarray]):
     return em, env_cdf, env_pdf
 
 
-def build_arrays(b: SceneBuilder) -> tuple[dict, dict]:
-    """The scene's numpy tables and static metadata (data.py:245-471)."""
+def build_arrays(b: SceneBuilder, order: str = "sah") -> tuple[dict, dict]:
+    """The scene's numpy tables and static metadata (data.py:245-471), the
+    triangles in the slot order of a tree built in `order`: bvh/build.py's
+    "sah" (the JAX package's build) or "morton"."""
     from ..bvh.tables import build_dfs_tables
     from ..ops.woop import woop_transform
 
@@ -321,7 +323,7 @@ def build_arrays(b: SceneBuilder) -> tuple[dict, dict]:
 
     na = _NA_TEX if b.textures else _NA
     n_lights_est = max(1, sum(x.shape[0] for x in b.light_pos))
-    bvh, bin_bounds, n_bins, bin_slots = _bvh_and_bins(pos, num_tris, na, n_lights_est)
+    bvh, bin_bounds, n_bins, bin_slots = _bvh_and_bins(pos, num_tris, na, n_lights_est, order)
 
     perm = bvh.perm
     slots = perm.shape[0]
@@ -416,9 +418,9 @@ def check_device(device) -> torch.device:
     return device
 
 
-def build_scene(b: SceneBuilder, device="cuda") -> SceneData:
+def build_scene(b: SceneBuilder, device="cuda", order="sah") -> SceneData:
     device = check_device(device)
-    arrays, meta = build_arrays(b)
+    arrays, meta = build_arrays(b, order)
     return scene_from_arrays(arrays, meta, device)
 
 

@@ -180,6 +180,26 @@ def _tree(mode, monkeypatch):
     return bvh.node_min, bvh.node_max, bvh.n_clusters, bvh.leaf_size, full
 
 
+@pytest.mark.parametrize("order", ["sah", "morton"])
+def test_scene_build_takes_the_tree_order(order):
+    """SceneBuilder.build(order=...) builds the scene's tree in that order:
+    its heap boxes are bvh/build.py's in that order and not in the other
+    (the morton cases here and on the card rest on it)."""
+    from gpuspectral_tpu_torch.bsdf.table import diffuse
+    from gpuspectral_tpu_torch.scene.data import SceneBuilder
+
+    rs = np.random.default_rng(11)
+    tris = (rs.uniform(-2.0, 2.0, size=(700, 1, 3))
+            + rs.normal(scale=0.15, size=(700, 3, 3))).astype(np.float32)
+    b = SceneBuilder()
+    b.add_object(tris, tris, None, np.eye(4, dtype=np.float32), b.add_bsdf(diffuse((0.5,) * 3)))
+    ts = b.build("cpu", order=order)
+    padded = np.concatenate([tris, np.zeros((ts.tri_pos.shape[0] - 700, 3, 3), np.float32)])
+    for other in ("sah", "morton"):
+        want = bvh_build.build_bvh(padded, 700, order=other).node_min
+        assert np.array_equal(ts.bvh_node_min.numpy(), want) == (other == order)
+
+
 @pytest.mark.parametrize("mode", ["sah", "morton", "slot"])
 def test_pair_rows_of_each_build(mode, monkeypatch):
     """build_pair_rows on the sah, morton and slot-mode builds: the leaves

@@ -6,16 +6,13 @@ on the sphere field.
     PYTHONPATH=ROOT python3 tools/torch_mega_bvh_variants.py ab
 
 `variants` builds copies of bvh.cuh, bvh.cu and mega_bvh.cu with the
-constants at the top of bvh.cuh and the launch shape (kThreads, K3's
-kWarpsPerSm) of bvh.cu and mega_bvh.cu set per variant, one change each
-from the shipped walk (child pairs down to single clusters, the nearer
-child first, while-while, a cluster's Woop loop unrolled by 4, the stack
+Woop loop's unroll factor (kWoopUnroll, bvh.cuh) and the launch shape
+(kThreads, K3's kWarpsPerSm) of bvh.cu and mega_bvh.cu set per variant,
+one change each from the shipped walk (child pairs down to single
+clusters, the nearer child first for the closest hit and the left for
+the any hit, while-while, a cluster's Woop loop unrolled by 4, the stack
 in a local array; 16 warps an SM):
 
-  near_left        the left child first
-  if_if            one walk step a loop turn: a warp tests one lane's leaf
-                   while the others wait
-  near_any         the any-hit walk near first too
   unroll1, unroll2, unroll8   the Woop loop unrolled by 1, 2 or 8
   k3_warps32       K3 at 32 warps an SM (at most 64 registers a thread)
   threads256       256 threads a CTA (K4 / K6 at 2 CTAs an SM)
@@ -25,7 +22,10 @@ with leaves of 1-8 clusters over 32-byte cluster rows, the top of the
 tree staged in shared memory, the stack in shared memory, a prefetched
 cluster row) are variants of this tool at commit 276c7be; speculative
 traversal (a lane puts a leaf off and goes on down until every lane of
-its warp has one) at commit 8685d23.
+its warp has one) at commit 8685d23; the left child first for the
+closest hit, the nearer first for the any hit, and one walk step a loop
+turn (a warp tests one lane's leaf while the others wait) at commit
+4ca68e2.
 
 Each variant goes to build/mega_bvh_variants/<name>/ (one nvcc per variant,
 all started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -40,7 +40,7 @@ sphere-field frame (the CLI's `benchmark builtin:sphere_field --size
 512x512 --spp 64 --depth 50` config), K6 over the grad_bvh frame
 (builtin:sphere_field_noenv, 512x512 @ 64 spp, d5: what one step of
 run_grad_benchmark launches), K3a / K3b on both ray sets.  One JSON line.
-About 3 minutes of command for all eight.
+About 3 minutes of command for eight variants, less for these five.
 
 `ab` times the port on PYTHONPATH (the tree's own build): the same K4 and
 K6 frames and K3 rays, and run_grad_benchmark's grad_bvh step (2 steps),
@@ -69,12 +69,8 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", TOOL_ROOT / "chip_s
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)  # its imports of the port are lazy: PYTHONPATH's
 
-BASE = dict(kNearFirst="true", kNearFirstAny="false", kWhileWhile="true", kWoopUnroll="4",
-            kThreads="128", kWarpsPerSm="16")
+BASE = dict(kWoopUnroll="4", kThreads="128", kWarpsPerSm="16")
 VARIANTS = dict(
-    near_left=dict(kNearFirst="false"),
-    if_if=dict(kWhileWhile="false"),
-    near_any=dict(kNearFirstAny="true"),
     unroll1=dict(kWoopUnroll="1"),
     unroll2=dict(kWoopUnroll="2"),
     unroll8=dict(kWoopUnroll="8"),
