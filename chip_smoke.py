@@ -77,7 +77,9 @@ Phases:
         attrs and occ equal, ties included; K7a-g timed on the sphere field
         on 65,536 random rays and on the 262,144 primary rays of the
         512x512 frame, beside K3a / K3b on the same rays; the plain
-        versions once on the random rays
+        versions once on the random rays; K7d / K7e's supernodes swept a
+        warp, the tests per ray of the block sweep and of the two-gate
+        sweep, and K7c-e's registers and spills logged
   cluster_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
         K7c launched once for each K7d and K7e launch, nothing else; its
@@ -148,12 +150,17 @@ two walks, each run with counters on the ray: the preorder walk with skip
 pointers (ftb.ftb_walk_tests, csrc/bvh.cuh's counting walk, the
 reference) and the child-pair walk that K3, K4 and K6 take
 (ftb.walk_tests).  Both walks' tests per ray are logged.  K2 and K3 are
-tallied on the timed call's own rays.  The cluster kernels' tests are
-counted as the kernels make them (cluster_sweep.vote_tests / sweep_tests):
-K7c slab-tests a (block of 256 rays, supernode) pair's rays up to the first
-that passes; K7d tests each ray with a non-empty segment against every slot
-of the supernodes its block voted for, K7e only up to the ray's first
-occluder (the count's occlusion is held equal to K7e's).  K7f / K7g's are
+tallied on the timed call's own rays.  K7c's tests are counted as it makes
+them (cluster_sweep.vote_tests): it slab-tests a (block of 256 rays,
+supernode) pair's rays up to the first that passes.  K7d / K7e's are, ray
+by ray, the fewer operations of two sweeps of the same function: the block
+sweep (cluster_sweep.sweep_tests: each ray with a non-empty segment
+Woop-tests every slot of the supernodes its block voted for, K7e only up
+to the ray's first occluder) and the two-gate sweep that the kernels make
+(cluster_sweep.gated_tests: a slab test per voted supernode and, in a
+supernode the ray enters, per non-empty leaf cluster, then the Woop tests
+of the slots of the clusters it enters; K7e up to its first occluder).
+Both counts' occlusion is held equal to K7e's.  K7f / K7g's are
 counted by dfs_sweep.dfs_tests: a slab test per ray for each node its
 block visits, and at an entered leaf K7f's Woop tests of every slot for a
 ray with a segment, K7g's up to the ray's first occluder (the count's
@@ -1039,12 +1046,18 @@ def timed_once(fn):
 
 def cluster_bounds(scene, rays, votes, votes_any, occ):
     """bound() of K7c (on the closest rays' segments), K7d and K7e for one
-    call each over `rays` with these votes, the tests counted as the kernels
-    make them (cluster_sweep.vote_tests / sweep_tests): K7c slab-tests a
-    (block, supernode) pair's rays up to the first that passes; K7d tests
-    every voted slot for each ray with a non-empty segment, K7e up to the
-    ray's first occluder.  The count's occlusion must equal K7e's `occ`.
-    Also the votes per block and the Woop tests per ray of the sweeps."""
+    call each over `rays` with these votes.  K7c's tests are counted as it
+    makes them (cluster_sweep.vote_tests: a (block, supernode) pair's rays
+    up to the first that passes).  K7d / K7e's operations are, ray by ray,
+    the fewer of two counts of the same function: the block sweep's
+    (cluster_sweep.sweep_tests: every voted slot for a ray with a non-empty
+    segment, K7e up to the ray's first occluder) and the two-gate sweep's
+    that the kernels make (cluster_sweep.gated_tests: a slab test per voted
+    supernode and, in one the ray enters, per non-empty leaf cluster, a
+    Woop test per slot of an entered cluster; K7e up to the first
+    occluder).  Both counts' occlusion must equal K7e's `occ`.  Also the
+    votes per block, the supernodes a warp sweeps and both counts' tests
+    per ray."""
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
     from gpuspectral_tpu_torch.bvh import ftb
 
@@ -1052,25 +1065,48 @@ def cluster_bounds(scene, rays, votes, votes_any, occ):
     zero = torch.zeros_like(hi)
     sn = cs.scene_supernodes(scene)
     box = float(cs.vote_tests(scene, o, d, zero, hi, supernodes=sn).double().sum())
-    woop_c = float(cs.sweep_tests(scene, o, d, zero, hi, votes, False, supernodes=sn)[0]
-                   .double().sum())
-    tests_a, occ_count = cs.sweep_tests(scene, o, d, lo, hi, votes_any, True, supernodes=sn)
-    if not torch.equal(occ_count, occ):
-        raise AssertionError(f"K7e's tally disagrees with K7e on {int((occ_count != occ).sum())} "
-                             "rays")
-    woop_a = float(tests_a.double().sum())
+    sums, ops = {}, {}
+    for key, seg_lo, v, any_hit in (("closest", zero, votes, False),
+                                    ("any", lo, votes_any, True)):
+        sweep, occ_sweep = cs.sweep_tests(scene, o, d, seg_lo, hi, v, any_hit, supernodes=sn)
+        g = cs.gated_tests(scene, o, d, seg_lo, hi, v, any_hit, supernodes=sn)
+        if any_hit:
+            for what, got in (("sweep_tests", occ_sweep), ("gated_tests", g.occluded)):
+                if not torch.equal(got, occ):
+                    raise AssertionError(f"{what}' occlusion disagrees with K7e on "
+                                         f"{int((got != occ).sum())} rays")
+        ops[key] = float(torch.minimum(sweep * WOOP_FLOPS,
+                                       g.slab * SLAB_FLOPS + g.woop * WOOP_FLOPS).double().sum())
+        sums[key] = dict(sweep=float(sweep.double().sum()), slab=float(g.slab.double().sum()),
+                         woop=float(g.woop.double().sum()),
+                         warp=float(g.warp_supernodes.double().mean()))
     n = o.shape[0]
     vb = nbytes(votes)
-    table = nbytes(scene.tri_woop_t)
+    table = nbytes(scene.tri_woop)
     a = ftb.attr_table(scene).shape[1]
     return dict(
         k7c=bound(box * SLAB_FLOPS, n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s]) + vb),
-        k7d=bound(woop_c * WOOP_FLOPS, n * (28 + 16 + 4 * a) + vb + table
+        k7d=bound(ops["closest"], n * (28 + 16 + 4 * a) + vb + table
                   + 4 * a * scene.padded_tris),
-        k7e=bound(woop_a * WOOP_FLOPS, n * (32 + 1) + vb + table),
+        k7e=bound(ops["any"], n * (32 + 1) + vb + table),
         votes_per_block=dict(closest=float(votes.double().sum(1).mean()),
                              any=float(votes_any.double().sum(1).mean())),
-        box_per_ray=box / n, woop_per_ray=dict(closest=woop_c / n, any=woop_a / n))
+        supernodes_per_warp={k: v["warp"] for k, v in sums.items()},
+        box_per_ray=box / n, woop_per_ray={k: v["sweep"] / n for k, v in sums.items()},
+        gated_per_ray={k: dict(slab=v["slab"] / n, woop=v["woop"] / n) for k, v in sums.items()})
+
+
+def cluster_ptxas():
+    """ptxas's registers and spills of K7c-e (csrc/cluster.cu), by kernel."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {tag: line for kern, line in _build.build_info()["ptxas"].items()
+           for tag in ("cluster_votes_kernel", "cluster_closest_kernel", "cluster_any_kernel")
+           if f"{len(tag)}{tag}" in kern}
+    log("  ptxas of the cluster kernels: " + json.dumps(out))
+    if len(out) != 3:
+        raise AssertionError(f"ptxas lines of K7c-e missing: {out}")
+    return out
 
 
 def check_k7(name, scene, rays):
@@ -1256,8 +1292,10 @@ def phase_k7(dev, cases, field):
         b_ab = binned_bounds(field, rays, bn.binned_any(field, o, d, lo, hi))
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
-            + f"; votes per block {b['votes_per_block']}, box tests per ray "
-            + f"{b['box_per_ray']:.2f}, Woop tests per ray {b['woop_per_ray']}; "
+            + f"; votes per block {b['votes_per_block']}, supernodes a warp sweeps "
+            + f"{b['supernodes_per_warp']}, box tests per ray {b['box_per_ray']:.2f}, Woop "
+            + f"tests per ray of the block sweep {b['woop_per_ray']}, the two-gate sweep's "
+            + f"slab and Woop tests per ray {b['gated_per_ray']}; "
             + f"dfs box tests per ray {b_fg['box_per_ray']}, Woop tests per ray "
             + f"{b_fg['woop_per_ray']}; binned box tests per ray {b_ab['box_per_ray']}, "
             + f"Woop tests per ray {b_ab['woop_per_ray']}, bins a CTA visits per ray "
@@ -1269,6 +1307,8 @@ def phase_k7(dev, cases, field):
         out[tag] = dict(times=times, bounds=dict(b, **{k: b_fg[k] for k in ("k7f", "k7g")},
                                                  **{k: b_ab[k] for k in ("k7a", "k7b")},
                                                  dfs=b_fg, binned=b_ab), rays=o.shape[0])
+    ptxas = cluster_ptxas()
+    ptxas = dict(k7d=ptxas["cluster_closest_kernel"], k7e=ptxas["cluster_any_kernel"])
     rows = {}
     for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b"), ("k7f", "k3a"),
                     ("k7g", "k3b"), ("k7a", "k3a"), ("k7b", "k3b")):
@@ -1291,11 +1331,11 @@ def phase_k7(dev, cases, field):
                 rows[key].update(visits_per_ray=r["bounds"][fam]["visits_per_ray"],
                                  visits_per_ray_primary=p["bounds"][fam]["visits_per_ray"])
         elif k3:
-            rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
-                             votes_per_block=r["bounds"]["votes_per_block"],
-                             votes_per_block_primary=p["bounds"]["votes_per_block"],
-                             woop_per_ray=r["bounds"]["woop_per_ray"],
-                             woop_per_ray_primary=p["bounds"]["woop_per_ray"])
+            rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3], ptxas=ptxas[key],
+                             **{f"{k}{tag}": x["bounds"][k]
+                                for tag, x in (("", r), ("_primary", p))
+                                for k in ("votes_per_block", "supernodes_per_warp",
+                                          "woop_per_ray", "gated_per_ray")})
     return rows
 
 

@@ -50,8 +50,10 @@ _SIGNATURES = {
     "gst_bvh_walk_count": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     "gst_bvh_count": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "gst_cluster_votes": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
-    "gst_cluster_closest": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
-    "gst_cluster_any": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P],
+    "gst_cluster_closest": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _I,
+                            _P, _I, _P, _P, _P, _P, _P, _P],
+    "gst_cluster_any": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P,
+                        _P],
     "gst_dfs_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "gst_dfs_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "gst_binned_closest": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
@@ -166,6 +168,17 @@ def build_info() -> dict:
     """Build seconds, library path and ptxas register/spill lines (after
     `load()`)."""
     return dict(_info)
+
+
+def check_aligned(what: str, **tables) -> None:
+    """Raise ValueError unless every table starts on a 16-byte boundary:
+    the kernels read them with 128-bit loads (float4 __ldg), which fault on
+    a misaligned address.  A fresh allocation is aligned; a view at an odd
+    offset need not be."""
+    for name, x in tables.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned (128-bit loads), got "
+                             f"address {x.data_ptr():#x}")
 
 
 def check(rc: int, what: str) -> None:

@@ -16,6 +16,11 @@ Rays go in blocks of BLOCK = 256 consecutive rays:
   K7e `cluster_any`: the same sweep for occlusion in (t_min, t_max)
       (cluster_sweep.py:201-230).
 
+On the card K7d / K7e sweep a warp of 32 rays at a time and skip, for each
+ray, the voted supernodes and leaf clusters whose box its own widened slab
+test (`slab_entered`) does not enter: no slot inside holds a hit the ray
+would take, so the result is the same (csrc/cluster.cu, header).
+
 The result is not always the exact closest hit: a hit in a supernode that
 no ray of the block voted for (a slab test that rounds the other way at a
 box's edge) is lost, as on the TPU.  The plain versions (`*_ref`) are the
@@ -32,8 +37,12 @@ kernels or raise, and count their launches in `.launches`; for CPU tensors
 they run the plain versions.  `cluster_closest` and `cluster_any` launch
 K7c first unless given the votes.  Every wrapper takes the scene's
 supernode tables (`scene_supernodes`) as `supernodes=`: the wavefront
-builds them once per render, not at each call.  `vote_tests` and
-`sweep_tests` count the tests the kernels make, for their bounds.
+builds them once per render, not at each call.  `vote_tests` counts the
+tests K7c makes, `sweep_tests` those of the block sweep (every slot of the
+voted supernodes) and `gated_tests` those K7d / K7e make, for their bounds.
+K7d / K7e read the scene's (T, 12) Woop rows with 128-bit loads: the
+wrappers raise ValueError unless `scene.tri_woop` is contiguous float32 on
+a 16-byte boundary (ftb.check_rows).
 
 Not carried over from the TPU: the fallback to the XLA traversal above
 MAX_VMEM_SLOTS (gpuspectral_tpu/integrator/path_tracer.py:213-221) and the
@@ -218,6 +227,20 @@ def _gate(sn: Supernodes, votes, r: int):
     return gate
 
 
+def _sweep_tables(scene, sn: Supernodes, votes):
+    """K7d / K7e's tables (csrc/cluster.cu:Sweep) as the arguments of
+    gst_cluster_closest / gst_cluster_any that follow the rays, and the
+    tensors behind them, which the caller holds until the launch returns:
+    the votes, the supernode boxes, the leaf clusters' boxes (cluster_boxes)
+    and the (T, 12) Woop rows (ftb.check_rows)."""
+    cmin, cmax = (x.contiguous() for x in cluster_boxes(scene)[:2])
+    woop_rows = scene.tri_woop
+    held = (votes, sn.blo, sn.bhi, cmin, cmax, woop_rows)
+    return [votes.data_ptr(), sn.blo.data_ptr(), sn.bhi.data_ptr(), sn.blo.shape[1], sn.s,
+            sn.stride, cmin.data_ptr(), cmax.data_ptr(), cmin.shape[0], scene.bvh_leaf_size,
+            woop_rows.data_ptr(), woop_rows.shape[0]], held
+
+
 def cluster_closest_ref(scene, origin, direction, active=None, t_max=None, attr=None,
                         votes=None, supernodes=None):
     """Plain torch version of cluster_closest (votes: cluster_votes_ref's
@@ -262,6 +285,7 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
     r = origin.shape[0]
     dev = origin.device
     _check_votes(votes, r, sn.s, dev)
+    ftb.check_rows("cluster_closest", tri_woop=scene.tri_woop)
     if dev.type == "cpu":
         return cluster_closest_ref(scene, origin, direction, t_max=t_max, attr=attr, votes=votes,
                                    supernodes=sn)
@@ -272,7 +296,7 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
 
     lib = _build.load()
     attr = attr.contiguous()
-    woop_t = scene.tri_woop_t.contiguous()
+    tables, held = _sweep_tables(scene, sn, votes)  # noqa: F841 (held until the launch returns)
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     prim = torch.empty((r,), dtype=torch.int32, device=dev)
     u = torch.empty((r,), dtype=torch.float32, device=dev)
@@ -281,10 +305,8 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_cluster_closest(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), r,
-                                     votes.data_ptr(), sn.s, sn.stride, woop_t.data_ptr(),
-                                     woop_t.shape[1], attr.data_ptr(), a, t.data_ptr(),
-                                     prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-                                     attrs.data_ptr(), stream)
+                                     *tables, attr.data_ptr(), a, t.data_ptr(), prim.data_ptr(),
+                                     u.data_ptr(), v.data_ptr(), attrs.data_ptr(), stream)
     _build.check(rc, "cluster_closest")
     cluster_closest.launches += 1
     return t, prim, u, v, attrs
@@ -304,18 +326,18 @@ def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None,
     r = origin.shape[0]
     dev = origin.device
     _check_votes(votes, r, sn.s, dev)
+    ftb.check_rows("cluster_any", tri_woop=scene.tri_woop)
     if dev.type == "cpu":
         return cluster_any_ref(scene, origin, direction, t_min, t_max, votes=votes, supernodes=sn)
     from .. import _build
 
     lib = _build.load()
-    woop_t = scene.tri_woop_t.contiguous()
+    tables, held = _sweep_tables(scene, sn, votes)  # noqa: F841 (held until the launch returns)
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_cluster_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
-                                 t_max.data_ptr(), r, votes.data_ptr(), sn.s, sn.stride,
-                                 woop_t.data_ptr(), woop_t.shape[1], occ.data_ptr(), stream)
+                                 t_max.data_ptr(), r, *tables, occ.data_ptr(), stream)
     _build.check(rc, "cluster_any")
     cluster_any.launches += 1
     return occ
@@ -383,3 +405,131 @@ def sweep_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
         tests[rows] += torch.where(found, hit.to(torch.int32).argmax(1) + 1, end - base)
         occluded[rows[found]] = True
     return tests, occluded
+
+
+SLAB_MARGIN = 1.0 / 16384.0  # csrc/bvh.cuh:kSlabMargin
+
+
+def inv_dir(direction):
+    """csrc/bvh.cuh:inv_dir1 of each component: 1 / d with |d| clamped to
+    1e-12 (fmaxf: a NaN component gives 1e12), the division in float32."""
+    mag = torch.fmax(direction.abs(), torch.tensor(1e-12, dtype=direction.dtype,
+                                                   device=direction.device))
+    return torch.ones_like(direction) / torch.where(direction < 0, -mag, mag)
+
+
+def slab_entered(lo_box, hi_box, origin, inv, lo, hi):
+    """csrc/bvh.cuh:slab_entered, op for op: whether the segment [lo, hi]
+    enters the box, the slab interval widened by SLAB_MARGIN.  Boxes and
+    rays broadcast ((..., 3) corners against (..., 3) rays, (...) ends);
+    fmin / fmax ignore a NaN operand, as fminf / fmaxf do."""
+    t0 = (lo_box - origin) * inv
+    t1 = (hi_box - origin) * inv
+    near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    tn = torch.fmax(torch.fmax(near[..., 0], near[..., 1]), torch.fmax(near[..., 2], lo))
+    tf = torch.fmin(torch.fmin(far[..., 0], far[..., 1]), torch.fmin(far[..., 2], hi))
+    return tn - SLAB_MARGIN * tn.abs() <= tf + SLAB_MARGIN * tf.abs()
+
+
+def cluster_boxes(scene):
+    """(C, 3) lo and hi corners of the leaf clusters (the node tables' rows
+    from C - 1 on) and (C,) bool: the cluster is empty (its box inverted;
+    K7d / K7e never enter it)."""
+    c = scene.bvh_clusters
+    lo, hi = scene.bvh_node_min[c - 1:], scene.bvh_node_max[c - 1:]
+    return lo, hi, lo[:, 0] > hi[:, 0]
+
+
+class GatedTests(NamedTuple):
+    """gated_tests' counts: per ray, slab tests, Woop tests and the any
+    hit; per warp of 32 rays, the supernodes it sweeps (those some lane
+    enters while still searching)."""
+    slab: torch.Tensor
+    woop: torch.Tensor
+    occluded: torch.Tensor
+    warp_supernodes: torch.Tensor
+
+
+def gated_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
+                supernodes=None) -> GatedTests:
+    """GatedTests ((R,) int64 slab tests, (R,) int64 Woop tests, (R,) bool
+    occluded, (ceil(R / 32),) int64 supernodes a warp sweeps): the tests
+    the two-gate sweep of K7d (any_hit False, on (0, t_max): pass
+    t_min 0) or K7e (True) makes for each ray over `votes`.  A ray with an
+    empty segment (t_max <= t_min) makes none.  Otherwise, in supernode
+    order, one widened slab test (slab_entered) for each supernode its block
+    voted for, on (t_min, best) for the closest hit, best the closest t so
+    far, and on (t_min, t_max) for the any hit; where the ray enters the
+    supernode, one for each of its non-empty leaf clusters and, in each
+    cluster it enters, one Woop test a slot.  With any_hit the ray stops at
+    its first occluder, and `occluded` is that sweep's any hit (all False
+    without any_hit).  Where the ray skips a box, no slot inside holds a
+    hit it would take (csrc/cluster.cu, header), so `best` is computed over
+    the entered clusters only, a supernode at a time.  It measures the
+    kernels' work; nothing renders with it."""
+    sn = _sn(scene, supernodes)
+    r = origin.shape[0]
+    dev = origin.device
+    n_slots, leaf = scene.tri_woop.shape[0], scene.bvh_leaf_size
+    k = sn.stride // leaf
+    c_lo, c_hi, c_empty = cluster_boxes(scene)
+    n_clusters = c_lo.shape[0]
+    inv = inv_dir(direction)
+    block = torch.arange(r, device=dev) // BLOCK
+    best = t_max.clone()
+    todo = t_max > t_min
+    slab = torch.zeros((r,), dtype=torch.int64, device=dev)
+    tests = torch.zeros((r,), dtype=torch.int64, device=dev)
+    occluded = torch.zeros((r,), dtype=torch.bool, device=dev)
+    swept = torch.zeros((-(-r // 32),), dtype=torch.int64, device=dev)
+    for s in range(sn.s):
+        rows = torch.nonzero((votes[block, s] > 0) & todo)[:, 0]
+        c0, c1 = s * k, min((s + 1) * k, n_clusters)
+        if rows.numel() == 0:
+            continue
+        slab[rows] += 1
+        o, d, iv, lo = origin[rows], direction[rows], inv[rows], t_min[rows]
+        hi = best[rows] if not any_hit else t_max[rows]
+        enter = slab_entered(sn.blo[:, s], sn.bhi[:, s], o, iv, lo, hi)
+        rows, o, d, iv, lo, hi = (x[enter] for x in (rows, o, d, iv, lo, hi))
+        swept[torch.unique(rows // 32)] += 1
+        if rows.numel() == 0 or c1 <= c0:
+            continue
+        # the supernode's slots as (clusters, leaf), misses at _BIG
+        base = c0 * leaf
+        w = scene.tri_woop[base:min(c1 * leaf, n_slots)]
+        t = woop._chunk_t(o, d, w, lo, t_max[rows])
+        t = torch.cat([t, t.new_full((t.shape[0], (c1 - c0) * leaf - t.shape[1]), _BIG)], 1)
+        t = t.reshape(-1, c1 - c0, leaf)
+        n_in = torch.clamp(n_slots - torch.arange(c0, c1, device=dev) * leaf, 0, leaf)
+        full = ~c_empty[c0:c1]
+        if any_hit:
+            # the clusters' own tests up to and including the first occluder's
+            cin = full & slab_entered(c_lo[c0:c1], c_hi[c0:c1], o[:, None], iv[:, None],
+                                      lo[:, None], hi[:, None])
+            hit = (t < _BIG) & cin[:, :, None]
+            flat = hit.reshape(hit.shape[0], -1)
+            found = flat.any(1)
+            first = torch.where(found, flat.to(torch.int32).argmax(1), flat.shape[1] - 1)
+            fc = first // leaf  # the cluster of the first occluder (or the last)
+            upto = torch.arange(c1 - c0, device=dev)[None] <= fc[:, None]
+            slab[rows] += (full[None] & upto).sum(1)
+            before = (cin & (torch.arange(c1 - c0, device=dev)[None] < fc[:, None]))
+            woops = (before * n_in[None]).sum(1)
+            tail = torch.where(found, first % leaf + 1, n_in[fc] * cin.gather(1, fc[:, None])[:, 0])
+            tests[rows] += woops + tail
+            occluded[rows[found]] = True
+            todo[rows[found]] = False
+        else:
+            # best before cluster j: the closest t of the entered clusters
+            # before it (a skipped one holds nothing closer)
+            cm = t.amin(2)
+            b = hi.clone()
+            cin = torch.zeros_like(cm, dtype=torch.bool)
+            for j in range(c1 - c0):
+                cin[:, j] = full[j] & slab_entered(c_lo[c0 + j], c_hi[c0 + j], o, iv, lo, b)
+                b = torch.where(cin[:, j], torch.minimum(b, cm[:, j]), b)
+            slab[rows] += int(full.sum())
+            tests[rows] += (cin * n_in[None]).sum(1)
+            best[rows] = b
+    return GatedTests(slab, tests, occluded, swept)

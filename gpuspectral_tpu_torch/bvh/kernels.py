@@ -147,9 +147,8 @@ def _launch(fn, origin, direction, packed, boxes, t_min, t_max, packet, outs, *f
     boxes), the leaf rows, the int `flags`, then the output pointers."""
     from .. import _build
 
-    for x in (*boxes, packed):
-        if x.data_ptr() % 16:
-            raise ValueError("traverse: the node and leaf tables must be 16-byte aligned")
+    _build.check_aligned("traverse", leaves=packed,
+                         **{f"nodes{i}": x for i, x in enumerate(boxes)})
     lib = _build.load()
     n_clusters, leaf_size = packed.shape[:2]
     with torch.cuda.device(origin.device):

@@ -1,4 +1,6 @@
-// Per-ray BVH walk shared by K3 (bvh.cu), K4 and K6 (mega_bvh.cu).
+// Per-ray BVH walk shared by K3 (bvh.cu), K4 and K6 (mega_bvh.cu).  The
+// cluster sweep's K7d / K7e (cluster.cu) take its widened slab test
+// (slab_entered) and its Woop rows (woop_row).
 //
 // The tree is the implicit tree of the scene build as child pairs
 // (SceneData.bvh_pairs, bvh/tables.py:build_pair_rows): one 64-byte row per

@@ -7,53 +7,75 @@
 // cluster_closest, cluster_any), which also holds the supernode tables.
 //
 // A supernode is a run of `stride` consecutive triangle slots (K leaf
-// clusters in Morton order) with one box; rays come in blocks of kBlock =
-// 256 consecutive rays, and one CTA of 256 threads takes one block, one
-// thread per ray.
+// clusters of leaf_size slots, in Morton order) with one box; rays come in
+// blocks of kBlock = 256 consecutive rays, and the votes gate the sweep
+// per (block, supernode).
 //
-//   K7c  the CTA stages its rays (origin, inverse direction, t_min, t_max)
-//        in shared memory; thread i then takes supernodes i, i + 256, ...
-//        and slab-tests each against the block's rays until one passes.
+//   K7c  one CTA of 256 threads a block, one thread a ray: the CTA stages
+//        its rays (origin, inverse direction, t_min, t_max) in shared
+//        memory; thread i then takes supernodes i, i + 256, ... and
+//        slab-tests each against the block's rays until one passes.
 //        Output: one int32 vote per (block, supernode), no atomics.
-//   K7d  the CTA walks the supernodes in order and skips those its block
-//        did not vote for (a branch uniform across the CTA).  A voted
-//        supernode's Woop rows are staged in shared memory kSweep slots at
-//        a time (12 x 128 floats = 6 KB); every thread then tests its ray
-//        against them in slot order, keeping the closest hit with a strict
-//        `<`, so the lowest slot wins among exactly tied t (as K3, and as
-//        the plain scan).  At the end each thread writes t, prim, u, v and
-//        its winning slot's A attribute floats.
-//   K7e  the same loop for occlusion in (t_min, t_max); the CTA stops once
-//        every ray of the block is occluded or has an empty segment
-//        (__syncthreads_and), which cannot change the result.
-// Threads of inactive rays (t_max = -1e30) and of padding rays past the
-// last ray take part in every barrier and never vote or hit.
+//   K7d  one warp a 32 consecutive rays (one lane a ray), kWarps warps a
+//        CTA, each warp on its own: no shared memory and no CTA barrier.
+//        The warp reads its block's votes 32 at a time (a ballot) and,
+//        for each voted supernode in order, each lane runs the widened slab
+//        test of csrc/bvh.cuh (slab_entered, kSlabMargin) on its own
+//        segment (0, best); the warp skips the supernode when no lane
+//        enters it.  With kClusterGate the same two-level gate runs on the
+//        supernode's leaf clusters (their boxes from the BVH's node
+//        tables; an empty cluster's inverted box is never entered), and
+//        only their slots are tested.  A lane whose own test failed takes
+//        no hit there.  The Woop rows are read as 3 float4 __ldg a slot (all
+//        lanes the same slot: one L1 line), in slot order, with a strict `<`
+//        against best, so the lowest slot wins among exactly tied t (as K3
+//        and the plain scan).  At the end each lane writes t, prim, u, v
+//        and its winning slot's A attribute floats.
+//   K7e  the same sweep for occlusion in (t_min, t_max): a lane stops at
+//        its first occluder or at once on an empty segment, and the warp
+//        stops when no lane is left (__any_sync).
+// Lanes of inactive rays (t_max = -1e30) and of padding rays past the last
+// ray vote nothing and hit nothing; a warp wholly past the last ray exits.
 //
-// What bounds it on the H100: operations.  The sweep tests every slot of a
-// voted supernode for every ray of the block: 256 slots x 256 rays per
-// voted supernode, ~32 flops each, all operands in registers or broadcast
-// from shared memory.  So the votes set the time: a block of rays that agree
-// on few supernodes (sorted bounce rays, shadow rays sorted by endpoint,
-// primary rays) votes few, a block of long random segments many, and a
-// block that votes for all of them costs each ray every Woop test of the
-// scene.  K3's per-ray walk tests a few dozen triangles per ray.
+// Why the two gates change no result: the sweep computes the closest hit
+// (or any hit) over the slots of the supernodes that the ray's BLOCK voted
+// for, which the plain versions compute by Woop-testing every such slot.
+// The widened slab test culls no box whose triangle the Woop test would
+// accept with t in the segment (csrc/bvh.cuh, header: K3 equals the brute
+// scan bit for bit that way), a supernode's box holds its clusters' boxes,
+// and a hit lies in a non-empty cluster (padding rows are zero and never
+// hit).  The closest hit gates on (0, best): a skipped triangle could only
+// give t >= best, which a strict `<` in slot order never takes.
 //
-// Precision: built with --fmad=false like the other kernels.  The slab
+// What bounds it on the H100: the Woop tests of the slots a warp's lanes
+// let through, ~40 instructions each, the rows hit in L1 / L2 (the sphere
+// field's 147k slots are 7 MB).  The block sweep before it Woop-tested
+// every slot of every supernode its 256-ray block voted for, for every
+// ray; most of those boxes a ray misses.  The warps balance over the
+// card's SMs one at a time, where a CTA waited on its block's slowest ray
+// and its barriers.
+//
+// Precision: built with --fmad=false like the other kernels.  K7c's slab
 // test is plain multiplies, subtracts, min / max and an IEEE division for
-// the inverse direction (math3d.safe_div(1, d)), as the plain torch
-// version computes them: the votes are equal.  The Woop test is
-// csrc/common.cuh:woop_test, whose fmaf calls sit where ops/woop.py calls
+// the inverse direction (math3d.safe_div(1, d)), as the plain torch version
+// computes them: the votes are equal.  The Woop test is
+// csrc/common.cuh:woop_eval, whose fmaf calls sit where ops/woop.py calls
 // m3.fma: opz, dpz, the hit point and u, v are fused multiply-adds, the
 // trailing `+ b` and the division are not.  So t, prim, u and v equal the
 // plain scan bit for bit.
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "bvh.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;  // rays per CTA = cluster_sweep.BLOCK
-constexpr int kSweep = 128;  // slots staged at a time = cluster_sweep.SWEEP
+constexpr int kBlock = 256;  // rays per vote block = cluster_sweep.BLOCK
+constexpr unsigned kAll = 0xffffffffu;
+// K7d / K7e: warps a CTA, the gate on leaf clusters, the Woop loop's
+// unroll; tools/torch_cluster_variants.py builds copies with other values.
+constexpr int kWarps = 4;
+constexpr bool kClusterGate = true;
+constexpr int kUnroll = 4;
 
 __global__ void __launch_bounds__(kBlock)
 cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
@@ -88,40 +110,122 @@ cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+// The block's votes, 32 supernodes at a time: each lane reads one, and
+// every lane of the warp gets the mask of those voted.  `lane` is the
+// caller's lane index.
+__device__ __forceinline__ unsigned voted(const int* __restrict__ block_votes, int s0,
+                                          int n_super, int lane) {
+  const int s = s0 + lane;
+  return __ballot_sync(kAll, s < n_super && __ldg(block_votes + s) != 0);
+}
+
+// Box i of a (3, stride) pair of lo / hi tables (the supernode boxes).
+__device__ __forceinline__ void box3(const float* __restrict__ lo, const float* __restrict__ hi,
+                                     int stride, int i, gst::V3& bl, gst::V3& bh) {
+  bl = gst::v3(__ldg(lo + i), __ldg(lo + stride + i), __ldg(lo + 2 * stride + i));
+  bh = gst::v3(__ldg(hi + i), __ldg(hi + stride + i), __ldg(hi + 2 * stride + i));
+}
+
+// The tables of one sweep: supernode boxes, the leaf clusters' boxes (rows
+// of the (C, 3) node_min / node_max tables from the first leaf on,
+// inverted where a cluster is empty) and the (T, 12) Woop rows.
+struct Sweep {
+  const int* votes;
+  const float *blo, *bhi;
+  int sp, n_super, stride;
+  const float *cmin, *cmax;
+  int n_clusters, leaf_size;
+  const float4* woop;
+  int n_slots;
+};
+
+// Whether the ray's widened slab test enters leaf cluster c on [lo, hi]; an
+// empty cluster (inverted box, zero rows) is never entered: the slab test
+// alone would pass every ray through its +inf / -inf bounds.
+__device__ __forceinline__ bool cluster_entered(const Sweep& S, int c, gst::V3 o, gst::V3 inv,
+                                                float lo, float hi) {
+  const gst::V3 bl = gst::v3(__ldg(S.cmin + 3 * c), __ldg(S.cmin + 3 * c + 1),
+                             __ldg(S.cmin + 3 * c + 2));
+  const gst::V3 bh = gst::v3(__ldg(S.cmax + 3 * c), __ldg(S.cmax + 3 * c + 1),
+                             __ldg(S.cmax + 3 * c + 2));
+  float near;
+  return !(bl.x > bh.x) && gst::slab_entered(bl, bh, o, inv, lo, hi, near);
+}
+
+// The slots a lane Woop-tests in voted supernode s once its own test passed
+// (`go`): with kClusterGate those of each leaf cluster that some lane of the
+// warp enters (each lane testing only the clusters it enters itself), else
+// every slot of the supernode.  `visit(slot, test)` runs for each slot in
+// order, `test` whether this lane tests it, and returns whether the lane
+// goes on searching (false after an any hit's occluder).  With kStops the
+// warp leaves a cluster, and the supernode, once no lane goes on in it.
+template <bool kStops, class Visit>
+__device__ __forceinline__ void sweep_supernode(const Sweep& S, int s, bool go, gst::V3 o,
+                                                gst::V3 inv, float lo, const float& hi,
+                                                Visit&& visit) {
+  if (kClusterGate) {
+    const int k = S.stride / S.leaf_size;
+    const int c1 = min((s + 1) * k, S.n_clusters);
+    for (int c = s * k; c < c1 && (!kStops || __any_sync(kAll, go)); ++c) {
+      bool cin = go && cluster_entered(S, c, o, inv, lo, hi);
+      if (!__any_sync(kAll, cin)) continue;
+      const int e = min((c + 1) * S.leaf_size, S.n_slots);
+#pragma unroll(kUnroll)
+      for (int slot = c * S.leaf_size; slot < e; ++slot) {
+        go = visit(slot, cin) && go;
+        cin = cin && go;
+        if (kStops && !__any_sync(kAll, cin)) break;
+      }
+    }
+  } else {
+    const int e = min((s + 1) * S.stride, S.n_slots);
+#pragma unroll(kUnroll)
+    for (int slot = s * S.stride; slot < e; ++slot) {
+      go = visit(slot, go) && go;
+      if (kStops && !__any_sync(kAll, go)) break;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
 cluster_closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
-                       const float* __restrict__ t_max, int n_rays,
-                       const int* __restrict__ votes, int n_super, int stride,
-                       const float* __restrict__ woop_t, int n_slots,
+                       const float* __restrict__ t_max, int n_rays, Sweep S,
                        const float* __restrict__ attr, int n_attr, float* __restrict__ t_out,
                        int* __restrict__ prim_out, float* __restrict__ u_out,
                        float* __restrict__ v_out, float* __restrict__ attr_out) {
-  __shared__ float w[12][kSweep];
-  const int r = blockIdx.x * kBlock + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * kWarps + threadIdx.x / 32) * 32;  // the warp's first ray
+  if (r0 >= n_rays) return;  // a whole warp past the last ray
+  const int r = r0 + lane;
   const bool live = r < n_rays;
   const gst::V3 o = gst::load3(origin, r, live, 0.0f);
   const gst::V3 d = gst::load3(direction, r, live, 1.0f);
+  const gst::V3 inv = gst::v3(gst::inv_dir1(d.x), gst::inv_dir1(d.y), gst::inv_dir1(d.z));
   float best = live ? t_max[r] : -gst::kBig;
+  const bool act = best > 0.0f;  // a segment (0, t_max) to search
   float best_u = 0.0f, best_v = 0.0f;
   int best_prim = -1;
-  const int* block_votes = votes + (size_t)blockIdx.x * n_super;
-  for (int s = 0; s < n_super; ++s) {
-    if (block_votes[s] == 0) continue;  // the same for every thread of the CTA
-    const int end = min((s + 1) * stride, n_slots);
-    for (int base = s * stride; base < end; base += kSweep) {
-      const int n = min(kSweep, end - base);
-      __syncthreads();
-      gst::stage<kBlock, kSweep>(w, woop_t, n_slots, base, n);
-      __syncthreads();
-      for (int c = 0; c < n; ++c) {
+  const int* block_votes = S.votes + (size_t)(r0 / kBlock) * S.n_super;
+  for (int s0 = 0; s0 < S.n_super; s0 += 32) {
+    for (unsigned m = voted(block_votes, s0, S.n_super, lane); m; m &= m - 1) {
+      const int s = s0 + __ffs(m) - 1;
+      gst::V3 bl, bh;
+      box3(S.blo, S.bhi, S.sp, s, bl, bh);
+      float near;
+      const bool in = act && gst::slab_entered(bl, bh, o, inv, 0.0f, best, near);
+      if (!__any_sync(kAll, in)) continue;
+      sweep_supernode<false>(S, s, in, o, inv, 0.0f, best, [&](int slot, bool test) {
         float t, u, v;
-        if (gst::woop_test(&w[0][c], kSweep, o, d, 0.0f, best, t, u, v)) {
+        // strict `<` against best (woop_eval's t < t_hi), slots in order:
+        // the lowest slot wins among exactly tied t
+        if (gst::woop_row(S.woop + 3 * slot, o, d, 0.0f, best, t, u, v) && test) {
           best = t;
           best_u = u;
           best_v = v;
-          best_prim = base + c;
+          best_prim = slot;
         }
-      }
+        return true;
+      });
     }
   }
   if (!live) return;
@@ -134,48 +238,59 @@ cluster_closest_kernel(const float* __restrict__ origin, const float* __restrict
     attr_out[(size_t)r * n_attr + a] = hit ? attr[(size_t)best_prim * n_attr + a] : 0.0f;
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(32 * kWarps)
 cluster_any_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                    const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
-                   const int* __restrict__ votes, int n_super, int stride,
-                   const float* __restrict__ woop_t, int n_slots, bool* __restrict__ occ_out) {
-  __shared__ float w[12][kSweep];
-  const int r = blockIdx.x * kBlock + threadIdx.x;
+                   Sweep S, bool* __restrict__ occ_out) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * kWarps + threadIdx.x / 32) * 32;
+  if (r0 >= n_rays) return;
+  const int r = r0 + lane;
   const bool live = r < n_rays;
   const gst::V3 o = gst::load3(origin, r, live, 0.0f);
   const gst::V3 d = gst::load3(direction, r, live, 1.0f);
+  const gst::V3 inv = gst::v3(gst::inv_dir1(d.x), gst::inv_dir1(d.y), gst::inv_dir1(d.z));
   const float lo = live ? t_min[r] : 0.0f;
   const float hi = live ? t_max[r] : -gst::kBig;
   bool occ = false;
-  const bool empty = !(hi > lo);  // no t lies in (lo, hi): never occluded
-  const int* block_votes = votes + (size_t)blockIdx.x * n_super;
-  bool all_done = false;
-  for (int s = 0; s < n_super && !all_done; ++s) {
-    if (block_votes[s] == 0) continue;
-    const int end = min((s + 1) * stride, n_slots);
-    for (int base = s * stride; base < end; base += kSweep) {
-      // also the barrier before restaging: the result is uniform
-      if (__syncthreads_and(occ || empty)) {
-        all_done = true;
-        break;
-      }
-      const int n = min(kSweep, end - base);
-      gst::stage<kBlock, kSweep>(w, woop_t, n_slots, base, n);
-      __syncthreads();
-      if (occ || empty) continue;
-      for (int c = 0; c < n; ++c) {
+  bool todo = hi > lo;  // no t lies in an empty (lo, hi): never occluded
+  const int* block_votes = S.votes + (size_t)(r0 / kBlock) * S.n_super;
+  for (int s0 = 0; s0 < S.n_super && __any_sync(kAll, todo); s0 += 32) {
+    for (unsigned m = voted(block_votes, s0, S.n_super, lane); m && __any_sync(kAll, todo);
+         m &= m - 1) {
+      const int s = s0 + __ffs(m) - 1;
+      gst::V3 bl, bh;
+      box3(S.blo, S.bhi, S.sp, s, bl, bh);
+      float near;
+      const bool in = todo && gst::slab_entered(bl, bh, o, inv, lo, hi, near);
+      if (!__any_sync(kAll, in)) continue;
+      sweep_supernode<true>(S, s, in, o, inv, lo, hi, [&](int slot, bool test) {
         float t, u, v;
-        if (gst::woop_test(&w[0][c], kSweep, o, d, lo, hi, t, u, v)) {
-          occ = true;
-          break;
+        if (gst::woop_row(S.woop + 3 * slot, o, d, lo, hi, t, u, v) && test) {
+          occ = true;  // the lane's first occluder: it stops
+          todo = false;
         }
-      }
+        return todo;
+      });
     }
   }
   if (live) occ_out[r] = occ;
 }
 
 int blocks_for(int n_rays) { return (n_rays + kBlock - 1) / kBlock; }
+
+// A launch of K7d / K7e: one warp a 32 rays, kWarps warps a CTA.
+dim3 sweep_grid(int n_rays) {
+  const int warps = (n_rays + 31) / 32;
+  return dim3((warps + kWarps - 1) / kWarps);
+}
+
+Sweep sweep_tables(const int* votes, const float* blo, const float* bhi, int sp, int n_super,
+                   int stride, const float* cmin, const float* cmax, int n_clusters,
+                   int leaf_size, const float* woop, int n_slots) {
+  return Sweep{votes, blo, bhi, sp, n_super, stride, cmin, cmax, n_clusters, leaf_size,
+               reinterpret_cast<const float4*>(woop), n_slots};
+}
 
 }  // namespace
 
@@ -189,25 +304,35 @@ extern "C" int gst_cluster_votes(const float* origin, const float* direction, co
   return (int)cudaGetLastError();
 }
 
+// cmin / cmax: the first leaf cluster's row of the (2C - 1, 3) node tables;
+// woop: the (n_slots, 12) Woop rows, 16-byte aligned.
 extern "C" int gst_cluster_closest(const float* origin, const float* direction,
                                    const float* t_max, int n_rays, const int* votes,
-                                   int n_super, int stride, const float* woop_t, int n_slots,
+                                   const float* blo, const float* bhi, int sp, int n_super,
+                                   int stride, const float* cmin, const float* cmax,
+                                   int n_clusters, int leaf_size, const float* woop, int n_slots,
                                    const float* attr, int n_attr, float* t_out, int* prim_out,
                                    float* u_out, float* v_out, float* attr_out, void* stream) {
   if (n_rays == 0) return 0;
-  cluster_closest_kernel<<<blocks_for(n_rays), kBlock, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, n_rays, votes, n_super, stride, woop_t, n_slots, attr, n_attr,
-      t_out, prim_out, u_out, v_out, attr_out);
+  cluster_closest_kernel<<<sweep_grid(n_rays), 32 * kWarps, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_max, n_rays,
+      sweep_tables(votes, blo, bhi, sp, n_super, stride, cmin, cmax, n_clusters, leaf_size, woop,
+                   n_slots),
+      attr, n_attr, t_out, prim_out, u_out, v_out, attr_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gst_cluster_any(const float* origin, const float* direction, const float* t_min,
-                               const float* t_max, int n_rays, const int* votes, int n_super,
-                               int stride, const float* woop_t, int n_slots, bool* occ_out,
+                               const float* t_max, int n_rays, const int* votes,
+                               const float* blo, const float* bhi, int sp, int n_super,
+                               int stride, const float* cmin, const float* cmax, int n_clusters,
+                               int leaf_size, const float* woop, int n_slots, bool* occ_out,
                                void* stream) {
   if (n_rays == 0) return 0;
-  cluster_any_kernel<<<blocks_for(n_rays), kBlock, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_min, t_max, n_rays, votes, n_super, stride, woop_t, n_slots,
+  cluster_any_kernel<<<sweep_grid(n_rays), 32 * kWarps, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_min, t_max, n_rays,
+      sweep_tables(votes, blo, bhi, sp, n_super, stride, cmin, cmax, n_clusters, leaf_size, woop,
+                   n_slots),
       occ_out);
   return (int)cudaGetLastError();
 }

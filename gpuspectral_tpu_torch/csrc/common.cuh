@@ -115,8 +115,9 @@ __device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d
 }
 
 // ------------------------------------------------ block-gated sweeps ---
-// Shared by the cluster, dfs and binned kernels (csrc/cluster.cu, dfs.cu,
-// binned.cu): one thread per ray, one CTA per block of consecutive rays.
+// Shared by the dfs and binned kernels (csrc/dfs.cu, binned.cu) and the
+// cluster votes (K7c, csrc/cluster.cu): one thread per ray, one CTA per
+// block of consecutive rays.  K7d / K7e take load3 only.
 
 // math3d.safe_div(1, dx): a component of the slab tests' inverse direction.
 __device__ __forceinline__ float inv_dir(float dx) {

@@ -364,3 +364,34 @@ def test_walk_tests_need_the_card(monkeypatch):
     o, d, lo, hi = field_rays(8, ts, 3, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         ftb.walk_tests(ts, o, d, lo, hi, False)
+
+
+def _offset(x):
+    """A contiguous copy of x that starts 4 bytes past a 16-byte boundary."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("call,table", [("walk_tables", "tri_woop"), ("walk_tables", "bvh_pairs"),
+                                        ("cluster_closest", "tri_woop"),
+                                        ("cluster_any", "tri_woop")])
+def test_row_tables_must_be_aligned(call, table):
+    """The walk (csrc/bvh.cuh) and K7d / K7e (csrc/cluster.cu) read the
+    scene's pair and Woop rows with 128-bit loads: ftb.walk_tables and the
+    cluster wrappers raise ValueError on a table that is not 16-byte
+    aligned (on the card it would be a misaligned-address fault), and take
+    the scene as built, whose tables are fresh allocations."""
+    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+
+    ts = soup_scene(300, 4, "cpu")
+    o, d, lo, hi = field_rays(40, ts, 3, "cpu")
+    run = dict(walk_tables=lambda s: ftb.walk_tables(s),
+               cluster_closest=lambda s: cs.cluster_closest(s, o, d, t_max=hi),
+               cluster_any=lambda s: cs.cluster_any(s, o, d, lo, hi))[call]
+    bad = ts.replace(**{table: _offset(getattr(ts, table))})
+    assert getattr(bad, table).is_contiguous() and getattr(bad, table).data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match=f"scene.{table} must be 16-byte aligned"):
+        run(bad)
+    assert getattr(ts, table).data_ptr() % 16 == 0
+    run(ts)

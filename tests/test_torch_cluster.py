@@ -5,6 +5,10 @@ build) and the small sphere field; the differentiable closest hit against
 JAX dfs_sweep.closest_diff(kernel="cluster"); and the wavefront with
 bvh_kernel "cluster" against the JAX wavefront.  Both packages get the same
 scene tables (scene_from_arrays of the JAX scene) and the same numpy rays.
+Then the premise of the kernels' design (csrc/cluster.cu): a walk of one
+warp at a time that gates each voted supernode and leaf cluster by the
+ray's own widened slab test, as K7d / K7e do, gives the plain versions'
+results bit for bit, and gated_tests counts its tests.
 The CUDA kernels against these plain versions: tests/test_torch_cuda.py.
 """
 
@@ -27,8 +31,10 @@ from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_sphere_field
 from gpuspectral_tpu_torch.utils import RenderConfig
 
+from chip_smoke import odd_lanes, soup_scene
 from test_binned import _random_scene
 from test_torch_bvh import SMALL_FIELD
+from test_torch_bvh_pack import _inv, _slab
 from torch_common import assert_mega_gates, jax_scene_arrays
 
 SCENES = ["cornell", "soup3000", "sphere_field"]
@@ -331,3 +337,164 @@ def test_sweep_tests_count_the_voted_slots(pairs, name):
                             t_max[i:i + 1])[0] < 1e30
         first = torch.nonzero(hit)[:, 0]
         assert int(tests[i]) == (int(first[0]) + 1 if first.numel() else len(slots))
+
+
+# ------------------------------------ the two-gate sweep of K7d / K7e ----
+GATED = ["cornell", "soup3000", "sphere_field", "soup_ties"]
+
+
+def _gated_scene(pairs, name):
+    """The port's scene: one of `pairs`, or a soup of exact-t twins."""
+    return soup_scene(600, 5, "cpu", ties=True) if name == "soup_ties" else pairs[name][1]
+
+
+def _warp_walk(ts, sn, o, d, lo, hi, votes, any_hit):
+    """csrc/cluster.cu's K7d (any_hit False, on (0, hi): lo 0) or K7e, one
+    warp of 32 rays at a time, op for op: for each supernode the block
+    voted for, in order, each lane's widened slab test on (lo, best) (the
+    closest hit) or (lo, hi); where some lane enters it, each non-empty leaf
+    cluster's the same way; where some lane enters a cluster, the Woop test
+    of each slot in order for the lanes that entered it, a strict `<`
+    against best.  An any-hit lane stops at its first occluder, the warp
+    when no lane is left.  Returns ((t, prim, u, v, attrs) or occ, the
+    slab tests and the Woop tests per ray, the supernodes each warp
+    sweeps)."""
+    r = o.shape[0]
+    n_slots, leaf = ts.tri_woop.shape[0], ts.bvh_leaf_size
+    k = sn.stride // leaf
+    c_lo, c_hi, c_empty = cs.cluster_boxes(ts)
+    inv = cs.inv_dir(d)
+    best, prim = hi.clone(), torch.full((r,), -1, dtype=torch.int32)
+    occ = torch.zeros((r,), dtype=torch.bool)
+    slab = torch.zeros((r,), dtype=torch.int64)
+    tests = torch.zeros((r,), dtype=torch.int64)
+    swept = torch.zeros((-(-r // 32),), dtype=torch.int64)
+    for w0 in range(0, r, 32):
+        w = slice(w0, min(w0 + 32, r))
+        wo, wd, wi, wl, wh = o[w], d[w], inv[w], lo[w], hi[w]
+        b, wp, wocc = best[w].clone(), prim[w].clone(), occ[w].clone()
+        todo = wh > wl
+        for s in torch.nonzero(votes[w0 // cs.BLOCK])[:, 0].tolist():
+            if not todo.any():
+                break
+            slab[w][todo] += 1
+            go = todo & cs.slab_entered(sn.blo[:, s], sn.bhi[:, s], wo, wi, wl,
+                                        wh if any_hit else b)
+            swept[w0 // 32] += int(go.any())
+            for c in range(s * k, min((s + 1) * k, c_lo.shape[0])):
+                if not go.any():
+                    break
+                if c_empty[c]:
+                    continue
+                slab[w][go] += 1
+                cin = go & cs.slab_entered(c_lo[c], c_hi[c], wo, wi, wl, wh if any_hit else b)
+                for slot in range(c * leaf, min((c + 1) * leaf, n_slots)):
+                    if not cin.any():
+                        break
+                    tests[w][cin] += 1
+                    t = woop._chunk_t(wo, wd, ts.tri_woop[slot:slot + 1], wl,
+                                      wh if any_hit else b)[:, 0]
+                    hit = cin & (t < 1e30)
+                    if any_hit:
+                        wocc |= hit
+                        todo, go, cin = todo & ~hit, go & ~hit, cin & ~hit
+                    else:
+                        b = torch.where(hit, t, b)
+                        wp = torch.where(hit, slot, wp)
+        best[w], prim[w], occ[w] = b, wp, wocc
+    if any_hit:
+        return occ, slab, tests, swept
+    t = torch.where(prim >= 0, best, 1e30)
+    u, v = woop._recover_uv(o, d, ts.tri_woop, prim, torch.where(prim >= 0, best, 0.0))
+    u, v = torch.where(prim >= 0, u, 0.0), torch.where(prim >= 0, v, 0.0)
+    return (t, prim, u, v, ftb._gather_attrs(ftb.attr_table(ts), prim)), slab, tests, swept
+
+
+def _gated_rays(ts, seed):
+    """300 rays (not a whole number of warps or blocks) with NaN and
+    inactive lanes (chip_smoke.odd_lanes) on top of _rays' inactive tenth."""
+    return odd_lanes([_t(x) for x in _rays(ts, 300, seed)])
+
+
+@pytest.mark.parametrize("name", GATED)
+def test_two_gate_sweep_equals_the_block_gated_scan(pairs, name):
+    """The premise of K7d / K7e: a ray's own widened slab test on each voted
+    supernode and leaf cluster culls no hit the block-gated scan takes, so
+    the warp walk's t, prim, u, v, attrs and occ equal cluster_closest_ref /
+    cluster_any_ref bit for bit (on twins, every hit a tie won by the lower
+    slot)."""
+    from chip_smoke import tied_hits
+
+    ts = _gated_scene(pairs, name)
+    o, d, lo, hi = _gated_rays(ts, 11)
+    sn = cs.scene_supernodes(ts)
+    zero = torch.zeros_like(hi)
+    votes = cs.cluster_votes(ts, o, d, zero, hi, supernodes=sn)
+    votes_any = cs.cluster_votes(ts, o, d, lo, hi, supernodes=sn)
+    got, _, _, _ = _warp_walk(ts, sn, o, d, zero, hi, votes, False)
+    ref = cs.cluster_closest_ref(ts, o, d, t_max=hi, votes=votes, supernodes=sn)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    occ, _, _, _ = _warp_walk(ts, sn, o, d, lo, hi, votes_any, True)
+    occ_ref = cs.cluster_any_ref(ts, o, d, lo, hi, votes=votes_any, supernodes=sn)
+    assert torch.equal(occ, occ_ref)
+    hits = int((ref[1] >= 0).sum())
+    assert hits > 20 and 20 < int(occ_ref.sum()) < 280
+    if name == "soup_ties":
+        assert tied_hits(ts, ref[1]) == hits
+
+
+@pytest.mark.parametrize("name", GATED)
+def test_gated_tests_count_the_warp_walk(pairs, name):
+    """gated_tests (the bound's count of the two-gate sweep) equals the
+    slab and Woop tests of the warp walk ray by ray, its supernodes swept
+    warp by warp, its occlusion the walk's; it never makes more Woop tests than the block sweep
+    (sweep_tests), and on the scenes of several supernodes far fewer."""
+    ts = _gated_scene(pairs, name)
+    o, d, lo, hi = _gated_rays(ts, 12)
+    sn = cs.scene_supernodes(ts)
+    zero = torch.zeros_like(hi)
+    for seg_lo, any_hit in ((zero, False), (lo, True)):
+        votes = cs.cluster_votes(ts, o, d, seg_lo, hi, supernodes=sn)
+        _, slab, tests, swept = _warp_walk(ts, sn, o, d, seg_lo, hi, votes, any_hit)
+        g_slab, g_tests, g_occ, g_swept = cs.gated_tests(ts, o, d, seg_lo, hi, votes, any_hit,
+                                                         supernodes=sn)
+        assert torch.equal(g_slab, slab) and torch.equal(g_tests, tests)
+        assert torch.equal(g_swept, swept)
+        sweep, occ = cs.sweep_tests(ts, o, d, seg_lo, hi, votes, any_hit, supernodes=sn)
+        assert torch.equal(g_occ, occ)
+        assert bool((g_tests <= sweep).all())
+        assert int(tests.sum()) > 0 and bool((slab[~(hi > seg_lo)] == 0).all())
+        if sn.s > 1:
+            assert int(g_tests.sum()) * 4 < int(sweep.sum())
+
+
+def test_slab_entered_is_the_kernels(pairs):
+    """cluster_sweep.slab_entered / inv_dir equal the numpy copy of
+    csrc/bvh.cuh's slab_entered / inv_dir1 (tests/test_torch_bvh_pack.py)
+    bit for bit, on boxes grazed at their faces, NaN and zero direction
+    components, NaN origins and inverted boxes."""
+    rng = np.random.default_rng(13)
+    n = 4000
+    lo_box = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    hi_box = (lo_box + rng.uniform(0, 1, (n, 3))).astype(np.float32)
+    hi_box[::97] = lo_box[::97] - 0.5  # inverted
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    aim = rng.uniform(size=n) < 0.6  # most rays aimed near the box's centre
+    d[aim] = (0.5 * (lo_box + hi_box) - o + rng.normal(scale=0.3, size=(n, 3)))[aim]
+    d[::50, 1] = np.nan
+    d[1::50, 2] = 0.0
+    o[2::50, 0] = np.nan
+    # rays aimed at a face corner: the slab intervals meet at the box's edge
+    o[3::7] = lo_box[3::7] - d[3::7] * np.float32(2.0)
+    seg_lo = np.where(rng.uniform(size=n) < 0.5, 0.0, rng.uniform(0, 1, n)).astype(np.float32)
+    seg_hi = rng.choice(np.array([1e30, 2.0, 0.5, -1e30], np.float32), n)
+    got = cs.slab_entered(_t(lo_box), _t(hi_box), _t(o), cs.inv_dir(_t(d)), _t(seg_lo),
+                          _t(seg_hi)).numpy()
+    inv = np.array([[_inv(x) for x in row] for row in d], np.float32)
+    np.testing.assert_array_equal(cs.inv_dir(_t(d)).numpy(), inv)
+    want = np.array([_slab(lo_box[i], hi_box[i], o[i], inv[i], seg_lo[i], seg_hi[i])[0]
+                     for i in range(n)])
+    np.testing.assert_array_equal(got, want)
+    assert 0.1 < want.mean() < 0.9

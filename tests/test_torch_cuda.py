@@ -258,6 +258,48 @@ def test_k7_matches_plain_version(cuda_device, name):  # noqa: F811
     assert torch.equal(t2, got[0]) and _k7_launches()[0] == n0[0] + 3
 
 
+@pytest.mark.parametrize("name", ["soup_ties", "slot_field", "one_supernode", "inactive_block",
+                                  "r1", "r31", "r33", "r257"])
+def test_k7de_two_gate_sweep_edge_cases(cuda_device, name, monkeypatch):  # noqa: F811
+    """K7d / K7e (a warp a 32 rays, each voted supernode and leaf cluster
+    gated by the ray's own widened slab test) bit for bit against the
+    block-gated plain scans on the same votes, with NaN and inactive lanes:
+    a soup of exact-t twins (every hit a tie won by the lower slot), a
+    slot-mode sphere field, a scene of one supernode, a block of 256 rays
+    all inactive, and 1, 31, 33 and 257 rays (part warps, part blocks)."""
+    from chip_smoke import field_rays, soup_scene, tied_hits
+
+    if name == "soup_ties":
+        ts = soup_scene(600, 5, cuda_device, ties=True)
+    elif name == "slot_field":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = _scene("sphere_field", cuda_device)
+    else:
+        ts = _scene("cornell" if name == "one_supernode" else "sphere_field", cuda_device)
+    n = dict(r1=1, r31=31, r33=33, r257=257).get(name, 1 << 14)
+    o, d, lo, hi = odd_lanes(field_rays(n, ts, 14, cuda_device))
+    if name == "inactive_block":
+        hi[256:512] = -1e30
+    sn = cs.scene_supernodes(ts)
+    assert (sn.s == 1) == (name == "one_supernode")
+    votes = cs.cluster_votes(ts, o, d, torch.zeros_like(hi), hi, supernodes=sn)
+    votes_any = cs.cluster_votes(ts, o, d, lo, hi, supernodes=sn)
+    if name == "inactive_block":
+        assert int(votes[1].sum()) == 0 and int(votes_any[1].sum()) == 0
+    n0 = _k7_launches()
+    got = cs.cluster_closest(ts, o, d, t_max=hi, votes=votes, supernodes=sn)
+    occ = cs.cluster_any(ts, o, d, lo, hi, votes=votes_any, supernodes=sn)
+    assert _k7_launches() == (n0[0], n0[1] + 1, n0[2] + 1)
+    ref = cs.cluster_closest_ref(ts, o, d, t_max=hi, votes=votes, supernodes=sn)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, cs.cluster_any_ref(ts, o, d, lo, hi, votes=votes_any, supernodes=sn))
+    hits = int((ref[1] >= 0).sum())
+    assert n < 300 or hits > 500
+    if name == "soup_ties":
+        assert tied_hits(ts, ref[1]) == hits
+
+
 def test_wavefront_on_k7_matches_plain_scans(cuda_device):  # noqa: F811
     """The wavefront with bvh_kernel "cluster": K7c once for every K7d and
     K7e launch, K3 never; the image against the plain brute-force scans
