@@ -22,10 +22,10 @@
 //        for each voted supernode in order, each lane runs the widened slab
 //        test of csrc/bvh.cuh (slab_entered, kSlabMargin) on its own
 //        segment (0, best); the warp skips the supernode when no lane
-//        enters it.  With kClusterGate the same two-level gate runs on the
-//        supernode's leaf clusters (their boxes from the BVH's node
-//        tables; an empty cluster's inverted box is never entered), and
-//        only their slots are tested.  A lane whose own test failed takes
+//        enters it.  The same two-level gate then runs on the supernode's
+//        leaf clusters (their boxes from the BVH's node tables; an empty
+//        cluster's inverted box is never entered), and only the slots of
+//        entered clusters are tested.  A lane whose own test failed takes
 //        no hit there.  The Woop rows are read as 3 float4 __ldg a slot (all
 //        lanes the same slot: one L1 line), in slot order, with a strict `<`
 //        against best, so the lowest slot wins among exactly tied t (as K3
@@ -71,10 +71,9 @@ namespace {
 
 constexpr int kBlock = 256;  // rays per vote block = cluster_sweep.BLOCK
 constexpr unsigned kAll = 0xffffffffu;
-// K7d / K7e: warps a CTA, the gate on leaf clusters, the Woop loop's
-// unroll; tools/torch_cluster_variants.py builds copies with other values.
+// K7d / K7e: warps a CTA and the Woop loop's unroll;
+// tools/torch_cluster_variants.py builds copies with other values.
 constexpr int kWarps = 4;
-constexpr bool kClusterGate = true;
 constexpr int kUnroll = 4;
 
 __global__ void __launch_bounds__(kBlock)
@@ -153,36 +152,27 @@ __device__ __forceinline__ bool cluster_entered(const Sweep& S, int c, gst::V3 o
 }
 
 // The slots a lane Woop-tests in voted supernode s once its own test passed
-// (`go`): with kClusterGate those of each leaf cluster that some lane of the
-// warp enters (each lane testing only the clusters it enters itself), else
-// every slot of the supernode.  `visit(slot, test)` runs for each slot in
-// order, `test` whether this lane tests it, and returns whether the lane
-// goes on searching (false after an any hit's occluder).  With kStops the
-// warp leaves a cluster, and the supernode, once no lane goes on in it.
+// (`go`): those of each leaf cluster that some lane of the warp enters, each
+// lane testing only the clusters it enters itself.  `visit(slot, test)` runs
+// for each slot in order, `test` whether this lane tests it, and returns
+// whether the lane goes on searching (false after an any hit's occluder).
+// With kStops the warp leaves a cluster, and the supernode, once no lane
+// goes on in it.
 template <bool kStops, class Visit>
 __device__ __forceinline__ void sweep_supernode(const Sweep& S, int s, bool go, gst::V3 o,
                                                 gst::V3 inv, float lo, const float& hi,
                                                 Visit&& visit) {
-  if (kClusterGate) {
-    const int k = S.stride / S.leaf_size;
-    const int c1 = min((s + 1) * k, S.n_clusters);
-    for (int c = s * k; c < c1 && (!kStops || __any_sync(kAll, go)); ++c) {
-      bool cin = go && cluster_entered(S, c, o, inv, lo, hi);
-      if (!__any_sync(kAll, cin)) continue;
-      const int e = min((c + 1) * S.leaf_size, S.n_slots);
+  const int k = S.stride / S.leaf_size;
+  const int c1 = min((s + 1) * k, S.n_clusters);
+  for (int c = s * k; c < c1 && (!kStops || __any_sync(kAll, go)); ++c) {
+    bool cin = go && cluster_entered(S, c, o, inv, lo, hi);
+    if (!__any_sync(kAll, cin)) continue;
+    const int e = min((c + 1) * S.leaf_size, S.n_slots);
 #pragma unroll(kUnroll)
-      for (int slot = c * S.leaf_size; slot < e; ++slot) {
-        go = visit(slot, cin) && go;
-        cin = cin && go;
-        if (kStops && !__any_sync(kAll, cin)) break;
-      }
-    }
-  } else {
-    const int e = min((s + 1) * S.stride, S.n_slots);
-#pragma unroll(kUnroll)
-    for (int slot = s * S.stride; slot < e; ++slot) {
-      go = visit(slot, go) && go;
-      if (kStops && !__any_sync(kAll, go)) break;
+    for (int slot = c * S.leaf_size; slot < e; ++slot) {
+      go = visit(slot, cin) && go;
+      cin = cin && go;
+      if (kStops && !__any_sync(kAll, cin)) break;
     }
   }
 }

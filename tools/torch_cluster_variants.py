@@ -10,8 +10,10 @@ each voted supernode and each of its leaf clusters gated by the lane's own
 widened slab test, the Woop loop unrolled by 4):
 
   warps1, warps2, warps8     1, 2 or 8 warps a CTA
-  nogate     no gate on leaf clusters: every slot of an entered supernode
   unroll1    the Woop loop not unrolled
+
+The sweep without the gate on leaf clusters (every slot of an entered
+supernode tested) is the variant `nogate` of this tool at commit 21f0d59.
 
 Each variant goes to build/cluster_variants/<name>/ (one nvcc per variant,
 all started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -49,12 +51,11 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", TOOL_ROOT / "chip_s
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)  # its imports of the port are lazy: PYTHONPATH's
 
-BASE = dict(kWarps="4", kClusterGate="true", kUnroll="4")
+BASE = dict(kWarps="4", kUnroll="4")
 VARIANTS = dict(
     warps1=dict(kWarps="1"),
     warps2=dict(kWarps="2"),
     warps8=dict(kWarps="8"),
-    nogate=dict(kClusterGate="false"),
     unroll1=dict(kUnroll="1"),
 )
 ENTRY_POINTS = ("gst_cluster_votes", "gst_cluster_closest", "gst_cluster_any")
