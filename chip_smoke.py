@@ -183,7 +183,11 @@ inside it, so its timed rows are traced again by the torch wavefront on K2
 or K3 (same config and timestamp: the same paths, rays within 1%) under a
 tally, and its operations are that tally's per ray times the kernel's ray
 count.  Bytes: each input read once (rays, pixel ids, scene tables, votes),
-each output written once (radiance, rays, partial planes, votes, hits).
+each output written once (radiance, rays, partial planes, votes, hits);
+of K7d / K7e's tables, only the Woop rows of the slots the two-gate sweep
+tests (GatedTests.slots) and K7d's attribute rows of the triangles hit.
+The timed calls are given the scene tables the wavefront builds once per
+render (K7c-e's supernode tables, the closest hits' attribute rows).
 No single PyTorch call computes ray-triangle intersection, a path-traced
 pixel, a supernode vote, a gated sweep, a gated walk, a binned
 vote-and-sweep or a BVH traversal, so library_ms is null for every kernel.
@@ -788,13 +792,15 @@ def phase_k3(dev, cases, field):
                   check_k3(name + " (NaN and inactive lanes)", scene, odd_lanes(rays)))
 
     # timing on the sphere field: K3 at 1M and 65,536 rays, K2 over the
-    # same table and rays, the plain version at 65,536
+    # same table and rays, the plain version at 65,536; K3a given the
+    # attribute rows built once, as the wavefront gives them
     times = {}
+    attr = ftb.attr_table(field)
     for n in (K3_RAYS["timing"], K3_RAYS["parity"]):
         o, d, lo, hi = field_rays(n, field, 99, dev)
         w = field.tri_woop_t
         times[n] = dict(
-            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5),
             k2a=cuda_ms(lambda: ci.closest_cuda(o, d, w, torch.zeros_like(lo), hi), reps=1),
             k2b=cuda_ms(lambda: ci.any_cuda(o, d, w, lo, hi), reps=1))
@@ -813,7 +819,8 @@ def phase_k3(dev, cases, field):
             f"{t.woop / n:.2f} Woop tests per ray, K3's own walk {t.walk_box / n:.2f} and "
             f"{t.walk_woop / n:.2f}; operations per ray {t.ops / n:.1f}")
     o, d, lo, hi = primary_rays(field, HEADLINE["size"], dev)
-    times["primary"] = dict(k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+    times["primary"] = dict(k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi,
+                                                                attr=attr), reps=5),
                             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
     log(f"  sphere field, {o.shape[0]} primary rays: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in times["primary"].items()))
@@ -1044,20 +1051,22 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def cluster_bounds(scene, rays, votes, votes_any, occ):
-    """bound() of K7c (on the closest rays' segments), K7d and K7e for one
-    call each over `rays` with these votes.  K7c's tests are counted as it
-    makes them (cluster_sweep.vote_tests: a (block, supernode) pair's rays
-    up to the first that passes).  K7d / K7e's operations are, ray by ray,
-    the fewer of two counts of the same function: the block sweep's
-    (cluster_sweep.sweep_tests: every voted slot for a ray with a non-empty
-    segment, K7e up to the ray's first occluder) and the two-gate sweep's
-    that the kernels make (cluster_sweep.gated_tests: a slab test per voted
-    supernode and, in one the ray enters, per non-empty leaf cluster, a
-    Woop test per slot of an entered cluster; K7e up to the first
-    occluder).  Both counts' occlusion must equal K7e's `occ`.  Also the
-    votes per block, the supernodes a warp sweeps and both counts' tests
-    per ray."""
+def cluster_bounds(scene, rays, votes, votes_any, occ, prim):
+    """bound() of K7c (on the closest rays' segments), K7d and K7e for one call
+    each over `rays` with these votes (`occ` K7e's, `prim` K7d's).  K7c's
+    tests are counted as it makes them (cluster_sweep.vote_tests: a (block,
+    supernode) pair's rays up to the first that passes).  K7d / K7e's
+    operations are, ray by ray, the fewer of two counts of the same function:
+    the block sweep's (cluster_sweep.sweep_tests: every voted slot for a ray
+    with a non-empty segment, K7e up to the ray's first occluder) and the
+    two-gate sweep's that the kernels make (cluster_sweep.gated_tests: a slab
+    test per voted supernode and, in one the ray enters, per non-empty leaf
+    cluster, a Woop test per slot of an entered cluster; K7e up to the first
+    occluder).  Both counts' occlusion must equal K7e's `occ`.  Their bytes
+    count the Woop rows of the slots the two-gate sweep tests (no row of an
+    empty cluster) and, for K7d, the attribute rows of the triangles hit.
+    Also the votes per block, the supernodes a warp sweeps and both counts'
+    tests per ray."""
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
     from gpuspectral_tpu_torch.bvh import ftb
 
@@ -1065,7 +1074,7 @@ def cluster_bounds(scene, rays, votes, votes_any, occ):
     zero = torch.zeros_like(hi)
     sn = cs.scene_supernodes(scene)
     box = float(cs.vote_tests(scene, o, d, zero, hi, supernodes=sn).double().sum())
-    sums, ops = {}, {}
+    sums, ops, rows = {}, {}, {}
     for key, seg_lo, v, any_hit in (("closest", zero, votes, False),
                                     ("any", lo, votes_any, True)):
         sweep, occ_sweep = cs.sweep_tests(scene, o, d, seg_lo, hi, v, any_hit, supernodes=sn)
@@ -1075,6 +1084,7 @@ def cluster_bounds(scene, rays, votes, votes_any, occ):
                 if not torch.equal(got, occ):
                     raise AssertionError(f"{what}' occlusion disagrees with K7e on "
                                          f"{int((got != occ).sum())} rays")
+        rows[key] = int(g.slots.sum()) * 4 * scene.tri_woop.shape[1]
         ops[key] = float(torch.minimum(sweep * WOOP_FLOPS,
                                        g.slab * SLAB_FLOPS + g.woop * WOOP_FLOPS).double().sum())
         sums[key] = dict(sweep=float(sweep.double().sum()), slab=float(g.slab.double().sum()),
@@ -1082,13 +1092,13 @@ def cluster_bounds(scene, rays, votes, votes_any, occ):
                          warp=float(g.warp_supernodes.double().mean()))
     n = o.shape[0]
     vb = nbytes(votes)
-    table = nbytes(scene.tri_woop)
     a = ftb.attr_table(scene).shape[1]
+    hit_rows = int(torch.unique(prim[prim >= 0]).numel())
     return dict(
         k7c=bound(box * SLAB_FLOPS, n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s]) + vb),
-        k7d=bound(ops["closest"], n * (28 + 16 + 4 * a) + vb + table
-                  + 4 * a * scene.padded_tris),
-        k7e=bound(ops["any"], n * (32 + 1) + vb + table),
+        k7d=bound(ops["closest"], n * (28 + 16 + 4 * a) + vb + rows["closest"]
+                  + 4 * a * hit_rows),
+        k7e=bound(ops["any"], n * (32 + 1) + vb + rows["any"]),
         votes_per_block=dict(closest=float(votes.double().sum(1).mean()),
                              any=float(votes_any.double().sum(1).mean())),
         supernodes_per_warp={k: v["warp"] for k, v in sums.items()},
@@ -1118,14 +1128,17 @@ def check_k7(name, scene, rays):
 
     o, d, lo, hi = rays
     zero = torch.zeros_like(hi)
-    votes = cs.cluster_votes(scene, o, d, zero, hi)
-    votes_any = cs.cluster_votes(scene, o, d, lo, hi)
-    got = cs.cluster_closest(scene, o, d, t_max=hi, votes=votes)
-    occ = cs.cluster_any(scene, o, d, lo, hi, votes=votes_any)
-    vr, c_ms = timed_once(lambda: cs.cluster_votes_ref(scene, o, d, zero, hi))
-    vr_any = cs.cluster_votes_ref(scene, o, d, lo, hi)
-    ref, d_ms = timed_once(lambda: cs.cluster_closest_ref(scene, o, d, t_max=hi, votes=vr))
-    occ_r, e_ms = timed_once(lambda: cs.cluster_any_ref(scene, o, d, lo, hi, votes=vr_any))
+    sn = cs.scene_supernodes(scene)
+    votes = cs.cluster_votes(scene, o, d, zero, hi, supernodes=sn)
+    votes_any = cs.cluster_votes(scene, o, d, lo, hi, supernodes=sn)
+    got = cs.cluster_closest(scene, o, d, t_max=hi, votes=votes, supernodes=sn)
+    occ = cs.cluster_any(scene, o, d, lo, hi, votes=votes_any, supernodes=sn)
+    vr, c_ms = timed_once(lambda: cs.cluster_votes_ref(scene, o, d, zero, hi, supernodes=sn))
+    vr_any = cs.cluster_votes_ref(scene, o, d, lo, hi, supernodes=sn)
+    ref, d_ms = timed_once(lambda: cs.cluster_closest_ref(scene, o, d, t_max=hi, votes=vr,
+                                                          supernodes=sn))
+    occ_r, e_ms = timed_once(lambda: cs.cluster_any_ref(scene, o, d, lo, hi, votes=vr_any,
+                                                        supernodes=sn))
     bad = {k: int((a != b).sum()) for k, a, b in (
         ("votes", votes, vr), ("votes_any", votes_any, vr_any), ("t", got[0], ref[0]),
         ("prim", got[1], ref[1]), ("u", got[2], ref[2]), ("v", got[3], ref[3]),
@@ -1242,7 +1255,9 @@ def primary_rays(scene, size, dev):
 def phase_k7(dev, cases, field):
     """K7c-e, K7f / K7g and K7a / K7b against their plain versions on the
     five BVH scenes, then timed on the sphere field beside K3: 65,536 random
-    rays and the 262,144 primary rays of the 512x512 frame."""
+    rays and the 262,144 primary rays of the 512x512 frame, each call given
+    the supernode tables and attribute rows built once, as the wavefront
+    gives them."""
     from gpuspectral_tpu_torch.bvh import binned as bn
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
     from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
@@ -1268,26 +1283,33 @@ def phase_k7(dev, cases, field):
             field_votes, field_votes_any = votes, votes_any
             plain_ms = dict(plain, **plain_fg, **plain_ab)
     out = {}
+    # built once, as the wavefront builds them, so that the times are the kernels'
+    sn, attr = cs.scene_supernodes(field), ftb.attr_table(field)
+    log(f"  ftb.attr_table of the sphere field, outside the timed calls: "
+        f"{cuda_ms(lambda: ftb.attr_table(field), reps=5):.3f} ms")
     for tag, rays, votes, votes_any in (
             ("random", field_rays(K3_RAYS["parity"], field, 20, dev), field_votes, field_votes_any),
             ("primary", primary_rays(field, HEADLINE["size"], dev), None, None)):
         o, d, lo, hi = rays
         zero = torch.zeros_like(hi)
         if votes is None:
-            votes = cs.cluster_votes(field, o, d, zero, hi)
-            votes_any = cs.cluster_votes(field, o, d, lo, hi)
-        occ = cs.cluster_any(field, o, d, lo, hi, votes=votes_any)
+            votes = cs.cluster_votes(field, o, d, zero, hi, supernodes=sn)
+            votes_any = cs.cluster_votes(field, o, d, lo, hi, supernodes=sn)
+        occ = cs.cluster_any(field, o, d, lo, hi, votes=votes_any, supernodes=sn)
+        prim = cs.cluster_closest(field, o, d, t_max=hi, votes=votes, supernodes=sn)[1]
         times = dict(
-            k7c=cuda_ms(lambda: cs.cluster_votes(field, o, d, zero, hi), reps=5),
-            k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, votes=votes), reps=2),
-            k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any), reps=2),
-            k7f=cuda_ms(lambda: ds.dfs_closest(field, o, d, t_max=hi), reps=2),
+            k7c=cuda_ms(lambda: cs.cluster_votes(field, o, d, zero, hi, supernodes=sn), reps=5),
+            k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, attr=attr, votes=votes,
+                                                   supernodes=sn), reps=2),
+            k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any,
+                                               supernodes=sn), reps=2),
+            k7f=cuda_ms(lambda: ds.dfs_closest(field, o, d, t_max=hi, attr=attr), reps=2),
             k7g=cuda_ms(lambda: ds.dfs_any(field, o, d, lo, hi), reps=2),
-            k7a=cuda_ms(lambda: bn.binned_closest(field, o, d, t_max=hi), reps=2),
+            k7a=cuda_ms(lambda: bn.binned_closest(field, o, d, t_max=hi, attr=attr), reps=2),
             k7b=cuda_ms(lambda: bn.binned_any(field, o, d, lo, hi), reps=2),
-            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
-        b = cluster_bounds(field, rays, votes, votes_any, occ)
+        b = cluster_bounds(field, rays, votes, votes_any, occ, prim)
         b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi))
         b_ab = binned_bounds(field, rays, bn.binned_any(field, o, d, lo, hi))
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
@@ -1501,6 +1523,7 @@ def phase_k7h(dev, cases, field):
             err = tuple(max(a, b) for a, b in zip(err, e))
     tree = traverse_tree(field)
     nodes = kernels.pack_nodes(*tree[1:3], tree[0])  # once, as the wavefront builds them
+    attr = ftb.attr_table(field)  # for K3a, likewise
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for tag, rays in (("random", field_rays(K3_RAYS["parity"], field, 20, dev)),
@@ -1514,7 +1537,7 @@ def phase_k7h(dev, cases, field):
             closest_pr8=cuda_ms(lambda: kernels.traverse_tests(o, d, *tree, zero, hi, False),
                                 reps=2),
             any_pr8=cuda_ms(lambda: kernels.traverse_tests(o, d, *tree, lo, hi, True), reps=2),
-            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi), reps=5),
+            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
         b = traverse_bounds(field, rays, (
             kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes),

@@ -28,6 +28,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _FLAGS = [
@@ -171,11 +173,13 @@ def build_info() -> dict:
 
 
 def check_aligned(what: str, **tables) -> None:
-    """Raise ValueError unless every table starts on a 16-byte boundary:
-    the kernels read them with 128-bit loads (float4 __ldg), which fault on
-    a misaligned address.  A fresh allocation is aligned; a view at an odd
-    offset need not be."""
+    """Raise ValueError unless every table is contiguous float32 starting on
+    a 16-byte boundary: the kernels read them with 128-bit loads (float4
+    __ldg), which fault on a misaligned address.  A fresh allocation is
+    aligned; a view at an odd offset need not be."""
     for name, x in tables.items():
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{what}: {name}: want contiguous float32, got {x.dtype}")
         if x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned (128-bit loads), got "
                              f"address {x.data_ptr():#x}")

@@ -42,7 +42,7 @@ tests K7c makes, `sweep_tests` those of the block sweep (every slot of the
 voted supernodes) and `gated_tests` those K7d / K7e make, for their bounds.
 K7d / K7e read the scene's (T, 12) Woop rows with 128-bit loads: the
 wrappers raise ValueError unless `scene.tri_woop` is contiguous float32 on
-a 16-byte boundary (ftb.check_rows).
+a 16-byte boundary (_build.check_aligned).
 
 Not carried over from the TPU: the fallback to the XLA traversal above
 MAX_VMEM_SLOTS (gpuspectral_tpu/integrator/path_tracer.py:213-221) and the
@@ -232,7 +232,7 @@ def _sweep_tables(scene, sn: Supernodes, votes):
     gst_cluster_closest / gst_cluster_any that follow the rays, and the
     tensors behind them, which the caller holds until the launch returns:
     the votes, the supernode boxes, the leaf clusters' boxes (cluster_boxes)
-    and the (T, 12) Woop rows (ftb.check_rows)."""
+    and the (T, 12) Woop rows."""
     cmin, cmax = (x.contiguous() for x in cluster_boxes(scene)[:2])
     woop_rows = scene.tri_woop
     held = (votes, sn.blo, sn.bhi, cmin, cmax, woop_rows)
@@ -285,15 +285,15 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
     r = origin.shape[0]
     dev = origin.device
     _check_votes(votes, r, sn.s, dev)
-    ftb.check_rows("cluster_closest", tri_woop=scene.tri_woop)
+    from .. import _build
+
+    _build.check_aligned("cluster_closest", **{"scene.tri_woop": scene.tri_woop})
     if dev.type == "cpu":
         return cluster_closest_ref(scene, origin, direction, t_max=t_max, attr=attr, votes=votes,
                                    supernodes=sn)
     a = attr.shape[1]
     if attr.device != dev or attr.dtype != torch.float32 or attr.shape[0] != scene.padded_tris:
         raise ValueError(f"attr: want float32 ({scene.padded_tris}, A) on {dev}")
-    from .. import _build
-
     lib = _build.load()
     attr = attr.contiguous()
     tables, held = _sweep_tables(scene, sn, votes)  # noqa: F841 (held until the launch returns)
@@ -326,11 +326,11 @@ def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None,
     r = origin.shape[0]
     dev = origin.device
     _check_votes(votes, r, sn.s, dev)
-    ftb.check_rows("cluster_any", tri_woop=scene.tri_woop)
-    if dev.type == "cpu":
-        return cluster_any_ref(scene, origin, direction, t_min, t_max, votes=votes, supernodes=sn)
     from .. import _build
 
+    _build.check_aligned("cluster_any", **{"scene.tri_woop": scene.tri_woop})
+    if dev.type == "cpu":
+        return cluster_any_ref(scene, origin, direction, t_min, t_max, votes=votes, supernodes=sn)
     lib = _build.load()
     tables, held = _sweep_tables(scene, sn, votes)  # noqa: F841 (held until the launch returns)
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
@@ -443,19 +443,22 @@ def cluster_boxes(scene):
 class GatedTests(NamedTuple):
     """gated_tests' counts: per ray, slab tests, Woop tests and the any
     hit; per warp of 32 rays, the supernodes it sweeps (those some lane
-    enters while still searching)."""
+    enters while still searching); per slot, whether some ray Woop-tests
+    it (the Woop rows the sweep reads)."""
     slab: torch.Tensor
     woop: torch.Tensor
     occluded: torch.Tensor
     warp_supernodes: torch.Tensor
+    slots: torch.Tensor
 
 
 def gated_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
                 supernodes=None) -> GatedTests:
     """GatedTests ((R,) int64 slab tests, (R,) int64 Woop tests, (R,) bool
-    occluded, (ceil(R / 32),) int64 supernodes a warp sweeps): the tests
-    the two-gate sweep of K7d (any_hit False, on (0, t_max): pass
-    t_min 0) or K7e (True) makes for each ray over `votes`.  A ray with an
+    occluded, (ceil(R / 32),) int64 supernodes a warp sweeps, (T,) bool
+    slots some ray Woop-tests): the tests the two-gate sweep of K7d
+    (any_hit False, on (0, t_max): pass t_min 0) or K7e (True) makes for
+    each ray over `votes`.  A ray with an
     empty segment (t_max <= t_min) makes none.  Otherwise, in supernode
     order, one widened slab test (slab_entered) for each supernode its block
     voted for, on (t_min, best) for the closest hit, best the closest t so
@@ -482,6 +485,7 @@ def gated_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
     tests = torch.zeros((r,), dtype=torch.int64, device=dev)
     occluded = torch.zeros((r,), dtype=torch.bool, device=dev)
     swept = torch.zeros((-(-r // 32),), dtype=torch.int64, device=dev)
+    read = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
     for s in range(sn.s):
         rows = torch.nonzero((votes[block, s] > 0) & todo)[:, 0]
         c0, c1 = s * k, min((s + 1) * k, n_clusters)
@@ -503,6 +507,8 @@ def gated_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
         t = t.reshape(-1, c1 - c0, leaf)
         n_in = torch.clamp(n_slots - torch.arange(c0, c1, device=dev) * leaf, 0, leaf)
         full = ~c_empty[c0:c1]
+        pos = torch.arange((c1 - c0) * leaf, device=dev)
+        in_table = pos < n_slots - base
         if any_hit:
             # the clusters' own tests up to and including the first occluder's
             cin = full & slab_entered(c_lo[c0:c1], c_hi[c0:c1], o[:, None], iv[:, None],
@@ -518,6 +524,8 @@ def gated_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
             woops = (before * n_in[None]).sum(1)
             tail = torch.where(found, first % leaf + 1, n_in[fc] * cin.gather(1, fc[:, None])[:, 0])
             tests[rows] += woops + tail
+            tested = cin.repeat_interleave(leaf, 1) & (pos[None] <= first[:, None]) & in_table
+            read[base:base + int(in_table.sum())] |= tested.any(0)[in_table]
             occluded[rows[found]] = True
             todo[rows[found]] = False
         else:
@@ -531,5 +539,6 @@ def gated_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,
                 b = torch.where(cin[:, j], torch.minimum(b, cm[:, j]), b)
             slab[rows] += int(full.sum())
             tests[rows] += (cin * n_in[None]).sum(1)
+            read[base:base + int(in_table.sum())] |= cin.any(0).repeat_interleave(leaf)[in_table]
             best[rows] = b
-    return GatedTests(slab, tests, occluded, swept)
+    return GatedTests(slab, tests, occluded, swept, read)

@@ -135,26 +135,17 @@ def kernel_tables(scene):
             scene.tri_woop_t.contiguous(), ip)
 
 
-def check_rows(what: str, **rows):
-    """Raise ValueError unless each of the scene's `rows` is contiguous
-    float32 on a 16-byte boundary: the kernels read them with 128-bit
-    loads (csrc/bvh.cuh, csrc/cluster.cu)."""
-    from .. import _build
-
-    for name, x in rows.items():
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{what}: scene.{name}: want contiguous float32, got {x.dtype}")
-    _build.check_aligned(what, **{f"scene.{k}": x for k, x in rows.items()})
-
-
 def walk_tables(scene):
     """(pairs, woop, walk_ip) for the walk of K3, K4 and K6 (csrc/bvh.cuh:
     walk_closest / walk_any): the scene's own child-pair rows (P, 16) and
     Woop rows (T, 12), packed once when the scene was made, and the host
     ints n_slots, leaf_size, root code (csrc/bvh.cuh:make_walk_tables).
     Raises ValueError unless both are contiguous float32 on a 16-byte
-    boundary (check_rows)."""
-    check_rows("walk_tables", bvh_pairs=scene.bvh_pairs, tri_woop=scene.tri_woop)
+    boundary (_build.check_aligned)."""
+    from .. import _build
+
+    _build.check_aligned("walk_tables", **{"scene.bvh_pairs": scene.bvh_pairs,
+                                           "scene.tri_woop": scene.tri_woop})
     ip = torch.tensor([scene.tri_woop.shape[0], scene.bvh_leaf_size, scene.bvh_root],
                       dtype=torch.int32)
     return scene.bvh_pairs, scene.tri_woop, ip

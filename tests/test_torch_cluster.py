@@ -358,7 +358,7 @@ def _warp_walk(ts, sn, o, d, lo, hi, votes, any_hit):
     against best.  An any-hit lane stops at its first occluder, the warp
     when no lane is left.  Returns ((t, prim, u, v, attrs) or occ, the
     slab tests and the Woop tests per ray, the supernodes each warp
-    sweeps)."""
+    sweeps, the slots some lane Woop-tests)."""
     r = o.shape[0]
     n_slots, leaf = ts.tri_woop.shape[0], ts.bvh_leaf_size
     k = sn.stride // leaf
@@ -369,6 +369,7 @@ def _warp_walk(ts, sn, o, d, lo, hi, votes, any_hit):
     slab = torch.zeros((r,), dtype=torch.int64)
     tests = torch.zeros((r,), dtype=torch.int64)
     swept = torch.zeros((-(-r // 32),), dtype=torch.int64)
+    read = torch.zeros((n_slots,), dtype=torch.bool)
     for w0 in range(0, r, 32):
         w = slice(w0, min(w0 + 32, r))
         wo, wd, wi, wl, wh = o[w], d[w], inv[w], lo[w], hi[w]
@@ -392,6 +393,7 @@ def _warp_walk(ts, sn, o, d, lo, hi, votes, any_hit):
                     if not cin.any():
                         break
                     tests[w][cin] += 1
+                    read[slot] = True
                     t = woop._chunk_t(wo, wd, ts.tri_woop[slot:slot + 1], wl,
                                       wh if any_hit else b)[:, 0]
                     hit = cin & (t < 1e30)
@@ -403,11 +405,11 @@ def _warp_walk(ts, sn, o, d, lo, hi, votes, any_hit):
                         wp = torch.where(hit, slot, wp)
         best[w], prim[w], occ[w] = b, wp, wocc
     if any_hit:
-        return occ, slab, tests, swept
+        return occ, slab, tests, swept, read
     t = torch.where(prim >= 0, best, 1e30)
     u, v = woop._recover_uv(o, d, ts.tri_woop, prim, torch.where(prim >= 0, best, 0.0))
     u, v = torch.where(prim >= 0, u, 0.0), torch.where(prim >= 0, v, 0.0)
-    return (t, prim, u, v, ftb._gather_attrs(ftb.attr_table(ts), prim)), slab, tests, swept
+    return (t, prim, u, v, ftb._gather_attrs(ftb.attr_table(ts), prim)), slab, tests, swept, read
 
 
 def _gated_rays(ts, seed):
@@ -431,11 +433,11 @@ def test_two_gate_sweep_equals_the_block_gated_scan(pairs, name):
     zero = torch.zeros_like(hi)
     votes = cs.cluster_votes(ts, o, d, zero, hi, supernodes=sn)
     votes_any = cs.cluster_votes(ts, o, d, lo, hi, supernodes=sn)
-    got, _, _, _ = _warp_walk(ts, sn, o, d, zero, hi, votes, False)
+    got = _warp_walk(ts, sn, o, d, zero, hi, votes, False)[0]
     ref = cs.cluster_closest_ref(ts, o, d, t_max=hi, votes=votes, supernodes=sn)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    occ, _, _, _ = _warp_walk(ts, sn, o, d, lo, hi, votes_any, True)
+    occ = _warp_walk(ts, sn, o, d, lo, hi, votes_any, True)[0]
     occ_ref = cs.cluster_any_ref(ts, o, d, lo, hi, votes=votes_any, supernodes=sn)
     assert torch.equal(occ, occ_ref)
     hits = int((ref[1] >= 0).sum())
@@ -448,19 +450,24 @@ def test_two_gate_sweep_equals_the_block_gated_scan(pairs, name):
 def test_gated_tests_count_the_warp_walk(pairs, name):
     """gated_tests (the bound's count of the two-gate sweep) equals the
     slab and Woop tests of the warp walk ray by ray, its supernodes swept
-    warp by warp, its occlusion the walk's; it never makes more Woop tests than the block sweep
-    (sweep_tests), and on the scenes of several supernodes far fewer."""
+    warp by warp, the slots it reads slot by slot (no slot of an empty
+    cluster among them), its occlusion the walk's; it never makes more Woop
+    tests than the block sweep (sweep_tests), and on the scenes of several
+    supernodes far fewer."""
     ts = _gated_scene(pairs, name)
     o, d, lo, hi = _gated_rays(ts, 12)
     sn = cs.scene_supernodes(ts)
     zero = torch.zeros_like(hi)
     for seg_lo, any_hit in ((zero, False), (lo, True)):
         votes = cs.cluster_votes(ts, o, d, seg_lo, hi, supernodes=sn)
-        _, slab, tests, swept = _warp_walk(ts, sn, o, d, seg_lo, hi, votes, any_hit)
-        g_slab, g_tests, g_occ, g_swept = cs.gated_tests(ts, o, d, seg_lo, hi, votes, any_hit,
-                                                         supernodes=sn)
+        _, slab, tests, swept, read = _warp_walk(ts, sn, o, d, seg_lo, hi, votes, any_hit)
+        g_slab, g_tests, g_occ, g_swept, g_read = cs.gated_tests(ts, o, d, seg_lo, hi, votes,
+                                                                 any_hit, supernodes=sn)
         assert torch.equal(g_slab, slab) and torch.equal(g_tests, tests)
-        assert torch.equal(g_swept, swept)
+        assert torch.equal(g_swept, swept) and torch.equal(g_read, read)
+        empty = cs.cluster_boxes(ts)[2].repeat_interleave(ts.bvh_leaf_size)
+        n = min(read.shape[0], empty.shape[0])
+        assert not bool((read[:n] & empty[:n]).any()) and 0 < int(read.sum()) <= int(tests.sum())
         sweep, occ = cs.sweep_tests(ts, o, d, seg_lo, hi, votes, any_hit, supernodes=sn)
         assert torch.equal(g_occ, occ)
         assert bool((g_tests <= sweep).all())
