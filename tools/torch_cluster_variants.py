@@ -1,213 +1,69 @@
 """Time K7d and K7e, the cluster sweep's kernels (gpuspectral_tpu_torch/
-csrc/cluster.cu), at variants of their design, on the sphere field.
+csrc/cluster.cu), on the sphere field, with checksums of their outputs.
 
-    PYTHONPATH=. python3 tools/torch_cluster_variants.py variants [variant ...]
     PYTHONPATH=ROOT python3 tools/torch_cluster_variants.py ab
 
-`variants` builds copies of cluster.cu with its constants set per variant,
-one change each from the shipped sweep (a warp a 32 rays, 4 warps a CTA,
-each voted supernode and each of its leaf clusters gated by the lane's own
-widened slab test, the Woop loop unrolled by 4):
-
-  warps1, warps2, warps8     1, 2 or 8 warps a CTA
-  unroll1    the Woop loop not unrolled
-
-The sweep without the gate on leaf clusters (every slot of an entered
-supernode tested) is the variant `nogate` of this tool at commit 21f0d59.
-
-Each variant goes to build/cluster_variants/<name>/ (one nvcc per variant,
-all started together, with the flags of gpuspectral_tpu_torch/_build.py;
-ptxas's registers and spills printed).  The tree's K7d / K7e are held to
-their plain versions on chip_smoke.py's 65,536 random rays, and each
-variant's outputs to the tree's on those rays and on the 262,144 primary
-rays of the 512x512 frame (the votes are K7c's, computed once).  Then
-every variant and the tree's own build are timed with CUDA events, in
-order and again in reverse order.  One JSON line, about a minute of
-command.
-
 `ab` times the port on PYTHONPATH (the tree's own build): K7d and K7e on
-the same rays and votes, with checksums of their outputs, which no design
-of the sweep changes (two trees print the same ones).  To compare two
-trees on one card, unpack the parent with `git archive` into build/ and
-run this from the change's tree in one call, in the order parent, change,
-change, parent.  Needs a CUDA device and nvcc.
+chip_smoke.py's 65,536 random rays and the 262,144 primary rays of the
+512x512 frame, on K7c's votes, each call given the supernode tables and
+the attribute rows built once, as the wavefront gives them.  It prints
+checksums of their outputs, which no design of the sweep changes (two
+trees print the same ones).  To compare two trees on one card, unpack the
+parent with `git archive` into build/ and run this from the change's tree
+in one call, in the order parent, change, change, parent.  One JSON line.
+Needs a CUDA device and nvcc.
+
+The sweep's decided variants build from this tool at earlier commits: 1, 2
+or 8 warps a CTA and the Woop loop not unrolled (`variants`) at 88dd764,
+the sweep without the gate on leaf clusters (`nogate`) at 21f0d59.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import importlib.util
 import json
 import pathlib
-import re
-import subprocess
 import sys
 
 import torch
+import torch_variants as tv
 
-TOOL_ROOT = pathlib.Path(__file__).resolve().parents[1]
-_spec = importlib.util.spec_from_file_location("chip_smoke", TOOL_ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)  # its imports of the port are lazy: PYTHONPATH's
-
-BASE = dict(kWarps="4", kUnroll="4")
-VARIANTS = dict(
-    warps1=dict(kWarps="1"),
-    warps2=dict(kWarps="2"),
-    warps8=dict(kWarps="8"),
-    unroll1=dict(kUnroll="1"),
-)
-ENTRY_POINTS = ("gst_cluster_votes", "gst_cluster_closest", "gst_cluster_any")
 REPS = 5
 
 
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-
-
-def checksum(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
 def calls(dev):
-    """(the sphere field, {name: a no-argument call} of the timed work):
-    K7d and K7e on the random and the primary rays, on K7c's votes."""
+    """{name: a no-argument call} of the timed work: K7d and K7e on the
+    random and the primary rays, on K7c's votes."""
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+    from gpuspectral_tpu_torch.bvh import ftb
     from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
 
     field = build_sphere_field(dev)
-    sn = cs.scene_supernodes(field)
-    rays = dict(random=chip_smoke.field_rays(chip_smoke.K3_RAYS["parity"], field, 20, dev),
-                primary=chip_smoke.primary_rays(field, 512, dev))
+    sn, attr = cs.scene_supernodes(field), ftb.attr_table(field)
+    rays = dict(random=tv.chip_smoke.field_rays(tv.chip_smoke.K3_RAYS["parity"], field, 20, dev),
+                primary=tv.chip_smoke.primary_rays(field, 512, dev))
     work = {}
     for tag, (o, d, lo, hi) in rays.items():
         votes = cs.cluster_votes(field, o, d, torch.zeros_like(hi), hi, supernodes=sn)
         votes_any = cs.cluster_votes(field, o, d, lo, hi, supernodes=sn)
         work[f"k7d_{tag}"] = (lambda o=o, d=d, hi=hi, v=votes: cs.cluster_closest(
-            field, o, d, t_max=hi, votes=v, supernodes=sn))
+            field, o, d, t_max=hi, attr=attr, votes=v, supernodes=sn))
         work[f"k7e_{tag}"] = (lambda o=o, d=d, lo=lo, hi=hi, v=votes_any: cs.cluster_any(
             field, o, d, lo, hi, votes=v, supernodes=sn))
-    return field, rays, work
-
-
-def results(work):
-    out = {}
-    for name, fn in work.items():
-        got = fn()
-        out[name] = [got] if isinstance(got, torch.Tensor) else list(got)
-    torch.cuda.synchronize()
-    return out
-
-
-def same(got, want) -> bool:
-    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
-
-
-def time_all(work):
-    return {name: chip_smoke.cuda_ms(fn, reps=REPS) for name, fn in work.items()}
-
-
-def source(path: pathlib.Path, consts: dict) -> str:
-    src = path.read_text()
-    for name, value in consts.items():
-        src, n = re.subn(rf"constexpr (\w+) {name} = [^;]+;", rf"constexpr \g<1> {name} = {value};",
-                         src)
-        if n != 1:
-            raise RuntimeError(f"{path.name} declares {name} {n} times")
-    return src
-
-
-def build(names):
-    """{variant: the loaded library}, the nvcc runs started together."""
-    from gpuspectral_tpu_torch import _build
-
-    procs = {}
-    for name in names:
-        out = TOOL_ROOT / "build" / "cluster_variants" / name
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "cluster.cu").write_text(source(_build._CSRC / "cluster.cu",
-                                               dict(BASE, **VARIANTS[name])))
-        procs[name] = (out / "libvariant.so", subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-shared", "-I", str(_build._CSRC),
-             str(out / "cluster.cu"), "-o", str(out / "libvariant.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        for kern, line in _build._ptxas_summary(log).items():
-            print(f"ptxas {name} {kern}: {line}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        for fn in ENTRY_POINTS:
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
-def main_variants(names) -> int:
-    from gpuspectral_tpu_torch import _build
-    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
-
-    names = names or list(VARIANTS)
-    dev = torch.device("cuda")
-    smi = card()
-    print(smi, flush=True)
-    libs = build(names)
-    field, rays, work = calls(dev)
-    ref = results(work)
-    o, d, lo, hi = rays["random"]
-    votes = cs.cluster_votes(field, o, d, torch.zeros_like(hi), hi)
-    votes_any = cs.cluster_votes(field, o, d, lo, hi)
-    plain = (cs.cluster_closest_ref(field, o, d, t_max=hi, votes=votes),
-             cs.cluster_any_ref(field, o, d, lo, hi, votes=votes_any))
-    if not (same(ref["k7d_random"], plain[0]) and same(ref["k7e_random"], [plain[1]])):
-        raise AssertionError("the tree's K7d / K7e differ from their plain versions")
-    real_load = _build.load
-    builds = dict(libs, tree=None)
-
-    def use(name):
-        lib = builds[name]
-        _build.load = real_load if lib is None else (lambda: lib)
-
-    try:
-        for name in libs:
-            use(name)
-            got = results(work)
-            for key, want in ref.items():
-                if not same(got[key], want):
-                    raise AssertionError(f"{name}: {key} differs from the tree's kernels")
-        times = {name: {key: [] for key in work} for name in builds}
-        order = list(builds)
-        for name in order + order[::-1]:
-            use(name)
-            for key, ms in time_all(work).items():
-                times[name][key].append(ms)
-    finally:
-        _build.load = real_load
-    print(json.dumps(dict(card=smi, rays={k: v[0].shape[0] for k, v in rays.items()},
-                          ms=times)), flush=True)
-    return 0
+    return work
 
 
 def main_ab() -> int:
     from gpuspectral_tpu_torch import _build
 
     dev = torch.device("cuda")
-    smi = card()
+    smi = tv.card()
     _build.load()
     root = str(pathlib.Path(_build.__file__).resolve().parents[1])
-    _, _, work = calls(dev)
-    got = results(work)
-    ms = time_all(work)
+    work = calls(dev)
+    got = tv.results(work)
+    ms = {name: tv.chip_smoke.cuda_ms(fn, reps=REPS) for name, fn in work.items()}
     print(json.dumps(dict(
-        root=root, card=smi, ms=ms, outputs={k: checksum(*v) for k, v in got.items()},
+        root=root, card=smi, ms=ms, outputs={k: tv.checksum(*v) for k, v in got.items()},
         ptxas={k: v for k, v in _build.build_info()["ptxas"].items() if "cluster" in k})),
         flush=True)
     return 0
@@ -217,5 +73,7 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("torch_cluster_variants: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    mode = sys.argv[1] if len(sys.argv) > 1 else "variants"
-    sys.exit(main_ab() if mode == "ab" else main_variants(sys.argv[2:]))
+    if sys.argv[1:] != ["ab"]:
+        print("usage: torch_cluster_variants.py ab", file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main_ab())

@@ -4,8 +4,8 @@
     PYTHONPATH=. python3 tools/torch_dfs_block.py [dfs|binned] [32 64 128 256]
 
 For each size B the script builds a copy of the kernels' source with
-kBlock = B (nvcc, the flags of gpuspectral_tpu_torch/_build.py) into
-build/dfs_block/<family>/B/, holds the kernels against their plain versions
+kBlock = B (tools/torch_variants.py: one nvcc a size, all started together)
+into build/dfs_block/<family>/B/, holds the kernels against their plain versions
 (dfs: the walk at block=B, dfs_sweep.dfs_closest_ref / dfs_any_ref; binned:
 binned.binned_closest_ref / binned_any_ref, whose result does not hang on
 the block), every output equal, and times them with CUDA events on the
@@ -18,26 +18,21 @@ line per (size, rays).  Needs a CUDA device and nvcc.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import pathlib
-import subprocess
 import sys
 
 import torch
+import torch_variants as tv
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from gpuspectral_tpu_torch import _build  # noqa: E402
 from gpuspectral_tpu_torch.bvh import binned as bn  # noqa: E402
 from gpuspectral_tpu_torch.bvh import dfs_sweep as ds  # noqa: E402
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field  # noqa: E402
-
-SOURCE_BLOCK = "constexpr int kBlock = 32;"
-
 
 def _dfs(field, o, d, lo, hi, block):
     """(outputs of K7f / K7g, of their plain versions at `block`, tests per ray)."""
@@ -76,25 +71,6 @@ FAMILIES = dict(
 )
 
 
-def build(family: str, block: int):
-    """The family's kernels with kBlock = block, loaded with ctypes."""
-    source, names = FAMILIES[family][:2]
-    out = ROOT / "build" / "dfs_block" / family / str(block)
-    out.mkdir(parents=True, exist_ok=True)
-    src = (_build._CSRC / source).read_text()
-    if SOURCE_BLOCK not in src:
-        raise RuntimeError(f"csrc/{source} no longer declares {SOURCE_BLOCK!r}")
-    (out / source).write_text(src.replace(SOURCE_BLOCK, f"constexpr int kBlock = {block};"))
-    so = out / "libblock.so"
-    subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-I", str(_build._CSRC),
-                    str(out / source), "-o", str(so)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    for name in names:
-        getattr(lib, name).argtypes = _build._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
-
-
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_dfs_block: no CUDA device", file=sys.stderr)
@@ -106,13 +82,13 @@ def main(argv) -> int:
     field = build_sphere_field(dev)
     rays = dict(random=chip_smoke.field_rays(chip_smoke.K3_RAYS["parity"], field, 20, dev),
                 primary=chip_smoke.primary_rays(field, chip_smoke.HEADLINE["size"], dev))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    real_load = _build.load
-    try:
-        for block in blocks:
-            lib = build(family, block)
-            _build.load = lambda lib=lib: lib  # the wrappers launch this build
+    smi = tv.card()
+    source, names = FAMILIES[family][:2]
+    libs = tv.build(f"dfs_block/{family}",
+                    {str(b): tv.variant_sources((source,), dict(kBlock=str(b))) for b in blocks},
+                    names, show=lambda kern: False)
+    for block in blocks:
+        with tv.launching(libs[str(block)]):
             for tag, (o, d, lo, hi) in rays.items():
                 got, ref, tests = check(field, o, d, lo, hi, block)
                 if not all(torch.equal(a, b) for a, b in zip(got, ref)):
@@ -122,8 +98,6 @@ def main(argv) -> int:
                          for k, fn in timed.items()}
                 print(json.dumps(dict(family=family, block=block, rays=tag, n_rays=o.shape[0],
                                       card=smi, **times, tests=tests)), flush=True)
-    finally:
-        _build.load = real_load
     return 0
 
 

@@ -53,21 +53,12 @@ the change's tree in one call, in the order parent, change, change, parent
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import importlib.util
 import json
 import pathlib
-import re
-import subprocess
 import sys
 
 import torch
-
-TOOL_ROOT = pathlib.Path(__file__).resolve().parents[1]
-_spec = importlib.util.spec_from_file_location("chip_smoke", TOOL_ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)  # its imports of the port are lazy: PYTHONPATH's
+import torch_variants as tv
 
 BASE = dict(kWoopUnroll="4", kThreads="128", kWarpsPerSm="16")
 VARIANTS = dict(
@@ -84,18 +75,6 @@ K6 = dict(scene="builtin:sphere_field_noenv", size=512, spp=64, depth=5)
 TS = 101
 
 
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-
-
-def checksum(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
 def frames(dev):
     """(K4's scene and config, K6's scene, config and pixel rows, the two
     ray sets of chip_smoke.py)."""
@@ -108,8 +87,8 @@ def frames(dev):
     scene6 = load_scene(K6["scene"], dev)
     cfg6 = RenderConfig(width=K6["size"], height=K6["size"], spp=K6["spp"],
                         max_depth=K6["depth"], use_bvh=True)
-    rays = dict(random=chip_smoke.field_rays(chip_smoke.K3_RAYS["parity"], scene, 20, dev),
-                primary=chip_smoke.primary_rays(scene, 512, dev))
+    rays = dict(random=tv.chip_smoke.field_rays(tv.chip_smoke.K3_RAYS["parity"], scene, 20, dev),
+                primary=tv.chip_smoke.primary_rays(scene, 512, dev))
     return scene, cfg, scene6, cfg6, mg.pix_rows(cfg6, dev), rays
 
 
@@ -126,115 +105,29 @@ def calls(scene, cfg, scene6, cfg6, pix6, rays):
     return out
 
 
-def results(work):
-    """The outputs the walk must not change, by call."""
-    out = {}
-    for name, fn in work.items():
-        got = fn()
-        out[name] = [got] if isinstance(got, torch.Tensor) else list(got)
-    torch.cuda.synchronize()
-    return out
-
-
-def same(got, want) -> bool:
-    return len(got) == len(want) and all(
-        torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in zip(got, want))
-
-
-def time_all(work, reps):
-    return {name: chip_smoke.cuda_ms(fn, reps=reps[name]) for name, fn in work.items()}
-
-
 REPS = dict(k4_frame=1, k6_frame=1, k3a_random=5, k3b_random=5, k3a_primary=5, k3b_primary=5)
 
 
-def source(path: pathlib.Path, consts: dict) -> tuple[str, set]:
-    """The file with the variant's constants that it declares, and their
-    names."""
-    src, found = path.read_text(), set()
-    for name, value in consts.items():
-        src, n = re.subn(rf"constexpr (\w+) {name} = [^;]+;", rf"constexpr \g<1> {name} = {value};",
-                         src)
-        if n > 1:
-            raise RuntimeError(f"{path.name} declares {name} {n} times")
-        found |= {name} if n else set()
-    return src, found
-
-
-def build(names):
-    """{variant: the loaded library}, the nvcc runs started together."""
-    from gpuspectral_tpu_torch import _build
-
-    procs = {}
-    for name in names:
-        consts = dict(BASE, **VARIANTS[name])
-        out = TOOL_ROOT / "build" / "mega_bvh_variants" / name
-        out.mkdir(parents=True, exist_ok=True)
-        found = set()
-        for src in ("bvh.cuh", "bvh.cu", "mega_bvh.cu"):
-            text, names_set = source(_build._CSRC / src, consts)
-            (out / src).write_text(text)
-            found |= names_set
-        if found != set(consts):
-            raise RuntimeError(f"{name}: no source declares {set(consts) - found}")
-        procs[name] = (out / "libvariant.so", subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-shared", "-I", str(out), "-I", str(_build._CSRC),
-             str(out / "bvh.cu"), str(out / "mega_bvh.cu"), "-o", str(out / "libvariant.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        for kern, line in _build._ptxas_summary(log).items():
-            if "count" not in kern:
-                print(f"ptxas {name} {kern}: {line}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        for fn in ENTRY_POINTS:
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def main_variants(names) -> int:
-    from gpuspectral_tpu_torch import _build
     from gpuspectral_tpu_torch.bvh import ftb
 
     names = names or list(VARIANTS)
     dev = torch.device("cuda")
-    smi = card()
+    smi = tv.card()
     print(smi, flush=True)
-    libs = build(names)
+    libs = tv.build("mega_bvh_variants", {
+        name: tv.variant_sources(("bvh.cuh", "bvh.cu", "mega_bvh.cu"),
+                                 dict(BASE, **VARIANTS[name])) for name in names},
+        ENTRY_POINTS, show=lambda kern: "count" not in kern)
     scene, cfg, scene6, cfg6, pix6, rays = frames(dev)
     work = calls(scene, cfg, scene6, cfg6, pix6, rays)
     o, d, lo, hi = rays["random"]
     plain = ftb.ftb_closest_ref(scene, o, d, t_max=hi)[:4], ftb.ftb_any_ref(scene, o, d, lo, hi)
-    ref = results(work)
-    if not (same(ref["k3a_random"][:4], plain[0]) and same(ref["k3b_random"], [plain[1]])):
+    ref = tv.results(work)
+    if not (tv.same(ref["k3a_random"][:4], plain[0]) and tv.same(ref["k3b_random"], [plain[1]])):
         raise AssertionError("the tree's K3 differs from its plain version on random rays")
-    real_load = _build.load
-    builds = dict(libs, tree=None)
-
-    def use(name):
-        lib = builds[name]
-        _build.load = real_load if lib is None else (lambda: lib)
-
-    try:
-        for name in libs:
-            use(name)
-            got = results(work)
-            for key, want in ref.items():
-                if not same(got[key], want):
-                    raise AssertionError(f"{name}: {key} differs from the tree's kernels")
-        times = {name: {key: [] for key in work} for name in builds}
-        order = list(builds)
-        for name in order + order[::-1]:
-            use(name)
-            for key, ms in time_all(work, REPS).items():
-                times[name][key].append(ms)
-    finally:
-        _build.load = real_load
+    tv.check_builds(libs, work, ref)
+    times = tv.time_in_turns(dict(libs, tree=None), work, REPS)
     print(json.dumps(dict(card=smi, rays={k: v[0].shape[0] for k, v in rays.items()},
                           k4_frame=" ".join(K4_ARGS), k6_frame=K6, ms=times)), flush=True)
     return 0
@@ -245,21 +138,21 @@ def main_ab() -> int:
     from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
 
     dev = torch.device("cuda")
-    smi = card()
+    smi = tv.card()
     _build.load()
     root = str(pathlib.Path(_build.__file__).resolve().parents[1])
     scene, cfg, scene6, cfg6, pix6, rays = frames(dev)
     work = calls(scene, cfg, scene6, cfg6, pix6, rays)
-    got = results(work)
-    ms = time_all(work, REPS)
+    got = tv.results(work)
+    ms = {name: tv.chip_smoke.cuda_ms(fn, reps=REPS[name]) for name, fn in work.items()}
     step = run_grad_benchmark(K6["scene"], size=K6["size"], spp=K6["spp"], depth=K6["depth"],
                               steps=2, use_bvh=True)
     k4 = got["k4_frame"]
     print(json.dumps(dict(
         root=root, card=smi, ms=ms, grad_bvh_seconds_per_step=step["seconds_per_step"],
-        k4_image=checksum(k4[0]), k4_rays=k4[1], k4_mean=float(k4[0].double().mean()),
-        k6_planes=checksum(*got["k6_frame"]),
-        k3=checksum(*got["k3a_random"][:4], *got["k3b_random"], *got["k3a_primary"][:4],
+        k4_image=tv.checksum(k4[0]), k4_rays=k4[1], k4_mean=float(k4[0].double().mean()),
+        k6_planes=tv.checksum(*got["k6_frame"]),
+        k3=tv.checksum(*got["k3a_random"][:4], *got["k3b_random"], *got["k3a_primary"][:4],
                     *got["k3b_primary"]),
         ptxas={k: v for k, v in _build.build_info()["ptxas"].items()
                if "mega_bvh" in k or "bvh_closest" in k or "bvh_any" in k})), flush=True)

@@ -22,8 +22,9 @@ A variant sets the four constants at the top of csrc/traverse.cu:
   cluster8_global_rows  cluster8 with the leaf rows read from global memory
 
 Each variant's copy of the source goes to build/traverse_variants/<name>/
-and is compiled with the flags of gpuspectral_tpu_torch/_build.py (one nvcc
-per variant, all started together; ptxas's registers and spills printed).
+and is compiled by tools/torch_variants.py (the flags of
+gpuspectral_tpu_torch/_build.py, one nvcc per variant, all started
+together; ptxas's registers and spills printed).
 On chip_smoke.py's 65,536 random rays and the 262,144 primary rays of the
 512x512 frame, at the CLI's packets of 1,024, each variant's closest and
 any hit must equal PR 8's walk (gst_traverse_count, which chip_smoke.py
@@ -36,21 +37,18 @@ its counters).  One JSON line per rays set.  Needs a CUDA device and nvcc.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import pathlib
-import re
-import subprocess
 import sys
 
 import torch
+import torch_variants as tv
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from gpuspectral_tpu_torch import _build  # noqa: E402
 from gpuspectral_tpu_torch.bvh import kernels  # noqa: E402
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field  # noqa: E402
 
@@ -70,100 +68,59 @@ VARIANTS = dict(
 ENTRY_POINTS = ("gst_traverse_closest", "gst_traverse_any", "gst_traverse_shape")
 
 
-def source(consts: dict) -> str:
-    """csrc/traverse.cu with the variant's constants."""
-    src = (_build._CSRC / "traverse.cu").read_text()
-    for name, value in consts.items():
-        src, n = re.subn(rf"constexpr (\w+) {name} = [^;]+;", rf"constexpr \g<1> {name} = {value};",
-                         src)
-        if n != 1:
-            raise RuntimeError(f"csrc/traverse.cu no longer declares {name}")
-    return src
-
-
-def build(names):
-    """{variant: the loaded library}, the nvcc runs started together."""
-    procs = {}
-    for name in names:
-        out = ROOT / "build" / "traverse_variants" / name
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "traverse.cu").write_text(source(VARIANTS[name]))
-        procs[name] = (out / "libvariant.so", subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-shared", "-I", str(_build._CSRC),
-             str(out / "traverse.cu"), "-o", str(out / "libvariant.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        for kern, line in _build._ptxas_summary(log).items():
-            if "packet_kernel" in kern:
-                print(f"ptxas {name} {kern}: {line}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        for fn in ENTRY_POINTS:
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_traverse_variants: no CUDA device", file=sys.stderr)
         return 1
     names = argv or list(VARIANTS)
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = tv.card()
     print(smi, flush=True)
-    libs = build(names)
+    libs = tv.build("traverse_variants",
+                    {name: tv.variant_sources(("traverse.cu",), VARIANTS[name]) for name in names},
+                    ENTRY_POINTS, show=lambda kern: "packet_kernel" in kern)
     field = build_sphere_field(dev)
     tree = chip_smoke.traverse_tree(field)
     nodes = kernels.pack_nodes(*tree[1:3], tree[0])
     nan_tree = (tree[0], *kernels.nan_empty(*tree[1:3]), tree[3])
-    real_load = _build.load
-    try:
-        for tag, (o, d, lo, hi) in (
-                ("random", chip_smoke.field_rays(chip_smoke.K3_RAYS["parity"], field, 20, dev)),
-                ("primary", chip_smoke.primary_rays(field, chip_smoke.HEADLINE["size"], dev))):
-            zero = torch.zeros_like(hi)
-            ref_c = kernels.traverse_tests(o, d, *tree, zero, hi, False)[2]
-            ref_a = kernels.traverse_tests(o, d, *tree, lo, hi, True)[2]
-            calls = {}
-            for name, lib in libs.items():
-                _build.load = lambda lib=lib: lib  # the wrappers launch this build
-                got = kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes)
-                occ = kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes)
-                if not (all(torch.equal(a, b) for a, b in zip(got, ref_c))
-                        and torch.equal(occ, ref_a)):
-                    raise AssertionError(f"{name}: K7h differs from PR 8's walk on {tag} rays")
-                calls[name] = (
-                    lib,
-                    lambda: kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes),
-                    lambda: kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes))
-            _build.load = real_load
-            for name, t in (("pr8_walk", tree), ("pr8_walk_nan_empty", nan_tree)):
-                calls[name] = (
-                    None,
-                    lambda t=t: kernels.traverse_tests(o, d, *t, zero, hi, False),
-                    lambda t=t: kernels.traverse_tests(o, d, *t, lo, hi, True))
-            times = {name: dict(closest=[], any=[]) for name in calls}
-            order = list(calls)
-            for name in order + order[::-1]:
-                lib, closest, any_hit = calls[name]
-                _build.load = real_load if lib is None else (lambda lib=lib: lib)
-                times[name]["closest"].append(chip_smoke.cuda_ms(closest, reps=5))
-                times[name]["any"].append(chip_smoke.cuda_ms(any_hit, reps=5))
-            shapes = {}
-            for name in libs:
-                _build.load = lambda lib=libs[name]: lib
+    for tag, (o, d, lo, hi) in (
+            ("random", chip_smoke.field_rays(chip_smoke.K3_RAYS["parity"], field, 20, dev)),
+            ("primary", chip_smoke.primary_rays(field, chip_smoke.HEADLINE["size"], dev))):
+        zero = torch.zeros_like(hi)
+        ref_c = kernels.traverse_tests(o, d, *tree, zero, hi, False)[2]
+        ref_a = kernels.traverse_tests(o, d, *tree, lo, hi, True)[2]
+
+        def closest():
+            return kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes)
+
+        def any_hit():
+            return kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes)
+
+        calls = {}
+        for name, lib in libs.items():
+            with tv.launching(lib):
+                got, occ = closest(), any_hit()
+            if not (all(torch.equal(a, b) for a, b in zip(got, ref_c)) and torch.equal(occ, ref_a)):
+                raise AssertionError(f"{name}: K7h differs from the counting walk on {tag} rays")
+            calls[name] = (lib, closest, any_hit)
+        for name, t in (("pr8_walk", tree), ("pr8_walk_nan_empty", nan_tree)):
+            calls[name] = (
+                None,
+                lambda t=t: kernels.traverse_tests(o, d, *t, zero, hi, False),
+                lambda t=t: kernels.traverse_tests(o, d, *t, lo, hi, True))
+        times = {name: dict(closest=[], any=[]) for name in calls}
+        order = list(calls)
+        for name in order + order[::-1]:
+            lib, c, a = calls[name]
+            with tv.launching(lib):
+                times[name]["closest"].append(chip_smoke.cuda_ms(c, reps=5))
+                times[name]["any"].append(chip_smoke.cuda_ms(a, reps=5))
+        shapes = {}
+        for name, lib in libs.items():
+            with tv.launching(lib):
                 shapes[name] = kernels.launch_shape(1024)
-            _build.load = real_load
-            print(json.dumps(dict(rays=tag, n_rays=o.shape[0], packet=1024, card=smi,
-                                  ms=times, launch_shape=shapes)), flush=True)
-    finally:
-        _build.load = real_load
+        print(json.dumps(dict(rays=tag, n_rays=o.shape[0], packet=1024, card=smi,
+                              ms=times, launch_shape=shapes)), flush=True)
     return 0
 
 
