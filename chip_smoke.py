@@ -73,13 +73,15 @@ Phases:
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
   k7    cluster_votes / cluster_closest / cluster_any, dfs_closest /
         dfs_any and binned_closest / binned_any vs their plain versions on
-        the scenes of k3 (65,536 random rays each): votes, t, prim, u, v,
-        attrs and occ equal, ties included; K7a-g timed on the sphere field
-        on 65,536 random rays and on the 262,144 primary rays of the
+        the scenes of k3 (65,536 random rays each; K7c's votes and K7a /
+        K7b also with NaN and inactive lanes mixed in): votes, t, prim, u,
+        v, attrs and occ equal, ties included; K7a-g timed on the sphere
+        field on 65,536 random rays and on the 262,144 primary rays of the
         512x512 frame, beside K3a / K3b on the same rays; the plain
         versions once on the random rays; K7d / K7e's supernodes swept a
-        warp, the tests per ray of the block sweep and of the two-gate
-        sweep, and K7c-e's registers and spills logged
+        warp, the tests per ray of the block sweeps, of the two-gate sweep
+        and of K7a / K7b's walk (its counting walk's results held equal to
+        the kernels'), and K7a-e's registers and spills logged
   cluster_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
         K7c launched once for each K7d and K7e launch, nothing else; its
@@ -164,11 +166,15 @@ Both counts' occlusion is held equal to K7e's.  K7f / K7g's are
 counted by dfs_sweep.dfs_tests: a slab test per ray for each node its
 block visits, and at an entered leaf K7f's Woop tests of every slot for a
 ray with a segment, K7g's up to the ray's first occluder (the count's
-occlusion is held equal to K7g's).  K7a / K7b's are counted by
-binned.binned_tests: a slab test per ray for each bin (K7b: up to the bin
-of the ray's first occluder), and the Woop tests of the slots of the bins
-the ray voted for (K7b: up to its first occluder; the count's occlusion is
-held equal to K7b's).  K7h's are counted by PR 8's walk, a vote per node
+occlusion is held equal to K7g's).  K7a / K7b's are, ray by ray, the
+fewer operations of two schedules of the same function: the block sweep
+(binned.binned_tests: a slab test per ray for each bin, K7b up to the bin
+of the ray's first occluder, and the Woop tests of the slots of the bins
+the ray voted for, K7b up to its first occluder) and the walk that the
+kernels make (binned.binned_walk_tests, csrc/binned.cu:gst_binned_count:
+two box tests a pair row visited, a slab test a bin vote made, the Woop
+tests of the clusters tested); both counts' results are held equal to
+K7a's prim and K7b's occlusion.  K7h's are counted by PR 8's walk, a vote per node
 popped (kernels.traverse_tests, csrc/traverse.cu:gst_traverse_count), on
 the tree with its empty subtrees' boxes made NaN (skip_empty: an empty
 padding cluster's zero rows never hit, so the function needs none of their
@@ -185,12 +191,15 @@ tally, and its operations are that tally's per ray times the kernel's ray
 count.  Bytes: each input read once (rays, pixel ids, scene tables, votes),
 each output written once (radiance, rays, partial planes, votes, hits);
 of K7d / K7e's tables, only the Woop rows of the slots the two-gate sweep
-tests (GatedTests.slots) and K7d's attribute rows of the triangles hit.
+tests (GatedTests.slots) and K7d's attribute rows of the triangles hit;
+of K7a / K7b's, the pair rows, the bin rows and the Woop rows of the
+clusters their walk tests (WalkTests.clusters).
 The timed calls are given the scene tables the wavefront builds once per
 render (K7c-e's supernode tables, the closest hits' attribute rows).
 No single PyTorch call computes ray-triangle intersection, a path-traced
 pixel, a supernode vote, a gated sweep, a gated walk, a binned
-vote-and-sweep or a BVH traversal, so library_ms is null for every kernel.
+vote-filtered walk or a BVH traversal, so library_ms is null for every
+kernel.
 K7h's row stands for both wrappers: launches is the sum of both counts
 (launches_closest, launches_any), ms / bound_ms are the closest hit's and
 ms_any / bound_ms_any the any hit's; ms_pr8 / ms_any_pr8 time PR 8's walk
@@ -1119,9 +1128,24 @@ def cluster_ptxas():
     return out
 
 
+def binned_ptxas():
+    """ptxas's registers, spills and stack of K7a / K7b (csrc/binned.cu),
+    by key."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {key: line for kern, line in _build.build_info()["ptxas"].items()
+           for key, tag in (("k7a", "binned_closest_kernel"), ("k7b", "binned_any_kernel"))
+           if f"{len(tag)}{tag}" in kern}
+    log("  ptxas of the binned kernels: " + json.dumps(out))
+    if len(out) != 2:
+        raise AssertionError(f"ptxas lines of K7a / K7b missing: {out}")
+    return out
+
+
 def check_k7(name, scene, rays):
-    """K7c / K7d / K7e against their plain versions on `rays`: votes equal,
-    t, prim, u, v, attrs and occ equal.  Returns (the max abs errors, the
+    """K7c / K7d / K7e against their plain versions on `rays`: votes equal
+    (also on odd_lanes(rays), where a NaN lane votes for nothing), t, prim,
+    u, v, attrs and occ equal.  Returns (the max abs errors, the
     kernels' votes for the closest and the any-hit segments, the plain
     versions' ms)."""
     from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
@@ -1135,6 +1159,11 @@ def check_k7(name, scene, rays):
     occ = cs.cluster_any(scene, o, d, lo, hi, votes=votes_any, supernodes=sn)
     vr, c_ms = timed_once(lambda: cs.cluster_votes_ref(scene, o, d, zero, hi, supernodes=sn))
     vr_any = cs.cluster_votes_ref(scene, o, d, lo, hi, supernodes=sn)
+    # F17: lanes with a NaN origin or direction component vote for nothing
+    odd = odd_lanes(rays)
+    odd_bad = sum(int((cs.cluster_votes(scene, *odd[:2], seg, odd[3], supernodes=sn)
+                       != cs.cluster_votes_ref(scene, *odd[:2], seg, odd[3], supernodes=sn)).sum())
+                  for seg in (zero, odd[2]))
     ref, d_ms = timed_once(lambda: cs.cluster_closest_ref(scene, o, d, t_max=hi, votes=vr,
                                                           supernodes=sn))
     occ_r, e_ms = timed_once(lambda: cs.cluster_any_ref(scene, o, d, lo, hi, votes=vr_any,
@@ -1143,6 +1172,7 @@ def check_k7(name, scene, rays):
         ("votes", votes, vr), ("votes_any", votes_any, vr_any), ("t", got[0], ref[0]),
         ("prim", got[1], ref[1]), ("u", got[2], ref[2]), ("v", got[3], ref[3]),
         ("attrs", got[4], ref[4]), ("occ", occ, occ_r))}
+    bad["votes_odd_lanes"] = odd_bad
     hit = ref[1] >= 0
     log(f"  K7 {name}: rays={o.shape[0]} supernodes={votes.shape[1]} "
         f"votes per block {float(votes.double().sum(1).mean()):.1f} (any "
@@ -1210,31 +1240,50 @@ def dfs_bounds(scene, rays, occ):
         woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
 
 
-def binned_bounds(scene, rays, occ):
-    """bound() of K7a (on (0, t_max)) and K7b for one call each over
-    `rays`, the tests counted as the kernels make them
-    (binned.binned_tests): a slab test per ray and bin (K7b: up to the bin
-    of the ray's first occluder), the Woop tests of the slots of the ray's
-    voted bins (K7b: up to its first occluder).  The count's occlusion must
-    equal K7b's `occ`.  Also the box and Woop tests per ray and the bins a
-    CTA visits per ray (the union of its rays' votes)."""
+def binned_bounds(scene, rays, occ, prim):
+    """bound() of K7a (on (0, t_max)) and K7b for one call each over `rays`.
+    A ray's operations are the fewer of two counts of the same function:
+    the block sweep's (binned.binned_tests: a slab test per bin, K7b up to
+    the bin of the ray's first occluder, and the Woop tests of the slots of
+    the ray's voted bins, K7b up to that occluder) and the walk's that the
+    kernels make (binned.binned_walk_tests: two box tests a pair row, a
+    slab test a bin vote made, the Woop tests of the clusters tested), a
+    box test or vote at SLAB_FLOPS.  Both counts' results must equal the
+    kernels' (`prim` K7a's, `occ` K7b's).  Bytes: the rays in and out, the
+    pair rows, the bin rows and the Woop rows of the clusters the walk
+    tests.  Also both counts' tests per ray and the bins a block of the
+    block sweep visits per ray."""
     from gpuspectral_tpu_torch.bvh import binned as bn
 
     o, d, lo, hi = rays
-    box_a, woop_a, visit_a, _ = bn.binned_tests(scene, o, d, torch.zeros_like(hi), hi, False)
-    box_b, woop_b, visit_b, occ_count = bn.binned_tests(scene, o, d, lo, hi, True)
-    if not torch.equal(occ_count, occ):
-        raise AssertionError(f"K7b's tally disagrees with K7b on {int((occ_count != occ).sum())} "
-                             "rays")
     n = o.shape[0]
-    tables = nbytes(scene.bvh_bin_bounds[:, :scene.bvh_bins], scene.tri_woop_t)
-    sums = [float(x.double().sum()) for x in (box_a, woop_a, box_b, woop_b, visit_a, visit_b)]
+    leaf, n_slots = scene.bvh_leaf_size, scene.tri_woop.shape[0]
+    ops, rows, sweep, walk, visits = {}, {}, {}, {}, {}
+    for key, seg_lo, any_hit in (("closest", torch.zeros_like(hi), False), ("any", lo, True)):
+        box, woop, visit, res = bn.binned_tests(scene, o, d, seg_lo, hi, any_hit)
+        w = bn.binned_walk_tests(scene, o, d, seg_lo, hi, any_hit)
+        want = occ if any_hit else prim
+        for what, got in (("binned_tests", res if any_hit else res[1]),
+                          ("binned_walk_tests", w.result)):
+            if not torch.equal(got.to(want.dtype), want):
+                raise AssertionError(f"{what}' result disagrees with the kernel's on "
+                                     f"{int((got.to(want.dtype) != want).sum())} rays ({key})")
+        ops[key] = float(torch.minimum(box * SLAB_FLOPS + woop * WOOP_FLOPS,
+                                       (w.boxes + w.votes).long() * SLAB_FLOPS
+                                       + w.woops.long() * WOOP_FLOPS).double().sum())
+        c = torch.nonzero(w.clusters)[:, 0]
+        rows[key] = int((torch.clamp(n_slots - c * leaf, 0, leaf)).sum()) * 4 * 12
+        sweep[key] = dict(box=float(box.double().mean()), woop=float(woop.double().mean()))
+        walk[key] = dict(box=float(w.boxes.double().mean()), vote=float(w.votes.double().mean()),
+                         woop=float(w.woops.double().mean()))
+        visits[key] = float(visit.double().mean())
+    tables = nbytes(scene.bvh_pairs, bn.bin_rows(scene))
     return dict(
-        k7a=bound(sums[0] * SLAB_FLOPS + sums[1] * WOOP_FLOPS, n * (28 + 16) + tables),
-        k7b=bound(sums[2] * SLAB_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
-        box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
-        woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n),
-        visits_per_ray=dict(closest=sums[4] / n, any=sums[5] / n))
+        k7a=bound(ops["closest"], n * (28 + 16) + tables + rows["closest"]),
+        k7b=bound(ops["any"], n * (32 + 1) + tables + rows["any"]),
+        box_per_ray={k: v["box"] for k, v in sweep.items()},
+        woop_per_ray={k: v["woop"] for k, v in sweep.items()},
+        visits_per_ray=visits, walk_per_ray=walk)
 
 
 def primary_rays(scene, size, dev):
@@ -1273,11 +1322,12 @@ def phase_k7(dev, cases, field):
             name, scene, rays, ("k7f", "k7g"),
             (ds.dfs_closest, ds.dfs_any, ds.dfs_closest_ref, ds.dfs_any_ref),
             f"nodes={scene.bvh_dfs_bounds.shape[1]}")
-        e_ab, plain_ab = check_sweep(
-            name, scene, rays, ("k7a", "k7b"),
-            (bn.binned_closest, bn.binned_any, bn.binned_closest_ref, bn.binned_any_ref),
-            f"bins={scene.bvh_bins}x{scene.bvh_bin_slots}")
-        e.update(e_fg, **e_ab)
+        fns_ab = (bn.binned_closest, bn.binned_any, bn.binned_closest_ref, bn.binned_any_ref)
+        tables_ab = f"bins={scene.bvh_bins}x{scene.bvh_bin_slots}"
+        e_ab, plain_ab = check_sweep(name, scene, rays, ("k7a", "k7b"), fns_ab, tables_ab)
+        e_odd, _ = check_sweep(name + " (NaN and inactive lanes)", scene, odd_lanes(rays),
+                               ("k7a", "k7b"), fns_ab, tables_ab)
+        e.update(e_fg, **{k: max(e_ab[k], e_odd[k]) for k in e_ab})
         err = {k: max(err[k], e[k]) for k in err}
         if name == "sphere_field":
             field_votes, field_votes_any = votes, votes_any
@@ -1311,7 +1361,8 @@ def phase_k7(dev, cases, field):
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
         b = cluster_bounds(field, rays, votes, votes_any, occ, prim)
         b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi))
-        b_ab = binned_bounds(field, rays, bn.binned_any(field, o, d, lo, hi))
+        b_ab = binned_bounds(field, rays, bn.binned_any(field, o, d, lo, hi),
+                             bn.binned_closest(field, o, d, t_max=hi, attr=attr)[1])
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in times.items())
             + f"; votes per block {b['votes_per_block']}, supernodes a warp sweeps "
@@ -1319,9 +1370,10 @@ def phase_k7(dev, cases, field):
             + f"tests per ray of the block sweep {b['woop_per_ray']}, the two-gate sweep's "
             + f"slab and Woop tests per ray {b['gated_per_ray']}; "
             + f"dfs box tests per ray {b_fg['box_per_ray']}, Woop tests per ray "
-            + f"{b_fg['woop_per_ray']}; binned box tests per ray {b_ab['box_per_ray']}, "
-            + f"Woop tests per ray {b_ab['woop_per_ray']}, bins a CTA visits per ray "
-            + f"{b_ab['visits_per_ray']}; "
+            + f"{b_fg['woop_per_ray']}; binned block sweep's box tests per ray "
+            + f"{b_ab['box_per_ray']}, Woop tests per ray {b_ab['woop_per_ray']}, bins a block "
+            + f"visits per ray {b_ab['visits_per_ray']}, K7a / K7b's walk's box tests, votes "
+            + f"and Woop tests per ray {b_ab['walk_per_ray']}; "
             + ", ".join(f"{k} bound {bb[k]['bound_ms']:.4f} ms ({bb[k]['bound_by']})"
                         for bb, ks in ((b, ("k7c", "k7d", "k7e")), (b_fg, ("k7f", "k7g")),
                                        (b_ab, ("k7a", "k7b")))
@@ -1330,7 +1382,8 @@ def phase_k7(dev, cases, field):
                                                  **{k: b_ab[k] for k in ("k7a", "k7b")},
                                                  dfs=b_fg, binned=b_ab), rays=o.shape[0])
     ptxas = cluster_ptxas()
-    ptxas = dict(k7d=ptxas["cluster_closest_kernel"], k7e=ptxas["cluster_any_kernel"])
+    ptxas = dict(k7d=ptxas["cluster_closest_kernel"], k7e=ptxas["cluster_any_kernel"],
+                 **binned_ptxas())
     rows = {}
     for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b"), ("k7f", "k3a"),
                     ("k7g", "k3b"), ("k7a", "k3a"), ("k7b", "k3b")):
@@ -1351,7 +1404,10 @@ def phase_k7(dev, cases, field):
                              woop_per_ray_primary=p["bounds"][fam]["woop_per_ray"])
             if fam == "binned":
                 rows[key].update(visits_per_ray=r["bounds"][fam]["visits_per_ray"],
-                                 visits_per_ray_primary=p["bounds"][fam]["visits_per_ray"])
+                                 visits_per_ray_primary=p["bounds"][fam]["visits_per_ray"],
+                                 walk_per_ray=r["bounds"][fam]["walk_per_ray"],
+                                 walk_per_ray_primary=p["bounds"][fam]["walk_per_ray"],
+                                 ptxas=ptxas[key])
         elif k3:
             rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3], ptxas=ptxas[key],
                              **{f"{k}{tag}": x["bounds"][k]

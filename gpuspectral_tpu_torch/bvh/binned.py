@@ -33,8 +33,17 @@ hits take t in (0, t_max) and inactive rays miss; any hits take t in
 t_max = -1e30 and so never vote.  For CUDA tensors the wrappers launch the
 kernels or raise, and count their launches in `.launches`; for CPU tensors
 they run the plain versions.  The attribute rows are gathered after the
-kernel, as in JAX (binned.py:387-391).  `binned_tests` counts the tests
-the kernels make, for their bounds.
+kernel, as in JAX (binned.py:387-391).
+
+The kernels compute the same function on another schedule: each ray walks
+the BVH of K3 (csrc/bvh.cuh, `ftb.walk_tables`) and tests a leaf cluster
+only where the ray votes for its bin, on the bins' packed rows
+(`bin_rows`: scene.bvh_bin_rows, built once with the scene).  That needs a
+bin to be g = slots / leaf_size whole clusters, which the wrappers check.
+Two counts of the work, for the kernels' bounds: `binned_tests`, the block
+sweep's (every bin's vote for every ray, every voted slot Woop-tested, the
+bins a warp's union of votes visits) and `binned_walk_tests`, the walk's
+own (CUDA tensors only).
 
 Not carried over from the TPU: `fused_eligible` and MAX_VMEM_SLOTS (the
 TPU's VMEM plan, above which the JAX wavefront runs its XLA traversal,
@@ -48,6 +57,8 @@ ops/cuda_isect.woop_vjp (ftb.ClosestDiff); attrs are detached.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..ops import math3d as m3
@@ -55,7 +66,7 @@ from ..ops import woop
 from . import dfs_sweep, ftb
 
 _BIG = 1e30
-BLOCK = 32  # rays per CTA, one warp (csrc/binned.cu:kBlock)
+BLOCK = 32  # rays a block of the block sweep that binned_tests counts (one warp)
 # elements per (rays x bins) or (pairs x slots) intermediate of the plain versions
 _REF_ELEMS = 1 << 21
 
@@ -179,10 +190,32 @@ def _check(scene, origin, direction, *scalars):
                          f"hold {scene.bvh_bins} bins of {scene.bvh_bin_slots} slots")
 
 
+def bin_rows(scene):
+    """The bins' boxes as the kernels read them: scene.bvh_bin_rows, (n_bins,
+    8) float32 rows [lo xyz, 0, hi xyz, 0] (bvh/tables.py:build_bin_rows),
+    built once with the scene.  Raises ValueError unless they are
+    contiguous float32 on a 16-byte boundary (_build.check_aligned), one row
+    a bin, or unless a bin is a whole number of leaf clusters."""
+    from .. import _build
+
+    rows = scene.bvh_bin_rows
+    _build.check_aligned("bin_rows", **{"scene.bvh_bin_rows": rows})
+    if tuple(rows.shape) != (scene.bvh_bins, 8):
+        raise ValueError(f"bin_rows: want ({scene.bvh_bins}, 8), got {tuple(rows.shape)}")
+    if scene.bvh_bin_slots % scene.bvh_leaf_size:
+        raise ValueError(f"binned: a bin of {scene.bvh_bin_slots} slots is no whole number "
+                         f"of {scene.bvh_leaf_size}-slot clusters")
+    return rows
+
+
 def _launch_args(scene):
-    bounds, woop_t = scene.bvh_bin_bounds.contiguous(), scene.tri_woop_t.contiguous()
-    return (bounds.data_ptr(), bounds.shape[1], scene.bvh_bins, scene.bvh_bin_slots,
-            woop_t.data_ptr(), woop_t.shape[1]), (bounds, woop_t)
+    """(the tensors the kernels read, held until the launch returns; their
+    arguments: walk tables, bin rows, n_bins, clusters a bin)."""
+    pairs, woop_rows, ip = ftb.walk_tables(scene)
+    rows = bin_rows(scene)
+    keep = (pairs, woop_rows, ip, rows)
+    return keep, (pairs.data_ptr(), woop_rows.data_ptr(), ip.data_ptr(), rows.data_ptr(),
+                  scene.bvh_bins, scene.bvh_bin_slots // scene.bvh_leaf_size)
 
 
 def binned_closest(scene, origin, direction, active=None, t_max=None, attr=None):
@@ -198,7 +231,7 @@ def binned_closest(scene, origin, direction, active=None, t_max=None, attr=None)
     from .. import _build
 
     lib = _build.load()
-    args, _keep = _launch_args(scene)
+    _keep, args = _launch_args(scene)
     r = origin.shape[0]
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     prim = torch.empty((r,), dtype=torch.int32, device=dev)
@@ -226,7 +259,7 @@ def binned_any(scene, origin, direction, t_min, t_max, active=None):
     from .. import _build
 
     lib = _build.load()
-    args, _keep = _launch_args(scene)
+    _keep, args = _launch_args(scene)
     r = origin.shape[0]
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -252,15 +285,17 @@ def binned_closest_diff(scene, origin, direction, active=None, attr=None):
 
 def binned_tests(scene, origin, direction, t_min, t_max, any_hit: bool, block: int = BLOCK):
     """((R,) int64 box tests, (R,) int64 Woop tests, (R,) int64 bins its
-    CTA visits, the result): the tests K7a (any_hit False, t_min unused) or
-    K7b makes for each ray at `block` rays a CTA.  K7a: a ray with t_max > 0
-    slab-tests every bin and Woop-tests every slot of the bins it voted
-    for.  K7b: a ray with t_max > t_min slab-tests the bins up to the one
-    that holds its first occluder and Woop-tests its voted bins' slots up
-    to that occluder.  Other rays test nothing.  A CTA visits (stages) each
-    bin that one of its rays voted for while not yet occluded.  The result
-    is (t, prim) or the occlusion flags, for holding the count to the
-    kernel.  It measures the kernels' work; nothing renders with it."""
+    block visits, the result): the tests of the block sweep of the closest
+    hit (any_hit False, t_min unused) or the any hit, the TPU kernel's
+    schedule (and K7a / K7b's before their walk), at `block` rays a block.
+    Closest: a ray with t_max > 0 slab-tests every bin and Woop-tests every
+    slot of the bins it voted for.  Any: a ray with t_max > t_min
+    slab-tests the bins up to the one that holds its first occluder and
+    Woop-tests its voted bins' slots up to that occluder.  Other rays test
+    nothing.  A block visits each bin that one of its rays voted for while
+    not yet occluded.  The result is (t, prim) or the occlusion flags, for
+    holding the count to the kernel.  One of the two counts of K7a / K7b's
+    bounds (binned_walk_tests is the other); nothing renders with it."""
     r = origin.shape[0]
     dev = origin.device
     n_bins = scene.bvh_bins
@@ -281,3 +316,45 @@ def binned_tests(scene, origin, direction, t_min, t_max, any_hit: bool, block: i
     blocks = torch.cat([votes, votes.new_zeros((pad, n_bins))]).reshape(-1, block, n_bins)
     visits = blocks.any(1).sum(1).repeat_interleave(block)[:r]
     return boxes.to(torch.int64), woops, visits, out
+
+
+class WalkTests(NamedTuple):
+    """binned_walk_tests' count: per ray (R,) int32 box tests (two a pair
+    row visited), bin votes (slab tests of bin rows, one a run of leaves of
+    one bin) and Woop tests; `result` the walk's prim (-1 on a miss) or
+    occlusion (0 / 1), for holding the count to the kernel; `clusters` (C,)
+    bool, the clusters whose slots some ray tested."""
+    boxes: torch.Tensor
+    votes: torch.Tensor
+    woops: torch.Tensor
+    result: torch.Tensor
+    clusters: torch.Tensor
+
+
+def binned_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool) -> WalkTests:
+    """The tests K7a (any_hit False: the closest hit on (0, t_max), t_min
+    unused) or K7b makes for each ray: the kernels' own walk with counters
+    (csrc/binned.cu: gst_binned_count).  One of the two counts of their
+    bounds (binned_tests is the other); it renders nothing.  CUDA tensors
+    only: the plain versions walk no tree."""
+    t_min, t_max = ftb._segment(origin, t_min, t_max, None)
+    _check(scene, origin, direction, t_min, t_max)
+    dev = origin.device
+    if dev.type != "cuda":
+        raise ValueError(f"binned_walk_tests: the walk runs on a CUDA device, not {dev}")
+    from .. import _build
+
+    lib = _build.load()
+    _keep, args = _launch_args(scene)
+    r = origin.shape[0]
+    boxes, votes, woops, result = (torch.empty((r,), dtype=torch.int32, device=dev)
+                                   for _ in range(4))
+    tested = torch.zeros((scene.bvh_clusters,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gst_binned_count(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
+                                  t_max.data_ptr(), r, *args, int(any_hit), boxes.data_ptr(),
+                                  votes.data_ptr(), woops.data_ptr(), result.data_ptr(),
+                                  tested.data_ptr(), stream)
+    _build.check(rc, "binned_walk_tests")
+    return WalkTests(boxes, votes, woops, result, tested.bool())

@@ -9,6 +9,8 @@ builders, so the port builds the same tables without importing JAX).
                     of K3's bound)
   build_pair_rows   the child-pair rows that K3, K4 and K6 walk
                     (csrc/bvh.cuh)
+  build_bin_rows    the bins' boxes as the rows K7a / K7b vote on
+                    (csrc/binned.cu)
 """
 
 from __future__ import annotations
@@ -63,6 +65,20 @@ def build_bins(node_min, node_max, n_clusters: int, n_clusters_real: int,
     bounds[0:3, :n_bins] = blo.T
     bounds[3:6, :n_bins] = bhi.T
     return np.ascontiguousarray(bounds), int(n_bins), int(slots)
+
+
+BIN_COLS = 8  # floats of a bin row: 2 x float4 (32 bytes)
+
+
+def build_bin_rows(bounds, n_bins: int):
+    """(n_bins, 8) float32: bin b's box of build_bins' (6, C_pad) bounds as
+    one 32-byte row [lo xyz, 0, hi xyz, 0], two 128-bit loads where the
+    (6, C_pad) table takes six strided ones."""
+    bounds = np.asarray(bounds, np.float32)
+    rows = np.zeros((n_bins, BIN_COLS), np.float32)
+    rows[:, 0:3] = bounds[0:3, :n_bins].T
+    rows[:, 4:7] = bounds[3:6, :n_bins].T
+    return rows
 
 
 def build_dfs_tables(node_min, node_max, n_clusters: int, real_clusters: int,

@@ -5,170 +5,263 @@
 // _make_fused_any_kernel (K7b, :449).  Wrapper:
 // gpuspectral_tpu_torch/bvh/binned.py (binned_closest, binned_any).
 //
-// The scene's leaves are grouped into n_bins sweep bins: bin b covers the
-// slots [b * slots, (b + 1) * slots) of the (12, n_slots) Woop table and has
-// one box in bounds (6, c_pad) float (lo xyz, hi xyz), c_pad >= n_bins.
-// Slots past the table are never tested (the TPU pads it with rows that
-// never hit).  Rays come in blocks of kBlock = 32 consecutive rays; one CTA
-// of 32 threads (one warp) takes one block, one thread per ray, the ray's
-// state in registers.  The CTA walks the bins in ascending order:
+// The function.  The scene's leaf clusters are grouped into n_bins sweep
+// bins: bin b covers the slots [b * slots, (b + 1) * slots) of the Woop
+// table, that is the g = slots / leaf_size consecutive clusters [b * g,
+// (b + 1) * g) of the implicit tree of the scene build, and has one box.  A
+// ray votes for bin b where the slab test of b's box on [0, t_max] passes
+// (unwidened, the inverse direction math3d.safe_div(1, d)).  K7a is the
+// closest hit with t in (0, t_max), ties to the lowest slot, among the
+// slots of the bins the ray votes for; K7b whether one of those slots holds
+// a hit in (t_min, t_max).  Slots past the Woop table are never tested.  A
+// ray with t_max <= 0 (K7a), or t_max <= t_min (K7b), votes for nothing.
 //
-//   * every thread slab-tests bin b's box (a uniform load) on its segment
-//     [0, t_max] and so computes its vote for b; __syncthreads_or is the
-//     block's union of votes.  The CTA skips a bin none of its rays voted
-//     for.  Votes are made once, bin by bin, and need no storage: a ray
-//     votes for up to 4096 bins (the stream band of scene/data.py).
-//   * at a visited bin the CTA stages the bin's slots kChunk = 128 at a
-//     time (12 Woop rows, 6 KB of shared memory), and each thread whose ray
-//     voted for b tests its ray against them in slot order; the others
-//     wait.  So a ray commits hits only from bins it voted for, as on the
-//     TPU, where each lane is masked to its own votes.
-//   K7a  commits t in (0, best) with a strict `<`: the closest hit, ties to
-//        the lowest slot (bins and slots come in ascending order).  The
-//        ray's best t does not cull its later votes (the TPU's votes are
-//        fixed before its sweep).  Rays with t_max <= 0 never vote.
-//   K7b  marks the ray occluded at its first hit in (t_min, t_max); an
-//        occluded ray stops voting and testing, and rays with t_max <=
-//        t_min never vote.  The CTA stops once every ray is occluded or
-//        empty (__syncthreads_and), which cannot change the result.
-// Threads of inactive rays (t_max = -1e30) and of padding rays past the
-// last ray take part in every barrier and never vote.  __syncthreads_or
-// at the top of a bin is also the barrier between the previous bin's
-// readers and the next staging.
+// The design: one thread a ray walks the BVH of K3 (csrc/bvh.cuh: the
+// child-pair rows, near child first for K7a and left first for K7b,
+// while-while, 128-bit __ldg rows, a local stack, no shared memory) with
+// its bin vote as a leaf filter: at a cluster c the walk tests c's slots
+// only where c / g < n_bins and the ray votes for bin c / g.  The vote is
+// computed at the leaf, on the bin's packed row (two float4, `bins`), and
+// the last bin's vote stays in registers: the leaves of a walk mostly come
+// in runs of one bin (g = 16 clusters on the sphere field).  A ray that
+// can vote for nothing (an empty segment, a NaN in its origin or
+// direction) skips the walk.  No CTA barrier and no staging: the TPU
+// kernel's 687-bin vote loop per ray and the block's union of votes (a
+// warp of rays Woop-testing every slot of every bin one of them voted for)
+// are gone.
 //
-// What bounds it on the H100: operations.  A visited bin costs the warp
-// `slots` Woop tests (~32 flops each, operands broadcast from shared
-// memory) whether one ray or all 32 voted for it, so the union of the
-// block's votes sets the time: coherent rays (primary rays, sorted bounce
-// rays, shadow rays sorted by endpoint) visit few bins, a block of
-// incoherent rays the union of its rays' bins.  The votes cost one slab
-// test (12 flops) per ray and bin, the bin's bounds read once per CTA.
+// Why it equals the plain version bit for bit.  The walk's widened slab
+// gate on (0, best) skips only boxes whose triangles the Woop test would
+// reject or that could not beat best (bvh.cuh, header: K3 equals the brute
+// scan that way); a hit lies in a non-empty cluster (padding rows are zero
+// and never hit, and the pair rows prune only empty clusters); the vote
+// alone decides which bins count, computed as the plain _votes computes it
+// (common.cuh:slab_nan, torch's NaN rule kept); the closest hit commits on
+// t < best || (t == best && slot < best_slot), so the order of the walk
+// changes no tie.  K7b stops at its first occluder in (t_min, t_max); a
+// node its gate culls on (t_min, t_max) holds no such occluder.
 //
-// Precision: built with --fmad=false like the other kernels.  The slab
-// test is plain subtracts, multiplies, min / max and an IEEE division for
-// the inverse direction (math3d.safe_div(1, d)), as the plain torch votes
-// compute them, so the votes are equal.  The Woop test is
-// csrc/common.cuh:woop_test, whose fmaf calls sit where ops/woop.py calls
-// m3.fma.  So t, prim, u and v equal the plain version bit for bit.
+// What bounds it on the H100: as for K3, the SIMT efficiency of a divergent
+// per-ray walk and the latency of its scattered reads (64 B a pair row, 48
+// B a Woop slot, 32 B a bin row), not the tests' arithmetic.  The walk
+// makes K3's tests plus one bin vote a run of leaves; the block sweep it
+// replaces slab-tested all n_bins boxes for every ray and Woop-tested the
+// union of a warp's votes.
+//
+// Precision: built with --fmad=false like the other kernels.  The vote is
+// plain subtracts, multiplies, NaN-keeping min / max and an IEEE division,
+// as torch computes it; the Woop test is common.cuh:woop_eval, whose fmaf
+// calls sit where ops/woop.py calls m3.fma.  So t, prim, u, v and occ equal
+// the plain version's.
+//
+// gst_binned_count is no part of the render path: the same walk with each
+// ray's box tests, bin votes and Woop tests counted, the clusters it tests
+// marked, and its result written (bvh/binned.py: binned_walk_tests, the
+// count of K7a / K7b's bounds).
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "bvh.cuh"
 
 namespace {
 
-constexpr int kBlock = 32;  // rays per CTA = binned.BLOCK
-constexpr int kChunk = 128;  // slots staged at a time
+constexpr int kThreads = 128;  // as K3 (bvh.cu): 16 warps an SM
+constexpr int kWarpsPerSm = 16;
+constexpr int kCtasPerSm = kWarpsPerSm * 32 / kThreads;
+// tools/torch_binned_variants.py builds copies with other values
+constexpr bool kCacheVote = true;      // the last bin's vote kept in registers
+constexpr bool kStageBins = false;     // the bin rows staged in shared memory
+constexpr bool kAnyNearFirst = false;  // K7b's walk: the nearer child first
+constexpr int kMaxStaged = 1024;       // bins staged at most (32 KB)
 
-__global__ void __launch_bounds__(kBlock)
-binned_closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
-                      const float* __restrict__ t_max, int n_rays, const float* __restrict__ bounds,
-                      int c_pad, int n_bins, int slots, const float* __restrict__ woop_t,
-                      int n_slots, float* __restrict__ t_out, int* __restrict__ prim_out,
-                      float* __restrict__ u_out, float* __restrict__ v_out) {
-  __shared__ float w[12][kChunk];
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = r < n_rays;  // padding rays: o 0, d 1, t_max -1e30
-  const gst::V3 o = gst::load3(origin, r, live, 0.0f);
-  const gst::V3 d = gst::load3(direction, r, live, 1.0f);
-  const gst::V3 inv = {gst::inv_dir(d.x), gst::inv_dir(d.y), gst::inv_dir(d.z)};
-  const float hi = live ? t_max[r] : -gst::kBig;
-  const bool tests = hi > 0.0f;  // t must lie in (0, t_max): else never hits
-  float best = fminf(hi, gst::kBig);
-  float best_u = 0.0f, best_v = 0.0f;
-  int best_prim = -1;
-  for (int b = 0; b < n_bins; ++b) {
-    const bool voted = tests && gst::slab(bounds, c_pad, b, o, inv, 0.0f, hi);
-    if (!__syncthreads_or(voted)) continue;
-    const int base = b * slots;
-    for (int c0 = 0; c0 < slots; c0 += kChunk) {
-      const int n = min(kChunk, n_slots - (base + c0));
-      if (n <= 0) break;  // the same for every thread of the CTA
-      if (c0 > 0) __syncthreads();
-      gst::stage<kBlock, kChunk>(w, woop_t, n_slots, base + c0, n);
-      __syncthreads();
-      if (!voted) continue;
-      for (int c = 0; c < n; ++c) {
-        float t, u, v;
-        if (gst::woop_test(&w[0][c], kChunk, o, d, 0.0f, best, t, u, v)) {
-          best = t;
-          best_u = u;
-          best_v = v;
-          best_prim = base + c0 + c;
-        }
+struct BinTables {
+  const float4* rows;  // (n_bins, 2 float4): [lo xyz, 0], [hi xyz, 0]
+  int n_bins, g;       // g clusters a bin
+};
+
+// The leaf filter of K7a / K7b: cluster c is tested where its bin lies in
+// the table and the ray votes for it.  kCount: count the votes made and
+// mark the clusters tested (the counting kernel).
+template <bool kCount>
+struct BinVote {
+  const float4* rows;
+  int n_bins, g;
+  gst::V3 o, inv;
+  float hi;
+  int bin = -1;
+  bool vote = false;
+  int votes = 0;
+  unsigned char* tested = nullptr;
+
+  __device__ __forceinline__ bool operator()(int c) {
+    const int b = c / g;
+    if (b >= n_bins) return false;
+    if (!kCacheVote || b != bin) {
+      bin = b;
+      float4 lo, hi4;
+      if constexpr (kStageBins) {
+        lo = rows[2 * b];
+        hi4 = rows[2 * b + 1];
+      } else {
+        lo = __ldg(rows + 2 * b);
+        hi4 = __ldg(rows + 2 * b + 1);
       }
+      vote = gst::slab_nan(gst::xyz(lo), gst::xyz(hi4), o, inv, 0.0f, hi);
+      if (kCount) ++votes;
     }
+    if (kCount && vote) tested[c] = 1;
+    return vote;
   }
-  if (!live) return;
-  const bool hit = best_prim >= 0;
-  t_out[r] = hit ? best : gst::kBig;
-  prim_out[r] = best_prim;
-  u_out[r] = hit ? best_u : 0.0f;
-  v_out[r] = hit ? best_v : 0.0f;
+};
+
+// Whether the ray can vote for a bin at all: a segment to search and no
+// NaN in its origin or direction (every slab test of such a ray fails).
+__device__ __forceinline__ bool votes_any(gst::V3 o, gst::V3 d, bool segment) {
+  return segment && !(isnan(o.x) || isnan(o.y) || isnan(o.z) || isnan(d.x) || isnan(d.y) ||
+                      isnan(d.z));
 }
 
-__global__ void __launch_bounds__(kBlock)
+template <bool kCount>
+__device__ __forceinline__ BinVote<kCount> bin_vote(const BinTables& T, const float4* rows,
+                                                    gst::V3 o, gst::V3 d, float t_max) {
+  BinVote<kCount> v;
+  v.rows = rows;
+  v.n_bins = T.n_bins;
+  v.g = T.g;
+  v.o = o;
+  v.inv = gst::v3(gst::inv_dir_nan(d.x), gst::inv_dir_nan(d.y), gst::inv_dir_nan(d.z));
+  v.hi = t_max;
+  return v;
+}
+
+// The bin rows the votes read: the table, or (kStageBins, up to kMaxStaged
+// bins) a copy in shared memory, staged by the whole CTA.
+__device__ __forceinline__ const float4* bin_rows(const BinTables& T) {
+  if constexpr (kStageBins) {
+    __shared__ float4 staged[2 * kMaxStaged];
+    if (T.n_bins > kMaxStaged) return T.rows;
+    for (int i = threadIdx.x; i < 2 * T.n_bins; i += blockDim.x) staged[i] = T.rows[i];
+    __syncthreads();
+    return staged;
+  }
+  return T.rows;
+}
+
+__device__ __forceinline__ gst::V3 ray3(const float* p, int r) {
+  return gst::V3{p[3 * r], p[3 * r + 1], p[3 * r + 2]};
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+binned_closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+                      const float* __restrict__ t_max, int n_rays, gst::WalkTables B,
+                      BinTables T, float* __restrict__ t_out, int* __restrict__ prim_out,
+                      float* __restrict__ u_out, float* __restrict__ v_out) {
+  const float4* rows = bin_rows(T);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
+  const float hi = t_max[r];
+  float t = gst::kBig, u = 0.0f, v = 0.0f;
+  int prim = -1;
+  if (votes_any(o, d, hi > 0.0f)) {
+    gst::walk_closest(B, o, d, hi, t, prim, u, v, gst::NoCount(),
+                      bin_vote<false>(T, rows, o, d, hi));
+  }
+  t_out[r] = t;
+  prim_out[r] = prim;
+  u_out[r] = u;
+  v_out[r] = v;
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 binned_any_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                   const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
-                  const float* __restrict__ bounds, int c_pad, int n_bins, int slots,
-                  const float* __restrict__ woop_t, int n_slots, bool* __restrict__ occ_out) {
-  __shared__ float w[12][kChunk];
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = r < n_rays;
-  const gst::V3 o = gst::load3(origin, r, live, 0.0f);
-  const gst::V3 d = gst::load3(direction, r, live, 1.0f);
-  const gst::V3 inv = {gst::inv_dir(d.x), gst::inv_dir(d.y), gst::inv_dir(d.z)};
-  const float lo = live ? t_min[r] : 0.0f;
-  const float hi = live ? t_max[r] : -gst::kBig;
-  const bool empty = !(hi > lo);  // no t lies in (lo, hi): never occluded
-  bool occ = false;
-  const int end = __syncthreads_and(empty) ? 0 : n_bins;
-  for (int b = 0; b < end; ++b) {
-    const bool voted = !occ && !empty && gst::slab(bounds, c_pad, b, o, inv, 0.0f, hi);
-    if (!__syncthreads_or(voted)) continue;
-    const int base = b * slots;
-    for (int c0 = 0; c0 < slots; c0 += kChunk) {
-      const int n = min(kChunk, n_slots - (base + c0));
-      if (n <= 0) break;
-      if (c0 > 0) __syncthreads();
-      gst::stage<kBlock, kChunk>(w, woop_t, n_slots, base + c0, n);
-      __syncthreads();
-      if (!voted || occ) continue;
-      for (int c = 0; c < n; ++c) {
-        float t, u, v;
-        if (gst::woop_test(&w[0][c], kChunk, o, d, lo, hi, t, u, v)) {
-          occ = true;
-          break;
-        }
-      }
-    }
-    // also the barrier before the next staging: the result is uniform
-    if (__syncthreads_and(occ || empty)) break;
-  }
-  if (live) occ_out[r] = occ;
+                  gst::WalkTables B, BinTables T, bool* __restrict__ occ_out) {
+  const float4* rows = bin_rows(T);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
+  const float lo = t_min[r], hi = t_max[r];
+  // the votes take [0, t_max] whatever t_min is
+  occ_out[r] = votes_any(o, d, hi > lo) &&
+               gst::walk_any<kAnyNearFirst>(B, o, d, lo, hi, gst::NoCount(),
+                                            bin_vote<false>(T, rows, o, d, hi));
 }
 
-int blocks_for(int n_rays) { return (n_rays + kBlock - 1) / kBlock; }
+__global__ void __launch_bounds__(kThreads)
+binned_count_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+                    const float* __restrict__ t_min, const float* __restrict__ t_max,
+                    int n_rays, gst::WalkTables B, BinTables T, int any_hit,
+                    int* __restrict__ boxes_out, int* __restrict__ votes_out,
+                    int* __restrict__ woops_out, int* __restrict__ result_out,
+                    unsigned char* __restrict__ tested) {
+  const float4* rows = bin_rows(T);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
+  const float lo = t_min[r], hi = t_max[r];
+  gst::TestCount count;
+  BinVote<true> keep = bin_vote<true>(T, rows, o, d, hi);
+  keep.tested = tested;
+  int result;
+  if (any_hit) {
+    result = votes_any(o, d, hi > lo) &&
+             gst::walk_any<kAnyNearFirst>(B, o, d, lo, hi, count, keep);
+  } else {
+    float t = gst::kBig, u, v;
+    result = -1;
+    if (votes_any(o, d, hi > 0.0f)) gst::walk_closest(B, o, d, hi, t, result, u, v, count, keep);
+  }
+  boxes_out[r] = count.boxes;
+  votes_out[r] = keep.votes;
+  woops_out[r] = count.woops;
+  result_out[r] = result;
+}
+
+int blocks(int n_rays) { return (n_rays + kThreads - 1) / kThreads; }
+
+BinTables bin_tables(const float* bin_rows, int n_bins, int g) {
+  return BinTables{reinterpret_cast<const float4*>(bin_rows), n_bins, g};
+}
 
 }  // namespace
 
+// walk_ip: the ints of bvh.cuh:make_walk_tables (bvh/ftb.py:walk_tables);
+// bin_rows (n_bins, 8) float (bvh/binned.py:bin_rows); g clusters a bin
 extern "C" int gst_binned_closest(const float* origin, const float* direction, const float* t_max,
-                                  int n_rays, const float* bounds, int c_pad, int n_bins,
-                                  int slots, const float* woop_t, int n_slots, float* t_out,
-                                  int* prim_out, float* u_out, float* v_out, void* stream) {
+                                  int n_rays, const float* pairs, const float* woop,
+                                  const int* walk_ip, const float* bin_rows, int n_bins, int g,
+                                  float* t_out, int* prim_out, float* u_out, float* v_out,
+                                  void* stream) {
   if (n_rays == 0) return 0;
-  binned_closest_kernel<<<blocks_for(n_rays), kBlock, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_max, n_rays, bounds, c_pad, n_bins, slots, woop_t, n_slots, t_out,
-      prim_out, u_out, v_out);
+  binned_closest_kernel<<<blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_max, n_rays, gst::make_walk_tables(pairs, woop, walk_ip),
+      bin_tables(bin_rows, n_bins, g), t_out, prim_out, u_out, v_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gst_binned_any(const float* origin, const float* direction, const float* t_min,
-                              const float* t_max, int n_rays, const float* bounds, int c_pad,
-                              int n_bins, int slots, const float* woop_t, int n_slots,
-                              bool* occ_out, void* stream) {
+                              const float* t_max, int n_rays, const float* pairs,
+                              const float* woop, const int* walk_ip, const float* bin_rows,
+                              int n_bins, int g, bool* occ_out, void* stream) {
   if (n_rays == 0) return 0;
-  binned_any_kernel<<<blocks_for(n_rays), kBlock, 0, (cudaStream_t)stream>>>(
-      origin, direction, t_min, t_max, n_rays, bounds, c_pad, n_bins, slots, woop_t, n_slots,
-      occ_out);
+  binned_any_kernel<<<blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_min, t_max, n_rays, gst::make_walk_tables(pairs, woop, walk_ip),
+      bin_tables(bin_rows, n_bins, g), occ_out);
+  return (int)cudaGetLastError();
+}
+
+// result_out: prim (-1 on a miss) or the occlusion flag; tested (n_clusters
+// bytes, zeroed by the caller): 1 where some ray tested the cluster's slots
+extern "C" int gst_binned_count(const float* origin, const float* direction, const float* t_min,
+                                const float* t_max, int n_rays, const float* pairs,
+                                const float* woop, const int* walk_ip, const float* bin_rows,
+                                int n_bins, int g, int any_hit, int* boxes_out, int* votes_out,
+                                int* woops_out, int* result_out, unsigned char* tested,
+                                void* stream) {
+  if (n_rays == 0) return 0;
+  binned_count_kernel<<<blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+      origin, direction, t_min, t_max, n_rays, gst::make_walk_tables(pairs, woop, walk_ip),
+      bin_tables(bin_rows, n_bins, g), any_hit, boxes_out, votes_out, woops_out, result_out,
+      tested);
   return (int)cudaGetLastError();
 }

@@ -126,6 +126,13 @@ struct TestCount {
   __device__ __forceinline__ void woop() { ++woops; }
 };
 
+// The walk's leaf filter: whether it tests cluster c's slots once it
+// reaches the cluster.  K3, K4 and K6 test every cluster; K7a / K7b
+// (binned.cu) only those of the bins their ray votes for.
+struct AllClusters {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+
 // The closest hit among cluster c's slots, committed into best_*.
 template <class Count>
 __device__ __forceinline__ void cluster_closest(const WalkTables& B, int c, V3 o, V3 d,
@@ -179,7 +186,7 @@ __device__ __forceinline__ bool inner(int code) { return code >= 0 && code != kP
 // When it enters both, the other child is pushed with its widened entry
 // distance: the closest hit visits the nearer child first, the any hit the
 // left one (near first slowed it, PERF.md's study).
-template <bool kClosest, class Count>
+template <bool kNearFirst, class Count>
 __device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3 inv, float lo,
                                          float hi, WalkStack& st, Count& count) {
   const float4* row = B.pairs + 4 * code;
@@ -192,7 +199,7 @@ __device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3
   const bool eb = slab_entered(xyz(b_lo), xyz(b_hi), o, inv, lo, hi, nb);
   const int ca = __float_as_int(a_lo.w), cb = __float_as_int(a_hi.w);
   if (ea && eb) {
-    const bool b_first = kClosest && nb < na;
+    const bool b_first = kNearFirst && nb < na;
     st.push(make_int2(b_first ? ca : cb, __float_as_int(b_first ? na : nb)));
     return b_first ? cb : ca;
   }
@@ -209,11 +216,12 @@ __device__ __forceinline__ int pop_entered(WalkStack& st, float best_t) {
   return kPop;
 }
 
-// Closest hit with t in (0, t_max): prim = -1, t = 1e30, u = v = 0 on a miss.
-template <class Count = NoCount>
+// Closest hit with t in (0, t_max) among the clusters `keep` accepts:
+// prim = -1, t = 1e30, u = v = 0 on a miss.
+template <class Count = NoCount, class Filter = AllClusters>
 __device__ inline void walk_closest(const WalkTables& B, V3 o, V3 d, float t_max, float& best_t,
                                     int& best_prim, float& best_u, float& best_v,
-                                    Count&& count = Count()) {
+                                    Count&& count = Count(), Filter&& keep = Filter()) {
   const V3 inv = v3(inv_dir1(d.x), inv_dir1(d.y), inv_dir1(d.z));
   best_t = fminf(t_max, kBig);
   best_prim = -1;
@@ -227,29 +235,32 @@ __device__ inline void walk_closest(const WalkTables& B, V3 o, V3 d, float t_max
       if (code == kPop) code = pop_entered(st, best_t);
     }
     if (code < 0) {
-      cluster_closest(B, ~code, o, d, t_max, best_t, best_prim, best_u, best_v, count);
+      if (keep(~code)) {
+        cluster_closest(B, ~code, o, d, t_max, best_t, best_prim, best_u, best_v, count);
+      }
       code = pop_entered(st, best_t);
     }
   }
   if (best_prim < 0) best_t = kBig;
 }
 
-// Any hit with t in (t_lo, t_hi): stops at the first occluder.  t_hi never
-// falls, so a stacked child is entered when popped.
-template <class Count = NoCount>
+// Any hit with t in (t_lo, t_hi) among the clusters `keep` accepts: stops
+// at the first occluder.  t_hi never falls, so a stacked child is entered
+// when popped.  kNearFirst: the nearer child first, in place of the left.
+template <bool kNearFirst = false, class Count = NoCount, class Filter = AllClusters>
 __device__ inline bool walk_any(const WalkTables& B, V3 o, V3 d, float t_lo, float t_hi,
-                                Count&& count = Count()) {
+                                Count&& count = Count(), Filter&& keep = Filter()) {
   if (!(t_hi > t_lo)) return false;
   const V3 inv = v3(inv_dir1(d.x), inv_dir1(d.y), inv_dir1(d.z));
   WalkStack st;
   int code = B.root;
   while (code != kPop) {
     while (inner(code)) {
-      code = pair_step<false>(B, code, o, inv, t_lo, t_hi, st, count);
+      code = pair_step<kNearFirst>(B, code, o, inv, t_lo, t_hi, st, count);
       if (code == kPop && st.sp > 0) code = st.pop().x;
     }
     if (code < 0) {
-      if (cluster_any(B, ~code, o, d, t_lo, t_hi, count)) return true;
+      if (keep(~code) && cluster_any(B, ~code, o, d, t_lo, t_hi, count)) return true;
       code = st.sp > 0 ? st.pop().x : kPop;
     }
   }

@@ -58,7 +58,10 @@
 // Precision: built with --fmad=false like the other kernels.  K7c's slab
 // test is plain multiplies, subtracts, min / max and an IEEE division for
 // the inverse direction (math3d.safe_div(1, d)), as the plain torch version
-// computes them: the votes are equal.  The Woop test is
+// computes them, with torch's NaN rule (common.cuh:slab_nan): a lane with
+// a NaN origin, direction or segment end votes for nothing, as on the CPU
+// and in JAX's _prepare, where fminf / fmaxf would drop the NaN and let it
+// vote.  So the votes are equal.  The Woop test is
 // csrc/common.cuh:woop_eval, whose fmaf calls sit where ops/woop.py calls
 // m3.fma: opz, dpz, the hit point and u, v are fused multiply-adds, the
 // trailing `+ b` and the division are not.  So t, prim, u and v equal the
@@ -86,24 +89,18 @@ cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__
   const bool live = r < n_rays;  // padding rays: o 0, d 1, t_max -1e30
   for (int c = 0; c < 3; ++c) {
     ray[c][threadIdx.x] = live ? origin[3 * r + c] : 0.0f;
-    ray[3 + c][threadIdx.x] = gst::inv_dir(live ? direction[3 * r + c] : 1.0f);
+    ray[3 + c][threadIdx.x] = gst::inv_dir_nan(live ? direction[3 * r + c] : 1.0f);
   }
   ray[6][threadIdx.x] = live ? t_min[r] : 0.0f;
   ray[7][threadIdx.x] = live ? t_max[r] : -gst::kBig;
   __syncthreads();
   for (int s = threadIdx.x; s < n_super; s += kBlock) {
-    const float lx = blo[s], ly = blo[sp + s], lz = blo[2 * sp + s];
-    const float hx = bhi[s], hy = bhi[sp + s], hz = bhi[2 * sp + s];
+    const gst::V3 bl = gst::v3(blo[s], blo[sp + s], blo[2 * sp + s]);
+    const gst::V3 bh = gst::v3(bhi[s], bhi[sp + s], bhi[2 * sp + s]);
     int vote = 0;
     for (int j = 0; j < kBlock && !vote; ++j) {
-      const float t0x = (lx - ray[0][j]) * ray[3][j], t1x = (hx - ray[0][j]) * ray[3][j];
-      const float t0y = (ly - ray[1][j]) * ray[4][j], t1y = (hy - ray[1][j]) * ray[4][j];
-      const float t0z = (lz - ray[2][j]) * ray[5][j], t1z = (hz - ray[2][j]) * ray[5][j];
-      const float t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                 fmaxf(fminf(t0z, t1z), ray[6][j]));
-      const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                fminf(fmaxf(t0z, t1z), ray[7][j]));
-      vote = t_far >= t_near;
+      vote = gst::slab_nan(bl, bh, gst::v3(ray[0][j], ray[1][j], ray[2][j]),
+                           gst::v3(ray[3][j], ray[4][j], ray[5][j]), ray[6][j], ray[7][j]);
     }
     votes[(size_t)blockIdx.x * n_super + s] = vote;
   }

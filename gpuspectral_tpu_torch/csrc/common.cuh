@@ -115,14 +115,56 @@ __device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d
 }
 
 // ------------------------------------------------ block-gated sweeps ---
-// Shared by the dfs and binned kernels (csrc/dfs.cu, binned.cu) and the
-// cluster votes (K7c, csrc/cluster.cu): one thread per ray, one CTA per
-// block of consecutive rays.  K7d / K7e take load3 only.
+// Shared by the dfs kernels (csrc/dfs.cu) and the cluster votes (K7c,
+// csrc/cluster.cu): one thread per ray, one CTA per block of consecutive
+// rays.  K7d / K7e take load3 only; K7c and the bin votes of K7a / K7b
+// (binned.cu) the NaN-keeping slab test, K7h (traverse.cu) its min / max.
 
 // math3d.safe_div(1, dx): a component of the slab tests' inverse direction.
 __device__ __forceinline__ float inv_dir(float dx) {
   const float mag = fmaxf(fabsf(dx), 1e-12f);
   return 1.0f / (dx < 0.0f ? -mag : mag);
+}
+
+// math3d.safe_div(1, dx) with torch's NaN rule: |dx| clamped to 1e-12 with
+// its sign, a NaN component kept NaN (inv_dir's fmaxf drops it, giving
+// 1e12).
+__device__ __forceinline__ float inv_dir_nan(float dx) {
+  const float a = fabsf(dx);
+  const float mag = a < 1e-12f ? 1e-12f : a;
+  return 1.0f / (dx < 0.0f ? -mag : mag);
+}
+
+// torch.minimum / torch.maximum: NaN if either operand is NaN (fminf and
+// fmaxf drop it)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The slab test of the box [bl, bh] on the segment [lo, hi] as the plain
+// torch votes compute it (no widening), torch's NaN rule kept: with
+// inv = inv_dir_nan(d), a NaN in the ray's origin, direction or segment
+// ends makes t_near or t_far NaN, and the test fails, as on the CPU.
+__device__ __forceinline__ bool slab_nan(V3 bl, V3 bh, V3 o, V3 inv, float lo, float hi) {
+  const float t0x = (bl.x - o.x) * inv.x;
+  const float t1x = (bh.x - o.x) * inv.x;
+  const float t0y = (bl.y - o.y) * inv.y;
+  const float t1y = (bh.y - o.y) * inv.y;
+  const float t0z = (bl.z - o.z) * inv.z;
+  const float t1z = (bh.z - o.z) * inv.z;
+  const float t_near =
+      max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)), max_nan(min_nan(t0z, t1z), lo));
+  const float t_far =
+      min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), min_nan(max_nan(t0z, t1z), hi));
+  return t_far >= t_near;
 }
 
 // Ray r's xyz of an (R, 3) array, or `fill` for a padding thread past the

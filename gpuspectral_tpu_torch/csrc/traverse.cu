@@ -148,27 +148,6 @@ struct Ray {
   int boxes, tests;  // the tests made, kept by the counting walk only
 };
 
-// math3d.safe_div(1, d): |d| clamped to 1e-12 with its sign, NaN kept
-__device__ __forceinline__ float inv_dir(float dx) {
-  const float a = fabsf(dx);
-  const float mag = a < 1e-12f ? 1e-12f : a;
-  return 1.0f / (dx < 0.0f ? -mag : mag);
-}
-
-// torch.minimum / torch.maximum: NaN if either operand is NaN (fminf and
-// fmaxf drop it)
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // The plain version's node test (bvh/traverse.py:_ray_aabb and node_hit):
 // t_enter = max of the per-axis min, t_exit = min of the per-axis max,
 // (t_exit >= t_enter) & (t_exit >= t_min) & (t_enter <= best).  A NaN slab
@@ -181,8 +160,10 @@ __device__ __forceinline__ bool slab_hit(float lx, float ly, float lz, float hx,
   const float t1x = (hx - r.o.x) * r.inv.x;
   const float t1y = (hy - r.o.y) * r.inv.y;
   const float t1z = (hz - r.o.z) * r.inv.z;
-  const float t_enter = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)), min_nan(t0z, t1z));
-  const float t_exit = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
+  const float t_enter = gst::max_nan(gst::max_nan(gst::min_nan(t0x, t1x), gst::min_nan(t0y, t1y)),
+                                     gst::min_nan(t0z, t1z));
+  const float t_exit = gst::min_nan(gst::min_nan(gst::max_nan(t0x, t1x), gst::max_nan(t0y, t1y)),
+                                    gst::max_nan(t0z, t1z));
   return (t_exit >= t_enter) && (t_exit >= r.lo) && (t_enter <= r.best);
 }
 
@@ -242,7 +223,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
              : gst::V3{0.0f, 0.0f, 0.0f};
   r.d = live ? gst::V3{direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]}
              : gst::V3{1.0f, 1.0f, 1.0f};
-  r.inv = {inv_dir(r.d.x), inv_dir(r.d.y), inv_dir(r.d.z)};
+  r.inv = {gst::inv_dir_nan(r.d.x), gst::inv_dir_nan(r.d.y), gst::inv_dir_nan(r.d.z)};
   r.lo = live ? t_min[i] : 0.0f;
   const float hi = live ? t_max[i] : -gst::kBig;
   r.best = hi > r.lo ? hi : -gst::kBig;  // the ray's search window (lo, best)

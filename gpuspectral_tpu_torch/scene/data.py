@@ -104,6 +104,8 @@ class SceneData:
     # the rows K3, K4 and K6 walk (csrc/bvh.cuh), made from the boxes above
     # with the scene (scene_from_arrays); tri_woop holds their triangles
     bvh_pairs: torch.Tensor  # (P,16) f32: child-pair rows, breadth first
+    # the bins' boxes as the rows K7a / K7b vote on (csrc/binned.cu)
+    bvh_bin_rows: torch.Tensor  # (bins,8) f32: [lo xyz, 0, hi xyz, 0]
     camera: CameraData
     num_tris: int
     num_lights: int
@@ -432,8 +434,9 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
     plus `cam_to_world` and `cam_fov`; `meta` every name of META_FIELDS.
     Given `np.asarray` of each field of a gpuspectral_tpu SceneData and its
     static fields, it carries that scene across unchanged.  The child-pair
-    rows of the BVH walk are built here (bvh/tables.py:build_pair_rows)."""
-    from ..bvh.tables import build_pair_rows
+    rows of the BVH walk and the bin rows of K7a / K7b are built here
+    (bvh/tables.py:build_pair_rows, build_bin_rows)."""
+    from ..bvh.tables import build_bin_rows, build_pair_rows
 
     device = check_device(device)
     t = {k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
@@ -446,6 +449,9 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
                                   statics["bvh_clusters"])
     return SceneData(camera=CameraData(to_world=t["cam_to_world"], fov=t["cam_fov"]),
                      bvh_pairs=torch.as_tensor(pairs, device=device), bvh_root=root,
+                     bvh_bin_rows=torch.as_tensor(
+                         build_bin_rows(arrays["bvh_bin_bounds"], statics["bvh_bins"]),
+                         device=device),
                      **fields, **statics)
 
 

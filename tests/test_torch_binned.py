@@ -6,8 +6,11 @@ brute-force Woop scan; the differentiable closest hit against JAX
 binned_closest_diff; the wavefront with bvh_kernel "binned" against the JAX
 wavefront; and the kernels' test counts against a walk of one block at a
 time.  Both packages get the same scene tables (scene_from_arrays of the
-JAX scene) and the same numpy rays.  The CUDA kernels against these plain
-versions: tests/test_torch_cuda.py.
+JAX scene) and the same numpy rays.  Then what the kernels' design
+(csrc/binned.cu: K3's BVH walk with the bin vote as a leaf filter)
+assumes of the tables, and a numpy copy of that walk held to the plain
+versions bit for bit.  The CUDA kernels against these plain versions:
+tests/test_torch_cuda.py.
 """
 
 import jax
@@ -31,8 +34,10 @@ from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_sphere_field
 from gpuspectral_tpu_torch.utils import RenderConfig
 
+from chip_smoke import field_rays, odd_lanes
 from test_binned import _random_scene
 from test_torch_bvh import SMALL_FIELD
+from test_torch_bvh_pack import _bits, _walk
 from test_torch_dfs import _rays, _t
 from torch_common import assert_mega_gates, jax_scene_arrays
 
@@ -299,3 +304,103 @@ def test_binned_tests_count_the_kernels_tests(pairs, any_hit):
         assert (visits[s] == ref[2]).all()
         assert torch.equal(out[s] if any_hit else out[0][s], ref[3])
     assert int(woops.sum()) > 0 and int(visits.min()) > 1 and int(boxes.max()) == ts.bvh_bins
+
+
+FAR = np.array([1e17, 2e17, 3e17], np.float32)  # bvh/tables.py:build_bins' padding box
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_bins_are_runs_of_whole_clusters(pairs, name):
+    """What K7a / K7b's walk assumes of the tables: a bin is g = slots /
+    leaf_size whole leaf clusters of the tree, [b * g, (b + 1) * g); its box
+    is the min / max of those clusters' finite boxes bit for bit (a far
+    point where none is finite); the packed bin rows hold the same boxes;
+    every cluster past the last bin is empty and its slots are padding
+    (zero) Woop rows, which never hit."""
+    _, ts = pairs[name]
+    slots, leaf, c = ts.bvh_bin_slots, ts.bvh_leaf_size, ts.bvh_clusters
+    g = slots // leaf
+    assert slots == g * leaf and g >= 1
+    lo, hi = ts.bvh_node_min[c - 1:].numpy(), ts.bvh_node_max[c - 1:].numpy()
+    finite = np.isfinite(lo).all(1) & np.isfinite(hi).all(1)
+    bounds = ts.bvh_bin_bounds.numpy()
+    for b in range(ts.bvh_bins):
+        ok = finite & (np.arange(c) // g == b)
+        want = (lo[ok].min(0), hi[ok].max(0)) if ok.any() else (FAR, FAR)
+        np.testing.assert_array_equal(bounds[0:3, b], want[0])
+        np.testing.assert_array_equal(bounds[3:6, b], want[1])
+    rows = tb.bin_rows(ts).numpy()
+    assert rows.shape == (ts.bvh_bins, 8) and rows.dtype == np.float32
+    np.testing.assert_array_equal(rows[:, 0:3], bounds[0:3, :ts.bvh_bins].T)
+    np.testing.assert_array_equal(rows[:, 4:7], bounds[3:6, :ts.bvh_bins].T)
+    assert (rows[:, 3] == 0).all() and (rows[:, 7] == 0).all()
+    past = ts.bvh_bins * g
+    assert not finite[past:].any()
+    assert (ts.tri_woop.numpy()[past * leaf:] == 0).all()
+
+
+def test_bin_rows_checks(pairs):
+    """bin_rows raises on rows the kernels cannot read: a misaligned view,
+    a row count other than the bins', a bin that is no whole number of
+    clusters."""
+    _, ts = pairs["soup3000"]
+    rows = ts.bvh_bin_rows
+    offset = torch.empty(rows.numel() + 1)[1:].view(rows.shape)
+    offset.copy_(rows)
+    for bad in (dict(bvh_bin_rows=offset), dict(bvh_bin_rows=rows[:-1].contiguous()),
+                dict(bvh_bin_slots=ts.bvh_bin_slots + 8)):
+        with pytest.raises(ValueError):
+            tb.bin_rows(ts.replace(**bad))
+    assert tb.bin_rows(ts) is rows
+
+
+def _culled(ts):
+    """ts with every third bin's box moved to a far point: its triangles'
+    hits are lost to the votes, so the leaf filter decides results."""
+    from gpuspectral_tpu_torch.bvh.tables import build_bin_rows
+
+    b = ts.bvh_bin_bounds.clone()
+    b[:, ::3] = torch.as_tensor(np.concatenate([FAR, FAR]))[:, None]
+    return ts.replace(bvh_bin_bounds=b,
+                      bvh_bin_rows=torch.as_tensor(build_bin_rows(b.numpy(), ts.bvh_bins)))
+
+
+@pytest.mark.parametrize("name", SCENES + ["culled"])
+def test_numpy_walk_with_bin_votes_matches_plain(pairs, name):
+    """The premise of K7a / K7b's design: K3's walk (csrc/bvh.cuh, the
+    numpy copy of tests/test_torch_bvh_pack.py) that tests a leaf cluster
+    only where the ray votes for its bin gives the plain versions' t,
+    prim, u, v and occ bit for bit, NaN and inactive lanes included; on
+    the culled soup the votes drop hits that the brute scan finds."""
+    ts = _culled(pairs["soup3000"][1]) if name == "culled" else pairs[name][1]
+    o, d, lo, hi = odd_lanes(field_rays(120, ts, 41, "cpu"), seed=7)
+    lo = torch.where(torch.arange(120) % 4 == 0, -0.5, lo).contiguous()  # t_min < 0
+    g = ts.bvh_bin_slots // ts.bvh_leaf_size
+    ref = tb.binned_closest_ref(ts, o, d, t_max=hi)
+    occ_r = tb.binned_any_ref(ts, o, d, lo, hi)
+    assert int((ref[1] >= 0).sum()) > 10 and bool(occ_r.any())
+    if name == "culled":
+        assert bool((ref[1] != ftb.ftb_closest_ref(ts, o, d, t_max=hi)[1]).any())
+    got, occ = [], []
+    for any_hit, live in ((False, hi > 0), (True, hi > lo)):
+        votes = tb._votes(ts, o, d, hi, live)
+        for i in range(o.shape[0]):
+            def keep(c, v=votes[i]):
+                return c // g < ts.bvh_bins and bool(v[c // g])
+
+            out = _walk(ts, *(x[i].numpy() for x in (o, d, lo, hi)), any_hit, keep)
+            (occ if any_hit else got).append(out)
+    np.testing.assert_array_equal(_bits([x[0] for x in got]), _bits(ref[0].numpy()))
+    np.testing.assert_array_equal([x[1] for x in got], ref[1].numpy())
+    np.testing.assert_array_equal(_bits([x[2] for x in got]), _bits(ref[2].numpy()))
+    np.testing.assert_array_equal(_bits([x[3] for x in got]), _bits(ref[3].numpy()))
+    np.testing.assert_array_equal(occ, occ_r.numpy())
+
+
+def test_walk_tests_need_the_card(pairs):
+    """binned_walk_tests counts the kernels' own walk: none runs on the
+    CPU (the plain versions vote for every bin), so it refuses."""
+    _, ts = pairs["cornell"]
+    o, d, lo, hi = field_rays(8, ts, 3, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.binned_walk_tests(ts, o, d, lo, hi, False)

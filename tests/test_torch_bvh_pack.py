@@ -280,9 +280,11 @@ def _slab(lo_box, hi_box, o, inv, lo, hi):
     return bool(n <= F32(tf + SLAB_MARGIN * abs(tf))), n
 
 
-def _walk(scene, o, d, t_lo, t_hi, any_hit):
+def _walk(scene, o, d, t_lo, t_hi, any_hit, keep=None):
     """One ray down the pair table as csrc/bvh.cuh walks it: closest hit
-    (t, prim, u, v) on (0, t_hi), or any hit on (t_lo, t_hi)."""
+    (t, prim, u, v) on (0, t_hi), or any hit on (t_lo, t_hi); `keep(c)`,
+    the leaf filter, says whether cluster c's slots are tested (all when
+    None)."""
     pairs = scene.bvh_pairs.numpy()
     codes = _codes(pairs)
     woop = scene.tri_woop.numpy()
@@ -309,7 +311,7 @@ def _walk(scene, o, d, t_lo, t_hi, any_hit):
             if ea or eb:
                 code = ca if ea else cb
                 continue
-        else:
+        elif keep is None or keep(~code):
             c = ~code
             for s in range(c * leaf_size, min((c + 1) * leaf_size, n_slots)):
                 hit, t, u, v = _woop(woop[s], o, d, lo, t_hi)

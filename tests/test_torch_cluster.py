@@ -84,10 +84,17 @@ def test_supernode_tables_equal_jax(pairs, name):
     assert bool((got[0] <= got[1]).all())
 
 
+@pytest.mark.parametrize("odd", [False, True], ids=["clean", "odd_lanes"])
 @pytest.mark.parametrize("name", SCENES)
-def test_votes_equal_jax(pairs, name):
+def test_votes_equal_jax(pairs, name, odd):
+    """The plain votes against JAX _prepare's; with odd_lanes (NaN origin
+    and direction components, inactive lanes) a NaN lane votes for nothing
+    in both: jnp.maximum and torch.maximum keep the NaN."""
     js, ts = pairs[name]
     o, d, t_min, t_max = _rays(js, 700, 1)
+    if odd:
+        o, d, t_min, t_max = (x.numpy() for x in odd_lanes([_t(x) for x in (o, d, t_min, t_max)]))
+        assert np.isnan(o).any() and np.isnan(d).any()
     out = jcs._prepare(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_min),
                        jnp.asarray(t_max), interpret=True)
     s = out[8]

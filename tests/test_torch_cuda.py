@@ -364,13 +364,18 @@ def _k7ab_launches():
     return tb.binned_closest.launches, tb.binned_any.launches
 
 
-@pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode"])
+@pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode", "soup2048"])
 def test_k7ab_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
     """K7a / K7b equal the plain binned sweep bit for bit: t, prim, u, v,
     attrs and occ, ties included, with inactive rays."""
     if name == "slot_mode":
         monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
-    ts = _scene("cornell" if name == "slot_mode" else name, cuda_device)
+    if name == "soup2048":
+        from chip_smoke import soup_scene
+
+        ts = soup_scene(2048, 7, cuda_device)
+    else:
+        ts = _scene("cornell" if name == "slot_mode" else name, cuda_device)
     o, d, lo, hi = _rays(15, 1 << 14, cuda_device)
     active = torch.arange(o.shape[0], device=cuda_device) % 7 != 0
     n0 = _k7ab_launches()
@@ -383,6 +388,140 @@ def test_k7ab_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F8
         assert torch.equal(a, b)
     occ_r = tb.binned_any_ref(ts, o, d, lo, hi, active=active)
     assert 0 < int(occ_r.sum()) < o.shape[0] and torch.equal(occ, occ_r)
+
+
+def _rebinned(ts, slots):
+    """ts with its bins rebuilt at `slots` slots a bin (bvh/tables.py:
+    build_bins over the same tree)."""
+    from gpuspectral_tpu_torch.bvh import tables
+
+    c = ts.bvh_clusters
+    lo, hi = ts.bvh_node_min.cpu().numpy(), ts.bvh_node_max.cpu().numpy()
+    real = int(np.isfinite(lo[c - 1:]).all(1).sum())
+    bounds, n_bins, n_slots = tables.build_bins(lo, hi, c, real, ts.bvh_leaf_size,
+                                                slots_per_bin=slots)
+    return ts.replace(bvh_bin_bounds=torch.as_tensor(bounds, device=ts.device), bvh_bins=n_bins,
+                      bvh_bin_slots=n_slots, bvh_bin_rows=torch.as_tensor(
+                          tables.build_bin_rows(bounds, n_bins), device=ts.device))
+
+
+def _culled(ts):
+    """ts with every third bin's box moved to a far point: the votes lose
+    those bins' hits, so the leaf filter decides the results."""
+    from gpuspectral_tpu_torch.bvh import tables
+
+    b = ts.bvh_bin_bounds.cpu().numpy().copy()
+    b[:, ::3] = np.array([1e17, 2e17, 3e17, 1e17, 2e17, 3e17], np.float32)[:, None]
+    return ts.replace(bvh_bin_bounds=torch.as_tensor(b, device=ts.device), bvh_bin_rows=
+                      torch.as_tensor(tables.build_bin_rows(b, ts.bvh_bins), device=ts.device))
+
+
+@pytest.mark.parametrize("name", ["soup_morton", "soup_ties", "slot_field", "below_width",
+                                  "above_width", "culled_bins", "one_cluster", "t_min_negative",
+                                  "r1", "r31", "r33", "r257"])
+def test_k7ab_walk_edge_cases(cuda_device, name, monkeypatch):  # noqa: F811
+    """K7a / K7b (K3's walk with the bin vote as a leaf filter) bit for bit
+    against the plain binned sweep, with NaN and inactive lanes: a morton
+    build, a soup of exact-t twins (every hit a tie won by the lower slot),
+    a slot-mode sphere field (its bins' slots fall short of the Woop
+    table's width), a soup whose 256-slot bins reach past it, bins whose
+    boxes miss (the votes drop hits the brute scan finds), a tree of one
+    cluster, t_min < 0 for K7b, and 1, 31, 33 and 257 rays."""
+    from chip_smoke import field_rays, soup_scene, tied_hits
+
+    if name == "soup_morton":
+        ts = soup_scene(2048, 8, cuda_device, order="morton")
+    elif name == "soup_ties":
+        ts = soup_scene(600, 5, cuda_device, ties=True)
+    elif name in ("slot_field", "below_width"):
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = _scene("sphere_field", cuda_device)
+    elif name == "above_width":
+        ts = _rebinned(soup_scene(1100, 4, cuda_device), 256)
+    elif name == "culled_bins":
+        ts = _culled(soup_scene(2048, 7, cuda_device))
+    elif name == "one_cluster":
+        ts = soup_scene(12, 3, cuda_device)
+    else:
+        ts = _scene("sphere_field", cuda_device)
+    width = ts.bvh_bins * ts.bvh_bin_slots
+    if name == "below_width":
+        assert width < ts.tri_woop.shape[0]
+    if name == "above_width":
+        assert width > ts.tri_woop.shape[0]
+    n = dict(r1=1, r31=31, r33=33, r257=257).get(name, 1 << 14)
+    o, d, lo, hi = odd_lanes(field_rays(n, ts, 16, cuda_device))
+    if name == "t_min_negative":
+        lo = torch.where(torch.arange(n, device=cuda_device) % 2 == 0, -0.5, lo).contiguous()
+    n0 = _k7ab_launches()
+    got = tb.binned_closest(ts, o, d, t_max=hi)
+    occ = tb.binned_any(ts, o, d, lo, hi)
+    assert _k7ab_launches() == (n0[0] + 1, n0[1] + 1)
+    ref = tb.binned_closest_ref(ts, o, d, t_max=hi)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    occ_r = tb.binned_any_ref(ts, o, d, lo, hi)
+    assert torch.equal(occ, occ_r)
+    hits = int((ref[1] >= 0).sum())
+    assert n < 300 or hits > (50 if name == "one_cluster" else 500)
+    if name == "soup_ties":
+        assert tied_hits(ts, ref[1]) == hits
+    if name == "culled_bins":
+        assert bool((ref[1] != ftb.ftb_closest_ref(ts, o, d, t_max=hi)[1]).any())
+    if name == "t_min_negative":
+        assert not torch.equal(occ_r, tb.binned_any_ref(ts, o, d, torch.zeros_like(lo), hi))
+
+
+@pytest.mark.parametrize("name", ["sphere_field", "culled_bins"])
+def test_binned_walk_tests_count_the_walk(cuda_device, name):  # noqa: F811
+    """binned_walk_tests runs K7a / K7b's walk with counters: its results
+    equal the kernels' (prim, occ), a ray that hits tested at least one
+    triangle and voted at least once, no ray more Woop tests than slots; a
+    ray far outside the scene tested the root's two child boxes alone; an
+    empty segment and a NaN lane nothing."""
+    from chip_smoke import soup_scene
+
+    ts = _scene("sphere_field", cuda_device) if name == "sphere_field" else _culled(
+        soup_scene(2048, 7, cuda_device))
+    o, d, lo, hi = odd_lanes(_rays(12, 1 << 14, cuda_device))
+    zero = torch.zeros_like(hi)
+    prim = tb.binned_closest(ts, o, d, t_max=hi)[1]
+    occ = tb.binned_any(ts, o, d, lo, hi)
+    n_slots = ts.tri_woop.shape[0]
+    for w, want in ((tb.binned_walk_tests(ts, o, d, zero, hi, False), prim),
+                    (tb.binned_walk_tests(ts, o, d, lo, hi, True), occ.int())):
+        assert torch.equal(w.result, want)
+        hit = want >= 0 if want is prim else want > 0
+        assert bool((w.woops[hit] >= 1).all()) and bool((w.votes[hit] >= 1).all())
+        assert int(w.woops.max()) <= n_slots and int(w.votes.max()) <= int(w.boxes.max())
+        nan = torch.isnan(o).any(1) | torch.isnan(d).any(1)
+        assert int((w.boxes[nan] + w.votes[nan] + w.woops[nan]).sum()) == 0
+        assert w.clusters.shape == (ts.bvh_clusters,) and bool(w.clusters.any())
+    far = torch.tensor([[1e4, 1e4, 1e4]], device=cuda_device)
+    out = torch.tensor([[1.0, 0.0, 0.0]], device=cuda_device)
+    one = torch.ones((1,), device=cuda_device)
+    w = tb.binned_walk_tests(ts, far, out, one * 0, one * 1e30, False)
+    assert [int(x) for x in w[:4]] == [2, 0, 0, -1]
+    w = tb.binned_walk_tests(ts, o[:1], d[:1], one, one, True)
+    assert [int(x) for x in w[:4]] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 257, 1 << 14])
+def test_k7c_votes_with_nan_lanes(cuda_device, n):  # noqa: F811
+    """F17: K7c's votes equal the plain slab test's on rays with NaN origin
+    and direction components and inactive lanes: a NaN lane votes for
+    nothing (fminf / fmaxf would drop the NaN and let it vote)."""
+    from chip_smoke import field_rays
+
+    ts = _scene("sphere_field", cuda_device)
+    o, d, lo, hi = odd_lanes(field_rays(n, ts, 17, cuda_device))
+    sn = cs.scene_supernodes(ts)
+    for seg in (torch.zeros_like(lo), lo):
+        votes = cs.cluster_votes(ts, o, d, seg, hi, supernodes=sn)
+        assert torch.equal(votes, cs.cluster_votes_ref(ts, o, d, seg, hi, supernodes=sn))
+    # a block of NaN lanes alone votes for nothing
+    nan_o = torch.full_like(o, float("nan"))
+    assert int(cs.cluster_votes(ts, nan_o, d, lo, hi, supernodes=sn).sum()) == 0
 
 
 def test_wavefront_on_k7ab_matches_plain_scans(cuda_device):  # noqa: F811
