@@ -21,9 +21,10 @@
 // while-while, 128-bit __ldg rows, a local stack, no shared memory) with
 // its bin vote as a leaf filter: at a cluster c the walk tests c's slots
 // only where c / g < n_bins and the ray votes for bin c / g.  The vote is
-// computed at the leaf, on the bin's packed row (two float4, `bins`), and
-// the last bin's vote stays in registers: the leaves of a walk mostly come
-// in runs of one bin (g = 16 clusters on the sphere field).  A ray that
+// computed at the leaf, on the bin's packed row (two float4 of the (n_bins,
+// 8) bin rows), and the last bin's vote stays in registers: the leaves of
+// a walk mostly come in runs of one bin (g = 16 clusters on the sphere
+// field; 0.4 votes a random ray against its 8.4 Woop tests).  A ray that
 // can vote for nothing (an empty segment, a NaN in its origin or
 // direction) skips the walk.  No CTA barrier and no staging: the TPU
 // kernel's 687-bin vote loop per ray and the block's union of votes (a
@@ -46,7 +47,10 @@
 // B a Woop slot, 32 B a bin row), not the tests' arithmetic.  The walk
 // makes K3's tests plus one bin vote a run of leaves; the block sweep it
 // replaces slab-tested all n_bins boxes for every ray and Woop-tested the
-// union of a warp's votes.
+// union of a warp's votes.  Variants that lost (tools/torch_binned_variants.py
+// at commit 3f246ab; PERF.md): the bin rows staged in shared memory by each
+// CTA (1.11x slower), K7b's walk near child first (1.15x random, 1.6x
+// primary rays); a fresh vote at every leaf ran as fast as the cached one.
 //
 // Precision: built with --fmad=false like the other kernels.  The vote is
 // plain subtracts, multiplies, NaN-keeping min / max and an IEEE division,
@@ -67,11 +71,6 @@ namespace {
 constexpr int kThreads = 128;  // as K3 (bvh.cu): 16 warps an SM
 constexpr int kWarpsPerSm = 16;
 constexpr int kCtasPerSm = kWarpsPerSm * 32 / kThreads;
-// tools/torch_binned_variants.py builds copies with other values
-constexpr bool kCacheVote = true;      // the last bin's vote kept in registers
-constexpr bool kStageBins = false;     // the bin rows staged in shared memory
-constexpr bool kAnyNearFirst = false;  // K7b's walk: the nearer child first
-constexpr int kMaxStaged = 1024;       // bins staged at most (32 KB)
 
 struct BinTables {
   const float4* rows;  // (n_bins, 2 float4): [lo xyz, 0], [hi xyz, 0]
@@ -83,8 +82,7 @@ struct BinTables {
 // mark the clusters tested (the counting kernel).
 template <bool kCount>
 struct BinVote {
-  const float4* rows;
-  int n_bins, g;
+  BinTables T;
   gst::V3 o, inv;
   float hi;
   int bin = -1;
@@ -93,19 +91,12 @@ struct BinVote {
   unsigned char* tested = nullptr;
 
   __device__ __forceinline__ bool operator()(int c) {
-    const int b = c / g;
-    if (b >= n_bins) return false;
-    if (!kCacheVote || b != bin) {
+    const int b = c / T.g;
+    if (b >= T.n_bins) return false;
+    if (b != bin) {
       bin = b;
-      float4 lo, hi4;
-      if constexpr (kStageBins) {
-        lo = rows[2 * b];
-        hi4 = rows[2 * b + 1];
-      } else {
-        lo = __ldg(rows + 2 * b);
-        hi4 = __ldg(rows + 2 * b + 1);
-      }
-      vote = gst::slab_nan(gst::xyz(lo), gst::xyz(hi4), o, inv, 0.0f, hi);
+      vote = gst::slab_nan(gst::xyz(__ldg(T.rows + 2 * b)), gst::xyz(__ldg(T.rows + 2 * b + 1)),
+                           o, inv, 0.0f, hi);
       if (kCount) ++votes;
     }
     if (kCount && vote) tested[c] = 1;
@@ -121,29 +112,14 @@ __device__ __forceinline__ bool votes_any(gst::V3 o, gst::V3 d, bool segment) {
 }
 
 template <bool kCount>
-__device__ __forceinline__ BinVote<kCount> bin_vote(const BinTables& T, const float4* rows,
-                                                    gst::V3 o, gst::V3 d, float t_max) {
+__device__ __forceinline__ BinVote<kCount> bin_vote(const BinTables& T, gst::V3 o, gst::V3 d,
+                                                    float t_max) {
   BinVote<kCount> v;
-  v.rows = rows;
-  v.n_bins = T.n_bins;
-  v.g = T.g;
+  v.T = T;
   v.o = o;
   v.inv = gst::v3(gst::inv_dir_nan(d.x), gst::inv_dir_nan(d.y), gst::inv_dir_nan(d.z));
   v.hi = t_max;
   return v;
-}
-
-// The bin rows the votes read: the table, or (kStageBins, up to kMaxStaged
-// bins) a copy in shared memory, staged by the whole CTA.
-__device__ __forceinline__ const float4* bin_rows(const BinTables& T) {
-  if constexpr (kStageBins) {
-    __shared__ float4 staged[2 * kMaxStaged];
-    if (T.n_bins > kMaxStaged) return T.rows;
-    for (int i = threadIdx.x; i < 2 * T.n_bins; i += blockDim.x) staged[i] = T.rows[i];
-    __syncthreads();
-    return staged;
-  }
-  return T.rows;
 }
 
 __device__ __forceinline__ gst::V3 ray3(const float* p, int r) {
@@ -155,7 +131,6 @@ binned_closest_kernel(const float* __restrict__ origin, const float* __restrict_
                       const float* __restrict__ t_max, int n_rays, gst::WalkTables B,
                       BinTables T, float* __restrict__ t_out, int* __restrict__ prim_out,
                       float* __restrict__ u_out, float* __restrict__ v_out) {
-  const float4* rows = bin_rows(T);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
@@ -164,7 +139,7 @@ binned_closest_kernel(const float* __restrict__ origin, const float* __restrict_
   int prim = -1;
   if (votes_any(o, d, hi > 0.0f)) {
     gst::walk_closest(B, o, d, hi, t, prim, u, v, gst::NoCount(),
-                      bin_vote<false>(T, rows, o, d, hi));
+                      bin_vote<false>(T, o, d, hi));
   }
   t_out[r] = t;
   prim_out[r] = prim;
@@ -176,15 +151,13 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 binned_any_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                   const float* __restrict__ t_min, const float* __restrict__ t_max, int n_rays,
                   gst::WalkTables B, BinTables T, bool* __restrict__ occ_out) {
-  const float4* rows = bin_rows(T);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
   const float lo = t_min[r], hi = t_max[r];
   // the votes take [0, t_max] whatever t_min is
   occ_out[r] = votes_any(o, d, hi > lo) &&
-               gst::walk_any<kAnyNearFirst>(B, o, d, lo, hi, gst::NoCount(),
-                                            bin_vote<false>(T, rows, o, d, hi));
+               gst::walk_any(B, o, d, lo, hi, gst::NoCount(), bin_vote<false>(T, o, d, hi));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -194,18 +167,16 @@ binned_count_kernel(const float* __restrict__ origin, const float* __restrict__ 
                     int* __restrict__ boxes_out, int* __restrict__ votes_out,
                     int* __restrict__ woops_out, int* __restrict__ result_out,
                     unsigned char* __restrict__ tested) {
-  const float4* rows = bin_rows(T);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const gst::V3 o = ray3(origin, r), d = ray3(direction, r);
   const float lo = t_min[r], hi = t_max[r];
   gst::TestCount count;
-  BinVote<true> keep = bin_vote<true>(T, rows, o, d, hi);
+  BinVote<true> keep = bin_vote<true>(T, o, d, hi);
   keep.tested = tested;
   int result;
   if (any_hit) {
-    result = votes_any(o, d, hi > lo) &&
-             gst::walk_any<kAnyNearFirst>(B, o, d, lo, hi, count, keep);
+    result = votes_any(o, d, hi > lo) && gst::walk_any(B, o, d, lo, hi, count, keep);
   } else {
     float t = gst::kBig, u, v;
     result = -1;

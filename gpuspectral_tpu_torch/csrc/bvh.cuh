@@ -186,7 +186,7 @@ __device__ __forceinline__ bool inner(int code) { return code >= 0 && code != kP
 // When it enters both, the other child is pushed with its widened entry
 // distance: the closest hit visits the nearer child first, the any hit the
 // left one (near first slowed it, PERF.md's study).
-template <bool kNearFirst, class Count>
+template <bool kClosest, class Count>
 __device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3 inv, float lo,
                                          float hi, WalkStack& st, Count& count) {
   const float4* row = B.pairs + 4 * code;
@@ -199,7 +199,7 @@ __device__ __forceinline__ int pair_step(const WalkTables& B, int code, V3 o, V3
   const bool eb = slab_entered(xyz(b_lo), xyz(b_hi), o, inv, lo, hi, nb);
   const int ca = __float_as_int(a_lo.w), cb = __float_as_int(a_hi.w);
   if (ea && eb) {
-    const bool b_first = kNearFirst && nb < na;
+    const bool b_first = kClosest && nb < na;
     st.push(make_int2(b_first ? ca : cb, __float_as_int(b_first ? na : nb)));
     return b_first ? cb : ca;
   }
@@ -246,8 +246,8 @@ __device__ inline void walk_closest(const WalkTables& B, V3 o, V3 d, float t_max
 
 // Any hit with t in (t_lo, t_hi) among the clusters `keep` accepts: stops
 // at the first occluder.  t_hi never falls, so a stacked child is entered
-// when popped.  kNearFirst: the nearer child first, in place of the left.
-template <bool kNearFirst = false, class Count = NoCount, class Filter = AllClusters>
+// when popped.
+template <class Count = NoCount, class Filter = AllClusters>
 __device__ inline bool walk_any(const WalkTables& B, V3 o, V3 d, float t_lo, float t_hi,
                                 Count&& count = Count(), Filter&& keep = Filter()) {
   if (!(t_hi > t_lo)) return false;
@@ -256,7 +256,7 @@ __device__ inline bool walk_any(const WalkTables& B, V3 o, V3 d, float t_lo, flo
   int code = B.root;
   while (code != kPop) {
     while (inner(code)) {
-      code = pair_step<kNearFirst>(B, code, o, inv, t_lo, t_hi, st, count);
+      code = pair_step<false>(B, code, o, inv, t_lo, t_hi, st, count);
       if (code == kPop && st.sp > 0) code = st.pop().x;
     }
     if (code < 0) {

@@ -1,30 +1,11 @@
 """Time K7a and K7b, the binned sweep's kernels (gpuspectral_tpu_torch/
 csrc/binned.cu), on the sphere field, with checksums of their outputs.
 
-    PYTHONPATH=. python3 tools/torch_binned_variants.py variants [variant ...]
     PYTHONPATH=ROOT python3 tools/torch_binned_variants.py ab
 
 The timed work: K7a and K7b on chip_smoke.py's 65,536 random rays and the
 262,144 primary rays of the 512x512 frame, each call given the attribute
 rows built once and the scene's bin rows, as the wavefront gives them.
-
-`variants` builds copies of binned.cu with its constants set per variant,
-one change each from the shipped kernels (one thread a ray walks K3's BVH
-with its bin vote as a leaf filter, the last bin's vote kept in registers,
-the bin rows read with __ldg, K7b's walk left child first):
-
-  staged           the bin rows staged in shared memory by each CTA
-                   (kStageBins; up to 1,024 bins, 32 KB)
-  vote_every_leaf  the bin's vote made again at every leaf (kCacheVote off)
-  any_near         K7b's walk the nearer child first (kAnyNearFirst)
-
-Each goes to build/binned_variants/<name>/ (one nvcc per variant, all
-started together, with the flags of gpuspectral_tpu_torch/_build.py;
-ptxas's lines printed).  Every variant's outputs must equal the tree's
-kernels' output for output, and the tree's K7a / K7b equal their plain
-versions on the random rays; then the variants and the tree's build are
-timed with CUDA events in turns, in order and again in reverse order.
-One JSON line.
 
 `ab` times the port on PYTHONPATH (the tree's own build) and prints
 checksums of the outputs, which no design of the kernels changes (two
@@ -32,6 +13,12 @@ trees print the same ones), and ptxas's lines of the binned kernels.  To
 compare two trees on one card, unpack the parent with `git archive` into
 build/ and run this from the change's tree in one call, in the order
 parent, change, change, parent.  Needs a CUDA device and nvcc.
+
+The decided variants of the design build from this tool's `variants` at
+commit 3f246ab: the bin rows staged in shared memory by each CTA
+(`staged`), a fresh vote at every leaf in place of the cached one
+(`vote_every_leaf`) and K7b's walk near child first (`any_near`), each
+held output for output to the kernels of that tree and timed in turns.
 """
 
 from __future__ import annotations
@@ -43,19 +30,11 @@ import sys
 import torch
 import torch_variants as tv
 
-BASE = dict(kCacheVote="true", kStageBins="false", kAnyNearFirst="false")
-VARIANTS = dict(
-    staged=dict(kStageBins="true"),
-    vote_every_leaf=dict(kCacheVote="false"),
-    any_near=dict(kAnyNearFirst="true"),
-)
-ENTRY_POINTS = ("gst_binned_closest", "gst_binned_any")
 REPS = 5
 
 
 def calls(dev):
-    """(the sphere field, its random rays, {name: a no-argument call} of
-    the timed work)."""
+    """{name: a no-argument call} of the timed work."""
     from gpuspectral_tpu_torch.bvh import binned as bn
     from gpuspectral_tpu_torch.bvh import ftb
     from gpuspectral_tpu_torch.scene.zoo import build_sphere_field
@@ -69,28 +48,7 @@ def calls(dev):
         work[f"k7a_{tag}"] = (lambda o=o, d=d, hi=hi: bn.binned_closest(field, o, d, t_max=hi,
                                                                          attr=attr))
         work[f"k7b_{tag}"] = (lambda o=o, d=d, lo=lo, hi=hi: bn.binned_any(field, o, d, lo, hi))
-    return field, rays["random"], work
-
-
-def main_variants(names) -> int:
-    from gpuspectral_tpu_torch.bvh import binned as bn
-
-    names = names or list(VARIANTS)
-    dev = torch.device("cuda")
-    smi = tv.card()
-    print(smi, flush=True)
-    libs = tv.build("binned_variants", {
-        name: tv.variant_sources(("binned.cu",), dict(BASE, **VARIANTS[name])) for name in names},
-        ENTRY_POINTS, show=lambda kern: "binned" in kern and "count" not in kern)
-    field, (o, d, lo, hi), work = calls(dev)
-    ref = tv.results(work)
-    plain = (bn.binned_closest_ref(field, o, d, t_max=hi), bn.binned_any_ref(field, o, d, lo, hi))
-    if not (tv.same(ref["k7a_random"], plain[0]) and tv.same(ref["k7b_random"], [plain[1]])):
-        raise AssertionError("the tree's K7a / K7b differ from their plain versions")
-    tv.check_builds(libs, work, ref)
-    times = tv.time_in_turns(dict(libs, tree=None), work, REPS)
-    print(json.dumps(dict(card=smi, ms=times)), flush=True)
-    return 0
+    return work
 
 
 def main_ab() -> int:
@@ -100,7 +58,7 @@ def main_ab() -> int:
     smi = tv.card()
     _build.load()
     root = str(pathlib.Path(_build.__file__).resolve().parents[1])
-    _, _, work = calls(dev)
+    work = calls(dev)
     got = tv.results(work)
     ms = {name: tv.chip_smoke.cuda_ms(fn, reps=REPS) for name, fn in work.items()}
     print(json.dumps(dict(
@@ -114,8 +72,7 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("torch_binned_variants: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    mode = sys.argv[1] if len(sys.argv) > 1 else ""
-    if mode not in ("ab", "variants"):
-        print("usage: torch_binned_variants.py ab | variants [variant ...]", file=sys.stderr)
+    if sys.argv[1:] != ["ab"]:
+        print("usage: torch_binned_variants.py ab", file=sys.stderr)
         sys.exit(2)
-    sys.exit(main_ab() if mode == "ab" else main_variants(sys.argv[2:]))
+    sys.exit(main_ab())

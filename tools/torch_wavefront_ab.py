@@ -4,8 +4,8 @@ command line's
     benchmark builtin:sphere_field --size 512x512 --spp 1 --intersector pallas
         --bvh-kernel KERNEL
 
-config (its parser and _build give the settings), with KERNEL "ftb" (K3)
-or "cluster" (K7c-e).  The port imported is the one on PYTHONPATH:
+config (its parser and _build give the settings), with KERNEL "ftb" (K3),
+"cluster" (K7c-e), "dfs" (K7f / K7g) or "binned" (K7a / K7b).  The port imported is the one on PYTHONPATH:
 
     PYTHONPATH=ROOT python3 tools/torch_wavefront_ab.py KERNEL [profile]
 
