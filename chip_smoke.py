@@ -73,11 +73,11 @@ Phases:
         1 spp: K3 launched and K4 / K1 not, image mean within 5% of K4's
   k7    cluster_votes / cluster_closest / cluster_any, dfs_closest /
         dfs_any and binned_closest / binned_any vs their plain versions on
-        the scenes of k3 (65,536 random rays each; K7c's votes and K7a /
-        K7b also with NaN and inactive lanes mixed in): votes, t, prim, u,
-        v, attrs and occ equal, ties included; K7a-g timed on the sphere
-        field on 65,536 random rays and on the 262,144 primary rays of the
-        512x512 frame, beside K3a / K3b on the same rays; the plain
+        the scenes of k3 (65,536 random rays each; K7c's votes, K7f /
+        K7g and K7a / K7b also with NaN and inactive lanes mixed in):
+        votes, t, prim, u, v, attrs and occ equal, ties included; K7a-g
+        timed on the sphere field on 65,536 random rays and on the 262,144
+        primary rays of the 512x512 frame, beside K3a / K3b; the plain
         versions once on the random rays; K7d / K7e's supernodes swept a
         warp, the tests per ray of the block sweeps, of the two-gate sweep
         and of K7a / K7b's walk (its counting walk's results held equal to
@@ -1318,10 +1318,14 @@ def phase_k7(dev, cases, field):
     for i, (name, scene) in enumerate(cases.items()):
         rays = field_rays(K3_RAYS["parity"], scene, 20 + i, dev)
         e, votes, votes_any, plain = check_k7(name, scene, rays)
-        e_fg, plain_fg = check_sweep(
-            name, scene, rays, ("k7f", "k7g"),
-            (ds.dfs_closest, ds.dfs_any, ds.dfs_closest_ref, ds.dfs_any_ref),
-            f"nodes={scene.bvh_dfs_bounds.shape[1]}")
+        fns_fg = (ds.dfs_closest, ds.dfs_any, ds.dfs_closest_ref, ds.dfs_any_ref)
+        tables_fg = f"nodes={scene.bvh_dfs_bounds.shape[1]}"
+        e_fg, plain_fg = check_sweep(name, scene, rays, ("k7f", "k7g"), fns_fg, tables_fg)
+        # K7f / K7g's block votes drop a NaN (gst::slab), the plain walk's keep it
+        # (F18 if the results differ)
+        e_fg_odd, _ = check_sweep(name + " (NaN and inactive lanes)", scene, odd_lanes(rays),
+                                  ("k7f", "k7g"), fns_fg, tables_fg)
+        e_fg = {k: max(e_fg[k], e_fg_odd[k]) for k in e_fg}
         fns_ab = (bn.binned_closest, bn.binned_any, bn.binned_closest_ref, bn.binned_any_ref)
         tables_ab = f"bins={scene.bvh_bins}x{scene.bvh_bin_slots}"
         e_ab, plain_ab = check_sweep(name, scene, rays, ("k7a", "k7b"), fns_ab, tables_ab)

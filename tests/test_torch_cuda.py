@@ -342,6 +342,23 @@ def test_k7fg_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F8
     assert 0 < int(occ_r.sum()) < o.shape[0] and torch.equal(occ, occ_r)
 
 
+@pytest.mark.parametrize("name", ["soup2048", "sphere_field"])
+def test_k7fg_with_nan_lanes(cuda_device, name):  # noqa: F811
+    """K7f / K7g against the plain walk on rays with NaN origin and
+    direction components and inactive lanes.  Their block votes
+    (gst::slab, fminf / fmaxf) drop a NaN that the plain walk's keep, so a
+    NaN lane may make its block enter more nodes; the results must not
+    move."""
+    from chip_smoke import field_rays, soup_scene
+
+    ts = soup_scene(2048, 7, cuda_device) if name == "soup2048" else _scene(name, cuda_device)
+    o, d, lo, hi = odd_lanes(field_rays(1 << 14, ts, 18, cuda_device))
+    got = ds.dfs_closest(ts, o, d, t_max=hi)
+    for a, b in zip(got, ds.dfs_closest_ref(ts, o, d, t_max=hi)):
+        assert torch.equal(a, b)
+    assert torch.equal(ds.dfs_any(ts, o, d, lo, hi), ds.dfs_any_ref(ts, o, d, lo, hi))
+
+
 def test_wavefront_on_k7fg_matches_plain_scans(cuda_device):  # noqa: F811
     """The wavefront with bvh_kernel "dfs": K7f and K7g launched, K3 and
     K7c-e never; the image against the plain brute-force scans under the
