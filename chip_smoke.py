@@ -174,8 +174,9 @@ the ray voted for, K7b up to its first occluder) and the walk that the
 kernels make (binned.binned_walk_tests, csrc/binned.cu:gst_binned_count:
 two box tests a pair row visited, a slab test a bin vote made, the Woop
 tests of the clusters tested); both counts' results are held equal to
-K7a's prim and K7b's occlusion.  K7h's are counted by PR 8's walk, a vote per node
-popped (kernels.traverse_tests, csrc/traverse.cu:gst_traverse_count), on
+K7a's prim and K7b's occlusion.  K7h's are counted by the packet walk as
+it was before its redesign, a vote per node popped
+(kernels.traverse_tests, csrc/traverse.cu:gst_traverse_count), on
 the tree with its empty subtrees' boxes made NaN (skip_empty: an empty
 padding cluster's zero rows never hit, so the function needs none of their
 tests, and the results are held equal to K7h's): SLAB_FLOPS per ray for
