@@ -39,9 +39,13 @@ Phases:
         alone; K1 vs its plain version on 16 pixel rows of the headline
         frame at its config and timestamp (<= 2% of pixels off by > 1e-3,
         <= 1% off by > 1e-4, mean within 1e-4, rays within 1%; the headline
-        image equals K1 on those rows exactly); the wavefront dispatch at
-        512x512, 1 spp, power light pick, with K2's launch counts from that
-        run alone; K2 vs closest_ref / any_ref on 1M rays
+        image equals K1 on those rows exactly, and K1 on a grid of 3 CTAs
+        equals K1 on the default grid there); K1 timed over the whole frame
+        (the main path's launch), its bound the 16 rows' operations per ray
+        times the frame's rays; K1 / K5's registers and spills (brute_ptxas:
+        neither may spill); the wavefront dispatch at 512x512, 1 spp, power
+        light pick, with K2's launch counts from that run alone; K2 vs
+        closest_ref / any_ref on 1M rays
   k3    ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref on 65,536
         random rays over the sphere field, Cornell, the zoo, a
         2048-triangle soup, a slot-mode build, a morton build of a soup and
@@ -116,8 +120,9 @@ Phases:
   grad_main  run_grad_benchmark on Cornell 512x512, 64 spp, d5, 3 steps:
         K5 launched 4 times and nothing else; K5 vs its plain version on 16
         pixel rows at the last step's timestamp (the gates of main and the
-        gradient gate of k5); K5 and K1 over the whole frame; one step at
-        1024x1024, 256 spp, d5
+        gradient gate of k5); K5 timed over the step's frame (its one
+        launch a step), its bound as K1's, and K1 over the same frame (the
+        hook's cost); one step at 1024x1024, 256 spp, d5
   k6    K6 vs its plain version at 64x64 on Cornell in slot mode, the
         mixed-BSDF and textured scenes of tests/test_mega_grad.py and a
         small sphere field without sky, under the gates of k5
@@ -206,9 +211,10 @@ K7h's row stands for both wrappers: launches is the sum of both counts
 ms_any / bound_ms_any the any hit's; ms_pr8 / ms_any_pr8 time PR 8's walk
 (csrc/traverse.cu:gst_traverse_count, the counting kernel with its
 counters, on the tree as built) on the same rays, so the row keeps the
-time K7h had before its redesign.  K4's and K6's rows time the main
-path's launch (the whole frame; ms_rows the 8 rows that plain_ms times),
-their bounds the 8 rows' operations per ray times the frame's rays.
+time K7h had before its redesign.  The rows of the four megakernels time
+the main path's launch (the whole frame; ms_rows the 16 rows of K1 / K5 or
+the 8 rows of K4 / K6 that plain_ms times), their bounds the timed rows'
+operations per ray times the frame's rays.
 
 Every failed check raises.  Output: the card's name and power limit, one
 line of JSON with the per-kernel results, and as the last line
@@ -628,6 +634,11 @@ def phase_main(dev):
     ref = torch.stack(out_ref[:3], -1).reshape(-1, 3) / spp
     if not torch.equal(img.reshape(-1, 3)[pix.reshape(-1).long()], got):
         raise AssertionError("headline image rows differ from K1 on the same rows")
+    # the lanes' schedule changes no sum: 3 resident CTAs, each thread taking
+    # its next lane from the counter many times over, give the default's
+    small = mega._launch(scene, cfg, pix, ts, max_ctas=3)
+    if not all(torch.equal(a, b) for a, b in zip(small, out_k1)):
+        raise AssertionError("K1 on a grid of 3 CTAs differs from K1 on the default grid")
     rays_k1 = float(out_k1[3].double().sum())
     rays_ref = float(out_ref[3].double().sum())
     k1_err = compare_images(f"K1 vs plain, {pix.shape[0]} rows of the headline frame (ts {ts})",
@@ -635,11 +646,13 @@ def phase_main(dev):
                             mean_gate=SUB_MEAN_GATE, fine_gate=SUB_FINE_GATE)
     log(f"  K1 {k1_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows "
         f"({rays_k1 / k1_ms / 1e3:.2f} vs {rays_ref / ref_ms / 1e3:.2f} Mrays/s)")
-    # K1 alone over the whole headline frame: its share of the frame's wall time
+    # the main path's launch: K1 over the whole headline frame, and its share
+    # of the frame's wall time
+    _, frame_rays = mega.render_mega(scene, cfg, ts)
     k1_head_ms = cuda_ms(lambda: mega.render_mega(scene, cfg, ts))
     frame_ms = result["seconds_per_frame"] * 1e3
     log(f"  K1 over the headline frame: {k1_head_ms:.3f} ms of a {frame_ms:.3f} ms frame "
-        f"(share {k1_head_ms / frame_ms:.3f})")
+        f"(share {k1_head_ms / frame_ms:.3f}), {frame_rays:.0f} rays")
 
     # the wavefront dispatch of render_image_stats_auto on K2: power light
     # sampling, which K1 does not cover, at the headline size and 1 spp
@@ -677,8 +690,12 @@ def phase_main(dev):
     head = f"headline run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
     wave = f"wavefront dispatch ({hs}x{hs}, 1 spp, d{depth}, power light pick)"
     n = rays[0].shape[0]
-    k1_bound = fused_bound(tally_rows(scene, cfg, pix, ts), rays_k1,
-                           pix.numel() * (4 + 16) + nbytes(*mega_tables(scene, False)))
+    tally = tally_rows(scene, cfg, pix, ts)
+    tables = nbytes(*mega_tables(scene, False))
+    k1_bound = fused_bound(tally, frame_rays, hs * hs * (4 + 16) + tables)
+    rows_bound = fused_bound(tally, rays_k1, pix.numel() * (4 + 16) + tables)
+    log(f"  K1 frame bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']}): "
+        f"K1 at {k1_bound['bound_ms'] / k1_head_ms:.5f} of it")
     with WalkTally(scene.num_tris) as k2a_tally:
         ci.closest_cuda(*rays[:2], woop_t, *rays[2:])
     with WalkTally(scene.num_tris) as k2b_tally:
@@ -689,8 +706,13 @@ def phase_main(dev):
     k2b_bound = bound(k2b_tally.flops(shade=False), k2_in + n)
     return dict(
         k1=dict(launches=head_launches["k1"], launched_by=head, max_abs_err=k1_err,
-                ms=k1_ms, plain_ms=ref_ms, **k1_bound,
-                headline_frame_ms=k1_head_ms),
+                ms=k1_head_ms,
+                timed_call=f"one launch over the {hs}x{hs} frame at {spp} spp, d{depth}",
+                frame_rays=frame_rays, plain_ms=ref_ms,
+                plain_call=f"{pix.shape[0]} pixel rows at {spp} spp", ms_rows=k1_ms,
+                bound_ms_rows=rows_bound["bound_ms"], **k1_bound,
+                share_of_frame=k1_head_ms / frame_ms, mrays_per_s=result["mrays_per_s"],
+                ptxas=brute_ptxas()),
         k2a=dict(launches=wave_launches["k2a"], launched_by=wave, max_abs_err=k2_err[0],
                  ms=k2a_ms, plain_ms=k2a_ref, **k2a_bound),
         k2b=dict(launches=wave_launches["k2b"], launched_by=wave, max_abs_err=k2_err[1],
@@ -1553,6 +1575,23 @@ def walk_ptxas():
     return out
 
 
+def brute_ptxas():
+    """ptxas's registers, spills and shared memory of K1 (mega_kernel) and
+    K5 (mega_grad_kernel); raises if either spills or is missing."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {}
+    for kern, line in _build.build_info()["ptxas"].items():
+        for tag in ("mega_kernel", "mega_grad_kernel"):
+            if f"{len(tag)}{tag}" in kern:
+                out[tag] = line
+    log("  ptxas of K1 / K5: " + json.dumps(out))
+    spills = {k: v for k, v in out.items() if "0 bytes spill stores" not in v}
+    if len(out) != 2 or spills:
+        raise AssertionError(f"K1 / K5 spill or are missing: {spills or out}")
+    return out
+
+
 def phase_k7h(dev, cases, field):
     """K7h against its plain versions on the five BVH scenes (NaN and
     inactive lanes mixed in, the sphere field at packets of 1024 on the
@@ -1783,15 +1822,24 @@ def phase_grad_main(dev):
                       spp, scene, sub=True)
     rays = float(got[3].double().sum())
     log(f"  K5 {k5_ms:.3f} ms vs plain {ref_ms:.3f} ms on those rows")
-    # the prediction: K5 against K1 over the whole frame at the same config
+    # the main path's launch: K5 over the step's whole frame, beside K1 over
+    # the same frame (the hook's cost)
     frame = mg.pix_rows(cfg, dev)
+    frame_out = mg.render_mega_fwdgrad_rows(scene, cfg, frame, ts)
+    frame_rays = float(frame_out[3].reshape(-1)[:hs * hs].double().sum())
     k5_frame = cuda_ms(lambda: mg.render_mega_fwdgrad_rows(scene, cfg, frame, ts))
     k1_frame = cuda_ms(lambda: mega.render_mega_rows(scene, cfg, frame, ts))
+    step_ms = result["seconds_per_step"] * 1e3
     log(f"  whole frame {hs}x{hs} @ {spp} spp, d{depth}: K5 {k5_frame:.3f} ms, K1 {k1_frame:.3f} ms "
-        f"(ratio {k5_frame / k1_frame:.3f}); grad step {result['seconds_per_step'] * 1e3:.3f} ms")
+        f"(ratio {k5_frame / k1_frame:.3f}); grad step {step_ms:.3f} ms (K5's share "
+        f"{k5_frame / step_ms:.3f}), {frame_rays:.0f} rays")
     npl = got[4].shape[0]
-    k5_bound = fused_bound(tally_rows(scene, cfg, pix, ts), rays,
-                           pix.numel() * (4 + 16 + 4 * npl) + nbytes(*mega_tables(scene, False)))
+    tally = tally_rows(scene, cfg, pix, ts)
+    tables = nbytes(*mega_tables(scene, False))
+    k5_bound = fused_bound(tally, frame_rays, frame.numel() * (4 + 16 + 4 * npl) + tables)
+    rows_bound = fused_bound(tally, rays, pix.numel() * (4 + 16 + 4 * npl) + tables)
+    log(f"  K5 frame bound {k5_bound['bound_ms']:.4f} ms ({k5_bound['bound_by']}): "
+        f"K5 at {k5_bound['bound_ms'] / k5_frame:.5f} of it")
 
     big = GRAD_1024
     log(f"  config 5: one gradient step {big['size']}x{big['size']}, {big['spp']} spp, "
@@ -1803,11 +1851,14 @@ def phase_grad_main(dev):
     if r1024["kernel"] != "mega" or counts() != dict(NONE, k5=1 + big["steps"]):
         raise AssertionError("grad_1024: want K5 only")
     head = f"grad run_grad_benchmark ({hs}x{hs}, {spp} spp, d{depth}, {steps} steps)"
-    return dict(launches=launches["k5"], launched_by=head, max_abs_err=err, ms=k5_ms,
-                plain_ms=ref_ms, **k5_bound,
+    return dict(launches=launches["k5"], launched_by=head, max_abs_err=err, ms=k5_frame,
+                timed_call=f"the step's launch over the {hs}x{hs} frame at {spp} spp, d{depth}",
+                frame_rays=frame_rays, plain_ms=ref_ms,
+                plain_call=f"{pix.shape[0]} pixel rows at {spp} spp", ms_rows=k5_ms,
+                bound_ms_rows=rows_bound["bound_ms"], **k5_bound,
+                share_of_step=k5_frame / step_ms, k1_frame_ms=k1_frame,
                 grad_steps_per_s=result["grad_steps_per_s"],
                 seconds_per_step=result["seconds_per_step"], peak_hbm_gb=result["peak_hbm_gb"],
-                frame_ms=k5_frame, k1_frame_ms=k1_frame,
                 seconds_per_step_1024=r1024["seconds_per_step"])
 
 

@@ -46,7 +46,7 @@ _SIGNATURES = {
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     "gst_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
     "gst_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
-    "gst_mega": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "gst_mega": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "gst_bvh_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "gst_bvh_walk_count": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
@@ -69,8 +69,8 @@ _SIGNATURES = {
                            _P, _P, _P],
     "gst_mega_bvh": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                      _P, _P, _P, _P, _P],
-    "gst_mega_grad": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _P, _P, _P, _P, _P, _P],
+    "gst_mega_grad": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _I, _P],
     "gst_mega_bvh_grad": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }

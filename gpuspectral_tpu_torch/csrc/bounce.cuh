@@ -584,6 +584,35 @@ struct NoHook {
   static constexpr bool kActive = false;
 };
 
+// How render_lane's thread takes its lanes.  OneLane (K4, K6): the lane it
+// was called with, then it returns.  LaneCounter (K1, K5): when its lane's
+// samples end, the thread writes the lane's sums and takes the next lane
+// from a counter (zeroed on the stream before the launch; the first
+// `first` lanes are the threads' own), so no thread waits on another's
+// pixel and the grid can stay resident.  One thread still runs all of a
+// pixel's samples in order, so each lane's sums are OneLane's bit for bit.
+struct OneLane {
+  static constexpr bool kDynamic = false;
+};
+
+struct LaneCounter {
+  static constexpr bool kDynamic = true;
+  int* next;  // lanes handed out past `first`
+  int first;  // gridDim.x * blockDim.x
+
+  // The next lane: one atomicAdd for the threads of the warp that ask
+  // together (blockDim.x a multiple of 32).
+  __device__ __forceinline__ int take() const {
+    const unsigned mask = __activemask();
+    const unsigned me = threadIdx.x & 31u;
+    const int leader = __ffs(mask) - 1;
+    int base = 0;
+    if ((int)me == leader) base = atomicAdd(next, __popc(mask));
+    base = __shfl_sync(mask, base, leader);
+    return first + base + __popc(mask & ((1u << me) - 1u));
+  }
+};
+
 // Trace lane `lane`'s pixel.  Isect provides
 //   closest(o, d, t, prim, u, v): prim = -1 on a miss
 //   any(o, d, t_lo, t_hi): an occluder strictly inside (t_lo, t_hi)
@@ -597,12 +626,16 @@ struct NoHook {
 // block starts its next samples only once every lane finished the current
 // one; each lane's samples, and so its result, are those of the default.
 // With kSync every thread of the block must call this (lanes past n_lanes
-// included).
-template <class Isect, bool kSync, class Hook = NoHook>
+// included).  Lanes (OneLane or LaneCounter, the latter without kSync) says
+// whether the thread goes on to further lanes; a Hook with kActive then
+// follows it through `retarget(lane)`.
+template <class Isect, bool kSync, class Hook = NoHook, class Lanes = OneLane>
 __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P, int lane,
                             int n_lanes, const int* __restrict__ pix, float* __restrict__ rad_r,
                             float* __restrict__ rad_g, float* __restrict__ rad_b,
-                            int* __restrict__ rays_out, Hook hook = Hook()) {
+                            int* __restrict__ rays_out, Hook hook = Hook(),
+                            Lanes lanes = Lanes()) {
+  static_assert(!(kSync && Lanes::kDynamic), "block-synchronous regeneration takes one lane");
   const bool valid = lane < n_lanes;
   if (!kSync && !valid) return;
   const float* cam = T.cam;
@@ -612,9 +645,9 @@ __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P
   const float r20 = cam[6], r21 = cam[7], r22 = cam[8];
   const V3 cam_o = v3(cam[9], cam[10], cam[11]);
   const float zplane = (float)(max(P.width, P.height) / 2.0) / tanf(cam[12] / 2.0f);
-  const uint32_t pixel = valid ? (uint32_t)pix[lane] : 0u;
-  const float px0 = (float)(pixel % (uint32_t)P.width);
-  const float py0 = (float)(pixel / (uint32_t)P.width);
+  uint32_t pixel = valid ? (uint32_t)pix[lane] : 0u;
+  float px0 = (float)(pixel % (uint32_t)P.width);
+  float py0 = (float)(pixel / (uint32_t)P.width);
   const float half_w = (float)(P.width / 2.0), half_h = (float)(P.height / 2.0);
   const float sel_uniform = (float)(1.0 / P.n_lights);
   const bool env_nee = P.has_env && P.nee;
@@ -647,7 +680,35 @@ __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P
 
   while (true) {
     const bool exhausted = !valid || (done && sample + 1 >= (uint32_t)P.spp);
-    if (kSync ? __syncthreads_and(exhausted) : exhausted) break;
+    if constexpr (Lanes::kDynamic) {
+      if (exhausted) {  // the lane's samples ended: its sums out, the next lane in
+        rad_r[lane] = acc_r;
+        rad_g[lane] = acc_g;
+        rad_b[lane] = acc_b;
+        rays_out[lane] = rays;
+        lane = lanes.take();
+        if (lane >= n_lanes) return;
+        if constexpr (Hook::kActive) hook.retarget(lane);
+        pixel = (uint32_t)pix[lane];
+        px0 = (float)(pixel % (uint32_t)P.width);
+        py0 = (float)(pixel / (uint32_t)P.width);
+        sample = 0;
+        fresh();
+        w = v3(1.0f, 1.0f, 1.0f);
+        direct_weight = 1.0f;
+        prev_pdf = 1.0f;
+        prev_nee = false;
+        prev_nee_any = false;
+        was_delta = false;
+        count_emitted = true;
+        depth = 0;
+        done = false;
+        acc_r = acc_g = acc_b = 0.0f;
+        rays = 0;
+      }
+    } else if (kSync ? __syncthreads_and(exhausted) : exhausted) {
+      break;
+    }
     if (!done) {
       const uint32_t bounce = depth;
       float t, bu, bv;

@@ -1,51 +1,203 @@
-// The brute-force intersector of K1 (mega.cu) and K5 (mega_grad.cu): every
-// triangle of a (12, n) Woop table staged in shared memory.
+// The brute-force intersector of K1 (mega.cu) and K5 (mega_grad.cu), and
+// their launch: every triangle of the scene's (n, 12) Woop rows
+// (ops/woop.py's order, SceneData.tri_woop), staged in shared memory as
+// three float4 a triangle, so that a test reads its 12 floats with three
+// 128-bit broadcasts (every lane of a warp tests the same triangle at once).
+// The loop is unrolled kBruteUnroll triangles a turn over rows padded with
+// zero rows, which never pass (dpz = 0 fails woop_eval's |dpz| > 1e-12).
+// The order of the tests, the closest hit's strict `t < best` (the lowest
+// index wins a tie, F3) and the any hit's stop at its first occluder are
+// the plain scans'; every test is common.cuh:woop_eval, op for op.
+//
+// Switches that tools/torch_mega_variants.py sets per variant (the shipped
+// values below):
+//   kBruteRows     1: (n, 3 float4) rows in shared memory;
+//                  0: (12, n) scalar rows in shared memory, 12 loads a test;
+//                  2: the float4 rows in the constant bank (<= kConstTris)
+//   kBruteUnroll   triangles a loop turn
+//   kBrutePreTest  0: none; 1: skip the divide and the rest of a test where
+//                  no lane of the warp has opz and dpz of opposite signs
+//                  (t <= 0 or NaN fails t > t_lo >= 0); 2: 1 and the far
+//                  end, |opz| >= ((t_hi |dpz|) (1 + 2^-20)) (proof at
+//                  may_hit)
 #pragma once
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cfloat>
 
 #include "common.cuh"
 
 namespace gst {
 
-// Stage the (12, n_tris) Woop rows of a (12, t_stride) table into shared
-// memory; every thread of the block takes part.
-__device__ __forceinline__ void stage_woop(float* sw, const float* __restrict__ woop_t,
-                                           int t_stride, int n_tris) {
-  for (int i = threadIdx.x; i < 12 * n_tris; i += blockDim.x) {
-    sw[i] = woop_t[(size_t)(i / n_tris) * t_stride + (i % n_tris)];
+constexpr int kBruteRows = 1;
+constexpr int kBruteUnroll = 4;
+constexpr int kBrutePreTest = 0;
+constexpr int kConstTris = 1360;  // float4 rows that fit the 64 KB constant bank
+
+static __constant__ float4 c_woop[kBruteRows == 2 ? 3 * kConstTris : 1];
+
+// Rows staged for n triangles: a multiple of kBruteUnroll.
+__host__ __device__ constexpr int brute_pad(int n) {
+  return (n + kBruteUnroll - 1) / kBruteUnroll * kBruteUnroll;
+}
+
+// Shared-memory bytes of the staged rows.
+inline size_t brute_smem(int n_tris) {
+  return kBruteRows == 2 ? 0 : (size_t)brute_pad(n_tris) * 12 * sizeof(float);
+}
+
+// Stage the (n_tris, 12) rows into shared memory, zero rows up to n_pad;
+// every thread of the block takes part.
+__device__ __forceinline__ void stage_woop_rows(float4* sw, const float4* __restrict__ rows,
+                                                int n_tris, int n_pad) {
+  if constexpr (kBruteRows == 1) {
+    for (int i = threadIdx.x; i < 3 * n_pad; i += blockDim.x) {
+      sw[i] = i < 3 * n_tris ? rows[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else if constexpr (kBruteRows == 0) {
+    float* s = reinterpret_cast<float*>(sw);
+    const float* r = reinterpret_cast<const float*>(rows);
+    for (int i = threadIdx.x; i < 12 * n_pad; i += blockDim.x) {
+      const int k = i / n_pad, c = i % n_pad;  // (12, n_pad)
+      s[i] = c < n_tris ? r[12 * c + k] : 0.0f;
+    }
   }
   __syncthreads();
 }
 
-// closest / any hit over every triangle of the shared-memory Woop table;
-// strict t < best in index order: the lowest id wins among tied t
-struct BruteIsect {
-  const float* sw;  // (12, n)
-  int n;
+// Whether woop_eval(..., t_lo, t_hi) may pass for a triangle with these
+// Woop rows; false only where it cannot.  opz and dpz are woop_eval's first
+// two lines, op for op.  Past |dpz| > 1e-12 (woop_eval's `live`):
+//   * near end (t_lo >= 0): t = -opz / dpz is > 0 only where opz and dpz
+//     have opposite signs (a zero or NaN opz gives t = +-0 or NaN);
+//   * far end (kBrutePreTest 2, opposite signs, so t = RN(|opz| / |dpz|)):
+//     with p = t_hi |dpz| exactly, M = RN(p) and m = RN(M (1 + 2^-20)), a
+//     normal m (>= 2 FLT_MIN, so M and p are normal) gives
+//     m >= p (1 + 2^-20) (1 - 2^-24)^2 > p, so |opz| >= m means
+//     |opz| / |dpz| > t_hi, and t >= t_hi by monotone rounding: t < t_hi
+//     fails.  An overflowed M is inf: then opz is +-inf, t is inf or NaN.
+__device__ __forceinline__ bool may_hit(float4 b, float4 c, V3 o, V3 d, float t_lo,
+                                        float t_hi) {
+  const float opz = fmaf(o.z, c.x, fmaf(o.x, b.z, o.y * b.w)) + c.w;
+  const float dpz = fmaf(d.z, c.x, fmaf(d.x, b.z, d.y * b.w));
+  if (!(fabsf(dpz) > 1e-12f)) return false;
+  const bool ahead = (opz > 0.0f && dpz < 0.0f) || (opz < 0.0f && dpz > 0.0f);
+  if (!ahead) return !(t_lo >= 0.0f);
+  if constexpr (kBrutePreTest == 2) {
+    const float m = (t_hi * fabsf(dpz)) * (1.0f + 0x1p-20f);
+    return !(m >= 2.0f * FLT_MIN && fabsf(opz) >= m);
+  }
+  return true;
+}
 
-  __device__ void closest(V3 o, V3 d, float& best_t, int& prim, float& bu,
-                          float& bv) const {
+// closest / any hit over every triangle of the staged Woop rows; strict
+// t < best in index order: the lowest id wins among tied t
+struct BruteIsect {
+  const float4* sw;  // (n, 3 float4), or (12, n) floats with kBruteRows 0
+  int n;             // staged rows, brute_pad(n_tris)
+
+  // woop_eval on row i.  t_pre: the far end the pre-test may cull against
+  // (the closest hit's best, which is below woop_eval's t_hi).
+  __device__ __forceinline__ bool test(int i, V3 o, V3 d, float t_lo, float t_hi, float t_pre,
+                                       float& t, float& u, float& v) const {
+    float4 a, b, c;
+    if constexpr (kBruteRows == 0) {
+      const float* w = reinterpret_cast<const float*>(sw) + i;
+      a = make_float4(w[0], w[n], w[2 * n], w[3 * n]);
+      b = make_float4(w[4 * n], w[5 * n], w[6 * n], w[7 * n]);
+      c = make_float4(w[8 * n], w[9 * n], w[10 * n], w[11 * n]);
+    } else if constexpr (kBruteRows == 2) {
+      a = c_woop[3 * i];
+      b = c_woop[3 * i + 1];
+      c = c_woop[3 * i + 2];
+    } else {
+      a = sw[3 * i];
+      b = sw[3 * i + 1];
+      c = sw[3 * i + 2];
+    }
+    if constexpr (kBrutePreTest != 0) {
+      if (!__any_sync(__activemask(), may_hit(b, c, o, d, t_lo, t_pre))) return false;
+    }
+    return woop_eval(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, o, d, t_lo,
+                     t_hi, t, u, v);
+  }
+
+  __device__ void closest(V3 o, V3 d, float& best_t, int& prim, float& bu, float& bv) const {
     best_t = kBig;
     prim = -1;
     bu = 0.0f;
     bv = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      float t, u, v;
-      if (woop_test(sw + i, n, o, d, 0.0f, kBig, t, u, v) && t < best_t) {
-        best_t = t;
-        prim = i;
-        bu = u;
-        bv = v;
+    for (int i = 0; i < n; i += kBruteUnroll) {
+#pragma unroll
+      for (int k = 0; k < kBruteUnroll; ++k) {
+        float t, u, v;
+        if (test(i + k, o, d, 0.0f, kBig, best_t, t, u, v) && t < best_t) {
+          best_t = t;
+          prim = i + k;
+          bu = u;
+          bv = v;
+        }
       }
     }
   }
 
   __device__ bool any(V3 o, V3 d, float t_lo, float t_hi) const {
-    for (int i = 0; i < n; ++i) {
-      float t, u, v;
-      if (woop_test(sw + i, n, o, d, t_lo, t_hi, t, u, v)) return true;
+    for (int i = 0; i < n; i += kBruteUnroll) {
+#pragma unroll
+      for (int k = 0; k < kBruteUnroll; ++k) {
+        float t, u, v;
+        if (test(i + k, o, d, t_lo, t_hi, t_hi, t, u, v)) return true;
+      }
     }
     return false;
   }
 };
+
+// Launch one of the two brute-force megakernels: K(args...) over n_lanes
+// lanes, kThreads a CTA.  With persistent lanes (bounce.cuh's LaneCounter)
+// the grid is the CTAs the card holds at once (or max_ctas > 0 of them),
+// never more than one CTA a kThreads lanes, and the lane counter `next` is
+// zeroed on the stream first; else one CTA a kThreads lanes.
+template <int kThreads, bool kPersistent, class... Params, class... Args>
+inline int brute_launch(void (*kernel)(Params...), int n_lanes, const float* rows, int n_tris,
+                        int* next, int max_ctas, cudaStream_t stream, Args... args) {
+  const size_t smem = brute_smem(n_tris);
+  cudaError_t err = cudaSuccess;
+  if constexpr (kBruteRows == 2) {
+    if (n_tris > kConstTris) return (int)cudaErrorInvalidValue;
+    void* sym = nullptr;
+    const size_t bytes = sizeof(float) * 12 * n_tris;
+    if ((err = cudaGetSymbolAddress(&sym, c_woop)) != cudaSuccess ||
+        (err = cudaMemcpyAsync(sym, rows, bytes, cudaMemcpyDeviceToDevice, stream)) !=
+            cudaSuccess ||
+        (err = cudaMemsetAsync((char*)sym + bytes, 0, brute_pad(n_tris) * 12 * sizeof(float) -
+                               bytes, stream)) != cudaSuccess) {
+      return (int)err;
+    }
+  }
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int grid = (n_lanes + kThreads - 1) / kThreads;
+  if (kPersistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+            cudaSuccess) {
+      return (int)err;
+    }
+    const int resident = max_ctas > 0 ? max_ctas : std::max(sms * per_sm, 1);
+    grid = std::min(grid, resident);
+    err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace gst

@@ -39,6 +39,10 @@ struct GradHook {
   int bidx_col;       // attribute column of the hit's BSDF row
   int n[kMaxGradRows];
 
+  // The lane whose columns take the partials from now on (bounce.cuh's
+  // LaneCounter); the per-row counts restart at its first bounce (depth 0).
+  __device__ __forceinline__ void retarget(int l) { lane = l; }
+
   __device__ __forceinline__ void add(int plane, float x) {
     float* p = parts + (size_t)plane * n_lanes + lane;
     *p = *p + x;

@@ -11,11 +11,14 @@
 // What bounds it on the H100: what bounds K1, the brute-force loops (every
 // bounce tests all n_tris triangles, then again for the shadow ray), plus
 // the hook's partial planes: up to 3R + 6 read-modify-writes of the lane's
-// own columns per bounce (R <= 8 rows), coalesced across a warp and far
-// below the intersection work at Cornell's 36 triangles.  The design keeps
+// own columns per bounce (R <= 8 rows), coalesced across a warp while the
+// warp's lanes are the CTA's first ones, and far below the intersection
+// work at Cornell's 36 triangles.  The design is K1's (brute.cuh's staged
+// float4 rows, the resident grid whose threads take their next pixel lane
+// from a counter, the hook retargeted to the new lane's columns), keeps
 // the partials in device memory rather than registers (48 floats on top of
-// K1's 122 registers would spill) and the per-row bounce counts in
-// registers; no atomics, since each lane owns its columns.
+// K1's registers would spill) and the per-row bounce counts in registers;
+// no atomics on the planes, since each lane owns its columns.
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -25,21 +28,31 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kCtasPerSm = 1;
+constexpr bool kDynamicLanes = true;
 
-__global__ void __launch_bounds__(kThreads)
-mega_grad_kernel(const int* __restrict__ pix, int n_lanes, const float* __restrict__ woop_t,
-                 int t_stride, int n_tris, gst::Tables T, gst::Params P,
-                 const int* __restrict__ rows, const float* __restrict__ kd, int n_rows,
-                 int n_glights, float* __restrict__ rad_r, float* __restrict__ rad_g,
-                 float* __restrict__ rad_b, int* __restrict__ rays_out, float* parts) {
-  extern __shared__ float sw[];  // (12, n_tris) Woop rows
-  gst::stage_woop(sw, woop_t, t_stride, n_tris);
-  const gst::BruteIsect isect{sw, n_tris};
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+mega_grad_kernel(const int* __restrict__ pix, int n_lanes, const float4* __restrict__ woop,
+                 int n_tris, gst::Tables T, gst::Params P, const int* __restrict__ rows,
+                 const float* __restrict__ kd, int n_rows, int n_glights,
+                 float* __restrict__ rad_r, float* __restrict__ rad_g,
+                 float* __restrict__ rad_b, int* __restrict__ rays_out, float* parts,
+                 int* next) {
+  extern __shared__ float4 sw[];  // the staged Woop rows (brute.cuh)
+  const int n_pad = gst::brute_pad(n_tris);
+  gst::stage_woop_rows(sw, woop, n_tris, n_pad);
+  const gst::BruteIsect isect{sw, n_pad};
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  gst::render_lane<gst::BruteIsect, false>(
-      isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out,
-      gst::make_grad_hook(parts, rows, kd, n_lanes, lane, n_rows, n_glights,
-                          P.attr_stride - 1));
+  const gst::GradHook hook = gst::make_grad_hook(parts, rows, kd, n_lanes, lane, n_rows,
+                                                 n_glights, P.attr_stride - 1);
+  if constexpr (kDynamicLanes) {
+    gst::render_lane<gst::BruteIsect, false>(
+        isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out, hook,
+        gst::LaneCounter{next, (int)(gridDim.x * blockDim.x)});
+  } else {
+    gst::render_lane<gst::BruteIsect, false>(isect, T, P, lane, n_lanes, pix, rad_r, rad_g,
+                                             rad_b, rays_out, hook);
+  }
 }
 
 }  // namespace
@@ -47,27 +60,20 @@ mega_grad_kernel(const int* __restrict__ pix, int n_lanes, const float* __restri
 // As gst_mega, plus: rows (n_rows,) BSDF rows, kd (n_rows, 3), n_glights
 // lights tracked, parts (3 n_rows + 6 n_glights, n_lanes) zero-filled
 // partial planes.  attr carries the BSDF row in its last column.
-extern "C" int gst_mega_grad(const int* pix, int n_lanes, const float* woop_t, int t_stride,
-                             int n_tris, const float* attr, const float* light,
-                             const float* cam, const float* env, const int* ip, const float* fp,
-                             const int* rows, const float* kd, int n_rows, int n_glights,
-                             float* rad_r, float* rad_g, float* rad_b, int* rays, float* parts,
-                             void* stream) {
+extern "C" int gst_mega_grad(const int* pix, int n_lanes, const float* woop, int n_tris,
+                             const float* attr, const float* light, const float* cam,
+                             const float* env, const int* ip, const float* fp, const int* rows,
+                             const float* kd, int n_rows, int n_glights, float* rad_r,
+                             float* rad_g, float* rad_b, int* rays, float* parts, int* next,
+                             int max_ctas, void* stream) {
   if (n_lanes == 0) return 0;
   if (n_rows > gst::kMaxGradRows || n_glights > gst::kMaxGradLights) {
     return (int)cudaErrorInvalidValue;
   }
   const gst::Params P = gst::make_params(ip, fp);
   const gst::Tables T{attr, light, nullptr, nullptr, cam, gst::make_env(env, ip)};
-  const size_t smem = sizeof(float) * 12 * (size_t)n_tris;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mega_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  mega_grad_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      pix, n_lanes, woop_t, t_stride, n_tris, T, P, rows, kd, n_rows, n_glights, rad_r, rad_g,
-      rad_b, rays, parts);
-  return (int)cudaGetLastError();
+  return gst::brute_launch<kThreads, kDynamicLanes>(
+      mega_grad_kernel, n_lanes, woop, n_tris, next, max_ctas, (cudaStream_t)stream, pix,
+      n_lanes, reinterpret_cast<const float4*>(woop), n_tris, T, P, rows, kd, n_rows,
+      n_glights, rad_r, rad_g, rad_b, rays, parts, next);
 }

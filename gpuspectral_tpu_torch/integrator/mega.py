@@ -93,6 +93,18 @@ def _pack_tables(scene: SceneData):
     return scene.tri_woop_t.contiguous(), attr, light, camv
 
 
+def woop_rows(scene: SceneData) -> torch.Tensor:
+    """K1 / K5's Woop table: the scene's (num_tris, 12) rows in
+    ops/woop.py's order (`tri_woop`, whose columns `tri_woop_t` holds), which
+    csrc/brute.cuh stages as three float4 a triangle: contiguous float32 on
+    a 16-byte boundary, else ValueError (_build.check_aligned)."""
+    from .. import _build
+
+    rows = scene.tri_woop[:scene.num_tris].contiguous()
+    _build.check_aligned("woop_rows", tri_woop=rows)
+    return rows
+
+
 def pack_env(scene: SceneData) -> torch.Tensor:
     """The kernels' environment table: [world->env rotation (9, row-major) |
     texel radiance (h*w*3) | texel CDF (h*w) | texel pdf (h*w)]."""
@@ -144,23 +156,32 @@ def render_mega_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0):
         return render_mega_rows_ref(scene, cfg, pix, timestamp0)
     if pix.device.type != "cuda":
         raise ValueError(f"render_mega_rows: unsupported device {pix.device}")
+    return _launch(scene, cfg, pix, timestamp0)
+
+
+def _launch(scene: SceneData, cfg: RenderConfig, pix, timestamp0, max_ctas=0):
+    """K1 over CUDA pixel rows: render_mega_rows past its checks.  max_ctas
+    > 0 caps the resident grid (the tests' small grids); every tensor the
+    launch reads by pointer is held here until it returns."""
     from .. import _build
 
     lib = _build.load()
-    woop_t, attr, light, camv = _pack_tables(scene)
+    woop = woop_rows(scene)
+    _, attr, light, camv = _pack_tables(scene)
     env = pack_env(scene)
     ip, fp = kernel_params(scene, cfg, timestamp0)
     pix = pix.contiguous()
     rows = pix.shape[0]
     out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device) for _ in range(3)]
     rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
+    next_lane = torch.empty(1, dtype=torch.int32, device=pix.device)
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega(
-            pix.data_ptr(), pix.numel(), woop_t.data_ptr(), woop_t.shape[1], scene.num_tris,
+            pix.data_ptr(), pix.numel(), woop.data_ptr(), scene.num_tris,
             attr.data_ptr(), light.data_ptr(), camv.data_ptr(), env.data_ptr(),
-            ip.ctypes.data, fp.ctypes.data,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,
+            ip.ctypes.data, fp.ctypes.data, out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), rays.data_ptr(), next_lane.data_ptr(), max_ctas, stream,
         )
     _build.check(rc, "render_mega_rows")
     render_mega_rows.launches += 1

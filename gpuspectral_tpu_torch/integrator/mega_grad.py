@@ -46,7 +46,8 @@ from ..bsdf.table import BSDF_DIFFUSE
 from ..scene.data import SceneData
 from ..utils.config import RenderConfig
 from . import path_tracer
-from .mega import LANES, _pack_tables, kernel_params, mega_eligible, pack_env, pix_rows
+from .mega import (LANES, _pack_tables, kernel_params, mega_eligible, pack_env, pix_rows,
+                   woop_rows)
 
 MAX_GRAD_BSDFS = 8
 MAX_GRAD_LIGHTS = 4
@@ -236,11 +237,19 @@ def render_mega_fwdgrad_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp
         return render_mega_fwdgrad_rows_ref(scene, cfg, pix, timestamp0)
     if pix.device.type != "cuda":
         raise ValueError(f"render_mega_fwdgrad_rows: unsupported device {pix.device}")
+    return _launch_k5(scene, cfg, pix, timestamp0)
+
+
+def _launch_k5(scene: SceneData, cfg: RenderConfig, pix, timestamp0, max_ctas=0):
+    """K5 over CUDA pixel rows: render_mega_fwdgrad_rows past its checks.
+    max_ctas > 0 caps the resident grid (the tests' small grids); every
+    tensor the launch reads by pointer is held here until it returns."""
     from .. import _build
 
     lib = _build.load()
     B, L = scene.bsdf_kind.shape[0], scene.num_lights
-    woop_t, attr, light, camv = _pack_tables(scene)
+    woop = woop_rows(scene)
+    _, attr, light, camv = _pack_tables(scene)
     attr = torch.cat([attr, scene.tri_bsdf[:, None].to(torch.float32)], dim=1).contiguous()
     env = pack_env(scene)
     ip, fp = kernel_params(scene, cfg, timestamp0, attr_stride=attr.shape[1])
@@ -248,14 +257,15 @@ def render_mega_fwdgrad_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp
     kd = scene.bsdf_params[:, 0:3].contiguous()
     pix = pix.contiguous()
     out, rays, parts = _launch_planes(pix, 3 * B + 6 * L)
+    next_lane = torch.empty(1, dtype=torch.int32, device=pix.device)
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega_grad(
-            pix.data_ptr(), pix.numel(), woop_t.data_ptr(), woop_t.shape[1], scene.num_tris,
+            pix.data_ptr(), pix.numel(), woop.data_ptr(), scene.num_tris,
             attr.data_ptr(), light.data_ptr(), camv.data_ptr(), env.data_ptr(),
             ip.ctypes.data, fp.ctypes.data, rows.data_ptr(), kd.data_ptr(), B, L,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(),
-            parts.data_ptr(), stream)
+            parts.data_ptr(), next_lane.data_ptr(), max_ctas, stream)
     _build.check(rc, "render_mega_fwdgrad_rows")
     render_mega_fwdgrad_rows.launches += 1
     return out[0], out[1], out[2], rays, parts

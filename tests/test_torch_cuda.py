@@ -880,6 +880,99 @@ def test_k5_matches_plain_version(cuda_device):  # noqa: F811
     assert all(torch.equal(a, b) for a, b in zip(got[:4], k1))
 
 
+def _brute_scene(name, dev):
+    """Scenes at K1 / K5's edges: Cornell; one emitting triangle (three zero
+    rows pad its staged Woop rows to the unroll); a 2,048-triangle soup
+    under a quad light (96 KB of staged rows, past the 48 KB that a CTA
+    gets without the attribute)."""
+    from chip_smoke import soup_scene
+
+    if name == "one_triangle":
+        b = tdata.SceneBuilder()
+        tri = np.array([[[-1, -1, 0], [1, -1, 0], [0, 1, 0]]], np.float32)
+        nrm = np.broadcast_to(np.array([0, 0, 1], np.float32), (1, 3, 3)).copy()
+        b.add_object(tri, nrm, None, np.eye(4, dtype=np.float32), b.add_bsdf(diffuse((0.5,) * 3)),
+                     emission=(4.0, 4.0, 4.0))
+        b.set_camera(np.array([[-1, 0, 0, 0], [0, 1, 0, 0], [0, 0, -1, 3], [0, 0, 0, 1]],
+                              np.float32), np.deg2rad(60))
+        return b.build(dev)
+    if name == "soup2048":
+        return soup_scene(2046, 5, dev, light=True)
+    return _scene("cornell", dev)
+
+
+def _brute_launch(kernel):
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
+    if kernel == "k1":
+        return mega.render_mega_rows, mega.render_mega_rows_ref, mega._launch
+    return mg.render_mega_fwdgrad_rows, mg.render_mega_fwdgrad_rows_ref, mg._launch_k5
+
+
+def _brute_gates(kernel, got, ref, spp):
+    if kernel == "k1":
+        img = (torch.stack(got[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
+        img_ref = (torch.stack(ref[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
+        assert_mega_gates(img_ref, img, float(ref[3].double().sum()),
+                          float(got[3].double().sum()))
+    else:
+        _grad_gates(got, ref, spp)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k5"])
+@pytest.mark.parametrize("name", ["cornell", "one_triangle", "soup2048"])
+def test_k1_k5_scenes_at_the_edges(cuda_device, kernel, name):  # noqa: F811
+    """K1 / K5 over a 64x64 frame against the plain version, at one triangle
+    and at the 2,048-triangle limit; the schedule of lanes changes nothing:
+    a grid of 1 or 3 resident CTAs (each thread takes its next lane from the
+    counter many times over) and a second launch give the same sums bit for
+    bit."""
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
+    ts = _brute_scene(name, cuda_device)
+    assert ts.num_tris == {"cornell": 36, "one_triangle": 1, "soup2048": 2048}[name]
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4)
+    assert mg.mega_grad_eligible(ts, cfg)
+    wrapper, plain, launch = _brute_launch(kernel)
+    pix = mega.pix_rows(cfg, cuda_device)
+    n0 = wrapper.launches
+    got = wrapper(ts, cfg, pix, 0)
+    assert wrapper.launches == n0 + 1
+    if name != "one_triangle":  # one emitter in an empty frame: the ray counts are all 1
+        assert float(got[3].double().sum()) > 2 * pix.numel() * cfg.spp
+    _brute_gates(kernel, got, plain(ts, cfg, pix, 0), cfg.spp)
+    for again in (wrapper(ts, cfg, pix, 0), launch(ts, cfg, pix, 0, max_ctas=1),
+                  launch(ts, cfg, pix, 0, max_ctas=3)):
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k5"])
+@pytest.mark.parametrize("rows", [1, 3, 2049])
+def test_k1_k5_odd_row_counts(cuda_device, kernel, rows):  # noqa: F811
+    """1, 3 and 2,049 rows of 128 lanes (the last more lanes than the card
+    holds at once, so threads take further lanes from the counter), the
+    lanes over a 64x64 frame's pixels in raster order and round again: each
+    lane's sums and planes equal those of the same pixel in the launch over
+    the frame, bit for bit (padding lanes write their own slots), and the
+    2,049 rows pass the plain version's gates."""
+    ts = _scene("cornell", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4)
+    wrapper, plain, _ = _brute_launch(kernel)
+    n_pix = cfg.width * cfg.height
+    pix = (torch.arange(rows * mega.LANES, dtype=torch.int32, device=cuda_device) % n_pix)
+    pix = pix.reshape(rows, mega.LANES)
+    got = wrapper(ts, cfg, pix, 0)
+    frame = wrapper(ts, cfg, mega.pix_rows(cfg, cuda_device), 0)
+    idx = pix.reshape(-1).long()
+    for a, b in zip(got[:4], frame[:4]):
+        assert torch.equal(a.reshape(-1), b.reshape(-1)[idx])
+    if kernel == "k5":
+        npl = frame[4].shape[0]
+        assert torch.equal(got[4].reshape(npl, -1), frame[4].reshape(npl, -1)[:, idx])
+    if rows == 2049:
+        _brute_gates(kernel, got, plain(ts, cfg, pix, 0), cfg.spp)
+
+
 @pytest.mark.parametrize("name", ["slot_mode", "sphere_field_noenv", "mixed", "textured",
                                   "soup_morton"])
 def test_k6_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811

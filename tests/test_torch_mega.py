@@ -118,3 +118,53 @@ def test_pack_tables_match_jax(scenes):
     np.testing.assert_array_equal(light.numpy(), np.asarray(light_j).T[:, :12])
     np.testing.assert_array_equal(cam.numpy(), np.asarray(cam_j)[0, :13])
     np.testing.assert_array_equal(woop_t.numpy(), np.asarray(js.tri_woop_t))
+
+
+def test_woop_rows_are_the_kernel_table(scenes):
+    """K1 / K5's (num_tris, 12) Woop rows (staged as three float4 a triangle
+    by csrc/brute.cuh) are the columns of the (12, n) table they replace,
+    and of the table JAX _pack_tables hands its megakernel, bit for bit."""
+    js, ts = scenes
+    rows = mega.woop_rows(ts)
+    n = ts.num_tris
+    assert rows.shape == (n, 12) and rows.dtype == torch.float32 and rows.is_contiguous()
+    assert rows.data_ptr() % 16 == 0
+    assert torch.equal(rows, ts.tri_woop_t[:, :n].t())
+    woop_j = np.asarray(jmega._pack_tables(js)[0])
+    np.testing.assert_array_equal(rows.numpy(), woop_j[:, :n].T)
+
+
+def test_woop_rows_must_be_aligned(scenes):
+    """The rows are read with 128-bit loads: a table at an odd offset or of
+    another type is refused before any launch."""
+    ts = scenes[1]
+    t = ts.tri_woop.shape[0]
+    buf = torch.zeros(t * 12 + 1, dtype=torch.float32)
+    buf[1:] = ts.tri_woop.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        mega.woop_rows(ts.replace(tri_woop=buf[1:].view(t, 12)))
+    with pytest.raises(ValueError, match="float32"):
+        mega.woop_rows(ts.replace(tri_woop=ts.tri_woop.double()))
+
+
+def test_k5_rows_validate(scenes):
+    """render_mega_fwdgrad_rows refuses what render_mega_rows refuses: pixel
+    rows not (rows, LANES) int32, rows on another device than the scene, a
+    configuration K5 does not cover."""
+    from gpuspectral_tpu_torch.integrator import mega_grad as mg
+
+    ts = scenes[1]
+    cfg = RenderConfig(**_cfg(spp=1, max_depth=1))
+    for pix in (torch.zeros((2, 64), dtype=torch.int32), torch.zeros((2, 128), dtype=torch.int64),
+                torch.zeros((256,), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="pix"):
+            mg.render_mega_fwdgrad_rows(ts, cfg, pix)
+    with pytest.raises(ValueError, match="eligible"):
+        mg.render_mega_fwdgrad_rows(ts, cfg.replace(max_depth=20),
+                                    torch.zeros((2, 128), dtype=torch.int32))
+    with pytest.raises(ValueError, match="eligible"):
+        mega.render_mega_rows(ts, cfg.replace(use_bvh=True), torch.zeros((2, 128), dtype=torch.int32))
+    meta = torch.zeros((2, 128), dtype=torch.int32, device="meta")
+    for fn in (mega.render_mega_rows, mg.render_mega_fwdgrad_rows):
+        with pytest.raises(ValueError, match="on meta"):
+            fn(ts, cfg, meta)
