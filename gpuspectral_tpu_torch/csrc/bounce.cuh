@@ -627,8 +627,9 @@ struct LaneCounter {
 // one; each lane's samples, and so its result, are those of the default.
 // With kSync every thread of the block must call this (lanes past n_lanes
 // included).  Lanes (OneLane or LaneCounter, the latter without kSync) says
-// whether the thread goes on to further lanes; a Hook with kActive then
-// follows it through `retarget(lane)`.
+// whether the thread goes on to further lanes; a Hook with kActive hears
+// `finish()` when a lane's samples end and `retarget(lane)` when the
+// thread takes the next.
 template <class Isect, bool kSync, class Hook = NoHook, class Lanes = OneLane>
 __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P, int lane,
                             int n_lanes, const int* __restrict__ pix, float* __restrict__ rad_r,
@@ -686,6 +687,7 @@ __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P
         rad_g[lane] = acc_g;
         rad_b[lane] = acc_b;
         rays_out[lane] = rays;
+        if constexpr (Hook::kActive) hook.finish();
         lane = lanes.take();
         if (lane >= n_lanes) return;
         if constexpr (Hook::kActive) hook.retarget(lane);
@@ -945,6 +947,7 @@ __device__ void render_lane(const Isect& isect, const Tables& T, const Params& P
     rad_g[lane] = acc_g;
     rad_b[lane] = acc_b;
     rays_out[lane] = rays;
+    if constexpr (Hook::kActive) hook.finish();
   }
 }
 

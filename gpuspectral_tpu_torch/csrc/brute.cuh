@@ -9,34 +9,25 @@
 // index wins a tie, F3) and the any hit's stop at its first occluder are
 // the plain scans'; every test is common.cuh:woop_eval, op for op.
 //
-// Switches that tools/torch_mega_variants.py sets per variant (the shipped
-// values below):
-//   kBruteRows     1: (n, 3 float4) rows in shared memory;
-//                  0: (12, n) scalar rows in shared memory, 12 loads a test;
-//                  2: the float4 rows in the constant bank (<= kConstTris)
-//   kBruteUnroll   triangles a loop turn
-//   kBrutePreTest  0: none; 1: skip the divide and the rest of a test where
-//                  no lane of the warp has opz and dpz of opposite signs
-//                  (t <= 0 or NaN fails t > t_lo >= 0); 2: 1 and the far
-//                  end, |opz| >= ((t_hi |dpz|) (1 + 2^-20)) (proof at
-//                  may_hit)
+// The variant study (tools/torch_mega_variants.py) sets kBruteUnroll and
+// kAnyByTurn; the
+// decided variants (the (12, n) scalar rows, 12 loads a test; the rows in
+// the constant bank; a pre-test that skips a test's divide where no lane of
+// the warp can pass) build from that tool at commit 75e263c.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <cfloat>
 
 #include "common.cuh"
 
 namespace gst {
 
-constexpr int kBruteRows = 1;
-constexpr int kBruteUnroll = 4;
-constexpr int kBrutePreTest = 0;
-constexpr int kConstTris = 1360;  // float4 rows that fit the 64 KB constant bank
-
-static __constant__ float4 c_woop[kBruteRows == 2 ? 3 * kConstTris : 1];
+constexpr int kBruteUnroll = 4;  // triangles a loop turn
+// the any hit leaves after a whole turn that found an occluder (true) or
+// at its first occluder (false): the same answer, the tests are pure
+constexpr bool kAnyByTurn = false;
 
 // Rows staged for n triangles: a multiple of kBruteUnroll.
 __host__ __device__ constexpr int brute_pad(int n) {
@@ -44,82 +35,28 @@ __host__ __device__ constexpr int brute_pad(int n) {
 }
 
 // Shared-memory bytes of the staged rows.
-inline size_t brute_smem(int n_tris) {
-  return kBruteRows == 2 ? 0 : (size_t)brute_pad(n_tris) * 12 * sizeof(float);
-}
+inline size_t brute_smem(int n_tris) { return (size_t)brute_pad(n_tris) * 12 * sizeof(float); }
 
 // Stage the (n_tris, 12) rows into shared memory, zero rows up to n_pad;
 // every thread of the block takes part.
 __device__ __forceinline__ void stage_woop_rows(float4* sw, const float4* __restrict__ rows,
                                                 int n_tris, int n_pad) {
-  if constexpr (kBruteRows == 1) {
-    for (int i = threadIdx.x; i < 3 * n_pad; i += blockDim.x) {
-      sw[i] = i < 3 * n_tris ? rows[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  } else if constexpr (kBruteRows == 0) {
-    float* s = reinterpret_cast<float*>(sw);
-    const float* r = reinterpret_cast<const float*>(rows);
-    for (int i = threadIdx.x; i < 12 * n_pad; i += blockDim.x) {
-      const int k = i / n_pad, c = i % n_pad;  // (12, n_pad)
-      s[i] = c < n_tris ? r[12 * c + k] : 0.0f;
-    }
+  for (int i = threadIdx.x; i < 3 * n_pad; i += blockDim.x) {
+    sw[i] = i < 3 * n_tris ? rows[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   __syncthreads();
-}
-
-// Whether woop_eval(..., t_lo, t_hi) may pass for a triangle with these
-// Woop rows; false only where it cannot.  opz and dpz are woop_eval's first
-// two lines, op for op.  Past |dpz| > 1e-12 (woop_eval's `live`):
-//   * near end (t_lo >= 0): t = -opz / dpz is > 0 only where opz and dpz
-//     have opposite signs (a zero or NaN opz gives t = +-0 or NaN);
-//   * far end (kBrutePreTest 2, opposite signs, so t = RN(|opz| / |dpz|)):
-//     with p = t_hi |dpz| exactly, M = RN(p) and m = RN(M (1 + 2^-20)), a
-//     normal m (>= 2 FLT_MIN, so M and p are normal) gives
-//     m >= p (1 + 2^-20) (1 - 2^-24)^2 > p, so |opz| >= m means
-//     |opz| / |dpz| > t_hi, and t >= t_hi by monotone rounding: t < t_hi
-//     fails.  An overflowed M is inf: then opz is +-inf, t is inf or NaN.
-__device__ __forceinline__ bool may_hit(float4 b, float4 c, V3 o, V3 d, float t_lo,
-                                        float t_hi) {
-  const float opz = fmaf(o.z, c.x, fmaf(o.x, b.z, o.y * b.w)) + c.w;
-  const float dpz = fmaf(d.z, c.x, fmaf(d.x, b.z, d.y * b.w));
-  if (!(fabsf(dpz) > 1e-12f)) return false;
-  const bool ahead = (opz > 0.0f && dpz < 0.0f) || (opz < 0.0f && dpz > 0.0f);
-  if (!ahead) return !(t_lo >= 0.0f);
-  if constexpr (kBrutePreTest == 2) {
-    const float m = (t_hi * fabsf(dpz)) * (1.0f + 0x1p-20f);
-    return !(m >= 2.0f * FLT_MIN && fabsf(opz) >= m);
-  }
-  return true;
 }
 
 // closest / any hit over every triangle of the staged Woop rows; strict
 // t < best in index order: the lowest id wins among tied t
 struct BruteIsect {
-  const float4* sw;  // (n, 3 float4), or (12, n) floats with kBruteRows 0
+  const float4* sw;  // (n, 3 float4)
   int n;             // staged rows, brute_pad(n_tris)
 
-  // woop_eval on row i.  t_pre: the far end the pre-test may cull against
-  // (the closest hit's best, which is below woop_eval's t_hi).
-  __device__ __forceinline__ bool test(int i, V3 o, V3 d, float t_lo, float t_hi, float t_pre,
-                                       float& t, float& u, float& v) const {
-    float4 a, b, c;
-    if constexpr (kBruteRows == 0) {
-      const float* w = reinterpret_cast<const float*>(sw) + i;
-      a = make_float4(w[0], w[n], w[2 * n], w[3 * n]);
-      b = make_float4(w[4 * n], w[5 * n], w[6 * n], w[7 * n]);
-      c = make_float4(w[8 * n], w[9 * n], w[10 * n], w[11 * n]);
-    } else if constexpr (kBruteRows == 2) {
-      a = c_woop[3 * i];
-      b = c_woop[3 * i + 1];
-      c = c_woop[3 * i + 2];
-    } else {
-      a = sw[3 * i];
-      b = sw[3 * i + 1];
-      c = sw[3 * i + 2];
-    }
-    if constexpr (kBrutePreTest != 0) {
-      if (!__any_sync(__activemask(), may_hit(b, c, o, d, t_lo, t_pre))) return false;
-    }
+  // woop_eval on row i
+  __device__ __forceinline__ bool test(int i, V3 o, V3 d, float t_lo, float t_hi, float& t,
+                                       float& u, float& v) const {
+    const float4 a = sw[3 * i], b = sw[3 * i + 1], c = sw[3 * i + 2];
     return woop_eval(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, o, d, t_lo,
                      t_hi, t, u, v);
   }
@@ -133,7 +70,7 @@ struct BruteIsect {
 #pragma unroll
       for (int k = 0; k < kBruteUnroll; ++k) {
         float t, u, v;
-        if (test(i + k, o, d, 0.0f, kBig, best_t, t, u, v) && t < best_t) {
+        if (test(i + k, o, d, 0.0f, kBig, t, u, v) && t < best_t) {
           best_t = t;
           prim = i + k;
           bu = u;
@@ -145,38 +82,35 @@ struct BruteIsect {
 
   __device__ bool any(V3 o, V3 d, float t_lo, float t_hi) const {
     for (int i = 0; i < n; i += kBruteUnroll) {
+      bool hit = false;
 #pragma unroll
       for (int k = 0; k < kBruteUnroll; ++k) {
         float t, u, v;
-        if (test(i + k, o, d, t_lo, t_hi, t_hi, t, u, v)) return true;
+        const bool h = test(i + k, o, d, t_lo, t_hi, t, u, v);
+        if constexpr (kAnyByTurn) {
+          hit |= h;
+        } else if (h) {
+          return true;
+        }
       }
+      if (hit) return true;
     }
     return false;
   }
 };
 
-// Launch one of the two brute-force megakernels: K(args...) over n_lanes
-// lanes, kThreads a CTA.  With persistent lanes (bounce.cuh's LaneCounter)
-// the grid is the CTAs the card holds at once (or max_ctas > 0 of them),
-// never more than one CTA a kThreads lanes, and the lane counter `next` is
-// zeroed on the stream first; else one CTA a kThreads lanes.
+// Launch one of the two brute-force megakernels: kernel(args...) over
+// n_lanes lanes, kThreads a CTA, with the staged rows of n_tris triangles
+// and extra_smem more bytes of dynamic shared memory.  With persistent
+// lanes (bounce.cuh's LaneCounter) the grid is the CTAs the card holds at
+// once (or max_ctas > 0 of them), never more than one CTA a kThreads
+// lanes, and the lane counter `next` is zeroed on the stream first; else
+// one CTA a kThreads lanes.
 template <int kThreads, bool kPersistent, class... Params, class... Args>
-inline int brute_launch(void (*kernel)(Params...), int n_lanes, const float* rows, int n_tris,
+inline int brute_launch(void (*kernel)(Params...), int n_lanes, int n_tris, size_t extra_smem,
                         int* next, int max_ctas, cudaStream_t stream, Args... args) {
-  const size_t smem = brute_smem(n_tris);
+  const size_t smem = brute_smem(n_tris) + extra_smem;
   cudaError_t err = cudaSuccess;
-  if constexpr (kBruteRows == 2) {
-    if (n_tris > kConstTris) return (int)cudaErrorInvalidValue;
-    void* sym = nullptr;
-    const size_t bytes = sizeof(float) * 12 * n_tris;
-    if ((err = cudaGetSymbolAddress(&sym, c_woop)) != cudaSuccess ||
-        (err = cudaMemcpyAsync(sym, rows, bytes, cudaMemcpyDeviceToDevice, stream)) !=
-            cudaSuccess ||
-        (err = cudaMemsetAsync((char*)sym + bytes, 0, brute_pad(n_tris) * 12 * sizeof(float) -
-                               bytes, stream)) != cudaSuccess) {
-      return (int)err;
-    }
-  }
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

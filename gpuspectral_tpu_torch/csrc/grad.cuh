@@ -16,9 +16,14 @@
 // integrator/mega_grad.py:grad_plane_keys: d kd (row i, channel c) at plane
 // 3i + c, then tri_emission (light l, c) at 3R + 3l + c, then
 // light_emission at 3R + 3Lg + 3l + c.  A lane adds to its own column only
-// (read-modify-write, coalesced across a warp; no atomics), and only where
-// the term is not zero; the wrapper zero-fills the planes.  The per-row
-// counts n_b live in registers (at most kMaxGradRows of them).
+// (no atomics), and only where the term is not zero; the wrapper zero-fills
+// the planes.  GradHookT<false> (K6) adds in device memory (read-modify-
+// write, coalesced across a warp of consecutive lanes); GradHookT<true>
+// (K5) adds in the thread's column of a (NP, blockDim.x) shared-memory
+// block and writes the lane's NP sums out when its samples end (finish):
+// the same additions in the same order from the same zero, so the same
+// sums, and one write a plane a lane whatever lanes a warp holds.  The
+// per-row counts n_b live in registers (at most kMaxGradRows of them).
 #pragma once
 
 #include "common.cuh"
@@ -29,9 +34,11 @@ constexpr int kMaxGradRows = 8;    // MAX_GRAD_BSDFS
 constexpr int kMaxGradLights = 4;  // MAX_GRAD_LIGHTS
 constexpr float kKdEps = 1e-4f;    // the removable kd = 0 singularity (_KD_EPS)
 
-struct GradHook {
+template <bool kShared>
+struct GradHookT {
   static constexpr bool kActive = true;
   float* parts;       // (NP, n_lanes)
+  float* mine;        // kShared: this thread's column of the (NP, blockDim.x) block
   const int* rows;    // (R,) BSDF rows differentiated
   const float* kd;    // (R, 3) their kd
   int n_lanes, lane;  // plane stride and this lane's column
@@ -44,8 +51,20 @@ struct GradHook {
   __device__ __forceinline__ void retarget(int l) { lane = l; }
 
   __device__ __forceinline__ void add(int plane, float x) {
-    float* p = parts + (size_t)plane * n_lanes + lane;
+    float* p = kShared ? mine + plane * (int)blockDim.x : parts + (size_t)plane * n_lanes + lane;
     *p = *p + x;
+  }
+
+  // The lane's samples ended: kShared writes its sums out and zeroes its
+  // column for the next lane.
+  __device__ __forceinline__ void finish() {
+    if constexpr (kShared) {
+      const int np = 3 * R + 6 * Lg;
+      for (int p = 0; p < np; ++p) {
+        parts[(size_t)p * n_lanes + lane] = mine[p * (int)blockDim.x];
+        mine[p * (int)blockDim.x] = 0.0f;
+      }
+    }
   }
 
   // One hit bounce (mega_grad.py:130-172).  a: the hit's attribute row;
@@ -91,13 +110,21 @@ struct GradHook {
   }
 };
 
-// The hook of lane `lane`, its counts zero (padding lanes track nothing).
-__device__ __forceinline__ GradHook make_grad_hook(float* parts, const int* rows,
-                                                   const float* kd, int n_lanes, int lane, int R,
-                                                   int Lg, int bidx_col) {
-  GradHook h;
+using GradHook = GradHookT<false>;
+
+// The hook of lane `lane`, its counts zero (padding lanes track nothing);
+// kShared: shared points at the CTA's (NP, blockDim.x) block, whose column
+// of this thread is zeroed here.
+template <bool kShared = false>
+__device__ __forceinline__ GradHookT<kShared> make_grad_hook(float* parts, const int* rows,
+                                                             const float* kd, int n_lanes,
+                                                             int lane, int R, int Lg,
+                                                             int bidx_col,
+                                                             float* shared = nullptr) {
+  GradHookT<kShared> h;
   const bool valid = lane < n_lanes;
   h.parts = parts;
+  h.mine = kShared ? shared + threadIdx.x : nullptr;
   h.rows = rows;
   h.kd = kd;
   h.n_lanes = n_lanes;
@@ -107,6 +134,9 @@ __device__ __forceinline__ GradHook make_grad_hook(float* parts, const int* rows
   h.bidx_col = bidx_col;
 #pragma unroll
   for (int i = 0; i < kMaxGradRows; ++i) h.n[i] = 0;
+  if constexpr (kShared) {
+    for (int p = 0; p < 3 * h.R + 6 * h.Lg; ++p) h.mine[p * (int)blockDim.x] = 0.0f;
+  }
   return h;
 }
 

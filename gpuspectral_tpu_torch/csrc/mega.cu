@@ -86,6 +86,6 @@ extern "C" int gst_mega(const int* pix, int n_lanes, const float* woop, int n_tr
   const gst::Params P = gst::make_params(ip, fp);
   const gst::Tables T{attr, light, nullptr, nullptr, cam, gst::make_env(env, ip)};
   return gst::brute_launch<kThreads, kDynamicLanes>(
-      mega_kernel, n_lanes, woop, n_tris, next, max_ctas, (cudaStream_t)stream, pix, n_lanes,
+      mega_kernel, n_lanes, n_tris, 0, next, max_ctas, (cudaStream_t)stream, pix, n_lanes,
       reinterpret_cast<const float4*>(woop), n_tris, T, P, rad_r, rad_g, rad_b, rays, next);
 }

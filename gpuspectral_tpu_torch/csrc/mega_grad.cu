@@ -10,15 +10,19 @@
 //
 // What bounds it on the H100: what bounds K1, the brute-force loops (every
 // bounce tests all n_tris triangles, then again for the shadow ray), plus
-// the hook's partial planes: up to 3R + 6 read-modify-writes of the lane's
-// own columns per bounce (R <= 8 rows), coalesced across a warp while the
-// warp's lanes are the CTA's first ones, and far below the intersection
-// work at Cornell's 36 triangles.  The design is K1's (brute.cuh's staged
-// float4 rows, the resident grid whose threads take their next pixel lane
-// from a counter, the hook retargeted to the new lane's columns), keeps
-// the partials in device memory rather than registers (48 floats on top of
-// K1's registers would spill) and the per-row bounce counts in registers;
-// no atomics on the planes, since each lane owns its columns.
+// the hook's partials: up to 3R + 6 read-modify-writes of the lane's own
+// columns per bounce (R <= 8 rows).  In device memory those cost K5 2x K1
+// once a warp's lanes are scattered pixels (each add a sector of its own),
+// so the design keeps them in shared memory: a (NP, 128) block a CTA,
+// NP = 3R + 6Lg floats a thread (<= 24 KB beside <= 96 KB of Woop rows),
+// each thread adding to its own column (no bank conflicts, no atomics) and
+// writing a lane's NP sums to the planes once, when its samples end
+// (grad.cuh's GradHookT<true>).  The rest is K1's: brute.cuh's staged
+// float4 rows and the resident grid whose threads take their next pixel
+// lane from a counter; the per-row bounce counts stay in registers, and
+// the registers are capped at 128 so that 4 CTAs fit an SM.  kSharedParts
+// false (the partials in device memory) and kGradCtasPerSm 1 (no cap) are
+// variants of tools/torch_mega_variants.py.
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -28,23 +32,28 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kCtasPerSm = 1;
+// __launch_bounds__'s minimum CTAs an SM: 4 caps K5 at 128 registers (no
+// spill), which K1's design and the hook would otherwise take to ~148, 3
+// CTAs an SM
+constexpr int kGradCtasPerSm = 4;
 constexpr bool kDynamicLanes = true;
+constexpr bool kSharedParts = true;  // the partials in shared memory (grad.cuh)
 
-__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+__global__ void __launch_bounds__(kThreads, kGradCtasPerSm)
 mega_grad_kernel(const int* __restrict__ pix, int n_lanes, const float4* __restrict__ woop,
                  int n_tris, gst::Tables T, gst::Params P, const int* __restrict__ rows,
                  const float* __restrict__ kd, int n_rows, int n_glights,
                  float* __restrict__ rad_r, float* __restrict__ rad_g,
                  float* __restrict__ rad_b, int* __restrict__ rays_out, float* parts,
                  int* next) {
-  extern __shared__ float4 sw[];  // the staged Woop rows (brute.cuh)
+  extern __shared__ float4 sw[];  // the staged Woop rows (brute.cuh), then the partials
   const int n_pad = gst::brute_pad(n_tris);
   gst::stage_woop_rows(sw, woop, n_tris, n_pad);
   const gst::BruteIsect isect{sw, n_pad};
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const gst::GradHook hook = gst::make_grad_hook(parts, rows, kd, n_lanes, lane, n_rows,
-                                                 n_glights, P.attr_stride - 1);
+  const auto hook = gst::make_grad_hook<kSharedParts>(
+      parts, rows, kd, n_lanes, lane, n_rows, n_glights, P.attr_stride - 1,
+      reinterpret_cast<float*>(sw + 3 * n_pad));
   if constexpr (kDynamicLanes) {
     gst::render_lane<gst::BruteIsect, false>(
         isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out, hook,
@@ -72,8 +81,10 @@ extern "C" int gst_mega_grad(const int* pix, int n_lanes, const float* woop, int
   }
   const gst::Params P = gst::make_params(ip, fp);
   const gst::Tables T{attr, light, nullptr, nullptr, cam, gst::make_env(env, ip)};
+  const size_t shared_parts =
+      kSharedParts ? sizeof(float) * (3 * n_rows + 6 * n_glights) * kThreads : 0;
   return gst::brute_launch<kThreads, kDynamicLanes>(
-      mega_grad_kernel, n_lanes, woop, n_tris, next, max_ctas, (cudaStream_t)stream, pix,
+      mega_grad_kernel, n_lanes, n_tris, shared_parts, next, max_ctas, (cudaStream_t)stream, pix,
       n_lanes, reinterpret_cast<const float4*>(woop), n_tris, T, P, rows, kd, n_rows,
       n_glights, rad_r, rad_g, rad_b, rays, parts, next);
 }

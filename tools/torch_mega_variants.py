@@ -9,19 +9,24 @@ Cornell box.
 `variants` builds copies of brute.cuh, mega.cu and mega_grad.cu with their
 constants set per variant, one change each from the shipped design (the
 Woop rows as three float4 a triangle in shared memory, the loop unrolled by
-kBruteUnroll, no pre-test, the grid resident and each thread taking its
-next pixel lane from a counter, no register cap):
+4, the grid resident and each thread taking its next pixel lane from a
+counter, K5's partials in shared memory, K5's registers capped at 128, K1's
+not capped):
 
-  rows12           the (12, n) scalar rows of the earlier design, 12 loads a test
-  const            the float4 rows in the constant bank (Cornell's 36 fit)
-  unroll1, unroll2, unroll8   other unroll factors
-  pretest1         skip a test's divide where no lane of the warp has t > 0
-  pretest2         pretest1 and the far end, |opz| >= t_hi |dpz| (1 + 2^-20)
-  static           one CTA a 128 lanes, a thread one lane (no counter)
-  ctas5, ctas6     __launch_bounds__(128, 5 | 6): registers capped for 5 or 6
-                   CTAs an SM
-  pretest2_count   pretest2 with counters: the warp tests made and those the
-                   pre-test skipped over K1's headline frame (not timed)
+  unroll1, unroll2, unroll8   the loop unrolled by 1, 2 or 8 (kBruteUnroll)
+  any_by_turn      the any hit leaves after a whole turn of the loop that
+                   found an occluder, not at the occluder (kAnyByTurn);
+                   any_by_turn2 the same with turns of 2
+  static           one CTA a 128 lanes, a thread one lane (kDynamicLanes)
+  globalparts      K5's partials added in device memory (kSharedParts)
+  ctas4            K1's registers capped at 128 too (kCtasPerSm 4)
+  grad_nocap       K5's registers not capped (kGradCtasPerSm 1; ~148, 3
+                   CTAs an SM)
+
+The decided variants (the (12, n) scalar rows, the rows in the constant
+bank, the pre-test before the divide in two forms, the count of the warp
+tests the pre-test skips, and the caps for 5 or 6 CTAs an SM, which spill)
+build from this tool at commit 75e263c.
 
 Each variant goes to build/mega_variants/<name>/ (one nvcc per variant, all
 started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -49,7 +54,6 @@ minute of command each).  Needs a CUDA device and nvcc.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import pathlib
 import sys
@@ -58,61 +62,25 @@ import torch
 import torch_variants as tv
 
 SOURCES = ("brute.cuh", "mega.cu", "mega_grad.cu")
-BASE = dict(kBruteRows="1", kBruteUnroll="4", kBrutePreTest="0", kDynamicLanes="true",
-            kCtasPerSm="1")
+BASE = dict(kBruteUnroll="4", kAnyByTurn="false", kDynamicLanes="true", kSharedParts="true",
+            kCtasPerSm="1", kGradCtasPerSm="4")
 VARIANTS = dict(
-    rows12=dict(kBruteRows="0"),
-    const=dict(kBruteRows="2"),
     unroll1=dict(kBruteUnroll="1"),
     unroll2=dict(kBruteUnroll="2"),
     unroll8=dict(kBruteUnroll="8"),
-    pretest1=dict(kBrutePreTest="1"),
-    pretest2=dict(kBrutePreTest="2"),
+    any_by_turn=dict(kAnyByTurn="true"),
+    any_by_turn2=dict(kAnyByTurn="true", kBruteUnroll="2"),
     static=dict(kDynamicLanes="false"),
-    ctas5=dict(kCtasPerSm="5"),
-    ctas6=dict(kCtasPerSm="6"),
+    globalparts=dict(kSharedParts="false"),
+    ctas4=dict(kCtasPerSm="4"),
+    grad_nocap=dict(kGradCtasPerSm="1"),
 )
-COUNT = "pretest2_count"
 ENTRY_POINTS = ("gst_mega", "gst_mega_grad")
 HEAD = dict(size=512, spp=64, depth=50)  # bench.py's cornell row
 GRAD = dict(size=512, spp=64, depth=5)  # its grad row
 GRAD_1024 = dict(size=1024, spp=256, depth=5)  # its grad_1024 row
 TS = 101
 REPS = dict(k1_head=3, k1_grad=3, k5_grad=3, k5_1024=1)
-
-# pretest2_count: the pre-test's vote, counted by the first active lane of
-# each warp test (tests made, tests skipped), into counters that
-# gst_brute_counts reads and clears (K1's translation unit only)
-_VOTE = "if (!__any_sync(__activemask(), may_hit(b, c, o, d, t_lo, t_pre))) return false;"
-_COUNTED_VOTE = """{
-        const unsigned mask_ = __activemask();
-        const bool any_ = __any_sync(mask_, may_hit(b, c, o, d, t_lo, t_pre));
-        if ((int)(threadIdx.x & 31u) == __ffs(mask_) - 1) {
-          atomicAdd(&brute_counts[0], 1ull);
-          if (!any_) atomicAdd(&brute_counts[1], 1ull);
-        }
-        if (!any_) return false;
-      }"""
-_COUNTERS = "static __device__ unsigned long long brute_counts[2];\n\nstruct BruteIsect {"
-_READER = """
-extern "C" int gst_brute_counts(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, gst::brute_counts, sizeof(unsigned long long) * 2);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[2] = {0, 0};
-  return (int)cudaMemcpyToSymbol(gst::brute_counts, zero, sizeof(zero));
-}
-"""
-
-
-def counting_sources() -> dict:
-    files = tv.variant_sources(SOURCES, dict(BASE, kBrutePreTest="2"))
-    for old, new, file in ((_VOTE, _COUNTED_VOTE, "brute.cuh"),
-                           ("struct BruteIsect {", _COUNTERS, "brute.cuh")):
-        if files[file].count(old) != 1:
-            raise RuntimeError(f"{file}: the count variant's anchor {old!r} moved")
-        files[file] = files[file].replace(old, new)
-    files["mega.cu"] += _READER
-    return files
 
 
 def frames(dev):
@@ -144,40 +112,20 @@ def calls(scene, fr):
 
 
 def main_variants(names) -> int:
-    names = names or [*VARIANTS, COUNT]
+    names = names or list(VARIANTS)
     dev = torch.device("cuda")
     smi = tv.card()
     print(smi, flush=True)
-    sources = {name: tv.variant_sources(SOURCES, dict(BASE, **VARIANTS[name]))
-               for name in names if name != COUNT}
-    if COUNT in names:
-        sources[COUNT] = counting_sources()
-    libs = tv.build("mega_variants", sources, ENTRY_POINTS, show=lambda kern: "mega" in kern)
+    libs = tv.build("mega_variants", {
+        name: tv.variant_sources(SOURCES, dict(BASE, **VARIANTS[name])) for name in names},
+        ENTRY_POINTS, show=lambda kern: "mega" in kern)
     scene, fr = frames(dev)
     work = calls(scene, fr)
     checked = {k: work[k] for k in ("k1_head", "k1_grad", "k5_grad")}
-    ref = tv.results(checked)
-    tv.check_builds(libs, checked, ref)
-    counts = None
-    if COUNT in libs:
-        lib = libs.pop(COUNT)
-        lib.gst_brute_counts.argtypes = [ctypes.c_void_p]
-        buf = (ctypes.c_ulonglong * 2)()
-        got = {}
-        for key in ("k1_head", "k1_grad"):
-            if lib.gst_brute_counts(buf):  # read and cleared: the counts of this launch alone
-                raise RuntimeError("gst_brute_counts failed")
-            with tv.launching(lib):
-                work[key]()
-            torch.cuda.synchronize()
-            if lib.gst_brute_counts(buf):
-                raise RuntimeError("gst_brute_counts failed")
-            got[key] = dict(warp_tests=buf[0], warp_skips=buf[1], share=buf[1] / max(buf[0], 1))
-        counts = got
-        print("pre-test skips " + json.dumps(counts), flush=True)
+    tv.check_builds(libs, checked, tv.results(checked))
     times = tv.time_in_turns(dict(libs, tree=None), work, REPS)
     print(json.dumps(dict(card=smi, frames=dict(head=HEAD, grad=GRAD, grad_1024=GRAD_1024),
-                          ms=times, pretest_counts=counts)), flush=True)
+                          ms=times)), flush=True)
     return 0
 
 
