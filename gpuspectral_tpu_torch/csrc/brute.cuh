@@ -9,11 +9,11 @@
 // index wins a tie, F3) and the any hit's stop at its first occluder are
 // the plain scans'; every test is common.cuh:woop_eval, op for op.
 //
-// The variant study (tools/torch_mega_variants.py) sets kBruteUnroll and
-// kAnyByTurn; the
-// decided variants (the (12, n) scalar rows, 12 loads a test; the rows in
-// the constant bank; a pre-test that skips a test's divide where no lane of
-// the warp can pass) build from that tool at commit 75e263c.
+// The variant study (tools/torch_mega_variants.py) sets kBruteUnroll; the
+// decided variants build from that tool at commit 75e263c (the (12, n)
+// scalar rows, 12 loads a test; the rows in the constant bank; a pre-test
+// that skips a test's divide where no lane of the warp can pass) and
+// 291bede (the any hit leaving after a whole unrolled turn).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,9 +25,6 @@
 namespace gst {
 
 constexpr int kBruteUnroll = 4;  // triangles a loop turn
-// the any hit leaves after a whole turn that found an occluder (true) or
-// at its first occluder (false): the same answer, the tests are pure
-constexpr bool kAnyByTurn = false;
 
 // Rows staged for n triangles: a multiple of kBruteUnroll.
 __host__ __device__ constexpr int brute_pad(int n) {
@@ -82,18 +79,11 @@ struct BruteIsect {
 
   __device__ bool any(V3 o, V3 d, float t_lo, float t_hi) const {
     for (int i = 0; i < n; i += kBruteUnroll) {
-      bool hit = false;
 #pragma unroll
       for (int k = 0; k < kBruteUnroll; ++k) {
         float t, u, v;
-        const bool h = test(i + k, o, d, t_lo, t_hi, t, u, v);
-        if constexpr (kAnyByTurn) {
-          hit |= h;
-        } else if (h) {
-          return true;
-        }
+        if (test(i + k, o, d, t_lo, t_hi, t, u, v)) return true;
       }
-      if (hit) return true;
     }
     return false;
   }

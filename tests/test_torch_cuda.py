@@ -847,14 +847,16 @@ def test_run_benchmark_reports_the_card(cuda_device):  # noqa: F811
     assert out["rays_traced"] > 64 * 64 * 2 and out["mrays_per_s"] > 0
 
 
-def _grad_gates(got, ref, spp):
+def _grad_gates(got, ref, spp, rays=True):
     """K5 / K6 against the plain version: the image under the tests/test_mega.py
-    gates, rays within 1%, and the partials contracted with a fixed numpy
-    cotangent within 2e-3 of the plain version's (tests/test_mega_grad.py's
-    tolerance: a path that crosses a seam on a rounding moves its terms)."""
+    gates, rays within 1% (unless `rays` is false), and the partials
+    contracted with a fixed numpy cotangent within 2e-3 of the plain
+    version's (tests/test_mega_grad.py's tolerance: a path that crosses a
+    seam on a rounding moves its terms)."""
     img = (torch.stack(got[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
     img_ref = (torch.stack(ref[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
-    assert_mega_gates(img_ref, img, float(ref[3].double().sum()), float(got[3].double().sum()))
+    assert_mega_gates(img_ref, img, *((float(ref[3].double().sum()),
+                                       float(got[3].double().sum())) if rays else ()))
     n = img.shape[0]
     ct = torch.as_tensor(np.random.default_rng(5).uniform(-1, 1, (n, 3)).astype(np.float32),
                          device=got[4].device)
@@ -909,14 +911,14 @@ def _brute_launch(kernel):
     return mg.render_mega_fwdgrad_rows, mg.render_mega_fwdgrad_rows_ref, mg._launch_k5
 
 
-def _brute_gates(kernel, got, ref, spp):
+def _brute_gates(kernel, got, ref, spp, rays=True):
     if kernel == "k1":
         img = (torch.stack(got[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
         img_ref = (torch.stack(ref[:3], -1).reshape(-1, 3) / spp).cpu().numpy()
-        assert_mega_gates(img_ref, img, float(ref[3].double().sum()),
-                          float(got[3].double().sum()))
+        assert_mega_gates(img_ref, img, *((float(ref[3].double().sum()),
+                                           float(got[3].double().sum())) if rays else ()))
     else:
-        _grad_gates(got, ref, spp)
+        _grad_gates(got, ref, spp, rays=rays)
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k5"])
@@ -926,7 +928,12 @@ def test_k1_k5_scenes_at_the_edges(cuda_device, kernel, name):  # noqa: F811
     and at the 2,048-triangle limit; the schedule of lanes changes nothing:
     a grid of 1 or 3 resident CTAs (each thread takes its next lane from the
     counter many times over) and a second launch give the same sums bit for
-    bit."""
+    bit.  On the lone emitting triangle, NEE from a hit samples that same
+    triangle: the light direction lies in the hit's own plane, so whether
+    the shadow ray is cast (dot(gn, ldir) > 0) is a rounding coin flip that
+    the kernel's and torch's op orders call differently for many hits; the
+    ray counts are not compared there (the radiance those rays carry is
+    ~0: the light's cosine is ~0 too)."""
     from gpuspectral_tpu_torch.integrator import mega_grad as mg
 
     ts = _brute_scene(name, cuda_device)
@@ -940,7 +947,7 @@ def test_k1_k5_scenes_at_the_edges(cuda_device, kernel, name):  # noqa: F811
     assert wrapper.launches == n0 + 1
     if name != "one_triangle":  # one emitter in an empty frame: the ray counts are all 1
         assert float(got[3].double().sum()) > 2 * pix.numel() * cfg.spp
-    _brute_gates(kernel, got, plain(ts, cfg, pix, 0), cfg.spp)
+    _brute_gates(kernel, got, plain(ts, cfg, pix, 0), cfg.spp, rays=name != "one_triangle")
     for again in (wrapper(ts, cfg, pix, 0), launch(ts, cfg, pix, 0, max_ctas=1),
                   launch(ts, cfg, pix, 0, max_ctas=3)):
         assert all(torch.equal(a, b) for a, b in zip(again, got))

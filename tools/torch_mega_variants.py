@@ -14,19 +14,23 @@ counter, K5's partials in shared memory, K5's registers capped at 128, K1's
 not capped):
 
   unroll1, unroll2, unroll8   the loop unrolled by 1, 2 or 8 (kBruteUnroll)
-  any_by_turn      the any hit leaves after a whole turn of the loop that
-                   found an occluder, not at the occluder (kAnyByTurn);
-                   any_by_turn2 the same with turns of 2
   static           one CTA a 128 lanes, a thread one lane (kDynamicLanes)
   globalparts      K5's partials added in device memory (kSharedParts)
   ctas4            K1's registers capped at 128 too (kCtasPerSm 4)
   grad_nocap       K5's registers not capped (kGradCtasPerSm 1; ~148, 3
                    CTAs an SM)
 
-The decided variants (the (12, n) scalar rows, the rows in the constant
-bank, the pre-test before the divide in two forms, the count of the warp
-tests the pre-test skips, and the caps for 5 or 6 CTAs an SM, which spill)
-build from this tool at commit 75e263c.
+Two probes time a share of the kernels, not a design: closest_x2 and
+any_x2 run each closest-hit (any-hit) loop twice (a memory clobber between
+the runs, the first run's result compared with the second's, so that
+neither is folded away); the same outputs, so the time they add is about
+what that loop costs the frame.
+
+The decided variants build from this tool at commit 75e263c (the (12, n)
+scalar rows, the rows in the constant bank, the pre-test before the divide
+in two forms, the count of the warp tests the pre-test skips, and the caps
+for 5 or 6 CTAs an SM, which spill) and 291bede (the any hit leaving after
+a whole unrolled turn, by turns of 4 and of 2).
 
 Each variant goes to build/mega_variants/<name>/ (one nvcc per variant, all
 started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -62,18 +66,38 @@ import torch
 import torch_variants as tv
 
 SOURCES = ("brute.cuh", "mega.cu", "mega_grad.cu")
-BASE = dict(kBruteUnroll="4", kAnyByTurn="false", kDynamicLanes="true", kSharedParts="true",
+BASE = dict(kBruteUnroll="4", kDynamicLanes="true", kSharedParts="true",
             kCtasPerSm="1", kGradCtasPerSm="4")
 VARIANTS = dict(
     unroll1=dict(kBruteUnroll="1"),
     unroll2=dict(kBruteUnroll="2"),
     unroll8=dict(kBruteUnroll="8"),
-    any_by_turn=dict(kAnyByTurn="true"),
-    any_by_turn2=dict(kAnyByTurn="true", kBruteUnroll="2"),
     static=dict(kDynamicLanes="false"),
     globalparts=dict(kSharedParts="false"),
     ctas4=dict(kCtasPerSm="4"),
     grad_nocap=dict(kGradCtasPerSm="1"),
+)
+# the probes: brute.cuh's loop run twice, the first run's result kept live
+# by a comparison with the second's (always equal)
+_PROBES = dict(
+    closest_x2=("  __device__ void closest(", """  __device__ void closest(V3 o, V3 d, float& best_t, int& prim, float& bu,
+                          float& bv) const {
+    float t1, u1, v1;
+    int p1;
+    closest_once(o, d, t1, p1, u1, v1);
+    asm volatile("" ::: "memory");
+    closest_once(o, d, best_t, prim, bu, bv);
+    if (p1 != prim) prim = -2;
+  }
+
+  __device__ void closest_once("""),
+    any_x2=("  __device__ bool any(", """  __device__ bool any(V3 o, V3 d, float t_lo, float t_hi) const {
+    const bool first = any_once(o, d, t_lo, t_hi);
+    asm volatile("" ::: "memory");
+    return any_once(o, d, t_lo, t_hi) & first;
+  }
+
+  __device__ bool any_once("""),
 )
 ENTRY_POINTS = ("gst_mega", "gst_mega_grad")
 HEAD = dict(size=512, spp=64, depth=50)  # bench.py's cornell row
@@ -81,6 +105,15 @@ GRAD = dict(size=512, spp=64, depth=5)  # its grad row
 GRAD_1024 = dict(size=1024, spp=256, depth=5)  # its grad_1024 row
 TS = 101
 REPS = dict(k1_head=3, k1_grad=3, k5_grad=3, k5_1024=1)
+
+
+def probe_sources(name) -> dict:
+    files = tv.variant_sources(SOURCES, BASE)
+    anchor, text = _PROBES[name]
+    if files["brute.cuh"].count(anchor) != 1:
+        raise RuntimeError(f"brute.cuh: the probe's anchor {anchor!r} moved")
+    files["brute.cuh"] = files["brute.cuh"].replace(anchor, text)
+    return files
 
 
 def frames(dev):
@@ -112,12 +145,13 @@ def calls(scene, fr):
 
 
 def main_variants(names) -> int:
-    names = names or list(VARIANTS)
+    names = names or [*VARIANTS, *_PROBES]
     dev = torch.device("cuda")
     smi = tv.card()
     print(smi, flush=True)
     libs = tv.build("mega_variants", {
-        name: tv.variant_sources(SOURCES, dict(BASE, **VARIANTS[name])) for name in names},
+        name: probe_sources(name) if name in _PROBES
+        else tv.variant_sources(SOURCES, dict(BASE, **VARIANTS[name])) for name in names},
         ENTRY_POINTS, show=lambda kern: "mega" in kern)
     scene, fr = frames(dev)
     work = calls(scene, fr)
