@@ -945,8 +945,9 @@ def test_k1_k5_scenes_at_the_edges(cuda_device, kernel, name):  # noqa: F811
     n0 = wrapper.launches
     got = wrapper(ts, cfg, pix, 0)
     assert wrapper.launches == n0 + 1
-    if name != "one_triangle":  # one emitter in an empty frame: the ray counts are all 1
-        assert float(got[3].double().sum()) > 2 * pix.numel() * cfg.spp
+    # a quarter of the lanes or more trace past their camera rays: their
+    # paths hit the scene (38% on the soup, 32x32 plain version on the CPU)
+    assert float((got[3] > cfg.spp).double().mean()) > 0.25
     _brute_gates(kernel, got, plain(ts, cfg, pix, 0), cfg.spp, rays=name != "one_triangle")
     for again in (wrapper(ts, cfg, pix, 0), launch(ts, cfg, pix, 0, max_ctas=1),
                   launch(ts, cfg, pix, 0, max_ctas=3)):
