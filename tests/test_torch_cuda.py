@@ -945,9 +945,10 @@ def test_k1_k5_scenes_at_the_edges(cuda_device, kernel, name):  # noqa: F811
     n0 = wrapper.launches
     got = wrapper(ts, cfg, pix, 0)
     assert wrapper.launches == n0 + 1
-    # a quarter of the lanes or more trace past their camera rays: their
-    # paths hit the scene (38% on the soup, 32x32 plain version on the CPU)
-    assert float((got[3] > cfg.spp).double().mean()) > 0.25
+    # a tenth of the lanes or more trace past their camera rays: their paths
+    # hit the scene (38% on the soup in the plain version at 32x32 on the
+    # CPU; the lone triangle covers ~17% of the frame)
+    assert float((got[3] > cfg.spp).double().mean()) > 0.1
     _brute_gates(kernel, got, plain(ts, cfg, pix, 0), cfg.spp, rays=name != "one_triangle")
     for again in (wrapper(ts, cfg, pix, 0), launch(ts, cfg, pix, 0, max_ctas=1),
                   launch(ts, cfg, pix, 0, max_ctas=3)):
