@@ -550,10 +550,10 @@ def bvh_tables(scene):
 def mega_tables(scene, bvh):
     from gpuspectral_tpu_torch.integrator import mega, mega_bvh
 
-    woop_t, attr, light, camv = mega._pack_tables(scene)
+    _, attr, light, camv = mega._pack_tables(scene)
     if bvh:
         return (*bvh_tables(scene), mega_bvh.pack_attr(scene, "uniform"), light, camv)
-    return woop_t[:, :scene.num_tris], attr, light, camv
+    return mega.woop_rows(scene), attr, light, camv
 
 
 def reset_counts():

@@ -91,12 +91,11 @@ struct BruteIsect {
 
 // Launch one of the two brute-force megakernels: kernel(args...) over
 // n_lanes lanes, kThreads a CTA, with the staged rows of n_tris triangles
-// and extra_smem more bytes of dynamic shared memory.  With persistent
-// lanes (bounce.cuh's LaneCounter) the grid is the CTAs the card holds at
-// once (or max_ctas > 0 of them), never more than one CTA a kThreads
-// lanes, and the lane counter `next` is zeroed on the stream first; else
-// one CTA a kThreads lanes.
-template <int kThreads, bool kPersistent, class... Params, class... Args>
+// and extra_smem more bytes of dynamic shared memory.  The grid is the CTAs
+// the card holds at once (or max_ctas > 0 of them), never more than one CTA
+// a kThreads lanes, its threads taking lanes from the counter `next`
+// (bounce.cuh's LaneCounter), which is zeroed on the stream first.
+template <int kThreads, class... Params, class... Args>
 inline int brute_launch(void (*kernel)(Params...), int n_lanes, int n_tris, size_t extra_smem,
                         int* next, int max_ctas, cudaStream_t stream, Args... args) {
   const size_t smem = brute_smem(n_tris) + extra_smem;
@@ -105,21 +104,16 @@ inline int brute_launch(void (*kernel)(Params...), int n_lanes, int n_tris, size
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  int grid = (n_lanes + kThreads - 1) / kThreads;
-  if (kPersistent) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-            cudaSuccess) {
-      return (int)err;
-    }
-    const int resident = max_ctas > 0 ? max_ctas : std::max(sms * per_sm, 1);
-    grid = std::min(grid, resident);
-    err = cudaMemsetAsync(next, 0, sizeof(int), stream);
-    if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+          cudaSuccess ||
+      (err = cudaMemsetAsync(next, 0, sizeof(int), stream)) != cudaSuccess) {
+    return (int)err;
   }
+  const int resident = max_ctas > 0 ? max_ctas : std::max(sms * per_sm, 1);
+  const int grid = std::min((n_lanes + kThreads - 1) / kThreads, resident);
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }

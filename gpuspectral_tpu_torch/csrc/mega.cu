@@ -29,10 +29,10 @@
 // gathered from L1/L2 per hit.  The environment map (at most 2048 texels,
 // the JAX package's fused-kernel cap) is read with plain loads from L1/L2,
 // its CDF inverted by binary search.  Register pressure is reported by the
-// build (-Xptxas -v).  Switches the variant study sets
-// (tools/torch_mega_variants.py): kDynamicLanes (false: one CTA a 128
-// lanes, a thread one lane) and kCtasPerSm (__launch_bounds__'s minimum
-// CTAs an SM; 1 caps nothing).
+// build (-Xptxas -v).  The variant study (tools/torch_mega_variants.py)
+// sets kCtasPerSm (__launch_bounds__'s minimum CTAs an SM; 1 caps
+// nothing); one CTA a 128 lanes with a thread a lane, the earlier schedule,
+// builds from that tool at commit e03242e (1.11x slower).
 //
 // What the TPU design needed and this one does not: (16,128) state planes,
 // SMEM scalar broadcasts, select-chain gathers and one-hot texel
@@ -48,7 +48,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kCtasPerSm = 1;
-constexpr bool kDynamicLanes = true;
 
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 mega_kernel(const int* __restrict__ pix, int n_lanes, const float4* __restrict__ woop,
@@ -60,14 +59,9 @@ mega_kernel(const int* __restrict__ pix, int n_lanes, const float4* __restrict__
   gst::stage_woop_rows(sw, woop, n_tris, n_pad);
   const gst::BruteIsect isect{sw, n_pad};
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (kDynamicLanes) {
-    gst::render_lane<gst::BruteIsect, false>(
-        isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out, gst::NoHook(),
-        gst::LaneCounter{next, (int)(gridDim.x * blockDim.x)});
-  } else {
-    gst::render_lane<gst::BruteIsect, false>(isect, T, P, lane, n_lanes, pix, rad_r, rad_g,
-                                             rad_b, rays_out);
-  }
+  gst::render_lane<gst::BruteIsect, false>(isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b,
+                                           rays_out, gst::NoHook(),
+                                           gst::LaneCounter{next, (int)(gridDim.x * blockDim.x)});
 }
 
 }  // namespace
@@ -85,7 +79,7 @@ extern "C" int gst_mega(const int* pix, int n_lanes, const float* woop, int n_tr
   if (n_lanes == 0) return 0;
   const gst::Params P = gst::make_params(ip, fp);
   const gst::Tables T{attr, light, nullptr, nullptr, cam, gst::make_env(env, ip)};
-  return gst::brute_launch<kThreads, kDynamicLanes>(
+  return gst::brute_launch<kThreads>(
       mega_kernel, n_lanes, n_tris, 0, next, max_ctas, (cudaStream_t)stream, pix, n_lanes,
       reinterpret_cast<const float4*>(woop), n_tris, T, P, rad_r, rad_g, rad_b, rays, next);
 }

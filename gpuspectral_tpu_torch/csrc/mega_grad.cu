@@ -20,9 +20,10 @@
 // (grad.cuh's GradHookT<true>).  The rest is K1's: brute.cuh's staged
 // float4 rows and the resident grid whose threads take their next pixel
 // lane from a counter; the per-row bounce counts stay in registers, and
-// the registers are capped at 128 so that 4 CTAs fit an SM.  kSharedParts
-// false (the partials in device memory) and kGradCtasPerSm 1 (no cap) are
-// variants of tools/torch_mega_variants.py.
+// the registers are capped at 128 so that 4 CTAs fit an SM.  The variant
+// study (tools/torch_mega_variants.py) sets kGradCtasPerSm (1: no cap);
+// the partials in device memory (1.16x slower) and one CTA a 128 lanes
+// (1.17x) build from that tool at commit e03242e.
 #include <cuda_runtime.h>
 
 #include "bounce.cuh"
@@ -36,8 +37,6 @@ constexpr int kThreads = 128;
 // spill), which K1's design and the hook would otherwise take to ~148, 3
 // CTAs an SM
 constexpr int kGradCtasPerSm = 4;
-constexpr bool kDynamicLanes = true;
-constexpr bool kSharedParts = true;  // the partials in shared memory (grad.cuh)
 
 __global__ void __launch_bounds__(kThreads, kGradCtasPerSm)
 mega_grad_kernel(const int* __restrict__ pix, int n_lanes, const float4* __restrict__ woop,
@@ -51,17 +50,11 @@ mega_grad_kernel(const int* __restrict__ pix, int n_lanes, const float4* __restr
   gst::stage_woop_rows(sw, woop, n_tris, n_pad);
   const gst::BruteIsect isect{sw, n_pad};
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const auto hook = gst::make_grad_hook<kSharedParts>(
-      parts, rows, kd, n_lanes, lane, n_rows, n_glights, P.attr_stride - 1,
-      reinterpret_cast<float*>(sw + 3 * n_pad));
-  if constexpr (kDynamicLanes) {
-    gst::render_lane<gst::BruteIsect, false>(
-        isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out, hook,
-        gst::LaneCounter{next, (int)(gridDim.x * blockDim.x)});
-  } else {
-    gst::render_lane<gst::BruteIsect, false>(isect, T, P, lane, n_lanes, pix, rad_r, rad_g,
-                                             rad_b, rays_out, hook);
-  }
+  gst::render_lane<gst::BruteIsect, false>(
+      isect, T, P, lane, n_lanes, pix, rad_r, rad_g, rad_b, rays_out,
+      gst::make_grad_hook<true>(parts, rows, kd, n_lanes, lane, n_rows, n_glights,
+                                P.attr_stride - 1, reinterpret_cast<float*>(sw + 3 * n_pad)),
+      gst::LaneCounter{next, (int)(gridDim.x * blockDim.x)});
 }
 
 }  // namespace
@@ -81,9 +74,8 @@ extern "C" int gst_mega_grad(const int* pix, int n_lanes, const float* woop, int
   }
   const gst::Params P = gst::make_params(ip, fp);
   const gst::Tables T{attr, light, nullptr, nullptr, cam, gst::make_env(env, ip)};
-  const size_t shared_parts =
-      kSharedParts ? sizeof(float) * (3 * n_rows + 6 * n_glights) * kThreads : 0;
-  return gst::brute_launch<kThreads, kDynamicLanes>(
+  const size_t shared_parts = sizeof(float) * (3 * n_rows + 6 * n_glights) * kThreads;
+  return gst::brute_launch<kThreads>(
       mega_grad_kernel, n_lanes, n_tris, shared_parts, next, max_ctas, (cudaStream_t)stream, pix,
       n_lanes, reinterpret_cast<const float4*>(woop), n_tris, T, P, rows, kd, n_rows,
       n_glights, rad_r, rad_g, rad_b, rays, parts, next);

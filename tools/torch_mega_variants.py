@@ -14,8 +14,6 @@ counter, K5's partials in shared memory, K5's registers capped at 128, K1's
 not capped):
 
   unroll1, unroll2, unroll8   the loop unrolled by 1, 2 or 8 (kBruteUnroll)
-  static           one CTA a 128 lanes, a thread one lane (kDynamicLanes)
-  globalparts      K5's partials added in device memory (kSharedParts)
   ctas4            K1's registers capped at 128 too (kCtasPerSm 4)
   grad_nocap       K5's registers not capped (kGradCtasPerSm 1; ~148, 3
                    CTAs an SM)
@@ -29,8 +27,10 @@ what that loop costs the frame.
 The decided variants build from this tool at commit 75e263c (the (12, n)
 scalar rows, the rows in the constant bank, the pre-test before the divide
 in two forms, the count of the warp tests the pre-test skips, and the caps
-for 5 or 6 CTAs an SM, which spill) and 291bede (the any hit leaving after
-a whole unrolled turn, by turns of 4 and of 2).
+for 5 or 6 CTAs an SM, which spill), 291bede (the any hit leaving after a
+whole unrolled turn, by turns of 4 and of 2) and e03242e (static: one CTA a
+128 lanes, a thread one lane, the earlier schedule; globalparts: K5's
+partials added in device memory).
 
 Each variant goes to build/mega_variants/<name>/ (one nvcc per variant, all
 started together, with the flags of gpuspectral_tpu_torch/_build.py;
@@ -66,14 +66,11 @@ import torch
 import torch_variants as tv
 
 SOURCES = ("brute.cuh", "mega.cu", "mega_grad.cu")
-BASE = dict(kBruteUnroll="4", kDynamicLanes="true", kSharedParts="true",
-            kCtasPerSm="1", kGradCtasPerSm="4")
+BASE = dict(kBruteUnroll="4", kCtasPerSm="1", kGradCtasPerSm="4")
 VARIANTS = dict(
     unroll1=dict(kBruteUnroll="1"),
     unroll2=dict(kBruteUnroll="2"),
     unroll8=dict(kBruteUnroll="8"),
-    static=dict(kDynamicLanes="false"),
-    globalparts=dict(kSharedParts="false"),
     ctas4=dict(kCtasPerSm="4"),
     grad_nocap=dict(kGradCtasPerSm="1"),
 )
