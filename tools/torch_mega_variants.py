@@ -74,8 +74,9 @@ VARIANTS = dict(
     ctas4=dict(kCtasPerSm="4"),
     grad_nocap=dict(kGradCtasPerSm="1"),
 )
-# the probes: brute.cuh's loop run twice, the first run's result kept live
-# by a comparison with the second's (always equal)
+# the probes: {name: (anchor, replacement)} in brute.cuh, each running a
+# loop twice, the first run's result kept live by a comparison with the
+# second's (always equal)
 _PROBES = dict(
     closest_x2=("  __device__ void closest(", """  __device__ void closest(V3 o, V3 d, float& best_t, int& prim, float& bu,
                           float& bv) const {
@@ -108,7 +109,7 @@ def probe_sources(name) -> dict:
     files = tv.variant_sources(SOURCES, BASE)
     anchor, text = _PROBES[name]
     if files["brute.cuh"].count(anchor) != 1:
-        raise RuntimeError(f"brute.cuh: the probe's anchor {anchor!r} moved")
+        raise RuntimeError(f"brute.cuh: the anchor of {name} moved")
     files["brute.cuh"] = files["brute.cuh"].replace(anchor, text)
     return files
 
