@@ -80,7 +80,7 @@ template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*
 template <class F, class... A> inline void host_launch(F, A...) {}
 """
 
-_DRIVER = r"""
+_HOST_CODE = r"""
 #include "cuda_runtime.h"
 #include "bounce.cuh"
 #include "brute.cuh"
@@ -169,10 +169,10 @@ def lib(tmp_path_factory):
             assert n == 1
         (d / src).write_text(text)
     (d / "cuda_runtime.h").write_text(_SHIM)
-    (d / "driver.cpp").write_text(_DRIVER)
+    (d / "host_lanes.cpp").write_text(_HOST_CODE)
     so = d / "libbrute_host.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-I", str(d), str(d / "driver.cpp"), "-o", str(so)], check=True)
+                    "-I", str(d), str(d / "host_lanes.cpp"), "-o", str(so)], check=True)
     return ctypes.CDLL(str(so))
 
 
