@@ -18,7 +18,6 @@ The kernels themselves run on the card only (tests/test_torch_cuda.py).
 Needs g++; skips without it."""
 
 import ctypes
-import pathlib
 import re
 import shutil
 import subprocess
