@@ -225,7 +225,8 @@ def test_lane_counter_equals_one_lane(lib, scenes, name, grad):
 
 
 def _soup(rng, n, twins=False):
-    tris = (rng.uniform(-2, 2, (n, 1, 3)) + rng.normal(scale=0.4, size=(n, 3, 3))).astype(np.float32)
+    tris = rng.uniform(-2, 2, (n, 1, 3)) + rng.normal(scale=0.4, size=(n, 3, 3))
+    tris = tris.astype(np.float32)
     if twins:  # exact-t ties, which the lowest index wins
         tris[n // 2:] = tris[:n - n // 2]
     return tris

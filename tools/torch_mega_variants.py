@@ -78,7 +78,8 @@ VARIANTS = dict(
 # loop twice, the first run's result kept live by a comparison with the
 # second's (always equal)
 _PROBES = dict(
-    closest_x2=("  __device__ void closest(", """  __device__ void closest(V3 o, V3 d, float& best_t, int& prim, float& bu,
+    closest_x2=("  __device__ void closest(", """\
+  __device__ void closest(V3 o, V3 d, float& best_t, int& prim, float& bu,
                           float& bv) const {
     float t1, u1, v1;
     int p1;
@@ -89,7 +90,8 @@ _PROBES = dict(
   }
 
   __device__ void closest_once("""),
-    any_x2=("  __device__ bool any(", """  __device__ bool any(V3 o, V3 d, float t_lo, float t_hi) const {
+    any_x2=("  __device__ bool any(", """\
+  __device__ bool any(V3 o, V3 d, float t_lo, float t_hi) const {
     const bool first = any_once(o, d, t_lo, t_hi);
     asm volatile("" ::: "memory");
     return any_once(o, d, t_lo, t_hi) & first;
