@@ -83,9 +83,10 @@ Phases:
         timed on the sphere field on 65,536 random rays and on the 262,144
         primary rays of the 512x512 frame, beside K3a / K3b; the plain
         versions once on the random rays; K7d / K7e's supernodes swept a
-        warp, the tests per ray of the block sweeps, of the two-gate sweep
-        and of K7a / K7b's walk (its counting walk's results held equal to
-        the kernels'), and K7a-e's registers and spills logged
+        warp, the tests per ray of the block sweeps, of the two-gate sweep,
+        of K7f / K7g's two-gate walk and of K7a / K7b's walk (the counting
+        walks' results held equal to the kernels'), and K7a-g's registers
+        and spills logged (no spill in K7f / K7g)
   cluster_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
         K7c launched once for each K7d and K7e launch, nothing else; its
@@ -167,11 +168,16 @@ to the ray's first occluder) and the two-gate sweep that the kernels make
 (cluster_sweep.gated_tests: a slab test per voted supernode and, in a
 supernode the ray enters, per non-empty leaf cluster, then the Woop tests
 of the slots of the clusters it enters; K7e up to its first occluder).
-Both counts' occlusion is held equal to K7e's.  K7f / K7g's are
-counted by dfs_sweep.dfs_tests: a slab test per ray for each node its
-block visits, and at an entered leaf K7f's Woop tests of every slot for a
-ray with a segment, K7g's up to the ray's first occluder (the count's
-occlusion is held equal to K7g's).  K7a / K7b's are, ray by ray, the
+Both counts' occlusion is held equal to K7e's.  K7f / K7g's are, ray by
+ray, the fewer operations of two schedules of the same walk: the block
+sweep (dfs_sweep.dfs_tests: a slab test per ray for each node its block
+visits, and at an entered leaf K7f's Woop tests of every slot for a ray
+with a segment, K7g's up to the ray's first occluder) and the two-gate
+walk that the kernels make (dfs_sweep.gated_tests: the same node tests,
+then in an entered leaf a slab test per non-empty leaf cluster for a ray
+still searching and the Woop tests of the clusters its own widened test
+enters, K7g up to its first occluder); both counts' results are held
+equal to K7f's t and prim and K7g's occlusion.  K7a / K7b's are, ray by ray, the
 fewer operations of two schedules of the same function: the block sweep
 (binned.binned_tests: a slab test per ray for each bin, K7b up to the bin
 of the ray's first occluder, and the Woop tests of the slots of the bins
@@ -260,7 +266,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # float operations, a fused multiply-add counted as two, comparisons not at all
 WOOP_FLOPS = 32  # one Woop ray-triangle test (csrc/common.cuh:woop_test)
 MT_FLOPS = 46  # one Moller-Trumbore test (csrc/traverse.cu:mt_test)
-# one slab box test (csrc/common.cuh:slab, csrc/traverse.cu:slab_hit,
+# one slab box test (csrc/common.cuh:slab_nan, csrc/traverse.cu:slab_hit,
 # csrc/bvh.cuh:slab_entered): 6 subtractions, 6 products; bvh.cuh's widening
 # by kSlabMargin keeps its culls conservative and is not work the function needs
 SLAB_FLOPS = 12
@@ -1165,6 +1171,23 @@ def binned_ptxas():
     return out
 
 
+def dfs_ptxas():
+    """ptxas's registers and spills of K7f / K7g (csrc/dfs.cu), by key;
+    raises if one spills."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {key: line for kern, line in _build.build_info()["ptxas"].items()
+           for key, tag in (("k7f", "dfs_closest_kernel"), ("k7g", "dfs_any_kernel"))
+           if f"{len(tag)}{tag}" in kern}
+    log("  ptxas of the dfs kernels: " + json.dumps(out))
+    if len(out) != 2:
+        raise AssertionError(f"ptxas lines of K7f / K7g missing: {out}")
+    spills = {k: v for k, v in out.items() if " 0 bytes spill stores, 0 bytes spill loads" not in v}
+    if spills:
+        raise AssertionError(f"K7f / K7g spill: {spills}")
+    return out
+
+
 def check_k7(name, scene, rays):
     """K7c / K7d / K7e against their plain versions on `rays`: votes equal
     (also on odd_lanes(rays), where a NaN lane votes for nothing), t, prim,
@@ -1235,32 +1258,62 @@ def check_sweep(name, scene, rays, keys, fns, tables):
     return err, {keys[0]: c_ms, keys[1]: a_ms}
 
 
-def dfs_bounds(scene, rays, occ):
-    """bound() of K7f (on (0, t_max)) and K7g for one call each over `rays`,
-    the tests counted as the kernels make them (dfs_sweep.dfs_tests): a slab
-    test per ray for each node its block visits; at an entered leaf K7f's
-    Woop tests of every slot for each ray with a segment, K7g's up to the
-    ray's first occluder.  The count's occlusion must equal K7g's `occ`.
-    Also the box and Woop tests per ray."""
+def dfs_bounds(scene, rays, occ, closest):
+    """bound() of K7f (on (0, t_max)) and K7g for one call each over `rays`
+    (`occ` K7g's occlusion, `closest` K7f's (t, prim)).  A ray's operations
+    are the fewer of two counts of the same walk: the block sweep's
+    (dfs_sweep.dfs_tests: a slab test per node its block visits, at an
+    entered leaf K7f's Woop tests of every slot for a ray with a segment,
+    K7g's up to the ray's first occluder) and the two-gate walk's that the
+    kernels make (dfs_sweep.gated_tests: the same node tests, a slab test
+    per non-empty cluster of an entered leaf for a ray still searching, the
+    Woop tests of the clusters its own widened test enters), a box test at
+    SLAB_FLOPS.  Both counts' results must equal the kernels'.  Bytes: the
+    rays in and out, the node rows some warp reads, the leaf clusters'
+    boxes, the Woop rows of the slots some ray tests and K7f's attribute
+    rows of the triangles hit.  Also the block sweep's bound alone (`block`:
+    every slot of every leaf entered, the whole tables read) and both
+    counts' tests per ray."""
     from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
     from gpuspectral_tpu_torch.bvh import ftb
 
     o, d, lo, hi = rays
-    box_f, woop_f, _ = ds.dfs_tests(scene, o, d, lo, hi, any_hit=False)
-    box_g, woop_g, occ_count = ds.dfs_tests(scene, o, d, lo, hi, any_hit=True)
-    if not torch.equal(occ_count, occ):
-        raise AssertionError(f"K7g's tally disagrees with K7g on {int((occ_count != occ).sum())} "
-                             "rays")
     n = o.shape[0]
-    tables = nbytes(scene.bvh_dfs_bounds, scene.bvh_dfs_meta, scene.tri_woop_t)
     a = ftb.attr_table(scene).shape[1]
-    sums = [float(x.double().sum()) for x in (box_f, woop_f, box_g, woop_g)]
-    return dict(
-        k7f=bound(sums[0] * SLAB_FLOPS + sums[1] * WOOP_FLOPS,
-                  n * (28 + 16 + 4 * a) + tables + 4 * a * scene.padded_tris),
-        k7g=bound(sums[2] * SLAB_FLOPS + sums[3] * WOOP_FLOPS, n * (32 + 1) + tables),
-        box_per_ray=dict(closest=sums[0] / n, any=sums[2] / n),
-        woop_per_ray=dict(closest=sums[1] / n, any=sums[3] / n))
+    zero = torch.zeros_like(hi)
+    tables = nbytes(scene.bvh_dfs_bounds, scene.bvh_dfs_meta, scene.tri_woop_t)
+    node_bytes = 4 * (scene.bvh_dfs_bounds.shape[0] + scene.bvh_dfs_meta.shape[0])
+    leaf_boxes = 4 * 6 * scene.bvh_clusters
+    ray_bytes = dict(closest=n * (28 + 16 + 4 * a), any=n * (32 + 1))
+    hit_rows = int(torch.unique(closest[1][closest[1] >= 0]).numel())
+    out, block, per_ray = {}, {}, {}
+    for key, seg_lo, any_hit in (("k7f", zero, False), ("k7g", lo, True)):
+        box, woop, res = ds.dfs_tests(scene, o, d, seg_lo, hi, any_hit)
+        g = ds.gated_tests(scene, o, d, seg_lo, hi, any_hit)
+        for what, got in (("dfs_tests", res), ("gated_tests", g.result)):
+            same = (torch.equal(got, occ) if any_hit else
+                    torch.equal(got[0], closest[0]) and torch.equal(got[1].int(), closest[1]))
+            if not same:
+                raise AssertionError(f"{what}' result disagrees with {key.upper()}'s")
+        sweep_ops = box * SLAB_FLOPS + woop * WOOP_FLOPS
+        gated_ops = (g.nodes + g.clusters) * SLAB_FLOPS + g.woop * WOOP_FLOPS
+        ops = float(torch.minimum(sweep_ops, gated_ops).double().sum())
+        rows = (int(g.node_rows.sum()) * node_bytes + leaf_boxes
+                + int(g.slots.sum()) * 4 * scene.tri_woop.shape[1])
+        kind = "any" if any_hit else "closest"
+        attr_rows = 0 if any_hit else 4 * a * hit_rows
+        out[key] = bound(ops, ray_bytes[kind] + rows + attr_rows)
+        block[key] = bound(float(sweep_ops.double().sum()),
+                           ray_bytes[kind] + tables + (0 if any_hit else 4 * a * scene.padded_tris))
+        per_ray[kind] = dict(box=float(box.double().mean()), woop=float(woop.double().mean()),
+                             gated_nodes=float(g.nodes.double().mean()),
+                             gated_clusters=float(g.clusters.double().mean()),
+                             gated_woop=float(g.woop.double().mean()))
+    return dict(out, block=block,
+                box_per_ray={k: v["box"] for k, v in per_ray.items()},
+                woop_per_ray={k: v["woop"] for k, v in per_ray.items()},
+                gated_per_ray={k: dict(node=v["gated_nodes"], cluster=v["gated_clusters"],
+                                       woop=v["gated_woop"]) for k, v in per_ray.items()})
 
 
 def binned_bounds(scene, rays, occ, prim):
@@ -1344,8 +1397,6 @@ def phase_k7(dev, cases, field):
         fns_fg = (ds.dfs_closest, ds.dfs_any, ds.dfs_closest_ref, ds.dfs_any_ref)
         tables_fg = f"nodes={scene.bvh_dfs_bounds.shape[1]}"
         e_fg, plain_fg = check_sweep(name, scene, rays, ("k7f", "k7g"), fns_fg, tables_fg)
-        # K7f / K7g's block votes drop a NaN (gst::slab), the plain walk's keep it
-        # (F18 if the results differ)
         e_fg_odd, _ = check_sweep(name + " (NaN and inactive lanes)", scene, odd_lanes(rays),
                                   ("k7f", "k7g"), fns_fg, tables_fg)
         e_fg = {k: max(e_fg[k], e_fg_odd[k]) for k in e_fg}
@@ -1387,7 +1438,8 @@ def phase_k7(dev, cases, field):
             k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
             k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
         b = cluster_bounds(field, rays, votes, votes_any, occ, prim)
-        b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi))
+        b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi),
+                          ds.dfs_closest(field, o, d, t_max=hi, attr=attr)[:2])
         b_ab = binned_bounds(field, rays, bn.binned_any(field, o, d, lo, hi),
                              bn.binned_closest(field, o, d, t_max=hi, attr=attr)[1])
         log(f"  sphere field, {o.shape[0]} {tag} rays: " + ", ".join(
@@ -1397,8 +1449,11 @@ def phase_k7(dev, cases, field):
             + f"tests per ray of the block sweep {b['woop_per_ray']}, the two-gate sweep's "
             + f"slab and Woop tests per ray {b['gated_per_ray']}; "
             + f"dfs box tests per ray {b_fg['box_per_ray']}, Woop tests per ray "
-            + f"{b_fg['woop_per_ray']}; binned block sweep's box tests per ray "
-            + f"{b_ab['box_per_ray']}, Woop tests per ray {b_ab['woop_per_ray']}, bins a block "
+            + f"{b_fg['woop_per_ray']}, K7f / K7g's two-gate walk's node, cluster and Woop "
+            + f"tests per ray {b_fg['gated_per_ray']}, the block sweep's bound "
+            + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                        for k, v in b_fg["block"].items())
+            + f"; binned block sweep's box tests per ray {b_ab['box_per_ray']}, Woop tests per ray {b_ab['woop_per_ray']}, bins a block "
             + f"visits per ray {b_ab['visits_per_ray']}, K7a / K7b's walk's box tests, votes "
             + f"and Woop tests per ray {b_ab['walk_per_ray']}; "
             + ", ".join(f"{k} bound {bb[k]['bound_ms']:.4f} ms ({bb[k]['bound_by']})"
@@ -1410,7 +1465,7 @@ def phase_k7(dev, cases, field):
                                                  dfs=b_fg, binned=b_ab), rays=o.shape[0])
     ptxas = cluster_ptxas()
     ptxas = dict(k7d=ptxas["cluster_closest_kernel"], k7e=ptxas["cluster_any_kernel"],
-                 **binned_ptxas())
+                 **binned_ptxas(), **dfs_ptxas())
     rows = {}
     for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b"), ("k7f", "k3a"),
                     ("k7g", "k3b"), ("k7a", "k3a"), ("k7b", "k3b")):
@@ -1429,6 +1484,12 @@ def phase_k7(dev, cases, field):
                              box_per_ray_primary=p["bounds"][fam]["box_per_ray"],
                              woop_per_ray=r["bounds"][fam]["woop_per_ray"],
                              woop_per_ray_primary=p["bounds"][fam]["woop_per_ray"])
+            if fam == "dfs":
+                rows[key].update(ptxas=ptxas[key],
+                                 gated_per_ray=r["bounds"][fam]["gated_per_ray"],
+                                 gated_per_ray_primary=p["bounds"][fam]["gated_per_ray"],
+                                 bound_ms_block=r["bounds"][fam]["block"][key]["bound_ms"],
+                                 bound_ms_block_primary=p["bounds"][fam]["block"][key]["bound_ms"])
             if fam == "binned":
                 rows[key].update(visits_per_ray=r["bounds"][fam]["visits_per_ray"],
                                  visits_per_ray_primary=p["bounds"][fam]["visits_per_ray"],

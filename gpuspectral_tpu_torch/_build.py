@@ -56,8 +56,9 @@ _SIGNATURES = {
                             _P, _I, _P, _P, _P, _P, _P, _P],
     "gst_cluster_any": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P,
                         _P],
-    "gst_dfs_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
-    "gst_dfs_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
+    "gst_dfs_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                        _P, _P, _P],
+    "gst_dfs_any": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],
     "gst_binned_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "gst_binned_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     "gst_binned_count": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,

@@ -11,6 +11,8 @@ builders, so the port builds the same tables without importing JAX).
                     (csrc/bvh.cuh)
   build_bin_rows    the bins' boxes as the rows K7a / K7b vote on
                     (csrc/binned.cu)
+  check_leaf_clusters  what the cluster gates of K7d-g assume of the
+                    tables (csrc/dfs.cu, csrc/cluster.cu)
 """
 
 from __future__ import annotations
@@ -180,3 +182,23 @@ def build_pair_rows(node_min, node_max, n_clusters: int):
             rows[i, 8 * k + 4:8 * k + 7] = node_max[c[0]]
             codes[i, 3 + 4 * k] = code(c)
     return rows, EMPTY_ROOT if root is None else code(root)
+
+
+def check_leaf_clusters(woop, node_min, node_max, n_clusters: int, leaf_size: int, dfs_meta):
+    """Raise ValueError unless the tables meet what the kernels' cluster
+    gates assume (csrc/dfs.cu, csrc/cluster.cu): a preorder leaf starts on
+    a leaf cluster, and every Woop row that a gate never tests, a slot of a
+    cluster whose box is inverted (empty) or past the last cluster, is
+    zero, which no Woop test passes."""
+    woop = np.asarray(woop)
+    offs = np.asarray(dfs_meta)[1]
+    if (offs[offs >= 0] % leaf_size).any():
+        raise ValueError(f"a preorder leaf starts inside a {leaf_size}-slot cluster")
+    first_leaf = n_clusters - 1
+    empty = np.asarray(node_min)[first_leaf:, 0] > np.asarray(node_max)[first_leaf:, 0]
+    skipped = np.ones(woop.shape[0], bool)
+    n = min(woop.shape[0], n_clusters * leaf_size)
+    skipped[:n] = np.repeat(empty, leaf_size)[:n]
+    if (woop[skipped] != 0).any():
+        raise ValueError("a slot of an empty cluster (an inverted box) or past the last cluster "
+                         "holds a triangle")

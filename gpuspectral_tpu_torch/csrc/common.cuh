@@ -115,19 +115,13 @@ __device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d
 }
 
 // ------------------------------------------------ block-gated sweeps ---
-// Shared by the dfs kernels (csrc/dfs.cu) and the cluster votes (K7c,
-// csrc/cluster.cu): one thread per ray, one CTA per block of consecutive
-// rays.  K7d / K7e take load3 only; K7c and the bin votes of K7a / K7b
-// (binned.cu) the NaN-keeping slab test, K7h (traverse.cu) its min / max.
-
-// math3d.safe_div(1, dx): a component of the slab tests' inverse direction.
-__device__ __forceinline__ float inv_dir(float dx) {
-  const float mag = fmaxf(fabsf(dx), 1e-12f);
-  return 1.0f / (dx < 0.0f ? -mag : mag);
-}
+// The slab tests of the votes: K7c (csrc/cluster.cu), the bin votes of
+// K7a / K7b (binned.cu) and K7f / K7g's node votes (dfs.cu) take the
+// NaN-keeping slab test, K7h (traverse.cu) its min / max; K7d / K7e take
+// load3 only.
 
 // math3d.safe_div(1, dx) with torch's NaN rule: |dx| clamped to 1e-12 with
-// its sign, a NaN component kept NaN (inv_dir's fmaxf drops it, giving
+// its sign, a NaN component kept NaN (fmaxf would drop it, giving
 // 1e12).
 __device__ __forceinline__ float inv_dir_nan(float dx) {
   const float a = fabsf(dx);
@@ -171,34 +165,6 @@ __device__ __forceinline__ bool slab_nan(V3 bl, V3 bh, V3 o, V3 inv, float lo, f
 // last ray.
 __device__ __forceinline__ V3 load3(const float* p, int r, bool live, float fill) {
   return live ? V3{p[3 * r], p[3 * r + 1], p[3 * r + 2]} : V3{fill, fill, fill};
-}
-
-// The slab test of box i of a (6, stride) table (rows lo xyz, hi xyz) on
-// the segment [lo, hi], as the plain torch versions compute it: no
-// widening.
-__device__ __forceinline__ bool slab(const float* __restrict__ b, int stride, int i, V3 o, V3 inv,
-                                     float lo, float hi) {
-  const float t0x = (b[i] - o.x) * inv.x;
-  const float t1x = (b[3 * stride + i] - o.x) * inv.x;
-  const float t0y = (b[stride + i] - o.y) * inv.y;
-  const float t1y = (b[4 * stride + i] - o.y) * inv.y;
-  const float t0z = (b[2 * stride + i] - o.z) * inv.z;
-  const float t1z = (b[5 * stride + i] - o.z) * inv.z;
-  const float t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), lo));
-  const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), hi));
-  return t_far >= t_near;
-}
-
-// Stage slots [base, base + n) of the (12, n_slots) Woop table into the
-// kWidth columns of w (zeros past n) with the CTA's kThreads threads; the
-// caller puts a barrier before (the previous readers) and after.
-template <int kThreads, int kWidth>
-__device__ __forceinline__ void stage(float (*w)[kWidth], const float* __restrict__ woop_t,
-                                      int n_slots, int base, int n) {
-  for (int i = threadIdx.x; i < 12 * kWidth; i += kThreads) {
-    const int row = i / kWidth, c = i % kWidth;
-    w[row][c] = c < n ? woop_t[(size_t)row * n_slots + base + c] : 0.0f;
-  }
 }
 
 }  // namespace gst

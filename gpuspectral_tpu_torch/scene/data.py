@@ -435,10 +435,15 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
     Given `np.asarray` of each field of a gpuspectral_tpu SceneData and its
     static fields, it carries that scene across unchanged.  The child-pair
     rows of the BVH walk and the bin rows of K7a / K7b are built here
-    (bvh/tables.py:build_pair_rows, build_bin_rows)."""
-    from ..bvh.tables import build_bin_rows, build_pair_rows
+    (bvh/tables.py:build_pair_rows, build_bin_rows), and the tables
+    checked for what the cluster gates of K7d-g assume
+    (bvh/tables.py:check_leaf_clusters, ValueError otherwise)."""
+    from ..bvh.tables import build_bin_rows, build_pair_rows, check_leaf_clusters
 
     device = check_device(device)
+    check_leaf_clusters(arrays["tri_woop"], arrays["bvh_node_min"], arrays["bvh_node_max"],
+                        int(meta["bvh_clusters"]), int(meta["bvh_leaf_size"]),
+                        arrays["bvh_dfs_meta"])
     t = {k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
          for k in ARRAY_FIELDS}
     fields = {k: t[k] for k in ARRAY_FIELDS if not k.startswith("cam_")}

@@ -345,10 +345,9 @@ def test_k7fg_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F8
 @pytest.mark.parametrize("name", ["soup2048", "sphere_field"])
 def test_k7fg_with_nan_lanes(cuda_device, name):  # noqa: F811
     """K7f / K7g against the plain walk on rays with NaN origin and
-    direction components and inactive lanes.  Their block votes
-    (gst::slab, fminf / fmaxf) drop a NaN that the plain walk's keep, so a
-    NaN lane may make its block enter more nodes; the results must not
-    move."""
+    direction components and inactive lanes: their votes keep torch's NaN
+    rule (common.cuh:slab_nan), so a NaN lane votes for nothing, as in the
+    plain walk."""
     from chip_smoke import field_rays, soup_scene
 
     ts = soup_scene(2048, 7, cuda_device) if name == "soup2048" else _scene(name, cuda_device)
@@ -357,6 +356,49 @@ def test_k7fg_with_nan_lanes(cuda_device, name):  # noqa: F811
     for a, b in zip(got, ds.dfs_closest_ref(ts, o, d, t_max=hi)):
         assert torch.equal(a, b)
     assert torch.equal(ds.dfs_any(ts, o, d, lo, hi), ds.dfs_any_ref(ts, o, d, lo, hi))
+
+
+@pytest.mark.parametrize("name", ["soup_ties", "slot_field", "one_cluster", "nan_warp",
+                                  "inactive_warp", "padded_warp", "r1", "r31", "r33", "r257"])
+def test_k7fg_warp_walk_edge_cases(cuda_device, name, monkeypatch):  # noqa: F811
+    """K7f / K7g (a warp a block of 32 rays, each leaf cluster gated by the
+    lane's own widened slab test) bit for bit against the plain walk at
+    BLOCK, with NaN and inactive lanes: a soup of exact-t twins (every hit a
+    tie won by the lower slot), a slot-mode sphere field, a tree of one
+    cluster, a warp of NaN lanes only, an inactive warp, a launch whose
+    last warp is partly padding (4,100 rays) and 1, 31, 33 and 257 rays."""
+    from chip_smoke import field_rays, soup_scene, tied_hits
+
+    if name == "soup_ties":
+        ts = soup_scene(600, 5, cuda_device, ties=True)
+    elif name == "slot_field":
+        monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
+        ts = _scene("sphere_field", cuda_device)
+    elif name == "one_cluster":
+        ts = soup_scene(12, 3, cuda_device)
+        assert ts.bvh_dfs_meta.shape[1] == 1 and ts.bvh_clusters == 1
+    else:
+        ts = _scene("sphere_field", cuda_device)
+    n = dict(r1=1, r31=31, r33=33, r257=257, padded_warp=4100).get(name, 1 << 14)
+    o, d, lo, hi = odd_lanes(field_rays(n, ts, 16, cuda_device))
+    if name == "nan_warp":
+        o[64:96, 0] = float("nan")
+    if name == "inactive_warp":
+        hi[64:96] = -1e30
+    n0 = _k7fg_launches()
+    got = ds.dfs_closest(ts, o, d, t_max=hi)
+    occ = ds.dfs_any(ts, o, d, lo, hi)
+    assert _k7fg_launches() == (n0[0] + 1, n0[1] + 1)
+    ref = ds.dfs_closest_ref(ts, o, d, t_max=hi)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ds.dfs_any_ref(ts, o, d, lo, hi))
+    hits = int((ref[1] >= 0).sum())
+    assert n < 300 or hits > (20 if name == "one_cluster" else 300)
+    if name in ("nan_warp", "inactive_warp"):
+        assert not bool((got[1][64:96] >= 0).any()) and not bool(occ[64:96].any())
+    if name == "soup_ties":
+        assert tied_hits(ts, ref[1]) == hits
 
 
 def test_wavefront_on_k7fg_matches_plain_scans(cuda_device):  # noqa: F811

@@ -2,11 +2,15 @@
 closest hit, K7g any hit) against the JAX package's dfs kernels in
 interpret mode on Cornell, the zoo and the small textured sphere field; the
 differentiable closest hit against JAX dfs_sweep.closest_diff(kernel="dfs");
-the wavefront with bvh_kernel "dfs" against the JAX wavefront; and the
-walk's test counts against a walk of one block at a time.  Both packages
-get the same scene tables (scene_from_arrays of the JAX scene) and the
-same numpy rays.  The CUDA kernels against these plain versions:
-tests/test_torch_cuda.py.
+the wavefront with bvh_kernel "dfs" against the JAX wavefront; the
+block sweep's test counts against a walk of one block at a time; and the
+plain walk against JAX on NaN lanes.  Both packages get the same scene
+tables (scene_from_arrays of the JAX scene) and the same numpy rays.
+Then the premise of the kernels' design (csrc/dfs.cu): a walk of one warp
+at a time that gates each leaf cluster by the ray's own widened slab test,
+as K7f / K7g do, gives the plain walk's results bit for bit, and
+gated_tests counts its tests.  The CUDA kernels against these plain
+versions: tests/test_torch_cuda.py.
 """
 
 import jax
@@ -23,11 +27,13 @@ from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
 from gpuspectral_tpu_torch.bvh import dfs_sweep as ds
 from gpuspectral_tpu_torch.bvh import ftb
 from gpuspectral_tpu_torch.integrator import path_tracer as pt
+from gpuspectral_tpu_torch.ops import math3d as m3
 from gpuspectral_tpu_torch.ops import woop
 from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_sphere_field, populate_zoo
 from gpuspectral_tpu_torch.utils import RenderConfig
 
+from chip_smoke import odd_lanes, soup_scene
 from test_torch_bvh import SMALL_FIELD
 from torch_common import assert_mega_gates, jax_scene_arrays
 
@@ -250,8 +256,8 @@ def test_wavefront_dispatch_reaches_the_dfs_wrappers(pairs, monkeypatch):
 
 def _block_walk(ts, o, d, lo, hi, any_hit):
     """One block of rays walked node by node in plain Python: (box tests,
-    Woop tests, the closest hit's t or the occlusion flags), as
-    csrc/dfs.cu makes them."""
+    Woop tests, the closest hit's t or the occlusion flags), as the block
+    sweep makes them (every slot of an entered leaf for every ray)."""
     bounds, meta = ts.bvh_dfs_bounds, ts.bvh_dfs_meta
     n_nodes, n_slots = bounds.shape[1], ts.tri_woop.shape[0]
     n = o.shape[0]
@@ -297,10 +303,11 @@ def _block_walk(ts, o, d, lo, hi, any_hit):
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_dfs_tests_count_the_kernels_tests(pairs, any_hit):
-    """dfs_tests against a walk of one block of BLOCK rays at a time: a ray
-    slab-tests each node its block visits; at an entered leaf K7f tests
-    every slot for a ray with a segment, K7g each ray not yet occluded up
-    to its first occluder, and its block ends when all are occluded."""
+    """dfs_tests (the block sweep's count, one of the bound's two) against
+    a walk of one block of BLOCK rays at a time: a ray slab-tests each node
+    its block visits; at an entered leaf K7f tests every slot for a ray
+    with a segment, K7g each ray not yet occluded up to its first occluder,
+    and its block ends when all are occluded."""
     _, ts = pairs["sphere_field"]
     o, d, t_min, t_max = (_t(x) for x in _rays(ts, 2 * ds.BLOCK + 40, 8))
     if not any_hit:
@@ -316,3 +323,238 @@ def test_dfs_tests_count_the_kernels_tests(pairs, any_hit):
         assert torch.equal(boxes[s], ref[0]) and torch.equal(woops[s], ref[1])
         assert torch.equal(out[s] if any_hit else out[0][s], ref[2])
     assert int(woops.sum()) > 0 and int(boxes.min()) > 1
+
+
+GATED = ["cornell", "zoo", "slot_mode", "sphere_field", "soup_ties"]
+_WALKS = {}
+
+
+def _gated_scene(pairs, name):
+    """The port's scene: one of `pairs`, a 3000-triangle soup (a slot-mode
+    build) or a soup of exact-t twins."""
+    if name == "slot_mode":
+        ts = soup_scene(3000, 3, "cpu")
+        assert ts.tri_woop.shape[0] == ts.bvh_clusters * ts.bvh_leaf_size  # slot-padded
+        return ts
+    if name == "soup_ties":
+        return soup_scene(600, 5, "cpu", ties=True)
+    return pairs[name][1]
+
+
+def _warp_walk(ts, o, d, lo, hi, any_hit):
+    """csrc/dfs.cu's K7f (any_hit False, on (0, hi): lo 0) or K7g, one warp
+    of 32 rays at a time, op for op: the node vote of every lane's slab test
+    on [lo, horizon] (torch's NaN rule), ptr + 1 or the skip pointer; at an
+    entered leaf, for each of its clusters in order, each searching lane's
+    widened slab test on (0, best) (K7f) or (lo, hi) (K7g) where the box is
+    not inverted; where some lane enters a cluster, the Woop test of each
+    slot in order for the lanes that entered it, a strict `<` against best.
+    An any-hit lane stops at its first occluder, the warp once no lane is
+    left.  Returns ((t, prim, u, v, attrs) or occ, node tests, cluster
+    tests and Woop tests per ray, the node rows and slots some warp
+    reads)."""
+    r = o.shape[0]
+    bounds, meta = ts.bvh_dfs_bounds, ts.bvh_dfs_meta
+    n_nodes, n_slots, leaf = bounds.shape[1], ts.tri_woop.shape[0], ts.bvh_leaf_size
+    c_lo, c_hi, c_empty = cs.cluster_boxes(ts)
+    inv = m3.safe_div(torch.ones_like(d), d)  # common.cuh:inv_dir_nan
+    best, prim = hi.clone(), torch.full((r,), -1, dtype=torch.int32)
+    occ = torch.zeros((r,), dtype=torch.bool)
+    nodes, clusters, tests = (torch.zeros((r,), dtype=torch.int64) for _ in range(3))
+    node_rows = torch.zeros((n_nodes,), dtype=torch.bool)
+    slots = torch.zeros((n_slots,), dtype=torch.bool)
+    for w0 in range(0, r, ds.BLOCK):
+        w = slice(w0, min(w0 + ds.BLOCK, r))
+        wo, wd, wi, wl, wh = o[w], d[w], inv[w], lo[w], hi[w]
+        b, wp, wocc = best[w].clone(), prim[w].clone(), occ[w].clone()
+        go = wh > wl if any_hit else wh > 0
+        ptr = n_nodes if any_hit and not bool(go.any()) else 0
+        while ptr < n_nodes:
+            nodes[w] += 1
+            node_rows[ptr] = True
+            t0 = (bounds[0:3, ptr] - wo) * wi
+            t1 = (bounds[3:6, ptr] - wo) * wi
+            near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            t_near = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
+                                   torch.maximum(near[:, 2], wl))
+            t_far = torch.minimum(torch.minimum(far[:, 0], far[:, 1]),
+                                  torch.minimum(far[:, 2], b))
+            if not bool((t_far >= t_near).any()):
+                ptr = int(meta[0, ptr])
+                continue
+            off = int(meta[1, ptr])
+            ptr += 1
+            if off < 0:
+                continue
+            end = off + min(ds.SWEEP, n_slots - off)
+            for c in range(off // leaf, min(-(-end // leaf), c_lo.shape[0])):
+                if not bool(go.any()):
+                    break
+                if c_empty[c]:
+                    continue
+                clusters[w][go] += 1
+                seg_hi = wh if any_hit else b
+                cin = go & cs.slab_entered(c_lo[c], c_hi[c], wo, wi, wl, seg_hi)
+                for slot in range(c * leaf, min((c + 1) * leaf, end)):
+                    if not bool(cin.any()):
+                        break
+                    tests[w][cin] += 1
+                    slots[slot] = True
+                    t = woop._chunk_t(wo, wd, ts.tri_woop[slot:slot + 1], wl,
+                                      wh if any_hit else b)[:, 0]
+                    hit = cin & (t < 1e30)
+                    if any_hit:
+                        wocc, go, cin = wocc | hit, go & ~hit, cin & ~hit
+                        b = torch.where(hit, -1e30, b)
+                    else:
+                        b, wp = torch.where(hit, t, b), torch.where(hit, slot, wp)
+            if any_hit and not bool(go.any()):
+                break
+        best[w], prim[w], occ[w] = b, wp, wocc
+    counts = (nodes, clusters, tests, node_rows, slots)
+    if any_hit:
+        return (occ, *counts)
+    t = torch.where(prim >= 0, best, 1e30)
+    u, v = woop._recover_uv(o, d, ts.tri_woop, prim, torch.where(prim >= 0, best, 0.0))
+    u, v = torch.where(prim >= 0, u, 0.0), torch.where(prim >= 0, v, 0.0)
+    return ((t, prim, u, v, ftb._gather_attrs(ftb.attr_table(ts), prim)), *counts)
+
+
+def _gated_rays(ts, n, seed):
+    """n rays (not a whole number of warps) with NaN and inactive lanes
+    (chip_smoke.odd_lanes) on top of _rays' inactive tenth."""
+    return odd_lanes([_t(x) for x in _rays(ts, n, seed)])
+
+
+def _walks(pairs, name):
+    """(scene, rays, the warp walk's closest and any-hit outputs), once a
+    scene."""
+    if name not in _WALKS:
+        ts = _gated_scene(pairs, name)
+        o, d, lo, hi = rays = _gated_rays(ts, 300, 11)
+        _WALKS[name] = (ts, rays, _warp_walk(ts, o, d, torch.zeros_like(hi), hi, False),
+                        _warp_walk(ts, o, d, lo, hi, True))
+    return _WALKS[name]
+
+
+@pytest.mark.parametrize("name", GATED)
+def test_warp_walk_equals_the_plain_walk(pairs, name):
+    """The premise of K7f / K7g's cluster gate: a walk of one warp at a
+    time that Woop-tests only the leaf clusters each lane's own widened slab
+    test enters gives dfs_closest_ref / dfs_any_ref's t, prim, u, v, attrs
+    and occ bit for bit, with NaN and inactive lanes (on twins, every hit a
+    tie won by the lower slot)."""
+    from chip_smoke import tied_hits
+
+    ts, (o, d, lo, hi), closest, any_hit = _walks(pairs, name)
+    ref = ds.dfs_closest_ref(ts, o, d, t_max=hi)
+    for a, b in zip(closest[0], ref):
+        assert torch.equal(a, b)
+    occ_ref = ds.dfs_any_ref(ts, o, d, lo, hi)
+    assert torch.equal(any_hit[0], occ_ref)
+    hits = int((ref[1] >= 0).sum())
+    assert hits > 20 and 20 < int(occ_ref.sum()) < 280
+    if name == "soup_ties":
+        assert tied_hits(ts, ref[1]) == hits
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 64])
+def test_warp_walk_on_part_warps(pairs, n):
+    """The warp walk against the plain walk on 1, 31, 33 and 64 rays of the
+    sphere field (part warps), the last case with a warp of NaN lanes only
+    and a warp of inactive lanes only."""
+    ts = pairs["sphere_field"][1]
+    o, d, lo, hi = _gated_rays(ts, n, 12 + n)
+    if n == 64:
+        o[:32, 1], hi[32:] = float("nan"), -1e30
+    got = _warp_walk(ts, o, d, torch.zeros_like(hi), hi, False)[0]
+    for a, b in zip(got, ds.dfs_closest_ref(ts, o, d, t_max=hi)):
+        assert torch.equal(a, b)
+    occ = _warp_walk(ts, o, d, lo, hi, True)
+    assert torch.equal(occ[0], ds.dfs_any_ref(ts, o, d, lo, hi))
+    if n == 64:
+        assert not bool((got[1] >= 0).any()) and not bool(occ[0].any())
+        assert int(occ[1][32:].sum()) == 0  # a warp with nothing to search never walks
+
+
+@pytest.mark.parametrize("name", GATED)
+def test_gated_tests_count_the_warp_walk(pairs, name):
+    """gated_tests (the bound's count of the two-gate walk) equals the
+    node, cluster and Woop tests of the warp walk ray by ray, the node rows
+    and slots it reads, and its result; its node tests are dfs_tests' box
+    tests, and it never makes more Woop tests than the block sweep
+    (dfs_tests), on the scenes of many leaves far fewer."""
+    ts, (o, d, lo, hi), closest, any_hit = _walks(pairs, name)
+    zero = torch.zeros_like(hi)
+    for seg_lo, walk, hit in ((zero, closest, False), (lo, any_hit, True)):
+        g = ds.gated_tests(ts, o, d, seg_lo, hi, hit)
+        assert torch.equal(g.nodes, walk[1]) and torch.equal(g.clusters, walk[2])
+        assert torch.equal(g.woop, walk[3])
+        assert torch.equal(g.node_rows, walk[4]) and torch.equal(g.slots, walk[5])
+        if hit:
+            assert torch.equal(g.result, walk[0])
+        else:
+            assert torch.equal(g.result[0], walk[0][0]) and torch.equal(g.result[1], walk[0][1])
+        boxes, woops, _ = ds.dfs_tests(ts, o, d, seg_lo, hi, hit)
+        assert torch.equal(g.nodes, boxes) and bool((g.woop <= woops).all())
+        assert int(g.woop.sum()) > 0 and bool((g.woop[~(hi > seg_lo)] == 0).all())
+        if ts.bvh_dfs_meta.shape[1] > 8:
+            assert int(g.woop.sum()) * 4 < int(woops.sum())
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_plain_walk_matches_jax_on_nan_lanes(pairs, name):
+    """The node vote keeps torch's NaN rule, as JAX's kernels do
+    (jnp.maximum keeps a NaN): on rays with NaN origin and direction
+    components, zero direction components and inactive lanes
+    (chip_smoke.odd_lanes), the plain walk at JAX's block size equals JAX
+    dfs_closest / dfs_any in interpret mode: t and occ bit for bit on every
+    lane, NaN lanes included (t 1e30, never occluded), prim under the tie
+    rule of test_plain_closest_matches_jax."""
+    js, ts = pairs[name]
+    o, d, lo, hi = (x.numpy() for x in odd_lanes([_t(x) for x in _rays(js, 900, 21)]))
+    nan = np.isnan(o).any(1) | np.isnan(d).any(1)
+    assert nan.sum() > 10
+    t_j, prim_j = (np.asarray(x) for x in jdfs.dfs_closest(
+        js, jnp.asarray(o), jnp.asarray(d), t_max=jnp.asarray(hi), interpret=True)[:2])
+    t, prim = (x.numpy() for x in ds.dfs_closest_ref(
+        ts, _t(o), _t(d), t_max=_t(hi), block=_jax_block(js, jdfs.fused_attr_rows(js)))[:2])
+    np.testing.assert_array_equal(t, t_j)
+    np.testing.assert_array_equal(prim >= 0, prim_j >= 0)
+    assert np.mean(prim != prim_j) < 0.01 and (prim_j >= 0).sum() > 100
+    assert (t[nan] == 1e30).all() and (prim[nan] == -1).all()
+    occ_j = np.asarray(jdfs.dfs_any(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(lo),
+                                    jnp.asarray(hi), interpret=True))
+    occ = ds.dfs_any_ref(ts, _t(o), _t(d), _t(lo), _t(hi), block=_jax_block(js, 0)).numpy()
+    np.testing.assert_array_equal(occ, occ_j)
+    assert 50 < occ.sum() and not occ[nan].any()
+
+
+def test_leaf_clusters_checks_what_the_gate_needs(pairs):
+    """The tables the gate skips by: leaf_clusters passes the built scenes
+    and raises ValueError on leaves of 128 slots that are no whole number
+    of clusters and on Woop rows off a 16-byte boundary; scene_from_arrays
+    raises where the gate would skip a hit: a triangle in a slot of an
+    empty cluster or a leaf that starts inside a cluster."""
+    from gpuspectral_tpu_torch.scene.data import scene_to_arrays
+
+    ts = pairs["sphere_field"][1]
+    lo, hi, rows = ds.leaf_clusters(ts)
+    assert lo.shape == (ts.bvh_clusters, 3) and rows is ts.tri_woop
+    ds.leaf_clusters(soup_scene(3000, 3, "cpu"))
+    off_rows = torch.zeros(ts.tri_woop.numel() + 1)[1:].view(ts.tri_woop.shape)
+    off_rows.copy_(ts.tri_woop)
+    for bad in (ts.replace(bvh_leaf_size=48), ts.replace(tri_woop=off_rows)):
+        with pytest.raises(ValueError):
+            ds.leaf_clusters(bad)
+    arrays, meta = scene_to_arrays(ts)
+    empty = np.nonzero(cs.cluster_boxes(ts)[2].numpy())[0]
+    assert empty.size > 0
+    w = np.array(arrays["tri_woop"], copy=True)
+    w[int(empty[0]) * ts.bvh_leaf_size] = 1.0
+    dfs_meta = np.array(arrays["bvh_dfs_meta"], copy=True)
+    dfs_meta[1, np.nonzero(dfs_meta[1] > 0)[0][0]] += 1
+    scene_from_arrays(arrays, meta, "cpu")
+    for key, value in (("tri_woop", w), ("bvh_dfs_meta", dfs_meta)):
+        with pytest.raises(ValueError):
+            scene_from_arrays(dict(arrays, **{key: value}), meta, "cpu")

@@ -1,6 +1,6 @@
 """What the port's kernel-variant tools share (tools/torch_cluster_variants.py,
-torch_binned_variants.py, torch_mega_bvh_variants.py,
-torch_traverse_variants.py, torch_dfs_block.py):
+torch_binned_variants.py, torch_dfs_variants.py, torch_mega_bvh_variants.py,
+torch_mega_variants.py, torch_traverse_variants.py, torch_dfs_block.py):
 chip_smoke.py loaded from this checkout, the card's name and power limit,
 copies of csrc/ sources with their constants set per variant, built with the
 flags of gpuspectral_tpu_torch/_build.py and loaded with ctypes, and the
