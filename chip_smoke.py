@@ -45,7 +45,8 @@ Phases:
         times the frame's rays; K1 / K5's registers and spills (brute_ptxas:
         neither may spill); the wavefront dispatch at 512x512, 1 spp, power
         light pick, with K2's launch counts from that run alone; K2 vs
-        closest_ref / any_ref on 1M rays
+        closest_ref / any_ref on 1M rays, timed on them and on 65,536 of
+        them (the wavefront's launch size)
   k3    ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref on 65,536
         random rays over the sphere field, Cornell, the zoo, a
         2048-triangle soup, a slot-mode build, a morton build of a soup and
@@ -78,15 +79,19 @@ Phases:
   k7    cluster_votes / cluster_closest / cluster_any, dfs_closest /
         dfs_any and binned_closest / binned_any vs their plain versions on
         the scenes of k3 (65,536 random rays each; K7c's votes, K7f /
-        K7g and K7a / K7b also with NaN and inactive lanes mixed in):
-        votes, t, prim, u, v, attrs and occ equal, ties included; K7a-g
-        timed on the sphere field on 65,536 random rays and on the 262,144
-        primary rays of the 512x512 frame, beside K3a / K3b; the plain
-        versions once on the random rays; K7d / K7e's supernodes swept a
-        warp, the tests per ray of the block sweeps, of the two-gate sweep,
-        of K7f / K7g's two-gate walk and of K7a / K7b's walk (the counting
-        walks' results held equal to the kernels'), and K7a-g's registers
-        and spills logged (no spill in K7f / K7g)
+        K7g and K7a / K7b also with NaN and inactive lanes mixed in, K7c's
+        also on a batch where ~5% of the lanes are live, scattered, as in
+        the wavefront's late bounces): votes, t, prim, u, v, attrs and occ
+        equal, ties included; K7a-g timed on the sphere field on 65,536
+        random rays and on the 262,144 primary rays of the 512x512 frame,
+        beside K3a / K3b, K7c also on the sparse batch; the plain versions
+        once on the random rays; K7c's bundle and exact tests and skipped
+        warps (its schedule's count's votes held equal to K7c's), K7d /
+        K7e's supernodes swept a warp, the tests per ray of the block
+        sweeps, of the two-gate sweep, of K7f / K7g's two-gate walk and of
+        K7a / K7b's walk (the counting walks' results held equal to the
+        kernels'), and K7a-g's registers and spills logged (no spill in
+        K7c or K7f / K7g)
   cluster_main  the sphere field at 512x512, 1 spp, d50 through
         run_benchmark with intersector "pallas" and bvh_kernel "cluster":
         K7c launched once for each K7d and K7e launch, nothing else; its
@@ -158,9 +163,13 @@ two walks, each run with counters on the ray: the preorder walk with skip
 pointers (ftb.ftb_walk_tests, csrc/bvh.cuh's counting walk, the
 reference) and the child-pair walk that K3, K4 and K6 take
 (ftb.walk_tests).  Both walks' tests per ray are logged.  K2 and K3 are
-tallied on the timed call's own rays.  K7c's tests are counted as it makes
-them (cluster_sweep.vote_tests): it slab-tests a (block of 256 rays,
-supernode) pair's rays up to the first that passes.  K7d / K7e's are, ray
+tallied on the timed call's own rays.  K7c's are, pair by pair (a block of
+256 rays, a supernode), the fewer operations of two schedules of the same
+votes: the block's rays tested in turn up to the first that passes
+(cluster_sweep.vote_tests, SLAB_FLOPS each) and the one K7c makes
+(cluster_sweep.bundle_vote_tests: BUNDLE_FLOPS for each warp with a live
+ray, and SLAB_FLOPS for each live ray of a warp whose bundle the supernode
+survives); that count's votes are held equal to K7c's.  K7d / K7e's are, ray
 by ray, the fewer operations of two sweeps of the same function: the block
 sweep (cluster_sweep.sweep_tests: each ray with a non-empty segment
 Woop-tests every slot of the supernodes its block voted for, K7e only up
@@ -207,7 +216,11 @@ tests (GatedTests.slots) and K7d's attribute rows of the triangles hit;
 of K7a / K7b's, the pair rows, the bin rows and the Woop rows of the
 clusters their walk tests (WalkTests.clusters).
 The timed calls are given the scene tables the wavefront builds once per
-render (K7c-e's supernode tables, the closest hits' attribute rows).
+render (K7c-e's supernode tables, the closest hits' attribute rows).  Times
+are CUDA events around repeated calls (cuda_ms), but K7c's and K2's on
+65,536 rays are device_ms: the calls queued behind a sleeping kernel, so
+that a wrapper's host time (~0.1 ms a call, more than those kernels take)
+is not counted as the kernel's.
 No single PyTorch call computes ray-triangle intersection, a path-traced
 pixel, a supernode vote, a gated sweep, a gated walk, a binned
 vote-filtered walk or a BVH traversal, so library_ms is null for every
@@ -270,6 +283,12 @@ MT_FLOPS = 46  # one Moller-Trumbore test (csrc/traverse.cu:mt_test)
 # csrc/bvh.cuh:slab_entered): 6 subtractions, 6 products; bvh.cuh's widening
 # by kSlabMargin keeps its culls conservative and is not work the function needs
 SLAB_FLOPS = 12
+# device_ms: the card's sleep ahead of the timed calls, per call (~0.5 ms at
+# the H100's 1.98 GHz, several times a wrapper's host time)
+SLEEP_CYCLES_PER_CALL = 1_000_000
+# one bundle test of K7c (csrc/cluster_votes.cuh:bundle_culls): per axis 4
+# subtractions and 8 products
+BUNDLE_FLOPS = 36
 # one shaded vertex (BSDF sample and eval, light sample, MIS, throughput):
 # an estimate, not a count; it is under 15% of any fused kernel's operations
 SHADE_FLOPS = 200
@@ -297,6 +316,28 @@ def cuda_ms(fn, reps: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call of the device work fn queues, without the
+    host's time to queue it: after a warmup the calls are queued behind a
+    kernel that holds the stream (torch.cuda._sleep), so the card runs them
+    back to back between the events.  Raises if the queue ran dry before the
+    last call was queued."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = not start.query()  # the stream still sleeping: every call queued in time
+    torch.cuda.synchronize()
+    if not queued:
+        raise AssertionError("device_ms: the card reached the timed calls before they were queued")
     return start.elapsed_time(end) / reps
 
 
@@ -693,6 +734,12 @@ def phase_main(dev):
     log(f"  K2 closest {k2a_ms:.3f} ms vs closest_ref {k2a_ref:.3f} ms; "
         f"any {k2b_ms:.3f} ms vs any_ref {k2b_ref:.3f} ms "
         f"({rays[0].shape[0]} rays, {scene.num_tris} tris)")
+    # the wavefront launches K2 on at most ray_batch = 65,536 rays
+    sub = [x[:K2_RAYS["parity"]] for x in rays]
+    k2_small = dict(k2a=device_ms(lambda: ci.closest_cuda(*sub[:2], woop_t, *sub[2:])),
+                    k2b=device_ms(lambda: ci.any_cuda(*sub[:2], woop_t, *sub[2:])))
+    log(f"  K2 on {sub[0].shape[0]} of those rays: closest {k2_small['k2a']:.3f} ms, "
+        f"any {k2_small['k2b']:.3f} ms")
     head = f"headline run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
     wave = f"wavefront dispatch ({hs}x{hs}, 1 spp, d{depth}, power light pick)"
     n = rays[0].shape[0]
@@ -720,9 +767,9 @@ def phase_main(dev):
                 share_of_frame=k1_head_ms / frame_ms, mrays_per_s=result["mrays_per_s"],
                 ptxas=brute_ptxas()),
         k2a=dict(launches=wave_launches["k2a"], launched_by=wave, max_abs_err=k2_err[0],
-                 ms=k2a_ms, plain_ms=k2a_ref, **k2a_bound),
+                 ms=k2a_ms, plain_ms=k2a_ref, ms_65536_rays=k2_small["k2a"], **k2a_bound),
         k2b=dict(launches=wave_launches["k2b"], launched_by=wave, max_abs_err=k2_err[1],
-                 ms=k2b_ms, plain_ms=k2b_ref, **k2b_bound),
+                 ms=k2b_ms, plain_ms=k2b_ref, ms_65536_rays=k2_small["k2b"], **k2b_bound),
     )
 
 
@@ -1089,11 +1136,38 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def votes_bound(scene, rays, votes, sn):
+    """bound() of K7c for one call over `rays` (o, d and the segment [lo, hi]
+    it votes on) that gave `votes`, and its counts.  Its operations are, pair
+    by pair (block, supernode), the fewer of two counts of the same votes:
+    the block's rays up to the first that passes (cluster_sweep.vote_tests)
+    and K7c's schedule (cluster_sweep.bundle_vote_tests: a bundle test a warp
+    with a live ray, a slab test a live ray of a warp whose bundle the
+    supernode survives), whose votes must equal `votes`.  Bytes: the rays,
+    the boxes and the votes."""
+    from gpuspectral_tpu_torch.bvh import cluster_sweep as cs
+
+    o, d, lo, hi = rays
+    vt = cs.vote_tests(scene, o, d, lo, hi, supernodes=sn)
+    bt = cs.bundle_vote_tests(scene, o, d, lo, hi, supernodes=sn)
+    if not torch.equal(bt.votes, votes):
+        raise AssertionError(f"bundle_vote_tests' votes disagree with K7c's on "
+                             f"{int((bt.votes != votes).sum())} pairs")
+    ops = torch.minimum(vt * SLAB_FLOPS, bt.bundle * BUNDLE_FLOPS + bt.exact * SLAB_FLOPS)
+    n = o.shape[0]
+    return dict(bound(float(ops.double().sum()),
+                      n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s], votes)),
+                box_per_ray=float(vt.double().sum()) / n,
+                bundle_per_block=float(bt.bundle.double().sum(1).mean()),
+                exact_per_ray=float(bt.exact.double().sum()) / n,
+                skipped_warps_per_block=float(bt.skipped.double().mean()),
+                live_rays=int(cs.live_rays(o, cs.inv_dir_nan(d), lo, hi).sum()))
+
+
 def cluster_bounds(scene, rays, votes, votes_any, occ, prim):
-    """bound() of K7c (on the closest rays' segments), K7d and K7e for one call
-    each over `rays` with these votes (`occ` K7e's, `prim` K7d's).  K7c's
-    tests are counted as it makes them (cluster_sweep.vote_tests: a (block,
-    supernode) pair's rays up to the first that passes).  K7d / K7e's
+    """bound() of K7c (votes_bound, on the closest rays' segments), K7d and
+    K7e for one call each over `rays` with these votes (`occ` K7e's, `prim`
+    K7d's).  K7d / K7e's
     operations are, ray by ray, the fewer of two counts of the same function:
     the block sweep's (cluster_sweep.sweep_tests: every voted slot for a ray
     with a non-empty segment, K7e up to the ray's first occluder) and the
@@ -1111,7 +1185,7 @@ def cluster_bounds(scene, rays, votes, votes_any, occ, prim):
     o, d, lo, hi = rays
     zero = torch.zeros_like(hi)
     sn = cs.scene_supernodes(scene)
-    box = float(cs.vote_tests(scene, o, d, zero, hi, supernodes=sn).double().sum())
+    k7c = votes_bound(scene, (o, d, zero, hi), votes, sn)
     sums, ops, rows = {}, {}, {}
     for key, seg_lo, v, any_hit in (("closest", zero, votes, False),
                                     ("any", lo, votes_any, True)):
@@ -1133,14 +1207,14 @@ def cluster_bounds(scene, rays, votes, votes_any, occ, prim):
     a = ftb.attr_table(scene).shape[1]
     hit_rows = int(torch.unique(prim[prim >= 0]).numel())
     return dict(
-        k7c=bound(box * SLAB_FLOPS, n * 32 + nbytes(sn.blo[:, :sn.s], sn.bhi[:, :sn.s]) + vb),
+        k7c=k7c,
         k7d=bound(ops["closest"], n * (28 + 16 + 4 * a) + vb + rows["closest"]
                   + 4 * a * hit_rows),
         k7e=bound(ops["any"], n * (32 + 1) + vb + rows["any"]),
         votes_per_block=dict(closest=float(votes.double().sum(1).mean()),
                              any=float(votes_any.double().sum(1).mean())),
         supernodes_per_warp={k: v["warp"] for k, v in sums.items()},
-        box_per_ray=box / n, woop_per_ray={k: v["sweep"] / n for k, v in sums.items()},
+        box_per_ray=k7c["box_per_ray"], woop_per_ray={k: v["sweep"] / n for k, v in sums.items()},
         gated_per_ray={k: dict(slab=v["slab"] / n, woop=v["woop"] / n) for k, v in sums.items()})
 
 
@@ -1190,7 +1264,8 @@ def dfs_ptxas():
 
 def check_k7(name, scene, rays):
     """K7c / K7d / K7e against their plain versions on `rays`: votes equal
-    (also on odd_lanes(rays), where a NaN lane votes for nothing), t, prim,
+    (also on odd_lanes(rays), where a NaN lane votes for nothing, and on
+    sparse_lanes(rays), ~5% of the lanes live), t, prim,
     u, v, attrs and occ equal.  Returns (the max abs errors, the
     kernels' votes for the closest and the any-hit segments, the plain
     versions' ms)."""
@@ -1206,10 +1281,13 @@ def check_k7(name, scene, rays):
     vr, c_ms = timed_once(lambda: cs.cluster_votes_ref(scene, o, d, zero, hi, supernodes=sn))
     vr_any = cs.cluster_votes_ref(scene, o, d, lo, hi, supernodes=sn)
     # F17: lanes with a NaN origin or direction component vote for nothing
-    odd = odd_lanes(rays)
-    odd_bad = sum(int((cs.cluster_votes(scene, *odd[:2], seg, odd[3], supernodes=sn)
-                       != cs.cluster_votes_ref(scene, *odd[:2], seg, odd[3], supernodes=sn)).sum())
-                  for seg in (zero, odd[2]))
+    def votes_bad(rs):
+        return sum(int((cs.cluster_votes(scene, *rs[:2], seg, rs[3], supernodes=sn)
+                        != cs.cluster_votes_ref(scene, *rs[:2], seg, rs[3], supernodes=sn)).sum())
+                   for seg in (zero, rs[2]))
+
+    odd_bad = votes_bad(odd_lanes(rays))
+    sparse_bad = votes_bad(sparse_lanes(rays))
     ref, d_ms = timed_once(lambda: cs.cluster_closest_ref(scene, o, d, t_max=hi, votes=vr,
                                                           supernodes=sn))
     occ_r, e_ms = timed_once(lambda: cs.cluster_any_ref(scene, o, d, lo, hi, votes=vr_any,
@@ -1219,6 +1297,7 @@ def check_k7(name, scene, rays):
         ("prim", got[1], ref[1]), ("u", got[2], ref[2]), ("v", got[3], ref[3]),
         ("attrs", got[4], ref[4]), ("occ", occ, occ_r))}
     bad["votes_odd_lanes"] = odd_bad
+    bad["votes_sparse_lanes"] = sparse_bad
     hit = ref[1] >= 0
     log(f"  K7 {name}: rays={o.shape[0]} supernodes={votes.shape[1]} "
         f"votes per block {float(votes.double().sum(1).mean()):.1f} (any "
@@ -1426,7 +1505,7 @@ def phase_k7(dev, cases, field):
         occ = cs.cluster_any(field, o, d, lo, hi, votes=votes_any, supernodes=sn)
         prim = cs.cluster_closest(field, o, d, t_max=hi, votes=votes, supernodes=sn)[1]
         times = dict(
-            k7c=cuda_ms(lambda: cs.cluster_votes(field, o, d, zero, hi, supernodes=sn), reps=5),
+            k7c=device_ms(lambda: cs.cluster_votes(field, o, d, zero, hi, supernodes=sn)),
             k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, attr=attr, votes=votes,
                                                    supernodes=sn), reps=2),
             k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any,
@@ -1463,9 +1542,27 @@ def phase_k7(dev, cases, field):
         out[tag] = dict(times=times, bounds=dict(b, **{k: b_fg[k] for k in ("k7f", "k7g")},
                                                  **{k: b_ab[k] for k in ("k7a", "k7b")},
                                                  dfs=b_fg, binned=b_ab), rays=o.shape[0])
+    # K7c on a batch of the random rays with ~5% of the lanes live, scattered
+    o, d, lo, hi = sparse_lanes(field_rays(K3_RAYS["parity"], field, 20, dev))
+    zero = torch.zeros_like(hi)
+    votes = cs.cluster_votes(field, o, d, zero, hi, supernodes=sn)
+    if not torch.equal(votes, cs.cluster_votes_ref(field, o, d, zero, hi, supernodes=sn)):
+        raise AssertionError("K7c disagrees with its plain version on the sparse batch")
+    sparse = dict(ms=device_ms(lambda: cs.cluster_votes(field, o, d, zero, hi, supernodes=sn)),
+                  **votes_bound(field, (o, d, zero, hi), votes, sn))
+    log(f"  sphere field, {o.shape[0]} random rays, {sparse['live_rays']} of them live: "
+        f"k7c {sparse['ms']:.3f} ms, bound {sparse['bound_ms']:.4f} ms ({sparse['bound_by']})")
+    for tag, b in (("random", out["random"]["bounds"]["k7c"]),
+                   ("primary", out["primary"]["bounds"]["k7c"]), ("sparse", sparse)):
+        log(f"  K7c on the {tag} rays: per block {b['bundle_per_block']:.1f} bundle tests "
+            f"(a live warp's, a supernode each), {b['skipped_warps_per_block']:.2f} warps "
+            f"skipped; {b['exact_per_ray']:.2f} exact slab tests per ray against "
+            f"{b['box_per_ray']:.2f} of the block's rays tested in turn")
     ptxas = cluster_ptxas()
-    ptxas = dict(k7d=ptxas["cluster_closest_kernel"], k7e=ptxas["cluster_any_kernel"],
-                 **binned_ptxas(), **dfs_ptxas())
+    if " 0 bytes spill stores, 0 bytes spill loads" not in ptxas["cluster_votes_kernel"]:
+        raise AssertionError(f"K7c spills: {ptxas['cluster_votes_kernel']}")
+    ptxas = dict(k7c=ptxas["cluster_votes_kernel"], k7d=ptxas["cluster_closest_kernel"],
+                 k7e=ptxas["cluster_any_kernel"], **binned_ptxas(), **dfs_ptxas())
     rows = {}
     for key, k3 in (("k7c", None), ("k7d", "k3a"), ("k7e", "k3b"), ("k7f", "k3a"),
                     ("k7g", "k3b"), ("k7a", "k3a"), ("k7b", "k3b")):
@@ -1475,8 +1572,13 @@ def phase_k7(dev, cases, field):
                          bound_ms_primary=p["bounds"][key]["bound_ms"],
                          primary_rays=p["rays"])
         if key == "k7c":
-            rows[key].update(box_per_ray=r["bounds"]["box_per_ray"],
-                             box_per_ray_primary=p["bounds"]["box_per_ray"])
+            rows[key].update(ptxas=ptxas[key], ms_sparse=sparse["ms"],
+                             bound_ms_sparse=sparse["bound_ms"], live_rays_sparse=sparse["live_rays"],
+                             **{f"{k}{t}": b[k] for t, b in (("", r["bounds"]["k7c"]),
+                                                             ("_primary", p["bounds"]["k7c"]),
+                                                             ("_sparse", sparse))
+                                for k in ("box_per_ray", "bundle_per_block", "exact_per_ray",
+                                          "skipped_warps_per_block")})
         if key in ("k7f", "k7g", "k7a", "k7b"):
             fam = "dfs" if key in ("k7f", "k7g") else "binned"
             rows[key].update(k3_ms=r["times"][k3], k3_ms_primary=p["times"][k3],
@@ -1514,6 +1616,15 @@ def odd_lanes(rays, seed=4):
     o[(k >= 0.02) & (k < 0.04), 0] = float("nan")
     d[(k >= 0.04) & (k < 0.06), 2] = 0.0
     hi[(k >= 0.06) & (k < 0.15)] = -1e30
+    return o, d, lo, hi
+
+
+def sparse_lanes(rays, share=0.05, seed=6):
+    """The rays with all but about `share` of the lanes inactive (t_max =
+    -1e30), the live ones scattered, as in the wavefront's late bounces."""
+    o, d, lo, hi = (x.clone() for x in rays)
+    k = torch.as_tensor(np.random.default_rng(seed).uniform(size=o.shape[0]), device=o.device)
+    hi[k >= share] = -1e30
     return o, d, lo, hi
 
 

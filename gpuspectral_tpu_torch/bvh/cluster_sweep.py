@@ -19,7 +19,10 @@ Rays go in blocks of BLOCK = 256 consecutive rays:
 On the card K7d / K7e sweep a warp of 32 rays at a time and skip, for each
 ray, the voted supernodes and leaf clusters whose box its own widened slab
 test (`slab_entered`) does not enter: no slot inside holds a hit the ray
-would take, so the result is the same (csrc/cluster.cu, header).
+would take, so the result is the same (csrc/cluster.cu, header).  K7c
+tests a warp's live rays as one bundle (`bundle_culls`) before their own
+slab tests, which the bundle's interval arithmetic never wrongly culls, so
+its votes are the plain ones (`bundle_vote_tests` models its schedule).
 
 The result is not always the exact closest hit: a hit in a supernode that
 no ray of the block voted for (a slab test that rounds the other way at a
@@ -38,8 +41,10 @@ they run the plain versions.  `cluster_closest` and `cluster_any` launch
 K7c first unless given the votes.  Every wrapper takes the scene's
 supernode tables (`scene_supernodes`) as `supernodes=`: the wavefront
 builds them once per render, not at each call.  `vote_tests` counts the
-tests K7c makes, `sweep_tests` those of the block sweep (every slot of the
-voted supernodes) and `gated_tests` those K7d / K7e make, for their bounds.
+tests of a block's rays against a supernode up to the first that passes,
+`bundle_vote_tests` the bundle and slab tests K7c makes, `sweep_tests`
+those of the block sweep (every slot of the voted supernodes) and
+`gated_tests` those K7d / K7e make, for their bounds.
 K7d / K7e read the scene's (T, 12) Woop rows with 128-bit loads: the
 wrappers raise ValueError unless `scene.tri_woop` is contiguous float32 on
 a 16-byte boundary (_build.check_aligned).
@@ -148,9 +153,7 @@ def _slab_blocks(sn: Supernodes, origin, direction, t_min, t_max):
     for r0 in range(0, r, _VOTE_RAYS):
         r1 = min(r, r0 + _VOTE_RAYS)
         o = origin[r0:r1, :, None]
-        d = direction[r0:r1]
-        # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
-        di = m3.safe_div(torch.ones_like(d), d)[:, :, None]
+        di = inv_dir_nan(direction[r0:r1])[:, :, None]
         t0 = (lo[None] - o) * di  # (rays, 3, S)
         t1 = (hi[None] - o) * di
         near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
@@ -358,10 +361,12 @@ def cluster_closest_diff(scene, origin, direction, active=None, attr=None, super
 
 
 def vote_tests(scene, origin, direction, t_min, t_max, supernodes=None):
-    """(ceil(R / BLOCK), S) int64: the slab tests K7c makes for each (ray
-    block, supernode), its rays up to and including the first that passes,
-    or all BLOCK of them (padding rays too) when none does.  It measures the
-    kernel's work; nothing renders with it."""
+    """(ceil(R / BLOCK), S) int64: for each (ray block, supernode) the slab
+    tests of the block's rays in order up to and including the first that
+    passes, or all BLOCK of them (padding rays too) when none does: the work
+    of a thread a supernode testing the block's rays until one passes (the
+    bound's other count beside bundle_vote_tests).  Nothing renders with
+    it."""
     sn = _sn(scene, supernodes)
     tests = torch.zeros((-(-origin.shape[0] // BLOCK), sn.s), dtype=torch.int64,
                         device=origin.device)
@@ -369,6 +374,137 @@ def vote_tests(scene, origin, direction, t_min, t_max, supernodes=None):
         first = hit.to(torch.int32).argmax(1) + 1
         tests[b0:b0 + hit.shape[0]] = torch.where(hit.any(1), first, BLOCK)
     return tests
+
+
+WARP = 32  # rays a warp of K7c; BLOCK // WARP warps a block
+DIRECT = 8  # csrc/cluster.cu:kDirect: a warp of at most DIRECT live rays makes no bundle test
+# warps of bundle_culls at a time (a (warps, 8, S) intermediate per axis)
+_BUNDLE_WARPS = 256
+
+
+class Bundles(NamedTuple):
+    """csrc/cluster_votes.cuh:Bundle of each warp of 32 rays: per axis the
+    least and greatest origin and inverse direction ((W, 3) each) of its
+    live rays, their least t_min and greatest t_max ((W,) each); +inf /
+    -inf where a warp has no live ray."""
+    omin: torch.Tensor
+    omax: torch.Tensor
+    imin: torch.Tensor
+    imax: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def inv_dir_nan(direction):
+    """csrc/common.cuh:inv_dir_nan of each component, the plain votes' inverse
+    direction: 1 / d with |d| clamped to 1e-12, a NaN kept."""
+    # a tensor numerator: `1.0 / t` is a reciprocal then a multiply in torch
+    return m3.safe_div(torch.ones_like(direction), direction)
+
+
+def live_rays(origin, inv, t_min, t_max):
+    """(R,) bool, csrc/cluster_votes.cuh:live_ray: no NaN in the ray's origin,
+    inverse direction or segment, and t_max >= t_min.  The slab test fails
+    for every other ray."""
+    return ((t_max >= t_min) & ~torch.isnan(origin).any(1) & ~torch.isnan(inv).any(1))
+
+
+def warp_bundles(origin, inv, t_min, t_max, live) -> Bundles:
+    """The Bundles of the rays' warps of 32 (the last one padded with rays
+    that are not live)."""
+    pad = -origin.shape[0] % WARP
+
+    def warps(x, fill):
+        x = torch.where(live.reshape(-1, *[1] * (x.dim() - 1)), x, fill)
+        x = torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)]) if pad else x
+        return x.reshape(-1, WARP, *x.shape[1:])
+
+    inf = float("inf")
+    return Bundles(warps(origin, inf).amin(1), warps(origin, -inf).amax(1),
+                   warps(inv, inf).amin(1), warps(inv, -inf).amax(1),
+                   warps(t_min, inf).amin(1), warps(t_max, -inf).amax(1))
+
+
+def bundle_culls(lo_box, hi_box, b: Bundles):
+    """(W, S) bool, csrc/cluster_votes.cuh:bundle_culls op for op: whether
+    no live ray of warp w can pass the slab test of box s ((3, S) corners):
+    per axis the least and greatest of the eight rounded products (c - o) *
+    inv over the box's planes c, the bundle's extreme origins o and inverse
+    directions inv, a NaN kept."""
+    near, far = [], []
+    for a in range(3):
+        o = torch.stack([b.omax[:, a], b.omin[:, a]])[:, :, None]  # (2, W, 1)
+        d = torch.cat([lo_box[a][None, None] - o, hi_box[a][None, None] - o])  # (4, W, S)
+        p = torch.cat([d * b.imin[None, :, a, None], d * b.imax[None, :, a, None]])
+        near.append(p[0])
+        far.append(p[0])
+        for q in p[1:]:  # torch.minimum / maximum keep a NaN
+            near[-1] = torch.minimum(near[-1], q)
+            far[-1] = torch.maximum(far[-1], q)
+    t_near = torch.maximum(torch.maximum(near[0], near[1]),
+                           torch.maximum(near[2], b.lo[:, None]))
+    t_far = torch.minimum(torch.minimum(far[0], far[1]), torch.minimum(far[2], b.hi[:, None]))
+    return t_far < t_near
+
+
+class BundleTests(NamedTuple):
+    """bundle_vote_tests' counts: per (block, supernode) the bundle tests and
+    the exact slab tests K7c makes and the votes they give; per block the
+    warps it skips."""
+    bundle: torch.Tensor
+    exact: torch.Tensor
+    votes: torch.Tensor
+    skipped: torch.Tensor
+
+
+def bundle_vote_tests(scene, origin, direction, t_min, t_max, supernodes=None) -> BundleTests:
+    """BundleTests ((ceil(R / BLOCK), S) int64 bundle tests, int64 exact
+    slab tests, int32 votes; (ceil(R / BLOCK),) int64 warps skipped): K7c's
+    schedule (csrc/cluster.cu, header) in torch.  A warp of 32 rays with no
+    live ray (live_rays; padding rays past the last are not) makes no test.
+    A warp of k live rays takes the supernodes 32 at a time (a step); where
+    k > DIRECT and its inverse directions do not take both signs on every
+    axis it makes one bundle test (bundle_culls) a supernode and keeps those
+    not culled, else it keeps them all.  Of a step's kept supernodes,
+    if they are at most k, each is tested exactly against each live ray,
+    else each live ray against every supernode of the step: k exact slab
+    tests a supernode either way, for the kept ones or for all of the step.
+    The votes are the OR over the block's warps of a supernode kept and
+    passed by one of the warp's rays: cluster_votes_ref's wherever the cull
+    is sound.  It measures the kernel's work; nothing renders with it."""
+    sn = _sn(scene, supernodes)
+    r = origin.shape[0]
+    inv = inv_dir_nan(direction)
+    live = live_rays(origin, inv, t_min, t_max)
+    b = warp_bundles(origin, inv, t_min, t_max, live)
+    n_warps, n_blocks = b.lo.shape[0], -(-r // BLOCK)
+    per_block = BLOCK // WARP
+    lo, hi = sn.blo[:, :sn.s], sn.bhi[:, :sn.s]
+    kept = torch.cat([~bundle_culls(lo, hi, Bundles(*(x[w:w + _BUNDLE_WARPS] for x in b)))
+                      for w in range(0, n_warps, _BUNDLE_WARPS)])
+    pad_w = n_blocks * per_block - n_warps
+    lanes = torch.cat([live, live.new_zeros(n_blocks * BLOCK - r)]).reshape(
+        n_blocks, per_block, WARP).sum(2)  # live rays a warp
+    kept = torch.cat([kept, kept.new_zeros((pad_w, sn.s))]).reshape(n_blocks, per_block, sn.s)
+    useful = ~((b.imin < 0) & (b.imax > 0)).all(1)  # cluster_votes.cuh:bundle_useful
+    useful = torch.cat([useful, useful.new_zeros(pad_w)]).reshape(n_blocks, per_block)
+    culls = (lanes > DIRECT) & useful
+    kept = (kept | ~culls[:, :, None]) & (lanes > 0)[:, :, None]
+    # a step's kept supernodes, on each of its supernodes
+    step = torch.arange(sn.s, device=origin.device) // WARP
+    n_steps = int(step[-1]) + 1
+    per_step = torch.zeros((n_blocks, per_block, n_steps), dtype=torch.int64,
+                           device=origin.device).index_add_(2, step, kept.to(torch.int64))
+    by_ray = (per_step <= lanes[:, :, None])[:, :, step]  # the kept ones against each ray
+    tested = torch.where(by_ray, kept, (lanes > 0)[:, :, None])
+    votes = torch.zeros((n_blocks, sn.s), dtype=torch.int32, device=origin.device)
+    for b0, hit in _slab_blocks(sn, origin, direction, t_min, t_max):
+        nb = hit.shape[0]
+        passed = hit.reshape(nb, per_block, WARP, sn.s).any(2)
+        votes[b0:b0 + nb] = (passed & kept[b0:b0 + nb]).any(1).to(torch.int32)
+    return BundleTests((culls.sum(1, keepdim=True)).expand(-1, sn.s).to(torch.int64),
+                       (tested * lanes[:, :, None]).sum(1).to(torch.int64), votes,
+                       (lanes == 0).sum(1).to(torch.int64))
 
 
 def sweep_tests(scene, origin, direction, t_min, t_max, votes, any_hit: bool,

@@ -11,11 +11,10 @@
 // blocks of kBlock = 256 consecutive rays, and the votes gate the sweep
 // per (block, supernode).
 //
-//   K7c  one CTA of 256 threads a block, one thread a ray: the CTA stages
-//        its rays (origin, inverse direction, t_min, t_max) in shared
-//        memory; thread i then takes supernodes i, i + 256, ... and
-//        slab-tests each against the block's rays until one passes.
-//        Output: one int32 vote per (block, supernode), no atomics.
+//   K7c  one vote per (block, supernode): 1 where some ray of the block
+//        passes the plain slab test (common.cuh:slab_nan) of the
+//        supernode's box on its own segment [t_min, t_max].  The design is
+//        below ("K7c").
 //   K7d  one warp a 32 consecutive rays (one lane a ray), kWarps warps a
 //        CTA, each warp on its own: no shared memory and no CTA barrier.
 //        The warp reads its block's votes 32 at a time (a ballot) and,
@@ -55,6 +54,68 @@
 // card's SMs one at a time, where a CTA waited on its block's slowest ray
 // and its barriers.
 //
+// K7c.  A CTA takes one block of kBlock = 256 rays and a range of at most
+// kRange supernodes (the grid's y: a block's supernodes split over CTAs, so
+// that a few hundred blocks fill the card).  It stages the range's boxes in
+// shared memory once, as two rows a box, and zeroes one flag a supernode.
+// A warp takes 32 consecutive rays, a lane one ray: its origin, inverse
+// direction (inv_dir_nan) and segment sit in registers, read once.
+//   * A warp with no live lane (cluster_votes.cuh:live_ray: a NaN in its
+//     origin, direction or segment, t_max < t_min; inactive lanes carry
+//     t_max = -1e30, padding lanes past the last ray too) makes no test.
+//   * A warp of more than kDirect live lanes reduces them by shuffles into
+//     one bundle: per axis the least and greatest origin and inverse
+//     direction, the least t_min and the greatest t_max.  It culls by the
+//     bundle unless the inverse directions take both signs on every axis
+//     (cluster_votes.cuh:bundle_useful), as 32 incoherent rays do.
+//   * The warp takes the supernodes 32 at a time, lane i supernode s0 + i
+//     (its box in registers).  With a bundle, lane i tests it against its
+//     supernode (cluster_votes.cuh:bundle_culls) and keeps it unless culled;
+//     without one it keeps it.  Then the exact votes (slab_nan), in the
+//     cheaper of two ways: where at most as many supernodes are kept as the
+//     warp has live rays, each kept one against every lane's own ray (its
+//     box read from shared memory, two at a time, a lane's passes gathered
+//     by bit and OR-reduced over the warp); else each live ray, taken from
+//     its lane by shuffles, against every lane's own supernode.  A lane
+//     stores 1 into its supernode's flag where the warp voted for it (a
+//     plain store: every writer writes 1).
+//   * After one barrier the CTA writes its range's votes, coalesced.
+// No atomics; the flags need no order: the block's vote is the OR of its
+// warps' votes.
+//
+// Why the cull drops no vote.  The cull is interval arithmetic on the exact
+// test's own float operations.  Take a live lane with origin o, inverse
+// direction v and segment [lo, hi] in a bundle B, and a box plane c on one
+// axis.  (a) Under round to nearest, fl(c - x) does not increase as x does,
+// so fl(c - o) lies in [fl(c - omax), fl(c - omin)].  (b) The exact product
+// x * y over a rectangle lies between its values at the four corners (it is
+// linear in each argument, whatever their signs), and rounding is monotone,
+// so the lane's t = fl(fl(c - o) * v) lies between the least and the
+// greatest rounded corner product, for both planes: its per-axis min and
+// max (near and far) lie in [near_lo, far_hi] of bundle_axis.  (c) min and
+// max are monotone, so the lane's t_near >= max(near_lo x y z, min t_min)
+// and its t_far <= min(far_hi x y z, max t_max); where the bundle's t_far
+// bound lies below its t_near bound, every live lane has t_far < t_near and
+// fails.  A NaN (an infinite box or origin, the zero inverse of an infinite
+// direction) is carried to the end by min_nan / max_nan and compares false:
+// no cull.  (d) A lane that is not live fails every slab test, so leaving it
+// out of the bundle, and a warp of such lanes out of the block, changes no
+// vote.  +0 and -0 compare equal and change no comparison.  Both ways of
+// the exact votes test each live ray against each kept supernode.  So the
+// votes equal those of every ray tested against every box, which
+// cluster_sweep.cluster_votes_ref computes: bundle_vote_tests models this
+// schedule in torch and tests/test_torch_cluster_host.py checks the cull.
+//
+// What bounds K7c on the H100: the exact tests where a warp's rays are
+// incoherent and all live (random rays, a frame's first bounces): the bundle
+// then culls nothing, and a warp-wide test is ~40 instructions, 12 of them
+// NaN-keeping min / max.  A row of camera rays is a tight bundle that keeps
+// a few dozen of 1,024 supernodes; a warp of a few live lanes (a frame's
+// late bounces) tests only its live rays.  The design before this one ran
+// a thread a supernode against the block's 256 rays one by one, out of
+// shared memory, until one passed, which almost never happens: every lane
+// test was made, dead lanes' as dear as live ones.
+//
 // Precision: built with --fmad=false like the other kernels.  K7c's slab
 // test is plain multiplies, subtracts, min / max and an IEEE division for
 // the inverse direction (math3d.safe_div(1, d)), as the plain torch version
@@ -69,41 +130,178 @@
 #include <cuda_runtime.h>
 
 #include "bvh.cuh"
+#include "cluster_votes.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;  // rays per vote block = cluster_sweep.BLOCK
 constexpr unsigned kAll = 0xffffffffu;
+// K7c: warps a CTA (each takes kBlock / 32 / kVoteWarps warps of rays in turn),
+// supernodes a CTA (the grid's split of a block's supernodes), the bundle
+// cull (0: none, 1: a warp's rays, 2: the block's) and where the boxes are
+// read from (shared memory, or __ldg of the (3, Sp) tables);
+// tools/torch_cluster_variants.py builds copies with other values.
+constexpr int kVoteWarps = 8;
+constexpr int kRange = 256;
+constexpr int kCull = 1;
+constexpr bool kSmemBoxes = true;
+// a warp of at most kDirect live rays makes no bundle test (= cluster_sweep.DIRECT)
+constexpr int kDirect = 8;
+// CTAs an SM that K7c's registers must allow
+constexpr int kVoteCtas = 4;
 // K7d / K7e: warps a CTA and the Woop loop's unroll;
 // tools/torch_cluster_variants.py builds copies with other values.
 constexpr int kWarps = 4;
 constexpr int kUnroll = 4;
 
-__global__ void __launch_bounds__(kBlock)
+// The bundle of the warp's live lanes (each lane gets it).
+__device__ __forceinline__ gst::Bundle warp_bundle(gst::Bundle b) {
+  for (int k = 16; k; k >>= 1) {
+    gst::Bundle o;
+    o.omin = gst::v3(__shfl_xor_sync(kAll, b.omin.x, k), __shfl_xor_sync(kAll, b.omin.y, k),
+                     __shfl_xor_sync(kAll, b.omin.z, k));
+    o.omax = gst::v3(__shfl_xor_sync(kAll, b.omax.x, k), __shfl_xor_sync(kAll, b.omax.y, k),
+                     __shfl_xor_sync(kAll, b.omax.z, k));
+    o.imin = gst::v3(__shfl_xor_sync(kAll, b.imin.x, k), __shfl_xor_sync(kAll, b.imin.y, k),
+                     __shfl_xor_sync(kAll, b.imin.z, k));
+    o.imax = gst::v3(__shfl_xor_sync(kAll, b.imax.x, k), __shfl_xor_sync(kAll, b.imax.y, k),
+                     __shfl_xor_sync(kAll, b.imax.z, k));
+    o.lo = __shfl_xor_sync(kAll, b.lo, k);
+    o.hi = __shfl_xor_sync(kAll, b.hi, k);
+    b = gst::merge(b, o);
+  }
+  return b;
+}
+
+// One lane's ray of K7c's block: padding rays past the last are not live.
+struct VoteRay {
+  gst::V3 o, inv;
+  float lo, hi;
+  bool live;
+};
+
+__device__ __forceinline__ VoteRay vote_ray(const float* __restrict__ origin,
+                                            const float* __restrict__ direction,
+                                            const float* __restrict__ t_min,
+                                            const float* __restrict__ t_max, int r,
+                                            int n_rays) {
+  const bool in = r < n_rays;
+  const gst::V3 o = gst::load3(origin, r, in, 0.0f);
+  const gst::V3 d = gst::load3(direction, r, in, 1.0f);
+  const gst::V3 inv = gst::v3(gst::inv_dir_nan(d.x), gst::inv_dir_nan(d.y), gst::inv_dir_nan(d.z));
+  const float lo = in ? t_min[r] : 0.0f;
+  const float hi = in ? t_max[r] : -gst::kBig;
+  return {o, inv, lo, hi, gst::live_ray(o, inv, lo, hi)};
+}
+
+// K7c's boxes of one CTA: supernodes [s_begin, s_begin + n) staged as two
+// rows a box (lo xyz and hi x; hi y z), or read from the (3, sp) tables.
+struct VoteBoxes {
+  const float *blo, *bhi;
+  int sp, s_begin;
+  const float4* a;
+  const float2* b;
+  __device__ __forceinline__ gst::Box operator()(int i) const {
+    if (kSmemBoxes) {
+      const float4 p = a[i];
+      const float2 q = b[i];
+      return {gst::v3(p.x, p.y, p.z), gst::v3(p.w, q.x, q.y)};
+    }
+    const int s = s_begin + i;
+    return {gst::v3(__ldg(blo + s), __ldg(blo + sp + s), __ldg(blo + 2 * sp + s)),
+            gst::v3(__ldg(bhi + s), __ldg(bhi + sp + s), __ldg(bhi + 2 * sp + s))};
+  }
+};
+
+__global__ void __launch_bounds__(32 * kVoteWarps, kVoteCtas)
 cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                      const float* __restrict__ t_min, const float* __restrict__ t_max,
                      int n_rays, const float* __restrict__ blo, const float* __restrict__ bhi,
                      int sp, int n_super, int* __restrict__ votes) {
-  __shared__ float ray[8][kBlock];  // ox oy oz, 1/dx 1/dy 1/dz, t_min, t_max
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = r < n_rays;  // padding rays: o 0, d 1, t_max -1e30
-  for (int c = 0; c < 3; ++c) {
-    ray[c][threadIdx.x] = live ? origin[3 * r + c] : 0.0f;
-    ray[3 + c][threadIdx.x] = gst::inv_dir_nan(live ? direction[3 * r + c] : 1.0f);
-  }
-  ray[6][threadIdx.x] = live ? t_min[r] : 0.0f;
-  ray[7][threadIdx.x] = live ? t_max[r] : -gst::kBig;
-  __syncthreads();
-  for (int s = threadIdx.x; s < n_super; s += kBlock) {
-    const gst::V3 bl = gst::v3(blo[s], blo[sp + s], blo[2 * sp + s]);
-    const gst::V3 bh = gst::v3(bhi[s], bhi[sp + s], bhi[2 * sp + s]);
-    int vote = 0;
-    for (int j = 0; j < kBlock && !vote; ++j) {
-      vote = gst::slab_nan(bl, bh, gst::v3(ray[0][j], ray[1][j], ray[2][j]),
-                           gst::v3(ray[3][j], ray[4][j], ray[5][j]), ray[6][j], ray[7][j]);
+  constexpr int kThreads = 32 * kVoteWarps;
+  constexpr int kGroups = kBlock / 32;  // warps of rays a block
+  __shared__ float4 box_a[kSmemBoxes ? kRange : 1];
+  __shared__ float2 box_b[kSmemBoxes ? kRange : 1];
+  __shared__ int flag[kRange];
+  __shared__ gst::Bundle group_bundle[kCull == 2 ? kGroups : 1];
+  const int s_begin = blockIdx.y * kRange;
+  const int n = min(kRange, n_super - s_begin);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    flag[i] = 0;
+    if (kSmemBoxes) {
+      const int s = s_begin + i;
+      box_a[i] = make_float4(blo[s], blo[sp + s], blo[2 * sp + s], bhi[s]);
+      box_b[i] = make_float2(bhi[sp + s], bhi[2 * sp + s]);
     }
-    votes[(size_t)blockIdx.x * n_super + s] = vote;
   }
+  const VoteBoxes boxes{blo, bhi, sp, s_begin, box_a, box_b};
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
+  const int r_block = blockIdx.x * kBlock;
+  gst::Bundle block_bundle{};
+  if (kCull == 2) {  // the variant that culls by the block's live rays
+    for (int g = warp; g < kGroups; g += kVoteWarps) {
+      const VoteRay ray = vote_ray(origin, direction, t_min, t_max, r_block + 32 * g + lane,
+                                   n_rays);
+      const gst::Bundle b = warp_bundle(gst::ray_bundle(ray.o, ray.inv, ray.lo, ray.hi, ray.live));
+      if (lane == 0) group_bundle[g] = b;
+    }
+  }
+  __syncthreads();
+  if (kCull == 2) {
+    block_bundle = group_bundle[0];
+    for (int g = 1; g < kGroups; ++g) block_bundle = gst::merge(block_bundle, group_bundle[g]);
+  }
+  for (int g = warp; g < kGroups; g += kVoteWarps) {
+    const VoteRay ray = vote_ray(origin, direction, t_min, t_max, r_block + 32 * g + lane, n_rays);
+    const unsigned live = __ballot_sync(kAll, ray.live);
+    if (!live) continue;  // no live lane: no test
+    const int n_live = __popc(live);
+    gst::Bundle bundle{};
+    if (kCull != 0 && n_live > kDirect)
+      bundle = kCull == 2 ? block_bundle
+                          : warp_bundle(gst::ray_bundle(ray.o, ray.inv, ray.lo, ray.hi, ray.live));
+    const bool cull = kCull != 0 && n_live > kDirect && gst::bundle_useful(bundle);
+    for (int s0 = 0; s0 < n; s0 += 32) {
+      const int i = s0 + lane;
+      const gst::Box box = boxes(min(i, n - 1));
+      const bool keep = i < n && !(cull && gst::bundle_culls(box, bundle));
+      const unsigned kept = __ballot_sync(kAll, keep);
+      bool voted = false;  // for supernode i
+      if (__popc(kept) <= n_live) {
+        // each kept supernode against every lane's own ray, two at a time;
+        // a lane that is not live never passes
+        unsigned hit = 0;  // bit b: this lane's ray passes supernode s0 + b
+        for (unsigned m = kept; m;) {
+          const int b0 = __ffs(m) - 1;
+          m &= m - 1;
+          const int b1 = m ? __ffs(m) - 1 : b0;
+          m &= m - 1;
+          const gst::Box x0 = boxes(s0 + b0), x1 = boxes(s0 + b1);
+          hit |= (unsigned)gst::vote_passes(x0, ray.o, ray.inv, ray.lo, ray.hi) << b0 |
+                 (unsigned)gst::vote_passes(x1, ray.o, ray.inv, ray.lo, ray.hi) << b1;
+        }
+        voted = __reduce_or_sync(kAll, hit) >> lane & 1u;
+      } else {
+        // each live ray, taken from its lane, against every lane's own supernode
+        for (unsigned m = live; m; m &= m - 1) {
+          const int src = __ffs(m) - 1;
+          const gst::V3 o = gst::v3(__shfl_sync(kAll, ray.o.x, src), __shfl_sync(kAll, ray.o.y, src),
+                                    __shfl_sync(kAll, ray.o.z, src));
+          const gst::V3 inv =
+              gst::v3(__shfl_sync(kAll, ray.inv.x, src), __shfl_sync(kAll, ray.inv.y, src),
+                      __shfl_sync(kAll, ray.inv.z, src));
+          voted |= gst::vote_passes(box, o, inv, __shfl_sync(kAll, ray.lo, src),
+                                    __shfl_sync(kAll, ray.hi, src));
+        }
+        voted = voted && keep;
+      }
+      if (voted) flag[i] = 1;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    votes[(size_t)blockIdx.x * n_super + s_begin + i] = flag[i];
 }
 
 // The block's votes, 32 supernodes at a time: each lane reads one, and
@@ -285,8 +483,9 @@ extern "C" int gst_cluster_votes(const float* origin, const float* direction, co
                                  const float* t_max, int n_rays, const float* blo,
                                  const float* bhi, int sp, int n_super, int* votes,
                                  void* stream) {
-  if (n_rays == 0) return 0;
-  cluster_votes_kernel<<<blocks_for(n_rays), kBlock, 0, (cudaStream_t)stream>>>(
+  if (n_rays == 0 || n_super == 0) return 0;
+  const dim3 grid(blocks_for(n_rays), (n_super + kRange - 1) / kRange);
+  cluster_votes_kernel<<<grid, 32 * kVoteWarps, 0, (cudaStream_t)stream>>>(
       origin, direction, t_min, t_max, n_rays, blo, bhi, sp, n_super, votes);
   return (int)cudaGetLastError();
 }

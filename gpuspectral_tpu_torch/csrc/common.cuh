@@ -118,12 +118,13 @@ __device__ __forceinline__ bool woop_test(const float* w, int stride, V3 o, V3 d
 // The slab tests of the votes: K7c (csrc/cluster.cu), the bin votes of
 // K7a / K7b (binned.cu) and K7f / K7g's node votes (dfs.cu) take the
 // NaN-keeping slab test, K7h (traverse.cu) its min / max; K7d / K7e take
-// load3 only.
+// load3 only.  These four are host functions too, so that the CPU tests
+// can compile K7c's tests (cluster_votes.cuh) with g++.
 
 // math3d.safe_div(1, dx) with torch's NaN rule: |dx| clamped to 1e-12 with
 // its sign, a NaN component kept NaN (fmaxf would drop it, giving
 // 1e12).
-__device__ __forceinline__ float inv_dir_nan(float dx) {
+__host__ __device__ __forceinline__ float inv_dir_nan(float dx) {
   const float a = fabsf(dx);
   const float mag = a < 1e-12f ? 1e-12f : a;
   return 1.0f / (dx < 0.0f ? -mag : mag);
@@ -131,23 +132,32 @@ __device__ __forceinline__ float inv_dir_nan(float dx) {
 
 // torch.minimum / torch.maximum: NaN if either operand is NaN (fminf and
 // fmaxf drop it)
-__device__ __forceinline__ float min_nan(float a, float b) {
+__host__ __device__ __forceinline__ float min_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
+#else
+  return a != a || b != b ? a + b : (b < a ? b : a);
+#endif
 }
 
-__device__ __forceinline__ float max_nan(float a, float b) {
+__host__ __device__ __forceinline__ float max_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
+#else
+  return a != a || b != b ? a + b : (a < b ? b : a);
+#endif
 }
 
 // The slab test of the box [bl, bh] on the segment [lo, hi] as the plain
 // torch votes compute it (no widening), torch's NaN rule kept: with
 // inv = inv_dir_nan(d), a NaN in the ray's origin, direction or segment
 // ends makes t_near or t_far NaN, and the test fails, as on the CPU.
-__device__ __forceinline__ bool slab_nan(V3 bl, V3 bh, V3 o, V3 inv, float lo, float hi) {
+__host__ __device__ __forceinline__ bool slab_nan(V3 bl, V3 bh, V3 o, V3 inv, float lo,
+                                                  float hi) {
   const float t0x = (bl.x - o.x) * inv.x;
   const float t1x = (bh.x - o.x) * inv.x;
   const float t0y = (bl.y - o.y) * inv.y;

@@ -317,6 +317,41 @@ def test_vote_tests_count_up_to_the_first_pass(pairs, name):
     assert bool((got[votes == 0] == cs.BLOCK).all()) and bool((got[votes > 0] < cs.BLOCK).any())
 
 
+@pytest.mark.parametrize("rays", ["clean", "odd_lanes", "sparse_lanes"])
+@pytest.mark.parametrize("name", SCENES)
+def test_bundle_vote_tests_give_the_plain_votes(pairs, name, rays):
+    """bundle_vote_tests, K7c's warp schedule in torch (a warp with no live
+    ray skipped, each other warp's live rays culled as one bundle, their
+    exact slab tests on the supernodes not culled, the OR over the block's
+    warps): its votes equal cluster_votes_ref's, and JAX _prepare's, on
+    clean rays, with NaN and inactive lanes, and with ~5% of the lanes live;
+    only a warp of more than DIRECT live rays makes a bundle test, one a
+    supernode, a live warp at most one exact test a live ray, and every vote
+    comes from an exact test."""
+    from chip_smoke import sparse_lanes
+
+    js, ts = pairs[name]
+    o, d, t_min, t_max = (_t(x) for x in _rays(js, 900, 14))
+    if rays != "clean":
+        o, d, t_min, t_max = (odd_lanes if rays == "odd_lanes" else sparse_lanes)(
+            [o, d, t_min, t_max])
+    sn = cs.scene_supernodes(ts)
+    got = cs.bundle_vote_tests(ts, o, d, t_min, t_max, supernodes=sn)
+    ref = cs.cluster_votes_ref(ts, o, d, t_min, t_max, supernodes=sn)
+    assert torch.equal(got.votes, ref) and int(ref.sum()) > 0
+    out = jcs._prepare(js, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                       jnp.asarray(t_min.numpy()), jnp.asarray(t_max.numpy()), interpret=True)
+    np.testing.assert_array_equal(got.votes.numpy(), np.asarray(out[1])[::8, :sn.s])
+    live = cs.live_rays(o, cs.inv_dir_nan(d), t_min, t_max)
+    lanes = torch.cat([live, live.new_zeros(-900 % cs.BLOCK)]).reshape(-1, 8, 32).sum(2)
+    assert torch.equal(got.skipped, (lanes == 0).sum(1))
+    assert bool((got.bundle <= (lanes > cs.DIRECT).sum(1, keepdim=True)).all())
+    assert bool((got.exact <= lanes.sum(1, keepdim=True)).all())
+    assert bool((got.exact[ref > 0] > 0).all())
+    if rays == "sparse_lanes":
+        assert int(got.skipped.sum()) > 0
+
+
 @pytest.mark.parametrize("name", SCENES)
 def test_sweep_tests_count_the_voted_slots(pairs, name):
     """K7d's Woop tests per ray: every slot of the supernodes its block

@@ -565,19 +565,46 @@ def test_binned_walk_tests_count_the_walk(cuda_device, name):  # noqa: F811
     assert [int(x) for x in w[:4]] == [0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("n", [1, 31, 33, 257, 1 << 14])
-def test_k7c_votes_with_nan_lanes(cuda_device, n):  # noqa: F811
+@pytest.mark.parametrize("case", [1, 31, 33, 257, 1 << 14, "inactive_blocks",
+                                  "one_live_lane_a_warp", "sparse_live", "s1", "s33", "s1024"])
+def test_k7c_votes_with_nan_lanes(cuda_device, case):  # noqa: F811
     """F17: K7c's votes equal the plain slab test's on rays with NaN origin
     and direction components and inactive lanes: a NaN lane votes for
-    nothing (fminf / fmaxf would drop the NaN and let it vote)."""
-    from chip_smoke import field_rays
+    nothing (fminf / fmaxf would drop the NaN and let it vote).  Then K7c's
+    warp schedule (a warp with no live lane skipped, a warp's live rays
+    culled as one bundle) at its edges, bit for bit: 1, 31, 33, 257 and
+    16,384 rays; blocks whose lanes are all inactive; one live lane a warp;
+    ~5% of the lanes live, scattered (chip_smoke.sparse_lanes); and 1, 33
+    and 1,024 supernodes (the first S of the sphere field's, and a
+    supernode range of the grid cut short)."""
+    from chip_smoke import field_rays, sparse_lanes
 
-    ts = _scene("sphere_field", cuda_device)
+    ts = _scene("cornell" if case == "s1" else "sphere_field", cuda_device)
+    if case in ("s33", "s1024"):
+        ts = build_sphere_field(cuda_device)
+    n = case if isinstance(case, int) else 1 << 14
     o, d, lo, hi = odd_lanes(field_rays(n, ts, 17, cuda_device))
+    if case == "inactive_blocks":
+        hi[256:768] = -1e30
+        hi[-300:] = -1e30
+    if case == "one_live_lane_a_warp":
+        r = torch.arange(n, device=cuda_device)
+        hi[r % 32 != r // 32 % 32] = -1e30
+    if case == "sparse_live":
+        o, d, lo, hi = sparse_lanes((o, d, lo, hi))
     sn = cs.scene_supernodes(ts)
+    if case == "s33":
+        sn = cs.Supernodes(sn.blo, sn.bhi, 33, sn.stride)
+    assert {"s1": 1, "s1024": 1024}.get(case, sn.s) == sn.s
+    n0 = cs.cluster_votes.launches
     for seg in (torch.zeros_like(lo), lo):
         votes = cs.cluster_votes(ts, o, d, seg, hi, supernodes=sn)
         assert torch.equal(votes, cs.cluster_votes_ref(ts, o, d, seg, hi, supernodes=sn))
+    assert cs.cluster_votes.launches == n0 + 2
+    if case == "inactive_blocks":
+        assert int(votes[1:3].sum()) == 0 and int(votes.sum()) > 0
+    if case in ("sparse_live", "one_live_lane_a_warp", "s33", "s1024"):
+        assert int(votes.sum()) > 0
     # a block of NaN lanes alone votes for nothing
     nan_o = torch.full_like(o, float("nan"))
     assert int(cs.cluster_votes(ts, nan_o, d, lo, hi, supernodes=sn).sum()) == 0

@@ -136,15 +136,16 @@ def check_builds(libs: dict, work: dict, ref: dict) -> None:
                 raise AssertionError(f"{name}: {key} differs from the tree's kernels")
 
 
-def time_in_turns(builds: dict, work: dict, reps) -> dict:
+def time_in_turns(builds: dict, work: dict, reps, timer=None) -> dict:
     """{build: {call: [ms, ms]}}: each build's calls timed with CUDA events
-    (chip_smoke.cuda_ms; `reps` a count or {call: count}), the builds in
-    order and again in reverse order."""
+    (`timer`, chip_smoke.cuda_ms unless given; `reps` a count or {call:
+    count}), the builds in order and again in reverse order."""
+    timer = timer or chip_smoke.cuda_ms
     times = {name: {key: [] for key in work} for name in builds}
     order = list(builds)
     for name in order + order[::-1]:
         with launching(builds[name]):
             for key, fn in work.items():
                 n = reps[key] if isinstance(reps, dict) else reps
-                times[name][key].append(chip_smoke.cuda_ms(fn, reps=n))
+                times[name][key].append(timer(fn, reps=n))
     return times

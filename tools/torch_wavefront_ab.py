@@ -15,7 +15,8 @@ torch.profiler and prints the device's busy milliseconds (the device
 events' own time: kernels and copies on one stream, which do not overlap),
 the idle share against the unprofiled frame at that timestamp (the
 profiler slows the host), and the 25 device events with the most device
-time, with their launches.  To compare two trees on one card, unpack the
+time, then the port's hand-written kernels among the rest, with their
+launches.  To compare two trees on one card, unpack the
 other tree (git archive) into a directory that .gitignore lists and run
 the two in one call in the order parent, change, change, parent.
 """
@@ -56,5 +57,7 @@ if "profile" in sys.argv[2:]:
     busy = sum(ms for _, ms, _ in dev)
     print(f"PROFILE kernel={kernel} ts=100 device_busy_ms={busy:.1f} "
           f"idle_share={1.0 - busy / (seconds[100] * 1e3):.3f}", flush=True)
-    for k, ms, c in dev[:25]:
+    # the top 25, and every hand-written kernel of the port (csrc/*.cu, in
+    # an anonymous namespace) below them
+    for k, ms, c in dev[:25] + [x for x in dev[25:] if x[0].startswith("(anonymous namespace)")]:
         print(f"PROFILE {k[:90]} device_ms={ms:.3f} launches={c}", flush=True)
