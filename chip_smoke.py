@@ -1573,7 +1573,8 @@ def phase_k7(dev, cases, field):
                          primary_rays=p["rays"])
         if key == "k7c":
             rows[key].update(ptxas=ptxas[key], ms_sparse=sparse["ms"],
-                             bound_ms_sparse=sparse["bound_ms"], live_rays_sparse=sparse["live_rays"],
+                             bound_ms_sparse=sparse["bound_ms"],
+                             live_rays_sparse=sparse["live_rays"],
                              **{f"{k}{t}": b[k] for t, b in (("", r["bounds"]["k7c"]),
                                                              ("_primary", p["bounds"]["k7c"]),
                                                              ("_sparse", sparse))

@@ -137,17 +137,15 @@ namespace {
 constexpr int kBlock = 256;  // rays per vote block = cluster_sweep.BLOCK
 constexpr unsigned kAll = 0xffffffffu;
 // K7c: warps a CTA (each takes kBlock / 32 / kVoteWarps warps of rays in turn),
-// supernodes a CTA (the grid's split of a block's supernodes), the bundle
-// cull (0: none, 1: a warp's rays, 2: the block's) and where the boxes are
-// read from (shared memory, or __ldg of the (3, Sp) tables);
-// tools/torch_cluster_variants.py builds copies with other values.
+// supernodes a CTA (the grid's split of a block's supernodes), whether a
+// warp culls by its bundle, the most live rays of a warp that makes no
+// bundle test (= cluster_sweep.DIRECT) and the CTAs an SM that K7c's
+// registers must allow; tools/torch_cluster_variants.py builds copies with
+// other values.
 constexpr int kVoteWarps = 8;
 constexpr int kRange = 256;
-constexpr int kCull = 1;
-constexpr bool kSmemBoxes = true;
-// a warp of at most kDirect live rays makes no bundle test (= cluster_sweep.DIRECT)
+constexpr bool kCull = true;
 constexpr int kDirect = 8;
-// CTAs an SM that K7c's registers must allow
 constexpr int kVoteCtas = 4;
 // K7d / K7e: warps a CTA and the Woop loop's unroll;
 // tools/torch_cluster_variants.py builds copies with other values.
@@ -194,22 +192,15 @@ __device__ __forceinline__ VoteRay vote_ray(const float* __restrict__ origin,
   return {o, inv, lo, hi, gst::live_ray(o, inv, lo, hi)};
 }
 
-// K7c's boxes of one CTA: supernodes [s_begin, s_begin + n) staged as two
-// rows a box (lo xyz and hi x; hi y z), or read from the (3, sp) tables.
+// K7c's boxes of one CTA, staged in shared memory as two rows a box (lo xyz
+// and hi x; hi y z).
 struct VoteBoxes {
-  const float *blo, *bhi;
-  int sp, s_begin;
   const float4* a;
   const float2* b;
   __device__ __forceinline__ gst::Box operator()(int i) const {
-    if (kSmemBoxes) {
-      const float4 p = a[i];
-      const float2 q = b[i];
-      return {gst::v3(p.x, p.y, p.z), gst::v3(p.w, q.x, q.y)};
-    }
-    const int s = s_begin + i;
-    return {gst::v3(__ldg(blo + s), __ldg(blo + sp + s), __ldg(blo + 2 * sp + s)),
-            gst::v3(__ldg(bhi + s), __ldg(bhi + sp + s), __ldg(bhi + 2 * sp + s))};
+    const float4 p = a[i];
+    const float2 q = b[i];
+    return {gst::v3(p.x, p.y, p.z), gst::v3(p.w, q.x, q.y)};
   }
 };
 
@@ -219,49 +210,30 @@ cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__
                      int n_rays, const float* __restrict__ blo, const float* __restrict__ bhi,
                      int sp, int n_super, int* __restrict__ votes) {
   constexpr int kThreads = 32 * kVoteWarps;
-  constexpr int kGroups = kBlock / 32;  // warps of rays a block
-  __shared__ float4 box_a[kSmemBoxes ? kRange : 1];
-  __shared__ float2 box_b[kSmemBoxes ? kRange : 1];
+  __shared__ float4 box_a[kRange];
+  __shared__ float2 box_b[kRange];
   __shared__ int flag[kRange];
-  __shared__ gst::Bundle group_bundle[kCull == 2 ? kGroups : 1];
   const int s_begin = blockIdx.y * kRange;
   const int n = min(kRange, n_super - s_begin);
   for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int s = s_begin + i;
+    box_a[i] = make_float4(blo[s], blo[sp + s], blo[2 * sp + s], bhi[s]);
+    box_b[i] = make_float2(bhi[sp + s], bhi[2 * sp + s]);
     flag[i] = 0;
-    if (kSmemBoxes) {
-      const int s = s_begin + i;
-      box_a[i] = make_float4(blo[s], blo[sp + s], blo[2 * sp + s], bhi[s]);
-      box_b[i] = make_float2(bhi[sp + s], bhi[2 * sp + s]);
-    }
-  }
-  const VoteBoxes boxes{blo, bhi, sp, s_begin, box_a, box_b};
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x / 32;
-  const int r_block = blockIdx.x * kBlock;
-  gst::Bundle block_bundle{};
-  if (kCull == 2) {  // the variant that culls by the block's live rays
-    for (int g = warp; g < kGroups; g += kVoteWarps) {
-      const VoteRay ray = vote_ray(origin, direction, t_min, t_max, r_block + 32 * g + lane,
-                                   n_rays);
-      const gst::Bundle b = warp_bundle(gst::ray_bundle(ray.o, ray.inv, ray.lo, ray.hi, ray.live));
-      if (lane == 0) group_bundle[g] = b;
-    }
   }
   __syncthreads();
-  if (kCull == 2) {
-    block_bundle = group_bundle[0];
-    for (int g = 1; g < kGroups; ++g) block_bundle = gst::merge(block_bundle, group_bundle[g]);
-  }
-  for (int g = warp; g < kGroups; g += kVoteWarps) {
+  const VoteBoxes boxes{box_a, box_b};
+  const int lane = threadIdx.x & 31;
+  const int r_block = blockIdx.x * kBlock;
+  for (int g = threadIdx.x / 32; g < kBlock / 32; g += kVoteWarps) {
     const VoteRay ray = vote_ray(origin, direction, t_min, t_max, r_block + 32 * g + lane, n_rays);
     const unsigned live = __ballot_sync(kAll, ray.live);
     if (!live) continue;  // no live lane: no test
     const int n_live = __popc(live);
     gst::Bundle bundle{};
-    if (kCull != 0 && n_live > kDirect)
-      bundle = kCull == 2 ? block_bundle
-                          : warp_bundle(gst::ray_bundle(ray.o, ray.inv, ray.lo, ray.hi, ray.live));
-    const bool cull = kCull != 0 && n_live > kDirect && gst::bundle_useful(bundle);
+    if (kCull && n_live > kDirect)
+      bundle = warp_bundle(gst::ray_bundle(ray.o, ray.inv, ray.lo, ray.hi, ray.live));
+    const bool cull = kCull && n_live > kDirect && gst::bundle_useful(bundle);
     for (int s0 = 0; s0 < n; s0 += 32) {
       const int i = s0 + lane;
       const gst::Box box = boxes(min(i, n - 1));
@@ -286,8 +258,9 @@ cluster_votes_kernel(const float* __restrict__ origin, const float* __restrict__
         // each live ray, taken from its lane, against every lane's own supernode
         for (unsigned m = live; m; m &= m - 1) {
           const int src = __ffs(m) - 1;
-          const gst::V3 o = gst::v3(__shfl_sync(kAll, ray.o.x, src), __shfl_sync(kAll, ray.o.y, src),
-                                    __shfl_sync(kAll, ray.o.z, src));
+          const gst::V3 o =
+              gst::v3(__shfl_sync(kAll, ray.o.x, src), __shfl_sync(kAll, ray.o.y, src),
+                      __shfl_sync(kAll, ray.o.z, src));
           const gst::V3 inv =
               gst::v3(__shfl_sync(kAll, ray.inv.x, src), __shfl_sync(kAll, ray.inv.y, src),
                       __shfl_sync(kAll, ray.inv.z, src));

@@ -25,8 +25,6 @@ in one call, in the order parent, change, change, parent.
 supernodes tested two at a time against the lanes' rays):
 
   nocull      no bundle cull: a warp keeps every supernode
-  blockcull   the bundle of the block's live rays, not the warp's
-  ldg         the boxes read with __ldg from the (3, Sp) tables
   warps4      4 warps a CTA, each taking two warps of rays in turn
   range1024   no split: a CTA takes all of a block's supernodes
   range128    128 supernodes a CTA
@@ -46,9 +44,12 @@ Times are chip_smoke.device_ms: the card's own time a call, the calls
 queued behind a sleeping kernel, so that the wrappers' host time (~0.1 ms a
 call, more than K7c takes on most rays) is not in them.
 
-K7d / K7e's decided variants build from this tool at earlier commits: 1, 2
-or 8 warps a CTA and the Woop loop not unrolled (`variants`) at 88dd764,
-the sweep without the gate on leaf clusters (`nogate`) at 21f0d59.
+K7c's decided variants build from this tool's `votes` at 81e6d2d: the
+bundle of the block's live rays in place of the warp's (`blockcull`) and
+the boxes read with __ldg from the (3, Sp) tables in place of shared
+memory (`ldg`).  K7d / K7e's build from it at earlier commits: 1, 2 or 8
+warps a CTA and the Woop loop not unrolled (`variants`) at 88dd764, the
+sweep without the gate on leaf clusters (`nogate`) at 21f0d59.
 """
 
 from __future__ import annotations
@@ -61,9 +62,9 @@ import torch
 import torch_variants as tv
 
 REPS = 20
-CONSTS = dict(nocull=dict(kCull="0"), blockcull=dict(kCull="2"), ldg=dict(kSmemBoxes="false"),
-              warps4=dict(kVoteWarps="4"), range1024=dict(kRange="1024"),
-              range128=dict(kRange="128"), direct0=dict(kDirect="0"), direct2=dict(kDirect="2"))
+CONSTS = dict(nocull=dict(kCull="false"), warps4=dict(kVoteWarps="4"),
+              range1024=dict(kRange="1024"), range128=dict(kRange="128"),
+              direct0=dict(kDirect="0"), direct2=dict(kDirect="2"))
 # unroll1: the kept supernodes tested one at a time against the lanes' rays
 _PAIRS = """        for (unsigned m = kept; m;) {
           const int b0 = __ffs(m) - 1;
