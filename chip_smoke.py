@@ -28,8 +28,13 @@ diff.invert:
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
-        the Cornell, zoo and a 2048-triangle random-soup table;
-        prim equal except exact-t ties, t within 1e-5 relative, occ equal
+        the Cornell and zoo tables, cut at the scene's tri_rows (36 and 90 of
+        128 slots), and a 2048-triangle random-soup table, whole and cut off
+        its chunks; each clean, with NaN and inactive lanes mixed in
+        (odd_lanes), with every other warp dead, with one live lane a warp
+        and with ~5% of the lanes live, scattered (warp_lanes): prim equal
+        except exact-t ties, t within 1e-5 relative, occ equal; K2's
+        registers and spills (isect_ptxas: neither kernel may spill)
   k1    Cornell and zoo at 64x64: render_image_stats_auto (K1) vs the torch
         wavefront path_tracer.render_image_stats (on K2), gates of
         tests/test_mega.py: emission-only equal on >= 99.9% of pixels;
@@ -45,8 +50,9 @@ Phases:
         times the frame's rays; K1 / K5's registers and spills (brute_ptxas:
         neither may spill); the wavefront dispatch at 512x512, 1 spp, power
         light pick, with K2's launch counts from that run alone; K2 vs
-        closest_ref / any_ref on 1M rays, timed on them and on 65,536 of
-        them (the wavefront's launch size)
+        closest_ref / any_ref on 1M rays, timed on them, on 65,536 of them
+        (the wavefront's launch size) and on those with ~5% of the lanes
+        live
   k3    ftb_closest / ftb_any vs ftb_closest_ref / ftb_any_ref on 65,536
         random rays over the sphere field, Cornell, the zoo, a
         2048-triangle soup, a slot-mode build, a morton build of a soup and
@@ -216,11 +222,12 @@ tests (GatedTests.slots) and K7d's attribute rows of the triangles hit;
 of K7a / K7b's, the pair rows, the bin rows and the Woop rows of the
 clusters their walk tests (WalkTests.clusters).
 The timed calls are given the scene tables the wavefront builds once per
-render (K7c-e's supernode tables, the closest hits' attribute rows).  Times
-are CUDA events around repeated calls (cuda_ms), but K7c's and K2's on
-65,536 rays are device_ms: the calls queued behind a sleeping kernel, so
-that a wrapper's host time (~0.1 ms a call, more than those kernels take)
-is not counted as the kernel's.
+render (K7c-e's supernode tables, the closest hits' attribute rows).  Times of
+the intersection kernels (K2, K3, K7a-h) are device_ms: the calls queued
+behind a sleeping kernel, so that a wrapper's host time (~0.1 ms a call,
+more than several of those kernels take) is not counted as the kernel's;
+the rest, and K2 on the sphere field's table (seconds a call), are CUDA
+events around repeated calls (cuda_ms).
 No single PyTorch call computes ray-triangle intersection, a path-traced
 pixel, a supernode vote, a gated sweep, a gated walk, a binned
 vote-filtered walk or a BVH traversal, so library_ms is null for every
@@ -360,13 +367,27 @@ def soup_woop_t(n_tris, seed, dev):
     return torch.as_tensor(woop_transform(tris).T.copy(), device=dev)
 
 
-def check_k2(name, woop_t, rays):
+def warp_lanes(rays):
+    """The lane mixes K2 is held on: the clean rays, odd_lanes, every other
+    warp of 32 lanes dead, one live lane a warp, and sparse_lanes."""
+    o, d, lo, hi = rays
+    lane = torch.arange(o.shape[0], device=o.device)
+    dead = torch.full_like(hi, -1e30)
+    return dict(clean=rays, odd=odd_lanes(rays),
+                dead_warps=(o, d, lo, torch.where((lane // 32) % 2 == 1, dead, hi)),
+                one_a_warp=(o, d, lo, torch.where(lane % 32 == 13, hi, dead)),
+                sparse=sparse_lanes(rays))
+
+
+def check_k2(name, woop_t, rays, n_rows=None, ref_rows=None):
+    """K2 on the first n_rows slots against the plain versions on the first
+    ref_rows (None: every slot)."""
     from gpuspectral_tpu_torch.ops import cuda_isect as ci
 
-    t, prim = ci.closest_cuda(*rays[:2], woop_t, *rays[2:])
-    t_ref, prim_ref = ci.closest_ref(*rays[:2], woop_t, *rays[2:])
-    occ = ci.any_cuda(*rays[:2], woop_t, *rays[2:])
-    occ_ref = ci.any_ref(*rays[:2], woop_t, *rays[2:])
+    t, prim = ci.closest_cuda(*rays[:2], woop_t, *rays[2:], n_rows)
+    t_ref, prim_ref = ci.closest_ref(*rays[:2], woop_t, *rays[2:], ref_rows)
+    occ = ci.any_cuda(*rays[:2], woop_t, *rays[2:], n_rows)
+    occ_ref = ci.any_ref(*rays[:2], woop_t, *rays[2:], ref_rows)
     torch.cuda.synchronize()
     diff = prim != prim_ref
     tie = diff & (t == t_ref)
@@ -376,7 +397,8 @@ def check_k2(name, woop_t, rays):
     max_rel = float(rel.max()) if rel.numel() else 0.0
     max_abs = float((t - t_ref).abs()[hit].max()) if hit.any() else 0.0
     n_occ = int((occ != occ_ref).sum())
-    log(f"  K2 {name}: rays={rays[0].shape[0]} tris={woop_t.shape[1]} hits={int(hit.sum())} "
+    log(f"  K2 {name}: rays={rays[0].shape[0]} slots={woop_t.shape[1]} rows={n_rows} "
+        f"live={int((rays[3] > rays[2]).sum())} hits={int(hit.sum())} "
         f"occluded={int(occ_ref.sum())} prim_mismatch={n_bad_prim} exact_t_ties={int(tie.sum())} "
         f"t_max_rel={max_rel:.3g} occ_mismatch={n_occ}")
     if n_bad_prim or max_rel > 1e-5 or n_occ or bool((t[~hit] != 1e30).any()):
@@ -386,12 +408,19 @@ def check_k2(name, woop_t, rays):
 
 def phase_k2(dev, scenes):
     log("phase K2: closest_cuda / any_cuda vs closest_ref / any_ref")
+    isect_ptxas()
+    # (name, table, rows K2 tests, rows the plain versions test, rays): the
+    # scenes cut at their tri_rows against their whole tables, the soup
+    # whole and cut off its chunks (non-zero rows after the cut)
+    cases = [(name, scene.tri_woop_t, scene.tri_rows, None,
+              random_rays(K2_RAYS["parity"], -1.2, 2.2, 10 + i, dev))
+             for i, (name, scene) in enumerate(scenes.items())]
+    soup, rays = soup_woop_t(2048, 7, dev), random_rays(K2_RAYS["parity"], -2.5, 2.5, 3, dev)
+    cases += [("soup2048", soup, None, None, rays), ("soup2048 cut", soup, 1001, 1001, rays)]
     errs = []
-    for i, (name, scene) in enumerate(scenes.items()):
-        rays = random_rays(K2_RAYS["parity"], -1.2, 2.2, 10 + i, dev)
-        errs.append(check_k2(name, scene.tri_woop_t, rays))
-    rays = random_rays(K2_RAYS["parity"], -2.5, 2.5, 3, dev)
-    errs.append(check_k2("soup2048", soup_woop_t(2048, 7, dev), rays))
+    for name, w, n_rows, ref_rows, rays in cases:
+        for tag, lanes in warp_lanes(rays).items():
+            errs.append(check_k2(f"{name} ({tag})", w, lanes, n_rows, ref_rows))
     return [max(e) for e in zip(*errs)]
 
 
@@ -499,16 +528,16 @@ class WalkTally:
         real = dict(closest_cuda=ci.closest_cuda, any_cuda=ci.any_cuda,
                     ftb_closest=ftb.ftb_closest, ftb_any=ftb.ftb_any)
 
-        def closest_cuda(origin, direction, woop_t, t_min, t_max):
-            t, prim = real["closest_cuda"](origin, direction, woop_t, t_min, t_max)
+        def closest_cuda(origin, direction, woop_t, t_min, t_max, n_rows=None):
+            t, prim = real["closest_cuda"](origin, direction, woop_t, t_min, t_max, n_rows)
             n = int((t_max > t_min).sum())
             self.closest += n
             self._brute(n * self.n_tris)
             self.hits += int((prim >= 0).sum())
             return t, prim
 
-        def any_cuda(origin, direction, woop_t, t_min, t_max):
-            occ = real["any_cuda"](origin, direction, woop_t, t_min, t_max)
+        def any_cuda(origin, direction, woop_t, t_min, t_max, n_rows=None):
+            occ = real["any_cuda"](origin, direction, woop_t, t_min, t_max, n_rows)
             act = t_max > t_min
             self.shadow += int(act.sum())
             self._brute(self._brute_any(origin[act], direction[act], woop_t, t_min[act],
@@ -723,40 +752,55 @@ def phase_main(dev):
     if abs(m_k1 - m_w) > 0.05 * m_k1:
         raise AssertionError("K1 and wavefront images disagree in mean by > 5%")
 
-    # K2 vs closest_ref / any_ref on 1M rays against the Cornell table
+    # K2 vs closest_ref / any_ref on 1M rays against the Cornell table, the
+    # rows cut at tri_rows as the wavefront calls it; timed on them, on the
+    # wavefront's launch size of 65,536 rays (ray_batch) and on those with
+    # ~5% of the lanes live (its late bounces)
     rays = random_rays(K2_RAYS["timing"], -1.2, 2.2, 99, dev)
-    woop_t = scene.tri_woop_t
-    k2_err = check_k2(f"cornell {rays[0].shape[0]} rays", woop_t, rays)
-    k2a_ms = cuda_ms(lambda: ci.closest_cuda(*rays[:2], woop_t, *rays[2:]), reps=10)
-    k2a_ref = cuda_ms(lambda: ci.closest_ref(*rays[:2], woop_t, *rays[2:]))
-    k2b_ms = cuda_ms(lambda: ci.any_cuda(*rays[:2], woop_t, *rays[2:]), reps=10)
-    k2b_ref = cuda_ms(lambda: ci.any_ref(*rays[:2], woop_t, *rays[2:]))
-    log(f"  K2 closest {k2a_ms:.3f} ms vs closest_ref {k2a_ref:.3f} ms; "
-        f"any {k2b_ms:.3f} ms vs any_ref {k2b_ref:.3f} ms "
-        f"({rays[0].shape[0]} rays, {scene.num_tris} tris)")
-    # the wavefront launches K2 on at most ray_batch = 65,536 rays
+    woop_t, n_rows = scene.tri_woop_t, scene.tri_rows
+    k2_err = check_k2(f"cornell {rays[0].shape[0]} rays", woop_t, rays, n_rows)
     sub = [x[:K2_RAYS["parity"]] for x in rays]
-    k2_small = dict(k2a=device_ms(lambda: ci.closest_cuda(*sub[:2], woop_t, *sub[2:])),
-                    k2b=device_ms(lambda: ci.any_cuda(*sub[:2], woop_t, *sub[2:])))
-    log(f"  K2 on {sub[0].shape[0]} of those rays: closest {k2_small['k2a']:.3f} ms, "
-        f"any {k2_small['k2b']:.3f} ms")
+    k2_sets = dict(ms=rays, ms_65536_rays=sub, ms_sparse=sparse_lanes(sub))
+    k2_ms = {key: {tag: device_ms(lambda: fn(*x[:2], woop_t, *x[2:], n_rows))
+                   for tag, x in k2_sets.items()}
+             for key, fn in (("k2a", ci.closest_cuda), ("k2b", ci.any_cuda))}
+    k2a_ref = cuda_ms(lambda: ci.closest_ref(*rays[:2], woop_t, *rays[2:]))
+    k2b_ref = cuda_ms(lambda: ci.any_ref(*rays[:2], woop_t, *rays[2:]))
+    log(f"  K2 closest {k2_ms['k2a']} ms vs closest_ref {k2a_ref:.3f} ms; "
+        f"any {k2_ms['k2b']} ms vs any_ref {k2b_ref:.3f} ms "
+        f"({rays[0].shape[0]} rays, {sub[0].shape[0]} of them, those ~5% live; {n_rows} of "
+        f"{woop_t.shape[1]} rows, {scene.num_tris} tris)")
     head = f"headline run_benchmark ({hs}x{hs}, {spp} spp, d{depth})"
     wave = f"wavefront dispatch ({hs}x{hs}, 1 spp, d{depth}, power light pick)"
-    n = rays[0].shape[0]
     tally = tally_rows(scene, cfg, pix, ts)
     tables = nbytes(*mega_tables(scene, False))
     k1_bound = fused_bound(tally, frame_rays, hs * hs * (4 + 16) + tables)
     rows_bound = fused_bound(tally, rays_k1, pix.numel() * (4 + 16) + tables)
     log(f"  K1 frame bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']}): "
         f"K1 at {k1_bound['bound_ms'] / k1_head_ms:.5f} of it")
-    with WalkTally(scene.num_tris) as k2a_tally:
-        ci.closest_cuda(*rays[:2], woop_t, *rays[2:])
-    with WalkTally(scene.num_tris) as k2b_tally:
-        ci.any_cuda(*rays[:2], woop_t, *rays[2:])
-    log(f"  K2 Woop tests per ray: closest {k2a_tally.woop / n:.2f}, any {k2b_tally.woop / n:.2f}")
-    k2_in = n * 32 + 12 * 4 * scene.num_tris
-    k2a_bound = bound(k2a_tally.flops(shade=False), k2_in + n * 8)
-    k2b_bound = bound(k2b_tally.flops(shade=False), k2_in + n)
+    k2_bounds = {}
+    for key, fn, out_bytes in (("k2a", ci.closest_cuda, 8), ("k2b", ci.any_cuda, 1)):
+        for tag, x in k2_sets.items():
+            with WalkTally(scene.num_tris) as k2_tally:
+                fn(*x[:2], woop_t, *x[2:], n_rows)
+            r = x[0].shape[0]
+            k2_bounds[key, tag] = bound(k2_tally.flops(shade=False),
+                                        r * (32 + out_bytes) + 12 * 4 * scene.num_tris)
+            log(f"  K2 {key} {tag}: {k2_tally.rays()} live of {r} rays, Woop tests per ray "
+                f"{k2_tally.woop / r:.2f}, bound {k2_bounds[key, tag]['bound_ms']:.5f} ms "
+                f"({k2_bounds[key, tag]['bound_by']})")
+    ptxas = isect_ptxas()
+    sparse = k2_sets["ms_sparse"]
+
+    def k2_row(key):
+        return dict(launches=wave_launches[key], launched_by=wave,
+                    max_abs_err=k2_err[0 if key == "k2a" else 1], **k2_ms[key],
+                    plain_ms=k2a_ref if key == "k2a" else k2b_ref, **k2_bounds[key, "ms"],
+                    bound_ms_65536_rays=k2_bounds[key, "ms_65536_rays"]["bound_ms"],
+                    bound_ms_sparse=k2_bounds[key, "ms_sparse"]["bound_ms"],
+                    live_rays_sparse=int((sparse[3] > sparse[2]).sum()),
+                    rows_tested=n_rows, slots=woop_t.shape[1], timer="device_ms",
+                    ptxas=ptxas["closest_kernel" if key == "k2a" else "any_kernel"])
     return dict(
         k1=dict(launches=head_launches["k1"], launched_by=head, max_abs_err=k1_err,
                 ms=k1_head_ms,
@@ -766,10 +810,7 @@ def phase_main(dev):
                 bound_ms_rows=rows_bound["bound_ms"], **k1_bound,
                 share_of_frame=k1_head_ms / frame_ms, mrays_per_s=result["mrays_per_s"],
                 ptxas=brute_ptxas()),
-        k2a=dict(launches=wave_launches["k2a"], launched_by=wave, max_abs_err=k2_err[0],
-                 ms=k2a_ms, plain_ms=k2a_ref, ms_65536_rays=k2_small["k2a"], **k2a_bound),
-        k2b=dict(launches=wave_launches["k2b"], launched_by=wave, max_abs_err=k2_err[1],
-                 ms=k2b_ms, plain_ms=k2b_ref, ms_65536_rays=k2_small["k2b"], **k2b_bound),
+        k2a=k2_row("k2a"), k2b=k2_row("k2b"),
     )
 
 
@@ -876,19 +917,20 @@ def phase_k3(dev, cases, field):
         err = max(err, check_k3(name, scene, rays),
                   check_k3(name + " (NaN and inactive lanes)", scene, odd_lanes(rays)))
 
-    # timing on the sphere field: K3 at 1M and 65,536 rays, K2 over the
-    # same table and rays, the plain version at 65,536; K3a given the
-    # attribute rows built once, as the wavefront gives them
+    # timing on the sphere field: K3 at 1M and 65,536 rays (device_ms), K2
+    # over the same table, cut at its tri_rows, and rays (cuda_ms: seconds a
+    # call), the plain version at 65,536; K3a given the attribute rows built
+    # once, as the wavefront gives them
     times = {}
     attr = ftb.attr_table(field)
     for n in (K3_RAYS["timing"], K3_RAYS["parity"]):
         o, d, lo, hi = field_rays(n, field, 99, dev)
-        w = field.tri_woop_t
+        w, zero = field.tri_woop_t, torch.zeros_like(lo)
         times[n] = dict(
-            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
-            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5),
-            k2a=cuda_ms(lambda: ci.closest_cuda(o, d, w, torch.zeros_like(lo), hi), reps=1),
-            k2b=cuda_ms(lambda: ci.any_cuda(o, d, w, lo, hi), reps=1))
+            k3a=device_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr)),
+            k3b=device_ms(lambda: ftb.ftb_any(field, o, d, lo, hi)),
+            k2a=cuda_ms(lambda: ci.closest_cuda(o, d, w, zero, hi, field.tri_rows), reps=1),
+            k2b=cuda_ms(lambda: ci.any_cuda(o, d, w, lo, hi, field.tri_rows), reps=1))
         if n == K3_RAYS["parity"]:
             times[n]["k3a_plain"] = cuda_ms(lambda: ftb.ftb_closest_ref(field, o, d, t_max=hi),
                                             reps=1)
@@ -904,9 +946,9 @@ def phase_k3(dev, cases, field):
             f"{t.woop / n:.2f} Woop tests per ray, K3's own walk {t.walk_box / n:.2f} and "
             f"{t.walk_woop / n:.2f}; operations per ray {t.ops / n:.1f}")
     o, d, lo, hi = primary_rays(field, HEADLINE["size"], dev)
-    times["primary"] = dict(k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi,
-                                                                attr=attr), reps=5),
-                            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
+    times["primary"] = dict(k3a=device_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi,
+                                                                  attr=attr)),
+                            k3b=device_ms(lambda: ftb.ftb_any(field, o, d, lo, hi)))
     log(f"  sphere field, {o.shape[0]} primary rays: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in times["primary"].items()))
     tb = nbytes(*bvh_tables(field))
@@ -1506,16 +1548,16 @@ def phase_k7(dev, cases, field):
         prim = cs.cluster_closest(field, o, d, t_max=hi, votes=votes, supernodes=sn)[1]
         times = dict(
             k7c=device_ms(lambda: cs.cluster_votes(field, o, d, zero, hi, supernodes=sn)),
-            k7d=cuda_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, attr=attr, votes=votes,
-                                                   supernodes=sn), reps=2),
-            k7e=cuda_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any,
-                                               supernodes=sn), reps=2),
-            k7f=cuda_ms(lambda: ds.dfs_closest(field, o, d, t_max=hi, attr=attr), reps=2),
-            k7g=cuda_ms(lambda: ds.dfs_any(field, o, d, lo, hi), reps=2),
-            k7a=cuda_ms(lambda: bn.binned_closest(field, o, d, t_max=hi, attr=attr), reps=2),
-            k7b=cuda_ms(lambda: bn.binned_any(field, o, d, lo, hi), reps=2),
-            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
-            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
+            k7d=device_ms(lambda: cs.cluster_closest(field, o, d, t_max=hi, attr=attr,
+                                                     votes=votes, supernodes=sn)),
+            k7e=device_ms(lambda: cs.cluster_any(field, o, d, lo, hi, votes=votes_any,
+                                                 supernodes=sn)),
+            k7f=device_ms(lambda: ds.dfs_closest(field, o, d, t_max=hi, attr=attr)),
+            k7g=device_ms(lambda: ds.dfs_any(field, o, d, lo, hi)),
+            k7a=device_ms(lambda: bn.binned_closest(field, o, d, t_max=hi, attr=attr)),
+            k7b=device_ms(lambda: bn.binned_any(field, o, d, lo, hi)),
+            k3a=device_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr)),
+            k3b=device_ms(lambda: ftb.ftb_any(field, o, d, lo, hi)))
         b = cluster_bounds(field, rays, votes, votes_any, occ, prim)
         b_fg = dfs_bounds(field, rays, ds.dfs_any(field, o, d, lo, hi),
                           ds.dfs_closest(field, o, d, t_max=hi, attr=attr)[:2])
@@ -1748,6 +1790,24 @@ def walk_ptxas():
     return out
 
 
+def isect_ptxas():
+    """ptxas's registers, spills and shared memory of K2a (closest_kernel)
+    and K2b (any_kernel) of csrc/isect.cu; raises if either spills or is
+    missing."""
+    from gpuspectral_tpu_torch import _build
+
+    out = {}
+    for kern, line in _build.build_info()["ptxas"].items():
+        for tag in ("closest_kernel", "any_kernel"):
+            if "_isect_cu_" in kern and f"{len(tag)}{tag}E" in kern:
+                out[tag] = line
+    log("  ptxas of K2a / K2b: " + json.dumps(out))
+    spills = {k: v for k, v in out.items() if "0 bytes spill stores" not in v}
+    if len(out) != 2 or spills:
+        raise AssertionError(f"K2a / K2b spill or are missing: {spills or out}")
+    return out
+
+
 def brute_ptxas():
     """ptxas's registers, spills and shared memory of K1 (mega_kernel) and
     K5 (mega_grad_kernel); raises if either spills or is missing."""
@@ -1804,14 +1864,14 @@ def phase_k7h(dev, cases, field):
         o, d, lo, hi = rays
         zero = torch.zeros_like(hi)
         times = dict(
-            closest=cuda_ms(lambda: kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes),
-                            reps=5),
-            any=cuda_ms(lambda: kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes), reps=5),
-            closest_pr8=cuda_ms(lambda: kernels.traverse_tests(o, d, *tree, zero, hi, False),
-                                reps=2),
-            any_pr8=cuda_ms(lambda: kernels.traverse_tests(o, d, *tree, lo, hi, True), reps=2),
-            k3a=cuda_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr), reps=5),
-            k3b=cuda_ms(lambda: ftb.ftb_any(field, o, d, lo, hi), reps=5))
+            closest=device_ms(lambda: kernels.traverse_closest(o, d, *tree, zero, hi,
+                                                               nodes=nodes)),
+            any=device_ms(lambda: kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes)),
+            closest_pr8=device_ms(lambda: kernels.traverse_tests(o, d, *tree, zero, hi, False),
+                                  reps=3),
+            any_pr8=device_ms(lambda: kernels.traverse_tests(o, d, *tree, lo, hi, True), reps=3),
+            k3a=device_ms(lambda: ftb.ftb_closest(field, o, d, t_max=hi, attr=attr)),
+            k3b=device_ms(lambda: ftb.ftb_any(field, o, d, lo, hi)))
         b = traverse_bounds(field, rays, (
             kernels.traverse_closest(o, d, *tree, zero, hi, nodes=nodes),
             kernels.traverse_any(o, d, *tree, lo, hi, nodes=nodes)))

@@ -44,8 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    "gst_closest": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
-    "gst_any": [_P, _P, _P, _I, _P, _P, _I, _P, _P],
+    "gst_closest": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "gst_any": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P],
     "gst_mega": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "gst_bvh_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "gst_bvh_any": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P],

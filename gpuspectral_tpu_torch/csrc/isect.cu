@@ -1,131 +1,195 @@
-// K2: brute-force closest-hit and any-hit over every triangle, for sm_90a.
+// K2: brute-force closest-hit and any-hit over the leading rows of the Woop
+// table, for sm_90a.
 //
 // Replaces gpuspectral_tpu/ops/pallas_isect.py: closest_pallas
 // (_closest_kernel) and any_pallas (_any_kernel).  Wrapper:
 // gpuspectral_tpu_torch/ops/cuda_isect.py (closest_cuda, any_cuda).
 //
-// What bounds it on the H100: arithmetic.  Each ray-triangle test is ~20
-// float operations and the (12, T) Woop table is read by every ray, so the
-// work is R * T tests against 48 B of table per triangle; with T <= a few
-// thousand the table sits in L2 and device-memory traffic is the rays
-// (28 B in, 8 B out each).  The design keeps the table traffic on chip:
-// one thread per ray, and each block stages the table in shared memory one
-// chunk of kChunk triangles at a time (12 coalesced row loads), after which
-// every thread of the block walks the chunk with broadcast shared-memory
-// reads.  The TPU kernel's (BLOCK, 128) t-planes and min/argmin reductions
-// become a running best per thread.
+// One thread a ray, kThreads a CTA.  The CTA stages the table kChunk
+// triangles at a time in shared memory as three float4 a triangle
+// (brute.cuh's layout, transposed from the (12, T) columns while staging:
+// 12 coalesced loads a chunk), and every live warp walks the chunk with
+// three 128-bit broadcast loads a test (BruteIsect::test, common.cuh's
+// woop_eval op for op), kUnroll tests a loop turn over zero-padded rows.
+// Only the first n_rows slots are tested: the scene's count of the rows
+// that hold triangles (SceneData.tri_rows); the rows past it are zero and
+// can never pass.
+//
+// A lane whose segment is empty or NaN (!(t_max > t_min)), or past the
+// last ray, is dead: woop_eval's interval test passes no t there, so it
+// gives a miss (no occlusion) whether it tests or not.  A warp with no
+// live lane skips the tests (one ballot) but still stages its share and
+// meets every barrier; a CTA with no live lane stages nothing.
 //
 // Closest hit commits on strict t < best_t in index order, so among exactly
 // tied t the lowest prim id wins (the tie rule of pallas_isect.py:74-78 and
-// of the torch scan).  Any-hit stops once every ray of the block is
-// occluded.
+// of the torch scan, F3).  Any hit: a lane leaves its loop at its first
+// occluder, a warp skips a chunk once none of its lanes is searching, and
+// the CTA stops staging once none of its rays is.
 #include <cuda_runtime.h>
 
+#include "brute.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 256;
+constexpr int kThreads = 256;  // rays a CTA
+constexpr int kChunk = 256;    // triangles staged at a time (48 B each)
+constexpr int kUnroll = 4;     // tests a loop turn
 
-__device__ __forceinline__ void stage_chunk(float* sw, const float* __restrict__ woop_t,
-                                            int n_tris, int base, int count) {
-  for (int i = threadIdx.x; i < 12 * kChunk; i += blockDim.x) {
-    const int row = i / kChunk, col = i % kChunk;
-    sw[i] = col < count ? woop_t[(size_t)row * n_tris + base + col] : 0.0f;
+// Rows staged for `count` triangles: a multiple of kUnroll.
+__host__ __device__ constexpr int pad_rows(int count) {
+  return (count + kUnroll - 1) / kUnroll * kUnroll;
+}
+
+// Stage triangles base .. base + count - 1 of the (12, n_slots) table as
+// three float4 each in ops/woop.py's row order, zero rows up to
+// pad_rows(count): consecutive threads take consecutive triangles, so each
+// of a triangle's 12 loads is coalesced.
+__device__ __forceinline__ void stage(float4* sw, const float* __restrict__ woop_t,
+                                      int n_slots, int base, int count) {
+  const int n = pad_rows(count);
+  const size_t row = (size_t)n_slots;
+  for (int i = threadIdx.x; i < 3 * n; i += kThreads) {
+    const int j = i % n, q = i / n;
+    float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (j < count) {
+      const float* col = woop_t + 4 * q * row + base + j;
+      w = make_float4(col[0], col[row], col[2 * row], col[3 * row]);
+    }
+    sw[3 * j + q] = w;
   }
+}
+
+struct Ray {
+  gst::V3 o, d;
+  float lo, hi;
+  bool live;
+};
+
+// Ray r, or for a lane past the last ray an empty segment.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
+                                        const float* __restrict__ direction,
+                                        const float* __restrict__ t_min,
+                                        const float* __restrict__ t_max, int r, int n_rays) {
+  Ray ray{{0.f, 0.f, 0.f}, {0.f, 0.f, 1.f}, 0.f, -gst::kBig, false};
+  if (r < n_rays) {
+    ray.o = {origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
+    ray.d = {direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
+    ray.lo = t_min[r];
+    ray.hi = t_max[r];
+  }
+  ray.live = ray.hi > ray.lo;
+  return ray;
 }
 
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
-               const float* __restrict__ woop_t, int n_tris,
+               const float* __restrict__ woop_t, int n_slots, int n_rows,
                const float* __restrict__ t_min, const float* __restrict__ t_max,
                int n_rays, float* __restrict__ t_out, int* __restrict__ prim_out) {
-  __shared__ float sw[12 * kChunk];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = r < n_rays;
-  gst::V3 o{0.f, 0.f, 0.f}, d{0.f, 0.f, 1.f};
-  float lo = 0.f, hi = -gst::kBig;
-  if (valid) {
-    o = {origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
-    d = {direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
-    lo = t_min[r];
-    hi = t_max[r];
-  }
+  extern __shared__ float4 sw[];
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const Ray ray = load_ray(origin, direction, t_min, t_max, r, n_rays);
+  const bool warp_live = __ballot_sync(0xffffffffu, ray.live) != 0u;
   float best_t = gst::kBig;
   int best_prim = -1;
-  for (int base = 0; base < n_tris; base += kChunk) {
-    const int count = min(kChunk, n_tris - base);
-    __syncthreads();
-    stage_chunk(sw, woop_t, n_tris, base, count);
-    __syncthreads();
-    for (int j = 0; j < count; ++j) {
-      float t, u, v;
-      if (gst::woop_test(sw + j, kChunk, o, d, lo, hi, t, u, v) && t < best_t) {
-        best_t = t;
-        best_prim = base + j;
+  if (__syncthreads_or(ray.live)) {
+    for (int base = 0; base < n_rows; base += kChunk) {
+      const int count = min(kChunk, n_rows - base);
+      if (base > 0) __syncthreads();  // every warp is done with the last chunk
+      stage(sw, woop_t, n_slots, base, count);
+      __syncthreads();
+      if (!warp_live) continue;
+      const gst::BruteIsect rows{sw, pad_rows(count)};
+      for (int j = 0; j < rows.n; j += kUnroll) {
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          float t, u, v;
+          if (rows.test(j + k, ray.o, ray.d, ray.lo, ray.hi, t, u, v) && t < best_t) {
+            best_t = t;
+            best_prim = base + j + k;
+          }
+        }
       }
     }
   }
-  if (valid) {
+  if (r < n_rays) {
     t_out[r] = best_t;
     prim_out[r] = best_t < gst::kBig ? best_prim : -1;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-any_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
-           const float* __restrict__ woop_t, int n_tris,
-           const float* __restrict__ t_min, const float* __restrict__ t_max,
-           int n_rays, bool* __restrict__ occ_out) {
-  __shared__ float sw[12 * kChunk];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = r < n_rays;
-  gst::V3 o{0.f, 0.f, 0.f}, d{0.f, 0.f, 1.f};
-  float lo = 0.f, hi = -gst::kBig;
-  if (valid) {
-    o = {origin[3 * r], origin[3 * r + 1], origin[3 * r + 2]};
-    d = {direction[3 * r], direction[3 * r + 1], direction[3 * r + 2]};
-    lo = t_min[r];
-    hi = t_max[r];
-  }
-  // rays past the end and empty intervals never occlude: count them done
-  bool occ = false;
-  bool done = !valid || !(hi > lo);
-  for (int base = 0; base < n_tris; base += kChunk) {
-    if (__syncthreads_and(done)) break;
-    const int count = min(kChunk, n_tris - base);
-    stage_chunk(sw, woop_t, n_tris, base, count);
-    __syncthreads();
-    for (int j = 0; j < count && !done; ++j) {
+// Whether a triangle of the staged rows lies strictly inside the ray's
+// segment: index order, out at the first.
+__device__ __forceinline__ bool any_rows(const gst::BruteIsect& rows, const Ray& ray) {
+  for (int j = 0; j < rows.n; j += kUnroll) {
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
       float t, u, v;
-      if (gst::woop_test(sw + j, kChunk, o, d, lo, hi, t, u, v)) {
-        occ = true;
-        done = true;
-      }
+      if (rows.test(j + k, ray.o, ray.d, ray.lo, ray.hi, t, u, v)) return true;
     }
   }
-  if (valid) occ_out[r] = occ;
+  return false;
+}
+
+__global__ void __launch_bounds__(kThreads)
+any_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
+           const float* __restrict__ woop_t, int n_slots, int n_rows,
+           const float* __restrict__ t_min, const float* __restrict__ t_max,
+           int n_rays, bool* __restrict__ occ_out) {
+  extern __shared__ float4 sw[];
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const Ray ray = load_ray(origin, direction, t_min, t_max, r, n_rays);
+  bool occ = false;
+  bool searching = ray.live;
+  for (int base = 0; base < n_rows; base += kChunk) {
+    // the barrier before the staging: every warp is done with the last
+    // chunk, and the CTA leaves once none of its rays is searching
+    if (!__syncthreads_or(searching)) break;
+    const int count = min(kChunk, n_rows - base);
+    stage(sw, woop_t, n_slots, base, count);
+    __syncthreads();
+    if (__ballot_sync(0xffffffffu, searching) == 0u) continue;
+    if (searching && any_rows(gst::BruteIsect{sw, pad_rows(count)}, ray)) {
+      occ = true;
+      searching = false;
+    }
+  }
+  if (r < n_rays) occ_out[r] = occ;
+}
+
+// kernel over n_rays rays, one thread a ray, with the shared memory of the
+// largest chunk of n_rows rows
+template <class... Params, class... Args>
+int launch(void (*kernel)(Params...), int n_rays, int n_rows, cudaStream_t stream,
+           Args... args) {
+  if (n_rays == 0) return 0;
+  const size_t smem = (size_t)pad_rows(std::min(n_rows, kChunk)) * 3 * sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The (12, n_slots) table, its first n_rows slots tested (0 <= n_rows <=
+// n_slots, checked by the wrapper).
 extern "C" int gst_closest(const float* origin, const float* direction, const float* woop_t,
-                           int n_tris, const float* t_min, const float* t_max, int n_rays,
-                           float* t_out, int* prim_out, void* stream) {
-  if (n_rays == 0) return 0;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  closest_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, woop_t, n_tris, t_min, t_max, n_rays, t_out, prim_out);
-  return (int)cudaGetLastError();
+                           int n_slots, int n_rows, const float* t_min, const float* t_max,
+                           int n_rays, float* t_out, int* prim_out, void* stream) {
+  return launch(closest_kernel, n_rays, n_rows, (cudaStream_t)stream, origin, direction, woop_t,
+                n_slots, n_rows, t_min, t_max, n_rays, t_out, prim_out);
 }
 
 extern "C" int gst_any(const float* origin, const float* direction, const float* woop_t,
-                       int n_tris, const float* t_min, const float* t_max, int n_rays,
-                       bool* occ_out, void* stream) {
-  if (n_rays == 0) return 0;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  any_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origin, direction, woop_t, n_tris, t_min, t_max, n_rays, occ_out);
-  return (int)cudaGetLastError();
+                       int n_slots, int n_rows, const float* t_min, const float* t_max,
+                       int n_rays, bool* occ_out, void* stream) {
+  return launch(any_kernel, n_rays, n_rows, (cudaStream_t)stream, origin, direction, woop_t,
+                n_slots, n_rows, t_min, t_max, n_rays, occ_out);
 }

@@ -271,10 +271,11 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
                 nodes=tables["nodes"])
         elif isector == "pallas" and differentiable:
             t, prim, bu, bv = cuda_isect.closest_diff(origin.contiguous(), direction.contiguous(),
-                                                      scene.tri_woop_t, scene.tri_woop, t_max0)
+                                                      scene.tri_woop_t, scene.tri_woop, t_max0,
+                                                      scene.tri_rows)
         elif isector == "pallas":
             t, prim = cuda_isect.closest_cuda(origin.contiguous(), direction.contiguous(),
-                                              scene.tri_woop_t, zeros, t_max0)
+                                              scene.tri_woop_t, zeros, t_max0, scene.tri_rows)
             bu, bv = woop_mod._recover_uv(origin, direction, scene.tri_woop, prim,
                                           torch.where(prim >= 0, t, 0.0))
             bu = torch.where(prim >= 0, bu, 0.0)
@@ -434,7 +435,8 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state, tables,
     elif isector == "pallas":
         shadowed = cuda_isect.any_cuda(position.detach().contiguous(),
                                        ldir.detach().contiguous(), scene.tri_woop_t, sh_tmin,
-                                       torch.where(nee_candidate, sh_tmax.detach(), -1.0))
+                                       torch.where(nee_candidate, sh_tmax.detach(), -1.0),
+                                       scene.tri_rows)
     elif isector == "mt":
         shadowed = isect.intersect_any(position.detach(), ldir.detach(), scene.tri_pos, sh_tmin,
                                        sh_tmax.detach(), active=nee_candidate,

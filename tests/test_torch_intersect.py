@@ -106,3 +106,27 @@ def test_wrappers_validate_and_use_plain_version_on_cpu():
         ci.any_cuda(o.double(), d, w, lo, hi)
     with pytest.raises(ValueError, match="direction"):
         ci.closest_cuda(o, d[:, :2], w, lo, hi)
+
+
+def test_wrappers_take_the_rows_to_test():
+    """n_rows: the leading slots tested, 0 <= n_rows <= T (0: every ray
+    misses); the plain versions test the same rows, so a cut past the last
+    triangle changes nothing and a cut before it drops the rows after."""
+    w = torch.as_tensor(TABLES["soup256"])
+    o, d, lo, hi = map(torch.as_tensor, _rays(4, r=512))
+    full = ci.closest_cuda(o, d, w, lo, hi), ci.any_cuda(o, d, w, lo, hi)
+    assert int((full[0][1] >= 128).sum()) > 0 and bool(full[1].any())
+    assert all(torch.equal(a, b) for a, b in zip(ci.closest_cuda(o, d, w, lo, hi, 256), full[0]))
+    t, prim = ci.closest_cuda(o, d, w, lo, hi, n_rows=128)
+    t_r, prim_r = ci.closest_ref(o, d, w[:, :128].contiguous(), lo, hi)
+    assert torch.equal(t, t_r) and torch.equal(prim, prim_r) and int(prim.max()) < 128
+    assert torch.equal(ci.any_cuda(o, d, w, lo, hi, n_rows=128),
+                       ci.any_ref(o, d, w[:, :128].contiguous(), lo, hi))
+    t, prim = ci.closest_cuda(o, d, w, lo, hi, n_rows=0)
+    assert bool((t == 1e30).all()) and bool((prim == -1).all())
+    assert not bool(ci.any_cuda(o, d, w, lo, hi, n_rows=0).any())
+    for bad in (-1, 257):
+        with pytest.raises(ValueError, match="n_rows"):
+            ci.closest_cuda(o, d, w, lo, hi, n_rows=bad)
+        with pytest.raises(ValueError, match="n_rows"):
+            ci.any_cuda(o, d, w, lo, hi, n_rows=bad)

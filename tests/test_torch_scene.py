@@ -159,3 +159,77 @@ def test_scene_constructors_default_to_the_card(name):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make(device="cuda")
     assert make(device="cpu").device.type == "cpu"
+
+
+def _k1_scenes():
+    """Every kind of scene the port's tests build, by name: the loaders',
+    the zoo's, tests/torch_common.py's and chip_smoke.py's soups."""
+    from chip_smoke import soup_scene
+    from torch_common import env_box, mixed_bsdf_scene, sky, textured_diffuse_scene, textured_floor
+
+    grad = np.broadcast_to(np.linspace(0, 1, tdata.TEX_RES, dtype=np.float32)[None, :, None],
+                           (tdata.TEX_RES, tdata.TEX_RES, 3)).copy()
+    return dict(
+        cornell=load_mitsuba_scene(str(CORNELL_XML), device="cpu")[0], zoo=build_zoo("cpu"),
+        sphere_field_small=build_sphere_field("cpu", n_side=2, segs=16, rings=8),
+        env_const=env_box(tdata.SceneBuilder(), True).build("cpu"),
+        env_image=env_box(tdata.SceneBuilder(), True, sky(32, 64)).build("cpu"),
+        textured=textured_floor(tdata.SceneBuilder(), grad).build("cpu"),
+        mixed=mixed_bsdf_scene(tdata.SceneBuilder())[0].build("cpu"),
+        textured_diffuse=textured_diffuse_scene(tdata.SceneBuilder()).build("cpu"),
+        soup=soup_scene(2048, 7, "cpu"), soup_morton=soup_scene(2048, 8, "cpu", order="morton"),
+        soup_ties=soup_scene(1024, 9, "cpu", ties=True),
+        soup_light=soup_scene(300, 5, "cpu", light=True))
+
+
+def test_tri_rows_counts_the_rows_that_hold_triangles(scenes):
+    """K2 tests the first tri_rows slots: 1 + the last slot of a triangle,
+    every row from it on zero.  Cornell 36 and the zoo 90, of 128 slots;
+    JAX's tables carried across give the same count."""
+    for name, rows in (("cornell", 36), ("zoo", 90)):
+        js, ts = scenes[name]
+        woop = ts.tri_woop.numpy()
+        assert ts.tri_rows == rows == ts.num_tris and woop.shape[0] == 128, name
+        assert woop[:rows].any(1).all() and not woop[rows:].any(), name
+        carried = tdata.scene_from_arrays(*jax_scene_arrays(js), "cpu")
+        assert carried.tri_rows == rows, name
+        assert tdata.scene_from_arrays(*tdata.scene_to_arrays(ts), "cpu").tri_rows == rows
+
+
+def test_tri_rows_on_the_sphere_field():
+    """The sphere field's slots hold zero rows between its clusters, so only
+    the trailing ones are cut."""
+    f = build_sphere_field("cpu")
+    woop = f.tri_woop.numpy()
+    assert f.tri_woop.shape[0] == 262144 and f.num_tris < f.tri_rows <= 262144
+    assert woop[f.tri_rows - 1].any() and not woop[f.tri_rows:].any()
+    assert not woop[:f.tri_rows].any(1).all()  # zero rows inside the count
+
+
+def test_tri_rows_equals_num_tris_on_every_k1_scene():
+    """On every scene the tests build that K1 takes (mega_eligible), the
+    count is num_tris: K1's own cut, mega.woop_rows = tri_woop[:num_tris],
+    drops no triangle."""
+    from gpuspectral_tpu_torch.bvh.tables import last_tri_row
+    from gpuspectral_tpu_torch.integrator import mega
+
+    eligible = []
+    for name, ts in _k1_scenes().items():
+        assert ts.tri_rows == last_tri_row(ts.tri_woop.numpy()), name
+        if mega.mega_eligible(ts, RenderConfig()):
+            eligible.append(name)
+            assert ts.tri_rows == ts.num_tris, name
+    assert {"cornell", "zoo", "soup", "soup_ties"} <= set(eligible)
+
+
+def test_scene_from_arrays_raises_on_a_triangle_past_tri_rows(scenes):
+    arrays, meta = tdata.build_arrays(populate_zoo(tdata.SceneBuilder()))
+    assert meta["tri_rows"] == 90
+    assert tdata.scene_from_arrays(arrays, meta, "cpu").tri_rows == 90
+    for rows in (89, -1, 129):
+        with pytest.raises(ValueError, match="tri_rows"):
+            tdata.scene_from_arrays(arrays, dict(meta, tri_rows=rows), "cpu")
+    woop = arrays["tri_woop"].copy()
+    woop[100] = woop[0]
+    with pytest.raises(ValueError, match="past tri_rows"):
+        tdata.scene_from_arrays(dict(arrays, tri_woop=woop), meta, "cpu")

@@ -1,13 +1,17 @@
-"""Time the PyTorch port's sphere-field wavefront frame on the card: the
-command line's
+"""Time a PyTorch port's wavefront frame on the card: the sphere field's,
+the command line's
 
     benchmark builtin:sphere_field --size 512x512 --spp 1 --intersector pallas
         --bvh-kernel KERNEL
 
 config (its parser and _build give the settings), with KERNEL "ftb" (K3),
-"cluster" (K7c-e), "dfs" (K7f / K7g) or "binned" (K7a / K7b).  The port imported is the one on PYTHONPATH:
+"cluster" (K7c-e), "dfs" (K7f / K7g) or "binned" (K7a / K7b); or, with
+"cornell", the Cornell frame that chip_smoke.py's main phase drives
+through render_image_stats_auto: 512x512, 1 spp, d50, the power light
+pick, which the megakernel does not cover, so the wavefront runs on K2.
+The port imported is the one on PYTHONPATH:
 
-    PYTHONPATH=ROOT python3 tools/torch_wavefront_ab.py KERNEL [profile]
+    PYTHONPATH=ROOT python3 tools/torch_wavefront_ab.py KERNEL|cornell [profile]
 
 After a warmup frame it prints one line per timed frame (timestamps 100
 and 101).  With "profile" it renders timestamp 100 again under
@@ -20,25 +24,39 @@ launches.  To compare two trees on one card, unpack the
 other tree (git archive) into a directory that .gitignore lists and run
 the two in one call in the order parent, change, change, parent.
 """
+import os
 import sys
 import time
 
 import torch
 
 from gpuspectral_tpu_torch.cli import main as cli
+from gpuspectral_tpu_torch.integrator import render_image_stats_auto
 from gpuspectral_tpu_torch.integrator.path_tracer import render_image_stats
 
 kernel = sys.argv[1]
-scene, cfg = cli._build(cli.parser().parse_args([
-    "benchmark", "builtin:sphere_field", "--size", "512x512", "--spp", "1",
-    "--intersector", "pallas", "--bvh-kernel", kernel]))
+if kernel == "cornell":
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    scene = load_mitsuba_scene(os.path.join(here, "scenes", "cornell", "scene.xml"),
+                               device="cuda")[0]
+    cfg = RenderConfig(width=512, height=512, spp=1, max_depth=50, ray_batch=65536,
+                       light_sampling="power")
+    render = render_image_stats_auto  # the dispatch takes the wavefront: K1 has no power pick
+else:
+    scene, cfg = cli._build(cli.parser().parse_args([
+        "benchmark", "builtin:sphere_field", "--size", "512x512", "--spp", "1",
+        "--intersector", "pallas", "--bvh-kernel", kernel]))
+    render = render_image_stats
 where = cli.__file__.rsplit("/gpuspectral_tpu_torch/", 1)[0]
-render_image_stats(scene, cfg, 0)
+render(scene, cfg, 0)
 torch.cuda.synchronize()
 seconds = {}
 for ts in (100, 101):
     t0 = time.perf_counter()
-    img, rays = render_image_stats(scene, cfg, ts)
+    img, rays = render(scene, cfg, ts)
     torch.cuda.synchronize()
     seconds[ts] = dt = time.perf_counter() - t0
     print(f"AB root={where} kernel={kernel} ts={ts} s={dt:.4f} rays={rays:.0f} "
@@ -48,7 +66,7 @@ if "profile" in sys.argv[2:]:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render_image_stats(scene, cfg, 100)
+        render(scene, cfg, 100)
         torch.cuda.synchronize()
     # the device's own events: a host op's device time is that of the
     # kernels it launched, which are events of their own
