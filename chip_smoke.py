@@ -778,17 +778,7 @@ def phase_main(dev):
     rows_bound = fused_bound(tally, rays_k1, pix.numel() * (4 + 16) + tables)
     log(f"  K1 frame bound {k1_bound['bound_ms']:.4f} ms ({k1_bound['bound_by']}): "
         f"K1 at {k1_bound['bound_ms'] / k1_head_ms:.5f} of it")
-    k2_bounds = {}
-    for key, fn, out_bytes in (("k2a", ci.closest_cuda, 8), ("k2b", ci.any_cuda, 1)):
-        for tag, x in k2_sets.items():
-            with WalkTally(scene.num_tris) as k2_tally:
-                fn(*x[:2], woop_t, *x[2:], n_rows)
-            r = x[0].shape[0]
-            k2_bounds[key, tag] = bound(k2_tally.flops(shade=False),
-                                        r * (32 + out_bytes) + 12 * 4 * scene.num_tris)
-            log(f"  K2 {key} {tag}: {k2_tally.rays()} live of {r} rays, Woop tests per ray "
-                f"{k2_tally.woop / r:.2f}, bound {k2_bounds[key, tag]['bound_ms']:.5f} ms "
-                f"({k2_bounds[key, tag]['bound_by']})")
+    k2_bounds = brute_bounds(scene, k2_sets)
     ptxas = isect_ptxas()
     sparse = k2_sets["ms_sparse"]
 
@@ -812,6 +802,31 @@ def phase_main(dev):
                 ptxas=brute_ptxas()),
         k2a=k2_row("k2a"), k2b=k2_row("k2b"),
     )
+
+
+def brute_bounds(scene, sets):
+    """{(k2a or k2b, set): bound()} of K2 on each set of rays, cut at the
+    scene's tri_rows: the tests a WalkTally counts (a brute-force ray tests
+    the scene's triangles, a shadow ray up to its first occluder), the rays
+    read and the hits or flags written.  Raises unless the tally saw every
+    live ray."""
+    from gpuspectral_tpu_torch.ops import cuda_isect as ci
+
+    out = {}
+    for key, name, out_bytes in (("k2a", "closest_cuda", 8), ("k2b", "any_cuda", 1)):
+        for tag, x in sets.items():
+            with WalkTally(scene.num_tris) as tally:
+                getattr(ci, name)(*x[:2], scene.tri_woop_t, *x[2:], scene.tri_rows)
+            r, live = x[0].shape[0], int((x[3] > x[2]).sum())
+            if tally.rays() != live:
+                raise AssertionError(f"K2 {key} {tag}: the tally saw {tally.rays()} of {live} "
+                                     "live rays")
+            out[key, tag] = bound(tally.flops(shade=False),
+                                  r * (32 + out_bytes) + 12 * 4 * scene.num_tris)
+            log(f"  K2 {key} {tag}: {live} live of {r} rays, Woop tests per ray "
+                f"{tally.woop / r:.2f}, bound {out[key, tag]['bound_ms']:.5f} ms "
+                f"({out[key, tag]['bound_by']})")
+    return out
 
 
 def field_rays(n, scene, seed, dev):
