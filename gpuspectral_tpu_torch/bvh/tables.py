@@ -185,21 +185,10 @@ def build_pair_rows(node_min, node_max, n_clusters: int):
 
 
 def last_tri_row(woop) -> int:
-    """1 + the last non-zero row of the (T, 12) Woop table (0 if none)."""
+    """1 + the last non-zero row of the (T, 12) Woop table (0 if none): the
+    rows K2 (csrc/isect.cu) tests, since a zero row passes no Woop test."""
     nz = np.flatnonzero(np.asarray(woop).any(1))
     return int(nz[-1]) + 1 if nz.size else 0
-
-
-def check_tri_rows(woop, tri_rows: int):
-    """Raise ValueError unless 0 <= tri_rows <= T and every Woop row from
-    tri_rows on is zero, which no Woop test passes: K2 (csrc/isect.cu)
-    tests only the rows before it."""
-    woop = np.asarray(woop)
-    if not 0 <= tri_rows <= woop.shape[0]:
-        raise ValueError(f"tri_rows {tri_rows} outside the table's {woop.shape[0]} slots")
-    if (woop[tri_rows:] != 0).any():
-        raise ValueError(f"a slot past tri_rows = {tri_rows} holds a triangle (a non-zero Woop "
-                         "row)")
 
 
 def check_leaf_clusters(woop, node_min, node_max, n_clusters: int, leaf_size: int, dfs_meta):

@@ -8,24 +8,25 @@
 // One thread a ray, kThreads a CTA.  The CTA stages the table kChunk
 // triangles at a time in shared memory as three float4 a triangle
 // (brute.cuh's layout, transposed from the (12, T) columns while staging:
-// 12 coalesced loads a chunk), and every live warp walks the chunk with
-// three 128-bit broadcast loads a test (BruteIsect::test, common.cuh's
-// woop_eval op for op), kUnroll tests a loop turn over zero-padded rows.
-// Only the first n_rows slots are tested: the scene's count of the rows
-// that hold triangles (SceneData.tri_rows); the rows past it are zero and
-// can never pass.
+// 12 coalesced loads a chunk), and every live lane walks the chunk with
+// three 128-bit broadcast loads a test (BruteIsect, common.cuh's woop_eval
+// op for op), kBruteUnroll tests a loop turn over zero-padded rows.  Only
+// the first n_rows slots are tested: the scene's count of the rows that
+// hold triangles (SceneData.tri_rows); the rows past it are zero and can
+// never pass.
 //
 // A lane whose segment is empty or NaN (!(t_max > t_min)), or past the
 // last ray, is dead: woop_eval's interval test passes no t there, so it
-// gives a miss (no occlusion) whether it tests or not.  A warp with no
-// live lane skips the tests (one ballot) but still stages its share and
-// meets every barrier; a CTA with no live lane stages nothing.
+// gives a miss (no occlusion) whether it tests or not.  A dead lane skips
+// the tests, so a warp with no live lane runs none, but it still stages
+// its share and meets every barrier; a CTA with no live lane stages
+// nothing.
 //
 // Closest hit commits on strict t < best_t in index order, so among exactly
 // tied t the lowest prim id wins (the tie rule of pallas_isect.py:74-78 and
 // of the torch scan, F3).  Any hit: a lane leaves its loop at its first
-// occluder, a warp skips a chunk once none of its lanes is searching, and
-// the CTA stops staging once none of its rays is.
+// occluder and skips the chunks after it, and the CTA stops staging once
+// none of its rays is searching.
 #include <cuda_runtime.h>
 
 #include "brute.cuh"
@@ -35,20 +36,14 @@ namespace {
 
 constexpr int kThreads = 256;  // rays a CTA
 constexpr int kChunk = 256;    // triangles staged at a time (48 B each)
-constexpr int kUnroll = 4;     // tests a loop turn
-
-// Rows staged for `count` triangles: a multiple of kUnroll.
-__host__ __device__ constexpr int pad_rows(int count) {
-  return (count + kUnroll - 1) / kUnroll * kUnroll;
-}
 
 // Stage triangles base .. base + count - 1 of the (12, n_slots) table as
 // three float4 each in ops/woop.py's row order, zero rows up to
-// pad_rows(count): consecutive threads take consecutive triangles, so each
-// of a triangle's 12 loads is coalesced.
+// brute_pad(count): consecutive threads take consecutive triangles, so
+// each of a triangle's 12 loads is coalesced.
 __device__ __forceinline__ void stage(float4* sw, const float* __restrict__ woop_t,
                                       int n_slots, int base, int count) {
-  const int n = pad_rows(count);
+  const int n = gst::brute_pad(count);
   const size_t row = (size_t)n_slots;
   for (int i = threadIdx.x; i < 3 * n; i += kThreads) {
     const int j = i % n, q = i / n;
@@ -91,7 +86,6 @@ closest_kernel(const float* __restrict__ origin, const float* __restrict__ direc
   extern __shared__ float4 sw[];
   const int r = blockIdx.x * kThreads + threadIdx.x;
   const Ray ray = load_ray(origin, direction, t_min, t_max, r, n_rays);
-  const bool warp_live = __ballot_sync(0xffffffffu, ray.live) != 0u;
   float best_t = gst::kBig;
   int best_prim = -1;
   if (__syncthreads_or(ray.live)) {
@@ -100,11 +94,11 @@ closest_kernel(const float* __restrict__ origin, const float* __restrict__ direc
       if (base > 0) __syncthreads();  // every warp is done with the last chunk
       stage(sw, woop_t, n_slots, base, count);
       __syncthreads();
-      if (!warp_live) continue;
-      const gst::BruteIsect rows{sw, pad_rows(count)};
-      for (int j = 0; j < rows.n; j += kUnroll) {
+      if (!ray.live) continue;
+      const gst::BruteIsect rows{sw, gst::brute_pad(count)};
+      for (int j = 0; j < rows.n; j += gst::kBruteUnroll) {
 #pragma unroll
-        for (int k = 0; k < kUnroll; ++k) {
+        for (int k = 0; k < gst::kBruteUnroll; ++k) {
           float t, u, v;
           if (rows.test(j + k, ray.o, ray.d, ray.lo, ray.hi, t, u, v) && t < best_t) {
             best_t = t;
@@ -118,19 +112,6 @@ closest_kernel(const float* __restrict__ origin, const float* __restrict__ direc
     t_out[r] = best_t;
     prim_out[r] = best_t < gst::kBig ? best_prim : -1;
   }
-}
-
-// Whether a triangle of the staged rows lies strictly inside the ray's
-// segment: index order, out at the first.
-__device__ __forceinline__ bool any_rows(const gst::BruteIsect& rows, const Ray& ray) {
-  for (int j = 0; j < rows.n; j += kUnroll) {
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      float t, u, v;
-      if (rows.test(j + k, ray.o, ray.d, ray.lo, ray.hi, t, u, v)) return true;
-    }
-  }
-  return false;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -150,8 +131,8 @@ any_kernel(const float* __restrict__ origin, const float* __restrict__ direction
     const int count = min(kChunk, n_rows - base);
     stage(sw, woop_t, n_slots, base, count);
     __syncthreads();
-    if (__ballot_sync(0xffffffffu, searching) == 0u) continue;
-    if (searching && any_rows(gst::BruteIsect{sw, pad_rows(count)}, ray)) {
+    const gst::BruteIsect rows{sw, gst::brute_pad(count)};
+    if (searching && rows.any(ray.o, ray.d, ray.lo, ray.hi)) {
       occ = true;
       searching = false;
     }
@@ -165,7 +146,7 @@ template <class... Params, class... Args>
 int launch(void (*kernel)(Params...), int n_rays, int n_rows, cudaStream_t stream,
            Args... args) {
   if (n_rays == 0) return 0;
-  const size_t smem = (size_t)pad_rows(std::min(n_rows, kChunk)) * 3 * sizeof(float4);
+  const size_t smem = gst::brute_smem(std::min(n_rows, kChunk));
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

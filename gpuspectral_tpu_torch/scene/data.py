@@ -331,9 +331,6 @@ def build_arrays(b: SceneBuilder, order: str = "sah") -> tuple[dict, dict]:
     bvh, bin_bounds, n_bins, bin_slots = _bvh_and_bins(pos, num_tris, na, n_lights_est, order)
 
     perm = bvh.perm
-    # the slots of real triangles (the padding ones are degenerate: zero rows)
-    filled = np.flatnonzero((perm >= 0) & (perm < num_tris))
-    tri_rows = int(filled[-1]) + 1 if filled.size else 0
     slots = perm.shape[0]
     if slots % PAD_MULTIPLE:
         perm = np.concatenate([perm, np.full(-slots % PAD_MULTIPLE, -1, perm.dtype)])
@@ -401,7 +398,6 @@ def build_arrays(b: SceneBuilder, order: str = "sah") -> tuple[dict, dict]:
     )
     meta = dict(
         num_tris=int(num_tris),
-        tri_rows=tri_rows,
         num_lights=int(lpos.shape[0]) if b.light_pos else 1,
         bvh_clusters=bvh.n_clusters,
         bvh_leaf_size=bvh.leaf_size,
@@ -438,22 +434,18 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
     metadata.
 
     `arrays` holds every name of ARRAY_FIELDS: the SceneData tensor fields
-    plus `cam_to_world` and `cam_fov`; `meta` every name of META_FIELDS,
-    and `tri_rows` where build_arrays made it (without it, 1 + the last
-    non-zero Woop row).  Given `np.asarray` of each field of a
-    gpuspectral_tpu SceneData and its static fields, it carries that scene
-    across unchanged.  The child-pair rows of the BVH walk and the bin rows
-    of K7a / K7b are built here (bvh/tables.py:build_pair_rows,
-    build_bin_rows), and the tables checked for what K2's cut and the
-    cluster gates of K7d-g assume (bvh/tables.py:check_tri_rows,
-    check_leaf_clusters, ValueError otherwise)."""
+    plus `cam_to_world` and `cam_fov`; `meta` every name of META_FIELDS.
+    Given `np.asarray` of each field of a gpuspectral_tpu SceneData and its
+    static fields, it carries that scene across unchanged.  K2's count of
+    the rows to test, `tri_rows`, is read off the Woop table here
+    (bvh/tables.py:last_tri_row), as are the child-pair rows of the BVH walk
+    and the bin rows of K7a / K7b (build_pair_rows, build_bin_rows); the
+    tables are checked for what the cluster gates of K7d-g assume
+    (bvh/tables.py:check_leaf_clusters, ValueError otherwise)."""
     from ..bvh.tables import (build_bin_rows, build_pair_rows, check_leaf_clusters,
-                              check_tri_rows, last_tri_row)
+                              last_tri_row)
 
     device = check_device(device)
-    tri_rows = meta.get("tri_rows")
-    tri_rows = last_tri_row(arrays["tri_woop"]) if tri_rows is None else int(tri_rows)
-    check_tri_rows(arrays["tri_woop"], tri_rows)
     check_leaf_clusters(arrays["tri_woop"], arrays["bvh_node_min"], arrays["bvh_node_max"],
                         int(meta["bvh_clusters"]), int(meta["bvh_leaf_size"]),
                         arrays["bvh_dfs_meta"])
@@ -470,7 +462,7 @@ def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:
                      bvh_bin_rows=torch.as_tensor(
                          build_bin_rows(arrays["bvh_bin_bounds"], statics["bvh_bins"]),
                          device=device),
-                     tri_rows=tri_rows, **fields, **statics)
+                     tri_rows=last_tri_row(arrays["tri_woop"]), **fields, **statics)
 
 
 def scene_to_arrays(scene: SceneData) -> tuple[dict, dict]:

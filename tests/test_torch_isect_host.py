@@ -1,10 +1,9 @@
 """PyTorch port: K2 (csrc/isect.cu, the brute-force closest and any hit)
 compiled for the host with g++ behind a CUDA shim that runs a CTA's
 threads at once, one std::thread a CUDA thread (`__syncthreads` a
-std::barrier, `__syncthreads_or` and `__ballot_sync` an atomic between two
-barriers of the CTA or of the warp, the shared memory a buffer filled with
-non-zero bytes, so that a read of an unstaged row shows), CTAs one after
-another, and held bit for bit to the plain versions closest_ref / any_ref
+std::barrier, `__syncthreads_or` an atomic between two barriers of the
+CTA, the shared memory a buffer filled with non-zero bytes, so that a read
+of an unstaged row shows), CTAs one after another, and held bit for bit to the plain versions closest_ref / any_ref
 (ops/cuda_isect.py):
 
   * Cornell and the zoo cut at their `tri_rows` (36 and 90 of 128 slots)
@@ -17,7 +16,7 @@ another, and held bit for bit to the plain versions closest_ref / any_ref
     lane a warp, ~5% live lanes scattered, and an any hit whose warps have
     every lane occluded at their first test.
 
-So the cut and the dead-warp skip change no output.  The kernels
+So the cut and the dead-lane skip change no output.  The kernels
 themselves run on the card only (tests/test_torch_cuda.py).  Needs g++;
 skips without it."""
 
@@ -79,21 +78,16 @@ template <class F> inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*
   return 0;
 }
 
-// one CTA: its barrier, and the accumulators of the votes, two of each used
-// in turn (a vote's first reader may be a turn ahead of its last)
+// one CTA: its barrier, and the accumulators of the votes, two used in
+// turn (a vote's first reader may be a turn ahead of its last)
 struct HostCta {
-  struct Warp {
-    std::barrier<> bar{32};
-    std::atomic<unsigned> mask[2] = {0u, 0u};
-  };
-  explicit HostCta(int threads) : bar(threads), warps(threads / 32) {}
+  explicit HostCta(int threads) : bar(threads) {}
   std::barrier<> bar;
   std::atomic<int> any[2] = {0, 0};
-  std::vector<Warp> warps;
 };
 inline HostCta* host_cta = nullptr;
 inline float4* host_smem = nullptr;
-inline thread_local int host_or_turn = 0, host_ballot_turn = 0;
+inline thread_local int host_or_turn = 0;
 
 inline void __syncthreads() { host_cta->bar.arrive_and_wait(); }
 inline bool __syncthreads_or(bool p) {
@@ -103,16 +97,6 @@ inline bool __syncthreads_or(bool p) {
   const bool r = host_cta->any[k].load() != 0;
   host_cta->bar.arrive_and_wait();
   if (threadIdx.x == 0) host_cta->any[k].store(0);
-  return r;
-}
-inline unsigned __ballot_sync(unsigned, bool p) {
-  HostCta::Warp& w = host_cta->warps[threadIdx.x / 32];
-  const int k = host_ballot_turn++ & 1;
-  if (p) w.mask[k].fetch_or(1u << (threadIdx.x % 32));
-  w.bar.arrive_and_wait();
-  const unsigned r = w.mask[k].load();
-  w.bar.arrive_and_wait();
-  if (threadIdx.x % 32 == 0) w.mask[k].store(0u);
   return r;
 }
 

@@ -4,26 +4,29 @@ any hit) at each step of its design, and compare two trees' K2.
     PYTHONPATH=. python3 tools/torch_isect_variants.py variants [variant ...]
     PYTHONPATH=ROOT python3 tools/torch_isect_variants.py ab
 
-`variants` builds copies of isect.cu with its constants set per variant,
-one change each from the shipped design (a thread a ray, 256 a CTA; the
-table staged 256 triangles at a time as three float4 a triangle; the loop
-unrolled by 4; a warp with no live lane, or for the any hit none still
-searching, skipping the tests):
+`variants` builds copies of isect.cu and brute.cuh with their constants
+set per variant, one change each from the shipped design (a thread a ray,
+256 a CTA; the table staged 256 triangles at a time as three float4 a
+triangle; the loop unrolled by 4; a dead lane, or for the any hit a lane
+no longer searching, skipping the tests):
 
+  base              the shipped design, built by this tool like the others:
+                    a second reading of the tree's own build
   threads128        128 rays a CTA (kThreads)
   chunk128, chunk1024, chunk2048
                     128, 1,024 or 2,048 triangles staged at a time (kChunk;
                     2,048 stages the soup's table whole, 96 KB a CTA)
   unroll1, unroll2, unroll8
-                    the loop unrolled by 1, 2 or 8 (kUnroll)
-  noskip            a probe, not a design: no warp skips its tests (the
-                    ballots' skips removed; the CTA's still there)
+                    the loop unrolled by 1, 2 or 8 (brute.cuh's
+                    kBruteUnroll, which K1 and K5 share)
+  noskip            a probe, not a design: a dead lane runs the tests (the
+                    CTA's skip still there)
 
 Each goes to build/isect_variants/<name>/ (one nvcc per variant, all
 started together, with the flags of gpuspectral_tpu_torch/_build.py;
 ptxas's registers, spills and shared memory printed).  Every variant's K2a
 and K2b must equal the tree's own kernels output for output (t, prim,
-occ) on every ray set below; then every variant and the tree's own build
+occ) on every ray set below; then the tree's own build and every variant
 are timed with chip_smoke.device_ms (the card's time, queued behind a
 sleeping kernel), in order and again in reverse order.  The tree is also
 timed testing the whole table (`n_rows` = T; the calls' `*_whole` keys):
@@ -34,7 +37,13 @@ rays) and 65,536 of them, those with ~5% of the lanes live and scattered
 (chip_smoke.sparse_lanes), 65,536 random rays against the zoo and against
 a 2048-triangle random soup; the checks add the 65,536 with NaN and
 inactive lanes (chip_smoke.odd_lanes).  The scenes' tables are cut at
-their tri_rows, as the wavefront calls K2.
+their tri_rows, as the wavefront calls K2.  And the frame: every K2 launch
+of one Cornell 512x512, 1 spp, d50, power-pick frame (chip_smoke.py's
+wavefront dispatch; tools/torch_wavefront_ab.py cornell), its inputs
+copied as the tree's build ran them; each launch is timed on its own and
+`k2a_frame` / `k2b_frame` are the sums.  The line's `frame` counts, for
+each kernel, its launches, lanes, live lanes (t_max > t_min), 32-lane
+warps, warps with a live lane and 256-lane CTAs with a live lane.
 
 `ab` times K2 of the port on PYTHONPATH (the tree's own build) on the same
 sets, the odd lanes too, and prints checksums of each set's t, prim and
@@ -55,20 +64,21 @@ import sys
 import torch
 import torch_variants as tv
 
-SOURCES = ("isect.cu",)
-BASE = dict(kThreads="256", kChunk="256", kUnroll="4")
+SOURCES = ("isect.cu", "brute.cuh")
+BASE = dict(kThreads="256", kChunk="256", kBruteUnroll="4")
 VARIANTS = dict(
+    base={},
     threads128=dict(kThreads="128"),
     chunk128=dict(kChunk="128"),
     chunk1024=dict(kChunk="1024"),
     chunk2048=dict(kChunk="2048"),
-    unroll1=dict(kUnroll="1"),
-    unroll2=dict(kUnroll="2"),
-    unroll8=dict(kUnroll="8"),
+    unroll1=dict(kBruteUnroll="1"),
+    unroll2=dict(kBruteUnroll="2"),
+    unroll8=dict(kBruteUnroll="8"),
 )
 # the probe: (anchor, replacement) pairs in isect.cu
-_PROBES = dict(noskip=(("      if (!warp_live) continue;\n", ""),
-                       ("    if (__ballot_sync(0xffffffffu, searching) == 0u) continue;\n", "")))
+_PROBES = dict(noskip=(("      if (!ray.live) continue;\n", ""),
+                       ("    if (searching && rows.any(", "    if ((searching || !ray.live) && rows.any(")))
 ENTRY_POINTS = ("gst_closest", "gst_any")
 REPS = 20
 
@@ -105,6 +115,79 @@ def ray_sets(dev, odd=False):
     return out
 
 
+def frame_launches(dev):
+    """[(kernel, wrapper, args)]: every K2 launch of one Cornell 512x512,
+    1 spp, d50, power-pick frame (render_image_stats_auto, timestamp 100),
+    its tensor arguments copied as the wrapper got them."""
+    from gpuspectral_tpu_torch.integrator import render_image_stats_auto
+    from gpuspectral_tpu_torch.ops import cuda_isect as ci
+    from gpuspectral_tpu_torch.scene import load_mitsuba_scene
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    scene = load_mitsuba_scene(tv.chip_smoke.CORNELL, device=dev)[0]
+    cfg = RenderConfig(width=512, height=512, spp=1, max_depth=50, ray_batch=65536,
+                       light_sampling="power")
+    got, real = [], dict(k2a="closest_cuda", k2b="any_cuda")
+
+    def tap(kernel, name, fn):
+        def call(*args):
+            got.append((kernel, name, [a.clone() if isinstance(a, torch.Tensor) else a
+                                       for a in args]))
+            return fn(*args)
+        call.launches = 0  # the wrapper counts its launches on its module's name
+        return call
+
+    fns = {name: getattr(ci, name) for name in real.values()}
+    for kernel, name in real.items():
+        setattr(ci, name, tap(kernel, name, fns[name]))
+    try:
+        render_image_stats_auto(scene, cfg, 100)
+    finally:
+        for name, fn in fns.items():
+            setattr(ci, name, fn)
+    torch.cuda.synchronize()
+    return got
+
+
+def frame_calls(launches) -> dict:
+    """{k2a_frame_NNN / k2b_frame_NNN: a no-argument call}, one a launch."""
+    from gpuspectral_tpu_torch.ops import cuda_isect as ci
+
+    return {f"{kernel}_frame_{i:03d}": (lambda name=name, args=args: getattr(ci, name)(*args))
+            for i, (kernel, name, args) in enumerate(launches)}
+
+
+def frame_counts(launches) -> dict:
+    """{kernel: counts of its launches' lanes, warps and CTAs}."""
+    out = {}
+    for kernel, _, args in launches:
+        lo, hi = args[3], args[4]
+        live = torch.zeros(-(-hi.shape[0] // 256) * 256, dtype=torch.bool, device=hi.device)
+        live[:hi.shape[0]] = hi > lo
+        c = out.setdefault(kernel, dict(launches=0, lanes=0, live_lanes=0, warps=0,
+                                        live_warps=0, live_ctas=0))
+        c["launches"] += 1
+        c["lanes"] += hi.shape[0]
+        c["live_lanes"] += int(live.sum())
+        c["warps"] += -(-hi.shape[0] // 32)
+        c["live_warps"] += int(live.view(-1, 32).any(1).sum())
+        c["live_ctas"] += int(live.view(-1, 256).any(1).sum())
+    return out
+
+
+def frame_sums(times: dict) -> dict:
+    """times with each build's per-launch frame times summed into
+    k2a_frame / k2b_frame."""
+    out = {}
+    for build, calls_ms in times.items():
+        row = {k: v for k, v in calls_ms.items() if "_frame_" not in k}
+        for kernel in ("k2a", "k2b"):
+            per = [v for k, v in calls_ms.items() if k.startswith(f"{kernel}_frame_")]
+            row[f"{kernel}_frame"] = [sum(p[i] for p in per) for i in range(len(per[0]))]
+        out[build] = row
+    return out
+
+
 def calls(sets, whole=False):
     """{name: a no-argument call}: K2a and K2b on each set (`whole`: on the
     whole table as well)."""
@@ -134,15 +217,18 @@ def main_variants(names) -> int:
         name: probe_sources(name) if name in _PROBES
         else tv.variant_sources(SOURCES, dict(BASE, **VARIANTS[name])) for name in names},
         ENTRY_POINTS)
-    checked = calls(ray_sets(dev, odd=True))
+    launches = frame_launches(dev)
+    frame = frame_calls(launches)
+    checked = dict(calls(ray_sets(dev, odd=True)), **frame)
     tv.check_builds(libs, checked, tv.results(checked))
     sets = ray_sets(dev)
-    times = tv.time_in_turns(dict(libs, tree=None), calls(sets), REPS,
+    times = tv.time_in_turns(dict(tree=None, **libs), dict(calls(sets), **frame), REPS,
                              timer=tv.chip_smoke.device_ms)
     whole = {k: fn for k, fn in calls(sets, whole=True).items() if k.endswith("_whole")}
     times["tree"].update(tv.time_in_turns(dict(tree=None), whole, REPS,
                                           timer=tv.chip_smoke.device_ms)["tree"])
-    print(json.dumps(dict(card=smi, ms=times)), flush=True)
+    print(json.dumps(dict(card=smi, frame=frame_counts(launches), ms=frame_sums(times))),
+          flush=True)
     return 0
 
 
