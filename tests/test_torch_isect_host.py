@@ -143,8 +143,12 @@ def lib(tmp_path_factory):
         (d / (src.replace(".cu", ".cpp") if src.endswith(".cu") else src)).write_text(text)
     (d / "cuda_runtime.h").write_text(_SHIM)
     so = d / "libisect_host.so"
-    subprocess.run([cxx, "-std=c++20", "-O2", "-ffp-contract=off", "-pthread", "-shared", "-fPIC",
-                    "-I", str(d), str(d / "isect.cpp"), "-o", str(so)], check=True)
+    # -fno-gnu-unique: the shim's inline globals (blockDim, threadIdx) stay
+    # this library's own, not shared with another host build loaded in the
+    # same process (tests/test_torch_brute_host.py's shim)
+    subprocess.run([cxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fno-gnu-unique", "-pthread",
+                    "-shared", "-fPIC", "-I", str(d), str(d / "isect.cpp"), "-o", str(so)],
+                   check=True)
     lib = ctypes.CDLL(str(so))
     for fn in ("gst_closest", "gst_any"):
         getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
