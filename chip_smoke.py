@@ -24,7 +24,11 @@ diff.invert:
   * a gradient step on the sphere field without its sky at 512x512, 64
     spp, depth 5 -> the fused-BVH forward-gradient kernel K6;
   * the differentiable wavefront on K2a / K3a / K7d / K7f / K7a / K7h, and
-    10 Adam steps of invert.
+    10 Adam steps of invert;
+the progressive path through engine.Engine (render_step: the wavefront on
+K2 at 1 spp a frame) and the CLI's view; and the distribution through
+parallel.dist on a one-rank NCCL group (K1, K4, K5, K6 per rank; the
+sharded wavefront on K2 / K2a) and parallel.dryrun.
 
 Phases:
   k2    closest_cuda / any_cuda vs closest_ref / any_ref: random rays against
@@ -157,6 +161,26 @@ Phases:
   invert  10 Adam steps of the self-target demo on Cornell 128x128, 8
         spp, d5 through K5, on the target's sample set (common random
         numbers): K5 launched 10 times, the last loss below the first
+  engine  Engine on Cornell 512x512, d50, 8 progressive frames: K2a / K2b
+        launched every frame and no other kernel; the frames/s; the image
+        equal to render_image at 8 spp, timestamp 0 (rtol 1e-4, atol
+        1e-5); a checkpoint after 4 frames restored into a fresh Engine and
+        run 4 more: equal to the uninterrupted run; the CLI's view at 64x64
+        (4 frames: K2, no K1; preview and output written); one 64x64 frame
+        under utils.profiling.trace, its chrome trace holding "Frame" and a
+        K2 kernel
+  dist  a one-rank NCCL group (parallel.launch.initialize from torchrun's
+        variables), mesh (1, 1): render_image_sharded_fast on the Cornell
+        headline (one K1 launch) and on the sphere field at the same shape
+        (one K4 launch) equal to render_mega / render_mega_bvh, rays equal;
+        grad_step_sharded_fast on the grad config (one K5 launch) and on
+        builtin:sphere_field_noenv (one K6 launch) against value_and_grad
+        through render_mega_diff / render_mega_bvh_diff (loss rtol 1e-5,
+        gradients rtol 1e-4, atol 1e-7); render_image_sharded and
+        grad_step_sharded at 128x128, 4 spp, d5 (K2 / K2a) against
+        render_image and autograd of the unsharded MSE (within 1e-5);
+        dryrun_multichip(1); each timed beside its unsharded call; the group
+        destroyed at the end
 
 Bounds (bound_ms in the kernels line, its terms in ops_ms and bytes_ms):
 the larger of the operations over 67 TFLOP/s (float32, no tensor cores)
@@ -2361,6 +2385,268 @@ def phase_invert(dev):
         raise AssertionError("invert: want 10 K5 launches and a falling loss")
 
 
+ENGINE_FRAMES = 8  # progressive frames of the engine phase
+DIST_SMALL = dict(size=128, spp=4, depth=5)  # the sharded wavefront render and step (K2 / K2a)
+DIST_TIMEOUT_S = 300.0  # every collective of the one-rank group fails after this long
+
+
+def wall_ms(fn, reps: int = 2) -> float:
+    """Mean wall milliseconds per call after a warmup, synchronized: for
+    host-bound calls (the wavefront), where the wall is the time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def scratch_dir(name):
+    """A directory of the checkout's build/ (gitignored) for files a phase
+    writes."""
+    path = os.path.join(ROOT, "build", "chip_smoke", name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def trace_names(path):
+    """(names of every event, names of the card's kernels) of a chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {str(ev.get("name", "")) for ev in events}
+    kernels = {str(ev.get("name", "")) for ev in events if ev.get("cat") == "kernel"}
+    return names, kernels
+
+
+def phase_engine(dev):
+    from gpuspectral_tpu_torch.cli.main import main as cli_main
+    from gpuspectral_tpu_torch.engine import Engine
+    from gpuspectral_tpu_torch.integrator.path_tracer import render_image
+    from gpuspectral_tpu_torch.utils import profiling
+
+    hs, depth, frames = HEADLINE["size"], HEADLINE["depth"], ENGINE_FRAMES
+    log(f"phase engine: Engine on Cornell {hs}x{hs}, depth {depth}, {frames} progressive "
+        "frames (render_step: the wavefront on K2)")
+    kw = dict(max_depth=depth, ray_batch=65536)
+
+    def engine(size, scene=None):
+        eng = Engine(ROOT, device=dev).init(size, size, **kw)
+        if scene is None:
+            eng.load_scene(CORNELL)
+        else:
+            eng.scene = scene
+        return eng
+
+    eng = engine(hs)
+    frame_s = []
+    reset_counts()
+    t0 = time.perf_counter()
+    img = eng.run(frames, on_frame=lambda i, im: frame_s.append(time.perf_counter()))
+    wall = time.perf_counter() - t0
+    launches = counts()
+    frame_s = np.diff([t0] + frame_s)
+    log(f"  {frames} frames in {wall:.3f} s ({frames / wall:.4f} frames/s; per frame "
+        f"{[round(float(x), 4) for x in frame_s]} s, each with its host copy); launches {launches}")
+    if launches["k1"] or launches["k2a"] < frames or launches["k2b"] < frames or any(
+            v for k, v in launches.items() if k not in ("k2a", "k2b")):
+        raise AssertionError("engine: want K2a / K2b launched every frame and no other kernel")
+    if img.shape != (hs, hs, 3) or not np.isfinite(img).all() or img.mean() <= 0.0:
+        raise AssertionError(f"engine image bad: shape {img.shape}, mean {img.mean()}")
+    t0 = time.perf_counter()
+    ref = render_image(eng.scene, eng.cfg.replace(spp=frames), 0).cpu().numpy()
+    ref_s = time.perf_counter() - t0
+    err = float(np.abs(img - ref).max())
+    log(f"  render_image at {frames} spp, timestamp 0: {ref_s:.3f} s; max |engine - it| {err:.3g}")
+    if not np.allclose(img, ref, rtol=1e-4, atol=1e-5):
+        raise AssertionError("engine: the frames differ from render_image at spp = frames")
+
+    # checkpoint after half the frames, restore into a fresh Engine, finish
+    ck = os.path.join(scratch_dir("engine"), "state.npz")
+    first = engine(hs, eng.scene)
+    first.run(frames // 2)
+    first.checkpoint(ck)
+    second = engine(hs, eng.scene)
+    second.restore(ck)
+    resumed = second.run(frames - frames // 2)
+    if second.timestamp != frames or not np.array_equal(resumed, img):
+        raise AssertionError("engine: checkpoint / restore differs from the uninterrupted run")
+    log(f"  checkpoint at frame {frames // 2}, restored, {frames - frames // 2} more: "
+        "equal to the uninterrupted run")
+
+    out = scratch_dir("view")
+    reset_counts()
+    rc = cli_main(["view", CORNELL, "--size", "64x64", "--depth", str(depth), "--frames", "4",
+                   "--every", "2", "--preview", os.path.join(out, "preview.png"),
+                   "-o", os.path.join(out, "view.png"), "--tonemap", "--device", str(dev)])
+    view = counts()
+    if rc != 0 or not all(os.path.exists(os.path.join(out, f)) for f in ("preview.png",
+                                                                          "view.png")):
+        raise AssertionError("view: no preview or output written")
+    if view["k1"] or view["k2a"] < 4:
+        raise AssertionError(f"view: want K2 and no K1, got {view}")
+    log(f"  view 64x64, 4 frames: preview and output written; launches {view}")
+
+    # one traced 64x64 frame (a traced 512x512 wavefront frame holds ~1M events)
+    prof = scratch_dir("trace")
+    small = engine(64, eng.scene)
+    t0 = time.perf_counter()
+    with profiling.trace(prof):
+        small.run(1)
+    names, kernels = trace_names(os.path.join(prof, profiling.TRACE_FILE))
+    k2 = sorted(k for k in kernels if "closest_kernel" in k or "any_kernel" in k)
+    log(f"  traced 64x64 frame: {time.perf_counter() - t0:.2f} s, {len(names)} event names, "
+        f"{len(kernels)} kernel names, K2's: {k2[:2]}")
+    if "Frame" not in names or not k2:
+        raise AssertionError("trace: want a Frame event and a K2 kernel")
+    return dict(launches=launches, frames_per_s=frames / wall, frame_s=frame_s.tolist(),
+                render_image_s=ref_s, max_abs_err=err, view_launches=view)
+
+
+def _check_sharded_grad(tag, got, ref):
+    """The sharded step's (loss, grads) against the unsharded one's at the
+    tests' tolerances (loss rtol 1e-5; gradients rtol 1e-4, atol 1e-7)."""
+    (loss_s, *g_s), (loss_u, *g_u) = got, ref
+    if not np.isclose(float(loss_s), float(loss_u), rtol=1e-5, atol=0):
+        raise AssertionError(f"{tag}: loss {float(loss_s)} vs {float(loss_u)}")
+    errs = []
+    for a, b in zip(g_s, g_u):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if not np.isfinite(a).all() or not np.allclose(a, b, rtol=1e-4, atol=1e-7):
+            raise AssertionError(f"{tag}: gradients differ by {np.abs(a - b).max()}")
+        errs.append(float(np.abs(a - b).max()))
+    return max(errs)
+
+
+def _fused_value_and_grad(diff, scene, cfg, target):
+    p = [x.clone().requires_grad_(True)
+         for x in (scene.bsdf_params, scene.tri_emission, scene.light_emission)]
+    img = diff(scene.replace(bsdf_params=p[0], tri_emission=p[1], light_emission=p[2]), cfg, 0)
+    loss = torch.mean((img - target) ** 2)
+    loss.backward()
+    return loss.detach(), *(x.grad for x in p)
+
+
+def phase_dist(dev):
+    import torch.distributed as dist
+
+    from gpuspectral_tpu_torch.cli.main import _build
+    from gpuspectral_tpu_torch.diff import gradcheck
+    from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad
+    from gpuspectral_tpu_torch.integrator.path_tracer import render_image
+    from gpuspectral_tpu_torch.parallel import dist as pdist, launch
+    from gpuspectral_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gpuspectral_tpu_torch.utils import RenderConfig
+
+    hs, spp, depth = HEADLINE["size"], HEADLINE["spp"], HEADLINE["depth"]
+    log("phase dist: the sharded functions on a one-rank NCCL group, mesh (1, 1)")
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(launch.free_port()))
+    launch.initialize(timeout_s=DIST_TIMEOUT_S)
+    rows = {}
+    try:
+        mesh = pdist.make_mesh(1, spp_shards=1)
+        log(f"  backend {dist.get_backend()}, mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+
+        def args(scene_path, s, n_spp, d):
+            return argparse.Namespace(
+                scene=scene_path, size=f"{s}x{s}", spp=n_spp, depth=d, no_nee=False,
+                jitter=False, ray_batch=65536, bvh=None, bvh_kernel="ftb", light_block=None,
+                packet_size=1024, intersector="auto", light_sampling="uniform",
+                mis="reference", device=str(dev))
+
+        def sharded_render(key, scene, cfg, unsharded):
+            reset_counts()
+            img_s, rays_s = pdist.render_image_sharded_fast(scene, cfg, mesh)
+            torch.cuda.synchronize()
+            c = counts()
+            img_u, rays_u = unsharded(scene, cfg, 0)
+            if c != dict(NONE, **{key: 1}):
+                raise AssertionError(f"render_image_sharded_fast: want one {key} launch, got {c}")
+            if not torch.equal(img_s, img_u) or rays_s != rays_u:
+                raise AssertionError(f"render_image_sharded_fast ({key}) differs from the "
+                                     "unsharded render")
+            ms_s = cuda_ms(lambda: pdist.render_image_sharded_fast(scene, cfg, mesh))
+            ms_u = cuda_ms(lambda: unsharded(scene, cfg, 0))
+            log(f"  {key}: render_image_sharded_fast {ms_s:.3f} ms vs unsharded {ms_u:.3f} ms, "
+                f"images equal, rays {rays_s:.0f} equal")
+            return dict(launches=c[key], ms_sharded=ms_s, ms_unsharded=ms_u, rays=rays_s)
+
+        def sharded_grad(key, scene, cfg, diff, seed):
+            target = torch.as_tensor(np.random.default_rng(seed).uniform(
+                0.0, 1.0, (cfg.height, cfg.width, 3)).astype(np.float32), device=dev)
+            reset_counts()
+            got = pdist.grad_step_sharded_fast(scene, cfg, mesh, target, optimize_emission=True)
+            torch.cuda.synchronize()
+            c = counts()
+            ref = _fused_value_and_grad(diff, scene, cfg, target)
+            if c != dict(NONE, **{key: 1}):
+                raise AssertionError(f"grad_step_sharded_fast: want one {key} launch, got {c}")
+            err = _check_sharded_grad(f"grad_step_sharded_fast ({key})", got, ref)
+            ms_s = cuda_ms(lambda: pdist.grad_step_sharded_fast(scene, cfg, mesh, target))
+            ms_u = cuda_ms(lambda: _fused_value_and_grad(diff, scene, cfg, target))
+            log(f"  {key}: grad_step_sharded_fast {ms_s:.3f} ms vs value_and_grad through the "
+                f"unsharded render {ms_u:.3f} ms; loss {float(got[0]):.7f} vs "
+                f"{float(ref[0]):.7f}, max gradient difference {err:.3g}")
+            return dict(launches=c[key], ms_sharded=ms_s, ms_unsharded=ms_u, max_abs_err=err)
+
+        cornell, cfg = _build(args(CORNELL, hs, spp, depth))
+        rows["k1"] = sharded_render("k1", cornell, cfg, mega.render_mega)
+        field, cfg_f = _build(args(SPHERE_FIELD, hs, spp, depth))
+        rows["k4"] = sharded_render("k4", field, cfg_f, mega_bvh.render_mega_bvh)
+        del field
+        g = GRAD
+        _, cfg_g = _build(args(CORNELL, g["size"], g["spp"], g["depth"]))
+        rows["k5"] = sharded_grad("k5", cornell, cfg_g, mega_grad.render_mega_diff, 8)
+        noenv, cfg_n = _build(args(SPHERE_FIELD_NOENV, g["size"], g["spp"], g["depth"]))
+        rows["k6"] = sharded_grad("k6", noenv, cfg_n, mega_grad.render_mega_bvh_diff, 7)
+        del noenv
+
+        # the sharded wavefront render and step (K2, K2a through closest_diff)
+        d = DIST_SMALL
+        cfg_w = RenderConfig(width=d["size"], height=d["size"], spp=d["spp"],
+                             max_depth=d["depth"], ray_batch=65536)
+        reset_counts()
+        img_s = pdist.render_image_sharded(cornell, cfg_w, mesh)
+        torch.cuda.synchronize()
+        c_render = counts()
+        img_u = render_image(cornell, cfg_w, 0)
+        err = float((img_s - img_u).abs().max())
+        ms_s = wall_ms(lambda: pdist.render_image_sharded(cornell, cfg_w, mesh))
+        ms_u = wall_ms(lambda: render_image(cornell, cfg_w, 0))
+        log(f"  render_image_sharded {d['size']}^2 @{d['spp']} spp d{d['depth']}: {ms_s:.1f} ms "
+            f"vs render_image {ms_u:.1f} ms, max difference {err:.3g}; launches {c_render}")
+        if c_render["k1"] or c_render["k2a"] < 1 or c_render["k2b"] < 1 or err > 1e-5:
+            raise AssertionError("render_image_sharded: want K2 launched and the unsharded image")
+        target = torch.zeros((d["size"], d["size"], 3), device=dev)
+        reset_counts()
+        got = pdist.grad_step_sharded(cornell, cfg_w, mesh, target)
+        torch.cuda.synchronize()
+        c_grad = counts()
+        ref = gradcheck._loss_and_grad(cornell, cfg_w, cornell.bsdf_params, target)
+        ms_gs = wall_ms(lambda: pdist.grad_step_sharded(cornell, cfg_w, mesh, target))
+        ms_gu = wall_ms(lambda: gradcheck._loss_and_grad(cornell, cfg_w, cornell.bsdf_params,
+                                                         target))
+        g_err = float((got[1] - ref[1]).abs().max())
+        log(f"  grad_step_sharded: {ms_gs:.1f} ms vs autograd of the unsharded MSE {ms_gu:.1f} "
+            f"ms, loss {float(got[0]):.7f} vs {float(ref[0]):.7f}, max gradient difference "
+            f"{g_err:.3g}; launches {c_grad}")
+        if (c_grad["k1"] or c_grad["k5"] or c_grad["k2a"] < 1 or g_err > 1e-5
+                or not np.isclose(float(got[0]), float(ref[0]), rtol=1e-5, atol=0)):
+            raise AssertionError("grad_step_sharded: want K2a launched and the unsharded step")
+        rows["k2"] = dict(render=dict(launches=c_render, ms_sharded=ms_s, ms_unsharded=ms_u,
+                                      max_abs_err=err),
+                          grad=dict(launches=c_grad, ms_sharded=ms_gs, ms_unsharded=ms_gu,
+                                    max_abs_err=g_err))
+        t0 = time.perf_counter()
+        line = dryrun_multichip(1)
+        log(f"  {line} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        dist.destroy_process_group()
+    log("  process group destroyed")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2453,6 +2739,24 @@ def main() -> int:
     m["k7h"]["autograd_max_abs_err"] = phase_sweep_grad(
         dev, "traverse", "k7h", "intersector mt, traverse_closest_diff", dict(intersector="mt"))
     phase_invert(dev)
+    eng = phase_engine(dev)
+    for key in ("k2a", "k2b"):
+        m[key].update(launches_engine=eng["launches"][key],
+                      launched_by_engine=f"Engine.run, {ENGINE_FRAMES} frames of Cornell "
+                                         f"{HEADLINE['size']}^2 d{HEADLINE['depth']}",
+                      engine_frames_per_s=eng["frames_per_s"])
+    sharded = phase_dist(dev)
+    for key in ("k1", "k4", "k5", "k6"):
+        fn = "render_image_sharded_fast" if key in ("k1", "k4") else "grad_step_sharded_fast"
+        m[key].update(launches_dist=sharded[key]["launches"],
+                      launched_by_dist=f"{fn} on a one-rank NCCL mesh (1, 1)",
+                      ms_sharded=sharded[key]["ms_sharded"],
+                      ms_unsharded=sharded[key]["ms_unsharded"])
+    w = sharded["k2"]
+    m["k2a"].update(launches_dist=w["render"]["launches"]["k2a"] + w["grad"]["launches"]["k2a"],
+                    launched_by_dist="render_image_sharded + grad_step_sharded, one-rank mesh")
+    m["k2b"].update(launches_dist=w["render"]["launches"]["k2b"] + w["grad"]["launches"]["k2b"],
+                    launched_by_dist="render_image_sharded + grad_step_sharded, one-rank mesh")
     log("phase end: every phase passed")
     specs = [
         ("K1 megakernel render_mega_rows", "gpuspectral_tpu_torch/csrc/mega.cu",

@@ -11,8 +11,11 @@ its counterpart's name and semantics, with PyTorch idiom inside:
   integrator/  the wavefront path tracer (differentiable) and the megakernels
   diff/        gradient checks and inverse rendering
   io/          image, EXR and checkpoint files
-  utils/       RenderConfig, benchmark harness, metrics
-  cli/         render / benchmark / gradcheck / invert entry points
+  utils/       RenderConfig, benchmark harness, metrics, profiling
+  parallel/    (tiles x spp) distribution over torch.distributed ranks,
+               elastic restarts, the multi-device dry run
+  engine.py    Engine: the progressive frame loop (render_step)
+  cli/         render / benchmark / gradcheck / view / invert entry points
   csrc/        hand-written CUDA kernels for sm_90a (built by _build.py)
 
 Hand-written kernels: K1 and K4, the path-tracing megakernels (brute force
@@ -26,8 +29,7 @@ PyTorch version for CPU tensors only; for CUDA tensors it launches the
 kernel or raises.
 
 The port imports neither JAX nor the JAX package; it keeps its own copies
-of the numpy modules it needs.  The multi-device paths and the
-progressive engine are not ported yet.
+of the numpy modules it needs.
 
 No matmul is on the render path (the camera is explicit component
 products), and TF32 is switched off for both matmul and cuDNN so that any

@@ -1,10 +1,11 @@
 """Command-line entry points (port of gpuspectral_tpu/cli/main.py: the
-`render`, `benchmark`, `gradcheck` and `invert` commands, with the
+`render`, `benchmark`, `gradcheck`, `view` and `invert` commands, with the
 reference's flags).
 
   python -m gpuspectral_tpu_torch.cli.main render <scene.xml> [-o out.png] [--size WxH] ...
   python -m gpuspectral_tpu_torch.cli.main benchmark <scene.xml> [...]
   python -m gpuspectral_tpu_torch.cli.main gradcheck <scene.xml> [--spp N] [--size WxH]
+  python -m gpuspectral_tpu_torch.cli.main view <scene.xml> [--frames N] [--every K] [--preview p.png] [--ansi]
   python -m gpuspectral_tpu_torch.cli.main invert <scene.xml> [--target img.exr] [--steps N]
 
 Scene XML film/sampler/integrator settings are honored by default.  A scene
@@ -145,9 +146,8 @@ def _log_metrics(path, **fields) -> None:
 
 
 def cmd_render(args) -> int:
-    import contextlib
-
     from ..integrator import render_image_auto
+    from ..utils.profiling import trace
 
     scene, cfg = _build(args)
     print(
@@ -156,24 +156,11 @@ def cmd_render(args) -> int:
         f"lights={scene.num_lights}, device={scene.device}",
         file=sys.stderr,
     )
-    prof = contextlib.nullcontext()
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if scene.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
     t0 = time.time()
-    with prof as p:
+    with trace(args.profile):
         img = render_image_auto(scene, cfg, timestamp0=args.seed)
         img = img.cpu().numpy()
     dt = time.time() - t0
-    if args.profile:
-        import os
-
-        os.makedirs(args.profile, exist_ok=True)
-        p.export_chrome_trace(os.path.join(args.profile, "render_trace.json"))
     _log_metrics(args.metrics, event="render", scene=args.scene, width=cfg.width,
                  height=cfg.height, spp=cfg.spp, seconds=dt, device=str(scene.device))
     print(f"done in {dt:.2f}s on {scene.device} (incl. kernel build)", file=sys.stderr)
@@ -190,6 +177,64 @@ def cmd_benchmark(args) -> int:
     except RuntimeError as e:
         raise CliError(str(e))
     print(json.dumps(result))
+    return 0
+
+
+def _ansi_preview(img, max_rows: int = 40) -> str:
+    """Render an (H,W,3) linear image as 24-bit ANSI half-block art — the
+    headless stand-in for the reference's swapchain window
+    (engine/Window.cpp:20-25)."""
+    import numpy as np
+
+    from ..io.image import tonemap_aces
+
+    h = img.shape[0]
+    rows = min(max_rows * 2, h)
+    step = max(1, h // rows)
+    small = img[::step, ::step][:rows]
+    srgb = np.clip(tonemap_aces(np.asarray(small)), 0.0, 1.0) ** (1 / 2.2)
+    q = (srgb * 255).astype(np.uint8)
+    lines = []
+    for y in range(0, q.shape[0] - 1, 2):
+        top, bot = q[y], q[y + 1]
+        line = "".join(
+            f"\x1b[38;2;{t[0]};{t[1]};{t[2]}m\x1b[48;2;{b[0]};{b[1]};{b[2]}m▀"
+            for t, b in zip(top, bot)
+        )
+        lines.append(line + "\x1b[0m")
+    return "\n".join(lines)
+
+
+def cmd_view(args) -> int:
+    """Progressive viewer: the reference's Window::run frame loop
+    (engine/Window.cpp:20-25) headless — 1 spp/frame folded into the running
+    mean on the scene's device, preview written every K frames (PNG and/or
+    ANSI terminal art)."""
+    from ..engine import Engine
+
+    scene, cfg = _build(args)
+    eng = Engine(".", device=scene.device)
+    eng.init(cfg.width, cfg.height, spp=1, max_depth=cfg.max_depth, nee=cfg.nee,
+             use_bvh=cfg.use_bvh, intersector=cfg.intersector, sort_rays=cfg.sort_rays)
+    eng.scene = scene
+
+    every = max(1, args.every)
+
+    def on_frame(i, img):
+        if i % every:
+            return
+        if args.preview:
+            _write(args.preview, img, True)
+        if args.ansi:
+            sys.stdout.write("\x1b[H\x1b[2J" + _ansi_preview(img) + "\n")
+        print(f"frame {i}/{args.frames} (1 spp/frame running mean)", file=sys.stderr)
+
+    t0 = time.time()
+    eng.run(args.frames, on_frame=on_frame)
+    print(f"{args.frames} frames in {time.time() - t0:.1f}s on {scene.device}", file=sys.stderr)
+    if args.output:
+        eng.save(args.output, tonemap=args.tonemap)
+        print(args.output)
     return 0
 
 
@@ -265,6 +310,14 @@ def parser() -> argparse.ArgumentParser:
     p_grad = sub.add_parser("gradcheck", help="check path-replay grads vs finite differences")
     _add_render_args(p_grad)
     p_grad.set_defaults(fn=cmd_gradcheck)
+
+    p_view = sub.add_parser("view", help="progressive viewer (headless frame loop)")
+    _add_render_args(p_view)
+    p_view.add_argument("--frames", type=int, default=64, help="progressive 1-spp frames")
+    p_view.add_argument("--every", type=int, default=4, help="preview every K frames")
+    p_view.add_argument("--preview", default=None, help="PNG refreshed every K frames")
+    p_view.add_argument("--ansi", action="store_true", help="24-bit ANSI preview in terminal")
+    p_view.set_defaults(fn=cmd_view)
 
     p_inv = sub.add_parser("invert", help="inverse rendering: recover BSDF params")
     _add_render_args(p_inv)

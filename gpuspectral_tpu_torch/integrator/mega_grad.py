@@ -33,8 +33,10 @@ wavefront themselves (diff/invert.py, utils/bench.py).
 
 Not carried over: the TPU watchdog's spp chunking of the BVH kernel
 (mega_grad.py:712-734, gated on a TPU backend): the port runs one launch,
-which the H100 runs to its end.  render_blocks_diff (the sharded step)
-waits for the distribution slice.
+which the H100 runs to its end.  `render_blocks_diff` is the
+differentiable render over explicit pixel rows that the sharded gradient
+step (parallel/dist.py) runs on each rank's rows; render_mega_diff and
+render_mega_bvh_diff are it over a whole frame.
 """
 
 from __future__ import annotations
@@ -174,17 +176,6 @@ def _scatter_grads(scene: SceneData, grad_rows, Lg: int, d_kd, d_te_l, d_le_g):
     lidx = scene.tri_light_idx.long()
     d_te = torch.where((lidx >= 0)[:, None], d_te_l[torch.clamp(lidx, min=0)], 0.0)
     return d_bp, d_te, d_le
-
-
-def image_gp(cfg: RenderConfig, g):
-    """Mean-image cotangent (H, W, 3) in the kernels' lane layout (rows,
-    LANES, 3): img = rad / spp, so d rad = g / spp; padding lanes re-render
-    pixel 0 and get a zero cotangent (mega_grad.py:_brute_gp)."""
-    n_pixels = cfg.width * cfg.height
-    rows = -(-n_pixels // LANES)
-    gflat = torch.zeros((rows * LANES, 3), dtype=torch.float32, device=g.device)
-    gflat[:n_pixels] = g.reshape(n_pixels, 3) / cfg.spp
-    return gflat.reshape(rows, LANES, 3)
 
 
 def _check_pix(scene, pix):
@@ -338,34 +329,64 @@ def render_mega_bvh_fwdgrad_rows(scene: SceneData, cfg: RenderConfig, pix, times
 render_mega_bvh_fwdgrad_rows.launches = 0
 
 
-class _FusedDiff(torch.autograd.Function):
-    """Image (H, W, 3) from one fused-gradient launch; the backward pass
-    contracts the saved partials with the cotangent (mega_grad.py:472-505,
-    657-697)."""
+class _BlocksDiff(torch.autograd.Function):
+    """Per-lane radiance sums (n, LANES, 3) over cfg.spp from one
+    fused-gradient launch; the backward pass contracts the saved partials
+    with the per-lane cotangent (mega_grad.py:748-806)."""
 
     @staticmethod
-    def forward(ctx, bp, te, le, scene, cfg, timestamp0, bvh, grad_rows, Lg):
+    def forward(ctx, bp, te, le, scene, cfg, pix, timestamp0, bvh, grad_rows, Lg):
         sc = scene.replace(bsdf_params=bp.detach(), tri_emission=te.detach(),
                            light_emission=le.detach())
-        pix = pix_rows(cfg, sc.device)
         if bvh:
             rr, rg, rb, _, parts = render_mega_bvh_fwdgrad_rows(sc, cfg, pix, timestamp0,
                                                                 grad_rows)
         else:
             rr, rg, rb, _, parts = render_mega_fwdgrad_rows(sc, cfg, pix, timestamp0)
-        n_pixels = cfg.width * cfg.height
-        rad = torch.stack([rr.reshape(-1), rg.reshape(-1), rb.reshape(-1)], -1)[:n_pixels]
         ctx.save_for_backward(parts)
-        ctx.meta = (sc, cfg, grad_rows, Lg)
-        return (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
+        ctx.meta = (sc, grad_rows, Lg)
+        return torch.stack([rr, rg, rb], dim=-1)
 
     @staticmethod
     def backward(ctx, g):
         (parts,) = ctx.saved_tensors
-        sc, cfg, grad_rows, Lg = ctx.meta
-        d_kd, d_te_l, d_le = _contract_partials(parts, image_gp(cfg, g), len(grad_rows), Lg)
+        sc, grad_rows, Lg = ctx.meta
+        d_kd, d_te_l, d_le = _contract_partials(parts, g, len(grad_rows), Lg)
         d_bp, d_te, d_le = _scatter_grads(sc, grad_rows, Lg, d_kd, d_te_l, d_le)
-        return d_bp, d_te, d_le, None, None, None, None, None, None
+        return d_bp, d_te, d_le, None, None, None, None, None, None, None
+
+
+def render_blocks_diff(scene: SceneData, cfg: RenderConfig, pix, timestamp0, bvh: bool,
+                       grad_rows=None, n_grad_lights=None):
+    """Differentiable per-lane radiance sums over cfg.spp (no /spp, no
+    scatter) for explicit pixel rows pix (n, LANES) int32: K5 (bvh False:
+    every BSDF row and light) or K6 (bvh True: grad_rows, default
+    mega_bvh_grad_rows, and n_grad_lights, default every light of a scene
+    of at most MAX_GRAD_LIGHTS).  Returns (n, LANES, 3); gradients reach
+    scene.bsdf_params (kd columns), scene.tri_emission and
+    scene.light_emission from the same launch's partials, over these rows
+    only (mega_grad.py:809-820).  The JAX package lays its BVH blocks out
+    by mega_bvh_stream; the port keeps raster rows (mega.pix_rows)."""
+    if bvh:
+        if not mega_bvh_grad_eligible(scene, cfg):
+            raise ValueError("render_blocks_diff: (scene, cfg) is not K6-eligible")
+        rows = mega_bvh_grad_rows(scene) if grad_rows is None else tuple(grad_rows)
+        lg = _grad_lights(scene) if n_grad_lights is None else int(n_grad_lights)
+    else:
+        if not mega_grad_eligible(scene, cfg):
+            raise ValueError("render_blocks_diff: (scene, cfg) is not K5-eligible")
+        rows, lg = tuple(range(scene.bsdf_kind.shape[0])), scene.num_lights
+    return _BlocksDiff.apply(scene.bsdf_params, scene.tri_emission, scene.light_emission,
+                             scene, cfg, pix, int(timestamp0), bool(bvh), rows, lg)
+
+
+def _image(scene: SceneData, cfg: RenderConfig, timestamp0, bvh, grad_rows=None):
+    """Image (H, W, 3) of render_blocks_diff over a whole frame's raster
+    rows: the first n_pixels lanes, divided by cfg.spp."""
+    n_pixels = cfg.width * cfg.height
+    rad = render_blocks_diff(scene, cfg, pix_rows(cfg, scene.device), timestamp0, bvh,
+                             grad_rows)
+    return (rad.reshape(-1, 3)[:n_pixels] / cfg.spp).reshape(cfg.height, cfg.width, 3)
 
 
 def render_mega_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0):
@@ -373,11 +394,7 @@ def render_mega_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     w.r.t. scene.bsdf_params (kd columns), scene.tri_emission and
     scene.light_emission comes from the same launch's partials (zeros
     elsewhere).  Raises when the (scene, cfg) is not K5-eligible."""
-    if not mega_grad_eligible(scene, cfg):
-        raise ValueError("render_mega_diff: (scene, cfg) is not K5-eligible")
-    rows = tuple(range(scene.bsdf_kind.shape[0]))
-    return _FusedDiff.apply(scene.bsdf_params, scene.tri_emission, scene.light_emission,
-                            scene, cfg, int(timestamp0), False, rows, scene.num_lights)
+    return _image(scene, cfg, timestamp0, False)
 
 
 def render_mega_bvh_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0, grad_rows=None):
@@ -386,8 +403,4 @@ def render_mega_bvh_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0, grad
     MAX_GRAD_LIGHTS lights, of emitter radiance; zeros elsewhere.  One
     launch at full spp (the TPU's spp chunking is not carried over).
     Raises when the (scene, cfg) is not K6-eligible."""
-    if not mega_bvh_grad_eligible(scene, cfg):
-        raise ValueError("render_mega_bvh_diff: (scene, cfg) is not K6-eligible")
-    rows = mega_bvh_grad_rows(scene) if grad_rows is None else tuple(grad_rows)
-    return _FusedDiff.apply(scene.bsdf_params, scene.tri_emission, scene.light_emission,
-                            scene, cfg, int(timestamp0), True, rows, _grad_lights(scene))
+    return _image(scene, cfg, timestamp0, True, grad_rows)

@@ -788,3 +788,21 @@ def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0, bvh_is
 def render_image(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     """Render (H, W, 3); see render_image_stats."""
     return render_image_stats(scene, cfg, timestamp0)[0]
+
+
+def render_step(scene: SceneData, cfg: RenderConfig, accum, timestamp):
+    """One progressive frame: 1 spp folded into the running mean
+    (path_tracer.py:1009-1023, raygen.rgen:84-108).
+
+    The frame is render_image, the wavefront, at cfg with spp 1 and
+    timestamp0 = timestamp; accum' = accum * (1 - a) + frame * a with
+    a = 1 / (t + 1) in float32 tensors, and a NaN in the mix keeps the old
+    value.  accum (H, W, 3) float32 on the scene's device is written in
+    place (the torch analogue of the JAX package's donated buffer) and
+    returned."""
+    frame = render_image(scene, cfg.replace(spp=1), timestamp)
+    t = torch.tensor(int(timestamp) & 0xFFFFFFFF, dtype=torch.float32, device=accum.device)
+    one = torch.ones((), dtype=torch.float32, device=accum.device)
+    a = one / (t + one)
+    mixed = accum * (one - a) + frame * a
+    return accum.copy_(torch.where(torch.isnan(mixed), accum, mixed))
