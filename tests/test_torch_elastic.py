@@ -24,15 +24,16 @@ RANK_TIMEOUT_S = 60.0
 GANG_TIMEOUT_S = 120.0
 
 
-def _run_gang(tmp_path, tag, total_frames, fault_at):
+def _run_gang(tmp_path, tag, total_frames, fault_at, stay_dead=False):
     ckpt = str(tmp_path / f"{tag}.npz")
 
     def build_cmd(host_id, n_hosts):
         # the injected fault only fires while no checkpoint passed it: after
         # the restart the resume frame is the fault frame, so the rank runs
-        # clean
+        # clean (unless it stays dead)
         return [sys.executable, str(REPO / "tests/torch_elastic_worker.py"), ckpt,
-                str(total_frames), str(fault_at), str(RANK_TIMEOUT_S)]
+                str(total_frames), str(fault_at), str(RANK_TIMEOUT_S)] + (
+                    ["stay_dead"] if stay_dead else [])
 
     def env_extra(incarnation):
         return {"GPUSPECTRAL_COORDINATOR": f"127.0.0.1:{launch.free_port()}"}
@@ -45,7 +46,7 @@ def _run_gang(tmp_path, tag, total_frames, fault_at):
         except Exception:
             return False
 
-    res = supervise(build_cmd, 2, done=done, max_restarts=3, allow_shrink=False,
+    res = supervise(build_cmd, 2, done=done, max_restarts=3, allow_shrink=stay_dead,
                     timeout_s=GANG_TIMEOUT_S, poll_s=0.2, env_extra=env_extra)
     state = load_checkpoint(ckpt)
     return np.asarray(state["accum"]), int(state["frames"]), res
@@ -67,6 +68,20 @@ def test_gang_restart_reproduces_uninterrupted_render(tmp_path):
 
     # recovery is EXACT: same frames, same running mean
     np.testing.assert_array_equal(img_fault, img_clean)
+
+
+def test_gang_shrinks_to_one_host_and_stays_exact(tmp_path):
+    """Rank 1 dies at frame 2 and again at each restart of two hosts: after
+    two failures at that size the supervisor shrinks the gang to one host
+    (GPUSPECTRAL_FAKE_HOSTS=1, still gloo on the CPU), which finishes the
+    render; a pixel's frames do not depend on the mesh, so the image is
+    the two-host clean run's."""
+    total = 5
+    img_clean, _, _ = _run_gang(tmp_path, "clean", total, fault_at=-1)
+    img, frames, res = _run_gang(tmp_path, "shrink", total, fault_at=2, stay_dead=True)
+    assert frames == total
+    assert res.hosts_used == [2, 2, 1] and res.restarts == 2
+    np.testing.assert_array_equal(img, img_clean)
 
 
 def test_dryrun_multichip_on_gloo():

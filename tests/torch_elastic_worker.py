@@ -1,7 +1,9 @@
 """Worker for tests/test_torch_elastic.py: one rank of an elastic gang.
 
 argv: ckpt_path total_frames fault_at (rank 1 only; -1 = none) timeout_s
-(every collective of the group fails after it)."""
+(every collective of the group fails after it) [stay_dead: rank 1 of a
+gang of more than one also dies at start once the checkpoint has passed
+fault_at, so the supervisor must shrink the gang]."""
 
 import os
 import pathlib
@@ -16,6 +18,7 @@ torch.set_num_threads(1)  # the gang's ranks share the host's cores
 
 import torch.distributed as dist
 
+from gpuspectral_tpu_torch.io.checkpoint import load_checkpoint
 from gpuspectral_tpu_torch.parallel import launch
 from gpuspectral_tpu_torch.parallel.elastic import render_chunks
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene
@@ -26,12 +29,17 @@ CFG = dict(width=16, height=8, spp=2, max_depth=2, ray_batch=64)
 
 def main() -> int:
     ckpt, total, fault_at = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    stay_dead = sys.argv[5:] == ["stay_dead"]
     launch.initialize(timeout_s=float(sys.argv[4]))  # GPUSPECTRAL_FAKE_HOSTS: gloo on the CPU
     try:
         scene, _ = load_mitsuba_scene(str(REPO / "scenes/cornell/scene.xml"), device="cpu")
         mesh = launch.pod_mesh(spp_shards=1)
         host_id = int(os.environ["GPUSPECTRAL_FAKE_HOST_ID"])
-        my_fault = fault_at if (host_id == 1 and dist.get_world_size() > 1) else -1
+        sick = host_id == 1 and dist.get_world_size() > 1
+        if sick and stay_dead and os.path.exists(ckpt) and (
+                int(load_checkpoint(ckpt)["frames"]) >= fault_at):
+            os._exit(41)  # this host stays dead: only a smaller gang can finish
+        my_fault = fault_at if sick else -1
         render_chunks(scene, RenderConfig(**CFG), mesh, total, ckpt, chunk_frames=1,
                       _fault_at=my_fault)
     finally:
