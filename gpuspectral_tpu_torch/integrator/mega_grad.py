@@ -357,12 +357,12 @@ class _BlocksDiff(torch.autograd.Function):
 
 
 def render_blocks_diff(scene: SceneData, cfg: RenderConfig, pix, timestamp0, bvh: bool,
-                       grad_rows=None, n_grad_lights=None):
+                       grad_rows=None):
     """Differentiable per-lane radiance sums over cfg.spp (no /spp, no
     scatter) for explicit pixel rows pix (n, LANES) int32: K5 (bvh False:
     every BSDF row and light) or K6 (bvh True: grad_rows, default
-    mega_bvh_grad_rows, and n_grad_lights, default every light of a scene
-    of at most MAX_GRAD_LIGHTS).  Returns (n, LANES, 3); gradients reach
+    mega_bvh_grad_rows, and every light of a scene of at most
+    MAX_GRAD_LIGHTS).  Returns (n, LANES, 3); gradients reach
     scene.bsdf_params (kd columns), scene.tri_emission and
     scene.light_emission from the same launch's partials, over these rows
     only (mega_grad.py:809-820).  The JAX package lays its BVH blocks out
@@ -371,7 +371,7 @@ def render_blocks_diff(scene: SceneData, cfg: RenderConfig, pix, timestamp0, bvh
         if not mega_bvh_grad_eligible(scene, cfg):
             raise ValueError("render_blocks_diff: (scene, cfg) is not K6-eligible")
         rows = mega_bvh_grad_rows(scene) if grad_rows is None else tuple(grad_rows)
-        lg = _grad_lights(scene) if n_grad_lights is None else int(n_grad_lights)
+        lg = _grad_lights(scene)
     else:
         if not mega_grad_eligible(scene, cfg):
             raise ValueError("render_blocks_diff: (scene, cfg) is not K5-eligible")

@@ -23,13 +23,15 @@ the mean over frames [0, T) resumed at any boundary reproduces the
 uninterrupted result bit for bit (tests/test_torch_elastic.py kills a
 worker mid-run).  Workers join the gang through parallel/launch.initialize,
 which reads the GPUSPECTRAL_FAKE_HOSTS / GPUSPECTRAL_FAKE_HOST_ID names
-that `supervise` sets.
+that `supervise` sets; the device a worker passes picks gloo on the CPU or
+NCCL on cuda:GPUSPECTRAL_FAKE_HOST_ID.
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -61,29 +63,36 @@ def supervise(
     worker death before completion the whole gang is killed and relaunched
     (workers resume from their checkpoint).  After two failed incarnations
     at the same size the gang shrinks by one host (allow_shrink).  An
-    incarnation that runs past timeout_s counts as failed."""
+    incarnation that runs past timeout_s counts as failed.  Each worker's
+    output goes to a file of its own (a pipe nobody reads would stall a
+    worker that writes much); after too many restarts the RuntimeError
+    carries the tail of the last failed incarnation's first failed
+    worker."""
     restarts = 0
     hosts_used = []
     hosts = n_hosts
     fails_at_size = 0
+    last_log = ""
     while True:
         if done():
             return GangResult(restarts=restarts, hosts_used=hosts_used)
         if restarts > max_restarts:
             raise RuntimeError(
-                f"elastic supervisor: exceeded {max_restarts} restarts")
+                f"elastic supervisor: exceeded {max_restarts} restarts; last "
+                f"failed worker's output:\n{last_log}")
         hosts_used.append(hosts)
         extra = env_extra(len(hosts_used) - 1) if callable(env_extra) else (
             env_extra or {})
-        procs = []
+        procs, logs = [], []
         for i in range(hosts):
             env = dict(os.environ)
             env.update(extra)
             env["GPUSPECTRAL_FAKE_HOSTS"] = str(hosts)
             env["GPUSPECTRAL_FAKE_HOST_ID"] = str(i)
+            logs.append(tempfile.TemporaryFile())
             procs.append(subprocess.Popen(
                 build_cmd(i, hosts), env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+                stdout=logs[-1], stderr=subprocess.STDOUT))
         t0 = time.time()
         failed = False
         while True:
@@ -101,6 +110,13 @@ def supervise(
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        # a worker that exited on its own before one that was killed
+        bad = sorted((p.returncode < 0, i) for i, p in enumerate(procs) if p.returncode != 0)
+        if bad:
+            logs[bad[0][1]].seek(0)
+            last_log = logs[bad[0][1]].read().decode(errors="replace")[-3000:]
+        for log in logs:
+            log.close()
         if not failed and done():
             return GangResult(restarts=restarts, hosts_used=hosts_used)
         restarts += 1

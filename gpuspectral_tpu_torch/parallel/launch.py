@@ -6,8 +6,7 @@ standard torch.distributed recipe:
 
   * every rank runs the SAME program, one process a card (`initialize()`
     wires a torch.distributed process group: NCCL from torchrun's RANK /
-    WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT, or explicit
-    arguments),
+    WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT),
   * the global (tiles x spp) mesh spans every rank (`pod_mesh`, a
     torch.distributed DeviceMesh); the sharded functions of
     parallel/dist.py are rank-count agnostic,
@@ -22,9 +21,10 @@ standard torch.distributed recipe:
     parallel/elastic.py).
 
 Local simulation: `GPUSPECTRAL_FAKE_HOSTS=N` (+ `GPUSPECTRAL_FAKE_HOST_ID`,
-`GPUSPECTRAL_COORDINATOR`) runs N OS processes on the CPU through gloo
-collectives over localhost, the same names as the JAX package's simulation
-(parallel/elastic.supervise sets them).
+`GPUSPECTRAL_COORDINATOR`) runs N OS processes over localhost, the same
+names as the JAX package's simulation (parallel/elastic.supervise sets
+them): gloo collectives on the CPU when the ranks pass device="cpu", NCCL
+on cuda:0 .. cuda:N-1 otherwise.
 """
 
 from __future__ import annotations
@@ -50,50 +50,41 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def initialize(
-    coordinator: Optional[str] = None,
-    num_processes: Optional[int] = None,
-    process_id: Optional[int] = None,
-    *,
-    device="cuda",
-    timeout_s: float = DEFAULT_TIMEOUT_S,
-) -> torch.device:
+def initialize(device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
     """Create the torch.distributed process group and return this rank's
     device.
 
-    Sources, in order: the GPUSPECTRAL_FAKE_HOSTS=N simulation (gloo on
-    the CPU, N ranks, this one GPUSPECTRAL_FAKE_HOST_ID, rendezvous at
-    GPUSPECTRAL_COORDINATOR=host:port); torchrun's environment (WORLD_SIZE,
-    RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) when num_processes is not
-    given; else the arguments.  NCCL with one rank a card (cuda:LOCAL_RANK)
-    unless device is "cpu" (gloo).  Where the JAX package skips
-    jax.distributed for one process, the port still makes a one-rank group
-    on a free localhost port: the DeviceMesh of the sharded functions
-    needs one.  Every collective of the group fails after timeout_s."""
-    fake = int(os.environ.get("GPUSPECTRAL_FAKE_HOSTS", "0"))
+    The group's ranks, in order: the GPUSPECTRAL_FAKE_HOSTS=N simulation
+    (N ranks, this one GPUSPECTRAL_FAKE_HOST_ID, rendezvous at
+    GPUSPECTRAL_COORDINATOR=host:port; any N, so a gang that
+    elastic.supervise shrank to one host keeps its names); torchrun's
+    environment (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT);
+    else one rank on a free localhost port (where the JAX package skips
+    jax.distributed for one process, the DeviceMesh of the sharded
+    functions needs a group).  The device picks the backend: NCCL with one
+    rank a card (cuda:LOCAL_RANK, or cuda:GPUSPECTRAL_FAKE_HOST_ID in the
+    simulation), or gloo when device is "cpu"; without a card the default
+    raises.  Every collective of the group fails after timeout_s."""
+    dev = check_device(device)
     local_rank = 0
-    if fake > 0:  # a gang that elastic.supervise shrank to one host too
-        num_processes = fake
-        process_id = int(os.environ["GPUSPECTRAL_FAKE_HOST_ID"])
+    if "GPUSPECTRAL_FAKE_HOSTS" in os.environ:
+        world = int(os.environ["GPUSPECTRAL_FAKE_HOSTS"])
+        rank = local_rank = int(os.environ["GPUSPECTRAL_FAKE_HOST_ID"])
         coordinator = os.environ.get("GPUSPECTRAL_COORDINATOR", "127.0.0.1:9473")
-        device = "cpu"
-    elif num_processes is None and "WORLD_SIZE" in os.environ:
-        num_processes = int(os.environ["WORLD_SIZE"])
-        process_id = int(os.environ["RANK"])
+    elif "WORLD_SIZE" in os.environ:
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
-    if num_processes is None or num_processes <= 1:
-        num_processes, process_id = 1, 0
-        coordinator = coordinator or f"127.0.0.1:{free_port()}"
-    dev = check_device(device)
+    else:
+        world, rank, coordinator = 1, 0, f"127.0.0.1:{free_port()}"
     if dev.type == "cuda":
         dev = torch.device("cuda", local_rank if dev.index is None else dev.index)
         torch.cuda.set_device(dev)
     dist.init_process_group(
         "nccl" if dev.type == "cuda" else "gloo",
         init_method=f"tcp://{coordinator}",
-        world_size=num_processes,
-        rank=int(process_id),
+        world_size=world,
+        rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s),
         device_id=dev if dev.type == "cuda" else None,
     )

@@ -11,8 +11,6 @@ process (the twin of tests/test_gradients.py:79-90).  Every rank's
 collectives time out after RANK_TIMEOUT_S and the gang is killed after
 GANG_TIMEOUT_S, so a hang fails this file instead of the suite's clock."""
 
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -24,6 +22,7 @@ from gpuspectral_tpu_torch.integrator.path_tracer import render_image
 from gpuspectral_tpu_torch.diff import gradcheck as tgc
 from gpuspectral_tpu_torch.parallel import launch
 from gpuspectral_tpu_torch.parallel import dist as pdist
+from gpuspectral_tpu_torch.parallel.dryrun import spawn_ranks, value_and_grad
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene
 from gpuspectral_tpu_torch.utils import RenderConfig
 
@@ -40,25 +39,8 @@ GANG_TIMEOUT_S = 240.0
 def gang(tmp_path_factory):
     """{rank: npz} of one 4-rank gloo gang."""
     out = tmp_path_factory.mktemp("gang")
-    port = launch.free_port()
-    procs = []
-    try:
-        for i in range(N_RANKS):
-            env = dict(os.environ, GPUSPECTRAL_FAKE_HOSTS=str(N_RANKS),
-                       GPUSPECTRAL_FAKE_HOST_ID=str(i),
-                       GPUSPECTRAL_COORDINATOR=f"127.0.0.1:{port}")
-            procs.append(subprocess.Popen(
-                [sys.executable, str(REPO / "tests/torch_mh_worker.py"), str(out),
-                 str(RANK_TIMEOUT_S)],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-        errs = [p.communicate(timeout=GANG_TIMEOUT_S)[1] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for i, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {i} failed:\n{errs[i].decode()[-3000:]}"
+    spawn_ranks([sys.executable, REPO / "tests/torch_mh_worker.py", out, RANK_TIMEOUT_S],
+                N_RANKS, "cpu", GANG_TIMEOUT_S)
     return {i: dict(np.load(out / f"rank{i}.npz")) for i in range(N_RANKS)}
 
 
@@ -92,16 +74,25 @@ def one_rank(scene):
 
 @pytest.fixture(scope="module")
 def jax_ref(cornell_scene):
-    """JAX render_image_sharded / grad_step_sharded on a 4-device (2, 2)
-    mesh of this process's virtual CPU devices."""
-    from gpuspectral_tpu.parallel.dist import grad_step_sharded, make_mesh, render_image_sharded
+    """JAX render_image_sharded / grad_step_sharded, and the _fast pair on
+    the brute-force kernels in interpret mode, on a 4-device (2, 2) mesh of
+    this process's virtual CPU devices."""
+    from gpuspectral_tpu.parallel.dist import (grad_step_sharded, grad_step_sharded_fast,
+                                               make_mesh, render_image_sharded,
+                                               render_image_sharded_fast)
     from gpuspectral_tpu.utils import RenderConfig as JaxConfig
 
     cfg = JaxConfig(**W.WAVEFRONT)
     mesh = make_mesh(N_RANKS, spp_shards=W.SPP_SHARDS)
     img = np.asarray(render_image_sharded(cornell_scene, cfg, mesh))
     loss, grads = grad_step_sharded(cornell_scene, cfg, mesh, np.zeros((8, 16, 3), np.float32))
-    return img, float(loss), np.asarray(grads)
+    img_f, rays_f = render_image_sharded_fast(cornell_scene, JaxConfig(**W.FAST_BRUTE), mesh,
+                                              interpret=True)
+    step_f = grad_step_sharded_fast(cornell_scene, JaxConfig(**W.GRAD_BRUTE), mesh,
+                                    W.targets()[1], interpret=True, optimize_emission=True)
+    return dict(img=img, loss=float(loss), grads=np.asarray(grads),
+                fast_brute=np.asarray(img_f), fast_brute_rays=float(rays_f),
+                gfast_brute=[np.asarray(x) for x in step_f])
 
 
 def test_gang_mesh_and_replicated_image(gang):
@@ -121,12 +112,33 @@ def test_gather_image_on_coordinator_only(gang, one_rank):
 
 
 def test_sharded_render_matches_jax(gang, jax_ref):
-    assert_mega_gates(jax_ref[0], gang[0]["img"])
+    assert_mega_gates(jax_ref["img"], gang[0]["img"])
 
 
 def test_sharded_grad_matches_jax(gang, jax_ref):
-    np.testing.assert_allclose(float(gang[0]["loss"]), jax_ref[1], rtol=1e-4)
-    _assert_close(gang[0]["grads"], jax_ref[2])
+    np.testing.assert_allclose(float(gang[0]["loss"]), jax_ref["loss"], rtol=1e-4)
+    _assert_close(gang[0]["grads"], jax_ref["grads"])
+
+
+def test_fast_render_matches_jax(gang, jax_ref):
+    """render_image_sharded_fast on the brute-force kernel: the gang's K1
+    plain versions against JAX's K1 in interpret mode on the same mesh."""
+    assert_mega_gates(jax_ref["fast_brute"], gang[0]["fast_brute"], jax_ref["fast_brute_rays"],
+                      gang[0]["fast_brute_rays"])
+
+
+def test_fast_grad_matches_jax(gang, jax_ref, scene):
+    """grad_step_sharded_fast on the brute-force kernel with the emission
+    gradients: the gang's K5 plain versions against JAX's K5 in interpret
+    mode on the same mesh (emission gradients on emissive triangles, as
+    tests/test_torch_mega_grad.py compares them)."""
+    loss, g_bp, g_te, g_le = jax_ref["gfast_brute"]
+    res = gang[0]
+    np.testing.assert_allclose(float(res["gfast_brute_loss"]), float(loss), rtol=1e-4)
+    emissive = scene.tri_light_idx.numpy() >= 0
+    _assert_close(res["gfast_brute"], g_bp)
+    _assert_close(res["gfast_brute_te"][emissive], g_te[emissive])
+    _assert_close(res["gfast_brute_le"], g_le)
 
 
 def test_sharded_render_matches_unsharded(gang, scene):
@@ -159,16 +171,6 @@ def test_fast_render_matches_unsharded(gang, scene, tag):
     assert float(gang[0][f"fast_{tag}_rays"]) == rays
 
 
-def _fused_value_and_grad(scene, cfg, target, bvh):
-    p = [x.clone().requires_grad_(True)
-         for x in (scene.bsdf_params, scene.tri_emission, scene.light_emission)]
-    sc = scene.replace(bsdf_params=p[0], tri_emission=p[1], light_emission=p[2])
-    f = mg.render_mega_bvh_diff if bvh else mg.render_mega_diff
-    loss = torch.mean((f(sc, cfg, 0) - torch.as_tensor(target)) ** 2)
-    loss.backward()
-    return float(loss.detach()), [x.grad.numpy() for x in p]
-
-
 @pytest.mark.parametrize("tag", ["bvh", "brute"])
 def test_fast_grad_matches_fused_single(gang, scene, tag):
     t_bvh, t_brute = W.targets()
@@ -178,7 +180,9 @@ def test_fast_grad_matches_fused_single(gang, scene, tag):
     else:
         cfg, target = RenderConfig(**W.GRAD_BRUTE), t_brute
         assert mg.mega_grad_eligible(scene, cfg)
-    loss, grads = _fused_value_and_grad(scene, cfg, target, tag == "bvh")
+    loss, *grads = value_and_grad(mg.render_mega_bvh_diff if tag == "bvh" else mg.render_mega_diff,
+                                  scene, cfg, target)
+    loss, grads = float(loss), [g.numpy() for g in grads]
     res = gang[0]
     np.testing.assert_allclose(float(res[f"gfast_{tag}_loss"]), loss, rtol=1e-5)
     np.testing.assert_allclose(res[f"gfast_{tag}"], grads[0], rtol=1e-4, atol=1e-7)
@@ -239,6 +243,45 @@ def test_render_blocks_diff_matches_render_mega_diff(scene, bvh):
     assert float(torch.abs(g_blocks[0]).max()) > 0
 
 
+def test_render_blocks_diff_matches_jax(cornell_scene, scene):
+    """render_blocks_diff on the brute-force kernel against JAX's in
+    interpret mode on the same 16 pixel rows, one (SUB, LANES) block of
+    JAX's (a 32x32 frame's 8 rows, then the same rows backwards): the
+    per-lane sums, and the gradients of a cotangent on them."""
+    import jax
+    import jax.numpy as jnp
+
+    from gpuspectral_tpu.integrator import mega_grad as jmg
+    from gpuspectral_tpu.utils import RenderConfig as JaxConfig
+
+    cfg = RenderConfig(**W.GRAD_BRUTE)
+    frame = mega.pix_rows(cfg, "cpu")
+    pix = torch.cat([frame, frame.flip(0)])
+    g = np.random.default_rng(5).uniform(-1, 1, (*pix.shape, 3)).astype(np.float32)
+
+    def jax_blocks(bp, te, le):
+        sc = cornell_scene.replace(bsdf_params=bp, tri_emission=te, light_emission=le)
+        return jmg.render_blocks_diff(sc, JaxConfig(**W.GRAD_BRUTE),
+                                      jnp.asarray(pix.numpy()).reshape(1, *pix.shape), 0,
+                                      False, interpret=True)
+
+    rad_ref, vjp = jax.vjp(jax_blocks, cornell_scene.bsdf_params, cornell_scene.tri_emission,
+                           cornell_scene.light_emission)
+    g_ref = [np.asarray(x) for x in vjp(jnp.asarray(g).reshape(1, *g.shape))]
+    p = [x.clone().requires_grad_(True)
+         for x in (scene.bsdf_params, scene.tri_emission, scene.light_emission)]
+    rad = mg.render_blocks_diff(
+        scene.replace(bsdf_params=p[0], tri_emission=p[1], light_emission=p[2]), cfg, pix, 0,
+        False)
+    got = torch.autograd.grad((rad * torch.as_tensor(g)).sum(), p)
+    assert_mega_gates(np.asarray(rad_ref).reshape(-1, 3) / cfg.spp,
+                      rad.detach().reshape(-1, 3).numpy() / cfg.spp)
+    emissive = scene.tri_light_idx.numpy() >= 0
+    _assert_close(got[0].numpy(), g_ref[0])
+    _assert_close(got[1].numpy()[emissive], g_ref[1][emissive])
+    _assert_close(got[2].numpy(), g_ref[2])
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a card, initialize() and dryrun_multichip() raise instead of
     quietly running on the CPU; the CPU is asked for by name."""
@@ -255,3 +298,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="1 cards asked, 0 present"):
         dryrun_multichip(1)
+
+
+def test_fake_hosts_keep_the_callers_device(monkeypatch):
+    """The GPUSPECTRAL_FAKE_HOSTS simulation that elastic.supervise sets
+    gives the ranks, not the device: the default still wants a card and
+    raises without one; device "cpu" makes a gloo group of those ranks."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("GPUSPECTRAL_FAKE_HOSTS", "1")
+    monkeypatch.setenv("GPUSPECTRAL_FAKE_HOST_ID", "0")
+    monkeypatch.setenv("GPUSPECTRAL_COORDINATOR", f"127.0.0.1:{launch.free_port()}")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        launch.initialize()
+    assert not dist.is_initialized()
+    dev = launch.initialize(device="cpu", timeout_s=RANK_TIMEOUT_S)
+    try:
+        assert dev == torch.device("cpu") and launch.local_device() == dev
+        assert (dist.get_backend(), dist.get_world_size(), dist.get_rank()) == ("gloo", 1, 0)
+    finally:
+        dist.destroy_process_group()

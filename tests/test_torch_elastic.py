@@ -10,8 +10,10 @@ the suite's clock."""
 
 import os
 import sys
+import time
 
 import numpy as np
+import pytest
 
 from gpuspectral_tpu_torch.io.checkpoint import load_checkpoint
 from gpuspectral_tpu_torch.parallel import launch
@@ -87,3 +89,15 @@ def test_gang_shrinks_to_one_host_and_stays_exact(tmp_path):
 def test_dryrun_multichip_on_gloo():
     line = dryrun_multichip(2, size=32, device="cpu", timeout_s=GANG_TIMEOUT_S)
     assert line.startswith("dryrun_multichip ok: mesh=(tiles 1, spp 2)"), line
+
+
+def test_supervise_keeps_a_failed_workers_output():
+    """A worker that writes more than a pipe holds neither stalls nor runs
+    into the supervisor's timeout; after too many restarts the error
+    carries the tail of its output."""
+    code = "import sys; sys.stdout.write('x' * 200000 + '\\nworker gave up'); sys.exit(3)"
+    t0 = time.time()
+    with pytest.raises(RuntimeError, match="worker gave up"):
+        supervise(lambda i, n: [sys.executable, "-c", code], 1, done=lambda: False,
+                  max_restarts=1, poll_s=0.05, timeout_s=GANG_TIMEOUT_S)
+    assert time.time() - t0 < 30

@@ -30,7 +30,7 @@ CFG = dict(width=16, height=8, spp=2, max_depth=2, ray_batch=64)
 def main() -> int:
     ckpt, total, fault_at = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     stay_dead = sys.argv[5:] == ["stay_dead"]
-    launch.initialize(timeout_s=float(sys.argv[4]))  # GPUSPECTRAL_FAKE_HOSTS: gloo on the CPU
+    launch.initialize(device="cpu", timeout_s=float(sys.argv[4]))  # gloo ranks
     try:
         scene, _ = load_mitsuba_scene(str(REPO / "scenes/cornell/scene.xml"), device="cpu")
         mesh = launch.pod_mesh(spp_shards=1)

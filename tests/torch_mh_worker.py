@@ -68,7 +68,7 @@ def run(mesh, scene) -> dict:
 
 def main() -> int:
     out_dir, timeout_s = sys.argv[1], float(sys.argv[2])
-    launch.initialize(timeout_s=timeout_s)  # GPUSPECTRAL_FAKE_HOSTS: gloo on the CPU
+    launch.initialize(device="cpu", timeout_s=timeout_s)  # GPUSPECTRAL_FAKE_HOSTS: gloo ranks
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
         mesh = launch.pod_mesh(spp_shards=SPP_SHARDS)

@@ -5,9 +5,10 @@ ones on one card, and time both.
     python3 tools/torch_dist_check.py --ranks N --device cpu --size 32 --spp 4 --small
 
 Every rank joins the group (parallel/launch.initialize: NCCL, one rank a
-card, from torchrun's variables; with --ranks the script starts N gloo
-ranks on the CPU itself, the GPUSPECTRAL_FAKE_HOSTS simulation), builds
-the same scenes and runs, on a (N/S, S) mesh:
+card, from torchrun's variables; with --ranks the script starts its N
+ranks itself through parallel/dryrun.spawn_ranks, gloo ranks of the
+GPUSPECTRAL_FAKE_HOSTS simulation for --device cpu), builds the same
+scenes and runs, on a (N/S, S) mesh:
 
   k1  render_image_sharded_fast on Cornell, size^2 @ spp, d50 (K1 a rank)
   k4  the same on the sphere field (K4 a rank)
@@ -15,11 +16,10 @@ the same scenes and runs, on a (N/S, S) mesh:
   k6  the same on the sphere field without its sky (K6 a rank)
 
 against render_mega / render_mega_bvh and value_and_grad through
-render_mega_diff / render_mega_bvh_diff on rank 0's device: images equal
-when S is 1 (every lane's samples in one launch) and, when they are split,
-within rtol 1e-5 + atol 1e-5 (the per-lane sums re-associated in float32:
-a bright pixel of the sphere field's sky moved by 1.3e-5), rays equal;
-losses within rtol 1e-5, gradients within rtol 1e-4, atol 1e-7.  Times:
+render_mega_diff / render_mega_bvh_diff on rank 0's device, held by
+parallel/dryrun.check_render / check_grad (images equal when S is 1 and
+within rtol 1e-5 + atol 1e-5 when the samples are split: a bright pixel of
+the sphere field's sky moved by 1.3e-5).  Times:
 the sharded call's wall on rank 0 between barriers (each rank
 synchronized), the median of --reps after a warmup, the unsharded call
 alone on rank 0's device the same way, and for k1 / k4 each rank's own
@@ -34,7 +34,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -46,6 +45,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from gpuspectral_tpu_torch.integrator import mega, mega_bvh, mega_grad  # noqa: E402
 from gpuspectral_tpu_torch.parallel import dist as pdist, launch  # noqa: E402
+from gpuspectral_tpu_torch.parallel.dryrun import (  # noqa: E402
+    check_grad, check_render, spawn_ranks, value_and_grad)
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene  # noqa: E402
 from gpuspectral_tpu_torch.scene.zoo import build_sphere_field  # noqa: E402
 from gpuspectral_tpu_torch.utils import RenderConfig  # noqa: E402
@@ -92,15 +93,6 @@ def band_times(key, scene, cfg, mesh, dev, reps):
     return out
 
 
-def value_and_grad(diff, scene, cfg, target):
-    p = [x.clone().requires_grad_(True)
-         for x in (scene.bsdf_params, scene.tri_emission, scene.light_emission)]
-    img = diff(scene.replace(bsdf_params=p[0], tri_emission=p[1], light_emission=p[2]), cfg, 0)
-    loss = torch.mean((img - target) ** 2)
-    loss.backward()
-    return loss.detach(), *(x.grad for x in p)
-
-
 def run(args):
     dev = launch.local_device()
     rank, n = dist.get_rank(), dist.get_world_size()
@@ -127,11 +119,9 @@ def run(args):
                                                                            dev, args.reps))
             if rank == 0:
                 img_u, rays_u = render(scene, cfg, 0)
-                err = float((img_s - img_u).abs().max())
-                close = (torch.allclose(img_s, img_u, rtol=1e-5, atol=1e-5) if split
-                         else torch.equal(img_s, img_u))
-                ok = close and rays_s == rays_u
-                row.update(max_abs_err=err, rays_equal=rays_s == rays_u, ok=bool(ok),
+                row.update(checked(lambda: check_render(key, (img_s, rays_s), (img_u, rays_u),
+                                                        split)),
+                           max_abs_err=float((img_s - img_u).abs().max()),
                            ms_unsharded=timed(lambda: render(scene, cfg, 0), dev, args.reps,
                                               collective=False) * 1e3)
         else:
@@ -143,12 +133,10 @@ def run(args):
             row = dict(ms_sharded=ms * 1e3, loss=float(got[0]))
             if rank == 0:
                 ref = value_and_grad(diff, scene, cfg, target)
-                loss_ok = np.isclose(float(got[0]), float(ref[0]), rtol=1e-5, atol=0)
-                errs = [float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:])]
-                grads_ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-7)
-                               for a, b in zip(got[1:], ref[1:]))
-                row.update(loss_unsharded=float(ref[0]), max_abs_err=max(errs),
-                           ok=bool(loss_ok and grads_ok),
+                row.update(checked(lambda: check_grad(key, got, ref)),
+                           loss_unsharded=float(ref[0]),
+                           max_abs_err=max(float((a - b).abs().max())
+                                           for a, b in zip(got[1:], ref[1:])),
                            ms_unsharded=timed(lambda: value_and_grad(diff, scene, cfg, target),
                                               dev, args.reps, collective=False) * 1e3)
         if rank == 0:
@@ -158,28 +146,27 @@ def run(args):
     return result
 
 
+def checked(check) -> dict:
+    """{"ok": True} when check() passes, else ok False and its message: the
+    other ranks go on to the next case instead of waiting on rank 0."""
+    try:
+        check()
+    except AssertionError as e:
+        return dict(ok=False, error=str(e))
+    return dict(ok=True)
+
+
 def spawn(args) -> int:
-    """--ranks N: start N gloo ranks of this script on the CPU."""
-    port = launch.free_port()
+    """--ranks N: start N ranks of this script (gloo ranks on the CPU for
+    --device cpu, else NCCL ranks on cuda:0 .. cuda:N-1) and print rank 0's
+    output."""
     argv = list(sys.argv[1:])
     i = argv.index("--ranks")
     del argv[i:i + 2]
-    procs = []
-    try:
-        for r in range(args.ranks):
-            env = dict(os.environ, GPUSPECTRAL_FAKE_HOSTS=str(args.ranks),
-                       GPUSPECTRAL_FAKE_HOST_ID=str(r),
-                       GPUSPECTRAL_COORDINATOR=f"127.0.0.1:{port}")
-            procs.append(subprocess.Popen([sys.executable, __file__] + argv, env=env))
-        deadline = time.time() + args.timeout
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.time()))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return max(p.returncode for p in procs)
+    outs = spawn_ranks([sys.executable, os.path.abspath(__file__)] + argv, args.ranks, args.device,
+                       args.timeout)
+    print(outs[0], end="", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -190,7 +177,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true", help="a small sphere field (CPU runs)")
-    ap.add_argument("--ranks", type=int, default=0, help="start this many gloo ranks on the CPU")
+    ap.add_argument("--ranks", type=int, default=0, help="start this many ranks itself")
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args()
     if args.ranks:
