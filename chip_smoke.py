@@ -518,7 +518,7 @@ class WalkTally:
     to its first occluder (csrc/brute.cuh scans in index order and stops
     there), a BVH ray what the fewer of two walks did.  A lane with
     t_max <= t_min casts no ray in the fused kernels and counts nothing.
-    Launches made while it is on count on its stand-ins, never in counts()."""
+    Launches made while it is on are left out of counts() (_TALLIED)."""
 
     def __init__(self, n_tris):
         self.n_tris = n_tris
@@ -607,16 +607,17 @@ class WalkTally:
         counting = dict(closest_cuda=closest_cuda, any_cuda=any_cuda, ftb_closest=ftb_closest,
                         ftb_any=ftb_any)
         self._saved = [(ci if k.endswith("cuda") else ftb, k, fn) for k, fn in real.items()]
+        self._real, self._launches = real, _launches(real)
         for mod, k, _ in self._saved:
-            # a wrapper counts its launch on its module-level name, which is
-            # the stand-in while the tally is on: the main path's counts stay
-            counting[k].launches = 0
             setattr(mod, k, counting[k])
         return self
 
     def __exit__(self, *exc):
         for mod, k, fn in self._saved:
             setattr(mod, k, fn)
+        # the tally's own launches are set aside: the main path's counts stay
+        for name, n in _launches(self._real).items():
+            _TALLIED[name] = _TALLIED.get(name, 0) + n - self._launches[name]
 
 
 def tally_rows(scene, cfg, pix, ts):
@@ -660,13 +661,27 @@ def mega_tables(scene, bvh):
     return mega.woop_rows(scene), attr, light, camv
 
 
+_TALLIED: dict = {}  # launches a WalkTally made, by counter name: left out of counts()
+
+
+def _launches(wrappers: dict) -> dict:
+    """{counter name: launches in utils.profiling} of wrapper functions."""
+    from gpuspectral_tpu_torch.utils import profiling
+
+    names = (f"{fn.__name__}.launch" for fn in wrappers.values())
+    return {name: profiling.calls(name) for name in names}
+
+
 def reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from gpuspectral_tpu_torch.utils import profiling
+
+    profiling.reset()
+    _TALLIED.clear()
 
 
 def counts():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    return {k: n - _TALLIED.get(name, 0)
+            for k, (name, n) in zip(_wrappers(), _launches(_wrappers()).items())}
 
 
 def phase_k1(scenes):

@@ -26,9 +26,10 @@ import os
 import pathlib
 import shutil
 import subprocess
-import time
 
 import torch
+
+from .utils import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -115,58 +116,66 @@ def _ptxas_summary(log: str) -> dict:
 
 
 def load():
-    """The loaded kernel library, building it first if needed."""
+    """The loaded kernel library, building it first if needed.  The first
+    call is the span "gst.kernels.load" (utils/profiling), and counts
+    "kernels.built" when nvcc ran."""
     global _lib
     if _lib is not None:
         return _lib
-    out_dir = _build_dir()
-    so = out_dir / "libgst_kernels.so"
-    log_path = out_dir / "ptxas.log"
-    built_now = False
-    t0 = time.time()
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        tag = os.getpid()
-        objs, procs = [], []
-        for src in sorted(_CSRC.glob("*.cu")):
-            obj = out_dir / f"{src.stem}.{tag}.o"
-            objs.append(obj)
-            procs.append((src.name, subprocess.Popen(
-                [nvcc, *_FLAGS, "-c", str(src), "-o", str(obj)], cwd=str(_CSRC),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = [], []
-        for name, proc in procs:
-            out = proc.communicate()[0]
-            logs.append(out)
-            if proc.returncode != 0:
-                failed.append(f"{name} ({proc.returncode}):\n{out[-6000:]}")
-        if failed:
-            raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        tmp = out_dir / f"libgst_kernels.{tag}.so"
-        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True, cwd=str(_CSRC))
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
-        for obj in objs:
-            obj.unlink()
-        log_path.write_text("\n".join(logs))
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-        built_now = True
-    lib = ctypes.CDLL(str(so))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    log = log_path.read_text() if log_path.exists() else ""
+    with profiling.stage("gst.kernels.load") as span:
+        out_dir = _build_dir()
+        so = out_dir / "libgst_kernels.so"
+        log_path = out_dir / "ptxas.log"
+        built_now = not so.exists()
+        if built_now:
+            _compile(out_dir, so, log_path)
+            profiling.count("kernels.built")
+        lib = ctypes.CDLL(str(so))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        log = log_path.read_text() if log_path.exists() else ""
     _info.update(
         path=str(so),
         built_now=built_now,
-        seconds=time.time() - t0,
+        seconds=span.seconds,
         ptxas=_ptxas_summary(log),
     )
     _lib = lib
     return lib
+
+
+def _compile(out_dir: pathlib.Path, so: pathlib.Path, log_path: pathlib.Path) -> None:
+    """nvcc: every csrc/*.cu to an object, all started together, then one
+    link into `so`; ptxas's lines into `log_path`."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs, procs = [], []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *_FLAGS, "-c", str(src), "-o", str(obj)], cwd=str(_CSRC),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{out[-6000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"libgst_kernels.{tag}.so"
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, cwd=str(_CSRC))
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    for obj in objs:
+        obj.unlink()
+    log_path.write_text("\n".join(logs))
+    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
 
 
 def build_info() -> dict:

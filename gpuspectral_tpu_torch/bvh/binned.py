@@ -31,7 +31,7 @@ JAX kernel breaks ties the same way, so prim matches it exactly.
 hits take t in (0, t_max) and inactive rays miss; any hits take t in
 (t_min, t_max) and inactive rays are never occluded.  Inactive rays carry
 t_max = -1e30 and so never vote.  For CUDA tensors the wrappers launch the
-kernels or raise, and count their launches in `.launches`; for CPU tensors
+kernels or raise, and count their launches in utils.profiling; for CPU tensors
 they run the plain versions.  The attribute rows are gathered after the
 kernel, as in JAX (binned.py:387-391).
 
@@ -63,6 +63,7 @@ import torch
 
 from ..ops import math3d as m3
 from ..ops import woop
+from ..utils import profiling
 from . import dfs_sweep, ftb
 
 _BIG = 1e30
@@ -243,7 +244,7 @@ def binned_closest(scene, origin, direction, active=None, t_max=None, attr=None)
                                     *args, t.data_ptr(), prim.data_ptr(), u.data_ptr(),
                                     v.data_ptr(), stream)
     _build.check(rc, "binned_closest")
-    binned_closest.launches += 1
+    profiling.count("binned_closest.launch")
     attr = ftb.attr_table(scene) if attr is None else attr
     return t, prim, u, v, ftb._gather_attrs(attr, prim)
 
@@ -267,12 +268,8 @@ def binned_any(scene, origin, direction, t_min, t_max, active=None):
         rc = lib.gst_binned_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
                                 t_max.data_ptr(), r, *args, occ.data_ptr(), stream)
     _build.check(rc, "binned_any")
-    binned_any.launches += 1
+    profiling.count("binned_any.launch")
     return occ
-
-
-binned_closest.launches = 0
-binned_any.launches = 0
 
 
 def binned_closest_diff(scene, origin, direction, active=None, attr=None):

@@ -36,7 +36,7 @@ among exactly tied t).
 hits take t in (0, t_max) and inactive rays miss; any hits take t in
 (t_min, t_max) and inactive rays are never occluded.  Inactive rays carry
 t_max = -1e30 and so never vote.  For CUDA tensors the wrappers launch the
-kernels or raise, and count their launches in `.launches`; for CPU tensors
+kernels or raise, and count their launches in utils.profiling; for CPU tensors
 they run the plain versions.  `cluster_closest` and `cluster_any` launch
 K7c first unless given the votes.  Every wrapper takes the scene's
 supernode tables (`scene_supernodes`) as `supernodes=`: the wavefront
@@ -69,6 +69,7 @@ import torch
 
 from ..ops import math3d as m3
 from ..ops import woop
+from ..utils import profiling
 from . import ftb
 
 _BIG = 1e30
@@ -213,7 +214,7 @@ def cluster_votes(scene, origin, direction, t_min, t_max, active=None, supernode
                                    t_max.data_ptr(), r, sn.blo.data_ptr(), sn.bhi.data_ptr(),
                                    sn.blo.shape[1], sn.s, votes.data_ptr(), stream)
     _build.check(rc, "cluster_votes")
-    cluster_votes.launches += 1
+    profiling.count("cluster_votes.launch")
     return votes
 
 
@@ -311,7 +312,7 @@ def cluster_closest(scene, origin, direction, active=None, t_max=None, attr=None
                                      *tables, attr.data_ptr(), a, t.data_ptr(), prim.data_ptr(),
                                      u.data_ptr(), v.data_ptr(), attrs.data_ptr(), stream)
     _build.check(rc, "cluster_closest")
-    cluster_closest.launches += 1
+    profiling.count("cluster_closest.launch")
     return t, prim, u, v, attrs
 
 
@@ -342,13 +343,8 @@ def cluster_any(scene, origin, direction, t_min, t_max, active=None, votes=None,
         rc = lib.gst_cluster_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
                                  t_max.data_ptr(), r, *tables, occ.data_ptr(), stream)
     _build.check(rc, "cluster_any")
-    cluster_any.launches += 1
+    profiling.count("cluster_any.launch")
     return occ
-
-
-cluster_votes.launches = 0
-cluster_closest.launches = 0
-cluster_any.launches = 0
 
 
 def cluster_closest_diff(scene, origin, direction, active=None, attr=None, supernodes=None):

@@ -42,7 +42,7 @@ ValueError unless the scene meets what that gate needs (`leaf_clusters`).
 hits take t in (0, t_max) and inactive rays miss; any hits take t in
 (t_min, t_max) and inactive rays are never occluded.  Inactive rays carry
 t_max = -1e30 and so never vote.  For CUDA tensors the wrappers launch the
-kernels or raise, and count their launches in `.launches`; for CPU tensors
+kernels or raise, and count their launches in utils.profiling; for CPU tensors
 they run the plain versions.  `dfs_tests` counts the tests of the block
 sweep (every slot of an entered leaf for every ray), `gated_tests` those
 the kernels make, for their bounds.
@@ -65,6 +65,7 @@ import torch
 
 from ..ops import math3d as m3
 from ..ops import woop
+from ..utils import profiling
 from . import cluster_sweep, ftb
 
 _BIG = 1e30
@@ -382,7 +383,7 @@ def dfs_closest(scene, origin, direction, active=None, t_max=None, attr=None):
                                  *args, attr.data_ptr(), a, t.data_ptr(), prim.data_ptr(),
                                  u.data_ptr(), v.data_ptr(), attrs.data_ptr(), stream)
     _build.check(rc, "dfs_closest")
-    dfs_closest.launches += 1
+    profiling.count("dfs_closest.launch")
     return t, prim, u, v, attrs
 
 
@@ -405,12 +406,8 @@ def dfs_any(scene, origin, direction, t_min, t_max, active=None):
         rc = lib.gst_dfs_any(origin.data_ptr(), direction.data_ptr(), t_min.data_ptr(),
                              t_max.data_ptr(), r, *args, occ.data_ptr(), stream)
     _build.check(rc, "dfs_any")
-    dfs_any.launches += 1
+    profiling.count("dfs_any.launch")
     return occ
-
-
-dfs_closest.launches = 0
-dfs_any.launches = 0
 
 
 def dfs_closest_diff(scene, origin, direction, active=None, attr=None):

@@ -5,7 +5,7 @@ The counterpart of gpuspectral_tpu/bvh/ftb.py: `ftb_closest` returns
 `active`, `t_min` and `t_max` semantics (closest: t in (0, t_max), inactive
 rays miss; any: t in (t_min, t_max), inactive rays are never occluded).
 For CUDA tensors the wrappers launch the kernels (K3a, K3b) or raise, and
-count their launches in `.launches`; for CPU tensors they run the plain
+count their launches in utils.profiling; for CPU tensors they run the plain
 versions, `ftb_closest_ref` / `ftb_any_ref`: the brute-force Woop scan over
 every triangle slot that K2 is held to (ops/woop.py), chunked over slots so
 that a 150k-slot scene fits in memory.  The kernel walks the scene's
@@ -30,6 +30,7 @@ import torch
 
 from ..ops import math3d as m3
 from ..ops import woop
+from ..utils import profiling
 
 _BIG = 1e30
 _META_TWOFACED = float(1 << 23)
@@ -196,7 +197,7 @@ def ftb_closest(scene, origin, direction, active=None, t_max=None, attr=None):
                                  t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
                                  stream)
     _build.check(rc, "ftb_closest")
-    ftb_closest.launches += 1
+    profiling.count("ftb_closest.launch")
     attr = attr_table(scene) if attr is None else attr
     return t, prim, u, v, _gather_attrs(attr, prim)
 
@@ -224,12 +225,8 @@ def ftb_any(scene, origin, direction, t_min, t_max, active=None):
                              t_max.data_ptr(), r, pairs.data_ptr(), woop_rows.data_ptr(),
                              ip.data_ptr(), occ.data_ptr(), stream)
     _build.check(rc, "ftb_any")
-    ftb_any.launches += 1
+    profiling.count("ftb_any.launch")
     return occ
-
-
-ftb_closest.launches = 0
-ftb_any.launches = 0
 
 
 def ftb_walk_tests(scene, origin, direction, t_min, t_max, any_hit: bool):

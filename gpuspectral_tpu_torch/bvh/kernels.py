@@ -25,7 +25,7 @@ version bit for bit.
     beside pack_tris.
   * `traverse_closest` -> (t, prim, u, v) and `traverse_any` -> occluded:
     for CUDA tensors they launch the kernel or raise, and count their
-    launches in `.launches`; for CPU tensors they run the plain versions
+    launches in utils.profiling; for CPU tensors they run the plain versions
     (traverse.intersect_closest_bvh_ref / intersect_any_bvh_ref), which
     walk the boxes as built.
   * `TraverseClosestDiff` / `traverse_closest_diff`: the closest hit with
@@ -50,6 +50,7 @@ import torch
 
 from . import traverse
 from ..ops.intersect import _mt_edges
+from ..utils import profiling
 
 _BIG = 1e30
 MAX_PACKET = 2048  # 1024 threads a CTA of up to 2 rays each (csrc/traverse.cu:kMaxPacket)
@@ -178,7 +179,7 @@ def traverse_closest(origin, direction, packed, node_min, node_max, n_levels: in
         rows = _node_rows(nodes, node_min, node_max, packed)
         _launch("gst_traverse_closest", origin, direction, packed, [rows], t_min, t_max, packet,
                 outs)
-        traverse_closest.launches += 1
+        profiling.count("traverse_closest.launch")
     return tuple(outs)
 
 
@@ -195,12 +196,8 @@ def traverse_any(origin, direction, packed, node_min, node_max, n_levels: int, t
         rows = _node_rows(nodes, node_min, node_max, packed)
         _launch("gst_traverse_any", origin, direction, packed, [rows], t_min, t_max, packet,
                 [occ])
-        traverse_any.launches += 1
+        profiling.count("traverse_any.launch")
     return occ
-
-
-traverse_closest.launches = 0
-traverse_any.launches = 0
 
 
 def launch_shape(packet_size: int = 1024) -> dict:

@@ -138,17 +138,21 @@ def _write(path: str, img, tonemap: bool) -> None:
         write_png(path, img, tonemap=tonemap)
 
 
-def _log_metrics(path, **fields) -> None:
-    if path:
-        fields.setdefault("time", time.time())
-        with open(path, "a") as fh:
-            fh.write(json.dumps(fields) + "\n")
+def _log_spans(log) -> None:
+    """The command's spans and counters (utils/profiling.snapshot) as the
+    metrics file's last line, event "spans"; closes the log."""
+    from ..utils import profiling
+
+    log.log(event="spans", spans=profiling.snapshot())
+    log.close()
 
 
 def cmd_render(args) -> int:
     from ..integrator import render_image_auto
-    from ..utils.profiling import trace
+    from ..utils import profiling
+    from ..utils.metrics import MetricsLogger
 
+    profiling.reset()
     scene, cfg = _build(args)
     print(
         f"rendering {args.scene}: {cfg.width}x{cfg.height} @ {cfg.spp} spp, "
@@ -157,12 +161,14 @@ def cmd_render(args) -> int:
         file=sys.stderr,
     )
     t0 = time.time()
-    with trace(args.profile):
+    with profiling.trace(args.profile):
         img = render_image_auto(scene, cfg, timestamp0=args.seed)
         img = img.cpu().numpy()
     dt = time.time() - t0
-    _log_metrics(args.metrics, event="render", scene=args.scene, width=cfg.width,
-                 height=cfg.height, spp=cfg.spp, seconds=dt, device=str(scene.device))
+    log = MetricsLogger(args.metrics)
+    log.log(event="render", scene=args.scene, width=cfg.width, height=cfg.height, spp=cfg.spp,
+            seconds=dt, device=str(scene.device))
+    _log_spans(log)
     print(f"done in {dt:.2f}s on {scene.device} (incl. kernel build)", file=sys.stderr)
     _write(args.output, img, args.tonemap)
     print(args.output)
@@ -255,8 +261,10 @@ def cmd_invert(args) -> int:
     import numpy as np
 
     from ..diff.invert import _render, invert, optimizable_mask
+    from ..utils import profiling
     from ..utils.metrics import MetricsLogger
 
+    profiling.reset()
     scene, cfg = _build(args)
     if cfg.width > 128 or args.spp is None:
         cfg = cfg.replace(width=min(cfg.width, 128), height=min(cfg.height, 128),
@@ -283,6 +291,7 @@ def cmd_invert(args) -> int:
         print(f"self-target: perturbed {mask.sum()} parameters", file=sys.stderr)
     params, history = invert(scene, target, cfg, steps=args.steps, lr=args.lr, init_params=init,
                              metrics=log, checkpoint_dir=args.checkpoint_dir)
+    _log_spans(log)
     truth = scene.bsdf_params.cpu().numpy()
     param_err = (float(np.abs(params.cpu().numpy() - truth)[mask].mean())
                  if args.target is None else None)

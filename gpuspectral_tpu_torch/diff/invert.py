@@ -35,6 +35,7 @@ from ..bsdf.table import (
 from ..scene.data import SceneData
 from ..utils.config import RenderConfig
 from ..utils.metrics import MetricsLogger
+from ..utils.profiling import stage
 from .gradcheck import render_mean
 
 
@@ -144,7 +145,9 @@ def _make_step(scene, cfg, mask, lo, hi, target, optimize_emission):
 
     target_flat = target.reshape(-1, 3)
     n_pixels = cfg.width * cfg.height
-    path = gradient_path(scene, cfg, mask.cpu().numpy(), optimize_emission)
+    with stage("gst.sync.mask"):
+        mask_host = mask.cpu().numpy()
+    path = gradient_path(scene, cfg, mask_host, optimize_emission)
 
     def to_physical(ov):
         sc = scene
@@ -169,6 +172,13 @@ def _make_step(scene, cfg, mask, lo, hi, target, optimize_emission):
     return loss_fn, to_physical, path
 
 
+def _upload(x, dev):
+    """A host array as float32 on dev, one "gst.sync.upload" span: the copy
+    of a pageable array waits for the stream."""
+    with stage("gst.sync.upload"):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+
 def invert(scene: SceneData, target, cfg: RenderConfig, steps: int = 100, lr: float = 0.02,
            init_params=None, metrics: Optional[MetricsLogger] = None,
            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 25,
@@ -180,52 +190,67 @@ def invert(scene: SceneData, target, cfg: RenderConfig, steps: int = 100, lr: fl
     (timestamp0 + i * spp); False keeps one sample set, so that with the
     target's timestamp the loss has an exact zero at the truth.
 
+    The call is the span "gst.invert" (utils/profiling), its set-up and
+    each step (loss, backward pass, Adam, the loss read back) spans of
+    their own, and each read-back or upload a "gst.sync.*" span.
+
     Returns (params, history), or ((params, light_emission), history) when
     optimize_emission is set."""
-    dev = scene.device
-    kinds = scene.bsdf_kind.cpu().numpy()
-    mask = torch.as_tensor(optimizable_mask(kinds), dtype=torch.float32, device=dev)
-    lo, hi = (torch.as_tensor(x, device=dev) for x in param_bounds(kinds))
-    params = (scene.bsdf_params if init_params is None
-              else torch.as_tensor(np.asarray(init_params), dtype=torch.float32, device=dev))
-    opt_vars = {}
-    if optimize_bsdf:
-        opt_vars["u"] = params_to_unconstrained(params, lo, hi).detach().requires_grad_(True)
-    if optimize_emission:
-        emission = (scene.light_emission if init_emission is None
-                    else torch.as_tensor(np.asarray(init_emission), dtype=torch.float32,
-                                         device=dev))
-        opt_vars["v"] = emission_to_unconstrained(emission).detach().requires_grad_(True)
-    opt = torch.optim.Adam(list(opt_vars.values()), lr=lr)
-    target = torch.as_tensor(np.asarray(target), dtype=torch.float32, device=dev)
-    loss_fn, to_physical, path = _make_step(scene, cfg, mask, lo, hi, target, optimize_emission)
+    with stage("gst.invert"):
+        with stage("gst.invert.setup"):
+            dev = scene.device
+            with stage("gst.sync.kinds"):
+                kinds = scene.bsdf_kind.cpu().numpy()
+            mask = _upload(optimizable_mask(kinds), dev)
+            lo, hi = (_upload(x, dev) for x in param_bounds(kinds))
+            params = scene.bsdf_params if init_params is None else _upload(init_params, dev)
+            if optimize_emission and init_emission is not None:
+                emission = _upload(init_emission, dev)
+            else:
+                emission = scene.light_emission
+            target = _upload(target, dev)
+            opt_vars = {}
+            if optimize_bsdf:
+                u = params_to_unconstrained(params, lo, hi)
+                opt_vars["u"] = u.detach().requires_grad_(True)
+            if optimize_emission:
+                v = emission_to_unconstrained(emission)
+                opt_vars["v"] = v.detach().requires_grad_(True)
+            opt = torch.optim.Adam(list(opt_vars.values()), lr=lr)
+            loss_fn, to_physical, path = _make_step(scene, cfg, mask, lo, hi, target,
+                                                    optimize_emission)
 
-    history = []
-    for i in range(steps):
-        t0 = time.time()
-        opt.zero_grad()
-        loss = loss_fn(opt_vars, timestamp0 + (i * cfg.spp if resample else 0))
-        loss.backward()
-        if "u" in opt_vars:
-            opt_vars["u"].grad.mul_(mask)  # only optimizable entries move
-        opt.step()
-        loss = float(loss.detach())
-        dt = time.time() - t0
-        history.append(loss)
-        if metrics:
-            metrics.log(event="invert_step", step=i, loss=loss, seconds=dt,
-                        grad_steps_per_s=1.0 / max(dt, 1e-9), path=path)
-        if checkpoint_dir and (i + 1) % checkpoint_every == 0:
-            from ..io.checkpoint import save_checkpoint
+        history = []
+        for i in range(steps):
+            with stage("gst.invert.step"):
+                t0 = time.time()
+                opt.zero_grad()
+                with stage("gst.invert.loss"):
+                    loss = loss_fn(opt_vars, timestamp0 + (i * cfg.spp if resample else 0))
+                with stage("gst.invert.backward"):
+                    loss.backward()
+                with stage("gst.invert.adam"):
+                    if "u" in opt_vars:
+                        opt_vars["u"].grad.mul_(mask)  # only optimizable entries move
+                    opt.step()
+                with stage("gst.sync.loss"):
+                    loss = float(loss.detach())
+                dt = time.time() - t0
+                history.append(loss)
+                if metrics:
+                    metrics.log(event="invert_step", step=i, loss=loss, seconds=dt,
+                                grad_steps_per_s=1.0 / max(dt, 1e-9), path=path)
+                if checkpoint_dir and (i + 1) % checkpoint_every == 0:
+                    from ..io.checkpoint import save_checkpoint
 
-            with torch.no_grad():
-                sc = to_physical(opt_vars)
-            save_checkpoint(f"{checkpoint_dir}/ckpt_{i + 1:06d}.npz",
-                            dict(params=sc.bsdf_params.cpu().numpy(),
-                                 light_emission=sc.light_emission.cpu().numpy(),
-                                 step=np.int64(i + 1), loss=np.float64(loss)))
-    with torch.no_grad():
-        final = to_physical(opt_vars)
+                    with torch.no_grad(), stage("gst.sync.checkpoint"):
+                        sc = to_physical(opt_vars)
+                        save_checkpoint(f"{checkpoint_dir}/ckpt_{i + 1:06d}.npz",
+                                        dict(params=sc.bsdf_params.cpu().numpy(),
+                                             light_emission=sc.light_emission.cpu().numpy(),
+                                             step=np.int64(i + 1), loss=np.float64(loss)))
+        with torch.no_grad():
+            final = to_physical(opt_vars)
     if optimize_emission:
         return (final.bsdf_params, final.light_emission), history
     return final.bsdf_params, history

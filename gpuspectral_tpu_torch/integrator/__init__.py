@@ -13,17 +13,20 @@ def render_image_stats_auto(scene, cfg, timestamp0: int = 0):
         cfg.use_bvh, the BVH kernels that cfg.bvh_kernel names (K3 for
         "ftb", K7c-e for "cluster").
 
-    For CPU tensors every path runs its plain torch version."""
+    For CPU tensors every path runs its plain torch version.  The call is
+    the span "gst.render" (utils/profiling)."""
+    from ..utils.profiling import stage
     from .mega import mega_eligible, render_mega
     from .mega_bvh import mega_bvh_eligible, render_mega_bvh
     from .path_tracer import render_image_stats
 
-    auto_cuda = cfg.intersector == "auto" and scene.device.type == "cuda"
-    if mega_eligible(scene, cfg) and (cfg.intersector == "mega" or auto_cuda):
-        return render_mega(scene, cfg, timestamp0)
-    if mega_bvh_eligible(scene, cfg) and (cfg.intersector == "mega_bvh" or auto_cuda):
-        return render_mega_bvh(scene, cfg, timestamp0)
-    return render_image_stats(scene, cfg, timestamp0)
+    with stage("gst.render"):
+        auto_cuda = cfg.intersector == "auto" and scene.device.type == "cuda"
+        if mega_eligible(scene, cfg) and (cfg.intersector == "mega" or auto_cuda):
+            return render_mega(scene, cfg, timestamp0)
+        if mega_bvh_eligible(scene, cfg) and (cfg.intersector == "mega_bvh" or auto_cuda):
+            return render_mega_bvh(scene, cfg, timestamp0)
+        return render_image_stats(scene, cfg, timestamp0)
 
 
 def render_image_auto(scene, cfg, timestamp0: int = 0):

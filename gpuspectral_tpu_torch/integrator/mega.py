@@ -8,7 +8,7 @@ estimator and the same counter-based RNG draws as the wavefront
 (integrator/path_tracer.py), so the two agree up to float rounding.
 
 `render_mega_rows` launches the kernel for CUDA tensors (counting launches
-in `render_mega_rows.launches`) and runs the plain version,
+in utils.profiling) and runs the plain version,
 `render_mega_rows_ref` — the torch wavefront over the same pixel rows — for
 CPU tensors.  Pixel and output planes are (rows, LANES).
 
@@ -24,6 +24,7 @@ import torch
 
 from ..ops import math3d as m3
 from ..scene.data import MEGA_MAX_TRIS, SceneData
+from ..utils import profiling
 from ..utils.config import RenderConfig
 from . import path_tracer
 
@@ -165,17 +166,19 @@ def _launch(scene: SceneData, cfg: RenderConfig, pix, timestamp0, max_ctas=0):
     launch reads by pointer is held here until it returns."""
     from .. import _build
 
-    lib = _build.load()
-    woop = woop_rows(scene)
-    _, attr, light, camv = _pack_tables(scene)
-    env = pack_env(scene)
-    ip, fp = kernel_params(scene, cfg, timestamp0)
-    pix = pix.contiguous()
-    rows = pix.shape[0]
-    out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device) for _ in range(3)]
-    rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
-    next_lane = torch.empty(1, dtype=torch.int32, device=pix.device)
-    with torch.cuda.device(pix.device):
+    with profiling.stage("gst.k1.prep"):
+        lib = _build.load()
+        woop = woop_rows(scene)
+        _, attr, light, camv = _pack_tables(scene)
+        env = pack_env(scene)
+        ip, fp = kernel_params(scene, cfg, timestamp0)
+        pix = pix.contiguous()
+        rows = pix.shape[0]
+        out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device)
+               for _ in range(3)]
+        rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
+        next_lane = torch.empty(1, dtype=torch.int32, device=pix.device)
+    with profiling.stage("gst.k1.launch"), torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega(
             pix.data_ptr(), pix.numel(), woop.data_ptr(), scene.num_tris,
@@ -183,12 +186,9 @@ def _launch(scene: SceneData, cfg: RenderConfig, pix, timestamp0, max_ctas=0):
             ip.ctypes.data, fp.ctypes.data, out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), rays.data_ptr(), next_lane.data_ptr(), max_ctas, stream,
         )
-    _build.check(rc, "render_mega_rows")
-    render_mega_rows.launches += 1
+        _build.check(rc, "render_mega_rows")
+    profiling.count("render_mega_rows.launch")
     return out[0], out[1], out[2], rays
-
-
-render_mega_rows.launches = 0
 
 
 def pix_rows(cfg: RenderConfig, device):
@@ -203,11 +203,15 @@ def pix_rows(cfg: RenderConfig, device):
 def render_mega(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     """Render (H, W, 3) radiance (mean over cfg.spp) plus the total rays
     traced (a float).  Lanes past the last pixel point at pixel 0 and are
-    left out of the image and the ray total (mega.py:1471-1482)."""
+    left out of the image and the ray total (mega.py:1471-1482).  The
+    frame's rows are K1's first piece of "gst.k1.prep"; _launch makes the
+    second."""
     n_pixels = cfg.width * cfg.height
-    pix = pix_rows(cfg, scene.device)
+    with profiling.stage("gst.k1.prep"):
+        pix = pix_rows(cfg, scene.device)
     rad_r, rad_g, rad_b, rays = render_mega_rows(scene, cfg, pix, timestamp0)
     rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
-    nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())
+    with profiling.stage("gst.sync.rays"):  # the host waits for K1 here
+        nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())
     img = (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
     return img, nrays

@@ -8,7 +8,7 @@ the power light pick, the per-corner texture blend and block-synchronous
 regeneration (cfg.mega_sync_regen, per-pixel results unchanged).
 
 `render_mega_bvh_rows` launches the kernel for CUDA tensors (counting
-launches in `render_mega_bvh_rows.launches`) and runs the plain version,
+launches in utils.profiling) and runs the plain version,
 `render_mega_bvh_rows_ref` — the torch wavefront over the same pixel rows,
 on the plain K3 (the brute-force Woop scan), shading textures with the same
 per-corner blend — for CPU tensors.  Pixel and output planes are
@@ -26,6 +26,7 @@ import torch
 
 from ..bvh import ftb
 from ..scene.data import SceneData
+from ..utils import profiling
 from ..utils.config import RenderConfig
 from . import path_tracer
 from .mega import LANES, _pack_tables, env_fused_ok, kernel_params, pack_env, pix_rows
@@ -122,11 +123,8 @@ def render_mega_bvh_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,
         )
     _build.check(rc, "render_mega_bvh_rows")
-    render_mega_bvh_rows.launches += 1
+    profiling.count("render_mega_bvh_rows.launch")
     return out[0], out[1], out[2], rays
-
-
-render_mega_bvh_rows.launches = 0
 
 
 def render_mega_bvh(scene: SceneData, cfg: RenderConfig, timestamp0=0):

@@ -23,7 +23,7 @@ reaches it).
 
 The wrappers `render_mega_fwdgrad_rows` (K5) and
 `render_mega_bvh_fwdgrad_rows` (K6) launch the kernels for CUDA tensors
-(counting launches in `.launches`) and run the plain versions for CPU
+(counting launches in utils.profiling) and run the plain versions for CPU
 tensors: the torch wavefront over the same pixel rows with the same hook
 as a callback in path_tracer._bounce (K6's with textures by the per-corner
 blend).  Partial planes are (NP, rows, LANES), NP = 3R + 6Lg, in
@@ -46,6 +46,7 @@ import torch
 
 from ..bsdf.table import BSDF_DIFFUSE
 from ..scene.data import SceneData
+from ..utils import profiling
 from ..utils.config import RenderConfig
 from . import path_tracer
 from .mega import (LANES, _pack_tables, kernel_params, mega_eligible, pack_env, pix_rows,
@@ -167,7 +168,8 @@ def _scatter_grads(scene: SceneData, grad_rows, Lg: int, d_kd, d_te_l, d_le_g):
     from the contracted partials (_scatter_grads_brute / _scatter_grads_bvh):
     a light's emitter-hit gradient lands on each of its triangles."""
     d_bp = torch.zeros_like(scene.bsdf_params)
-    d_bp[list(grad_rows), 0:3] = d_kd
+    with profiling.stage("gst.sync.grad_rows"):  # the host list's upload waits for the stream
+        d_bp[list(grad_rows), 0:3] = d_kd
     if not Lg:
         return d_bp, torch.zeros_like(scene.tri_emission), torch.zeros_like(scene.light_emission)
     pad = torch.zeros((scene.num_lights - Lg, 3), dtype=torch.float32, device=d_kd.device)
@@ -237,19 +239,20 @@ def _launch_k5(scene: SceneData, cfg: RenderConfig, pix, timestamp0, max_ctas=0)
     tensor the launch reads by pointer is held here until it returns."""
     from .. import _build
 
-    lib = _build.load()
-    B, L = scene.bsdf_kind.shape[0], scene.num_lights
-    woop = woop_rows(scene)
-    _, attr, light, camv = _pack_tables(scene)
-    attr = torch.cat([attr, scene.tri_bsdf[:, None].to(torch.float32)], dim=1).contiguous()
-    env = pack_env(scene)
-    ip, fp = kernel_params(scene, cfg, timestamp0, attr_stride=attr.shape[1])
-    rows = torch.arange(B, dtype=torch.int32, device=pix.device)
-    kd = scene.bsdf_params[:, 0:3].contiguous()
-    pix = pix.contiguous()
-    out, rays, parts = _launch_planes(pix, 3 * B + 6 * L)
-    next_lane = torch.empty(1, dtype=torch.int32, device=pix.device)
-    with torch.cuda.device(pix.device):
+    with profiling.stage("gst.k5.prep"):
+        lib = _build.load()
+        B, L = scene.bsdf_kind.shape[0], scene.num_lights
+        woop = woop_rows(scene)
+        _, attr, light, camv = _pack_tables(scene)
+        attr = torch.cat([attr, scene.tri_bsdf[:, None].to(torch.float32)], dim=1).contiguous()
+        env = pack_env(scene)
+        ip, fp = kernel_params(scene, cfg, timestamp0, attr_stride=attr.shape[1])
+        rows = torch.arange(B, dtype=torch.int32, device=pix.device)
+        kd = scene.bsdf_params[:, 0:3].contiguous()
+        pix = pix.contiguous()
+        out, rays, parts = _launch_planes(pix, 3 * B + 6 * L)
+        next_lane = torch.empty(1, dtype=torch.int32, device=pix.device)
+    with profiling.stage("gst.k5.launch"), torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega_grad(
             pix.data_ptr(), pix.numel(), woop.data_ptr(), scene.num_tris,
@@ -257,12 +260,9 @@ def _launch_k5(scene: SceneData, cfg: RenderConfig, pix, timestamp0, max_ctas=0)
             ip.ctypes.data, fp.ctypes.data, rows.data_ptr(), kd.data_ptr(), B, L,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(),
             parts.data_ptr(), next_lane.data_ptr(), max_ctas, stream)
-    _build.check(rc, "render_mega_fwdgrad_rows")
-    render_mega_fwdgrad_rows.launches += 1
+        _build.check(rc, "render_mega_fwdgrad_rows")
+    profiling.count("render_mega_fwdgrad_rows.launch")
     return out[0], out[1], out[2], rays, parts
-
-
-render_mega_fwdgrad_rows.launches = 0
 
 
 def render_mega_bvh_fwdgrad_rows_ref(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0,
@@ -322,11 +322,8 @@ def render_mega_bvh_fwdgrad_rows(scene: SceneData, cfg: RenderConfig, pix, times
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(),
             parts.data_ptr(), stream)
     _build.check(rc, "render_mega_bvh_fwdgrad_rows")
-    render_mega_bvh_fwdgrad_rows.launches += 1
+    profiling.count("render_mega_bvh_fwdgrad_rows.launch")
     return out[0], out[1], out[2], rays, parts
-
-
-render_mega_bvh_fwdgrad_rows.launches = 0
 
 
 class _BlocksDiff(torch.autograd.Function):
@@ -351,8 +348,9 @@ class _BlocksDiff(torch.autograd.Function):
     def backward(ctx, g):
         (parts,) = ctx.saved_tensors
         sc, grad_rows, Lg = ctx.meta
-        d_kd, d_te_l, d_le = _contract_partials(parts, g, len(grad_rows), Lg)
-        d_bp, d_te, d_le = _scatter_grads(sc, grad_rows, Lg, d_kd, d_te_l, d_le)
+        with profiling.stage("gst.grad.contract"):
+            d_kd, d_te_l, d_le = _contract_partials(parts, g, len(grad_rows), Lg)
+            d_bp, d_te, d_le = _scatter_grads(sc, grad_rows, Lg, d_kd, d_te_l, d_le)
         return d_bp, d_te, d_le, None, None, None, None, None, None, None
 
 
@@ -380,12 +378,11 @@ def render_blocks_diff(scene: SceneData, cfg: RenderConfig, pix, timestamp0, bvh
                              scene, cfg, pix, int(timestamp0), bool(bvh), rows, lg)
 
 
-def _image(scene: SceneData, cfg: RenderConfig, timestamp0, bvh, grad_rows=None):
+def _image(scene: SceneData, cfg: RenderConfig, pix, timestamp0, bvh, grad_rows=None):
     """Image (H, W, 3) of render_blocks_diff over a whole frame's raster
-    rows: the first n_pixels lanes, divided by cfg.spp."""
+    rows pix (pix_rows): the first n_pixels lanes, divided by cfg.spp."""
     n_pixels = cfg.width * cfg.height
-    rad = render_blocks_diff(scene, cfg, pix_rows(cfg, scene.device), timestamp0, bvh,
-                             grad_rows)
+    rad = render_blocks_diff(scene, cfg, pix, timestamp0, bvh, grad_rows)
     return (rad.reshape(-1, 3)[:n_pixels] / cfg.spp).reshape(cfg.height, cfg.width, 3)
 
 
@@ -393,8 +390,12 @@ def render_mega_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     """Differentiable render through K5: (H, W, 3) image whose gradient
     w.r.t. scene.bsdf_params (kd columns), scene.tri_emission and
     scene.light_emission comes from the same launch's partials (zeros
-    elsewhere).  Raises when the (scene, cfg) is not K5-eligible."""
-    return _image(scene, cfg, timestamp0, False)
+    elsewhere).  Raises when the (scene, cfg) is not K5-eligible.  The
+    frame's rows are K5's first piece of "gst.k5.prep"; _launch_k5 makes
+    the rest."""
+    with profiling.stage("gst.k5.prep"):
+        pix = pix_rows(cfg, scene.device)
+    return _image(scene, cfg, pix, timestamp0, False)
 
 
 def render_mega_bvh_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0, grad_rows=None):
@@ -403,4 +404,4 @@ def render_mega_bvh_diff(scene: SceneData, cfg: RenderConfig, timestamp0=0, grad
     MAX_GRAD_LIGHTS lights, of emitter radiance; zeros elsewhere.  One
     launch at full spp (the TPU's spp chunking is not carried over).
     Raises when the (scene, cfg) is not K6-eligible."""
-    return _image(scene, cfg, timestamp0, True, grad_rows)
+    return _image(scene, cfg, pix_rows(cfg, scene.device), timestamp0, True, grad_rows)

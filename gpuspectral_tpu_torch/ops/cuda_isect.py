@@ -7,7 +7,7 @@ scene's `tri_rows`, past which every row is zero and never hit, so the cut
 changes no result.  For CPU tensors the wrappers run the plain torch
 versions, `closest_ref` / `any_ref` (ops/woop.py scans); for CUDA tensors
 they launch the kernel or raise.  Each wrapper counts its kernel launches
-in `.launches`.
+in utils.profiling (`closest_cuda.launch`, `any_cuda.launch`).
 
 `closest_diff` is the differentiable closest hit of the wavefront
 (path_tracer.py:_brute_vjp): K2a forward, and a backward that re-evaluates
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import woop
 
 LANE = 128  # the Woop table's triangle count is a multiple of this
@@ -84,7 +85,7 @@ def closest_cuda(origin, direction, woop_t, t_min, t_max, n_rows=None):
                              woop_t.shape[1], n_rows, t_min.data_ptr(), t_max.data_ptr(), r,
                              t.data_ptr(), prim.data_ptr(), stream)
     _build.check(rc, "closest_cuda")
-    closest_cuda.launches += 1
+    profiling.count("closest_cuda.launch")
     return t, prim
 
 
@@ -107,12 +108,8 @@ def any_cuda(origin, direction, woop_t, t_min, t_max, n_rows=None):
                          woop_t.shape[1], n_rows, t_min.data_ptr(), t_max.data_ptr(), r,
                          occ.data_ptr(), stream)
     _build.check(rc, "any_cuda")
-    any_cuda.launches += 1
+    profiling.count("any_cuda.launch")
     return occ
-
-
-closest_cuda.launches = 0
-any_cuda.launches = 0
 
 
 def woop_eval_rows(rows, o, d):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..bsdf.table import BSDFTable
+from ..utils.profiling import stage
 
 PAD_MULTIPLE = 128
 MEGA_MAX_TRIS = 2048  # gpuspectral_tpu/integrator/mega.py:MEGA_MAX_TRIS
@@ -424,9 +425,21 @@ def check_device(device) -> torch.device:
 
 
 def build_scene(b: SceneBuilder, device="cuda", order="sah") -> SceneData:
+    """The SceneData of `b` on `device`: the span "gst.scene.load"
+    (utils/profiling) around _build_scene."""
+    with stage("gst.scene.load"):
+        return _build_scene(b, device, order)
+
+
+def _build_scene(b: SceneBuilder, device, order: str) -> SceneData:
+    """build_scene inside its span: the host tables ("gst.scene.bvh"), then
+    the tensors on the device ("gst.scene.upload", where a first CUDA use
+    pays for the context)."""
     device = check_device(device)
-    arrays, meta = build_arrays(b, order)
-    return scene_from_arrays(arrays, meta, device)
+    with stage("gst.scene.bvh"):
+        arrays, meta = build_arrays(b, order)
+    with stage("gst.scene.upload"):
+        return scene_from_arrays(arrays, meta, device)
 
 
 def scene_from_arrays(arrays: dict, meta: dict, device="cuda") -> SceneData:

@@ -35,7 +35,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..bsdf import table as bt
-from .data import SceneBuilder, check_device
+from ..utils.profiling import stage
+from .data import SceneBuilder, _build_scene, check_device
 from .obj import load_obj, make_cube, make_disk, make_rectangle
 
 _CAMEL_RE = re.compile(r"(?<=[a-z0-9])(?=[A-Z])")
@@ -253,10 +254,22 @@ def load_mitsuba_scene(
     device="cuda",
 ):
     """Parse a Mitsuba scene XML into a SceneBuilder, or into
-    (SceneData on `device`, SceneBuilder) when `build`."""
-    if build:
-        check_device(device)  # before the parse: no CUDA device raises at once
-    b = builder or SceneBuilder()
+    (SceneData on `device`, SceneBuilder) when `build`.  The parse is the
+    span "gst.scene.parse" (utils/profiling); with `build` the call is the
+    span "gst.scene.load", which holds it and the build's spans."""
+    if not build:
+        with stage("gst.scene.parse"):
+            return _parse(path, builder or SceneBuilder())
+    check_device(device)  # before the parse: no CUDA device raises at once
+    with stage("gst.scene.load"):
+        with stage("gst.scene.parse"):
+            b = _parse(path, builder or SceneBuilder())
+        return _build_scene(b, device, "sah"), b
+
+
+def _parse(path: str, b: SceneBuilder) -> SceneBuilder:
+    """The scene XML's shapes, sensor, integrator and environment emitters
+    added to the SceneBuilder b."""
     parent = os.path.dirname(os.path.abspath(path))
     root = ET.parse(path).getroot()
 
@@ -369,8 +382,6 @@ def load_mitsuba_scene(
                         scale=props.number("scale", 1.0),
                     )
 
-    if build:
-        return b.build(device), b
     return b
 
 

@@ -39,7 +39,7 @@ from test_binned import _random_scene
 from test_torch_bvh import SMALL_FIELD
 from test_torch_bvh_pack import _bits, _walk
 from test_torch_dfs import _rays, _t
-from torch_common import assert_mega_gates, jax_scene_arrays
+from torch_common import assert_mega_gates, jax_scene_arrays, launches
 
 SCENES = ["cornell", "soup3000", "slot_mode", "sphere_field"]
 
@@ -76,10 +76,10 @@ def test_plain_closest_matches_jax(pairs, name):
     o, d, _, t_max = _rays(js, 700, 2)
     t_j, prim_j, u_j, v_j, attrs_j = (np.asarray(x) for x in jb.binned_closest(
         js, jnp.asarray(o), jnp.asarray(d), t_max=jnp.asarray(t_max), interpret=True))
-    n0 = tb.binned_closest.launches
+    n0 = launches(tb.binned_closest)
     t, prim, u, v, attrs = (x.numpy() for x in tb.binned_closest(ts, _t(o), _t(d),
                                                                   t_max=_t(t_max)))
-    assert tb.binned_closest.launches == n0  # the plain version on the CPU
+    assert launches(tb.binned_closest) == n0  # the plain version on the CPU
     assert (prim_j >= 0).sum() > 100 and prim.dtype == np.int32
     for a, b in ((t, t_j), (prim, prim_j), (u, u_j), (v, v_j), (attrs, attrs_j)):
         np.testing.assert_array_equal(a, b)
@@ -94,9 +94,9 @@ def test_plain_any_matches_jax(pairs, name):
     occ_j = np.asarray(jb.binned_any(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_min),
                                      jnp.asarray(t_max), active=jnp.asarray(active),
                                      interpret=True))
-    n0 = tb.binned_any.launches
+    n0 = launches(tb.binned_any)
     occ = tb.binned_any(ts, _t(o), _t(d), _t(t_min), _t(t_max), active=_t(active))
-    assert tb.binned_any.launches == n0
+    assert launches(tb.binned_any) == n0
     assert 50 < occ_j.sum() < 600
     np.testing.assert_array_equal(occ.numpy(), occ_j)
     # scalar segment ends, as the wavefront's shadow rays pass t_min
@@ -196,13 +196,13 @@ def test_wavefront_matches_jax(pairs, name):
     base = dict(width=16, height=16, max_depth=3, use_bvh=True, intersector="pallas",
                 bvh_kernel="binned")
     pix = np.arange(256, dtype=np.uint32)
-    n0 = tb.binned_closest.launches, tb.binned_any.launches
+    n0 = launches(tb.binned_closest), launches(tb.binned_any)
     ref, rays_ref = jax_render_sample(js, JaxConfig(**base), jnp.asarray(pix), jnp.uint32(3))
     got, rays_got = pt.render_sample(ts, RenderConfig(**base),
                                      torch.as_tensor(pix.astype(np.int64)), 3)
     assert_mega_gates(np.asarray(ref)[:, None], got.numpy()[:, None],
                       float(np.asarray(rays_ref).sum()), float(rays_got.sum()))
-    assert (tb.binned_closest.launches, tb.binned_any.launches) == n0
+    assert (launches(tb.binned_closest), launches(tb.binned_any)) == n0
 
 
 def test_wavefront_dispatch_reaches_the_binned_wrappers(pairs, monkeypatch):

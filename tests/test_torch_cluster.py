@@ -35,7 +35,7 @@ from chip_smoke import odd_lanes, soup_scene
 from test_binned import _random_scene
 from test_torch_bvh import SMALL_FIELD
 from test_torch_bvh_pack import _inv, _slab
-from torch_common import assert_mega_gates, jax_scene_arrays
+from torch_common import assert_mega_gates, jax_scene_arrays, launches
 
 SCENES = ["cornell", "soup3000", "sphere_field"]
 
@@ -115,10 +115,10 @@ def test_plain_closest_matches_jax(pairs, name):
     attr = jdfs._attr_table(js, js.has_textures)
     t_j, prim_j, u_j, v_j, attrs_j = (np.asarray(x) for x in jcs.cluster_closest_tmax(
         js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max), interpret=True, attr=attr))
-    n0 = cs.cluster_closest.launches
+    n0 = launches(cs.cluster_closest)
     t, prim, u, v, attrs = (x.numpy() for x in cs.cluster_closest(ts, _t(o), _t(d),
                                                                    t_max=_t(t_max)))
-    assert cs.cluster_closest.launches == n0  # the plain version on the CPU
+    assert launches(cs.cluster_closest) == n0  # the plain version on the CPU
     hit_j = prim_j >= 0
     assert hit_j.sum() > 50
     np.testing.assert_array_equal(prim >= 0, hit_j)
@@ -226,7 +226,7 @@ def test_wavefront_matches_jax(pairs, name):
     base = dict(width=16, height=16, max_depth=3, use_bvh=True, intersector="pallas",
                 bvh_kernel="cluster")
     pix = np.arange(256, dtype=np.uint32)
-    n0 = cs.cluster_closest.launches
+    n0 = launches(cs.cluster_closest)
     for spp_ts in (3, 4) if name == "cornell" else (3,):
         ref, rays_ref = jax_render_sample(js, JaxConfig(**base), jnp.asarray(pix),
                                           jnp.uint32(spp_ts))
@@ -234,7 +234,7 @@ def test_wavefront_matches_jax(pairs, name):
                                          torch.as_tensor(pix.astype(np.int64)), spp_ts)
         assert_mega_gates(np.asarray(ref)[:, None], got.numpy()[:, None],
                           float(np.asarray(rays_ref).sum()), float(rays_got.sum()))
-    assert cs.cluster_closest.launches == n0
+    assert launches(cs.cluster_closest) == n0
 
 
 def test_wavefront_dispatch_reaches_the_cluster_wrappers(pairs, monkeypatch):

@@ -32,7 +32,7 @@ from gpuspectral_tpu_torch.utils import RenderConfig
 
 from chip_smoke import odd_lanes, warp_lanes
 from torch_common import (CORNELL_XML, assert_mega_gates, cuda_device,  # noqa: F401
-                          env_box, mixed_bsdf_scene, sky, textured_diffuse_scene,
+                          env_box, launches, mixed_bsdf_scene, sky, textured_diffuse_scene,
                           textured_floor)
 
 pytestmark = pytest.mark.cuda
@@ -86,10 +86,10 @@ def test_k2_matches_plain_version(cuda_device, name):  # noqa: F811
         cuts.append((1001, 1001))
     for n_rows, ref_rows in cuts:
         for tag, (o, d, lo, hi) in warp_lanes(_rays(7, 1 << 16, cuda_device)).items():
-            n0, m0 = ci.closest_cuda.launches, ci.any_cuda.launches
+            n0, m0 = launches(ci.closest_cuda), launches(ci.any_cuda)
             t, prim = ci.closest_cuda(o, d, w, lo, hi, n_rows)
             occ = ci.any_cuda(o, d, w, lo, hi, n_rows)
-            assert (ci.closest_cuda.launches, ci.any_cuda.launches) == (n0 + 1, m0 + 1)
+            assert (launches(ci.closest_cuda), launches(ci.any_cuda)) == (n0 + 1, m0 + 1)
             t_r, prim_r = ci.closest_ref(o, d, w, lo, hi, ref_rows)
             assert (prim_r >= 0).sum() > (1000 if tag in ("clean", "odd") else 10), tag
             # the same fused operations in the same order: equal up to the plain
@@ -117,9 +117,9 @@ def test_k1_matches_plain_version(cuda_device, name):  # noqa: F811
     for kw, emission_only in ((dict(max_depth=0, nee=False, spp=1), True),
                               (dict(max_depth=4, nee=True, spp=2), False)):
         cfg = RenderConfig(width=64, height=64, **kw)
-        n0 = mega.render_mega_rows.launches
+        n0 = launches(mega.render_mega_rows)
         got, rays_got = render_image_stats_auto(ts, cfg, 0)
-        assert mega.render_mega_rows.launches == n0 + 1
+        assert launches(mega.render_mega_rows) == n0 + 1
         pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda_device).reshape(-1, mega.LANES)
         r, g, b, rays = mega.render_mega_rows_ref(ts, cfg, pix, 0)
         ref = (torch.stack([r, g, b], -1).reshape(64, 64, 3) / cfg.spp).cpu().numpy()
@@ -134,9 +134,9 @@ def test_k1_matches_plain_version(cuda_device, name):  # noqa: F811
 def test_wavefront_on_k2_matches_plain_scans(cuda_device):  # noqa: F811
     ts = _scene("cornell", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096)
-    n0 = ci.closest_cuda.launches
+    n0 = launches(ci.closest_cuda)
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
-    assert ci.closest_cuda.launches > n0
+    assert launches(ci.closest_cuda) > n0
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got,
                       max_frac=0.001)
@@ -148,10 +148,10 @@ def test_k3_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
         monkeypatch.setattr(bvh_build, "SLOT_DENSE_THRESHOLD", 8)
     ts = _scene("cornell" if name == "slot_mode" else name, cuda_device)
     o, d, lo, hi = _rays(11, 1 << 16, cuda_device)
-    n0, m0 = ftb.ftb_closest.launches, ftb.ftb_any.launches
+    n0, m0 = launches(ftb.ftb_closest), launches(ftb.ftb_any)
     t, prim, u, v, attrs = ftb.ftb_closest(ts, o, d, t_max=hi)
     occ = ftb.ftb_any(ts, o, d, lo, hi)
-    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches) == (n0 + 1, m0 + 1)
+    assert (launches(ftb.ftb_closest), launches(ftb.ftb_any)) == (n0 + 1, m0 + 1)
     t_r, prim_r, u_r, v_r, attrs_r = ftb.ftb_closest_ref(ts, o, d, t_max=hi)
     assert (prim_r >= 0).sum() > 1000
     # the brute scan's fused arithmetic: equal up to m3.fma's rare double
@@ -240,7 +240,7 @@ def test_walk_tests_count_the_pair_walk(cuda_device):  # noqa: F811
 
 
 def _k7_launches():
-    return (cs.cluster_votes.launches, cs.cluster_closest.launches, cs.cluster_any.launches)
+    return (launches(cs.cluster_votes), launches(cs.cluster_closest), launches(cs.cluster_any))
 
 
 @pytest.mark.parametrize("name", ["cornell", "sphere_field"])
@@ -319,18 +319,18 @@ def test_wavefront_on_k7_matches_plain_scans(cuda_device):  # noqa: F811
     ts = _scene("sphere_field", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
                        sort_rays=True, intersector="pallas", bvh_kernel="cluster")
-    n0, f0 = _k7_launches(), (ftb.ftb_closest.launches, ftb.ftb_any.launches)
+    n0, f0 = _k7_launches(), (launches(ftb.ftb_closest), launches(ftb.ftb_any))
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
     votes, closest, any_hit = (a - b for a, b in zip(_k7_launches(), n0))
     assert closest > 0 and any_hit > 0 and votes == closest + any_hit
-    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches) == f0
+    assert (launches(ftb.ftb_closest), launches(ftb.ftb_any)) == f0
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
                                           bvh_isect=pt.PLAIN_K3)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
 
 
 def _k7fg_launches():
-    return ds.dfs_closest.launches, ds.dfs_any.launches
+    return launches(ds.dfs_closest), launches(ds.dfs_any)
 
 
 @pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode"])
@@ -420,19 +420,19 @@ def test_wavefront_on_k7fg_matches_plain_scans(cuda_device):  # noqa: F811
     ts = _scene("sphere_field", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
                        sort_rays=True, intersector="pallas", bvh_kernel="dfs")
-    n0, others = _k7fg_launches(), (ftb.ftb_closest.launches, ftb.ftb_any.launches,
+    n0, others = _k7fg_launches(), (launches(ftb.ftb_closest), launches(ftb.ftb_any),
                                     *_k7_launches())
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
     closest, any_hit = (a - b for a, b in zip(_k7fg_launches(), n0))
     assert closest > 0 and any_hit > 0
-    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches, *_k7_launches()) == others
+    assert (launches(ftb.ftb_closest), launches(ftb.ftb_any), *_k7_launches()) == others
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
                                           bvh_isect=pt.PLAIN_K3)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got)
 
 
 def _k7ab_launches():
-    return tb.binned_closest.launches, tb.binned_any.launches
+    return launches(tb.binned_closest), launches(tb.binned_any)
 
 
 @pytest.mark.parametrize("name", ["cornell", "zoo", "sphere_field", "slot_mode", "soup2048"])
@@ -608,11 +608,11 @@ def test_k7c_votes_with_nan_lanes(cuda_device, case):  # noqa: F811
     if case == "s33":
         sn = cs.Supernodes(sn.blo, sn.bhi, 33, sn.stride)
     assert {"s1": 1, "s1024": 1024}.get(case, sn.s) == sn.s
-    n0 = cs.cluster_votes.launches
+    n0 = launches(cs.cluster_votes)
     for seg in (torch.zeros_like(lo), lo):
         votes = cs.cluster_votes(ts, o, d, seg, hi, supernodes=sn)
         assert torch.equal(votes, cs.cluster_votes_ref(ts, o, d, seg, hi, supernodes=sn))
-    assert cs.cluster_votes.launches == n0 + 2
+    assert launches(cs.cluster_votes) == n0 + 2
     if case == "inactive_blocks":
         assert int(votes[1:3].sum()) == 0 and int(votes.sum()) > 0
     if case in ("sparse_live", "one_live_lane_a_warp", "s33", "s1024"):
@@ -629,12 +629,12 @@ def test_wavefront_on_k7ab_matches_plain_scans(cuda_device):  # noqa: F811
     ts = _scene("sphere_field", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
                        sort_rays=True, intersector="pallas", bvh_kernel="binned")
-    n0, others = _k7ab_launches(), (ftb.ftb_closest.launches, ftb.ftb_any.launches,
+    n0, others = _k7ab_launches(), (launches(ftb.ftb_closest), launches(ftb.ftb_any),
                                     *_k7_launches(), *_k7fg_launches())
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
     closest, any_hit = (a - b for a, b in zip(_k7ab_launches(), n0))
     assert closest > 0 and any_hit > 0
-    assert (ftb.ftb_closest.launches, ftb.ftb_any.launches, *_k7_launches(),
+    assert (launches(ftb.ftb_closest), launches(ftb.ftb_any), *_k7_launches(),
             *_k7fg_launches()) == others
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
                                           bvh_isect=pt.PLAIN_K3)
@@ -642,7 +642,7 @@ def test_wavefront_on_k7ab_matches_plain_scans(cuda_device):  # noqa: F811
 
 
 def _k7h_launches():
-    return tk.traverse_closest.launches, tk.traverse_any.launches
+    return launches(tk.traverse_closest), launches(tk.traverse_any)
 
 
 def _soup_scene(dev, n_tris=2048):
@@ -849,9 +849,9 @@ def test_wavefront_on_k7h_matches_cpu(cuda_device):  # noqa: F811
     the tests/test_mega.py gates."""
     cfg = RenderConfig(width=32, height=32, spp=2, max_depth=4, ray_batch=2048, use_bvh=True,
                        intersector="mt", packet_size=256)
-    others = lambda: (ci.closest_cuda.launches, ci.any_cuda.launches, ftb.ftb_closest.launches,  # noqa: E731
-                      ftb.ftb_any.launches, *_k7_launches(), *_k7fg_launches(),
-                      *_k7ab_launches())
+    others = lambda: (launches(ci.closest_cuda), launches(ci.any_cuda),  # noqa: E731
+                      launches(ftb.ftb_closest), launches(ftb.ftb_any), *_k7_launches(),
+                      *_k7fg_launches(), *_k7ab_launches())
     n0, o0 = _k7h_launches(), others()
     got, rays_got = pt.render_image_stats(_scene("sphere_field", cuda_device), cfg, 0)
     assert all(a > b for a, b in zip(_k7h_launches(), n0)) and others() == o0
@@ -864,9 +864,9 @@ def test_k1_environment_matches_plain_version(cuda_device, name):  # noqa: F811
     ts = _scene(name, cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4)
     assert mega.mega_eligible(ts, cfg)
-    n0 = mega.render_mega_rows.launches
+    n0 = launches(mega.render_mega_rows)
     got, rays_got = render_image_stats_auto(ts, cfg, 0)
-    assert mega.render_mega_rows.launches == n0 + 1
+    assert launches(mega.render_mega_rows) == n0 + 1
     pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda_device).reshape(-1, mega.LANES)
     r, g, b, rays = mega.render_mega_rows_ref(ts, cfg, pix, 0)
     ref = (torch.stack([r, g, b], -1).reshape(64, 64, 3) / cfg.spp).cpu().numpy()
@@ -889,9 +889,9 @@ def test_k4_matches_plain_version(cuda_device, name, opts):  # noqa: F811
     else:
         ts = _scene(name, cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True, **opts)
-    n0 = mega_bvh.render_mega_bvh_rows.launches
+    n0 = launches(mega_bvh.render_mega_bvh_rows)
     got, rays_got = render_image_stats_auto(ts, cfg, 0)
-    assert mega_bvh.render_mega_bvh_rows.launches == n0 + 1
+    assert launches(mega_bvh.render_mega_bvh_rows) == n0 + 1
     pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda_device).reshape(-1, mega.LANES)
     r, g, b, rays = mega_bvh.render_mega_bvh_rows_ref(ts, cfg, pix, 0)
     ref = (torch.stack([r, g, b], -1).reshape(64, 64, 3) / cfg.spp).cpu().numpy()
@@ -902,9 +902,9 @@ def test_wavefront_on_k3_matches_plain_scans(cuda_device):  # noqa: F811
     ts = _scene("sphere_field", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,
                        sort_rays=True)
-    n0 = ftb.ftb_closest.launches
+    n0 = launches(ftb.ftb_closest)
     got, rays_got = pt.render_image_stats(ts, cfg, 0)
-    assert ftb.ftb_closest.launches > n0
+    assert launches(ftb.ftb_closest) > n0
     ref, rays_ref = pt.render_image_stats(ts, cfg.replace(intersector="woop"), 0,
                                           bvh_isect=pt.PLAIN_K3)
     assert_mega_gates(ref.cpu().numpy(), got.cpu().numpy(), rays_ref, rays_got,
@@ -921,9 +921,9 @@ def test_run_benchmark_reports_the_card(cuda_device):  # noqa: F811
         ray_batch=4096, bvh=None, bvh_kernel="ftb", light_block=None, packet_size=1024,
         intersector="auto", light_sampling="uniform", mis="reference", device="cuda",
         warmup=1, iters=2)
-    n0 = mega.render_mega_rows.launches
+    n0 = launches(mega.render_mega_rows)
     out = run_benchmark(args)
-    assert mega.render_mega_rows.launches >= n0 + 3
+    assert launches(mega.render_mega_rows) >= n0 + 3
     assert out["backend"] == "cuda" and out["device"] == torch.cuda.get_device_name()
     assert out["rays_traced"] > 64 * 64 * 2 and out["mrays_per_s"] > 0
 
@@ -954,9 +954,9 @@ def test_k5_matches_plain_version(cuda_device):  # noqa: F811
     ts = _scene("cornell", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4)
     pix = mg.pix_rows(cfg, cuda_device)
-    n0 = mg.render_mega_fwdgrad_rows.launches
+    n0 = launches(mg.render_mega_fwdgrad_rows)
     got = mg.render_mega_fwdgrad_rows(ts, cfg, pix, 0)
-    assert mg.render_mega_fwdgrad_rows.launches == n0 + 1
+    assert launches(mg.render_mega_fwdgrad_rows) == n0 + 1
     _grad_gates(got, mg.render_mega_fwdgrad_rows_ref(ts, cfg, pix, 0), cfg.spp)
     # K5's image is K1's (the hook only reads)
     k1 = mega.render_mega_rows(ts, cfg, pix, 0)
@@ -1023,9 +1023,9 @@ def test_k1_k5_scenes_at_the_edges(cuda_device, kernel, name):  # noqa: F811
     assert mg.mega_grad_eligible(ts, cfg)
     wrapper, plain, launch = _brute_launch(kernel)
     pix = mega.pix_rows(cfg, cuda_device)
-    n0 = wrapper.launches
+    n0 = launches(wrapper)
     got = wrapper(ts, cfg, pix, 0)
-    assert wrapper.launches == n0 + 1
+    assert launches(wrapper) == n0 + 1
     # a tenth of the lanes or more trace past their camera rays: their paths
     # hit the scene (38% on the soup in the plain version at 32x32 on the
     # CPU; the lone triangle covers ~17% of the frame)
@@ -1083,9 +1083,9 @@ def test_k6_matches_plain_version(cuda_device, name, monkeypatch):  # noqa: F811
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True)
     assert mg.mega_bvh_grad_eligible(ts, cfg)
     pix = mg.pix_rows(cfg, cuda_device)
-    n0 = mg.render_mega_bvh_fwdgrad_rows.launches
+    n0 = launches(mg.render_mega_bvh_fwdgrad_rows)
     got = mg.render_mega_bvh_fwdgrad_rows(ts, cfg, pix, 0)
-    assert mg.render_mega_bvh_fwdgrad_rows.launches == n0 + 1
+    assert launches(mg.render_mega_bvh_fwdgrad_rows) == n0 + 1
     _grad_gates(got, mg.render_mega_bvh_fwdgrad_rows_ref(ts, cfg, pix, 0), cfg.spp)
     k4 = mega_bvh.render_mega_bvh_rows(ts, cfg, pix, 0)
     assert all(torch.equal(a, b) for a, b in zip(got[:4], k4))
@@ -1159,9 +1159,9 @@ def test_run_grad_benchmark_reports_the_card(cuda_device):  # noqa: F811
     from gpuspectral_tpu_torch.integrator import mega_grad as mg
     from gpuspectral_tpu_torch.utils.bench import run_grad_benchmark
 
-    n0 = mg.render_mega_fwdgrad_rows.launches
+    n0 = launches(mg.render_mega_fwdgrad_rows)
     out = run_grad_benchmark(str(CORNELL_XML), size=64, spp=2, depth=5, steps=2)
-    assert mg.render_mega_fwdgrad_rows.launches == n0 + 3
+    assert launches(mg.render_mega_fwdgrad_rows) == n0 + 3
     assert out["kernel"] == "mega" and out["device"] == torch.cuda.get_device_name()
     assert out["grad_steps_per_s"] > 0 and out["peak_hbm_gb"] > 0
 
@@ -1175,8 +1175,8 @@ def test_run_grad_benchmark_wavefront_path(cuda_device, bvh_kernel):  # noqa: F8
 
     wrapper = dict(ftb=ftb.ftb_closest, cluster=cs.cluster_closest,
                    binned=tb.binned_closest)[bvh_kernel]
-    n0 = wrapper.launches
+    n0 = launches(wrapper)
     out = run_grad_benchmark("builtin:sphere_field", size=16, spp=2, depth=2, steps=1,
                              use_bvh=True, bvh_kernel=bvh_kernel)
-    assert out["kernel"] == "wavefront" and wrapper.launches > n0
+    assert out["kernel"] == "wavefront" and launches(wrapper) > n0
     assert out["grad_steps_per_s"] > 0

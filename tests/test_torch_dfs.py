@@ -35,7 +35,7 @@ from gpuspectral_tpu_torch.utils import RenderConfig
 
 from chip_smoke import odd_lanes, soup_scene
 from test_torch_bvh import SMALL_FIELD
-from torch_common import assert_mega_gates, jax_scene_arrays
+from torch_common import assert_mega_gates, jax_scene_arrays, launches
 
 SCENES = ["cornell", "zoo", "sphere_field"]
 
@@ -101,10 +101,10 @@ def test_plain_closest_matches_jax(pairs, name):
     np.testing.assert_array_equal(attrs[same], attrs_j[same])
     assert (t[~hit] == 1e30).all() and (attrs[~hit] == 0).all() and (u[~hit] == 0).all()
     # the wrapper runs the plain version at BLOCK on the CPU, no launch
-    n0 = ds.dfs_closest.launches
+    n0 = launches(ds.dfs_closest)
     got = ds.dfs_closest(ts, _t(o), _t(d), t_max=_t(t_max))
     ref = ds.dfs_closest_ref(ts, _t(o), _t(d), t_max=_t(t_max), block=ds.BLOCK)
-    assert ds.dfs_closest.launches == n0
+    assert launches(ds.dfs_closest) == n0
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -214,13 +214,13 @@ def test_wavefront_matches_jax(pairs, name):
     base = dict(width=16, height=16, max_depth=3, use_bvh=True, intersector="pallas",
                 bvh_kernel="dfs")
     pix = np.arange(256, dtype=np.uint32)
-    n0 = ds.dfs_closest.launches, ds.dfs_any.launches
+    n0 = launches(ds.dfs_closest), launches(ds.dfs_any)
     ref, rays_ref = jax_render_sample(js, JaxConfig(**base), jnp.asarray(pix), jnp.uint32(3))
     got, rays_got = pt.render_sample(ts, RenderConfig(**base),
                                      torch.as_tensor(pix.astype(np.int64)), 3)
     assert_mega_gates(np.asarray(ref)[:, None], got.numpy()[:, None],
                       float(np.asarray(rays_ref).sum()), float(rays_got.sum()))
-    assert (ds.dfs_closest.launches, ds.dfs_any.launches) == n0
+    assert (launches(ds.dfs_closest), launches(ds.dfs_any)) == n0
 
 
 def test_wavefront_dispatch_reaches_the_dfs_wrappers(pairs, monkeypatch):

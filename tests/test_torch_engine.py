@@ -185,24 +185,23 @@ def test_trace_one_frame(pair, tmp_path):
     assert e.timestamp == 2
 
 
-def test_stage_timer_and_stage_metrics(tmp_path):
-    from gpuspectral_tpu_torch.utils.metrics import MetricsLogger
-
-    timer = profiling.stage_timer()
+def test_stage_timer_and_stage_metrics():
+    """utils/profiling's registry, which took the place of stage_timer and
+    of stage's "stage" metrics event: each stage adds a call and its
+    seconds under its name, snapshot lists the names sorted, and the span
+    object holds its own duration."""
+    profiling.reset()
     for _ in range(3):
-        with timer("a"):
+        with profiling.stage("a") as span:
             pass
-    with timer("b"):
+    with profiling.stage("b"):
         pass
-    rep = timer.report()
+    rep = profiling.snapshot()
     assert list(rep) == ["a", "b"]
-    assert rep["a"]["calls"] == 3 and rep["b"]["calls"] == 1 and rep["a"]["seconds"] >= 0
-    log = MetricsLogger(str(tmp_path / "m.jsonl"))
-    with profiling.stage("load", log):
-        pass
-    log.close()
-    line = json.loads((tmp_path / "m.jsonl").read_text())
-    assert line["event"] == "stage" and line["stage"] == "load" and line["seconds"] >= 0
+    assert rep["a"]["calls"] == 3 and rep["b"]["calls"] == 1
+    assert rep["a"]["seconds"] >= span.seconds >= 0
+    profiling.reset()
+    assert profiling.snapshot() == {}
 
 
 def test_cli_render_profile_writes_trace(tmp_path):

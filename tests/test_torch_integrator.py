@@ -24,7 +24,7 @@ from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.scene.zoo import populate_zoo
 from gpuspectral_tpu_torch.utils import RenderConfig
 
-from torch_common import REPO, assert_mega_gates, jax_scene_arrays
+from torch_common import REPO, assert_mega_gates, jax_scene_arrays, launches
 
 PINNED = REPO / "tests" / "data" / "cornell_64x64_spp32_d6_seed0.npz"
 
@@ -95,12 +95,12 @@ def test_pinned_seed_regression(pair):
 def test_auto_dispatch_on_cpu_is_the_wavefront(pair):
     ts = pair["cornell"][1]
     cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3, ray_batch=256)
-    n0 = cuda_isect.closest_cuda.launches
+    n0 = launches(cuda_isect.closest_cuda)
     img, rays = render_image_stats_auto(ts, cfg, 5)
     ref, rays_ref = pt.render_image_stats(ts, cfg, 5)
     assert torch.equal(img, ref) and rays == rays_ref
     assert torch.equal(render_image_auto(ts, cfg, 5), ref)
-    assert cuda_isect.closest_cuda.launches == n0
+    assert launches(cuda_isect.closest_cuda) == n0
 
 
 def test_ray_batch_does_not_change_the_image(pair):

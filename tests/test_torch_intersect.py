@@ -18,7 +18,7 @@ from gpuspectral_tpu_torch.ops.woop import woop_transform
 from gpuspectral_tpu_torch.scene import load_mitsuba_scene
 from gpuspectral_tpu_torch.scene.zoo import build_zoo
 
-from torch_common import CORNELL_XML
+from torch_common import CORNELL_XML, launches
 
 R = 1024
 
@@ -94,12 +94,12 @@ def test_closest_tie_takes_lowest_id():
 def test_wrappers_validate_and_use_plain_version_on_cpu():
     w = torch.as_tensor(TABLES["cornell"])
     o, d, lo, hi = map(torch.as_tensor, _rays(3, r=16))
-    before = (ci.closest_cuda.launches, ci.any_cuda.launches)
+    before = (launches(ci.closest_cuda), launches(ci.any_cuda))
     t, prim = ci.closest_cuda(o, d, w, lo, hi)
     t_r, prim_r = ci.closest_ref(o, d, w, lo, hi)
     assert torch.equal(t, t_r) and torch.equal(prim, prim_r)
     assert torch.equal(ci.any_cuda(o, d, w, lo, hi), ci.any_ref(o, d, w, lo, hi))
-    assert (ci.closest_cuda.launches, ci.any_cuda.launches) == before  # no kernel ran
+    assert (launches(ci.closest_cuda), launches(ci.any_cuda)) == before  # no kernel ran
     with pytest.raises(ValueError, match="woop_t"):
         ci.closest_cuda(o, d, w[:, :100].contiguous(), lo, hi)
     with pytest.raises(ValueError, match="origin"):

@@ -121,7 +121,8 @@ def test_cli_invert_and_gradcheck(tmp_path, capsys):
                "--depth", "2", "--steps", "3", "--metrics", str(tmp_path / "m.jsonl")])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["steps"] == 3 and out["mean_param_error"] is not None
-    assert len((tmp_path / "m.jsonl").read_text().splitlines()) == 3
+    lines = [json.loads(x) for x in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [x["event"] for x in lines] == ["invert_step"] * 3 + ["spans"]
     rc = main(["gradcheck", str(CORNELL_XML), "--device", "cpu", "--size", "8x8", "--spp", "4"])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and report["allclose"] and report["emission"]["checked"] >= 1

@@ -15,7 +15,7 @@ from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.utils import RenderConfig
 from gpuspectral_tpu.utils.config import RenderConfig as JaxConfig
 
-from torch_common import assert_mega_gates, jax_scene_arrays
+from torch_common import assert_mega_gates, jax_scene_arrays, launches
 
 
 @pytest.fixture(scope="module")
@@ -85,11 +85,11 @@ def test_timestamp_advances_samples(scenes):
 def test_forced_mega_on_cpu_runs_the_plain_version(scenes):
     ts = scenes[1]
     cfg = RenderConfig(**_cfg(max_depth=2, spp=1, intersector="mega"))
-    n0 = mega.render_mega_rows.launches
+    n0 = launches(mega.render_mega_rows)
     got, rays = render_image_stats_auto(ts, cfg, 0)
     ref, rays_ref = mega.render_mega(ts, cfg, 0)
     assert torch.equal(got, ref) and rays == rays_ref
-    assert mega.render_mega_rows.launches == n0
+    assert launches(mega.render_mega_rows) == n0
 
 
 def test_render_mega_rows_validates(scenes):

@@ -22,7 +22,7 @@ from gpuspectral_tpu_torch.scene.data import TEX_RES, scene_from_arrays
 from gpuspectral_tpu_torch.utils import RenderConfig
 
 from torch_common import (CORNELL_XML, assert_mega_gates, env_box, jax_scene_arrays,
-                          sky as _sky, textured_floor)
+                          launches, sky as _sky, textured_floor)
 
 
 def _cfg(**kw):
@@ -79,11 +79,11 @@ def test_big_sky_stays_on_the_wavefront(monkeypatch):
 def test_forced_mega_bvh_on_cpu_runs_the_plain_version(cornell):
     ts = cornell[1]
     cfg = RenderConfig(**_cfg(max_depth=2, spp=1, intersector="mega_bvh"))
-    n0 = mega_bvh.render_mega_bvh_rows.launches
+    n0 = launches(mega_bvh.render_mega_bvh_rows)
     got, rays = render_image_stats_auto(ts, cfg, 0)
     ref, rays_ref = mega_bvh.render_mega_bvh(ts, cfg, 0)
     assert torch.equal(got, ref) and rays == rays_ref
-    assert mega_bvh.render_mega_bvh_rows.launches == n0
+    assert launches(mega_bvh.render_mega_bvh_rows) == n0
 
 
 def test_uniform_matches_jax_kernel(cornell):

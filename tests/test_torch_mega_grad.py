@@ -21,8 +21,8 @@ from gpuspectral_tpu_torch.integrator import mega, mega_grad as mg
 from gpuspectral_tpu_torch.scene.data import scene_from_arrays
 from gpuspectral_tpu_torch.utils import RenderConfig
 
-from torch_common import (CORNELL_XML, env_box, jax_scene_arrays, mixed_bsdf_scene,
-                          textured_diffuse_scene)
+from torch_common import (CORNELL_XML, env_box, jax_scene_arrays, launches,
+                          mixed_bsdf_scene, textured_diffuse_scene)
 
 # The same estimator and draws on both sides; gradients differ by float
 # rounding and by paths that cross a seam on it.  2e-3 of the gradient's
@@ -186,4 +186,4 @@ def test_plane_layout(results):
     pix = mg.pix_rows(RenderConfig(**kw), "cpu")
     out = mg.render_mega_fwdgrad_rows(ts, RenderConfig(**kw), pix, 0)
     assert out[4].shape == (3 * B + 6 * L, pix.shape[0], mega.LANES)
-    assert mg.render_mega_fwdgrad_rows.launches == 0
+    assert launches(mg.render_mega_fwdgrad_rows) == 0

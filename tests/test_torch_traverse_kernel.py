@@ -35,7 +35,7 @@ from gpuspectral_tpu_torch.utils import RenderConfig
 
 from chip_smoke import odd_lanes
 from test_torch_bvh import SMALL_FIELD
-from torch_common import assert_mega_gates, jax_scene_arrays
+from torch_common import assert_mega_gates, jax_scene_arrays, launches
 
 
 def _pallas_soup(n_tris, seed, spread, size):
@@ -362,10 +362,10 @@ def test_cpu_tensors_run_the_plain_versions(monkeypatch):
     tree = _port_tree(tris, bvh)
     o, d = (_t(x) for x in _unit_rays(rs, 100, -5, 5))
     lo, hi = torch.zeros(100), torch.full((100,), 1e30)
-    n0 = (tk.traverse_closest.launches, tk.traverse_any.launches)
+    n0 = (launches(tk.traverse_closest), launches(tk.traverse_any))
     got = tk.traverse_closest(o, d, *tree, lo, hi, 16)
     occ = tk.traverse_any(o, d, *tree, lo, torch.full((100,), 3.0), 16)
-    assert (tk.traverse_closest.launches, tk.traverse_any.launches) == n0
+    assert (launches(tk.traverse_closest), launches(tk.traverse_any)) == n0
     for a, b in zip(got, ttr.intersect_closest_bvh_ref(o, d, *tree, lo, hi, 16)):
         assert torch.equal(a, b)
     assert torch.equal(occ, ttr.intersect_any_bvh_ref(o, d, *tree, lo, torch.full((100,), 3.0),

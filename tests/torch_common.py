@@ -18,6 +18,7 @@ from gpuspectral_tpu_torch.bsdf import table as bt
 from gpuspectral_tpu_torch.bsdf.table import diffuse
 from gpuspectral_tpu_torch.scene.obj import make_rectangle
 from gpuspectral_tpu_torch.scene.texture import make_checkerboard
+from gpuspectral_tpu_torch.utils import profiling
 
 from gpuspectral_tpu_torch.scene.data import ARRAY_FIELDS, META_FIELDS
 
@@ -29,6 +30,12 @@ CORNELL_XML = REPO / "scenes" / "cornell" / "scene.xml"
 # the cores many times over: the port's CPU tests took 2.5x as long on six
 # workers of an 8-core machine as with one thread each.
 torch.set_num_threads(1)
+
+
+def launches(fn) -> int:
+    """The launches a kernel wrapper has counted (utils/profiling:
+    "<function>.launch")."""
+    return profiling.calls(f"{fn.__name__}.launch")
 
 
 @pytest.fixture
