@@ -10,8 +10,8 @@ reference's flags).
 
 Scene XML film/sampler/integrator settings are honored by default.  A scene
 argument of the form builtin:<name> renders a scene built in code
-(scene/zoo.py:BUILTIN: "sphere_field", "sphere_field_noenv").  `--device` picks where the
-scene lives (default: cuda); the benchmark measures only a CUDA device.
+(scene/zoo.py:BUILTIN: "sphere_field", "sphere_field_noenv", "one_weekend").  `--device`
+picks where the scene lives (default: cuda); the benchmark measures only a CUDA device.
 """
 
 from __future__ import annotations

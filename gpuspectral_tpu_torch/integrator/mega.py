@@ -200,18 +200,26 @@ def pix_rows(cfg: RenderConfig, device):
     return torch.where(pix < n_pixels, pix, 0).reshape(rows, LANES)
 
 
-def render_mega(scene: SceneData, cfg: RenderConfig, timestamp0=0):
-    """Render (H, W, 3) radiance (mean over cfg.spp) plus the total rays
-    traced (a float).  Lanes past the last pixel point at pixel 0 and are
-    left out of the image and the ray total (mega.py:1471-1482).  The
-    frame's rows are K1's first piece of "gst.k1.prep"; _launch makes the
-    second."""
+def render_frame(scene: SceneData, cfg: RenderConfig, timestamp0, rows_fn, prep: str):
+    """The frame of a megakernel: (H, W, 3) radiance (mean over cfg.spp)
+    plus the total rays traced (a float), pixels in raster order.
+    rows_fn(scene, cfg, pix, timestamp0) renders the frame's pixel rows
+    (render_mega_rows, mega_bvh.render_mega_bvh_rows); making the rows is
+    the first piece of its span `prep`, the rows function the second.
+    Lanes past the last pixel point at pixel 0 and are left out of the
+    image and the ray total (mega.py:1471-1482)."""
     n_pixels = cfg.width * cfg.height
-    with profiling.stage("gst.k1.prep"):
+    with profiling.stage(prep):
         pix = pix_rows(cfg, scene.device)
-    rad_r, rad_g, rad_b, rays = render_mega_rows(scene, cfg, pix, timestamp0)
+    rad_r, rad_g, rad_b, rays = rows_fn(scene, cfg, pix, timestamp0)
     rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
-    with profiling.stage("gst.sync.rays"):  # the host waits for K1 here
+    with profiling.stage("gst.sync.rays"):  # the host waits for the kernel here
         nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())
     img = (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
     return img, nrays
+
+
+def render_mega(scene: SceneData, cfg: RenderConfig, timestamp0=0):
+    """K1's frame (render_frame): the span "gst.k1.prep" holds the frame's
+    rows and _launch's tables."""
+    return render_frame(scene, cfg, timestamp0, render_mega_rows, "gst.k1.prep")

@@ -29,7 +29,7 @@ from ..scene.data import SceneData
 from ..utils import profiling
 from ..utils.config import RenderConfig
 from . import path_tracer
-from .mega import LANES, _pack_tables, env_fused_ok, kernel_params, pack_env, pix_rows
+from .mega import LANES, _pack_tables, env_fused_ok, kernel_params, pack_env, render_frame
 
 
 def mega_bvh_eligible(scene: SceneData, cfg: RenderConfig) -> bool:
@@ -99,21 +99,23 @@ def render_mega_bvh_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
         raise ValueError(f"render_mega_bvh_rows: unsupported device {pix.device}")
     from .. import _build
 
-    lib = _build.load()
-    power = cfg.light_sampling == "power"
-    pairs, woop_rows, walk_ip = ftb.walk_tables(scene)
-    attr = pack_attr(scene, cfg.light_sampling)
-    _, _, light, camv = _pack_tables(scene)
-    env = pack_env(scene)
-    ip, fp = kernel_params(scene, cfg, timestamp0, power_pick=power,
-                           textured=scene.has_textures, attr_stride=attr.shape[1])
-    light_cdf = scene.light_cdf.contiguous()
-    light_prob = scene.light_prob.contiguous()
-    pix = pix.contiguous()
-    rows = pix.shape[0]
-    out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device) for _ in range(3)]
-    rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
-    with torch.cuda.device(pix.device):
+    with profiling.stage("gst.k4.prep"):
+        lib = _build.load()
+        power = cfg.light_sampling == "power"
+        pairs, woop_rows, walk_ip = ftb.walk_tables(scene)
+        attr = pack_attr(scene, cfg.light_sampling)
+        _, _, light, camv = _pack_tables(scene)
+        env = pack_env(scene)
+        ip, fp = kernel_params(scene, cfg, timestamp0, power_pick=power,
+                               textured=scene.has_textures, attr_stride=attr.shape[1])
+        light_cdf = scene.light_cdf.contiguous()
+        light_prob = scene.light_prob.contiguous()
+        pix = pix.contiguous()
+        rows = pix.shape[0]
+        out = [torch.empty((rows, LANES), dtype=torch.float32, device=pix.device)
+               for _ in range(3)]
+        rays = torch.empty((rows, LANES), dtype=torch.int32, device=pix.device)
+    with profiling.stage("gst.k4.launch"), torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gst_mega_bvh(
             pix.data_ptr(), pix.numel(), pairs.data_ptr(), woop_rows.data_ptr(),
@@ -122,19 +124,12 @@ def render_mega_bvh_rows(scene: SceneData, cfg: RenderConfig, pix, timestamp0=0)
             env.data_ptr(), ip.ctypes.data, fp.ctypes.data, int(cfg.mega_sync_regen),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), rays.data_ptr(), stream,
         )
-    _build.check(rc, "render_mega_bvh_rows")
+        _build.check(rc, "render_mega_bvh_rows")
     profiling.count("render_mega_bvh_rows.launch")
     return out[0], out[1], out[2], rays
 
 
 def render_mega_bvh(scene: SceneData, cfg: RenderConfig, timestamp0=0):
-    """Render (H, W, 3) radiance (mean over cfg.spp) plus the total rays
-    traced (a float), pixels in raster order.  Lanes past the last pixel
-    point at pixel 0 and are left out of the image and the ray total."""
-    n_pixels = cfg.width * cfg.height
-    pix = pix_rows(cfg, scene.device)
-    rad_r, rad_g, rad_b, rays = render_mega_bvh_rows(scene, cfg, pix, timestamp0)
-    rad = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], dim=-1)[:n_pixels]
-    nrays = float(rays.reshape(-1)[:n_pixels].to(torch.float64).sum())
-    img = (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
-    return img, nrays
+    """K4's frame (mega.render_frame): the span "gst.k4.prep" holds the
+    frame's rows and render_mega_bvh_rows's tables."""
+    return render_frame(scene, cfg, timestamp0, render_mega_bvh_rows, "gst.k4.prep")

@@ -11,6 +11,10 @@
                 scene (168k), with a textured material and an image
                 environment of 2048 texels; "sphere_field_noenv" is the same
                 scene without the sky (the gradient benchmark's)
+  one weekend   the final scene of "Ray Tracing in One Weekend": 486 UV
+                spheres of random materials on a ground square under the
+                book's sky gradient, 466,562 triangles and 487 BSDF rows at
+                its full size, lit by the sky alone
 
 The populate_* functions only call add_bsdf / add_object / set_envmap /
 set_camera, so they fill a gpuspectral_tpu SceneBuilder exactly as they fill
@@ -204,9 +208,101 @@ def populate_sphere_field_noenv(b):
     return populate_sphere_field(b, sky_hw=None)
 
 
+def _one_weekend_sky(h: int = 32, w: int = 64) -> np.ndarray:
+    """The book's sky as a lat-long map (row 0 = zenith), constant along a
+    row: lerp(white, (0.5, 0.7, 1.0), t) with t = 0.5 (cos theta + 1) at
+    the row's centre."""
+    t = 0.5 * (np.cos(np.pi * (np.arange(h) + 0.5) / h) + 1.0)[:, None]
+    col = (1.0 - t) * np.ones(3) + t * np.array([0.5, 0.7, 1.0])
+    return np.broadcast_to(col[:, None, :], (h, w, 3)).astype(np.float32)
+
+
+def populate_one_weekend(b, grid: int = 11, segs: int = 32, rings: int = 16):
+    """Add the final scene of Peter Shirley's "Ray Tracing in One Weekend"
+    (its random_scene()) to SceneBuilder `b`: a grey Lambertian ground, a
+    small sphere (radius 0.2) at (a + 0.9 U, 0.2, b + 0.9 U) for a, b in
+    [-grid, grid) unless it lies within 0.9 of (4, 0.2, 0), of a material
+    drawn by choose_mat = U (below 0.8 Lambertian with albedo U3 * U3,
+    below 0.95 metal with albedo in [0.5, 1) and fuzz in [0, 0.5), else
+    glass of IOR 1.5), three spheres of radius 1 (glass at (0, 1, 0),
+    Lambertian (0.4, 0.2, 0.1) at (-4, 1, 0), metal (0.7, 0.6, 0.5) of fuzz
+    0 at (4, 1, 0)), the camera at (13, 2, 3) looking at the origin with a
+    vertical field of view of 20 degrees at aspect 3:2, and a sky gradient
+    the only light.  The draws come from np.random.default_rng(0) in the
+    book's order: the scene is fixed.  At the defaults: 486 spheres and the
+    ground, 466,562 triangles, 487 BSDF rows (one for each object).
+
+    Where it departs from the book (the port traces triangles, and has
+    neither the book's materials nor a thin lens):
+      * each sphere is a UV mesh of `segs` x `rings` with smooth vertex
+        normals (960 triangles at the defaults);
+      * the ground sphere (centre (0, -1000, 0), radius 1000) is its tangent
+        square at y = 0, 2000 on a side: two triangles, two-faced;
+      * Lambertian is bt.diffuse, glass bt.smooth_dielectric(1.5) (exact
+        Fresnel, not Schlick's), metal bt.rough_conductor with eta 1, k 10
+        (0.96 reflectance at normal incidence), the albedo as its
+        reflectance and alpha = max(fuzz, 0.01) (a Beckmann lobe, not a
+        perturbation inside a sphere of radius fuzz);
+      * a pinhole: the aperture 0.1 becomes 0; the port's field of view
+        spans the wider side, so fov_radians = 2 atan(1.5 tan 10 deg);
+      * the sky is a 32 x 64 map (_one_weekend_sky), which the fused
+        kernels take (mega.MEGA_ENV_MAX_TEXELS);
+      * the estimator is the port's: NEE on the sky with MIS and Russian
+        roulette, where the book samples the BSDF alone.  Both would
+        estimate the same image, but the port's MIS gives a BSDF-sampled
+        sky hit full weight when the sky sample of its vertex fell below
+        the surface, so its image reads a few per cent brighter."""
+    g = np.random.default_rng(0)
+    spos, snrm, suv = _uv_sphere(segs, rings)
+
+    def sphere(centre, radius, row):
+        xf = np.eye(4, dtype=np.float32)
+        xf[:3, :3] *= np.float32(radius)
+        xf[:3, 3] = centre
+        b.add_object(spos, snrm, suv, xf, row)
+
+    rect_pos, rect_nrm, rect_uv = make_rectangle()
+    ground = b.add_bsdf(bt.diffuse((0.5, 0.5, 0.5)))
+    ground_xf = np.array([[1000, 0, 0, 0], [0, 0, 1, 0], [0, -1000, 0, 0], [0, 0, 0, 1]],
+                         np.float32)
+    b.add_object(rect_pos, rect_nrm, rect_uv, ground_xf, ground, twofaced=True)
+
+    for a in range(-grid, grid):
+        for c in range(-grid, grid):
+            choose_mat = g.random()
+            centre = np.array([a + 0.9 * g.random(), 0.2, c + 0.9 * g.random()])
+            if np.linalg.norm(centre - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            if choose_mat < 0.8:
+                row = bt.diffuse(g.random(3) * g.random(3))
+            elif choose_mat < 0.95:
+                albedo = 0.5 + 0.5 * g.random(3)
+                fuzz = 0.5 * g.random()
+                row = bt.rough_conductor((1, 1, 1), (10, 10, 10), albedo, max(fuzz, 0.01))
+            else:
+                row = bt.smooth_dielectric(1.5)
+            sphere(centre, 0.2, b.add_bsdf(row))
+
+    sphere((0.0, 1.0, 0.0), 1.0, b.add_bsdf(bt.smooth_dielectric(1.5)))
+    sphere((-4.0, 1.0, 0.0), 1.0, b.add_bsdf(bt.diffuse((0.4, 0.2, 0.1))))
+    sphere((4.0, 1.0, 0.0), 1.0,
+           b.add_bsdf(bt.rough_conductor((1, 1, 1), (10, 10, 10), (0.7, 0.6, 0.5), 0.01)))
+    b.set_envmap(_one_weekend_sky())
+
+    eye = np.array([13.0, 2.0, 3.0])
+    fwd = -eye / np.linalg.norm(eye)
+    left = np.cross([0.0, 1.0, 0.0], fwd)
+    left /= np.linalg.norm(left)
+    cam = np.eye(4, dtype=np.float32)
+    cam[:3, 0], cam[:3, 1], cam[:3, 2], cam[:3, 3] = left, np.cross(fwd, left), fwd, eye
+    b.set_camera(cam, fov_radians=2.0 * np.arctan(1.5 * np.tan(np.deg2rad(10.0))))
+    return b
+
+
 # scenes built in code, by the name the CLI takes as "builtin:<name>"
 BUILTIN = {"sphere_field": populate_sphere_field,
-           "sphere_field_noenv": populate_sphere_field_noenv}
+           "sphere_field_noenv": populate_sphere_field_noenv,
+           "one_weekend": populate_one_weekend}
 
 
 def build_sphere_field(device="cuda", **kw):

@@ -1,15 +1,16 @@
 """PyTorch port: utils/profiling's spans and counters on the frame and
 inversion paths.
 
-On the CPU: the spans of a frame (render_image_stats_auto on K1's plain
-version), of an inversion, of K5's differentiable render, of a scene load
-and of the kernel library's load, nested as the port places them, in a
-torch.profiler trace and in the registry; the registry's count, snapshot
-and reset, also from many threads; the CLI's --metrics file ending with
-the spans.  On the card (marked `cuda`): K1's and K5's kernels lie between
-their launch spans and the read-back that waits for them (the spans share
-the profiler's clock with the card), and every synchronizing runtime call
-inside a port span lies inside a gst.sync.* span.
+On the CPU: the spans of a frame (render_image_stats_auto on K1's and
+K4's plain versions), of an inversion, of K5's differentiable render, of
+a scene load and of the kernel library's load, nested as the port places
+them, in a torch.profiler trace and in the registry; the registry's
+count, snapshot and reset, also from many threads; the CLI's --metrics
+file ending with the spans.  On the card (marked `cuda`): K1's, K4's and
+K5's kernels lie between their launch spans and the read-back that waits
+for them (the spans share the profiler's clock with the card), and every
+synchronizing runtime call inside a port span lies inside a gst.sync.*
+span.
 
 This file imports neither JAX nor the JAX package.
 """
@@ -80,6 +81,26 @@ def test_frame_spans(cornell, tmp_path):
     assert snap["gst.render"]["seconds"] >= snap["gst.sync.rays"]["seconds"] > 0
     assert profiling.calls("render_mega_rows.launch") == 0
     assert torch.equal(img, img2) and rays == rays2
+
+
+def test_k4_frame_spans(cornell, tmp_path):
+    """The same frame with use_bvh and intersector "mega_bvh" (render_mega_bvh
+    -> render_mega_bvh_rows_ref): K1's frame function, so gst.render holds
+    K4's frame rows (gst.k4.prep) and then gst.sync.rays, each counted once
+    in the registry, and no kernel launch."""
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2, use_bvh=True,
+                       intersector="mega_bvh")
+    with profiling.trace(str(tmp_path)):
+        render_image_stats_auto(cornell, cfg, 0)
+    got = _spans(_events(tmp_path))
+    (render,), (rows,), (sync,) = got["gst.render"], got["gst.k4.prep"], got["gst.sync.rays"]
+    assert _within(rows, render) and _within(sync, render) and rows[1] <= sync[0] + EPS_US
+    assert "gst.k1.prep" not in got
+    profiling.reset()
+    render_image_stats_auto(cornell, cfg, 0)
+    snap = profiling.snapshot()
+    assert [snap[k]["calls"] for k in ("gst.render", "gst.k4.prep", "gst.sync.rays")] == [1, 1, 1]
+    assert not any(k.endswith(".launch") for k in snap if not k.startswith("gst."))
 
 
 def test_invert_spans(cornell, tmp_path):
@@ -275,6 +296,37 @@ def test_k1_kernel_lies_between_its_spans(cuda_device, tmp_path):  # noqa: F811
     k1 = _kernel(events, r"\bmega_kernel\b")
     assert rows[1] <= prep[0] + EPS_US and prep[1] <= launch[0] + EPS_US
     assert launch[0] <= k1[0] and k1[1] <= sync[1]
+    assert _unspanned_syncs(events) == []
+
+
+@pytest.mark.cuda
+def test_k4_kernel_lies_between_its_spans(cuda_device, tmp_path):  # noqa: F811
+    """A profiled 256x256 K4 frame of a small One Weekend scene (sky-only
+    lighting): the two pieces of gst.k4.prep, gst.k4.launch and
+    gst.sync.rays lie in gst.render in that order; mega_bvh_kernel starts
+    after gst.k4.launch begins and ends before gst.sync.rays ends; every
+    synchronizing call in the frame's spans is a gst.sync.* span's."""
+    from gpuspectral_tpu_torch.scene import SceneBuilder
+    from gpuspectral_tpu_torch.scene.data import build_scene
+    from gpuspectral_tpu_torch.scene.zoo import populate_one_weekend
+
+    scene = build_scene(populate_one_weekend(SceneBuilder(), grid=2, segs=8, rings=4),
+                        cuda_device)
+    cfg = RenderConfig(width=256, height=256, spp=4, max_depth=4, use_bvh=True)
+    render_image_stats_auto(scene, cfg, 0)  # the kernel library, outside the trace
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        render_image_stats_auto(scene, cfg, 1)
+    events = _events(tmp_path)
+    got = _spans(events)
+    (render,) = got["gst.render"]
+    (rows, prep), (launch,), (sync,) = got["gst.k4.prep"], got["gst.k4.launch"], got["gst.sync.rays"]
+    k4 = _kernel(events, r"\bmega_bvh_kernel\b")
+    assert all(_within(x, render) for x in (rows, prep, launch, sync))
+    assert rows[1] <= prep[0] + EPS_US and prep[1] <= launch[0] + EPS_US
+    assert launch[1] <= sync[0] + EPS_US
+    assert launch[0] <= k4[0] and k4[1] <= sync[1]
+    assert "gst.k1.prep" not in got
     assert _unspanned_syncs(events) == []
 
 
