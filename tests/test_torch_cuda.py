@@ -898,6 +898,29 @@ def test_k4_matches_plain_version(cuda_device, name, opts):  # noqa: F811
     assert_mega_gates(ref, got.cpu().numpy(), float(rays.double().sum()), rays_got)
 
 
+@pytest.mark.parametrize("mode", ["uniform", "power"])
+def test_k4_frames_on_held_tables(cuda_device, mode, monkeypatch):  # noqa: F811
+    """Two K4 frames of one scene: the first packs its tables, the second
+    is served the held set (mega_bvh.launch_tables); each equals, bit for
+    bit, the same frame launched on tables packed afresh."""
+    from gpuspectral_tpu_torch.utils import profiling
+
+    ts = _scene("sphere_field", cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, use_bvh=True,
+                       light_sampling=mode)
+    profiling.reset()
+    held = [mega_bvh.render_mega_bvh(ts, cfg, t) for t in (0, 1)]
+    assert profiling.calls("mega_bvh.tables.packed") == 1
+    assert profiling.calls("mega_bvh.tables.reused") == 1
+    monkeypatch.setattr(mega_bvh, "launch_tables", mega_bvh._pack)
+    fresh = [mega_bvh.render_mega_bvh(ts, cfg, t) for t in (0, 1)]
+    assert profiling.calls("mega_bvh.tables.packed") == 1
+    assert launches(mega_bvh.render_mega_bvh_rows) == 4
+    for (img, rays), (img_f, rays_f) in zip(held, fresh):
+        assert torch.equal(img, img_f) and rays == rays_f
+    assert not torch.equal(held[0][0], held[1][0])
+
+
 def test_wavefront_on_k3_matches_plain_scans(cuda_device):  # noqa: F811
     ts = _scene("sphere_field", cuda_device)
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=4, ray_batch=4096, use_bvh=True,

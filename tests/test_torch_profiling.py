@@ -301,11 +301,13 @@ def test_k1_kernel_lies_between_its_spans(cuda_device, tmp_path):  # noqa: F811
 
 @pytest.mark.cuda
 def test_k4_kernel_lies_between_its_spans(cuda_device, tmp_path):  # noqa: F811
-    """A profiled 256x256 K4 frame of a small One Weekend scene (sky-only
-    lighting): the two pieces of gst.k4.prep, gst.k4.launch and
-    gst.sync.rays lie in gst.render in that order; mega_bvh_kernel starts
-    after gst.k4.launch begins and ends before gst.sync.rays ends; every
-    synchronizing call in the frame's spans is a gst.sync.* span's."""
+    """Three profiled 256x256 K4 frames of a small One Weekend scene
+    (sky-only lighting), two served held tables and one of a scene.replace()
+    copy that packs its own: in every frame the two pieces of gst.k4.prep,
+    gst.k4.launch and gst.sync.rays lie in gst.render in that order;
+    mega_bvh_kernel starts after gst.k4.launch begins and ends before
+    gst.sync.rays ends; every synchronizing call in the frames' spans is a
+    gst.sync.* span's."""
     from gpuspectral_tpu_torch.scene import SceneBuilder
     from gpuspectral_tpu_torch.scene.data import build_scene
     from gpuspectral_tpu_torch.scene.zoo import populate_one_weekend
@@ -313,19 +315,28 @@ def test_k4_kernel_lies_between_its_spans(cuda_device, tmp_path):  # noqa: F811
     scene = build_scene(populate_one_weekend(SceneBuilder(), grid=2, segs=8, rings=4),
                         cuda_device)
     cfg = RenderConfig(width=256, height=256, spp=4, max_depth=4, use_bvh=True)
-    render_image_stats_auto(scene, cfg, 0)  # the kernel library, outside the trace
+    render_image_stats_auto(scene, cfg, 0)  # the kernel library and the tables, untraced
     torch.cuda.synchronize()
+    profiling.reset()
     with profiling.trace(str(tmp_path)):
-        render_image_stats_auto(scene, cfg, 1)
+        for s, ts in ((scene, 1), (scene, 2), (scene.replace(), 3)):
+            render_image_stats_auto(s, cfg, ts)
+    assert profiling.calls("mega_bvh.tables.reused") == 2
+    assert profiling.calls("mega_bvh.tables.packed") == 1
     events = _events(tmp_path)
     got = _spans(events)
-    (render,) = got["gst.render"]
-    (rows, prep), (launch,), (sync,) = got["gst.k4.prep"], got["gst.k4.launch"], got["gst.sync.rays"]
-    k4 = _kernel(events, r"\bmega_bvh_kernel\b")
-    assert all(_within(x, render) for x in (rows, prep, launch, sync))
-    assert rows[1] <= prep[0] + EPS_US and prep[1] <= launch[0] + EPS_US
-    assert launch[1] <= sync[0] + EPS_US
-    assert launch[0] <= k4[0] and k4[1] <= sync[1]
+    k4s = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "kernel" and re.search(r"\bmega_bvh_kernel\b", e["name"]))
+    assert [len(got[k]) for k in ("gst.render", "gst.k4.prep", "gst.k4.launch",
+                                  "gst.sync.rays")] == [3, 6, 3, 3]
+    assert len(k4s) == 3
+    for i, render in enumerate(got["gst.render"]):
+        rows, prep = got["gst.k4.prep"][2 * i:2 * i + 2]
+        launch, sync, k4 = got["gst.k4.launch"][i], got["gst.sync.rays"][i], k4s[i]
+        assert all(_within(x, render) for x in (rows, prep, launch, sync))
+        assert rows[1] <= prep[0] + EPS_US and prep[1] <= launch[0] + EPS_US
+        assert launch[1] <= sync[0] + EPS_US
+        assert launch[0] <= k4[0] and k4[1] <= sync[1]
     assert "gst.k1.prep" not in got
     assert _unspanned_syncs(events) == []
 
